@@ -1,0 +1,169 @@
+// RG-LRU forward scan: h_t = a_t * h_{t-1} + x_t over the time axis of
+// [batch, seq, dim] inputs, fp32 carry, y in the input type, h_last in fp32.
+//
+// Replaces the TPU kernel cadence_gemma_tpu/ops/pallas_lru.py::_lru_kernel in
+// forward mode (premultiply=False, compute_a_prod=False), reached through
+// lru_pallas_scan -> _lru_pallas_call. The backward (premultiply) scan, the
+// running product of `a` and the complex body are not ported here.
+//
+// What bounds it: device memory. Each element of x and a is read once and
+// each y written once with two flops in between, far below the ~295 flops
+// per byte where an H100 stops being memory-bound.
+//
+// Design: one thread owns one (batch, channel) pair -- two adjacent channels
+// for bf16, loaded as one bf16x2 -- and keeps the fp32 carry in registers
+// while it walks the time axis. Neighbouring threads own neighbouring
+// channels, so every load and store of a warp is one coalesced row segment.
+// The TPU kernel's sequential grid axis ("arbitrary" semantics, carry in a
+// VMEM scratch) becomes this in-thread loop; its [b, t, d/128, 128] reshape
+// and padding existed only for the TPU's tiling and are gone. Loads of
+// kUnroll steps are issued before their multiply-adds so that several memory
+// requests are in flight per thread. With b * d / 2 threads (5120 for the
+// 2B at batch 2) the card is under-occupied; a chunked two-pass scan over t
+// is the later fix.
+//
+// The multiply and add are rounded separately (no fused multiply-add) so the
+// kernel reproduces the plain PyTorch loop bit for bit.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kUnroll = 8;
+
+template <typename T, int V>
+struct Access;
+
+template <>
+struct Access<float, 1> {
+  static __device__ __forceinline__ void load(const float* p, float* out) {
+    out[0] = __ldg(p);
+  }
+  static __device__ __forceinline__ void store(float* p, const float* v) {
+    p[0] = v[0];
+  }
+};
+
+template <>
+struct Access<__nv_bfloat16, 1> {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              float* out) {
+    out[0] = __bfloat162float(p[0]);
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p,
+                                               const float* v) {
+    p[0] = __float2bfloat16_rn(v[0]);
+  }
+};
+
+template <>
+struct Access<__nv_bfloat16, 2> {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              float* out) {
+    const float2 f =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    out[0] = f.x;
+    out[1] = f.y;
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p,
+                                               const float* v) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
+  }
+};
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+    lru_scan_kernel(const T* __restrict__ x, const T* __restrict__ a,
+                    const float* __restrict__ h0, T* __restrict__ y,
+                    float* __restrict__ h_last, int batch, int seq, int dim,
+                    int reverse) {
+  const int groups = dim / V;
+  const int64_t idx =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= static_cast<int64_t>(batch) * groups) return;
+  const int b = static_cast<int>(idx / groups);
+  const int c = static_cast<int>(idx % groups) * V;
+
+  float h[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    h[v] = h0 == nullptr ? 0.f : h0[static_cast<int64_t>(b) * dim + c + v];
+  }
+
+  const int64_t base = static_cast<int64_t>(b) * seq * dim + c;
+  for (int i0 = 0; i0 < seq; i0 += kUnroll) {
+    float xs[kUnroll][V];
+    float as[kUnroll][V];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = i0 + u;
+      if (i < seq) {
+        const int t = reverse ? seq - 1 - i : i;
+        const int64_t off = base + static_cast<int64_t>(t) * dim;
+        Access<T, V>::load(x + off, xs[u]);
+        Access<T, V>::load(a + off, as[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = i0 + u;
+      if (i < seq) {
+        const int t = reverse ? seq - 1 - i : i;
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          h[v] = __fadd_rn(__fmul_rn(as[u][v], h[v]), xs[u][v]);
+        }
+        Access<T, V>::store(y + base + static_cast<int64_t>(t) * dim, h);
+      }
+    }
+  }
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    h_last[static_cast<int64_t>(b) * dim + c + v] = h[v];
+  }
+}
+
+template <typename T, int V>
+cudaError_t launch(const void* x, const void* a, const void* h0, void* y,
+                   void* h_last, int batch, int seq, int dim, int reverse,
+                   cudaStream_t stream) {
+  const int64_t threads = static_cast<int64_t>(batch) * (dim / V);
+  if (threads == 0) return cudaSuccess;
+  const int64_t blocks = (threads + kThreads - 1) / kThreads;
+  lru_scan_kernel<T, V><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(a),
+      static_cast<const float*>(h0), static_cast<T*>(y),
+      static_cast<float*>(h_last), batch, seq, dim, reverse);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. h0 may be null (zero initial state).
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int cg_lru_scan_forward(const void* x, const void* a,
+                                   const void* h0, void* y, void* h_last,
+                                   int batch, int seq, int dim, int dtype,
+                                   int reverse, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return launch<float, 1>(x, a, h0, y, h_last, batch, seq, dim, reverse, s);
+  }
+  if (dtype == 1) {
+    const bool paired =
+        dim % 2 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0 &&
+        reinterpret_cast<uintptr_t>(a) % 4 == 0 &&
+        reinterpret_cast<uintptr_t>(y) % 4 == 0;
+    if (paired) {
+      return launch<__nv_bfloat16, 2>(x, a, h0, y, h_last, batch, seq, dim,
+                                      reverse, s);
+    }
+    return launch<__nv_bfloat16, 1>(x, a, h0, y, h_last, batch, seq, dim,
+                                    reverse, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}

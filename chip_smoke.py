@@ -1,0 +1,502 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (``cadence_gemma_tpu_torch``) on one GPU.
+
+  python3 chip_smoke.py
+
+Phases, each of which raises on failure (so the script exits non-zero):
+
+  1. card: the device's name, and its name and power limit from nvidia-smi;
+  2. build: ``nvcc`` compiles every kernel under
+     ``cadence_gemma_tpu_torch/csrc`` (one process per source, in parallel);
+  3. each kernel against its plain PyTorch version at the shapes of the
+     main path's prefill (batch 2 of 3000 tokens, the shorter prompt
+     left-padded), with its time, the plain version's time, the least time
+     the card could take (bound) and, where one PyTorch call computes the
+     same function, that call's;
+  4. the main path: a full-width, full-depth RecurrentGemma-2B (random bf16
+     weights from a seeded ``torch.Generator``) behind a ``Sampler``
+     generates 32 greedy tokens for two prompts longer than the attention
+     window. The kernels' launch counters, reset just before, must show
+     that the prefill ran the RG-LRU kernel once per recurrent block and the
+     attention kernel once per attention block, and that decode ran none.
+     The inputs the prefill gave each kernel's first call are captured and
+     the kernel's output on them held against its plain version; the same
+     model's logits through the kernels are held against its plain path
+     (sequential scan, einsum attention).
+
+  python3 chip_smoke.py --profile
+
+adds kernel time by name (torch.profiler) for the prefill and decode of the
+main path, and the device's idle share.
+
+Needs a CUDA card and the CUDA toolkit (``nvcc``); without a card it exits
+with status 1 and prints no result. The line before the last is a JSON
+object ``{"kernels": [...]}``; the last line is
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from cadence_gemma_tpu_torch import _build
+from cadence_gemma_tpu_torch import common
+from cadence_gemma_tpu_torch.inference import sampler as sampler_lib
+from cadence_gemma_tpu_torch.models import griffin
+from cadence_gemma_tpu_torch.ops import lru_scan
+from cadence_gemma_tpu_torch.ops import window_attention as wa
+from cadence_gemma_tpu_torch.tokenizers import SimpleVocab
+
+# Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet).
+HBM_BYTES_PER_S = 3.35e12
+BF16_TENSOR_FLOPS = 989e12
+FP32_FLOPS = 67e12
+
+SEED = 0
+PROMPT_TOKENS = (3000, 2300)
+DECODE_STEPS = 32
+# The main path's RecurrentGemma-2B prefill: batch 2, padded to the longer
+# prompt; lru_width 2560; 10 query heads of 256 over one KV head, window 2048.
+PREFILL_TOKENS = max(PROMPT_TOKENS)
+LRU_SHAPE = (2, PREFILL_TOKENS, 2560)
+ATTN_SHAPE = (2, PREFILL_TOKENS, 10, 256)
+ATTN_WINDOW = 2048
+# Row 1 is left-padded as the Sampler pads the shorter prompt
+# (segment_pos = -1 on its first ATTN_PAD positions); row 0 starts a second
+# document at ATTN_BOUNDARY.
+ATTN_PAD = PREFILL_TOKENS - min(PROMPT_TOKENS)
+ATTN_BOUNDARY = 1500
+REFERENCE_PROMPT_TOKENS = 2100
+
+# The kernel and the plain loop do the same two separately rounded float32
+# operations per step in the same order: the results are bit-identical.
+LRU_MAX_ABS_ERR = 0.0
+# Same bf16 inputs; the kernel rounds its unnormalized probabilities to bf16
+# before PV (the plain version keeps float32), and both round the output to
+# bf16: 2e-2 covers those roundings at |out| < 2.
+ATTN_OUT_MAX_ABS_ERR = 2e-2
+# Softmax statistics are float32 on both sides, summed in another order.
+ATTN_LSE_MAX_ABS_ERR = 1e-3
+# Kernel path vs plain path of the whole bf16 model: bf16 rounding at other
+# places (probabilities before PV) compounds over 26 blocks. Relative RMS of
+# the difference of the last position's logits.
+MODEL_LOGITS_REL_RMS = 5e-2
+
+LRU_REPLACES = "cadence_gemma_tpu/ops/pallas_lru.py:265"
+ATTN_REPLACES = "cadence_gemma_tpu/ops/pallas_attention.py:207"
+
+
+def log(*args) -> None:
+  print(*args, flush=True)
+
+
+def cuda_ms(fn, reps: int) -> float:
+  """Mean device time of ``fn`` over ``reps`` calls, after one warm-up."""
+  fn()
+  torch.cuda.synchronize()
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  start.record()
+  for _ in range(reps):
+    fn()
+  end.record()
+  end.synchronize()
+  return start.elapsed_time(end) / reps
+
+
+def bound(n_bytes: float, flops: float, flops_per_s: float):
+  """(least ms the card could take, what bounds it)."""
+  t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+  t_ops = flops / flops_per_s * 1e3
+  return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_err(got: torch.Tensor, want: torch.Tensor) -> float:
+  return (got.float() - want.float()).abs().max().item()
+
+
+def phase_card() -> dict:
+  kind = torch.cuda.get_device_name(0)
+  count = torch.cuda.device_count()
+  smi = subprocess.run(
+      ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+      capture_output=True, text=True, check=True, timeout=60,
+  ).stdout.strip()
+  log(f"== card: {kind} (count {count}); torch {torch.__version__}, "
+      f"CUDA {torch.version.cuda}")
+  log(smi)
+  return {"platform": "gpu", "kind": kind, "count": count}
+
+
+def phase_build() -> None:
+  start = time.perf_counter()
+  reports = _build.build()
+  log(f"== build: {time.perf_counter() - start:.2f} s "
+      f"(built {sorted(reports) or 'nothing: up to date'})")
+  for name, report in reports.items():
+    for line in report.splitlines():
+      if "registers" in line or "spill" in line:
+        log(f"  {name}: {line.strip()}")
+
+
+def phase_lru(dev) -> dict:
+  b, t, d = LRU_SHAPE
+  rng = np.random.default_rng(SEED)
+  x = torch.tensor(rng.standard_normal(LRU_SHAPE, dtype=np.float32),
+                   device=dev).bfloat16()
+  a = torch.sigmoid(torch.tensor(
+      rng.standard_normal(LRU_SHAPE, dtype=np.float32), device=dev
+  )).bfloat16()
+  h0 = torch.tensor(rng.standard_normal((b, d), dtype=np.float32), device=dev)
+  log(f"== lru_scan vs plain at [{b},{t},{d}] bf16 "
+      f"(tolerance {LRU_MAX_ABS_ERR})")
+  worst = 0.0
+  for reverse in (False, True):
+    for init in (None, h0):
+      err = check_lru(x, a, init, reverse)
+      log(f"  reverse={reverse} h0={init is not None}: max_abs_err {err}")
+      worst = max(worst, err)
+
+  # Timed as the prefill calls it: forward, no initial state.
+  ms = cuda_ms(lambda: lru_scan.lru_scan(x, a), reps=20)
+  plain_ms = cuda_ms(lambda: lru_scan.lru_scan_plain(x, a), reps=2)
+  # Read x and a, write y (bf16) and h_last (fp32); two fp32 flops a step.
+  n_bytes = 3 * b * t * d * 2 + b * d * 4
+  bound_ms, bound_by = bound(n_bytes, 2 * b * t * d, FP32_FLOPS)
+  log(f"  ms {ms:.4f}  plain_ms {plain_ms:.3f}  bound_ms {bound_ms:.4f} "
+      f"({bound_by}, {n_bytes / 1e6:.1f} MB)")
+  return dict(name="lru_scan", route="cuda",
+              source="cadence_gemma_tpu_torch/csrc/lru_scan.cu",
+              replaces=LRU_REPLACES, max_abs_err=worst, ms=ms,
+              plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+              library_ms=None)
+
+
+def phase_attention(dev) -> dict:
+  b, t, n, h = ATTN_SHAPE
+  rng = np.random.default_rng(SEED + 1)
+  q, k, v = (
+      torch.tensor(rng.standard_normal(s, dtype=np.float32),
+                   device=dev).bfloat16()
+      for s in ((b, t, n, h), (b, t, 1, h), (b, t, 1, h))
+  )
+  seg = np.tile(np.arange(t, dtype=np.int32), (b, 1))
+  seg[0, ATTN_BOUNDARY:] = np.arange(t - ATTN_BOUNDARY, dtype=np.int32)
+  seg[1] = np.maximum(np.arange(t, dtype=np.int32) - ATTN_PAD, -1)
+  seg = torch.tensor(seg, device=dev)
+  log(f"== window_attention vs plain at [{b},{t},{n},{h}] bf16, window "
+      f"{ATTN_WINDOW} (tolerance out {ATTN_OUT_MAX_ABS_ERR}, "
+      f"lse {ATTN_LSE_MAX_ABS_ERR})")
+
+  out_err, lse_err = check_attention(q, k, v, seg, ATTN_WINDOW)
+
+  # The yardstick: one SDPA call with the same visibility as a boolean mask.
+  pos = torch.arange(t, device=dev)
+  lower = torch.maximum(pos[None] - ATTN_WINDOW, pos[None] - seg.long())
+  visible = ((pos[None, None] >= lower[..., None])
+             & (pos[None, None] <= pos[None, :, None])
+             & (seg >= 0)[..., None])  # [b, t(q), t(k)]
+  qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
+
+  def library():
+    return torch.nn.functional.scaled_dot_product_attention(
+        qt, kt.expand(-1, n, -1, -1), vt.expand(-1, n, -1, -1),
+        attn_mask=visible[:, None],
+    )
+
+  ms = cuda_ms(lambda: wa.window_attention(q, k, v, seg, ATTN_WINDOW), 10)
+  plain_ms = cuda_ms(
+      lambda: wa.window_attention_plain(q, k, v, seg, ATTN_WINDOW), 2
+  )
+  library_ms = cuda_ms(library, 5)
+  # Work of this run's band: QK^T and PV, 2 * h flops each per visible
+  # (query, key) pair and head; bytes: q, k, v, segment_pos in, out, lse out.
+  pairs = int(visible.sum().item())
+  flops = 4 * n * h * pairs
+  n_bytes = 2 * (2 * b * t * n * h + 2 * b * t * h) + 4 * b * t + 4 * b * n * t
+  bound_ms, bound_by = bound(n_bytes, flops, BF16_TENSOR_FLOPS)
+  log(f"  ms {ms:.4f}  plain_ms {plain_ms:.3f}  library_ms (SDPA) "
+      f"{library_ms:.4f}  bound_ms {bound_ms:.4f} ({bound_by}, "
+      f"{flops / 1e9:.1f} GFLOP over {pairs} visible pairs)")
+  return dict(name="window_attention", route="cuda",
+              source="cadence_gemma_tpu_torch/csrc/window_attention.cu",
+              replaces=ATTN_REPLACES, max_abs_err=max(out_err, lse_err),
+              ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+              library_ms=library_ms)
+
+
+def check_lru(x, a, h0=None, reverse=False) -> float:
+  """Max abs error of the kernel against its plain version; raises above
+  the tolerance."""
+  y, h_last = lru_scan.lru_scan(x, a, h0, reverse)
+  y_ref, h_ref = lru_scan.lru_scan_plain(x, a, h0, reverse)
+  err = max(max_err(y, y_ref), max_err(h_last, h_ref))
+  if not err <= LRU_MAX_ABS_ERR:
+    raise AssertionError(f"lru_scan disagrees with its plain version: {err}")
+  return err
+
+
+def check_attention(q, k, v, seg, window) -> tuple[float, float]:
+  """Max abs errors (out, lse) of the kernel against its plain version;
+  raises above the tolerances or if a padded row is not zero."""
+  out, lse = wa.window_attention(q, k, v, seg, window)
+  out_ref, lse_ref = wa.window_attention_plain(q, k, v, seg, window)
+  out_err, lse_err = max_err(out, out_ref), max_err(lse, lse_ref)
+  log(f"  out max_abs_err {out_err}  lse max_abs_err {lse_err}")
+  if not (out_err <= ATTN_OUT_MAX_ABS_ERR and lse_err <= ATTN_LSE_MAX_ABS_ERR):
+    raise AssertionError("window_attention disagrees with its plain version.")
+  padded = seg < 0
+  if out[padded].any() or not (lse.transpose(1, 2)[padded] == wa.MASKED_LSE).all():
+    raise AssertionError("Padded rows must give zeros and the masked lse.")
+  return out_err, lse_err
+
+
+class CaptureFirstCall:
+  """Stands in for a kernel wrapper in a module and keeps a copy of the
+  arguments of its first call."""
+
+  def __init__(self, module, name: str):
+    self.module, self.name = module, name
+    self.wrapper = getattr(module, name)
+    self.args = self.kwargs = None
+    setattr(module, name, self)
+
+  def __call__(self, *args, **kwargs):
+    if self.args is None:
+      copy = lambda z: z.clone() if isinstance(z, torch.Tensor) else z
+      self.args = tuple(copy(z) for z in args)
+      self.kwargs = {key: copy(z) for key, z in kwargs.items()}
+    return self.wrapper(*args, **kwargs)
+
+  def restore(self):
+    setattr(self.module, self.name, self.wrapper)
+
+
+def _use_plain_path(model: griffin.Griffin, plain: bool) -> None:
+  """Routes the model through the plain scan and einsum attention, or back."""
+  for block in model.blocks:
+    if block.temporal_block_type is common.TemporalBlockType.RECURRENT:
+      block.recurrent_block.rg_lru.scan_type = (
+          common.ScanType.LINEAR_NATIVE if plain else model.config.scan_type
+      )
+    else:
+      block.attention_block.use_flash_attention = False if plain else None
+
+
+def phase_main_path(dev, kernels: list[dict], profile: bool) -> None:
+  config = common.GriffinConfig.from_preset(
+      common.Preset.RECURRENT_GEMMA_2B_V1
+  )
+  start = time.perf_counter()
+  model = griffin.Griffin(
+      config, device=dev, dtype=torch.bfloat16,
+      generator=torch.Generator(dev).manual_seed(SEED),
+  )
+  torch.cuda.synchronize()
+  n_params = sum(p.numel() for p in model.parameters())
+  log(f"== main path: RecurrentGemma-2B, {config.num_layers} blocks, width "
+      f"{config.width}, {n_params / 1e9:.3f} B parameters in bf16 "
+      f"(built in {time.perf_counter() - start:.1f} s)")
+  n_recurrent = sum(
+      bt is common.TemporalBlockType.RECURRENT for bt in config.block_types
+  )
+  n_attention = config.num_layers - n_recurrent
+  if (n_recurrent, n_attention) != (18, 8):
+    raise AssertionError(f"2B has 18 R and 8 A blocks, got {n_recurrent}, "
+                         f"{n_attention}.")
+
+  vocab = SimpleVocab([f"w{i}" for i in range(config.vocab_size - 4)])
+  rng = np.random.default_rng(SEED + 2)
+  # BOS plus n - 1 words; the shorter prompt is left-padded.
+  prompts = [
+      " ".join(f"w{i}" for i in rng.integers(0, config.vocab_size - 4, n - 1))
+      for n in PROMPT_TOKENS
+  ]
+  sampler = sampler_lib.Sampler(model, vocab, device=dev)
+
+  # Per model forward: [start event, end event, the two launch counters at
+  # its end]. The first forward of a call is the prefill.
+  calls = []
+
+  def before_forward(*_):
+    calls.append([torch.cuda.Event(enable_timing=True)])
+    calls[-1][0].record()
+
+  def after_forward(*_):
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    calls[-1] += [end, lru_scan.launches, wa.launches]
+
+  model.register_forward_pre_hook(before_forward)
+  model.register_forward_hook(after_forward)
+
+  # Warm-up, which also keeps the inputs that this prefill (the same as the
+  # measured run's) gives each kernel's first call.
+  captures = [CaptureFirstCall(lru_scan, "lru_scan"),
+              CaptureFirstCall(wa, "window_attention")]
+  try:
+    sampler(prompts, total_generation_steps=2)
+  finally:
+    for capture in captures:
+      capture.restore()
+  torch.cuda.synchronize()
+  calls.clear()
+  torch.cuda.reset_peak_memory_stats()
+  lru_scan.launches = 0
+  wa.launches = 0
+  start = time.perf_counter()
+  out = sampler(prompts, total_generation_steps=DECODE_STEPS,
+                return_logits=True, end_sampling_at_eos_token=False)
+  torch.cuda.synchronize()
+  wall_s = time.perf_counter() - start
+  launches = {"lru_scan": lru_scan.launches, "window_attention": wa.launches}
+  peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+  if len(calls) != DECODE_STEPS:
+    raise AssertionError(f"{len(calls)} forwards for {DECODE_STEPS} tokens.")
+  prefill = tuple(calls[0][2:])
+  if prefill != (n_recurrent, n_attention):
+    raise AssertionError(f"Prefill launched (lru, attention) = {prefill}, "
+                         f"want {(n_recurrent, n_attention)}.")
+  if tuple(launches.values()) != prefill:
+    raise AssertionError(f"Decode launched kernels: {launches} after "
+                         f"prefill {prefill}.")
+  tokens = torch.stack(out.tokens)
+  logits = torch.stack(out.logits)
+  if tokens.shape != (2, DECODE_STEPS) or logits.shape != (
+      2, DECODE_STEPS, config.vocab_size):
+    raise AssertionError(f"Shapes {tokens.shape}, {logits.shape}.")
+  if not torch.isfinite(logits).all():
+    raise AssertionError("Non-finite logits.")
+  if not ((tokens >= 0) & (tokens < config.vocab_size)).all():
+    raise AssertionError("Token out of range.")
+
+  prefill_ms = calls[0][0].elapsed_time(calls[0][1])
+  decode_ms = calls[0][1].elapsed_time(calls[-1][1]) / (len(calls) - 1)
+  padded = max(PROMPT_TOKENS)
+  log(f"  prompts {PROMPT_TOKENS} tokens (padded to {padded}), "
+      f"{DECODE_STEPS} greedy steps")
+  log(f"  launches in the run {launches}; prefill {prefill}")
+  prompt_rate = sum(PROMPT_TOKENS) / prefill_ms * 1e3  # real tokens only
+  log(f"  prefill_ms {prefill_ms:.2f} ({prompt_rate:.0f} prompt tokens/s)  "
+      f"decode_ms_per_step {decode_ms:.3f}  "
+      f"wall {wall_s:.3f} s ({2 * DECODE_STEPS / wall_s:.1f} generated "
+      f"tokens/s)  peak {peak_gb:.2f} GB")
+  log(f"  first tokens {tokens[:, :8].tolist()}")
+
+  # Each kernel against its plain version on the inputs the prefill gave it.
+  for kernel, capture in zip(kernels, captures):
+    args, kwargs = capture.args, capture.kwargs
+    if args is None:
+      raise AssertionError(f"The prefill never called {kernel['name']}.")
+    tensors = [z for z in (*args, *kwargs.values())
+               if isinstance(z, torch.Tensor)]
+    log(f"  {kernel['name']} on the prefill's inputs "
+        f"{[(tuple(z.shape), str(z.dtype)) for z in tensors]}:")
+    if kernel["name"] == "lru_scan":
+      err = check_lru(*args, **kwargs)
+      log(f"  max_abs_err {err} (tolerance {LRU_MAX_ABS_ERR})")
+    else:
+      err = max(check_attention(*args, **kwargs))
+    kernel["max_abs_err"] = max(kernel["max_abs_err"], err)
+    kernel["launches"] = launches[kernel["name"]]
+
+  # The same weights through the plain path, one prompt longer than the
+  # window, compared at the last position's logits.
+  ids = torch.tensor(
+      [[1, *rng.integers(4, config.vocab_size, REFERENCE_PROMPT_TOKENS - 1)]],
+      device=dev,
+  )
+  pos = torch.arange(REFERENCE_PROMPT_TOKENS, device=dev)[None]
+  with torch.inference_mode():
+    got, _ = model(ids, pos, return_cache=False, last_logits_only=True)
+    _use_plain_path(model, True)
+    want, _ = model(ids, pos, return_cache=False, last_logits_only=True)
+    _use_plain_path(model, False)
+  diff = (got.float() - want.float())
+  rel = (diff.square().mean().sqrt() / want.float().square().mean().sqrt())
+  rel = rel.item()
+  log(f"  kernel path vs plain path, {REFERENCE_PROMPT_TOKENS} tokens: "
+      f"logits rel_rms {rel:.3e} (tolerance {MODEL_LOGITS_REL_RMS}), "
+      f"max_abs {diff.abs().max().item():.3e}, same argmax "
+      f"{bool(got.argmax() == want.argmax())}")
+  if not (torch.isfinite(got).all() and rel <= MODEL_LOGITS_REL_RMS):
+    raise AssertionError("Kernel path and plain path disagree.")
+  if profile:
+    profile_main_path(sampler, prompts, prefill_ms, decode_ms)
+
+
+def profile_main_path(sampler, prompts, prefill_ms, decode_ms) -> None:
+  """Logs kernel time by name, per step, for prefill and for decode."""
+  # Where the time goes: kernel time by name for a prefill-only call and for
+  # the same call with DECODE_STEPS more tokens; their difference is decode.
+  prefill_k = kernel_times(lambda: sampler(prompts, total_generation_steps=1))
+  both_k = kernel_times(lambda: sampler(
+      prompts, total_generation_steps=1 + DECODE_STEPS,
+      end_sampling_at_eos_token=False,
+  ))
+  decode_k = {
+      name: (ms - prefill_k.get(name, (0.0, 0))[0],
+             count - prefill_k.get(name, (0.0, 0))[1])
+      for name, (ms, count) in both_k.items()
+  }
+  for label, times, steps, wall_ms in (
+      ("prefill", prefill_k, 1, prefill_ms),
+      ("decode", decode_k, DECODE_STEPS, decode_ms),
+  ):
+    busy = sum(ms for ms, _ in times.values()) / steps
+    log(f"  {label}: kernels busy {busy:.3f} ms of {wall_ms:.3f} ms a step "
+        f"(device idle share {1 - busy / wall_ms:.3f}); top kernels:")
+    for name, (ms, count) in sorted(
+        times.items(), key=lambda kv: -kv[1][0])[:8]:
+      log(f"    {ms / steps:9.4f} ms  x{count / steps:6.1f}  {name[:90]}")
+
+
+def kernel_times(fn) -> dict[str, tuple[float, int]]:
+  """{kernel name: (device ms, launches)} of one call, from torch.profiler."""
+  activities = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+  with torch.profiler.profile(activities=activities) as prof:
+    fn()
+    torch.cuda.synchronize()
+  times = {
+      e.key: (e.self_device_time_total / 1e3, e.count)
+      for e in prof.key_averages()
+      if e.device_type == torch.autograd.DeviceType.CUDA
+  }
+  if not times:
+    raise RuntimeError("torch.profiler recorded no kernel on the card.")
+  return times
+
+
+def main() -> int:
+  profile = "--profile" in sys.argv[1:]
+  if not torch.cuda.is_available():
+    print("chip_smoke.py needs a CUDA device; none is available.",
+          file=sys.stderr)
+    return 1
+  # References in float32 mean full float32.
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  dev = torch.device("cuda", 0)
+  torch.cuda.set_device(dev)
+  start = time.perf_counter()
+
+  device = phase_card()
+  phase_build()
+  kernels = [phase_lru(dev), phase_attention(dev)]
+  phase_main_path(dev, kernels, profile)
+  log(f"== total {time.perf_counter() - start:.1f} s")
+  print(json.dumps({"kernels": kernels}))
+  print(json.dumps({"ok": True, "device": device}), flush=True)
+  return 0
+
+
+if __name__ == "__main__":
+  sys.exit(main())
