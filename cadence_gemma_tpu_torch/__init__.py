@@ -1,10 +1,11 @@
 """PyTorch / CUDA port of CadenceGemma-TPU for NVIDIA Hopper (H100).
 
-Text generation on the Griffin / RecurrentGemma backbone. Plain tensor code
-is PyTorch; the two kernels of the prefill path -- the RG-LRU scan and the
-windowed multi-query flash attention -- are hand-written CUDA C++
-(``csrc/``), built by ``nvcc`` at first use. Entry points run on the card
-unless the caller passes ``device="cpu"``.
+Text generation and full SFT fine-tuning on the Griffin / RecurrentGemma
+backbone. Plain tensor code is PyTorch; the kernels -- the RG-LRU scan and
+its cotangent scan, the windowed multi-query flash attention and its dq and
+dk/dv backward -- are hand-written CUDA C++ (``csrc/``), built by ``nvcc``
+at first use. Entry points run on the card unless the caller passes
+``device="cpu"``.
 
 This package imports torch, numpy and the standard library only; the JAX
 package ``cadence_gemma_tpu`` is the reference it is tested against.

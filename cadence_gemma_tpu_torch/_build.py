@@ -21,7 +21,7 @@ import pathlib
 import shutil
 import tempfile
 
-KERNELS = ("lru_scan", "window_attention")
+KERNELS = ("lru_scan", "window_attention", "window_attention_backward")
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"

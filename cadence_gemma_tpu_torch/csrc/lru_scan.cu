@@ -1,13 +1,19 @@
-// RG-LRU forward scan: h_t = a_t * h_{t-1} + x_t over the time axis of
-// [batch, seq, dim] inputs, fp32 carry, y in the input type, h_last in fp32.
+// RG-LRU scans over the time axis of [batch, seq, dim] inputs with an fp32
+// carry, outputs in the input type and the final carry in fp32:
+//
+//   forward (cg_lru_scan_forward):    h_t = a_t * h_{t-1} + x_t, y_t = h_t;
+//   backward (cg_lru_scan_backward):  the cotangent scan, walked against the
+//     forward's direction: h += g_t, dx_t = h, then h *= a_t. The carry
+//     starts at dh_last, and the final carry is dh0 = a_0 * dh_0.
 //
 // Replaces the TPU kernel cadence_gemma_tpu/ops/pallas_lru.py::_lru_kernel in
-// forward mode (premultiply=False, compute_a_prod=False), reached through
-// lru_pallas_scan -> _lru_pallas_call. The backward (premultiply) scan, the
-// running product of `a` and the complex body are not ported here.
+// forward mode (premultiply=False) and in backward mode (premultiply=True,
+// the cotangent scan of _lru_bwd), both with compute_a_prod=False, reached
+// through lru_pallas_scan -> _lru_pallas_call. The running product of `a`
+// (sequence parallelism) and the complex body are not ported here.
 //
-// What bounds it: device memory. Each element of x and a is read once and
-// each y written once with two flops in between, far below the ~295 flops
+// What bounds it: device memory. Each element of x (or g) and a is read once
+// and each output written once with two flops in between, far below the ~295 flops
 // per byte where an H100 stops being memory-bound.
 //
 // Design: one thread owns one (batch, channel) pair -- two adjacent channels
@@ -23,7 +29,9 @@
 // is the later fix.
 //
 // The multiply and add are rounded separately (no fused multiply-add) so the
-// kernel reproduces the plain PyTorch loop bit for bit.
+// kernel reproduces the plain PyTorch loops bit for bit. The backward shares
+// the forward's code through the kBackprop template flag: only the order of
+// the add and the multiply and the direction of the walk differ.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -75,12 +83,15 @@ struct Access<__nv_bfloat16, 2> {
   }
 };
 
-template <typename T, int V>
+// kBackprop = false: the forward scan, time ascending unless `reverse`.
+// kBackprop = true: the cotangent scan of that forward, walked the other way.
+template <typename T, int V, bool kBackprop>
 __global__ void __launch_bounds__(kThreads)
     lru_scan_kernel(const T* __restrict__ x, const T* __restrict__ a,
                     const float* __restrict__ h0, T* __restrict__ y,
                     float* __restrict__ h_last, int batch, int seq, int dim,
                     int reverse) {
+  const bool descending = (reverse != 0) != kBackprop;
   const int groups = dim / V;
   const int64_t idx =
       static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -102,7 +113,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int u = 0; u < kUnroll; ++u) {
       const int i = i0 + u;
       if (i < seq) {
-        const int t = reverse ? seq - 1 - i : i;
+        const int t = descending ? seq - 1 - i : i;
         const int64_t off = base + static_cast<int64_t>(t) * dim;
         Access<T, V>::load(x + off, xs[u]);
         Access<T, V>::load(a + off, as[u]);
@@ -112,12 +123,20 @@ __global__ void __launch_bounds__(kThreads)
     for (int u = 0; u < kUnroll; ++u) {
       const int i = i0 + u;
       if (i < seq) {
-        const int t = reverse ? seq - 1 - i : i;
+        const int t = descending ? seq - 1 - i : i;
+        if (kBackprop) {
 #pragma unroll
-        for (int v = 0; v < V; ++v) {
-          h[v] = __fadd_rn(__fmul_rn(as[u][v], h[v]), xs[u][v]);
+          for (int v = 0; v < V; ++v) h[v] = __fadd_rn(h[v], xs[u][v]);
+          Access<T, V>::store(y + base + static_cast<int64_t>(t) * dim, h);
+#pragma unroll
+          for (int v = 0; v < V; ++v) h[v] = __fmul_rn(h[v], as[u][v]);
+        } else {
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            h[v] = __fadd_rn(__fmul_rn(as[u][v], h[v]), xs[u][v]);
+          }
+          Access<T, V>::store(y + base + static_cast<int64_t>(t) * dim, h);
         }
-        Access<T, V>::store(y + base + static_cast<int64_t>(t) * dim, h);
       }
     }
   }
@@ -127,18 +146,43 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int V>
+template <typename T, int V, bool kBackprop>
 cudaError_t launch(const void* x, const void* a, const void* h0, void* y,
                    void* h_last, int batch, int seq, int dim, int reverse,
                    cudaStream_t stream) {
   const int64_t threads = static_cast<int64_t>(batch) * (dim / V);
   if (threads == 0) return cudaSuccess;
   const int64_t blocks = (threads + kThreads - 1) / kThreads;
-  lru_scan_kernel<T, V><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+  lru_scan_kernel<T, V, kBackprop>
+      <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(a),
       static_cast<const float*>(h0), static_cast<T*>(y),
       static_cast<float*>(h_last), batch, seq, dim, reverse);
   return cudaGetLastError();
+}
+
+template <bool kBackprop>
+int dispatch(const void* x, const void* a, const void* h0, void* y,
+             void* h_last, int batch, int seq, int dim, int dtype, int reverse,
+             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return launch<float, 1, kBackprop>(x, a, h0, y, h_last, batch, seq, dim,
+                                       reverse, s);
+  }
+  if (dtype == 1) {
+    const bool paired =
+        dim % 2 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0 &&
+        reinterpret_cast<uintptr_t>(a) % 4 == 0 &&
+        reinterpret_cast<uintptr_t>(y) % 4 == 0;
+    if (paired) {
+      return launch<__nv_bfloat16, 2, kBackprop>(x, a, h0, y, h_last, batch,
+                                                 seq, dim, reverse, s);
+    }
+    return launch<__nv_bfloat16, 1, kBackprop>(x, a, h0, y, h_last, batch,
+                                               seq, dim, reverse, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -149,21 +193,17 @@ extern "C" int cg_lru_scan_forward(const void* x, const void* a,
                                    const void* h0, void* y, void* h_last,
                                    int batch, int seq, int dim, int dtype,
                                    int reverse, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return launch<float, 1>(x, a, h0, y, h_last, batch, seq, dim, reverse, s);
-  }
-  if (dtype == 1) {
-    const bool paired =
-        dim % 2 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0 &&
-        reinterpret_cast<uintptr_t>(a) % 4 == 0 &&
-        reinterpret_cast<uintptr_t>(y) % 4 == 0;
-    if (paired) {
-      return launch<__nv_bfloat16, 2>(x, a, h0, y, h_last, batch, seq, dim,
-                                      reverse, s);
-    }
-    return launch<__nv_bfloat16, 1>(x, a, h0, y, h_last, batch, seq, dim,
-                                    reverse, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<false>(x, a, h0, y, h_last, batch, seq, dim, dtype, reverse,
+                         stream);
+}
+
+// The cotangent scan of a forward scan run with the same `reverse`: g is the
+// cotangent of y, dh_last (may be null: zeros) that of h_last; writes dx in
+// g's type and dh0 in fp32. Returns the cudaError_t of the launch.
+extern "C" int cg_lru_scan_backward(const void* g, const void* a,
+                                    const void* dh_last, void* dx, void* dh0,
+                                    int batch, int seq, int dim, int dtype,
+                                    int reverse, void* stream) {
+  return dispatch<true>(g, a, dh_last, dx, dh0, batch, seq, dim, dtype,
+                        reverse, stream);
 }

@@ -15,6 +15,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as checkpoint_lib
 
 from cadence_gemma_tpu_torch import common
 from cadence_gemma_tpu_torch.models import layers
@@ -51,6 +52,9 @@ class Griffin(nn.Module):
     use_flash_attention: ``None`` routes prompts longer than the window
       through the CUDA window-attention kernel on the card; ``True`` /
       ``False`` force the kernel path / the einsum path.
+    gradient_checkpointing: Recompute each residual block in the backward
+      instead of keeping its activations (the JAX ``nn.remat``); applies
+      only while autograd records, so inference is unchanged.
   """
 
   def __init__(
@@ -60,10 +64,12 @@ class Griffin(nn.Module):
       dtype: torch.dtype = torch.bfloat16,
       generator: torch.Generator | None = None,
       use_flash_attention: bool | None = None,
+      gradient_checkpointing: bool = True,
   ):
     super().__init__()
     device = resolve_device(device)
     self.config = config
+    self.gradient_checkpointing = gradient_checkpointing
     kw = dict(device=device, dtype=dtype)
     self.embedder = modules.Embedder(
         config.vocab_size, config.width,
@@ -127,6 +133,7 @@ class Griffin(nn.Module):
       return_logits: bool = True,
       return_cache: bool = True,
       last_logits_only: bool = False,
+      return_hidden: bool = False,
   ) -> tuple[torch.Tensor | None, Cache | None]:
     """Runs the model over ``tokens``.
 
@@ -139,6 +146,9 @@ class Griffin(nn.Module):
       return_cache: Compute the updated cache.
       last_logits_only: Return logits only for the final position -- the
         prefill path, which never builds the [b, t, vocab] logits tensor.
+      return_hidden: Return the final-normed hidden states [b, t, width]
+        instead of logits; the trainer's chunked loss decodes them in time
+        chunks through :meth:`decode_hidden`.
 
     Returns:
       ``(logits | None, cache | None)``.
@@ -147,23 +157,35 @@ class Griffin(nn.Module):
       return None, None
 
     x = self.embedder.encode(tokens)
+    remat = self.gradient_checkpointing and torch.is_grad_enabled()
     new_cache = {}
     for i, block in enumerate(self.blocks):
       name = f"blocks.{i}"
-      x, new_cache[name] = block(
-          x, segment_pos, None if cache is None else cache[name], return_cache
-      )
+      args = (x, segment_pos, None if cache is None else cache[name],
+              return_cache)
+      if remat:
+        x, new_cache[name] = checkpoint_lib.checkpoint(
+            block, *args, use_reentrant=False
+        )
+      else:
+        x, new_cache[name] = block(*args)
 
     if not return_logits:
       return None, new_cache
     if last_logits_only:
       x = x[:, -1:]
     x = self.final_norm(x)
-    logits = self.embedder.decode(x)
+    if return_hidden:
+      return x, (new_cache if return_cache else None)
+    return self.decode_hidden(x), (new_cache if return_cache else None)
+
+  def decode_hidden(self, hidden: torch.Tensor) -> torch.Tensor:
+    """Final-normed hidden states -> soft-capped vocabulary logits."""
+    logits = self.embedder.decode(hidden)
     cap = self.config.logits_soft_cap
     if cap:
       logits = torch.tanh(logits / cap) * cap
-    return logits, (new_cache if return_cache else None)
+    return logits
 
   def init_cache(self, batch_size: int, dtype: torch.dtype | None = None
                  ) -> Cache:

@@ -81,13 +81,31 @@ class BlockDiagonalLinear(nn.Module):
     return y.flatten(-2)
 
 
-def sqrt_bound_derivative(x: torch.Tensor, max_gradient: float) -> torch.Tensor:
-  """``sqrt(x)``; the JAX version also clips its gradient at ``max_gradient``.
+class _SqrtBoundDerivative(torch.autograd.Function):
+  """``sqrt`` whose backward evaluates the derivative at
+  ``max(x, 1 / (4 max_gradient^2))``, as the JAX ``custom_vjp`` does."""
 
-  Only the forward is ported: the port does not train yet.
+  @staticmethod
+  def forward(ctx, x, max_gradient):
+    ctx.save_for_backward(x)
+    ctx.max_gradient = max_gradient
+    return torch.sqrt(x)
+
+  @staticmethod
+  def backward(ctx, g):
+    (x,) = ctx.saved_tensors
+    x_clamped = torch.clamp_min(x, 1.0 / (4.0 * ctx.max_gradient**2))
+    return g * 0.5 * torch.rsqrt(x_clamped), None
+
+
+def sqrt_bound_derivative(x: torch.Tensor, max_gradient: float) -> torch.Tensor:
+  """``sqrt(x)`` whose gradient is clamped to ``max_gradient``.
+
+  Near x=0 the true derivative 1/(2 sqrt x) explodes and produces NaNs in
+  bfloat16 training; the backward evaluates it at
+  ``max(x, 1 / (4 max_gradient^2))`` instead.
   """
-  del max_gradient
-  return torch.sqrt(x)
+  return _SqrtBoundDerivative.apply(x, max_gradient)
 
 
 class RGLRU(nn.Module):
@@ -96,7 +114,8 @@ class RGLRU(nn.Module):
   ``h_t = a_t h_{t-1} + sqrt(1 - a_t^2) (x_t * sigmoid(W_x x_t))`` with
   ``a_t = exp(-8 sigmoid(W_a x_t) softplus(a_param))``; the state resets at
   ``segment_pos == 0``. The scan goes through :func:`scan.linear_scan`,
-  which launches the CUDA kernel on the card.
+  which launches the CUDA kernels on the card (the forward scan, and the
+  cotangent scan in the backward).
   """
 
   def __init__(

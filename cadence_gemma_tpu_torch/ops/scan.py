@@ -5,9 +5,11 @@ device:
 
   * ``seq_len == 1``  -> the closed-form decode step ``y = a * h0 + x``, no
     kernel launch.
-  * ``AUTO`` / ``LINEAR_PALLAS`` -> :func:`lru_scan.lru_scan`: the CUDA kernel
-    on a CUDA tensor, its plain sequential version on a CPU tensor.
-  * ``LINEAR_NATIVE`` -> the plain sequential scan, on any device.
+  * ``AUTO`` / ``LINEAR_PALLAS`` -> :func:`lru_scan.lru_scan`, differentiable:
+    the CUDA kernels (forward scan, and the cotangent scan in the backward)
+    on a CUDA tensor, their plain sequential versions on a CPU tensor.
+  * ``LINEAR_NATIVE`` -> the plain sequential scan, on any device, through
+    autograd.
   * ``ASSOCIATIVE_NATIVE`` -> the plain log-depth scan, on any device.
 
 Sequence-parallel scans (a sharding spec) are not ported.

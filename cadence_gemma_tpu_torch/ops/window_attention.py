@@ -1,7 +1,8 @@
-"""Windowed multi-query flash attention (prefill): CUDA kernel + plain version.
+"""Windowed multi-query flash attention: CUDA kernels, plain versions, autograd.
 
-Counterpart of the JAX package's ``flash_window_attention`` /
-``_flash_window_forward`` (``cadence_gemma_tpu/ops/pallas_attention.py``).
+Counterpart of the JAX package's ``flash_window_attention`` with its
+``custom_vjp`` (``_flash_window_forward``, ``_flash_window_backward``;
+``cadence_gemma_tpu/ops/pallas_attention.py``).
 Queries ``[b, t, n, h]`` attend over one shared key/value head
 ``[b, t, 1, h]``. Key ``kp`` is visible to query ``qp`` iff
 ``max(qp - W, qp - segment_pos[qp]) <= kp <= qp``: inside the window and
@@ -9,9 +10,17 @@ inside the query's document, since positions run contiguously within a
 document. Rows with ``segment_pos < 0`` (left padding) output zeros and a
 logsumexp of ``1e30``, which keeps a recomputed ``exp(s - lse)`` at zero.
 
-:func:`window_attention` launches ``csrc/window_attention.cu`` for CUDA
-tensors and takes :func:`window_attention_plain` only for CPU tensors. A
-kernel that fails to build or launch raises; nothing falls back.
+The backward recomputes the probabilities from ``(q, k, lse)``:
+``p = exp(s - lse)``, ``ds = p * (dO.v - delta) * scale`` with
+``delta = rowsum(dO * O)``; ``dq = ds k``, ``dk = sum_heads ds^T q`` and
+``dv = sum_heads p^T dO``.
+
+:func:`window_attention` is differentiable. Its forward runs
+:func:`window_attention_forward` (``csrc/window_attention.cu``) and its
+backward :func:`window_attention_dq` and :func:`window_attention_dkv`
+(``csrc/window_attention_backward.cu``). Each wrapper launches its kernel for
+CUDA tensors and takes its plain version only for CPU tensors. A kernel that
+fails to build or launch raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -20,12 +29,27 @@ import torch
 
 from cadence_gemma_tpu_torch import _build
 
-# Kernel launches in this process; callers reset it to count one run.
+# Kernel launches in this process (forward, dq, dk/dv); callers reset them
+# to count one run.
 launches = 0
+dq_launches = 0
+dkv_launches = 0
 
 MIN_LOGITS_VALUE = -2.3819763e38  # Masked-logit fill of the einsum path.
 MASKED_LSE = 1e30  # lse of a row that sees no key.
 KERNEL_HEAD_DIMS = (128, 256)  # the presets': Griffin, RecurrentGemma
+
+
+def band_mask(segment_pos: torch.Tensor, seq_len: int, window: int):
+  """[b, t(q), t(k)] visibility of the kernels' band."""
+  positions = torch.arange(seq_len, device=segment_pos.device)
+  seg = segment_pos.long()
+  lower = torch.maximum(positions[None] - window, positions[None] - seg)
+  return (
+      (positions[None, None, :] >= lower[..., None])
+      & (positions[None, None, :] <= positions[None, :, None])
+      & (seg >= 0)[..., None]
+  )
 
 
 def window_attention_plain(
@@ -40,14 +64,7 @@ def window_attention_plain(
   Returns ``([b, t, n, h] outputs in q.dtype, [b, n, t] float32 lse)``.
   """
   _, seq_len, _, head_dim = q.shape
-  positions = torch.arange(seq_len, device=q.device)
-  seg = segment_pos.long()
-  lower = torch.maximum(positions[None] - window, positions[None] - seg)
-  visible = (
-      (positions[None, None, :] >= lower[..., None])
-      & (positions[None, None, :] <= positions[None, :, None])
-      & (seg >= 0)[..., None]
-  )  # [b, t, s]
+  visible = band_mask(segment_pos, seq_len, window)
   logits = torch.einsum(
       "btnh,bsh->bnts", q.float(), k[:, :, 0].float()
   ) * (head_dim**-0.5)
@@ -60,6 +77,65 @@ def window_attention_plain(
   probs = p / torch.where(l > 0, l, torch.ones_like(l))
   out = torch.einsum("bnts,bsh->btnh", probs, v[:, :, 0].float())
   return out.to(q.dtype), lse[..., 0]
+
+
+def _probabilities_and_ds(q, k, v, segment_pos, lse, delta, d_out, window):
+  """The backward's recomputed [b, n, t, s] probabilities and ``ds`` in
+  float32 over the full masked square."""
+  _, seq_len, _, head_dim = q.shape
+  scale = head_dim**-0.5
+  visible = band_mask(segment_pos, seq_len, window)[:, None]
+  s = torch.einsum("btnh,bsh->bnts", q.float(), k[:, :, 0].float()) * scale
+  p = torch.where(visible, torch.exp(s - lse[..., None]), 0.0)
+  dp = torch.einsum("btnh,bsh->bnts", d_out.float(), v[:, :, 0].float())
+  ds = p * (dp - delta[..., None]) * scale
+  return p, ds
+
+
+def window_attention_dq_plain(q, k, v, segment_pos, lse, delta, d_out,
+                              window) -> torch.Tensor:
+  """``dq = ds k`` in float32, returned in ``q.dtype``."""
+  _, ds = _probabilities_and_ds(q, k, v, segment_pos, lse, delta, d_out,
+                                window)
+  return torch.einsum("bnts,bsh->btnh", ds, k[:, :, 0].float()).to(q.dtype)
+
+
+def window_attention_dkv_plain(q, k, v, segment_pos, lse, delta, d_out,
+                               window) -> tuple[torch.Tensor, torch.Tensor]:
+  """``(dk, dv)``, summed over the query heads in float32, in ``k.dtype``."""
+  p, ds = _probabilities_and_ds(q, k, v, segment_pos, lse, delta, d_out,
+                                window)
+  dk = torch.einsum("bnts,btnh->bsh", ds, q.float())[:, :, None]
+  dv = torch.einsum("bnts,btnh->bsh", p, d_out.float())[:, :, None]
+  return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def attention_delta(out: torch.Tensor, d_out: torch.Tensor) -> torch.Tensor:
+  """``delta[b, n, t] = rowsum(dO * O)`` in float32 (a plain einsum outside
+  the kernels, as in the JAX backward)."""
+  return torch.einsum(
+      "btnh,btnh->bnt", d_out.float(), out.float()
+  ).contiguous()
+
+
+def window_attention_backward_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    segment_pos: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    d_out: torch.Tensor,
+    window: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+  """``(dq, dk, dv)`` by the kernels' formulas on the full masked square.
+
+  Probabilities come from the forward's ``lse``, not from a new softmax;
+  everything is float32 until the results are cast to the inputs' dtypes.
+  """
+  delta = attention_delta(out, d_out)
+  args = (q, k, v, segment_pos, lse, delta, d_out, window)
+  return (window_attention_dq_plain(*args), *window_attention_dkv_plain(*args))
 
 
 def reference_attention(
@@ -110,6 +186,205 @@ def _check(q, k, v, segment_pos):
     )
 
 
+def _check_cuda(q: torch.Tensor) -> None:
+  """Raises unless the CUDA kernels take ``q``'s device, dtype and width."""
+  if q.device.type != "cuda":
+    raise ValueError(
+        f"window_attention runs on CUDA or CPU tensors, not {q.device}."
+    )
+  if q.dtype != torch.bfloat16:
+    raise ValueError(
+        f"The CUDA window-attention kernels take bfloat16, got {q.dtype}; "
+        "run the model in bfloat16 or pass use_flash_attention=False."
+    )
+  if q.shape[-1] not in KERNEL_HEAD_DIMS:
+    raise ValueError(
+        f"The CUDA window-attention kernels take head_dim in "
+        f"{KERNEL_HEAD_DIMS}, got {q.shape[-1]}."
+    )
+
+
+def _contiguous_aligned(*tensors: torch.Tensor) -> list[torch.Tensor]:
+  out = [t.contiguous() for t in tensors]
+  for t in out:
+    if t.data_ptr() % 16:
+      raise ValueError("The window-attention kernels need 16-byte alignment.")
+  return out
+
+
+def _stream(t: torch.Tensor) -> int:
+  return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def window_attention_forward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    segment_pos: torch.Tensor,
+    window: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+  """The forward: its CUDA kernel on the card, the plain version on CPU.
+
+  Returns ``(out, lse)``: [b, t, n, h] outputs in ``q.dtype`` and the
+  [b, n, t] float32 logsumexp of each query row.
+  """
+  global launches
+  _check(q, k, v, segment_pos)
+  if q.device.type == "cpu":
+    return window_attention_plain(q, k, v, segment_pos, window)
+  _check_cuda(q)
+  batch, seq_len, num_heads, head_dim = q.shape
+  fn = _build.function(
+      "window_attention", "cg_window_attention_forward", "ppppppiiiiifp"
+  )
+  q, k, v = _contiguous_aligned(q, k, v)
+  seg = segment_pos.to(torch.int32).contiguous()
+  out = torch.empty_like(q)
+  lse = torch.empty(
+      batch, num_heads, seq_len, dtype=torch.float32, device=q.device
+  )
+  with torch.cuda.device(q.device):
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), batch, seq_len, num_heads, head_dim,
+        int(window), float(head_dim**-0.5), _stream(q),
+    )
+  launches += 1
+  if err:
+    raise RuntimeError(
+        f"window_attention CUDA kernel failed: cudaError_t {err}."
+    )
+  return out, lse
+
+
+def _backward_operands(q, k, v, segment_pos, lse, delta, d_out):
+  """Checks the backward's operands; returns them contiguous for a kernel."""
+  _check(q, k, v, segment_pos)
+  batch, seq_len, num_heads, _ = q.shape
+  if d_out.shape != q.shape or d_out.dtype != q.dtype:
+    raise ValueError("`d_out` must match `q` in shape and dtype.")
+  for name, t in (("lse", lse), ("delta", delta)):
+    if t.shape != (batch, num_heads, seq_len) or t.dtype != torch.float32:
+      raise ValueError(
+          f"`{name}` must be float32 [b, n, t] = "
+          f"{(batch, num_heads, seq_len)}, got {t.dtype} {tuple(t.shape)}."
+      )
+  _check_cuda(q)
+  q, k, v, d_out = _contiguous_aligned(q, k, v, d_out)
+  seg = segment_pos.to(torch.int32).contiguous()
+  return q, k, v, seg, lse.contiguous(), delta.contiguous(), d_out
+
+
+def window_attention_dq(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    segment_pos: torch.Tensor,
+    lse: torch.Tensor,
+    delta: torch.Tensor,
+    d_out: torch.Tensor,
+    window: int,
+) -> torch.Tensor:
+  """dq: its CUDA kernel on the card, the plain version on CPU.
+
+  ``lse`` is the forward's, ``delta`` is :func:`attention_delta` and
+  ``d_out`` the output cotangent; returns dq [b, t, n, h] in ``q.dtype``.
+  """
+  global dq_launches
+  if q.device.type == "cpu":
+    _check(q, k, v, segment_pos)
+    return window_attention_dq_plain(q, k, v, segment_pos, lse, delta, d_out,
+                                     window)
+  q, k, v, seg, lse, delta, d_out = _backward_operands(
+      q, k, v, segment_pos, lse, delta, d_out
+  )
+  batch, seq_len, num_heads, head_dim = q.shape
+  fn = _build.function(
+      "window_attention_backward", "cg_window_attention_dq", "ppppppppiiiiifp"
+  )
+  dq = torch.empty_like(q)
+  with torch.cuda.device(q.device):
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), d_out.data_ptr(), dq.data_ptr(),
+        batch, seq_len, num_heads, head_dim, int(window),
+        float(head_dim**-0.5), _stream(q),
+    )
+  dq_launches += 1
+  if err:
+    raise RuntimeError(
+        f"window_attention dq CUDA kernel failed: cudaError_t {err}."
+    )
+  return dq
+
+
+def window_attention_dkv(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    segment_pos: torch.Tensor,
+    lse: torch.Tensor,
+    delta: torch.Tensor,
+    d_out: torch.Tensor,
+    window: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+  """(dk, dv): their CUDA kernel on the card, the plain version on CPU.
+
+  The gradients of the one key/value head, summed over the query heads
+  that share it, in ``k.dtype``.
+  """
+  global dkv_launches
+  if q.device.type == "cpu":
+    _check(q, k, v, segment_pos)
+    return window_attention_dkv_plain(q, k, v, segment_pos, lse, delta,
+                                      d_out, window)
+  q, k, v, seg, lse, delta, d_out = _backward_operands(
+      q, k, v, segment_pos, lse, delta, d_out
+  )
+  batch, seq_len, num_heads, head_dim = q.shape
+  fn = _build.function(
+      "window_attention_backward", "cg_window_attention_dkv",
+      "pppppppppiiiiifp",
+  )
+  dk = torch.empty_like(k)
+  dv = torch.empty_like(v)
+  with torch.cuda.device(q.device):
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), d_out.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), batch, seq_len, num_heads, head_dim, int(window),
+        float(head_dim**-0.5), _stream(q),
+    )
+  dkv_launches += 1
+  if err:
+    raise RuntimeError(
+        f"window_attention dk/dv CUDA kernel failed: cudaError_t {err}."
+    )
+  return dk, dv
+
+
+class _WindowAttention(torch.autograd.Function):
+  """``flash_window_attention``'s ``custom_vjp``: ``_fwd`` and ``_bwd``."""
+
+  @staticmethod
+  def forward(ctx, q, k, v, segment_pos, window):
+    out, lse = window_attention_forward(q, k, v, segment_pos, window)
+    # The residuals of _fwd; segment_pos gets no gradient.
+    ctx.save_for_backward(q, k, v, segment_pos, out, lse)
+    ctx.window = window
+    ctx.mark_non_differentiable(lse)
+    return out, lse
+
+  @staticmethod
+  def backward(ctx, d_out, _):
+    q, k, v, segment_pos, out, lse = ctx.saved_tensors
+    delta = attention_delta(out, d_out)
+    args = (q, k, v, segment_pos, lse, delta, d_out, ctx.window)
+    dq = window_attention_dq(*args)
+    dk, dv = window_attention_dkv(*args)
+    return dq, dk, dv, None, None
+
+
 def window_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -118,7 +393,7 @@ def window_attention(
     window: int,
     kv_prefix: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-  """Windowed MQA attention: the CUDA kernel on the card, plain on CPU.
+  """Differentiable windowed MQA attention: kernels on the card, plain on CPU.
 
   Args:
     q: [b, t, n, h] queries (RoPE already applied).
@@ -132,57 +407,10 @@ def window_attention(
 
   Returns:
     ``(out, lse)``: [b, t, n, h] outputs in ``q.dtype`` and the [b, n, t]
-    float32 logsumexp of each query row.
+    float32 logsumexp of each query row (no gradient flows through it).
   """
-  global launches
   if kv_prefix:
     raise NotImplementedError(
         "kv_prefix (the sequence-parallel key halo) is not supported."
     )
-  _check(q, k, v, segment_pos)
-  if q.device.type == "cpu":
-    return window_attention_plain(q, k, v, segment_pos, window)
-  if q.device.type != "cuda":
-    raise ValueError(
-        f"window_attention runs on CUDA or CPU tensors, not {q.device}."
-    )
-  batch, seq_len, num_heads, head_dim = q.shape
-  if q.dtype != torch.bfloat16:
-    raise ValueError(
-        f"The CUDA window-attention kernel takes bfloat16, got {q.dtype}; "
-        "run the model in bfloat16 or pass use_flash_attention=False."
-    )
-  if head_dim not in KERNEL_HEAD_DIMS:
-    raise ValueError(
-        f"The CUDA window-attention kernel takes head_dim in "
-        f"{KERNEL_HEAD_DIMS}, got {head_dim}."
-    )
-
-  fn = _build.function(
-      "window_attention", "cg_window_attention_forward", "ppppppiiiiifp"
-  )
-
-  q = q.contiguous()
-  k = k.contiguous()
-  v = v.contiguous()
-  seg = segment_pos.to(torch.int32).contiguous()
-  for t in (q, k, v):
-    if t.data_ptr() % 16:
-      raise ValueError("The window-attention kernel needs 16-byte alignment.")
-  out = torch.empty_like(q)
-  lse = torch.empty(
-      batch, num_heads, seq_len, dtype=torch.float32, device=q.device
-  )
-  with torch.cuda.device(q.device):
-    err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), batch, seq_len, num_heads, head_dim,
-        int(window), float(head_dim**-0.5),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-  launches += 1
-  if err:
-    raise RuntimeError(
-        f"window_attention CUDA kernel failed: cudaError_t {err}."
-    )
-  return out, lse
+  return _WindowAttention.apply(q, k, v, segment_pos, window)

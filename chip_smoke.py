@@ -8,13 +8,13 @@ Phases, each of which raises on failure (so the script exits non-zero):
   1. card: the device's name, and its name and power limit from nvidia-smi;
   2. build: ``nvcc`` compiles every kernel under
      ``cadence_gemma_tpu_torch/csrc`` (one process per source, in parallel);
-  3. each kernel against its plain PyTorch version at the shapes of the
-     main path's prefill (batch 2 of 3000 tokens, the shorter prompt
+  3. each forward kernel against its plain PyTorch version at the shapes of
+     the serving path's prefill (batch 2 of 3000 tokens, the shorter prompt
      left-padded), with its time, the plain version's time, the least time
      the card could take (bound) and, where one PyTorch call computes the
      same function, that call's;
-  4. the main path: a full-width, full-depth RecurrentGemma-2B (random bf16
-     weights from a seeded ``torch.Generator``) behind a ``Sampler``
+  4. the serving path: a full-width, full-depth RecurrentGemma-2B (random
+     bf16 weights from a seeded ``torch.Generator``) behind a ``Sampler``
      generates 32 greedy tokens for two prompts longer than the attention
      window. The kernels' launch counters, reset just before, must show
      that the prefill ran the RG-LRU kernel once per recurrent block and the
@@ -22,12 +22,27 @@ Phases, each of which raises on failure (so the script exits non-zero):
      The inputs the prefill gave each kernel's first call are captured and
      the kernel's output on them held against its plain version; the same
      model's logits through the kernels are held against its plain path
-     (sequential scan, einsum attention).
+     (sequential scan, einsum attention);
+  5. each backward kernel (the RG-LRU cotangent scan, the attention's dq
+     and dk/dv) against its plain version at the shapes of the training
+     step (batch 2 of 4096 tokens, row 1 right-padded after 3000), timed
+     as in 3;
+  6. the training path: ``train_loop`` takes 3 AdamW steps of full
+     fine-tuning of a full-width, full-depth RecurrentGemma-2B (seeded
+     random bf16 weights) on one repeated batch of 2 x 4096 tokens, the loss
+     over the second half. The loss must be finite and fall, and the
+     counters, reset just before, must show per step 36 forward and 18
+     backward LRU launches and 16 forward, 8 dq and 8 dk/dv attention
+     launches (each block's forward runs again in the backward under
+     per-block rematerialization). The inputs the first step gave each
+     backward kernel are captured and held against its plain version. On
+     one 2100-token sequence the trained model's loss and gradient tree
+     through the kernels are held, leaf by leaf, against its plain path.
 
   python3 chip_smoke.py --profile
 
 adds kernel time by name (torch.profiler) for the prefill and decode of the
-main path, and the device's idle share.
+serving path and for one training step, and the device's idle share.
 
 Needs a CUDA card and the CUDA toolkit (``nvcc``); without a card it exits
 with status 1 and prints no result. The line before the last is a JSON
@@ -52,6 +67,9 @@ from cadence_gemma_tpu_torch.models import griffin
 from cadence_gemma_tpu_torch.ops import lru_scan
 from cadence_gemma_tpu_torch.ops import window_attention as wa
 from cadence_gemma_tpu_torch.tokenizers import SimpleVocab
+from cadence_gemma_tpu_torch.training import data as data_lib
+from cadence_gemma_tpu_torch.training import train_loop as train_loop_lib
+from cadence_gemma_tpu_torch.training import trainer
 
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
@@ -88,8 +106,42 @@ ATTN_LSE_MAX_ABS_ERR = 1e-3
 # the difference of the last position's logits.
 MODEL_LOGITS_REL_RMS = 5e-2
 
+# The training path: RecurrentGemma-2B, batch 2 x 4096 tokens, row 1 holds
+# 3000 real tokens and is right-padded (its positions repeat the last one);
+# the loss covers the second half of each row's real tokens.
+TRAIN_TOKENS = 4096
+TRAIN_REAL_TOKENS = (4096, 3000)
+TRAIN_STEPS = 3
+# AdamW's learning rate for the smoke: large enough that 3 steps on one
+# repeated batch lower the loss of bf16 weights.
+TRAIN_LEARNING_RATE = 1e-3
+LRU_TRAIN_SHAPE = (2, TRAIN_TOKENS, 2560)
+ATTN_TRAIN_SHAPE = (2, TRAIN_TOKENS, 10, 256)
+GRAD_REFERENCE_TOKENS = 2100
+
+# The cotangent scan repeats its plain loop's float32 add and multiply in the
+# same order: bit-identical.
+LRU_BWD_MAX_ABS_ERR = 0.0
+# dq, dk, dv: the kernels round p and ds to bf16 before their products and
+# the results to bf16; the plain versions keep float32 to the end. Error
+# bound as a fraction of the largest gradient (about 2^-8 expected).
+ATTN_BWD_REL_ERR = 2e-2
+# Kernel path vs plain path of the bf16 2B's loss and gradients (the plain
+# path's einsum attention and autograd of the sequential scan round at other
+# places), per parameter leaf.
+MODEL_LOSS_REL_ERR = 1e-2
+GRAD_LEAF_REL_RMS = 0.1
+GRAD_LEAF_MIN_COSINE = 0.99
+# Against the plain path of a float32 copy of the model both bf16 paths are
+# off by bf16's own rounding (~6e-2 per leaf at the median); the kernels may
+# add at most a tenth to the plain path's median distance.
+GRAD_F32_MEDIAN_RATIO = 1.1
+
 LRU_REPLACES = "cadence_gemma_tpu/ops/pallas_lru.py:265"
 ATTN_REPLACES = "cadence_gemma_tpu/ops/pallas_attention.py:207"
+LRU_BWD_REPLACES = "cadence_gemma_tpu/ops/pallas_lru.py:265"
+DQ_REPLACES = "cadence_gemma_tpu/ops/pallas_attention.py:295"
+DKV_REPLACES = "cadence_gemma_tpu/ops/pallas_attention.py:360"
 
 
 def log(*args) -> None:
@@ -164,7 +216,7 @@ def phase_lru(dev) -> dict:
       worst = max(worst, err)
 
   # Timed as the prefill calls it: forward, no initial state.
-  ms = cuda_ms(lambda: lru_scan.lru_scan(x, a), reps=20)
+  ms = cuda_ms(lambda: lru_scan.lru_scan_forward(x, a), reps=20)
   plain_ms = cuda_ms(lambda: lru_scan.lru_scan_plain(x, a), reps=2)
   # Read x and a, write y (bf16) and h_last (fp32); two fp32 flops a step.
   n_bytes = 3 * b * t * d * 2 + b * d * 4
@@ -210,7 +262,9 @@ def phase_attention(dev) -> dict:
         attn_mask=visible[:, None],
     )
 
-  ms = cuda_ms(lambda: wa.window_attention(q, k, v, seg, ATTN_WINDOW), 10)
+  ms = cuda_ms(
+      lambda: wa.window_attention_forward(q, k, v, seg, ATTN_WINDOW), 10
+  )
   plain_ms = cuda_ms(
       lambda: wa.window_attention_plain(q, k, v, seg, ATTN_WINDOW), 2
   )
@@ -469,10 +523,399 @@ def kernel_times(fn) -> dict[str, tuple[float, int]]:
       e.key: (e.self_device_time_total / 1e3, e.count)
       for e in prof.key_averages()
       if e.device_type == torch.autograd.DeviceType.CUDA
+      and not getattr(e, "is_user_annotation", False)
   }
   if not times:
     raise RuntimeError("torch.profiler recorded no kernel on the card.")
   return times
+
+
+def training_segment_pos(dev) -> torch.Tensor:
+  """The training batch's positions: row 1 right-padded after 3000 tokens,
+  its pad positions repeating the last real one (``get_positions``)."""
+  tokens = torch.ones(2, TRAIN_TOKENS, dtype=torch.long, device=dev)
+  tokens[1, TRAIN_REAL_TOKENS[1]:] = 0
+  return trainer.get_positions(tokens, 0)
+
+
+def phase_lru_backward(dev) -> dict:
+  b, t, d = LRU_TRAIN_SHAPE
+  rng = np.random.default_rng(SEED + 3)
+  g = torch.tensor(rng.standard_normal(LRU_TRAIN_SHAPE, dtype=np.float32),
+                   device=dev).bfloat16()
+  a = torch.sigmoid(torch.tensor(
+      rng.standard_normal(LRU_TRAIN_SHAPE, dtype=np.float32), device=dev
+  )).bfloat16()
+  dh_last = torch.tensor(rng.standard_normal((b, d), dtype=np.float32),
+                         device=dev)
+  log(f"== lru_scan_backward vs plain at [{b},{t},{d}] bf16 "
+      f"(tolerance {LRU_BWD_MAX_ABS_ERR})")
+  worst = 0.0
+  for reverse in (False, True):
+    for carry in (None, dh_last):
+      err = check_lru_backward(g, a, carry, reverse)
+      log(f"  reverse={reverse} dh_last={carry is not None}: max_abs_err {err}")
+      worst = max(worst, err)
+  # Timed as training calls it: the forward scan's cotangents, dh_last given.
+  ms = cuda_ms(lambda: lru_scan.lru_scan_backward(g, a, dh_last), reps=20)
+  plain_ms = cuda_ms(
+      lambda: lru_scan.lru_scan_backward_plain(g, a, dh_last), reps=2
+  )
+  # Read g and a, write dx (bf16); read dh_last, write dh0 (fp32); two
+  # fp32 flops a step.
+  n_bytes = 3 * b * t * d * 2 + 2 * b * d * 4
+  bound_ms, bound_by = bound(n_bytes, 2 * b * t * d, FP32_FLOPS)
+  log(f"  ms {ms:.4f}  plain_ms {plain_ms:.3f}  bound_ms {bound_ms:.4f} "
+      f"({bound_by}, {n_bytes / 1e6:.1f} MB)")
+  return dict(name="lru_scan_backward", route="cuda",
+              source="cadence_gemma_tpu_torch/csrc/lru_scan.cu",
+              replaces=LRU_BWD_REPLACES, max_abs_err=worst, ms=ms,
+              plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+              library_ms=None)
+
+
+def phase_attention_backward(dev) -> list[dict]:
+  b, t, n, h = ATTN_TRAIN_SHAPE
+  rng = np.random.default_rng(SEED + 4)
+  q, k, v, g = (
+      torch.tensor(rng.standard_normal(s, dtype=np.float32),
+                   device=dev).bfloat16()
+      for s in ((b, t, n, h), (b, t, 1, h), (b, t, 1, h), (b, t, n, h))
+  )
+  seg = training_segment_pos(dev)
+  log(f"== window_attention dq and dk/dv vs plain at [{b},{t},{n},{h}] bf16, "
+      f"window {ATTN_WINDOW}, row 1 right-padded after "
+      f"{TRAIN_REAL_TOKENS[1]} (tolerance {ATTN_BWD_REL_ERR} of the largest "
+      f"gradient)")
+  out, lse = wa.window_attention(q, k, v, seg, ATTN_WINDOW)
+  delta = wa.attention_delta(out, g)
+  args = (q, k, v, seg, lse, delta, g, ATTN_WINDOW)
+  dq_err = check_dq(*args)
+  dkv_err = check_dkv(*args)
+
+  # The yardstick: SDPA's backward with the same visibility as a boolean
+  # mask (forward + backward, minus the forward); it computes dq, dk and dv.
+  visible = wa.band_mask(seg, t, ATTN_WINDOW)
+  pairs = int(visible.sum().item())
+  qt, kt, vt = (z.transpose(1, 2).detach().requires_grad_()
+                for z in (q, k, v))
+  gt = g.transpose(1, 2)
+
+  def sdpa():
+    return torch.nn.functional.scaled_dot_product_attention(
+        qt, kt.expand(-1, n, -1, -1), vt.expand(-1, n, -1, -1),
+        attn_mask=visible[:, None],
+    )
+
+  def sdpa_forward_backward():
+    torch.autograd.grad(sdpa(), (qt, kt, vt), gt)
+
+  with torch.no_grad():
+    sdpa_fwd_ms = cuda_ms(sdpa, 5)
+  library_ms = cuda_ms(sdpa_forward_backward, 5) - sdpa_fwd_ms
+
+  dq_ms = cuda_ms(lambda: wa.window_attention_dq(*args), 10)
+  dkv_ms = cuda_ms(lambda: wa.window_attention_dkv(*args), 10)
+  dq_plain_ms = cuda_ms(lambda: wa.window_attention_dq_plain(*args), 2)
+  dkv_plain_ms = cuda_ms(lambda: wa.window_attention_dkv_plain(*args), 2)
+  # Bytes: q, dO (dq: also dq out; dk/dv: dk, dv out), k, v in bf16,
+  # segment_pos, lse and delta in 32 bits. Operations: 2 h flops per product
+  # per visible pair and head; dq does 3 products (s, dO.v, ds k), dk/dv 4
+  # (s, dO.v, p dO, ds q).
+  small = 2 * b * t * h * 2 + 4 * b * t + 2 * 4 * b * n * t
+  rows = []
+  for name, ms, plain_ms, err, products, n_out, replaces in (
+      ("window_attention_dq", dq_ms, dq_plain_ms, dq_err, 3, b * t * n * h,
+       DQ_REPLACES),
+      ("window_attention_dkv", dkv_ms, dkv_plain_ms, dkv_err, 4,
+       2 * b * t * h, DKV_REPLACES),
+  ):
+    flops = 2 * products * n * h * pairs
+    n_bytes = small + 2 * (2 * b * t * n * h) + 2 * n_out
+    bound_ms, bound_by = bound(n_bytes, flops, BF16_TENSOR_FLOPS)
+    log(f"  {name}: ms {ms:.4f}  plain_ms {plain_ms:.3f}  bound_ms "
+        f"{bound_ms:.4f} ({bound_by}, {flops / 1e9:.1f} GFLOP over {pairs} "
+        f"visible pairs)")
+    rows.append(dict(
+        name=name, route="cuda",
+        source="cadence_gemma_tpu_torch/csrc/window_attention_backward.cu",
+        replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+    ))
+  log(f"  library_ms (SDPA backward: dq, dk and dv together) "
+      f"{library_ms:.4f}")
+  return rows
+
+
+def check_lru_backward(g, a, dh_last=None, reverse=False) -> float:
+  """Max abs error of the cotangent-scan kernel against its plain version;
+  raises above the tolerance."""
+  dx, dh0 = lru_scan.lru_scan_backward(g, a, dh_last, reverse)
+  dx_ref, dh0_ref = lru_scan.lru_scan_backward_plain(g, a, dh_last, reverse)
+  err = max(max_err(dx, dx_ref), max_err(dh0, dh0_ref))
+  if not err <= LRU_BWD_MAX_ABS_ERR:
+    raise AssertionError(
+        f"lru_scan_backward disagrees with its plain version: {err}"
+    )
+  return err
+
+
+def _check_relative(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+  scale = want.float().abs().max().item()
+  err = max_err(got, want)
+  log(f"  {name}: max_abs_err {err:.4e} (largest |gradient| {scale:.4e}, "
+      f"ratio {err / scale:.3e})")
+  if not (torch.isfinite(got).all() and err <= ATTN_BWD_REL_ERR * scale):
+    raise AssertionError(f"{name} disagrees with its plain version.")
+  return err
+
+
+def check_dq(*args) -> float:
+  """Max abs error of the dq kernel against its plain version; raises above
+  the tolerance or if a row that sees no key gets a gradient."""
+  return _check_relative("dq", wa.window_attention_dq(*args),
+                         wa.window_attention_dq_plain(*args))
+
+
+def check_dkv(*args) -> float:
+  dk, dv = wa.window_attention_dkv(*args)
+  dk_ref, dv_ref = wa.window_attention_dkv_plain(*args)
+  return max(_check_relative("dk", dk, dk_ref),
+             _check_relative("dv", dv, dv_ref))
+
+
+def training_batch(vocab_size: int) -> data_lib.TrainingInput:
+  """Two rows of random tokens after BOS: row 0 fills 4096, row 1 holds
+  3000 and is right-padded; the loss covers the second half of each."""
+  rng = np.random.default_rng(SEED + 5)
+  tokens = rng.integers(4, vocab_size, (2, TRAIN_TOKENS)).astype(np.int32)
+  tokens[:, 0] = 1
+  mask = np.zeros(tokens.shape, bool)
+  for row, real in enumerate(TRAIN_REAL_TOKENS):
+    tokens[row, real:] = 0
+    mask[row, real // 2:real] = True
+  return data_lib.TrainingInput(input_tokens=tokens, target_mask=mask)
+
+
+def _launch_counts() -> dict[str, int]:
+  return {"lru_scan": lru_scan.launches,
+          "lru_scan_backward": lru_scan.backward_launches,
+          "window_attention": wa.launches,
+          "window_attention_dq": wa.dq_launches,
+          "window_attention_dkv": wa.dkv_launches}
+
+
+def _reset_launch_counts() -> None:
+  lru_scan.launches = lru_scan.backward_launches = 0
+  wa.launches = wa.dq_launches = wa.dkv_launches = 0
+
+
+def phase_training(dev, kernels: list[dict], profile: bool) -> None:
+  config = common.GriffinConfig.from_preset(
+      common.Preset.RECURRENT_GEMMA_2B_V1
+  )
+  start = time.perf_counter()
+  model = griffin.Griffin(
+      config, device=dev, dtype=torch.bfloat16,
+      generator=torch.Generator(dev).manual_seed(SEED + 6),
+  )
+  torch.cuda.synchronize()
+  log(f"== training path: RecurrentGemma-2B, {config.num_layers} blocks, "
+      f"width {config.width}, bf16 weights (built in "
+      f"{time.perf_counter() - start:.1f} s); train_loop, {TRAIN_STEPS} "
+      f"AdamW steps at learning rate {TRAIN_LEARNING_RATE}, batch 2 x "
+      f"{TRAIN_TOKENS} ({sum(TRAIN_REAL_TOKENS)} real tokens)")
+  batch = training_batch(config.vocab_size)
+  n_recurrent = sum(
+      bt is common.TemporalBlockType.RECURRENT for bt in config.block_types
+  )
+  n_attention = config.num_layers - n_recurrent
+
+  steps = []  # (step, loss, host time after the loss reached the host)
+
+  def log_metrics(metrics, step):
+    steps.append((step, metrics["train_loss"], time.perf_counter()))
+
+  # The first step's inputs to each backward kernel, for the checks below.
+  captures = [CaptureFirstCall(lru_scan, "lru_scan_backward"),
+              CaptureFirstCall(wa, "window_attention_dq"),
+              CaptureFirstCall(wa, "window_attention_dkv")]
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  _reset_launch_counts()
+  start = time.perf_counter()
+  try:
+    train_loop_lib.train_loop(
+        model, [batch] * TRAIN_STEPS,
+        train_loop_lib.TrainingConfig(learning_rate=TRAIN_LEARNING_RATE,
+                                      eval_every_n=1, max_steps=TRAIN_STEPS),
+        log_metrics=log_metrics, device=dev,
+    )
+  finally:
+    for capture in captures:
+      capture.restore()
+  torch.cuda.synchronize()
+  launches = _launch_counts()
+  peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+  per_step = {"lru_scan": 2 * n_recurrent, "lru_scan_backward": n_recurrent,
+              "window_attention": 2 * n_attention,
+              "window_attention_dq": n_attention,
+              "window_attention_dkv": n_attention}
+  want = {name: TRAIN_STEPS * count for name, count in per_step.items()}
+  log(f"  launches in the {TRAIN_STEPS} steps {launches}")
+  if launches != want:
+    raise AssertionError(f"Training launched {launches}, want {want} "
+                         f"({per_step} a step).")
+  losses = [loss for _, loss, _ in steps]
+  times = [start] + [t for _, _, t in steps]
+  step_ms = [(b - a) * 1e3 for a, b in zip(times, times[1:])]
+  log(f"  losses {losses}")
+  if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+    raise AssertionError(f"Non-finite or missing losses: {losses}.")
+  if not losses[-1] < losses[0]:
+    raise AssertionError(f"The loss did not fall: {losses}.")
+  steady_ms = float(np.mean(step_ms[1:]))
+  real_tokens = sum(TRAIN_REAL_TOKENS)
+  log(f"  ms per step {[round(ms, 1) for ms in step_ms]} (the first "
+      f"includes warm-up); steady {steady_ms:.1f} ms "
+      f"({real_tokens / steady_ms * 1e3:.0f} real tokens/s); peak "
+      f"{peak_gb:.2f} GB")
+
+  # Each backward kernel against its plain version on the inputs the first
+  # training step gave it.
+  checks = {"lru_scan_backward": check_lru_backward,
+            "window_attention_dq": check_dq,
+            "window_attention_dkv": check_dkv}
+  by_name = {kernel["name"]: kernel for kernel in kernels}
+  for capture in captures:
+    name = capture.name
+    if capture.args is None:
+      raise AssertionError(f"Training never called {name}.")
+    tensors = [z for z in (*capture.args, *capture.kwargs.values())
+               if isinstance(z, torch.Tensor)]
+    log(f"  {name} on the training step's inputs "
+        f"{[(tuple(z.shape), str(z.dtype)) for z in tensors]}:")
+    err = checks[name](*capture.args, **capture.kwargs)
+    log(f"  {name} max_abs_err {err}")
+    by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], err)
+    by_name[name]["launches"] = launches[name]
+    capture.args = capture.kwargs = None
+  del captures
+  compare_gradient_paths(model, config, dev)
+  if profile:
+    profile_training(model, batch, dev, steady_ms)
+
+
+def _leaf_stats(grads, grads_ref) -> list[tuple[float, float, str]]:
+  """(relative RMS of the difference, cosine, name) per parameter leaf."""
+  stats = []
+  for name, g in grads.items():
+    g, r = g.float(), grads_ref[name].float()
+    rel_rms = ((g - r).square().mean().sqrt()
+               / r.square().mean().sqrt().clamp_min(1e-30)).item()
+    cosine = torch.nn.functional.cosine_similarity(
+        g.flatten(), r.flatten(), dim=0).item()
+    stats.append((rel_rms, cosine, name))
+  return sorted(stats, reverse=True)
+
+
+def _log_leaf_stats(label: str, stats) -> None:
+  worst_cos = min(stats, key=lambda s: s[1])
+  log(f"  {label}: median rel_rms {stats[len(stats) // 2][0]:.3e}, worst "
+      f"{stats[0][2]} {stats[0][0]:.3e}; lowest cosine {worst_cos[2]} "
+      f"{worst_cos[1]:.6f}")
+
+
+def compare_gradient_paths(model, config, dev) -> None:
+  """Loss and gradients of one sequence through the kernels vs the plain
+  path (autograd of the sequential scan and of the einsum attention), both
+  in bf16 and held against the plain path of a float32 copy of the model."""
+  model.zero_grad(set_to_none=True)
+  torch.cuda.empty_cache()
+  rng = np.random.default_rng(SEED + 7)
+  tokens = torch.tensor(
+      [[1, *rng.integers(4, config.vocab_size, GRAD_REFERENCE_TOKENS - 1)]],
+      device=dev,
+  )
+  mask = torch.zeros_like(tokens, dtype=torch.bool)
+  mask[:, GRAD_REFERENCE_TOKENS // 2:] = True
+
+  def loss_and_grads(net):
+    loss = trainer.accumulate_gradients(net, 0, tokens, mask)
+    grads = {n: p.grad for n, p in net.named_parameters()}
+    net.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+  before = _launch_counts()
+  loss, grads = loss_and_grads(model)
+  after = _launch_counts()
+  if not all(after[name] > before[name] for name in after):
+    raise AssertionError(f"The kernel path missed a kernel: {before} -> "
+                         f"{after}.")
+  _use_plain_path(model, True)
+  try:
+    loss_plain, grads_plain = loss_and_grads(model)
+  finally:
+    _use_plain_path(model, False)
+  # The float32 reference: the same weights, the plain path, no TF32.
+  model32 = griffin.Griffin(config, device="meta", dtype=torch.float32)
+  model32.to_empty(device=dev)
+  model32.load_state_dict(model.state_dict())
+  _use_plain_path(model32, True)
+  loss_f32, grads_f32 = loss_and_grads(model32)
+  del model32
+  if _launch_counts() != after:
+    raise AssertionError("A plain path launched a kernel.")
+
+  rel_loss = abs(loss - loss_plain) / abs(loss_plain)
+  log(f"  kernel path vs plain path, {GRAD_REFERENCE_TOKENS} tokens: loss "
+      f"{loss:.6f} vs {loss_plain:.6f} (rel {rel_loss:.2e}, tolerance "
+      f"{MODEL_LOSS_REL_ERR}); float32 plain path {loss_f32:.6f}")
+  stats = _leaf_stats(grads, grads_plain)
+  stats_f32 = _leaf_stats(grads, grads_f32)
+  stats_plain_f32 = _leaf_stats(grads_plain, grads_f32)
+  log(f"  gradients of {len(stats)} leaves; limits per leaf, kernel vs "
+      f"plain: rel_rms <= {GRAD_LEAF_REL_RMS}, cosine >= "
+      f"{GRAD_LEAF_MIN_COSINE}")
+  _log_leaf_stats("bf16 kernel path vs bf16 plain path", stats)
+  _log_leaf_stats("bf16 kernel path vs float32 plain path", stats_f32)
+  _log_leaf_stats("bf16 plain path vs float32 plain path", stats_plain_f32)
+  bad = [s for s in stats
+         if not (s[0] <= GRAD_LEAF_REL_RMS and s[1] >= GRAD_LEAF_MIN_COSINE)]
+  if not (np.isfinite(loss) and rel_loss <= MODEL_LOSS_REL_ERR) or bad:
+    raise AssertionError(f"Kernel and plain gradients disagree: {bad[:5]}.")
+  median, median_plain = (x[len(x) // 2][0]
+                          for x in (stats_f32, stats_plain_f32))
+  log(f"  median distance to float32, kernel path / plain path "
+      f"{median / median_plain:.4f} (limit {GRAD_F32_MEDIAN_RATIO})")
+  if not median <= GRAD_F32_MEDIAN_RATIO * median_plain:
+    raise AssertionError("The kernel path is farther from float32 than the "
+                         "plain path.")
+
+
+def profile_training(model, batch, dev, step_ms: float) -> None:
+  """Logs kernel time by name for one more training step (after one more
+  unprofiled step that allocates a fresh optimizer's state), against the
+  step time measured without the profiler."""
+  optimizer = trainer.make_optimizer(model, TRAIN_LEARNING_RATE)
+  tokens = torch.as_tensor(batch.input_tokens, device=dev).long()
+  mask = torch.as_tensor(batch.target_mask, device=dev)
+
+  def step():
+    trainer.train_step(model, optimizer, 0, tokens, mask)
+
+  step()
+  times = kernel_times(step)
+  busy = sum(ms for ms, _ in times.values())
+  log(f"  training step under the profiler: kernels busy {busy:.1f} ms of "
+      f"{step_ms:.1f} ms a step (device idle share {1 - busy / step_ms:.3f}); "
+      f"top kernels:")
+  for name, (ms, count) in sorted(times.items(), key=lambda kv: -kv[1][0])[:14]:
+    log(f"    {ms:9.3f} ms  x{count:5d}  {name[:90]}")
+  del optimizer
+  model.zero_grad(set_to_none=True)
+  torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -492,6 +935,10 @@ def main() -> int:
   phase_build()
   kernels = [phase_lru(dev), phase_attention(dev)]
   phase_main_path(dev, kernels, profile)
+  torch.cuda.empty_cache()
+  kernels += [phase_lru_backward(dev), *phase_attention_backward(dev)]
+  torch.cuda.empty_cache()
+  phase_training(dev, kernels, profile)
   log(f"== total {time.perf_counter() - start:.1f} s")
   print(json.dumps({"kernels": kernels}))
   print(json.dumps({"ok": True, "device": device}), flush=True)

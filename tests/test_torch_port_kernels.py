@@ -2,11 +2,14 @@
 
 CPU tests hold each kernel's plain PyTorch version against the JAX package's
 Pallas kernel, run in interpret mode as the JAX package's own tests run it,
-and against its einsum / ``lax.scan`` oracle, on the same numpy inputs.
+and against its einsum / ``lax.scan`` oracle, on the same numpy inputs:
+forwards, and the backwards through the port's autograd Functions against
+``jax.vjp`` of the JAX ``custom_vjp``s.
 
 Card tests (skipped without CUDA) build the CUDA kernels and hold them
 against the plain versions on the card, at small shapes and at the shapes
-of the RecurrentGemma-2B prefill that ``chip_smoke.py`` drives. They import
+of the RecurrentGemma-2B prefill and training step that ``chip_smoke.py``
+drives. They import
 no JAX, so they also run where JAX is not installed:
 ``python -m pytest --noconftest tests/test_torch_port_kernels.py -k cuda``.
 """
@@ -34,9 +37,12 @@ def _lru_inputs(b, t, d, seed=0):
   return x, a.astype(np.float32), h0
 
 
-def _attn_inputs(b, t, n, h, pad=0, boundary=None, seed=0, offset=0):
+def _attn_inputs(b, t, n, h, pad=0, boundary=None, seed=0, offset=0,
+                 right_pad=0):
   """q, k, v and segment_pos; row 0 left-padded by `pad`, row 1 (if any)
-  starts a second document at `boundary`; positions start at `offset`."""
+  starts a second document at `boundary` and is right-padded by
+  `right_pad` as the trainer pads (the last position repeats); positions
+  start at `offset`."""
   rng = np.random.default_rng(seed)
   q = rng.standard_normal((b, t, n, h), dtype=np.float32)
   k = rng.standard_normal((b, t, 1, h), dtype=np.float32)
@@ -47,6 +53,8 @@ def _attn_inputs(b, t, n, h, pad=0, boundary=None, seed=0, offset=0):
     seg[0, :pad] = -1
   if boundary is not None and b > 1:
     seg[1, boundary:] = np.arange(t - boundary, dtype=np.int32)
+  if right_pad and b > 1:
+    seg[1, t - right_pad:] = seg[1, t - right_pad - 1]
   return q, k, v, seg
 
 
@@ -54,6 +62,56 @@ def _jax_bf16(x):
   import jax.numpy as jnp  # pylint: disable=import-outside-toplevel
 
   return jnp.asarray(x, jnp.bfloat16)
+
+
+_U32 = 2.0**-24  # float32 unit roundoff
+
+
+def _attention_oracle(q, k, v, seg, window):
+  """Float64 outputs of the windowed attention and, per output, a bound on
+  the error of any float32 evaluation that sums in another order.
+
+  A float32 dot of h terms errs by at most gamma_h * sum|q_i k_i|
+  (gamma_h = h u / (1 - h u)), so each scaled logit of a row is off by at
+  most eps_s = gamma_h * scale * max_k sum_i |q_i k_i|. The softmax weights
+  then err by a relative 2 eps_s plus the roundings of exp, the normalizer
+  and the n_visible-term weighted sum, and an output by at most
+  max|v| * (2 eps_s + (n_visible + 8) u). Rows that see no key are exact
+  zeros.
+  """
+  q, k, v = (z.astype(np.float64) for z in (q, k, v))
+  _, t, _, h = q.shape
+  pos = np.arange(t)
+  lower = np.maximum(pos[None] - window, pos[None] - seg)
+  vis = ((pos[None, None] >= lower[..., None])
+         & (pos[None, None] <= pos[None, :, None])
+         & (seg >= 0)[..., None])[:, None]  # [b, 1, t, s]
+  scale = h**-0.5
+  s = np.einsum("btnh,bsh->bnts", q, k[:, :, 0]) * scale
+  s = np.where(vis, s, -np.inf)
+  m = s.max(-1, keepdims=True)
+  m = np.where(np.isfinite(m), m, 0.0)
+  p = np.exp(s - m)
+  l = p.sum(-1, keepdims=True)
+  out = np.einsum("bnts,bsh->btnh", p / np.where(l > 0, l, 1.0), v[:, :, 0])
+
+  gamma = h * _U32 / (1 - h * _U32)
+  abs_dot = np.einsum("btnh,bsh->bnts", np.abs(q), np.abs(k[:, :, 0]))
+  eps_s = gamma * scale * np.where(vis, abs_dot, 0.0).max(-1)  # [b, n, t]
+  n_vis = vis.sum(-1)  # [b, 1, t]
+  v_max = np.where(vis, np.abs(v[:, None, None, :, 0]).max(-1), 0.0).max(-1)
+  bound = v_max * (2 * eps_s + (n_vis + 8) * _U32)  # [b, n, t]
+  return out, bound.transpose(0, 2, 1)[..., None]  # [b, t, n, 1]
+
+
+def _assert_within_oracle(name, got, oracle, bound):
+  err = np.abs(np.asarray(got, np.float64) - oracle)
+  over = err > bound
+  assert not over.any(), (
+      f"{name}: {over.sum()} of {over.size} outputs beyond the float32 bound "
+      f"of the float64 oracle; worst error {err.max():.3e}, "
+      f"bound there {np.broadcast_to(bound, err.shape)[over].min():.3e}"
+  )
 
 
 # -- CPU: plain versions vs the JAX package ---------------------------------
@@ -137,8 +195,13 @@ def test_window_attention_plain_matches_jax():
       torch.tensor(q), torch.tensor(k), torch.tensor(v), torch.tensor(seg),
       window,
   )
-  # float32 on both sides; the kernel's online softmax sums in another order.
-  np.testing.assert_allclose(out.numpy(), np.asarray(out_j), atol=2e-5)
+  # Both sides are float32 sums in different orders (the kernel's online
+  # softmax over 128-key tiles, the plain einsum over the whole row): each
+  # is held against the float64 oracle within the float32 error bound, so a
+  # failure names the side that moved.
+  oracle, bound = _attention_oracle(q, k, v, seg, window)
+  _assert_within_oracle("port plain version", out.numpy(), oracle, bound)
+  _assert_within_oracle("JAX Pallas kernel", np.asarray(out_j), oracle, bound)
   np.testing.assert_allclose(
       lse.numpy(), np.asarray(lse_j)[:, :, :300, 0], atol=1e-4, rtol=1e-6
   )
@@ -146,7 +209,8 @@ def test_window_attention_plain_matches_jax():
   assert not out[0, :40].any()
   assert (lse[0, :, :40] == wa.MASKED_LSE).all()
 
-  # Valid rows also equal the JAX einsum oracle and its port.
+  # Valid rows also equal the JAX einsum oracle and its port (their padded
+  # rows attend the padding among themselves; the kernels' give zeros).
   ref_j = np.asarray(fa._reference_attention(
       jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(seg),
       window,
@@ -155,9 +219,11 @@ def test_window_attention_plain_matches_jax():
       torch.tensor(q), torch.tensor(k), torch.tensor(v), torch.tensor(seg),
       window,
   ).numpy()
-  np.testing.assert_allclose(out.numpy()[0, 40:], ref_j[0, 40:], atol=2e-5)
-  np.testing.assert_allclose(out.numpy()[1], ref_j[1], atol=2e-5)
-  np.testing.assert_allclose(ref, ref_j, atol=2e-5)
+  real = (seg >= 0)[..., None, None]
+  _assert_within_oracle("JAX einsum oracle", np.where(real, ref_j, 0.0),
+                        oracle, bound)
+  _assert_within_oracle("port einsum oracle", np.where(real, ref, 0.0),
+                        oracle, bound)
 
 
 def test_window_attention_plain_matches_jax_offset_positions():
@@ -178,11 +244,175 @@ def test_window_attention_plain_matches_jax_offset_positions():
       torch.tensor(q), torch.tensor(k), torch.tensor(v), torch.tensor(seg),
       window,
   )
-  # float32 on both sides; the kernel's online softmax sums in another order.
-  np.testing.assert_allclose(out.numpy(), np.asarray(out_j), atol=2e-5)
+  # float32 sums in two orders, each within the float32 bound of float64.
+  oracle, bound = _attention_oracle(q, k, v, seg, window)
+  _assert_within_oracle("port plain version", out.numpy(), oracle, bound)
+  _assert_within_oracle("JAX Pallas kernel", np.asarray(out_j), oracle, bound)
   np.testing.assert_allclose(
       lse.numpy(), np.asarray(lse_j)[:, :, :200, 0], atol=1e-4, rtol=1e-6
   )
+
+
+def test_attention_oracle_bound_is_tight_enough():
+  """The float32 bound is far below the outputs' size: a wrong mask or
+  softmax (here: one key more per row) still fails it."""
+  q, k, v, seg = _attn_inputs(2, 300, 2, 128, pad=40, boundary=150)
+  oracle, bound = _attention_oracle(q, k, v, seg, 128)
+  wider, _ = _attention_oracle(q, k, v, seg, 129)
+  real = (seg >= 0)[..., None, None]
+  assert bound.max() < 2e-3
+  assert (np.abs(wider - oracle) > bound)[np.broadcast_to(real, oracle.shape)].any()
+
+
+# The cotangent scan runs the same float32 operations in the same order on
+# both sides (XLA may fuse the multiply into the next add): dx and dh0 agree
+# to 1e-5 in float32, and da = dx * h_prev to 1e-5 relative. In bf16 each
+# output is one rounding of the same float32 value (one bf16 step, as the
+# forward); against the lax.scan path da also differs by that path's use of
+# the float32 carry instead of the bf16 outputs for h_prev (one more step).
+_LRU_BWD_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
+                torch.bfloat16: dict(atol=2e-2, rtol=8e-3)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_lru_backward_plain_matches_jax(dtype, reverse, with_h0):
+  import jax  # pylint: disable=import-outside-toplevel
+  import jax.numpy as jnp  # pylint: disable=import-outside-toplevel
+  from jax.experimental.pallas import tpu as pltpu  # pylint: disable=import-outside-toplevel
+  from cadence_gemma_tpu.ops import pallas_lru  # pylint: disable=import-outside-toplevel
+  from cadence_gemma_tpu.ops import scan as jax_scan  # pylint: disable=import-outside-toplevel
+
+  # d = 200 is not a multiple of the TPU kernel's 128 lanes.
+  x, a, h0 = _lru_inputs(2, 40, 200)
+  rng = np.random.default_rng(5)
+  g_y = rng.standard_normal(x.shape, dtype=np.float32)
+  g_h = rng.standard_normal(h0.shape, dtype=np.float32)
+  jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+  args = [jnp.asarray(x, jdt), jnp.asarray(a, jdt)]
+  if with_h0:
+    args.append(jnp.asarray(h0))
+  cotangents = (jnp.asarray(g_y, jdt), jnp.asarray(g_h))
+
+  def pallas(x, a, *h0):
+    return pallas_lru.lru_pallas_scan(x, a, *h0, reverse=reverse)
+
+  def lax(x, a, *h0):
+    return jax_scan.lru_linear_scan(x, a, *h0, reverse=reverse)
+
+  # The context covers the backward's trace: its own pallas_call.
+  with pltpu.force_tpu_interpret_mode():
+    _, vjp = jax.vjp(pallas, *args)
+    want_pallas = vjp(cotangents)
+  _, vjp = jax.vjp(lax, *args)
+  want_lax = vjp(cotangents)
+
+  inputs = [torch.tensor(x).to(dtype).requires_grad_(),
+            torch.tensor(a).to(dtype).requires_grad_()]
+  if with_h0:
+    inputs.append(torch.tensor(h0).requires_grad_())
+  y, h = lru_scan.lru_scan(*inputs, reverse=reverse)
+  got = torch.autograd.grad(
+      (y, h), inputs, (torch.tensor(g_y).to(dtype), torch.tensor(g_h))
+  )
+  assert [g.dtype for g in got] == [z.dtype for z in inputs]
+  for want in (want_pallas, want_lax):
+    for name, g, w in zip(("dx", "da", "dh0"), got, want):
+      np.testing.assert_allclose(
+          g.float().numpy(), np.asarray(w, np.float32),
+          **(_LRU_BWD_TOL[dtype] if name != "dh0" else _LRU_BWD_TOL[
+              torch.float32]), err_msg=name,
+      )
+
+
+def test_lru_backward_plain_is_exact_cotangent_scan():
+  """The plain backward against the recurrence written out in float64."""
+  x, a, _ = _lru_inputs(1, 12, 5, seed=4)
+  g = np.random.default_rng(6).standard_normal(x.shape).astype(np.float32)
+  dx, dh0 = lru_scan.lru_scan_backward_plain(torch.tensor(g), torch.tensor(a))
+  want = np.zeros_like(g, dtype=np.float64)
+  carry = np.zeros(g[:, 0].shape)
+  for t in range(g.shape[1] - 1, -1, -1):
+    carry = carry + g[:, t]
+    want[:, t] = carry
+    carry = carry * a[:, t]
+  np.testing.assert_allclose(dx.numpy(), want, rtol=1e-5, atol=1e-6)
+  np.testing.assert_allclose(dh0.numpy(), carry, rtol=1e-5, atol=1e-6)
+
+
+def _attention_cotangent(q, seg, seed=7, real_only=False):
+  g = np.random.default_rng(seed).standard_normal(q.shape, dtype=np.float32)
+  return g * (seg >= 0)[..., None, None] if real_only else g
+
+
+# float32 on both sides in other summation orders; 3e-5 is the JAX
+# package's own tolerance between its flash backward and the einsum's.
+_ATTN_BWD_ATOL = 3e-5
+
+
+def test_window_attention_backward_plain_matches_jax():
+  import jax  # pylint: disable=import-outside-toplevel
+  import jax.numpy as jnp  # pylint: disable=import-outside-toplevel
+  from jax.experimental.pallas import tpu as pltpu  # pylint: disable=import-outside-toplevel
+  from cadence_gemma_tpu.ops import pallas_attention as fa  # pylint: disable=import-outside-toplevel
+
+  window = 128
+  q, k, v, seg = _attn_inputs(2, 300, 2, 128, pad=40, boundary=150)
+  qkv_j = [jnp.asarray(z) for z in (q, k, v)]
+  qkv = [torch.tensor(z).requires_grad_() for z in (q, k, v)]
+
+  def port_grads(g):
+    out, _ = wa.window_attention(*qkv, torch.tensor(seg), window)
+    return torch.autograd.grad(out, qkv, torch.tensor(g))
+
+  # Against the Pallas dq / dk-dv kernels in interpret mode, with a
+  # cotangent on every row (the kernels give padded rows zero outputs).
+  g = _attention_cotangent(q, seg)
+  with pltpu.force_tpu_interpret_mode():
+    _, vjp = jax.vjp(
+        lambda *z: fa.flash_window_attention(*z, jnp.asarray(seg), window),
+        *qkv_j,
+    )
+    want = vjp(jnp.asarray(g))
+  got = port_grads(g)
+  for name, a_, b_ in zip(("dq", "dk", "dv"), got, want):
+    np.testing.assert_allclose(a_.numpy(), np.asarray(b_),
+                               atol=_ATTN_BWD_ATOL, err_msg=name)
+  # Padded rows get zero gradients: no dq, and their keys feed no one.
+  assert not got[0][0, :40].any()
+  assert not got[1][0, :40].any() and not got[2][0, :40].any()
+
+  # Against autodiff of the einsum oracle, on the real rows' cotangent
+  # (the oracle's padded rows attend the padding among themselves).
+  g = _attention_cotangent(q, seg, real_only=True)
+  _, vjp = jax.vjp(
+      lambda *z: fa._reference_attention(*z, jnp.asarray(seg), window),
+      *qkv_j,
+  )
+  want = vjp(jnp.asarray(g))
+  got = port_grads(g)
+  for name, a_, b_ in zip(("dq", "dk", "dv"), got, want):
+    np.testing.assert_allclose(a_.numpy(), np.asarray(b_),
+                               atol=_ATTN_BWD_ATOL, err_msg=name)
+
+
+def test_window_attention_backward_plain_is_split_like_the_kernels():
+  """``window_attention_backward_plain`` is the dq and dk/dv wrappers'
+  plain versions on the Function's own residuals."""
+  q, k, v, seg = (torch.tensor(z) for z in _attn_inputs(1, 90, 3, 16, pad=7))
+  out, lse = wa.window_attention(q, k, v, seg, 32)
+  g = torch.tensor(_attention_cotangent(q.numpy(), seg.numpy(), seed=2))
+  dq, dk, dv = wa.window_attention_backward_plain(q, k, v, seg, out, lse, g,
+                                                  32)
+  delta = wa.attention_delta(out, g)
+  torch.testing.assert_close(
+      dq, wa.window_attention_dq(q, k, v, seg, lse, delta, g, 32))
+  for got, want in zip((dk, dv),
+                       wa.window_attention_dkv(q, k, v, seg, lse, delta, g,
+                                               32)):
+    torch.testing.assert_close(got, want)
+  assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
 
 
 def test_window_attention_rejects_halo():
@@ -258,6 +488,103 @@ def test_window_attention_cuda_kernel_matches_plain(case):
 
 
 @requires_cuda
+@pytest.mark.parametrize("shape", _LRU_CUDA_SHAPES + [(2, 4096, 2560)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("with_carry", [False, True])
+def test_lru_backward_cuda_kernel_matches_plain(shape, dtype, reverse,
+                                                with_carry):
+  g, a, dh_last = _lru_inputs(*shape, seed=8)
+  g = torch.tensor(g, device="cuda").to(dtype)
+  a = torch.tensor(a, device="cuda").to(dtype)
+  dh_last = torch.tensor(dh_last, device="cuda") if with_carry else None
+  before = lru_scan.backward_launches
+  dx, dh0 = lru_scan.lru_scan_backward(g, a, dh_last, reverse)
+  torch.cuda.synchronize()
+  assert lru_scan.backward_launches == before + 1
+  dx_ref, dh0_ref = lru_scan.lru_scan_backward_plain(g, a, dh_last, reverse)
+  # The same separately rounded float32 add and multiply in the same order.
+  assert torch.equal(dx, dx_ref), (dx.float() - dx_ref.float()).abs().max()
+  assert torch.equal(dh0, dh0_ref), (dh0 - dh0_ref).abs().max()
+
+
+@requires_cuda
+def test_lru_scan_autograd_runs_both_kernels_on_cuda():
+  x, a, h0 = _lru_inputs(2, 300, 256, seed=9)
+  inputs = [torch.tensor(z, device="cuda").requires_grad_()
+            for z in (x, a, h0)]
+  fwd, bwd = lru_scan.launches, lru_scan.backward_launches
+  y, h = lru_scan.lru_scan(*inputs)
+  grads = torch.autograd.grad((y.square().sum() + h.sum()), inputs)
+  assert (lru_scan.launches, lru_scan.backward_launches) == (fwd + 1, bwd + 1)
+  cpu = [z.detach().cpu().requires_grad_() for z in inputs]
+  y_c, h_c = lru_scan.lru_scan(*cpu)
+  want = torch.autograd.grad((y_c.square().sum() + h_c.sum()), cpu)
+  for got, ref in zip(grads, want):
+    torch.testing.assert_close(got.cpu(), ref, atol=1e-4, rtol=1e-4)
+
+
+_ATTN_BWD_CUDA_CASES = [
+    # (b, t, n, h, window, pad, boundary, right_pad)
+    (1, 256, 2, 128, 64, 0, None, 0),
+    (2, 300, 2, 128, 128, 40, 150, 20),
+    (1, 130, 3, 256, 512, 0, None, 0),
+    (2, 700, 2, 256, 256, 100, 333, 77),
+    # The 2B training step of chip_smoke.py: 4096 tokens, row 1 right-padded
+    # after 3000 tokens.
+    (2, 4096, 10, 256, 2048, 0, None, 1096),
+]
+# The kernels round p and ds to bf16 before their products and the results
+# to bf16; the plain version keeps float32 until the end. 2e-2 of the
+# largest gradient covers those roundings (about 2^-8 of it, summed).
+_ATTN_BWD_REL_ERR = 2e-2
+
+
+@requires_cuda
+@pytest.mark.parametrize("case", _ATTN_BWD_CUDA_CASES)
+def test_window_attention_backward_cuda_kernels_match_plain(case):
+  b, t, n, h, window, pad, boundary, right_pad = case
+  q, k, v, seg = _attn_inputs(b, t, n, h, pad=pad, boundary=boundary,
+                              right_pad=right_pad, seed=11)
+  q, k, v = (torch.tensor(z, device="cuda").to(torch.bfloat16)
+             for z in (q, k, v))
+  seg = torch.tensor(seg, device="cuda")
+  g = torch.randn(q.shape, device="cuda",
+                  generator=torch.Generator("cuda").manual_seed(3)).bfloat16()
+  out, lse = wa.window_attention(q, k, v, seg, window)
+  delta = wa.attention_delta(out, g)
+  args = (q, k, v, seg, lse, delta, g, window)
+  before = (wa.dq_launches, wa.dkv_launches)
+  dq = wa.window_attention_dq(*args)
+  dk, dv = wa.window_attention_dkv(*args)
+  torch.cuda.synchronize()
+  assert (wa.dq_launches, wa.dkv_launches) == (before[0] + 1, before[1] + 1)
+  want = (wa.window_attention_dq_plain(*args),
+          *wa.window_attention_dkv_plain(*args))
+  for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+    scale = ref.float().abs().max().item()
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= _ATTN_BWD_REL_ERR * scale, (name, err, scale)
+  if pad:
+    assert not dq[0, :pad].any()
+    assert not dk[0, :pad].any() and not dv[0, :pad].any()
+
+
+@requires_cuda
+def test_window_attention_autograd_runs_the_kernels_on_cuda():
+  q, k, v, seg = _attn_inputs(2, 300, 2, 128, pad=40, boundary=150, seed=12)
+  qkv = [torch.tensor(z, device="cuda").bfloat16().requires_grad_()
+         for z in (q, k, v)]
+  seg = torch.tensor(seg, device="cuda")
+  before = (wa.launches, wa.dq_launches, wa.dkv_launches)
+  out, _ = wa.window_attention(*qkv, seg, 64)
+  grads = torch.autograd.grad(out.float().square().sum(), qkv)
+  assert (wa.launches, wa.dq_launches, wa.dkv_launches) == tuple(
+      c + 1 for c in before)
+  assert all(torch.isfinite(z).all() for z in grads)
+
+
+@requires_cuda
 def test_cuda_wrappers_raise_on_unsupported_inputs():
   q, k, v, seg = _attn_inputs(1, 64, 1, 64)
   q, k, v = (torch.tensor(z, device="cuda") for z in (q, k, v))
@@ -266,6 +593,12 @@ def test_cuda_wrappers_raise_on_unsupported_inputs():
   q, k, v = (z.bfloat16() for z in (q, k, v))
   with pytest.raises(ValueError, match="head_dim"):
     wa.window_attention(q, k, v, torch.tensor(seg, device="cuda"), 16)
+  lse = torch.zeros(1, 1, 64, device="cuda")
+  with pytest.raises(ValueError, match="head_dim"):
+    wa.window_attention_dq(q, k, v, torch.tensor(seg, device="cuda"), lse,
+                           lse, q, 16)
   x = torch.zeros(1, 4, 8, device="cuda", dtype=torch.float16)
   with pytest.raises(ValueError, match="dtype"):
     lru_scan.lru_scan(x, x)
+  with pytest.raises(ValueError, match="dtype"):
+    lru_scan.lru_scan_backward(x, x)

@@ -163,11 +163,15 @@ def test_config_from_numpy_params_equals_jax():
 
 
 def test_port_hygiene(monkeypatch):
-  """The port imports no JAX and nothing of the JAX package, and its entry
-  points refuse to fall back to the CPU without being asked."""
+  """The port, its training subpackage included, imports no JAX and
+  nothing of the JAX package, and its entry points refuse to fall back to
+  the CPU without being asked."""
   probe = (
       "import sys; before = set(sys.modules); "
       "import cadence_gemma_tpu_torch; "
+      "import cadence_gemma_tpu_torch.training.train_loop; "
+      "import cadence_gemma_tpu_torch.training.trainer; "
+      "import cadence_gemma_tpu_torch.training.data; "
       "new = set(sys.modules) - before; "
       "print(sorted(m for m in new if m.split('.')[0] in "
       "('jax', 'jaxlib', 'flax', 'cadence_gemma_tpu')))"
@@ -180,6 +184,7 @@ def test_port_hygiene(monkeypatch):
   assert result.stdout.strip() == "[]", result.stdout + result.stderr
 
   sources = sorted((REPO / "cadence_gemma_tpu_torch").rglob("*.py"))
+  assert REPO / "cadence_gemma_tpu_torch/training/train_loop.py" in sources
   sources.append(REPO / "chip_smoke.py")
   bad = re.compile(
       r"^\s*(import\s+(jax|flax|cadence_gemma_tpu)\b|"
