@@ -21,7 +21,8 @@ import pathlib
 import shutil
 import tempfile
 
-KERNELS = ("lru_scan", "window_attention", "window_attention_backward")
+KERNELS = ("lru_scan", "window_attention", "window_attention_backward",
+           "mha_attention", "add_rmsnorm")
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
@@ -31,8 +32,10 @@ _NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-# Libraries already loaded in this process, by kernel name.
+# Libraries already loaded in this process, by kernel name, and their C
+# functions with argument types set, by (kernel name, symbol).
 _loaded: dict[str, object] = {}
+_functions: dict[tuple[str, str], object] = {}
 
 
 def _nvcc() -> str:
@@ -103,6 +106,9 @@ def function(name: str, symbol: str, signature: str):
   """
   import ctypes  # pylint: disable=import-outside-toplevel
 
+  fn = _functions.get((name, symbol))
+  if fn is not None:
+    return fn
   lib = _loaded.get(name)
   if lib is None:
     path = library_path(name)
@@ -114,4 +120,5 @@ def function(name: str, symbol: str, signature: str):
   fn = getattr(lib, symbol)
   fn.argtypes = [types[c] for c in signature]
   fn.restype = ctypes.c_int
+  _functions[(name, symbol)] = fn
   return fn

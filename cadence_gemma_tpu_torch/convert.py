@@ -1,10 +1,13 @@
 """Carries the JAX package's flax parameters into the port's modules.
 
 A flax parameter tree -- nested dicts whose leaves are numpy arrays, keyed
-``embedder`` / ``blocks.{i}`` / ``final_norm`` as the JAX ``Griffin`` names
-them -- maps leaf by leaf onto the port's ``state_dict``: the dotted path is
-the PyTorch name, and every ``kernel`` (flax ``[in, out]``) is transposed to
-PyTorch's ``[out, in]``. A missing, unexpected or misshaped leaf raises.
+``embedder`` / ``blocks.{i}`` / ``final_norm`` / ``vl_connector`` as the JAX
+``Griffin`` names them, or ``dino`` / ``siglip`` as the JAX
+``DinoSigLIPEncoder`` does -- maps leaf by leaf onto the port's
+``state_dict``: the dotted path is the PyTorch name, every dense ``kernel``
+(flax ``[in, out]``) is transposed to PyTorch's ``[out, in]`` and every
+convolution ``kernel`` (flax HWIO) to PyTorch's OIHW. A missing, unexpected
+or misshaped leaf raises.
 
 :func:`read_npz_params` reads the flattened ``p['blocks.0']['...']`` key
 scheme of ``np.savez`` files written from ``jax.tree_util.keystr`` paths
@@ -21,10 +24,7 @@ import torch
 
 from cadence_gemma_tpu_torch import common
 from cadence_gemma_tpu_torch.models import griffin
-
-# Top-level sub-trees the text-only port does not hold yet: the
-# vision-language connector arrives with the vision slice.
-_SKIPPED = ("vl_connector",)
+from cadence_gemma_tpu_torch.models import vit
 
 
 def read_npz_params(path: str, prefix: str = "p") -> dict[str, Any]:
@@ -64,14 +64,17 @@ def state_dict_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
   """The port's state dict (CPU tensors, source dtypes) for a flax tree."""
   params = params.get("params", params)
   out = {}
-  for name, value in _flatten(
-      {k: v for k, v in params.items() if k not in _SKIPPED}
-  ).items():
+  for name, value in _flatten(params).items():
     tensor = _to_tensor(value)
     if name.endswith(".kernel"):
-      if tensor.ndim != 2:
-        raise ValueError(f"{name}: expected a 2-D kernel, got {tensor.shape}.")
-      tensor = tensor.T
+      if tensor.ndim == 2:
+        tensor = tensor.T
+      elif tensor.ndim == 4:  # HWIO -> OIHW
+        tensor = tensor.permute(3, 2, 0, 1)
+      else:
+        raise ValueError(
+            f"{name}: expected a 2-D or 4-D kernel, got {tuple(tensor.shape)}."
+        )
     out[name] = tensor.contiguous()
   return out
 
@@ -102,6 +105,7 @@ def griffin_from_flax_params(
     device=None,
     dtype: torch.dtype = torch.bfloat16,
     use_flash_attention: bool | None = None,
+    fused_epilogue: bool = False,
 ) -> griffin.Griffin:
   """Builds a ``Griffin`` holding a flax tree's weights.
 
@@ -114,8 +118,28 @@ def griffin_from_flax_params(
     config = common.GriffinConfig.from_flax_params_or_variables(params)
   model = griffin.Griffin(
       config, device="meta", dtype=dtype,
-      use_flash_attention=use_flash_attention,
+      use_flash_attention=use_flash_attention, fused_epilogue=fused_epilogue,
   )
   model.to_empty(device=device)
   load_flax_params(model, params)
   return model
+
+
+def encoder_from_flax_params(
+    vparams: Mapping[str, Any],
+    dino_config: vit.ViTConfig = vit.DINOV2_LARGE_REG4_384,
+    siglip_config: vit.ViTConfig = vit.SIGLIP_SO400M_384,
+    device=None,
+    dtype: torch.dtype = torch.bfloat16,
+) -> vit.DinoSigLIPEncoder:
+  """Builds a ``DinoSigLIPEncoder`` holding a JAX encoder's weights
+  (``read_npz_params(path, "v")`` reads them from an ``.npz``) in float32,
+  computing in ``dtype``; ``device=None`` means CUDA, and raises when there
+  is none."""
+  device = griffin.resolve_device(device)
+  encoder = vit.DinoSigLIPEncoder(
+      dino_config, siglip_config, device="meta", dtype=dtype
+  )
+  encoder.to_empty(device=device)
+  load_flax_params(encoder, vparams)
+  return encoder

@@ -12,7 +12,12 @@ Counterpart of the JAX package's ``Sampler``
   * the decode loop feeds one token per step through the O(1) cache until
     the step budget is spent or every row has emitted a stop token;
   * greedy argmax, or categorical sampling with temperature, top-k and
-    top-p from an explicit ``torch.Generator``.
+    top-p from an explicit ``torch.Generator``;
+  * with ``img_embed`` (fused vision features) the model splices the
+    projected image in after BOS; such prompts must share one length, and
+    decode positions continue after the visual tokens unless
+    ``reference_position_quirk`` asks for the reference's text-only
+    positions.
 
 JAX buckets prompt lengths to powers of two to bound recompilation; eager
 PyTorch compiles nothing, so the port pads only to the longest prompt.
@@ -100,6 +105,8 @@ class Sampler:
     top_k: Keep the ``k`` most likely tokens (None = all).
     top_p: Nucleus sampling threshold in (0, 1] (None = off).
     stop_token_ids: Token ids that end a row like EOS does.
+    reference_position_quirk: Reproduce the reference's multimodal decode
+      positions, which ignore the spliced visual tokens.
   """
 
   def __init__(
@@ -113,6 +120,7 @@ class Sampler:
       top_k: int | None = None,
       top_p: float | None = None,
       stop_token_ids: Sequence[int] | None = None,
+      reference_position_quirk: bool = False,
   ):
     self.device = griffin.resolve_device(device)
     param = next(model.parameters())
@@ -139,6 +147,7 @@ class Sampler:
     self.top_k = top_k
     self.top_p = top_p
     self._is_it_model = is_it_model
+    self.reference_position_quirk = reference_position_quirk
     stop_ids = {int(vocab.eos_id())} | {int(i) for i in stop_token_ids or ()}
     self._stop_ids = torch.tensor(sorted(stop_ids), device=self.device)
 
@@ -172,6 +181,7 @@ class Sampler:
       return_logits: bool,
       echo: bool,
       generator: torch.Generator | None,
+      img_embed: torch.Tensor | None = None,
   ) -> _SamplingState:
     """Builds the cache, samples the first token, allocates the buffers."""
     batch_size, prompt_length = tokens.shape
@@ -185,18 +195,28 @@ class Sampler:
     if total_generation_steps == 0:
       prev_logits, _ = self.model(
           tokens, positions, return_logits=return_logits and echo,
-          return_cache=False,
+          return_cache=False, image=img_embed,
       )
       logits = None
     elif prompt_length == 1:
-      logits, cache = self.model(tokens, positions)
+      logits, cache = self.model(tokens, positions, image=img_embed)
+      # With an image only the last position's logits seed decoding.
+      logits = logits[:, -1:]
       prev_logits = logits[:, :0]
     else:
       want_prompt_logits = return_logits and echo
       all_logits, cache = self.model(
-          tokens, positions, last_logits_only=not want_prompt_logits
+          tokens, positions, last_logits_only=not want_prompt_logits,
+          image=img_embed,
       )
       if want_prompt_logits:
+        if img_embed is not None:
+          # Drop the visual positions' logits so the echoed logits align
+          # with the text tokens.
+          n_img = img_embed.shape[1]
+          all_logits = torch.cat(
+              [all_logits[:, :1], all_logits[:, 1 + n_img:]], dim=1
+          )
         prev_logits, logits = all_logits[:, :-1], all_logits[:, -1:]
       else:
         prev_logits, logits = all_logits[:, :0], all_logits
@@ -228,11 +248,16 @@ class Sampler:
       step += prompt_length
       total_steps += prompt_length
 
+    next_positions = positions[:, -1:] + 1
+    if (img_embed is not None and prompt_length > 1
+        and not self.reference_position_quirk):
+      next_positions = next_positions + img_embed.shape[1]
+
     return _SamplingState(
         tokens_buffer=tokens_buffer,
         step=step,
         total_steps=total_steps,
-        positions=positions[:, -1:] + 1,
+        positions=next_positions,
         cache=cache,
         done=torch.zeros(batch_size, dtype=torch.bool, device=self.device),
         logits_buffer=logits_buffer,
@@ -273,6 +298,7 @@ class Sampler:
       echo: bool = False,
       return_logits: bool = False,
       end_sampling_at_eos_token: bool = True,
+      img_embed: torch.Tensor | None = None,
   ) -> SamplerOutput:
     """Generates completions for a batch of prompts.
 
@@ -285,6 +311,9 @@ class Sampler:
       return_logits: Return each generated step's logits.
       end_sampling_at_eos_token: Stop once every row has emitted EOS or a
         stop token (rows that stopped keep sampling until all have).
+      img_embed: Fused vision features [b, vision_tokens, vision_width],
+        spliced in after each prompt's BOS; the prompts must then have
+        equal lengths.
 
     Returns:
       A :class:`SamplerOutput`.
@@ -298,6 +327,14 @@ class Sampler:
 
     all_ids = [self.tokenize(s) for s in input_strings]
     lengths = [len(ids) for ids in all_ids]
+    if img_embed is not None and len(set(lengths)) != 1:
+      # The image splices in after token 0, which must be the real BOS:
+      # left padding would put it after a pad token.
+      raise ValueError(
+          "Multimodal sampling requires equal-length prompts per batch "
+          f"(got lengths {lengths}); split the batch or pad the prompt "
+          "text itself."
+      )
     max_len = max(lengths)
     pad = self.vocab.pad_id()
     padded = torch.tensor(
@@ -308,7 +345,7 @@ class Sampler:
 
     state = self._prefill(
         padded, input_lengths, total_generation_steps, return_logits, echo,
-        generator,
+        generator, img_embed,
     )
     if total_generation_steps > 1:
       state = self._decode(state, end_sampling_at_eos_token, generator)

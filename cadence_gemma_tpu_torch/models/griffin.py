@@ -1,9 +1,11 @@
-"""The Griffin backbone, text only.
+"""The Griffin backbone with its image splice.
 
 Counterpart of the JAX package's ``cadence_gemma_tpu/models/griffin.py``
 with the same parameter names (``embedder``, ``blocks.{i}``,
-``final_norm``), so ``convert.py`` loads a flax tree leaf by leaf. The
-vision-language connector and the image splice are not ported yet.
+``final_norm``, ``vl_connector``), so ``convert.py`` loads a flax tree leaf
+by leaf. With ``image=`` the connector's projection of the fused vision
+features is spliced in after the first (BOS) token, at positions
+``[p0, p0+1 .. p0+n, old + n]``.
 
 The model lives on the card unless the caller asks for another device:
 ``device=None`` means CUDA, and raises when there is none.
@@ -55,6 +57,8 @@ class Griffin(nn.Module):
     gradient_checkpointing: Recompute each residual block in the backward
       instead of keeping its activations (the JAX ``nn.remat``); applies
       only while autograd records, so inference is unchanged.
+    fused_epilogue: Fuse each block's residual add and channel pre-norm
+      into one pass (the CUDA ``add_rmsnorm`` kernel on the card).
   """
 
   def __init__(
@@ -65,6 +69,7 @@ class Griffin(nn.Module):
       generator: torch.Generator | None = None,
       use_flash_attention: bool | None = None,
       gradient_checkpointing: bool = True,
+      fused_epilogue: bool = False,
   ):
     super().__init__()
     device = resolve_device(device)
@@ -85,11 +90,17 @@ class Griffin(nn.Module):
             lru_width=config.lru_width,
             scan_type=config.scan_type,
             use_flash_attention=use_flash_attention,
+            fused_epilogue=fused_epilogue,
             **kw,
         )
         for block_type in config.block_types
     ])
     self.final_norm = layers.RMSNorm(config.width, **kw)
+    # Registered last: init_weights draws in registration order, so the text
+    # model's weights do not depend on the connector.
+    self.vl_connector = modules.VisionLanguageConnector(
+        config.width, config.vl_expanded_width, config.vision_width, **kw
+    )
     if device.type != "meta":
       if generator is None:
         generator = torch.Generator(device).manual_seed(0)
@@ -122,8 +133,29 @@ class Griffin(nn.Module):
       else:
         # Dense [out, in], embedding [vocab, width], block-diagonal
         # [h, i, j] and fused up-projection [c, d, D]: fan-in is dim 1.
-        scale = final_scale if parent in _OUTPUT_PROJECTIONS else 1.0
+        # The connector's projections keep scale 1.
+        scale = (final_scale if parent in _OUTPUT_PROJECTIONS
+                 and not name.startswith("vl_connector.") else 1.0)
         p.normal_(0.0, math.sqrt(scale / p.shape[1]), generator=generator)
+
+  def _splice_image(
+      self, x: torch.Tensor, segment_pos: torch.Tensor, image: torch.Tensor
+  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Projects image features and inserts them after the BOS token."""
+    if image.shape[-1] != self.config.vision_width:
+      raise ValueError(
+          f"image feature width {image.shape[-1]} != config.vision_width "
+          f"{self.config.vision_width}; check the vision encoder pairing."
+      )
+    visual = self.vl_connector(image.to(x.dtype))
+    n = visual.shape[1]
+    x = torch.cat([x[:, :1], visual, x[:, 1:]], dim=1)
+    p0 = segment_pos[:, :1]
+    visual_pos = p0 + torch.arange(
+        1, n + 1, dtype=segment_pos.dtype, device=segment_pos.device
+    )[None]
+    segment_pos = torch.cat([p0, visual_pos, segment_pos[:, 1:] + n], dim=-1)
+    return x, segment_pos
 
   def forward(
       self,
@@ -134,6 +166,7 @@ class Griffin(nn.Module):
       return_cache: bool = True,
       last_logits_only: bool = False,
       return_hidden: bool = False,
+      image: torch.Tensor | None = None,
   ) -> tuple[torch.Tensor | None, Cache | None]:
     """Runs the model over ``tokens``.
 
@@ -149,14 +182,19 @@ class Griffin(nn.Module):
       return_hidden: Return the final-normed hidden states [b, t, width]
         instead of logits; the trainer's chunked loss decodes them in time
         chunks through :meth:`decode_hidden`.
+      image: Fused vision features [b, vision_tokens, vision_width],
+        projected by the connector and spliced in after BOS.
 
     Returns:
-      ``(logits | None, cache | None)``.
+      ``(logits | None, cache | None)``; with an image the logits include
+      the visual positions.
     """
     if not return_logits and not return_cache:
       return None, None
 
     x = self.embedder.encode(tokens)
+    if image is not None:
+      x, segment_pos = self._splice_image(x, segment_pos, image)
     remat = self.gradient_checkpointing and torch.is_grad_enabled()
     new_cache = {}
     for i, block in enumerate(self.blocks):

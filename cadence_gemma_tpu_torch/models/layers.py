@@ -21,6 +21,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from cadence_gemma_tpu_torch import common
+from cadence_gemma_tpu_torch.ops import fused_epilogue
 from cadence_gemma_tpu_torch.ops import scan
 
 
@@ -33,7 +34,9 @@ class Dense(nn.Module):
   """A linear layer with flax's parameter names.
 
   ``kernel`` is stored ``[out, in]`` (PyTorch's layout; flax keeps
-  ``[in, out]``) so the forward is one ``F.linear``.
+  ``[in, out]``) so the forward is one ``F.linear``. Parameters are cast to
+  the input's dtype, as flax's ``Dense(dtype=...)`` casts them (the vision
+  towers keep float32 weights and compute in bfloat16).
   """
 
   def __init__(self, in_features: int, out_features: int,
@@ -46,18 +49,33 @@ class Dense(nn.Module):
     )
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
-    return F.linear(x, self.kernel, self.bias)
+    bias = None if self.bias is None else self.bias.to(x.dtype)
+    return F.linear(x, self.kernel.to(x.dtype), bias)
 
 
 class RMSNorm(nn.Module):
-  """Root-mean-square normalization with a ``(scale + 1)`` learned gain."""
+  """Root-mean-square normalization with a ``(scale + 1)`` learned gain.
+
+  With ``residual`` given, the preceding residual add is fused into the norm
+  (:func:`fused_epilogue.fused_add_rmsnorm`, a CUDA kernel on the card) and
+  the call returns ``(normed, y)`` where ``y = x + residual`` is the new
+  residual stream. That path accumulates the mean of squares in float32; the
+  plain path reduces in the activation dtype, as the JAX layer does.
+  """
 
   def __init__(self, width: int, eps: float = 1e-6, device=None, dtype=None):
     super().__init__()
     self.eps = eps
     self.scale = nn.Parameter(torch.empty(width, device=device, dtype=dtype))
 
-  def forward(self, x: torch.Tensor) -> torch.Tensor:
+  def forward(
+      self, x: torch.Tensor, residual: torch.Tensor | None = None
+  ) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
+    if residual is not None:
+      y, normed = fused_epilogue.fused_add_rmsnorm(
+          x, residual, self.scale, self.eps
+      )
+      return normed, y
     var = x.square().mean(dim=-1, keepdim=True)
     return x * torch.rsqrt(var + self.eps) * (self.scale + 1)
 

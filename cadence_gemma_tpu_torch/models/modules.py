@@ -11,6 +11,9 @@ with the same parameter names and cache semantics:
   * RecurrentBlock: gelu(y-branch) * (Conv1D -> RG-LRU)(x-branch), then an
     output projection. Cache = (fp32 RG-LRU state, conv tail).
   * Gated-GeLU MLP with a fused ``(2, d, D)`` up-projection.
+  * The vision-language connector: fused vision features -> model width.
+  * The residual block, whose residual add and channel pre-norm can run as
+    one fused epilogue (``fused_epilogue=True``, a CUDA kernel on the card).
   * Tied-embedding encoder/decoder with optional ``sqrt(width)`` scaling
     (rounded through bfloat16 to match Gemma training).
 """
@@ -394,8 +397,32 @@ class MLPBlock(nn.Module):
     return self.ffw_down(layers.gelu(gate_and_up[0]) * gate_and_up[1])
 
 
+class VisionLanguageConnector(nn.Module):
+  """Vision -> LM projector: an Einsum up-projection, tanh GeLU, and a Dense
+  down to the model width (the JAX ``vl_connector`` tree)."""
+
+  def __init__(self, width: int, expanded_width: int, vision_width: int,
+               device=None, dtype=None):
+    super().__init__()
+    kw = dict(device=device, dtype=dtype)
+    self.ffw_up = layers.Einsum(
+        w_shape=(1, vision_width, expanded_width),
+        b_shape=(1, 1, 1, expanded_width),
+        eqn="...td,rdD->r...tD",
+        **kw,
+    )
+    self.ffw_down = layers.Dense(expanded_width, width, **kw)
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    return self.ffw_down(layers.gelu(self.ffw_up(x)[0]))
+
+
 class ResidualBlock(nn.Module):
-  """Pre-norm residual block: temporal mixer then MLP."""
+  """Pre-norm residual block: temporal mixer then MLP.
+
+  ``fused_epilogue=True`` computes the residual add after the temporal mixer
+  and the channel pre-norm in one pass (``RMSNorm(x, residual=...)``).
+  """
 
   def __init__(
       self,
@@ -408,12 +435,14 @@ class ResidualBlock(nn.Module):
       conv1d_temporal_width: int = 4,
       scan_type: common.ScanType = common.ScanType.AUTO,
       use_flash_attention: bool | None = None,
+      fused_epilogue: bool = False,
       device=None,
       dtype=None,
   ):
     super().__init__()
     kw = dict(device=device, dtype=dtype)
     self.temporal_block_type = temporal_block_type
+    self.fused_epilogue = fused_epilogue
     self.temporal_pre_norm = layers.RMSNorm(width, **kw)
     if temporal_block_type is common.TemporalBlockType.RECURRENT:
       self.recurrent_block = RecurrentBlock(
@@ -442,9 +471,12 @@ class ResidualBlock(nn.Module):
     residual = x
     x = self.temporal_pre_norm(x)
     x, cache = self.temporal_block(x, segment_pos, cache, return_cache)
-    x = x + residual
-    residual = x
-    x = self.channel_pre_norm(x)
+    if self.fused_epilogue:
+      x, residual = self.channel_pre_norm(x, residual=residual)
+    else:
+      x = x + residual
+      residual = x
+      x = self.channel_pre_norm(x)
     x = self.mlp_block(x)
     return x + residual, cache
 

@@ -157,7 +157,15 @@ def grads_finite(model: torch.nn.Module) -> bool:
 def apply_update(model: torch.nn.Module,
                  optimizer: torch.optim.Optimizer) -> None:
   """Clips the accumulated gradients' global norm to 1.0, steps the
-  optimizer, then clears the gradients."""
+  optimizer, then clears the gradients.
+
+  A trainable parameter the loss does not reach (the vision-language
+  connector in a text-only step) takes a zero gradient, so AdamW still
+  decays it, as the JAX update of the whole parameter tree does.
+  """
+  for param in model.parameters():
+    if param.requires_grad and param.grad is None:
+      param.grad = torch.zeros_like(param)
   torch.nn.utils.clip_grad_norm_(
       [p for p in model.parameters() if p.grad is not None], _GRAD_CLIP_NORM
   )

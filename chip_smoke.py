@@ -37,12 +37,34 @@ Phases, each of which raises on failure (so the script exits non-zero):
      per-block rematerialization). The inputs the first step gave each
      backward kernel are captured and held against its plain version. On
      one 2100-token sequence the trained model's loss and gradient tree
-     through the kernels are held, leaf by leaf, against its plain path.
+     through the kernels are held, leaf by leaf, against its plain path;
+  7. the towers' bidirectional MHA kernel against its plain version at the
+     DINOv2-L and SigLIP-so400m shapes at 384 px ([2, 734, 16, 64] and
+     [2, 729, 16, 72]) and at a longer sequence ([2, 1600, 16, 72], where
+     the TPU needed its tiled kernel), and the fused residual add + RMSNorm
+     kernel at the multimodal prefill's and a decode step's shapes, each
+     timed by its device time under torch.profiler, with the host's time a
+     call (CUDA events) beside it; the MHA's yardstick is one unmasked SDPA
+     call;
+  8. the multimodal serving path: the DINOv2-L || SigLIP-so400m encoder at
+     its published widths (blocks 0-22 of each) and a full-width, full-depth
+     RecurrentGemma-2B with the fused epilogue, seeded random weights, behind
+     a ``ModalSampler`` that takes raw [2, 3, 480, 640] pixels (resized on
+     the card) and two 1400-token prompts, so the spliced prefill holds 2129
+     tokens, and generates 32 greedy tokens. The counters, reset just
+     before, must show 46 MHA launches (23 blocks of each tower), 18 LRU and
+     8 window-attention launches in the prefill and none in decode, and 26
+     add_rmsnorm launches in each of the 32 forwards. Each kernel is held
+     against its plain version on the inputs of its first call; the resize
+     on the card against the CPU's; the fused features and the last
+     position's logits against the plain path of the same weights (towers
+     on the einsum, Griffin unfused, sequential scan, einsum attention).
 
   python3 chip_smoke.py --profile
 
 adds kernel time by name (torch.profiler) for the prefill and decode of the
-serving path and for one training step, and the device's idle share.
+serving path, for one training step, and for the encode and the
+image-conditioned prefill, with the device's idle share.
 
 Needs a CUDA card and the CUDA toolkit (``nvcc``); without a card it exits
 with status 1 and prints no result. The line before the last is a JSON
@@ -62,9 +84,13 @@ import torch
 
 from cadence_gemma_tpu_torch import _build
 from cadence_gemma_tpu_torch import common
+from cadence_gemma_tpu_torch.inference import modal_sampler
 from cadence_gemma_tpu_torch.inference import sampler as sampler_lib
 from cadence_gemma_tpu_torch.models import griffin
+from cadence_gemma_tpu_torch.models import vit
+from cadence_gemma_tpu_torch.ops import fused_epilogue
 from cadence_gemma_tpu_torch.ops import lru_scan
+from cadence_gemma_tpu_torch.ops import mha_attention
 from cadence_gemma_tpu_torch.ops import window_attention as wa
 from cadence_gemma_tpu_torch.tokenizers import SimpleVocab
 from cadence_gemma_tpu_torch.training import data as data_lib
@@ -142,6 +168,47 @@ ATTN_REPLACES = "cadence_gemma_tpu/ops/pallas_attention.py:207"
 LRU_BWD_REPLACES = "cadence_gemma_tpu/ops/pallas_lru.py:265"
 DQ_REPLACES = "cadence_gemma_tpu/ops/pallas_attention.py:295"
 DKV_REPLACES = "cadence_gemma_tpu/ops/pallas_attention.py:360"
+# One CUDA kernel replaces both TPU MHA kernels: the one-pass
+# _flash_mha_onepass (:749, the towers' regime) and the tiled
+# _flash_mha_forward (:776, t_pad > 1024).
+MHA_REPLACES = "cadence_gemma_tpu/ops/pallas_attention.py:749"
+RMSNORM_REPLACES = "cadence_gemma_tpu/ops/fused_epilogue.py:70"
+
+# The towers' attention: DINOv2-L (729 patches + 5 prefix tokens, head_dim
+# 64) and SigLIP-so400m (729, head_dim 72) at 384 px, batch 2; then a longer
+# sequence, where the TPU needed its tiled kernel. The first is the row of
+# the kernels line.
+MHA_SHAPES = ((2, 734, 16, 64), (2, 729, 16, 72), (2, 1600, 16, 72))
+# Same bf16 inputs; both round unnormalized probabilities to bf16 before PV
+# (the kernel against the running max of its tiles) and the output to bf16:
+# 2e-2 covers those roundings at |out| < 2.
+MHA_MAX_ABS_ERR = 2e-2
+# The fused epilogue at the multimodal prefill (2 x 2129 rows) and at a
+# decode step (2 rows); the first is the row of the kernels line.
+RMSNORM_SHAPES = ((2, 2129, 2560), (2, 1, 2560))
+# y: one rounding of the same float32 sum on both sides (exact). normed:
+# float32 statistics summed in another order, then one bf16 rounding: at
+# most one bf16 ulp, 2^-8 relative; 2^-7 of |normed| allows for both.
+RMSNORM_NORMED_REL_ERR = 2**-7
+
+# The multimodal serving path: raw pixels resized on the card, two prompts
+# of 1400 tokens (BOS + 1399 words), 729 visual tokens spliced after BOS.
+MM_PIXELS = (2, 3, 480, 640)
+MM_PROMPT_TOKENS = 1400
+MM_DECODE_STEPS = 32
+# The resize on the card vs on the CPU: the same float32 weights summed in
+# another order.
+RESIZE_MAX_ABS_ERR = 1e-4
+# Kernel path vs plain path of the bf16 encoder: the kernel rounds
+# unnormalized probabilities to bf16 where the einsum rounds normalized
+# ones, and each path rounds its own activations to bf16, over 23 blocks of
+# each tower. Relative RMS of the difference of the fused features.
+MM_FEATURES_REL_RMS = 5e-2
+# Kernel path vs plain path from pixels to the last position's logits: the
+# towers' difference above carried through the connector and 26 blocks in
+# which the fused epilogue also reduces in float32 where the plain RMSNorm
+# reduces in bf16 (as MODEL_LOGITS_REL_RMS for the text path).
+MM_LOGITS_REL_RMS = 5e-2
 
 
 def log(*args) -> None:
@@ -160,6 +227,16 @@ def cuda_ms(fn, reps: int) -> float:
   end.record()
   end.synchronize()
   return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+  """Mean device time of the kernels one call of ``fn`` launches, summed
+  (torch.profiler), after one warm-up. Unlike :func:`cuda_ms` it leaves out
+  the host's launch overhead, which exceeds a short kernel's time."""
+  fn()
+  torch.cuda.synchronize()
+  times = kernel_times(lambda: [fn() for _ in range(reps)])
+  return sum(ms for ms, _ in times.values()) / reps
 
 
 def bound(n_bytes: float, flops: float, flops_per_s: float):
@@ -843,7 +920,9 @@ def compare_gradient_paths(model, config, dev) -> None:
 
   def loss_and_grads(net):
     loss = trainer.accumulate_gradients(net, 0, tokens, mask)
-    grads = {n: p.grad for n, p in net.named_parameters()}
+    # The text loss does not reach the vision-language connector.
+    grads = {n: p.grad for n, p in net.named_parameters()
+             if p.grad is not None}
     net.zero_grad(set_to_none=True)
     return loss.item(), grads
 
@@ -918,6 +997,400 @@ def profile_training(model, batch, dev, step_ms: float) -> None:
   torch.cuda.empty_cache()
 
 
+def check_mha(q, k, v) -> float:
+  """Max abs error of the MHA kernel against its plain version; raises
+  above the tolerance."""
+  out = mha_attention.flash_mha_attention(q, k, v)
+  err = max_err(out, mha_attention.mha_attention_plain(q, k, v))
+  if not (torch.isfinite(out).all() and err <= MHA_MAX_ABS_ERR):
+    raise AssertionError(f"mha_attention disagrees with its plain version: "
+                         f"{err}")
+  return err
+
+
+def check_add_rmsnorm(x, residual, scale, eps=1e-6) -> float:
+  """Max abs error of normed against the plain version; raises unless y is
+  exact and normed within its relative tolerance."""
+  y, normed = fused_epilogue.fused_add_rmsnorm(x, residual, scale, eps)
+  y_ref, normed_ref = fused_epilogue.reference_add_rmsnorm(x, residual,
+                                                            scale, eps)
+  if not torch.equal(y, y_ref):
+    raise AssertionError(f"add_rmsnorm's y differs: {max_err(y, y_ref)}")
+  diff = (normed.float() - normed_ref.float()).abs()
+  rel = (diff / normed_ref.float().abs().clamp_min(1e-6)).max().item()
+  if not rel <= RMSNORM_NORMED_REL_ERR:
+    raise AssertionError(f"add_rmsnorm's normed differs: relative {rel}")
+  return diff.max().item()
+
+
+def phase_mha(dev) -> dict:
+  log(f"== mha_attention vs plain, bf16 (tolerance {MHA_MAX_ABS_ERR}); "
+      f"library: one unmasked SDPA call on the same [b, n, t, h] tensors; "
+      f"ms: device time a call (torch.profiler)")
+  row = None
+  worst = 0.0
+  for i, (b, t, n, h) in enumerate(MHA_SHAPES):
+    rng = np.random.default_rng(SEED + 20 + i)
+    q, k, v = (torch.tensor(rng.standard_normal((b, t, n, h),
+                                                dtype=np.float32),
+                            device=dev).bfloat16() for _ in range(3))
+    err = check_mha(q, k, v)
+    worst = max(worst, err)
+    qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
+    kernel = lambda: mha_attention.mha_attention_forward(q, k, v)
+    library = lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt)
+    ms, call_ms = device_ms(kernel, 20), cuda_ms(kernel, 20)
+    plain_ms = device_ms(
+        lambda: mha_attention.mha_attention_plain(q, k, v), 3)
+    library_ms, library_call_ms = device_ms(library, 20), cuda_ms(library, 20)
+    # QK^T and PV: 2 h flops each per (query, key) pair and head; q, k, v
+    # read and out written once in bf16.
+    flops = 4 * b * n * t * t * h
+    n_bytes = 4 * b * t * n * h * 2
+    bound_ms, bound_by = bound(n_bytes, flops, BF16_TENSOR_FLOPS)
+    log(f"  [{b},{t},{n},{h}]: max_abs_err {err:.3e}  ms {ms:.4f}  plain_ms "
+        f"{plain_ms:.3f}  library_ms (SDPA) {library_ms:.4f}  bound_ms "
+        f"{bound_ms:.5f} ({bound_by}, {flops / 1e9:.2f} GFLOP); a call with "
+        f"the host's launch (CUDA events): kernel {call_ms:.4f}, SDPA "
+        f"{library_call_ms:.4f}")
+    if row is None:
+      row = dict(name="mha_attention", route="cuda",
+                 source="cadence_gemma_tpu_torch/csrc/mha_attention.cu",
+                 replaces=MHA_REPLACES, ms=ms, plain_ms=plain_ms,
+                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+  row["max_abs_err"] = worst
+  return row
+
+
+def phase_add_rmsnorm(dev) -> dict:
+  log(f"== add_rmsnorm vs plain, bf16 (y exact, normed within "
+      f"{RMSNORM_NORMED_REL_ERR} relative); library: none (no one PyTorch "
+      f"call adds the residual and applies the (scale + 1) gain); ms: device "
+      f"time a call (torch.profiler)")
+  row = None
+  worst = 0.0
+  for i, shape in enumerate(RMSNORM_SHAPES):
+    gen = torch.Generator(dev).manual_seed(SEED + 30 + i)
+    x, r = (torch.randn(shape, device=dev, generator=gen).bfloat16()
+            for _ in range(2))
+    scale = (0.1 * torch.randn(shape[-1], device=dev,
+                               generator=gen)).bfloat16()
+    err = check_add_rmsnorm(x, r, scale)
+    worst = max(worst, err)
+    kernel = lambda: fused_epilogue.add_rmsnorm_forward(x, r, scale)
+    plain = lambda: fused_epilogue.reference_add_rmsnorm(x, r, scale)
+    ms, call_ms = device_ms(kernel, 50), cuda_ms(kernel, 50)
+    plain_ms, plain_call_ms = device_ms(plain, 20), cuda_ms(plain, 50)
+    rows = x.numel() // shape[-1]
+    # x and residual read, y and normed written (bf16), scale read; about 6
+    # float32 operations an element.
+    n_bytes = 4 * x.numel() * 2 + shape[-1] * 2
+    bound_ms, bound_by = bound(n_bytes, 6 * x.numel(), FP32_FLOPS)
+    log(f"  {list(shape)} ({rows} rows): max_abs_err {err:.3e}  ms "
+        f"{ms:.4f}  plain_ms {plain_ms:.4f}  bound_ms {bound_ms:.5f} "
+        f"({bound_by}, {n_bytes / 1e6:.2f} MB); a call with the host's "
+        f"launch (CUDA events): kernel {call_ms:.4f}, plain "
+        f"{plain_call_ms:.4f}")
+    if row is None:
+      row = dict(name="add_rmsnorm", route="cuda",
+                 source="cadence_gemma_tpu_torch/csrc/add_rmsnorm.cu",
+                 replaces=RMSNORM_REPLACES, ms=ms, plain_ms=plain_ms,
+                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+  row["max_abs_err"] = worst
+  return row
+
+
+def _mm_counts() -> dict[str, int]:
+  return {"mha_attention": mha_attention.launches,
+          "lru_scan": lru_scan.launches,
+          "window_attention": wa.launches,
+          "add_rmsnorm": fused_epilogue.launches}
+
+
+def _use_plain_multimodal(model, encoder, plain: bool) -> None:
+  """Routes the towers through the einsum (padded to 128 tokens) and the
+  Griffin through the unfused epilogue, sequential scan and einsum
+  attention; or back to the kernels."""
+  _use_plain_path(model, plain)
+  for block in model.blocks:
+    block.fused_epilogue = not plain
+  for tower in (encoder.dino, encoder.siglip):
+    tower.use_flash_attention = False if plain else None
+    for block in tower.blocks:
+      block.use_flash_attention = tower.use_flash_attention
+
+
+def _rel_rms(got: torch.Tensor, want: torch.Tensor) -> float:
+  diff = got.float() - want.float()
+  return (diff.square().mean().sqrt()
+          / want.float().square().mean().sqrt()).item()
+
+
+def phase_multimodal(dev, kernels: list[dict], profile: bool) -> None:
+  config = common.GriffinConfig.from_preset(
+      common.Preset.RECURRENT_GEMMA_2B_V1
+  )
+  start = time.perf_counter()
+  model = griffin.Griffin(
+      config, device=dev, dtype=torch.bfloat16, fused_epilogue=True,
+      generator=torch.Generator(dev).manual_seed(SEED + 8),
+  )
+  encoder = vit.DinoSigLIPEncoder(
+      device=dev, generator=torch.Generator(dev).manual_seed(SEED + 9)
+  )
+  torch.cuda.synchronize()
+  n_vision = sum(p.numel() for p in encoder.parameters())
+  log(f"== multimodal path: DINOv2-L || SigLIP-so400m (blocks 0-22 of "
+      f"each, {n_vision / 1e6:.1f} M float32 parameters, bf16 compute) -> "
+      f"connector -> RecurrentGemma-2B with the fused epilogue (built in "
+      f"{time.perf_counter() - start:.1f} s)")
+  vocab = SimpleVocab([f"w{i}" for i in range(config.vocab_size - 4)])
+  rng = np.random.default_rng(SEED + 10)
+  prompts = [
+      " ".join(f"w{i}" for i in rng.integers(0, config.vocab_size - 4,
+                                             MM_PROMPT_TOKENS - 1))
+      for _ in range(2)
+  ]
+  pixels = torch.rand(MM_PIXELS, device=dev,
+                      generator=torch.Generator(dev).manual_seed(SEED + 11))
+  sampler = modal_sampler.ModalSampler(model, vocab, encoder, device=dev)
+  n_blocks = len(encoder.dino.blocks) + len(encoder.siglip.blocks)
+  n_recurrent = sum(
+      bt is common.TemporalBlockType.RECURRENT for bt in config.block_types
+  )
+  size = encoder.dino_config.image_size
+
+  # The resize on the card against the CPU's.
+  resized = vit.preprocess(pixels, vit.DINO_MEAN, vit.DINO_STD, size)
+  resize_err = max_err(resized.cpu(), vit.preprocess(
+      pixels.cpu(), vit.DINO_MEAN, vit.DINO_STD, size))
+  log(f"  resize {list(MM_PIXELS)} -> {size} on the card vs the CPU: "
+      f"max_abs_err {resize_err:.3e} (tolerance {RESIZE_MAX_ABS_ERR})")
+  if not resize_err <= RESIZE_MAX_ABS_ERR:
+    raise AssertionError("The resize on the card disagrees with the CPU's.")
+
+  # Events around the encode and around each model forward, with the
+  # counters at the end of each.
+  marks = {}
+  calls = []
+
+  def event():
+    e = torch.cuda.Event(enable_timing=True)
+    e.record()
+    return e
+
+  def encode_start(*_):
+    marks["encode_start"] = event()
+
+  def encode_end(*_):
+    marks["encode_end"] = event()
+    marks["encode_counts"] = _mm_counts()
+
+  def forward_start(*_):
+    calls.append([event()])
+
+  def forward_end(*_):
+    calls[-1] += [event(), _mm_counts()]
+
+  hooks = [encoder.register_forward_pre_hook(encode_start),
+           encoder.register_forward_hook(encode_end),
+           model.register_forward_pre_hook(forward_start),
+           model.register_forward_hook(forward_end)]
+
+  # Warm-up; it also keeps the inputs that this run (the same as the
+  # measured one) gives each kernel's first call.
+  captures = [CaptureFirstCall(mha_attention, "flash_mha_attention"),
+              CaptureFirstCall(fused_epilogue, "fused_add_rmsnorm"),
+              CaptureFirstCall(lru_scan, "lru_scan"),
+              CaptureFirstCall(wa, "window_attention")]
+  try:
+    sampler(prompts, total_generation_steps=2, pixels=pixels)
+  finally:
+    for capture in captures:
+      capture.restore()
+  torch.cuda.synchronize()
+  calls.clear()
+  torch.cuda.reset_peak_memory_stats()
+  mha_attention.launches = fused_epilogue.launches = 0
+  lru_scan.launches = wa.launches = 0
+  start = time.perf_counter()
+  out = sampler(prompts, total_generation_steps=MM_DECODE_STEPS,
+                pixels=pixels, return_logits=True,
+                end_sampling_at_eos_token=False)
+  torch.cuda.synchronize()
+  wall_s = time.perf_counter() - start
+  launches = _mm_counts()
+  peak_gb = torch.cuda.max_memory_allocated() / 1e9
+  for hook in hooks:
+    hook.remove()
+
+  log(f"  launches in the run {launches}; after the encode "
+      f"{marks['encode_counts']}; after the prefill {calls[0][2]}")
+  want_encode = {"mha_attention": n_blocks, "lru_scan": 0,
+                 "window_attention": 0, "add_rmsnorm": 0}
+  want_prefill = {"mha_attention": n_blocks, "lru_scan": n_recurrent,
+                  "window_attention": config.num_layers - n_recurrent,
+                  "add_rmsnorm": config.num_layers}
+  want_run = dict(want_prefill,
+                  add_rmsnorm=config.num_layers * MM_DECODE_STEPS)
+  if (len(calls) != MM_DECODE_STEPS or marks["encode_counts"] != want_encode
+      or calls[0][2] != want_prefill or launches != want_run):
+    raise AssertionError(
+        f"Launches: {len(calls)} forwards, encode {marks['encode_counts']} "
+        f"(want {want_encode}), prefill {calls[0][2]} (want {want_prefill}), "
+        f"run {launches} (want {want_run}).")
+  for i, call in enumerate(calls[1:]):
+    if call[2]["add_rmsnorm"] != config.num_layers * (i + 2):
+      raise AssertionError(f"Decode step {i + 1} did not launch "
+                           f"add_rmsnorm once per block: {call[2]}.")
+  tokens = torch.stack(out.tokens)
+  logits = torch.stack(out.logits)
+  if tokens.shape != (2, MM_DECODE_STEPS) or logits.shape != (
+      2, MM_DECODE_STEPS, config.vocab_size):
+    raise AssertionError(f"Shapes {tokens.shape}, {logits.shape}.")
+  if not torch.isfinite(logits).all():
+    raise AssertionError("Non-finite logits.")
+
+  encode_ms = marks["encode_start"].elapsed_time(marks["encode_end"])
+  ttft_ms = marks["encode_start"].elapsed_time(calls[0][1])
+  prefill_ms = calls[0][0].elapsed_time(calls[0][1])
+  decode_ms = calls[0][1].elapsed_time(calls[-1][1]) / (len(calls) - 1)
+  spliced = MM_PROMPT_TOKENS + config.vision_tokens
+  log(f"  pixels {list(MM_PIXELS)}, prompts 2 x {MM_PROMPT_TOKENS} tokens, "
+      f"spliced prefill 2 x {spliced} tokens, {MM_DECODE_STEPS} greedy steps")
+  log(f"  encode_ms {encode_ms:.2f}  prefill_ms (model) {prefill_ms:.2f}  "
+      f"ttft_ms (pixels -> prefill logits) {ttft_ms:.2f}  decode_ms_per_step "
+      f"{decode_ms:.3f}  wall {wall_s:.3f} s ({2 * MM_DECODE_STEPS / wall_s:.1f}"
+      f" generated tokens/s)  peak {peak_gb:.2f} GB")
+  log(f"  first tokens {tokens[:, :8].tolist()}")
+
+  # Each kernel against its plain version on the inputs of its first call.
+  checks = {"flash_mha_attention": ("mha_attention", check_mha),
+            "fused_add_rmsnorm": ("add_rmsnorm", check_add_rmsnorm),
+            "lru_scan": ("lru_scan", check_lru),
+            "window_attention": ("window_attention",
+                                 lambda *a: max(check_attention(*a)))}
+  by_name = {kernel["name"]: kernel for kernel in kernels}
+  for capture in captures:
+    name, check = checks[capture.name]
+    if capture.args is None:
+      raise AssertionError(f"The multimodal path never called {name}.")
+    tensors = [z for z in capture.args if isinstance(z, torch.Tensor)]
+    log(f"  {name} on the path's inputs "
+        f"{[(tuple(z.shape), str(z.dtype)) for z in tensors]}:")
+    err = check(*capture.args, **capture.kwargs)
+    log(f"  {name} max_abs_err {err:.3e}")
+    by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], err)
+    if name in ("mha_attention", "add_rmsnorm"):
+      by_name[name]["launches"] = launches[name]
+    capture.args = capture.kwargs = None
+
+  compare_multimodal_paths(model, encoder, config, pixels, dev)
+  compare_epilogue_decode(sampler, prompts, pixels)
+  if profile:
+    profile_multimodal(sampler, prompts, pixels, encode_ms, ttft_ms)
+
+
+def compare_multimodal_paths(model, encoder, config, pixels, dev) -> None:
+  """Fused features and the spliced prefill's last logits through the
+  kernels vs the plain path of the same weights."""
+  ids = torch.tensor(
+      [[1, *np.random.default_rng(SEED + 12).integers(
+          4, config.vocab_size, MM_PROMPT_TOKENS - 1)]] * 2, device=dev)
+  pos = torch.arange(MM_PROMPT_TOKENS, device=dev)[None].expand(2, -1)
+
+  @torch.inference_mode()
+  def run(plain):
+    _use_plain_multimodal(model, encoder, plain)
+    try:
+      features = encoder(pixels).to(torch.bfloat16)
+      logits, _ = model(ids, pos, image=features, return_cache=False,
+                        last_logits_only=True)
+    finally:
+      _use_plain_multimodal(model, encoder, False)
+    return features, logits
+
+  before = _mm_counts()
+  f_k, l_k = run(False)
+  after = _mm_counts()
+  f_p, l_p = run(True)
+  if not all(after[k] > before[k] for k in before):
+    raise AssertionError(f"The kernel path missed a kernel: {before} -> "
+                         f"{after}.")
+  if _mm_counts() != after:
+    raise AssertionError("The plain path launched a kernel.")
+  f_rel, l_rel = _rel_rms(f_k, f_p), _rel_rms(l_k, l_p)
+  log(f"  kernel path vs plain path from pixels: features rel_rms "
+      f"{f_rel:.3e} (tolerance {MM_FEATURES_REL_RMS}); last logits of the "
+      f"{MM_PROMPT_TOKENS + config.vision_tokens}-token prefill rel_rms "
+      f"{l_rel:.3e} (tolerance {MM_LOGITS_REL_RMS}), same argmax "
+      f"{(l_k.argmax(-1) == l_p.argmax(-1)).tolist()}")
+  if not (torch.isfinite(f_k).all() and torch.isfinite(l_k).all()
+          and f_rel <= MM_FEATURES_REL_RMS and l_rel <= MM_LOGITS_REL_RMS):
+    raise AssertionError("Kernel path and plain path disagree.")
+
+
+# Turns of the fused / unfused decode comparison: each side takes positions
+# whose sums and sums of squares match (0+3+5+6 = 1+2+4+7, 70 = 70), so a
+# host that slows down linearly or quadratically over the run favours
+# neither side.
+EPILOGUE_TURNS = (True, False, False, True, False, True, True, False)
+
+
+def compare_epilogue_decode(sampler, prompts, pixels) -> None:
+  """Decode ms a step with the fused epilogue and with the unfused one, in
+  turns from the same image features: what the kernel does to a step the
+  host bounds."""
+  features = sampler.encode(pixels)
+  model = sampler.model
+  ends = []
+
+  def forward_end(*_):
+    ends.append(torch.cuda.Event(enable_timing=True))
+    ends[-1].record()
+
+  hook = model.register_forward_hook(forward_end)
+  per_step = {True: [], False: []}
+  try:
+    for fused in EPILOGUE_TURNS:
+      for block in model.blocks:
+        block.fused_epilogue = fused
+      ends.clear()
+      sampler(prompts, total_generation_steps=MM_DECODE_STEPS,
+              img_embed=features, end_sampling_at_eos_token=False)
+      torch.cuda.synchronize()
+      per_step[fused].append(ends[0].elapsed_time(ends[-1])
+                             / (len(ends) - 1))
+  finally:
+    hook.remove()
+    for block in model.blocks:
+      block.fused_epilogue = True
+  log(f"  decode ms a step, in turns {EPILOGUE_TURNS}: fused epilogue "
+      f"{[round(ms, 3) for ms in per_step[True]]} (median "
+      f"{np.median(per_step[True]):.3f}), unfused "
+      f"{[round(ms, 3) for ms in per_step[False]]} (median "
+      f"{np.median(per_step[False]):.3f})")
+
+
+def profile_multimodal(sampler, prompts, pixels, encode_ms, ttft_ms) -> None:
+  """Logs kernel time by name for the encode and for the image-conditioned
+  prefill (encode included), against their times without the profiler."""
+  for label, fn, wall_ms in (
+      ("encode", lambda: sampler.encode(pixels), encode_ms),
+      ("multimodal prefill (encode, splice, 2B prefill)",
+       lambda: sampler(prompts, total_generation_steps=1, pixels=pixels),
+       ttft_ms),
+  ):
+    times = kernel_times(fn)
+    busy = sum(ms for ms, _ in times.values())
+    log(f"  {label}: kernels busy {busy:.3f} ms of {wall_ms:.3f} ms (device "
+        f"idle share {1 - busy / wall_ms:.3f}); top kernels:")
+    for name, (ms, count) in sorted(
+        times.items(), key=lambda kv: -kv[1][0])[:12]:
+      log(f"    {ms:9.4f} ms  x{count:5d}  {name[:90]}")
+
+
 def main() -> int:
   profile = "--profile" in sys.argv[1:]
   if not torch.cuda.is_available():
@@ -939,6 +1412,9 @@ def main() -> int:
   kernels += [phase_lru_backward(dev), *phase_attention_backward(dev)]
   torch.cuda.empty_cache()
   phase_training(dev, kernels, profile)
+  torch.cuda.empty_cache()
+  kernels += [phase_mha(dev), phase_add_rmsnorm(dev)]
+  phase_multimodal(dev, kernels, profile)
   log(f"== total {time.perf_counter() - start:.1f} s")
   print(json.dumps({"kernels": kernels}))
   print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -8,8 +8,8 @@ forwards, and the backwards through the port's autograd Functions against
 
 Card tests (skipped without CUDA) build the CUDA kernels and hold them
 against the plain versions on the card, at small shapes and at the shapes
-of the RecurrentGemma-2B prefill and training step that ``chip_smoke.py``
-drives. They import
+of the RecurrentGemma-2B prefill and training step and of the vision
+towers that ``chip_smoke.py`` drives. They import
 no JAX, so they also run where JAX is not installed:
 ``python -m pytest --noconftest tests/test_torch_port_kernels.py -k cuda``.
 """
@@ -18,7 +18,9 @@ import numpy as np
 import pytest
 import torch
 
+from cadence_gemma_tpu_torch.ops import fused_epilogue
 from cadence_gemma_tpu_torch.ops import lru_scan
+from cadence_gemma_tpu_torch.ops import mha_attention
 from cadence_gemma_tpu_torch.ops import scan
 from cadence_gemma_tpu_torch.ops import window_attention as wa
 
@@ -602,3 +604,144 @@ def test_cuda_wrappers_raise_on_unsupported_inputs():
     lru_scan.lru_scan(x, x)
   with pytest.raises(ValueError, match="dtype"):
     lru_scan.lru_scan_backward(x, x)
+
+
+# -- Card: the towers' MHA and the fused add + RMSNorm -----------------------
+
+_MHA_CUDA_CASES = [
+    # (b, t, n, h)
+    (1, 40, 2, 64),      # t below one 64-row tile
+    (2, 128, 3, 72),     # whole tiles
+    (1, 130, 3, 72),     # a partial last tile
+    (2, 734, 16, 64),    # DINOv2-L at 384 px (729 patches + 5 prefix)
+    (2, 729, 16, 72),    # SigLIP-so400m at 384 px
+    (1, 1600, 16, 72),   # the tiled TPU kernel's regime, t_pad > 1024
+]
+
+
+def _mha_inputs(b, t, n, h, seed=0):
+  rng = np.random.default_rng(seed)
+  return [torch.tensor(rng.standard_normal((b, t, n, h), dtype=np.float32),
+                       device="cuda").bfloat16() for _ in range(3)]
+
+
+@requires_cuda
+@pytest.mark.parametrize("case", _MHA_CUDA_CASES)
+def test_mha_cuda_kernel_matches_plain(case):
+
+  q, k, v = _mha_inputs(*case)
+  before = mha_attention.launches
+  out = mha_attention.flash_mha_attention(q, k, v)
+  torch.cuda.synchronize()
+  assert mha_attention.launches == before + 1
+  ref = mha_attention.mha_attention_plain(q, k, v)
+  assert out.shape == q.shape and out.dtype == torch.bfloat16
+  # Same bf16 inputs; both round unnormalized probabilities to bf16 before
+  # PV, the kernel against the running max of its tiles, and both round the
+  # output to bf16: 2e-2 covers those roundings at |out| < 2.
+  torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
+
+
+@requires_cuda
+@pytest.mark.parametrize("head_dim", [64, 72])
+def test_mha_cuda_kernel_reads_fused_qkv_views(head_dim):
+  """Strided views of one fused qkv projection give the same bits as
+  contiguous copies."""
+
+  b, t, n = 2, 200, 4
+  qkv = torch.randn(b, t, 3 * n * head_dim, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(1)).bfloat16()
+  views = [z.unflatten(-1, (n, head_dim))
+           for z in qkv.split(n * head_dim, dim=-1)]
+  assert not views[1].is_contiguous()
+  got = mha_attention.mha_attention_forward(*views)
+  want = mha_attention.mha_attention_forward(*(z.contiguous() for z in views))
+  torch.cuda.synchronize()
+  assert torch.equal(got, want)
+
+
+_RMSNORM_CUDA_SHAPES = [(2, 2129, 2560), (2, 1, 2560), (3, 7, 384), (5, 40),
+                        (1, 4096)]
+
+
+@requires_cuda
+@pytest.mark.parametrize("shape", _RMSNORM_CUDA_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_add_rmsnorm_cuda_kernel_matches_plain(shape, dtype):
+
+  gen = torch.Generator("cuda").manual_seed(2)
+  x, r = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
+          for _ in range(2))
+  scale = (0.1 * torch.randn(shape[-1], device="cuda", generator=gen)).to(dtype)
+  before = fused_epilogue.launches
+  y, normed = fused_epilogue.fused_add_rmsnorm(x, r, scale)
+  torch.cuda.synchronize()
+  assert fused_epilogue.launches == before + 1
+  y_ref, normed_ref = fused_epilogue.reference_add_rmsnorm(x, r, scale)
+  # The add is one rounding of the same float32 sum on both sides.
+  assert torch.equal(y, y_ref)
+  # float32 statistics summed in another order and rsqrtf: a few float32
+  # ulps; in bf16 the output rounding may then land one bf16 ulp apart.
+  tol = (dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32
+         else dict(atol=1e-6, rtol=2**-7))
+  torch.testing.assert_close(normed.float(), normed_ref.float(), **tol)
+
+
+@requires_cuda
+def test_cuda_tensors_never_take_the_plain_versions(monkeypatch):
+
+  def refuse(*_):
+    raise AssertionError("a CUDA tensor took the plain version")
+
+  monkeypatch.setattr(mha_attention, "mha_attention_plain", refuse)
+  monkeypatch.setattr(fused_epilogue, "reference_add_rmsnorm", refuse)
+  q, k, v = _mha_inputs(1, 70, 2, 72)
+  before = (mha_attention.launches, fused_epilogue.launches)
+  mha_attention.flash_mha_attention(q, k, v)
+  x = q.reshape(1, -1)
+  fused_epilogue.fused_add_rmsnorm(x, x, torch.zeros_like(x[0]))
+  torch.cuda.synchronize()
+  assert (mha_attention.launches, fused_epilogue.launches) == (
+      before[0] + 1, before[1] + 1)
+
+
+@requires_cuda
+def test_mha_and_add_rmsnorm_autograd_on_cuda():
+  """The forwards launch the kernels; the backwards recompute through the
+  plain compositions and match autograd of those on the CPU."""
+
+  q, k, v = (z.float().requires_grad_() for z in _mha_inputs(1, 90, 2, 64))
+  qb, kb, vb = (z.detach().bfloat16().requires_grad_() for z in (q, k, v))
+  before = mha_attention.launches
+  out = mha_attention.flash_mha_attention(qb, kb, vb)
+  grads = torch.autograd.grad(out.float().square().sum(), (qb, kb, vb))
+  assert mha_attention.launches == before + 1
+  assert all(torch.isfinite(g).all() for g in grads)
+
+  x, r = (torch.randn(3, 256, device="cuda").requires_grad_()
+          for _ in range(2))
+  s = torch.zeros(256, device="cuda").requires_grad_()
+  y, normed = fused_epilogue.fused_add_rmsnorm(x, r, s)
+  got = torch.autograd.grad((y * normed).sum(), (x, r, s))
+  cpu = [z.detach().cpu().requires_grad_() for z in (x, r, s)]
+  y_c, n_c = fused_epilogue.fused_add_rmsnorm(*cpu)
+  want = torch.autograd.grad((y_c * n_c).sum(), cpu)
+  for g, w in zip(got, want):
+    torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=1e-4)
+
+
+@requires_cuda
+def test_new_cuda_wrappers_raise_on_unsupported_inputs():
+
+  q = torch.zeros(1, 8, 2, 64, device="cuda")
+  with pytest.raises(ValueError, match="bfloat16"):
+    mha_attention.flash_mha_attention(q, q, q)
+  q = torch.zeros(1, 8, 2, 32, device="cuda", dtype=torch.bfloat16)
+  with pytest.raises(ValueError, match="head_dim"):
+    mha_attention.flash_mha_attention(q, q, q)
+  x = torch.zeros(2, 64, device="cuda", dtype=torch.float16)
+  with pytest.raises(ValueError, match="float32 or bfloat16"):
+    fused_epilogue.fused_add_rmsnorm(x, x, x[0])
+  x = torch.zeros(2, 4, device="cuda", dtype=torch.bfloat16)
+  with pytest.raises(ValueError, match="16 bytes"):
+    fused_epilogue.fused_add_rmsnorm(x, x, x[0])

@@ -163,7 +163,7 @@ def test_config_from_numpy_params_equals_jax():
 
 
 def test_port_hygiene(monkeypatch):
-  """The port, its training subpackage included, imports no JAX and
+  """The port, its training and vision modules included, imports no JAX and
   nothing of the JAX package, and its entry points refuse to fall back to
   the CPU without being asked."""
   probe = (
@@ -172,6 +172,8 @@ def test_port_hygiene(monkeypatch):
       "import cadence_gemma_tpu_torch.training.train_loop; "
       "import cadence_gemma_tpu_torch.training.trainer; "
       "import cadence_gemma_tpu_torch.training.data; "
+      "import cadence_gemma_tpu_torch.models.vit; "
+      "import cadence_gemma_tpu_torch.inference.modal_sampler; "
       "new = set(sys.modules) - before; "
       "print(sorted(m for m in new if m.split('.')[0] in "
       "('jax', 'jaxlib', 'flax', 'cadence_gemma_tpu')))"
@@ -204,3 +206,22 @@ def test_port_hygiene(monkeypatch):
     convert.griffin_from_flax_params(params, tmodel.config)
   with pytest.raises(RuntimeError, match="device='cpu'"):
     port.Sampler(tmodel, port.SimpleVocab(["a"]))
+
+
+def test_vision_entry_points_need_a_card_unless_asked(monkeypatch):
+  """The encoder, its converter and the ModalSampler run on the card by
+  default and raise without one; device='cpu' is the only way to the CPU."""
+  monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    port.DinoSigLIPEncoder()
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    convert.encoder_from_flax_params({})
+  _, _, tmodel = tiny_pair()
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    port.ModalSampler(tmodel, port.SimpleVocab(["a"]))
+  tiny = port.ViTConfig(embed_dim=128, depth=1, num_heads=2,
+                        mlp_hidden_dim=32, patch_size=7, image_size=14)
+  encoder = port.DinoSigLIPEncoder(tiny, tiny, device="cpu")
+  sampler = port.ModalSampler(tmodel, port.SimpleVocab(["a"]), encoder,
+                              device="cpu")
+  assert sampler.device.type == encoder.device.type == "cpu"

@@ -152,6 +152,11 @@ def test_loss_and_gradient_tree_match_jax(jax_pair, jax_loss_and_grads):
   assert set(want) == set(named)
   for name, g_want in want.items():
     g_got = named[name].grad
+    if name.startswith("vl_connector."):
+      # The text-only loss does not reach the connector: no .grad here, a
+      # zero gradient in JAX.
+      assert g_got is None and not g_want.any(), name
+      continue
     assert g_got is not None, name
     # Relative to each leaf's largest gradient: float32 reassociation over
     # three blocks, the chunked loss and the scans stays below 1e-4.
