@@ -25,6 +25,7 @@ import torch
 from cadence_gemma_tpu_torch import common
 from cadence_gemma_tpu_torch.models import griffin
 from cadence_gemma_tpu_torch.models import vit
+from cadence_gemma_tpu_torch.parallel import sharding
 
 
 def read_npz_params(path: str, prefix: str = "p") -> dict[str, Any]:
@@ -106,12 +107,14 @@ def griffin_from_flax_params(
     dtype: torch.dtype = torch.bfloat16,
     use_flash_attention: bool | None = None,
     fused_epilogue: bool = False,
+    scan_sharding_spec: sharding.ShardingSpec | None = None,
 ) -> griffin.Griffin:
   """Builds a ``Griffin`` holding a flax tree's weights.
 
   ``config`` defaults to the one the tree's shapes imply
   (``GriffinConfig.from_flax_params_or_variables``); ``device=None`` means
-  CUDA, and raises when there is none.
+  CUDA, and raises when there is none. ``scan_sharding_spec`` adds no
+  weights; it is passed to the ``Griffin``.
   """
   device = griffin.resolve_device(device)
   if config is None:
@@ -119,6 +122,7 @@ def griffin_from_flax_params(
   model = griffin.Griffin(
       config, device="meta", dtype=dtype,
       use_flash_attention=use_flash_attention, fused_epilogue=fused_epilogue,
+      scan_sharding_spec=scan_sharding_spec,
   )
   model.to_empty(device=device)
   load_flax_params(model, params)

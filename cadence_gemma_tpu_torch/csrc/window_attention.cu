@@ -1,17 +1,21 @@
 // Causal sliding-window multi-query flash attention, forward (prefill).
 //
-// q [b, t, n, h], k and v [b, t, 1, h] in bf16; out [b, t, n, h] in bf16 and
-// the fp32 logsumexp lse [b, n, t]. Key kp is visible to query qp iff
-//   max(qp - W, qp - segment_pos[qp]) <= kp <= qp,
+// q [b, t, n, h], k and v [b, P + t, 1, h] in bf16, where the first P =
+// kv_prefix keys and values precede the queries in time (a sequence-parallel
+// shard's halo: the previous shard's last keys); out [b, t, n, h] in bf16 and
+// the fp32 logsumexp lse [b, n, t]. Positions are taken in the keys' frame,
+// where query i sits at qp = P + i. Key kp is visible to query i iff
+//   max(0, qp - W, qp - segment_pos[i]) <= kp <= qp,
 // i.e. inside the window and inside the query's document. Rows with
 // segment_pos < 0 (left padding) output zeros and lse = 1e30. Scores are
 // scaled by `scale` (head_dim ** -0.5); softmax statistics and the output
-// accumulator are fp32.
+// accumulator are fp32. With P = 0 the arithmetic is the same as before
+// kv_prefix existed, and so are the bits.
 //
 // Replaces the TPU kernel cadence_gemma_tpu/ops/pallas_attention.py::
 // _attn_kernel, reached through flash_window_attention ->
-// _flash_window_forward. The sequence-parallel key halo (kv_prefix) and the
-// backward kernels are not ported here.
+// _flash_window_forward, with and without its kv_prefix (q_offset) halo.
+// The backward kernels are in window_attention_backward.cu.
 //
 // What bounds it: at the 2B's head_dim 256 and window 2048 the band holds
 // ~2000 keys per query, so the two products QK^T and PV do ~1000 flops per
@@ -96,7 +100,7 @@ __global__ void __launch_bounds__(kThreads)
                             const int* __restrict__ segment_pos,
                             __nv_bfloat16* __restrict__ out,
                             float* __restrict__ lse, int seq, int heads,
-                            int window, float scale) {
+                            int window, int kv_prefix, float scale) {
   using L = Layout<H>;
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* s_q = reinterpret_cast<__nv_bfloat16*>(smem + L::kQ);
@@ -117,16 +121,19 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int q_rows = min(kBlockQ, seq - q0);
+  const int kv_len = kv_prefix + seq;
 
   if (tid == 0) kv_lo = INT_MAX;
   __syncthreads();
-  // Per-row first visible key, never before key 0 (positions need not start
-  // at 0 when no cache precedes them); INT_MAX marks a row that sees nothing.
+  // Per-row first visible key in the keys' frame, never before key 0
+  // (positions need not start at 0 when no cache precedes them); INT_MAX
+  // marks a row that sees nothing. A shard's halo is masked for a row whose
+  // document starts inside the shard, by the same bound.
   for (int r = tid; r < kBlockQ; r += kThreads) {
     int lower = INT_MAX;
     if (r < q_rows) {
-      const int qp = q0 + r;
-      const int pos = segment_pos[static_cast<int64_t>(batch) * seq + qp];
+      const int qp = kv_prefix + q0 + r;
+      const int pos = segment_pos[static_cast<int64_t>(batch) * seq + q0 + r];
       if (pos >= 0) lower = max(0, max(qp - window, qp - pos));
     }
     s_lower[r] = lower;
@@ -143,10 +150,12 @@ __global__ void __launch_bounds__(kThreads)
                q_stride, kBlockQ, q_rows);
   __syncthreads();
 
-  const __nv_bfloat16* k_b = k + static_cast<int64_t>(batch) * seq * H;
-  const __nv_bfloat16* v_b = v + static_cast<int64_t>(batch) * seq * H;
+  const __nv_bfloat16* k_b = k + static_cast<int64_t>(batch) * kv_len * H;
+  const __nv_bfloat16* v_b = v + static_cast<int64_t>(batch) * kv_len * H;
+  // Key tiles from the first visible key of the block to its diagonal.
   const int kb_first = kv_lo == INT_MAX ? 1 : kv_lo / kBlockK;
-  const int kb_last = kv_lo == INT_MAX ? 0 : (q0 + q_rows - 1) / kBlockK;
+  const int kb_last =
+      kv_lo == INT_MAX ? 0 : (kv_prefix + q0 + q_rows - 1) / kBlockK;
 
   // Softmax work split: 4 threads per row, 16 columns each.
   const int sm_row = tid / 4;
@@ -154,7 +163,7 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int kb = kb_first; kb <= kb_last; ++kb) {
     const int k0 = kb * kBlockK;
-    const int k_rows = min(kBlockK, seq - k0);
+    const int k_rows = min(kBlockK, kv_len - k0);
     load_tile<H>(s_k, L::kLdQkv, k_b + static_cast<int64_t>(k0) * H, H,
                  kBlockK, k_rows);
     load_tile<H>(s_v, L::kLdQkv, v_b + static_cast<int64_t>(k0) * H, H,
@@ -197,7 +206,7 @@ __global__ void __launch_bounds__(kThreads)
 
     // Online softmax over this tile's 64 columns.
     {
-      const int qp = q0 + sm_row;
+      const int qp = kv_prefix + q0 + sm_row;
       const int lower = s_lower[sm_row];
       float sv[16];
       float mx = -INFINITY;
@@ -299,7 +308,7 @@ __global__ void __launch_bounds__(kThreads)
 template <int H>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* segment_pos, void* out, float* lse, int batch,
-                   int seq, int heads, int window, float scale,
+                   int seq, int heads, int window, int kv_prefix, float scale,
                    cudaStream_t stream) {
   if (batch == 0 || seq == 0 || heads == 0) return cudaSuccess;
   constexpr size_t kSmem = Layout<H>::kBytes;
@@ -312,29 +321,33 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), segment_pos,
-      static_cast<__nv_bfloat16*>(out), lse, seq, heads, window, scale);
+      static_cast<__nv_bfloat16*>(out), lse, seq, heads, window, kv_prefix,
+      scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Pointers must be 16-byte aligned and the tensors contiguous. head_dim is
-// one the presets use: 256 (RecurrentGemma) or 128 (Griffin). Returns the
-// cudaError_t of the launch (0 on success).
+// Pointers must be 16-byte aligned and the tensors contiguous; k and v hold
+// kv_prefix + seq rows a batch. head_dim is one the presets use: 256
+// (RecurrentGemma) or 128 (Griffin). Returns the cudaError_t of the launch
+// (0 on success).
 extern "C" int cg_window_attention_forward(const void* q, const void* k,
                                            const void* v,
                                            const int* segment_pos, void* out,
                                            float* lse, int batch, int seq,
                                            int heads, int head_dim, int window,
-                                           float scale, void* stream) {
+                                           int kv_prefix, float scale,
+                                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kv_prefix < 0) return static_cast<int>(cudaErrorInvalidValue);
   switch (head_dim) {
     case 128:
       return launch<128>(q, k, v, segment_pos, out, lse, batch, seq, heads,
-                         window, scale, s);
+                         window, kv_prefix, scale, s);
     case 256:
       return launch<256>(q, k, v, segment_pos, out, lse, batch, seq, heads,
-                         window, scale, s);
+                         window, kv_prefix, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

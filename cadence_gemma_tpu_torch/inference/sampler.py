@@ -21,6 +21,14 @@ Counterpart of the JAX package's ``Sampler``
 
 JAX buckets prompt lengths to powers of two to bound recompilation; eager
 PyTorch compiles nothing, so the port pads only to the longest prompt.
+
+A model built with ``scan_sharding_spec`` (sequence parallelism) prefills
+sequence-parallel when the padded prompt length -- the longest prompt's --
+divides into the mesh's sequence shards; pad the prompt text to such a
+length. When it does not, each attention block falls back to its unsharded
+path (``can_sequence_shard`` is false), as in JAX, but the RG-LRU scan
+raises ``ValueError``, as JAX's ``shard_map`` does. Decode steps (one token)
+never shard.
 Chunked prefill, prefix and conversational state, grammar constraints,
 per-row sampling overrides, the repetition penalty and CUDA-graph decode
 are not ported yet.

@@ -22,6 +22,7 @@ from torch.utils import checkpoint as checkpoint_lib
 from cadence_gemma_tpu_torch import common
 from cadence_gemma_tpu_torch.models import layers
 from cadence_gemma_tpu_torch.models import modules
+from cadence_gemma_tpu_torch.parallel import sharding
 
 Cache = dict[str, modules.ResidualBlockCache]
 
@@ -59,6 +60,10 @@ class Griffin(nn.Module):
       only while autograd records, so inference is unchanged.
     fused_epilogue: Fuse each block's residual add and channel pre-norm
       into one pass (the CUDA ``add_rmsnorm`` kernel on the card).
+    scan_sharding_spec: Runs every RG-LRU scan and every prompt's attention
+      sequence-parallel over the spec's mesh (``griffin.py:41-47,100`` in
+      JAX): the prompt's length must divide into the sequence shards. Adds
+      no weights; forward only on the kernel path.
   """
 
   def __init__(
@@ -70,11 +75,13 @@ class Griffin(nn.Module):
       use_flash_attention: bool | None = None,
       gradient_checkpointing: bool = True,
       fused_epilogue: bool = False,
+      scan_sharding_spec: sharding.ShardingSpec | None = None,
   ):
     super().__init__()
     device = resolve_device(device)
     self.config = config
     self.gradient_checkpointing = gradient_checkpointing
+    self.scan_sharding_spec = scan_sharding_spec
     kw = dict(device=device, dtype=dtype)
     self.embedder = modules.Embedder(
         config.vocab_size, config.width,
@@ -91,6 +98,7 @@ class Griffin(nn.Module):
             scan_type=config.scan_type,
             use_flash_attention=use_flash_attention,
             fused_epilogue=fused_epilogue,
+            scan_sharding_spec=scan_sharding_spec,
             **kw,
         )
         for block_type in config.block_types

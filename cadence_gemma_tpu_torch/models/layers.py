@@ -23,6 +23,7 @@ from torch.nn import functional as F
 from cadence_gemma_tpu_torch import common
 from cadence_gemma_tpu_torch.ops import fused_epilogue
 from cadence_gemma_tpu_torch.ops import scan
+from cadence_gemma_tpu_torch.parallel import sharding
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -133,7 +134,8 @@ class RGLRU(nn.Module):
   ``a_t = exp(-8 sigmoid(W_a x_t) softplus(a_param))``; the state resets at
   ``segment_pos == 0``. The scan goes through :func:`scan.linear_scan`,
   which launches the CUDA kernels on the card (the forward scan, and the
-  cotangent scan in the backward).
+  cotangent scan in the backward); with ``scan_sharding_spec`` it runs
+  sequence-parallel over the spec's mesh (``layers.py:437-443`` in JAX).
   """
 
   def __init__(
@@ -141,11 +143,13 @@ class RGLRU(nn.Module):
       width: int,
       num_heads: int,
       scan_type: common.ScanType = common.ScanType.AUTO,
+      scan_sharding_spec: sharding.ShardingSpec | None = None,
       device=None,
       dtype=None,
   ):
     super().__init__()
     self.scan_type = scan_type
+    self.scan_sharding_spec = scan_sharding_spec
     self.a_param = nn.Parameter(torch.empty(width, device=device, dtype=dtype))
     self.input_gate = BlockDiagonalLinear(
         width, num_heads, device=device, dtype=dtype
@@ -182,6 +186,7 @@ class RGLRU(nn.Module):
         a=torch.where(reset, torch.zeros_like(a), a),
         h0=cache,
         scan_type=self.scan_type,
+        sharding_spec=self.scan_sharding_spec,
     )
     return y, (h_last if return_cache else None)
 

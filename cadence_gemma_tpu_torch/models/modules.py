@@ -7,7 +7,9 @@ with the same parameter names and cache semantics:
     half of the head dimensions, a float32 softmax with a large negative mask
     fill, and a ring KV cache of exactly ``window_size`` slots driven by a
     ``num_tokens`` counter. A prompt longer than the window on the card goes
-    through the CUDA window-attention kernel.
+    through the CUDA window-attention kernel; with a sharding spec the
+    prompt runs sequence-parallel, each shard against its predecessor's
+    last ``window`` keys (the halo exchange of ``parallel/sp_attention.py``).
   * RecurrentBlock: gelu(y-branch) * (Conv1D -> RG-LRU)(x-branch), then an
     output projection. Cache = (fp32 RG-LRU state, conv tail).
   * Gated-GeLU MLP with a fused ``(2, d, D)`` up-projection.
@@ -29,6 +31,8 @@ from torch import nn
 from cadence_gemma_tpu_torch import common
 from cadence_gemma_tpu_torch.models import layers
 from cadence_gemma_tpu_torch.ops import window_attention as window_attention_lib
+from cadence_gemma_tpu_torch.parallel import sharding
+from cadence_gemma_tpu_torch.parallel import sp_attention
 
 _MIN_LOGITS_VALUE = window_attention_lib.MIN_LOGITS_VALUE
 _MAX_WAVELENGTH = 10_000
@@ -237,7 +241,13 @@ def _should_use_flash_attention(
 
 
 class LocalAttentionBlock(nn.Module):
-  """Sliding-window multi-query attention (one shared KV head)."""
+  """Sliding-window multi-query attention (one shared KV head).
+
+  ``sharding_spec`` runs a prompt (no cache) sequence-parallel when
+  :func:`sp_attention.can_sequence_shard` allows it and the kernel dispatch
+  would take the kernel at the shards' local length (``modules.py:452-469``
+  in JAX); otherwise the unsharded path runs.
+  """
 
   def __init__(
       self,
@@ -245,6 +255,7 @@ class LocalAttentionBlock(nn.Module):
       num_heads: int,
       window_size: int,
       use_flash_attention: bool | None = None,
+      sharding_spec: sharding.ShardingSpec | None = None,
       device=None,
       dtype=None,
   ):
@@ -252,6 +263,7 @@ class LocalAttentionBlock(nn.Module):
     self.num_heads = num_heads
     self.window_size = window_size
     self.use_flash_attention = use_flash_attention
+    self.sharding_spec = sharding_spec
     self.head_dim = width // num_heads
     kw = dict(device=device, dtype=dtype)
     self.proj_q = layers.Dense(width, width, use_bias=False, **kw)
@@ -294,6 +306,19 @@ class LocalAttentionBlock(nn.Module):
           if return_cache
           else None
       )
+      spec = self.sharding_spec
+      if (
+          spec is not None
+          and sp_attention.can_sequence_shard(spec, t, self.window_size)
+          and _should_use_flash_attention(
+              t // spec.mesh.shape[spec.sequence_axis_name],
+              self.window_size, self.use_flash_attention, x.device,
+          )
+      ):
+        encoded = sp_attention.sequence_sharded_attention(
+            queries, keys, values, segment_pos, self.window_size, spec
+        )
+        return self.proj_final(encoded.flatten(-2)), new_cache
       if _should_use_flash_attention(
           t, self.window_size, self.use_flash_attention, x.device
       ):
@@ -331,6 +356,7 @@ class RecurrentBlock(nn.Module):
       lru_width: int | None = None,
       conv1d_temporal_width: int = 4,
       scan_type: common.ScanType = common.ScanType.AUTO,
+      scan_sharding_spec: sharding.ShardingSpec | None = None,
       device=None,
       dtype=None,
   ):
@@ -341,7 +367,8 @@ class RecurrentBlock(nn.Module):
     self.linear_x = layers.Dense(width, lru_width, **kw)
     self.linear_out = layers.Dense(lru_width, width, **kw)
     self.conv_1d = layers.Conv1D(lru_width, conv1d_temporal_width, **kw)
-    self.rg_lru = layers.RGLRU(lru_width, num_heads, scan_type, **kw)
+    self.rg_lru = layers.RGLRU(lru_width, num_heads, scan_type,
+                               scan_sharding_spec, **kw)
 
   def forward(
       self,
@@ -422,6 +449,8 @@ class ResidualBlock(nn.Module):
 
   ``fused_epilogue=True`` computes the residual add after the temporal mixer
   and the channel pre-norm in one pass (``RMSNorm(x, residual=...)``).
+  ``scan_sharding_spec`` goes to the RG-LRU scan or, as ``sharding_spec``,
+  to the attention block (``modules.py:580,789,805`` in JAX).
   """
 
   def __init__(
@@ -436,6 +465,7 @@ class ResidualBlock(nn.Module):
       scan_type: common.ScanType = common.ScanType.AUTO,
       use_flash_attention: bool | None = None,
       fused_epilogue: bool = False,
+      scan_sharding_spec: sharding.ShardingSpec | None = None,
       device=None,
       dtype=None,
   ):
@@ -446,11 +476,13 @@ class ResidualBlock(nn.Module):
     self.temporal_pre_norm = layers.RMSNorm(width, **kw)
     if temporal_block_type is common.TemporalBlockType.RECURRENT:
       self.recurrent_block = RecurrentBlock(
-          width, num_heads, lru_width, conv1d_temporal_width, scan_type, **kw
+          width, num_heads, lru_width, conv1d_temporal_width, scan_type,
+          scan_sharding_spec, **kw
       )
     else:
       self.attention_block = LocalAttentionBlock(
-          width, num_heads, attention_window_size, use_flash_attention, **kw
+          width, num_heads, attention_window_size, use_flash_attention,
+          scan_sharding_spec, **kw
       )
     self.channel_pre_norm = layers.RMSNorm(width, **kw)
     self.mlp_block = MLPBlock(width, mlp_expanded_width, **kw)

@@ -4,26 +4,35 @@ Computes ``h_t = a_t * h_{t-1} + x_t`` over the time axis of ``[b, t, d]``
 inputs with a float32 carry; ``y`` comes back in ``x``'s dtype and the final
 state ``h_last`` in float32. Counterpart of the JAX package's
 ``lru_pallas_scan`` (``cadence_gemma_tpu/ops/pallas_lru.py``) with its
-``custom_vjp``, without sequence parallelism or complex operands.
+``custom_vjp`` and the forward of its sequence-parallel ``_sharded_scan``;
+complex operands are not ported.
 
 :func:`lru_scan` is differentiable. Its forward runs :func:`lru_scan_forward`
 and its backward :func:`lru_scan_backward`, the cotangent scan of
 ``_lru_bwd``; each launches its kernel of ``csrc/lru_scan.cu`` for a CUDA
 tensor and takes its plain version (:func:`lru_scan_plain`,
-:func:`lru_scan_backward_plain`) only for a CPU tensor. A kernel that fails
-to build or launch raises; nothing falls back.
+:func:`lru_scan_backward_plain`) only for a CPU tensor. With
+``return_a_prod=True`` either also returns the running product of ``a``
+(``compute_a_prod``), which :func:`sharded_scan` needs to stitch the shards
+of a sequence-parallel scan together. A kernel that fails to build or launch
+raises; nothing falls back.
 """
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 
 from cadence_gemma_tpu_torch import _build
+from cadence_gemma_tpu_torch.parallel import sharding
 
-# Kernel launches in this process, forward and backward; callers reset them
-# to count one run.
+# Kernel launches in this process: forward and backward without the running
+# product of `a`, and with it; callers reset them to count one run.
 launches = 0
 backward_launches = 0
+a_prod_launches = 0
+backward_a_prod_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -33,26 +42,43 @@ def lru_scan_plain(
     a: torch.Tensor,
     h0: torch.Tensor | None = None,
     reverse: bool = False,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    return_a_prod: bool = False,
+):
   """Sequential scan, one step at a time with a float32 carry.
 
   The same arithmetic as the kernel: a rounded multiply then a rounded add
   in float32, each step's output cast to ``x.dtype``. Differentiable by
   autograd (it is also the ``LINEAR_NATIVE`` scan).
+
+  Returns ``(y, h_last)``, or ``((y, h_last), (a_prod, a_prod_last))`` with
+  ``return_a_prod`` (the JAX ``lru_linear_scan``'s contract,
+  ``cadence_gemma_tpu/ops/scan.py:49-93``): the running product of ``a`` in
+  the walk's order from a float32 carry that starts at 1, each step a
+  separately rounded float32 multiply, in ``x.dtype``, and its last value in
+  float32 (``pallas_lru.py:142-160``).
   """
   batch, seq_len, dim = x.shape
   if h0 is None:
     h = torch.zeros(batch, dim, dtype=torch.float32, device=x.device)
   else:
     h = h0.float()
+  p = torch.ones(batch, dim, dtype=torch.float32, device=x.device)
   steps = range(seq_len - 1, -1, -1) if reverse else range(seq_len)
-  ys = []
+  ys, ps = [], []
   for t in steps:
-    h = a[:, t].float() * h + x[:, t].float()
+    a_t = a[:, t].float()
+    h = a_t * h + x[:, t].float()
     ys.append(h.to(x.dtype))
+    if return_a_prod:
+      p = p * a_t
+      ps.append(p.to(x.dtype))
   if reverse:
     ys.reverse()
-  return torch.stack(ys, dim=1), h
+    ps.reverse()
+  y = torch.stack(ys, dim=1)
+  if return_a_prod:
+    return (y, h), (torch.stack(ps, dim=1), p)
+  return y, h
 
 
 def lru_scan_backward_plain(
@@ -60,25 +86,38 @@ def lru_scan_backward_plain(
     a: torch.Tensor,
     dh_last: torch.Tensor | None = None,
     reverse: bool = False,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    return_a_prod: bool = False,
+):
   """The cotangent scan of a forward scan run with the same ``reverse``.
 
   Walks against the forward's direction: ``h += g_t``, ``dx_t = h``, then
   ``h *= a_t``, each a separately rounded float32 operation as in the
   kernel. ``dh_last`` (float32, ``None`` for zeros) starts the carry.
-  Returns ``(dx in g.dtype, dh0 = a_0 * dh_0 in float32)``.
+  Returns ``(dx in g.dtype, dh0 = a_0 * dh_0 in float32)``; with
+  ``return_a_prod``, ``((dx, dh0), (a_prod, a_prod_last))`` where the
+  running product of ``a`` follows this backward walk, as
+  ``_lru_pallas_call(backprop=True, compute_a_prod=True)`` computes it
+  (``pallas_lru.py:145-160``).
   """
   batch, seq_len, dim = g.shape
   if dh_last is None:
     h = torch.zeros(batch, dim, dtype=torch.float32, device=g.device)
   else:
     h = dh_last.float()
+  p = torch.ones(batch, dim, dtype=torch.float32, device=g.device)
   dx = torch.empty_like(g)
+  a_prod = torch.empty_like(g) if return_a_prod else None
   steps = range(seq_len) if reverse else range(seq_len - 1, -1, -1)
   for t in steps:
+    a_t = a[:, t].float()
     h = h + g[:, t].float()
     dx[:, t] = h.to(g.dtype)
-    h = h * a[:, t].float()
+    h = h * a_t
+    if return_a_prod:
+      p = p * a_t
+      a_prod[:, t] = p.to(g.dtype)
+  if return_a_prod:
+    return (dx, h), (a_prod, p)
   return dx, h
 
 
@@ -101,27 +140,34 @@ def _check(x, a, h0):
       raise ValueError("`h0` must be on the same device as `x`.")
 
 
-def _launch(symbol: str, x, a, h0, reverse):
-  """Runs one scan kernel of ``csrc/lru_scan.cu``; returns (out, carry)."""
+def _launch(symbol: str, x, a, h0, reverse, return_a_prod=False):
+  """Runs one scan kernel of ``csrc/lru_scan.cu``; returns (out, carry), or
+  ((out, carry), (a_prod, a_prod_last)) with ``return_a_prod``."""
   if x.device.type != "cuda":
     raise ValueError(f"lru_scan runs on CUDA or CPU tensors, not {x.device}.")
-  fn = _build.function("lru_scan", symbol, "pppppiiiiip")
+  if return_a_prod:
+    fn = _build.function("lru_scan", symbol + "_a_prod", "pppppppiiiiip")
+  else:
+    fn = _build.function("lru_scan", symbol, "pppppiiiiip")
   batch, seq_len, dim = x.shape
   x = x.contiguous()
   a = a.contiguous()
   h0 = None if h0 is None else h0.contiguous()
   out = torch.empty_like(x)
   carry = torch.empty(batch, dim, dtype=torch.float32, device=x.device)
+  products = ()
+  if return_a_prod:
+    products = (torch.empty_like(x), torch.empty_like(carry))
   with torch.cuda.device(x.device):
     err = fn(
         x.data_ptr(), a.data_ptr(), None if h0 is None else h0.data_ptr(),
-        out.data_ptr(), carry.data_ptr(), batch, seq_len, dim,
-        _DTYPE_CODES[x.dtype], int(reverse),
+        out.data_ptr(), carry.data_ptr(), *(z.data_ptr() for z in products),
+        batch, seq_len, dim, _DTYPE_CODES[x.dtype], int(reverse),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
   if err:
     raise RuntimeError(f"{symbol} CUDA kernel failed: cudaError_t {err}.")
-  return out, carry
+  return ((out, carry), products) if return_a_prod else (out, carry)
 
 
 def lru_scan_forward(
@@ -129,17 +175,23 @@ def lru_scan_forward(
     a: torch.Tensor,
     h0: torch.Tensor | None = None,
     reverse: bool = False,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    return_a_prod: bool = False,
+):
   """The forward scan: its CUDA kernel on the card, the plain loop on CPU.
 
-  Returns ``(y, h_last)``: outputs in ``x.dtype``, final state in float32.
+  Returns ``(y, h_last)``: outputs in ``x.dtype``, final state in float32;
+  with ``return_a_prod``, ``((y, h_last), (a_prod, a_prod_last))`` (see
+  :func:`lru_scan_plain`), counted in ``a_prod_launches``.
   """
-  global launches
+  global launches, a_prod_launches
   _check(x, a, h0)
   if x.device.type == "cpu":
-    return lru_scan_plain(x, a, h0, reverse)
-  out = _launch("cg_lru_scan_forward", x, a, h0, reverse)
-  launches += 1
+    return lru_scan_plain(x, a, h0, reverse, return_a_prod)
+  out = _launch("cg_lru_scan_forward", x, a, h0, reverse, return_a_prod)
+  if return_a_prod:
+    a_prod_launches += 1
+  else:
+    launches += 1
   return out
 
 
@@ -148,17 +200,23 @@ def lru_scan_backward(
     a: torch.Tensor,
     dh_last: torch.Tensor | None = None,
     reverse: bool = False,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    return_a_prod: bool = False,
+):
   """The cotangent scan: its CUDA kernel on the card, the plain loop on CPU.
 
-  Returns ``(dx, dh0)``; see :func:`lru_scan_backward_plain`.
+  Returns ``(dx, dh0)``, or with ``return_a_prod`` also the running product
+  of ``a`` along this walk, counted in ``backward_a_prod_launches``; see
+  :func:`lru_scan_backward_plain`.
   """
-  global backward_launches
+  global backward_launches, backward_a_prod_launches
   _check(g, a, dh_last)
   if g.device.type == "cpu":
-    return lru_scan_backward_plain(g, a, dh_last, reverse)
-  out = _launch("cg_lru_scan_backward", g, a, dh_last, reverse)
-  backward_launches += 1
+    return lru_scan_backward_plain(g, a, dh_last, reverse, return_a_prod)
+  out = _launch("cg_lru_scan_backward", g, a, dh_last, reverse, return_a_prod)
+  if return_a_prod:
+    backward_a_prod_launches += 1
+  else:
+    backward_launches += 1
   return out
 
 
@@ -207,3 +265,39 @@ def lru_scan(
     ``(y, h_last)``: outputs in ``x.dtype`` and the final state in float32.
   """
   return _LRUScan.apply(x, a, h0, reverse)
+
+
+def sharded_scan(
+    xs: Sequence[torch.Tensor],
+    as_: Sequence[torch.Tensor],
+    h0s: Sequence[torch.Tensor | None],
+    reverse: bool = False,
+) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
+  """The scan of one sequence-parallel domain: the forward of ``_sharded_scan``
+  (``cadence_gemma_tpu/ops/pallas_lru.py:453-486``).
+
+  ``xs[j]``, ``as_[j]`` are shard ``j``'s ``[b, t_j, d]`` chunks of the time
+  axis, in time order, each on its own device, and ``h0s[j]`` the global
+  initial state (float32 ``[b, d]`` or ``None``) on that device. With one
+  shard this is :func:`lru_scan` with ``h0`` passed through. Otherwise every
+  shard runs the kernel with the running product of ``a`` and no carry, and
+  :func:`sharding.scan_with_correction` gathers the shards' ``(h_last,
+  a_prod_last)`` pairs and turns each local scan into its part of the
+  global one (every shard returns the global final state).
+
+  Returns ``(ys, h_lasts)``, one entry per shard on the shard's device.
+
+  Forward only: a multi-shard scan raises ``NotImplementedError`` while
+  autograd records (the sharded cotangent scan is not ported).
+  """
+  if len(xs) == 1:
+    y, h_last = lru_scan(xs[0], as_[0], h0s[0], reverse)
+    return [y], [h_last]
+  if torch.is_grad_enabled() and any(
+      z is not None and z.requires_grad for z in (*xs, *as_, *h0s)):
+    raise NotImplementedError(
+        "Gradients of a sequence-parallel scan are not ported (SP training, "
+        "ROADMAP queue 1 item 14); run it under torch.no_grad()."
+    )
+  return sharding.scan_with_correction(lru_scan_forward, xs, as_, h0s,
+                                      reverse)

@@ -4,8 +4,10 @@ Counterpart of the JAX package's ``flash_window_attention`` with its
 ``custom_vjp`` (``_flash_window_forward``, ``_flash_window_backward``;
 ``cadence_gemma_tpu/ops/pallas_attention.py``).
 Queries ``[b, t, n, h]`` attend over one shared key/value head
-``[b, t, 1, h]``. Key ``kp`` is visible to query ``qp`` iff
-``max(qp - W, qp - segment_pos[qp]) <= kp <= qp``: inside the window and
+``[b, kv_prefix + t, 1, h]``, whose first ``kv_prefix`` entries precede the
+queries in time (a sequence-parallel shard's halo). In the keys' frame query
+``i`` sits at ``qp = kv_prefix + i``, and key ``kp`` is visible to it iff
+``max(qp - W, qp - segment_pos[i]) <= kp <= qp``: inside the window and
 inside the query's document, since positions run contiguously within a
 document. Rows with ``segment_pos < 0`` (left padding) output zeros and a
 logsumexp of ``1e30``, which keeps a recomputed ``exp(s - lse)`` at zero.
@@ -20,7 +22,9 @@ The backward recomputes the probabilities from ``(q, k, lse)``:
 backward :func:`window_attention_dq` and :func:`window_attention_dkv`
 (``csrc/window_attention_backward.cu``). Each wrapper launches its kernel for
 CUDA tensors and takes its plain version only for CPU tensors. A kernel that
-fails to build or launch raises; nothing falls back.
+fails to build or launch raises; nothing falls back. With ``kv_prefix > 0``
+(``_flash_window_forward(kv_prefix=...)``) only the forward is ported, and
+:func:`window_attention` refuses autograd.
 """
 
 from __future__ import annotations
@@ -29,25 +33,29 @@ import torch
 
 from cadence_gemma_tpu_torch import _build
 
-# Kernel launches in this process (forward, dq, dk/dv); callers reset them
-# to count one run.
+# Kernel launches in this process (forward, dq, dk/dv, and the forward with
+# a key halo); callers reset them to count one run.
 launches = 0
 dq_launches = 0
 dkv_launches = 0
+kv_prefix_launches = 0
 
 MIN_LOGITS_VALUE = -2.3819763e38  # Masked-logit fill of the einsum path.
 MASKED_LSE = 1e30  # lse of a row that sees no key.
 KERNEL_HEAD_DIMS = (128, 256)  # the presets': Griffin, RecurrentGemma
 
 
-def band_mask(segment_pos: torch.Tensor, seq_len: int, window: int):
-  """[b, t(q), t(k)] visibility of the kernels' band."""
-  positions = torch.arange(seq_len, device=segment_pos.device)
+def band_mask(segment_pos: torch.Tensor, seq_len: int, window: int,
+              kv_prefix: int = 0):
+  """[b, t(q), kv_prefix + t(k)] visibility of the kernels' band, in the
+  keys' frame (``pallas_attention.py:156-204``)."""
+  keys = torch.arange(kv_prefix + seq_len, device=segment_pos.device)
+  positions = keys[kv_prefix:]
   seg = segment_pos.long()
   lower = torch.maximum(positions[None] - window, positions[None] - seg)
   return (
-      (positions[None, None, :] >= lower[..., None])
-      & (positions[None, None, :] <= positions[None, :, None])
+      (keys[None, None, :] >= lower[..., None])
+      & (keys[None, None, :] <= positions[None, :, None])
       & (seg >= 0)[..., None]
   )
 
@@ -58,13 +66,15 @@ def window_attention_plain(
     v: torch.Tensor,
     segment_pos: torch.Tensor,
     window: int,
+    kv_prefix: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
   """Masked-einsum attention with the kernel's exact semantics, in float32.
 
+  ``k`` and ``v`` hold ``kv_prefix`` halo rows before the queries' own.
   Returns ``([b, t, n, h] outputs in q.dtype, [b, n, t] float32 lse)``.
   """
   _, seq_len, _, head_dim = q.shape
-  visible = band_mask(segment_pos, seq_len, window)
+  visible = band_mask(segment_pos, seq_len, window, kv_prefix)
   logits = torch.einsum(
       "btnh,bsh->bnts", q.float(), k[:, :, 0].float()
   ) * (head_dim**-0.5)
@@ -167,15 +177,18 @@ def reference_attention(
   return torch.einsum("bnts,bsnh->btnh", probs, v)
 
 
-def _check(q, k, v, segment_pos):
+def _check(q, k, v, segment_pos, kv_prefix=0):
   if q.ndim != 4:
     raise ValueError(f"Expected [b, t, n, h] queries, got {tuple(q.shape)}.")
+  if kv_prefix < 0:
+    raise ValueError(f"kv_prefix must be >= 0, got {kv_prefix}.")
   batch, seq_len, _, head_dim = q.shape
+  kv_shape = (batch, kv_prefix + seq_len, 1, head_dim)
   for name, t in (("k", k), ("v", v)):
-    if t.shape != (batch, seq_len, 1, head_dim):
+    if t.shape != kv_shape:
       raise ValueError(
-          f"`{name}` must be [b, t, 1, h] = {(batch, seq_len, 1, head_dim)}, "
-          f"got {tuple(t.shape)}."
+          f"`{name}` must be [b, kv_prefix + t, 1, h] = {kv_shape}, got "
+          f"{tuple(t.shape)}."
       )
     if t.dtype != q.dtype or t.device != q.device:
       raise ValueError(f"`{name}` must match `q` in dtype and device.")
@@ -222,20 +235,23 @@ def window_attention_forward(
     v: torch.Tensor,
     segment_pos: torch.Tensor,
     window: int,
+    kv_prefix: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
   """The forward: its CUDA kernel on the card, the plain version on CPU.
 
-  Returns ``(out, lse)``: [b, t, n, h] outputs in ``q.dtype`` and the
-  [b, n, t] float32 logsumexp of each query row.
+  ``k`` and ``v`` are ``[b, kv_prefix + t, 1, h]``; a launch with
+  ``kv_prefix > 0`` counts in ``kv_prefix_launches``, one without in
+  ``launches``. Returns ``(out, lse)``: [b, t, n, h] outputs in ``q.dtype``
+  and the [b, n, t] float32 logsumexp of each query row.
   """
-  global launches
-  _check(q, k, v, segment_pos)
+  global launches, kv_prefix_launches
+  _check(q, k, v, segment_pos, kv_prefix)
   if q.device.type == "cpu":
-    return window_attention_plain(q, k, v, segment_pos, window)
+    return window_attention_plain(q, k, v, segment_pos, window, kv_prefix)
   _check_cuda(q)
   batch, seq_len, num_heads, head_dim = q.shape
   fn = _build.function(
-      "window_attention", "cg_window_attention_forward", "ppppppiiiiifp"
+      "window_attention", "cg_window_attention_forward", "ppppppiiiiiifp"
   )
   q, k, v = _contiguous_aligned(q, k, v)
   seg = segment_pos.to(torch.int32).contiguous()
@@ -247,9 +263,12 @@ def window_attention_forward(
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
         out.data_ptr(), lse.data_ptr(), batch, seq_len, num_heads, head_dim,
-        int(window), float(head_dim**-0.5), _stream(q),
+        int(window), int(kv_prefix), float(head_dim**-0.5), _stream(q),
     )
-  launches += 1
+  if kv_prefix:
+    kv_prefix_launches += 1
+  else:
+    launches += 1
   if err:
     raise RuntimeError(
         f"window_attention CUDA kernel failed: cudaError_t {err}."
@@ -397,20 +416,25 @@ def window_attention(
 
   Args:
     q: [b, t, n, h] queries (RoPE already applied).
-    k: [b, t, 1, h] keys.
-    v: [b, t, 1, h] values.
+    k: [b, kv_prefix + t, 1, h] keys.
+    v: [b, kv_prefix + t, 1, h] values.
     segment_pos: [b, t] within-document positions (0 starts a document,
       negative marks padding).
     window: The local attention window size.
-    kv_prefix: Leading halo keys of a sequence-parallel shard; only 0 is
-      supported.
+    kv_prefix: Leading halo keys and values of a sequence-parallel shard
+      (``k`` and ``v`` are then ``[b, kv_prefix + t, 1, h]``); forward only.
 
   Returns:
     ``(out, lse)``: [b, t, n, h] outputs in ``q.dtype`` and the [b, n, t]
     float32 logsumexp of each query row (no gradient flows through it).
   """
   if kv_prefix:
-    raise NotImplementedError(
-        "kv_prefix (the sequence-parallel key halo) is not supported."
-    )
+    if torch.is_grad_enabled() and any(
+        z.requires_grad for z in (q, k, v)):
+      raise NotImplementedError(
+          "Gradients of window attention with a key halo (kv_prefix) are "
+          "not ported (SP training, ROADMAP queue 1 item 14); run it under "
+          "torch.no_grad()."
+      )
+    return window_attention_forward(q, k, v, segment_pos, window, kv_prefix)
   return _WindowAttention.apply(q, k, v, segment_pos, window)

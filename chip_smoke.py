@@ -60,11 +60,35 @@ Phases, each of which raises on failure (so the script exits non-zero):
      position's logits against the plain path of the same weights (towers
      on the einsum, Griffin unfused, sequential scan, einsum attention).
 
+  9. the sequence-parallel variants of two kernels at the shapes of the SP
+     prefill's shards: the RG-LRU kernel with the running product of ``a``
+     (forward and backward walks, ``reverse`` false and true, [2, 4096,
+     2560] bf16, bit for bit against the plain loops) and the window
+     attention with a 2048-key halo (q [2, 4096, 10, 256], k and v
+     [2, 6144, 1, 256]; a later shard's continuous positions, and shard 0's
+     zero halo with a row left-padded by 1384), timed as in 3 with one
+     boolean-masked SDPA call over the same band as the yardstick;
+ 10. the sequence-parallel serving path: a full-width, full-depth
+     RecurrentGemma-2B (seeded random bf16 weights) with
+     ``scan_sharding_spec`` on a (1, 4) data x sequence mesh (four shards on
+     one card, or one on each of four) behind a ``Sampler``: prompts of 16384
+     and 15000 tokens (the second left-padded by 1384, 4096 tokens a shard)
+     and 32 greedy tokens. The counters, reset just before, must show 72 LRU
+     launches with the running product (18 recurrent blocks x 4 shards) and
+     32 attention launches with the halo (8 x 4) in the prefill, no
+     unsharded scan or attention launch, and none in decode. Each kernel is
+     held against its plain version on the inputs of its first call; the
+     last position's logits against the same weights unsharded (a second
+     ``Griffin`` from the same seed, through the unsharded kernels), whose
+     generation's token agreement is printed; SP and unsharded prefill are
+     timed in balanced turns.
+
   python3 chip_smoke.py --profile
 
 adds kernel time by name (torch.profiler) for the prefill and decode of the
-serving path, for one training step, and for the encode and the
-image-conditioned prefill, with the device's idle share.
+serving path, for one training step, for the encode and the
+image-conditioned prefill, and for the sequence-parallel prefill, with the
+device's idle share.
 
 Needs a CUDA card and the CUDA toolkit (``nvcc``); without a card it exits
 with status 1 and prints no result. The line before the last is a JSON
@@ -92,6 +116,7 @@ from cadence_gemma_tpu_torch.ops import fused_epilogue
 from cadence_gemma_tpu_torch.ops import lru_scan
 from cadence_gemma_tpu_torch.ops import mha_attention
 from cadence_gemma_tpu_torch.ops import window_attention as wa
+from cadence_gemma_tpu_torch.parallel import sharding
 from cadence_gemma_tpu_torch.tokenizers import SimpleVocab
 from cadence_gemma_tpu_torch.training import data as data_lib
 from cadence_gemma_tpu_torch.training import train_loop as train_loop_lib
@@ -173,6 +198,11 @@ DKV_REPLACES = "cadence_gemma_tpu/ops/pallas_attention.py:360"
 # _flash_mha_forward (:776, t_pad > 1024).
 MHA_REPLACES = "cadence_gemma_tpu/ops/pallas_attention.py:749"
 RMSNORM_REPLACES = "cadence_gemma_tpu/ops/fused_epilogue.py:70"
+# The sequence-parallel variants: _lru_pallas_call with compute_a_prod=True
+# (called from _sharded_scan, pallas_lru.py:471) and _flash_window_forward
+# with kv_prefix.
+LRU_A_PROD_REPLACES = "cadence_gemma_tpu/ops/pallas_lru.py:265"
+ATTN_PREFIX_REPLACES = "cadence_gemma_tpu/ops/pallas_attention.py:207"
 
 # The towers' attention: DINOv2-L (729 patches + 5 prefix tokens, head_dim
 # 64) and SigLIP-so400m (729, head_dim 72) at 384 px, batch 2; then a longer
@@ -209,6 +239,28 @@ MM_FEATURES_REL_RMS = 5e-2
 # which the fused epilogue also reduces in float32 where the plain RMSNorm
 # reduces in bf16 (as MODEL_LOGITS_REL_RMS for the text path).
 MM_LOGITS_REL_RMS = 5e-2
+
+# The sequence-parallel serving path: a (1, 4) data x sequence mesh, prompts
+# of 16384 and 15000 tokens (the second left-padded by 1384, inside shard 0),
+# 4096 tokens a shard, each shard's attention against a 2048-key halo.
+SP_SHARDS = 4
+SP_PROMPT_TOKENS = (16384, 15000)
+SP_DECODE_STEPS = 32
+SP_LOCAL_TOKENS = max(SP_PROMPT_TOKENS) // SP_SHARDS
+SP_PAD = max(SP_PROMPT_TOKENS) - min(SP_PROMPT_TOKENS)
+LRU_SP_SHAPE = (2, SP_LOCAL_TOKENS, 2560)
+ATTN_SP_SHAPE = (2, SP_LOCAL_TOKENS, 10, 256)
+# The running product is one more separately rounded float32 multiply a step
+# on both sides: bit-identical, as the scan itself.
+LRU_A_PROD_MAX_ABS_ERR = 0.0
+# SP vs unsharded logits of the same bf16 weights: the correction
+# y + h0 * a_prod is a bf16 multiply and add (as the JAX package computes
+# it), which the unsharded scan does not round; the kernels' own differences
+# as MODEL_LOGITS_REL_RMS.
+SP_LOGITS_REL_RMS = 5e-2
+# Turns of SP (True) and unsharded (False) prefills, balanced against linear
+# and quadratic drift as EPILOGUE_TURNS below.
+SP_TURNS = (True, False, False, True, False, True, True, False)
 
 
 def log(*args) -> None:
@@ -373,11 +425,12 @@ def check_lru(x, a, h0=None, reverse=False) -> float:
   return err
 
 
-def check_attention(q, k, v, seg, window) -> tuple[float, float]:
+def check_attention(q, k, v, seg, window, kv_prefix=0) -> tuple[float, float]:
   """Max abs errors (out, lse) of the kernel against its plain version;
   raises above the tolerances or if a padded row is not zero."""
-  out, lse = wa.window_attention(q, k, v, seg, window)
-  out_ref, lse_ref = wa.window_attention_plain(q, k, v, seg, window)
+  out, lse = wa.window_attention(q, k, v, seg, window, kv_prefix=kv_prefix)
+  out_ref, lse_ref = wa.window_attention_plain(q, k, v, seg, window,
+                                               kv_prefix)
   out_err, lse_err = max_err(out, out_ref), max_err(lse, lse_ref)
   log(f"  out max_abs_err {out_err}  lse max_abs_err {lse_err}")
   if not (out_err <= ATTN_OUT_MAX_ABS_ERR and lse_err <= ATTN_LSE_MAX_ABS_ERR):
@@ -589,22 +642,34 @@ def profile_main_path(sampler, prompts, prefill_ms, decode_ms) -> None:
       log(f"    {ms / steps:9.4f} ms  x{count / steps:6.1f}  {name[:90]}")
 
 
+# Traces of one call to take before giving up when the profiler hands back no
+# device event: a short trace (50 launches of a 2 µs kernel) has come back
+# empty once in a run whose kernels all launched and agreed.
+PROFILE_ATTEMPTS = 3
+
+
 def kernel_times(fn) -> dict[str, tuple[float, int]]:
-  """{kernel name: (device ms, launches)} of one call, from torch.profiler."""
+  """{kernel name: (device ms, launches)} of one call, from torch.profiler.
+
+  Raises if the profiler records no device event in PROFILE_ATTEMPTS traces
+  of the call."""
   activities = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
-  with torch.profiler.profile(activities=activities) as prof:
-    fn()
-    torch.cuda.synchronize()
-  times = {
-      e.key: (e.self_device_time_total / 1e3, e.count)
-      for e in prof.key_averages()
-      if e.device_type == torch.autograd.DeviceType.CUDA
-      and not getattr(e, "is_user_annotation", False)
-  }
-  if not times:
-    raise RuntimeError("torch.profiler recorded no kernel on the card.")
-  return times
+  for attempt in range(PROFILE_ATTEMPTS):
+    with torch.profiler.profile(activities=activities) as prof:
+      fn()
+      torch.cuda.synchronize()
+    times = {
+        e.key: (e.self_device_time_total / 1e3, e.count)
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and not getattr(e, "is_user_annotation", False)
+    }
+    if times:
+      return times
+    log(f"  torch.profiler recorded no device event (trace {attempt + 1} of "
+        f"{PROFILE_ATTEMPTS})")
+  raise RuntimeError("torch.profiler recorded no kernel on the card.")
 
 
 def training_segment_pos(dev) -> torch.Tensor:
@@ -1391,6 +1456,350 @@ def profile_multimodal(sampler, prompts, pixels, encode_ms, ttft_ms) -> None:
       log(f"    {ms:9.4f} ms  x{count:5d}  {name[:90]}")
 
 
+def check_lru_a_prod(x, a, h0=None, reverse=False, return_a_prod=True,
+                     backprop=False) -> float:
+  """Max abs error of the scan kernel with the running product of ``a``
+  against its plain loop (all four outputs); raises above the tolerance.
+  Takes the wrapper's own arguments, so a captured call replays as it is."""
+  del return_a_prod  # always on here
+  if backprop:
+    kernel, plain = lru_scan.lru_scan_backward, lru_scan.lru_scan_backward_plain
+  else:
+    kernel, plain = lru_scan.lru_scan_forward, lru_scan.lru_scan_plain
+  (y, h), (p, p_last) = kernel(x, a, h0, reverse, return_a_prod=True)
+  (y_r, h_r), (p_r, pl_r) = plain(x, a, h0, reverse, return_a_prod=True)
+  err = max(max_err(y, y_r), max_err(h, h_r), max_err(p, p_r),
+            max_err(p_last, pl_r))
+  if not err <= LRU_A_PROD_MAX_ABS_ERR:
+    raise AssertionError(f"lru_scan with a_prod disagrees with its plain "
+                         f"version: {err}")
+  return err
+
+
+def phase_lru_a_prod(dev) -> dict:
+  b, t, d = LRU_SP_SHAPE
+  rng = np.random.default_rng(SEED + 40)
+  x = torch.tensor(rng.standard_normal(LRU_SP_SHAPE, dtype=np.float32),
+                   device=dev).bfloat16()
+  a = torch.sigmoid(torch.tensor(
+      rng.standard_normal(LRU_SP_SHAPE, dtype=np.float32), device=dev
+  )).bfloat16()
+  log(f"== lru_scan with the running product of a vs plain at [{b},{t},{d}] "
+      f"bf16, the SP prefill's shard (tolerance {LRU_A_PROD_MAX_ABS_ERR} on "
+      f"y, h_last, a_prod, a_prod_last)")
+  worst = 0.0
+  for backprop in (False, True):
+    for reverse in (False, True):
+      err = check_lru_a_prod(x, a, None, reverse, backprop=backprop)
+      log(f"  {'backward' if backprop else 'forward'} walk, reverse={reverse}:"
+          f" max_abs_err {err}")
+      worst = max(worst, err)
+  # Timed as the SP prefill calls it: forward, no carry.
+  kernel = lambda: lru_scan.lru_scan_forward(x, a, None, False, True)
+  ms = cuda_ms(kernel, 20)
+  plain_ms = cuda_ms(lambda: lru_scan.lru_scan_plain(x, a, None, False, True),
+                     2)
+  # Read x and a, write y and a_prod (bf16), h_last and a_prod_last (fp32);
+  # three fp32 flops a step (the scan's multiply-add, the product's multiply).
+  n_bytes = 4 * b * t * d * 2 + 2 * b * d * 4
+  bound_ms, bound_by = bound(n_bytes, 3 * b * t * d, FP32_FLOPS)
+  log(f"  ms {ms:.4f}  plain_ms {plain_ms:.3f}  bound_ms {bound_ms:.4f} "
+      f"({bound_by}, {n_bytes / 1e6:.1f} MB); the scan without the product "
+      f"on the same inputs {cuda_ms(lambda: lru_scan.lru_scan_forward(x, a), 20):.4f} ms")
+  return dict(name="lru_scan_a_prod", route="cuda",
+              source="cadence_gemma_tpu_torch/csrc/lru_scan.cu",
+              replaces=LRU_A_PROD_REPLACES, max_abs_err=worst, ms=ms,
+              plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+              library_ms=None)
+
+
+def _halo_case(rng, dev, shard0: bool):
+  """q, [halo || local] k and v, segment_pos of one SP shard: shard 0 (a
+  zero halo, row 1 left-padded by SP_PAD) or shard 1 (positions continue
+  from 4096, a halo of the previous shard's keys)."""
+  b, t, n, h = ATTN_SP_SHAPE
+  q, k, v = (torch.tensor(rng.standard_normal(s, dtype=np.float32),
+                          device=dev).bfloat16()
+             for s in ((b, t, n, h), (b, ATTN_WINDOW + t, 1, h),
+                       (b, ATTN_WINDOW + t, 1, h)))
+  if shard0:
+    k[:, :ATTN_WINDOW] = 0
+    v[:, :ATTN_WINDOW] = 0
+    seg = np.tile(np.arange(t, dtype=np.int32), (b, 1))
+    seg[1] = np.maximum(np.arange(t, dtype=np.int32) - SP_PAD, -1)
+  else:
+    seg = np.tile(np.arange(t, 2 * t, dtype=np.int32), (b, 1))
+  return q, k, v, torch.tensor(seg, device=dev)
+
+
+def phase_attention_kv_prefix(dev) -> dict:
+  b, t, n, h = ATTN_SP_SHAPE
+  rng = np.random.default_rng(SEED + 41)
+  log(f"== window_attention with a {ATTN_WINDOW}-key halo (kv_prefix) vs "
+      f"plain: q [{b},{t},{n},{h}], k and v [{b},{ATTN_WINDOW + t},1,{h}] "
+      f"bf16, window {ATTN_WINDOW} (tolerance out {ATTN_OUT_MAX_ABS_ERR}, "
+      f"lse {ATTN_LSE_MAX_ABS_ERR})")
+  errs = []
+  for shard0, label in ((False, f"shard 1: continuous positions from {t}"),
+                        (True, f"shard 0: zero halo, row 1 left-padded by "
+                               f"{SP_PAD}")):
+    log(f"  {label}:")
+    case = _halo_case(rng, dev, shard0)
+    errs += check_attention(*case, ATTN_WINDOW, ATTN_WINDOW)
+    if not shard0:
+      timed = case
+  q, k, v, seg = timed
+  visible = wa.band_mask(seg, t, ATTN_WINDOW, ATTN_WINDOW)  # [b, t, P + t]
+  qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
+
+  def library():
+    return torch.nn.functional.scaled_dot_product_attention(
+        qt, kt.expand(-1, n, -1, -1), vt.expand(-1, n, -1, -1),
+        attn_mask=visible[:, None],
+    )
+
+  kernel = lambda: wa.window_attention_forward(q, k, v, seg, ATTN_WINDOW,
+                                               ATTN_WINDOW)
+  ms = cuda_ms(kernel, 10)
+  plain_ms = cuda_ms(lambda: wa.window_attention_plain(
+      q, k, v, seg, ATTN_WINDOW, ATTN_WINDOW), 2)
+  library_ms = cuda_ms(library, 5)
+  pairs = int(visible.sum().item())
+  flops = 4 * n * h * pairs
+  n_bytes = (2 * (2 * b * t * n * h + 2 * b * (ATTN_WINDOW + t) * h)
+             + 4 * b * t + 4 * b * n * t)
+  bound_ms, bound_by = bound(n_bytes, flops, BF16_TENSOR_FLOPS)
+  log(f"  ms {ms:.4f}  plain_ms {plain_ms:.3f}  library_ms (SDPA, boolean "
+      f"mask over the [{t}, {ATTN_WINDOW + t}] band) {library_ms:.4f}  "
+      f"bound_ms {bound_ms:.4f} ({bound_by}, {flops / 1e9:.1f} GFLOP over "
+      f"{pairs} visible pairs)")
+  return dict(name="window_attention_kv_prefix", route="cuda",
+              source="cadence_gemma_tpu_torch/csrc/window_attention.cu",
+              replaces=ATTN_PREFIX_REPLACES, max_abs_err=max(errs), ms=ms,
+              plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+              library_ms=library_ms)
+
+
+def _sp_counts() -> dict[str, int]:
+  return {"lru_scan_a_prod": lru_scan.a_prod_launches,
+          "window_attention_kv_prefix": wa.kv_prefix_launches,
+          "lru_scan": lru_scan.launches,
+          "window_attention": wa.launches}
+
+
+def _reset_sp_counts() -> None:
+  lru_scan.a_prod_launches = wa.kv_prefix_launches = 0
+  lru_scan.launches = wa.launches = 0
+
+
+def sp_mesh_spec() -> sharding.ShardingSpec:
+  """The (1, 4) data x sequence mesh: four shards on one card, or one on
+  each of four."""
+  count = torch.cuda.device_count()
+  mesh = sharding.make_mesh(
+      (1, SP_SHARDS), ("data", "sequence"),
+      [f"cuda:{i % count}" for i in range(SP_SHARDS)],
+  )
+  return sharding.ShardingSpec(mesh=mesh, batch_axis_name="data",
+                               sequence_axis_name="sequence")
+
+
+def phase_sequence_parallel(dev, kernels: list[dict], profile: bool) -> None:
+  config = common.GriffinConfig.from_preset(
+      common.Preset.RECURRENT_GEMMA_2B_V1
+  )
+  spec = sp_mesh_spec()
+  start = time.perf_counter()
+  model = griffin.Griffin(
+      config, device=dev, dtype=torch.bfloat16, scan_sharding_spec=spec,
+      generator=torch.Generator(dev).manual_seed(SEED + 42),
+  )
+  ref_model = griffin.Griffin(
+      config, device=dev, dtype=torch.bfloat16,
+      generator=torch.Generator(dev).manual_seed(SEED + 42),
+  )
+  torch.cuda.synchronize()
+  for (name, p), p_ref in zip(model.named_parameters(),
+                              ref_model.parameters()):
+    if not torch.equal(p, p_ref):
+      raise AssertionError(f"The two models' {name} differ.")
+  log(f"== sequence-parallel serving: RecurrentGemma-2B with "
+      f"scan_sharding_spec on {spec.mesh}, and the same weights unsharded "
+      f"(both built in {time.perf_counter() - start:.1f} s)")
+  n_recurrent = sum(
+      bt is common.TemporalBlockType.RECURRENT for bt in config.block_types
+  )
+  n_attention = config.num_layers - n_recurrent
+
+  # Placing a shard on the operands' card makes a view, not a copy.
+  probe = torch.empty(2, max(SP_PROMPT_TOKENS), config.width,
+                      dtype=torch.bfloat16, device=dev)
+  views = sum(z.untyped_storage().data_ptr() == probe.untyped_storage().data_ptr()
+              for row in sharding.shard_activations(probe, spec) for z in row)
+  log(f"  shards of a [2, {max(SP_PROMPT_TOKENS)}, {config.width}] "
+      f"activation that are views of it: {views} of {SP_SHARDS}")
+  if torch.cuda.device_count() == 1 and views != SP_SHARDS:
+    raise AssertionError("Sharding on one card copied an activation.")
+  del probe
+
+  vocab = SimpleVocab([f"w{i}" for i in range(config.vocab_size - 4)])
+  rng = np.random.default_rng(SEED + 43)
+  prompts = [
+      " ".join(f"w{i}" for i in rng.integers(0, config.vocab_size - 4, n - 1))
+      for n in SP_PROMPT_TOKENS
+  ]
+  samplers = {True: sampler_lib.Sampler(model, vocab, device=dev),
+              False: sampler_lib.Sampler(ref_model, vocab, device=dev)}
+  calls = []  # per forward: [start event, end event, counts at its end]
+
+  def before_forward(*_):
+    calls.append([torch.cuda.Event(enable_timing=True)])
+    calls[-1][0].record()
+
+  def after_forward(*_):
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    calls[-1] += [end, _sp_counts()]
+
+  hooks = [m.register_forward_pre_hook(before_forward) for m in
+           (model, ref_model)]
+  hooks += [m.register_forward_hook(after_forward) for m in
+            (model, ref_model)]
+
+  # Warm-up of both; the SP one keeps the inputs of each kernel's first call.
+  captures = [CaptureFirstCall(lru_scan, "lru_scan_forward"),
+              CaptureFirstCall(wa, "window_attention")]
+  try:
+    samplers[True](prompts, total_generation_steps=2)
+  finally:
+    for capture in captures:
+      capture.restore()
+  samplers[False](prompts, total_generation_steps=2)
+  torch.cuda.synchronize()
+
+  calls.clear()
+  torch.cuda.reset_peak_memory_stats()
+  _reset_sp_counts()
+  start = time.perf_counter()
+  out = samplers[True](prompts, total_generation_steps=SP_DECODE_STEPS,
+                       return_logits=True, end_sampling_at_eos_token=False)
+  torch.cuda.synchronize()
+  wall_s = time.perf_counter() - start
+  launches = _sp_counts()
+  peak_gb = torch.cuda.max_memory_allocated() / 1e9
+  sp_calls = list(calls)
+
+  want_prefill = {"lru_scan_a_prod": n_recurrent * SP_SHARDS,
+                  "window_attention_kv_prefix": n_attention * SP_SHARDS,
+                  "lru_scan": 0, "window_attention": 0}
+  log(f"  launches in the run {launches}; after the prefill {sp_calls[0][2]}")
+  if (len(sp_calls) != SP_DECODE_STEPS or sp_calls[0][2] != want_prefill
+      or launches != want_prefill):
+    raise AssertionError(
+        f"Launches: {len(sp_calls)} forwards, prefill {sp_calls[0][2]}, run "
+        f"{launches}; want {want_prefill} in the prefill and none in decode.")
+  tokens = torch.stack(out.tokens)
+  logits = torch.stack(out.logits)
+  if tokens.shape != (2, SP_DECODE_STEPS) or logits.shape != (
+      2, SP_DECODE_STEPS, config.vocab_size):
+    raise AssertionError(f"Shapes {tokens.shape}, {logits.shape}.")
+  if not torch.isfinite(logits).all():
+    raise AssertionError("Non-finite logits.")
+  prefill_ms = sp_calls[0][0].elapsed_time(sp_calls[0][1])
+  decode_ms = sp_calls[0][1].elapsed_time(sp_calls[-1][1]) / (
+      len(sp_calls) - 1)
+  prompt_rate = sum(SP_PROMPT_TOKENS) / prefill_ms * 1e3
+  log(f"  prompts {SP_PROMPT_TOKENS} tokens (padded to "
+      f"{max(SP_PROMPT_TOKENS)}, {SP_LOCAL_TOKENS} a shard), "
+      f"{SP_DECODE_STEPS} greedy steps")
+  log(f"  SP prefill_ms {prefill_ms:.2f} ({prompt_rate:.0f} prompt tokens/s) "
+      f" decode_ms_per_step {decode_ms:.3f}  wall {wall_s:.3f} s  peak "
+      f"{peak_gb:.2f} GB (both models' weights included)")
+
+  # Each kernel against its plain version on the inputs of its first call.
+  checks = {"lru_scan_forward": ("lru_scan_a_prod", check_lru_a_prod),
+            "window_attention": ("window_attention_kv_prefix",
+                                 lambda *a, **k: max(check_attention(*a, **k)))}
+  by_name = {kernel["name"]: kernel for kernel in kernels}
+  for capture in captures:
+    name, check = checks[capture.name]
+    if capture.args is None:
+      raise AssertionError(f"The SP prefill never called {name}.")
+    tensors = [z for z in capture.args if isinstance(z, torch.Tensor)]
+    log(f"  {name} on the path's inputs "
+        f"{[(tuple(z.shape), str(z.dtype)) for z in tensors]} "
+        f"{capture.kwargs}:")
+    err = check(*capture.args, **capture.kwargs)
+    log(f"  {name} max_abs_err {err:.3e}")
+    by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], err)
+    by_name[name]["launches"] = launches[name]
+    capture.args = capture.kwargs = None
+
+  # The same weights unsharded: the first step's logits (the prefill's last
+  # position) and the generation's tokens.
+  calls.clear()
+  ref = samplers[False](prompts, total_generation_steps=SP_DECODE_STEPS,
+                        return_logits=True, end_sampling_at_eos_token=False)
+  torch.cuda.synchronize()
+  ref_counts = calls[0][2]
+  if ref_counts["lru_scan"] != n_recurrent or ref_counts[
+      "window_attention"] != n_attention:
+    raise AssertionError(f"The unsharded prefill launched {ref_counts}.")
+  ref_tokens = torch.stack(ref.tokens)
+  ref_logits = torch.stack(ref.logits)
+  rel = _rel_rms(logits[:, 0], ref_logits[:, 0])
+  agree = (tokens == ref_tokens).float().mean().item()
+  first_diff = [int((row_a != row_b).nonzero()[0]) if (row_a != row_b).any()
+                else None for row_a, row_b in zip(tokens, ref_tokens)]
+  log(f"  SP vs unsharded, last prompt position: logits rel_rms {rel:.3e} "
+      f"(tolerance {SP_LOGITS_REL_RMS}), max_abs "
+      f"{max_err(logits[:, 0], ref_logits[:, 0]):.3e}, same argmax "
+      f"{(logits[:, 0].argmax(-1) == ref_logits[:, 0].argmax(-1)).tolist()}")
+  log(f"  token agreement of the two {SP_DECODE_STEPS}-token generations "
+      f"{agree:.4f} (first difference per row {first_diff})")
+  if not (torch.isfinite(ref_logits).all() and rel <= SP_LOGITS_REL_RMS):
+    raise AssertionError("SP and unsharded logits disagree.")
+
+  # SP and unsharded prefill in balanced turns.
+  per_side = {True: [], False: []}
+  for sp in SP_TURNS:
+    calls.clear()
+    samplers[sp](prompts, total_generation_steps=1)
+    torch.cuda.synchronize()
+    per_side[sp].append(calls[0][0].elapsed_time(calls[0][1]))
+  for hook in hooks:
+    hook.remove()
+  log(f"  prefill ms in turns {SP_TURNS}: SP "
+      f"{[round(ms, 2) for ms in per_side[True]]} (median "
+      f"{np.median(per_side[True]):.2f}), unsharded "
+      f"{[round(ms, 2) for ms in per_side[False]]} (median "
+      f"{np.median(per_side[False]):.2f}); ratio of medians "
+      f"{np.median(per_side[True]) / np.median(per_side[False]):.4f}")
+  if profile:
+    profile_sequence_parallel(samplers, prompts,
+                              float(np.median(per_side[True])))
+
+
+def profile_sequence_parallel(samplers, prompts, prefill_ms) -> None:
+  """Logs kernel time by name for one SP prefill and its idle share, and the
+  copies (memcpy, memset) of an SP and an unsharded prefill."""
+  for sp in (True, False):
+    times = kernel_times(lambda: samplers[sp](prompts,
+                                              total_generation_steps=1))
+    copies = {name: count for name, (_, count) in times.items()
+              if "Memcpy" in name or "Memset" in name}
+    if not sp:
+      log(f"  unsharded prefill: memcpy/memset {copies}")
+      continue
+    busy = sum(ms for ms, _ in times.values())
+    log(f"  SP prefill: kernels busy {busy:.3f} ms of {prefill_ms:.3f} ms "
+        f"(device idle share {1 - busy / prefill_ms:.3f}); memcpy/memset "
+        f"{copies}; top kernels:")
+    for name, (ms, count) in sorted(times.items(),
+                                    key=lambda kv: -kv[1][0])[:14]:
+      log(f"    {ms:9.4f} ms  x{count:5d}  {name[:90]}")
+
+
 def main() -> int:
   profile = "--profile" in sys.argv[1:]
   if not torch.cuda.is_available():
@@ -1415,6 +1824,10 @@ def main() -> int:
   torch.cuda.empty_cache()
   kernels += [phase_mha(dev), phase_add_rmsnorm(dev)]
   phase_multimodal(dev, kernels, profile)
+  torch.cuda.empty_cache()
+  kernels += [phase_lru_a_prod(dev), phase_attention_kv_prefix(dev)]
+  torch.cuda.empty_cache()
+  phase_sequence_parallel(dev, kernels, profile)
   log(f"== total {time.perf_counter() - start:.1f} s")
   print(json.dumps({"kernels": kernels}))
   print(json.dumps({"ok": True, "device": device}), flush=True)

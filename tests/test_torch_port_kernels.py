@@ -8,8 +8,9 @@ forwards, and the backwards through the port's autograd Functions against
 
 Card tests (skipped without CUDA) build the CUDA kernels and hold them
 against the plain versions on the card, at small shapes and at the shapes
-of the RecurrentGemma-2B prefill and training step and of the vision
-towers that ``chip_smoke.py`` drives. They import
+of the RecurrentGemma-2B prefill and training step, of the vision towers
+and of the sequence-parallel prefill's shards that ``chip_smoke.py``
+drives. They import
 no JAX, so they also run where JAX is not installed:
 ``python -m pytest --noconftest tests/test_torch_port_kernels.py -k cuda``.
 """
@@ -23,6 +24,8 @@ from cadence_gemma_tpu_torch.ops import lru_scan
 from cadence_gemma_tpu_torch.ops import mha_attention
 from cadence_gemma_tpu_torch.ops import scan
 from cadence_gemma_tpu_torch.ops import window_attention as wa
+from cadence_gemma_tpu_torch.parallel import sharding
+from cadence_gemma_tpu_torch.parallel import sp_attention
 
 # A string condition is evaluated when each test is set up, not when the
 # module is imported, so every pytest-xdist worker collects the same tests.
@@ -176,9 +179,12 @@ def test_linear_scan_decode_step_is_closed_form():
 
 
 def test_linear_scan_rejects_sharding():
+  """Sharding without a mesh (JAX's pmap regime) needs one process per card
+  over torch.distributed, which is not ported."""
   x, a, _ = _lru_inputs(1, 4, 8)
-  with pytest.raises(NotImplementedError):
-    scan.linear_scan(torch.tensor(x), torch.tensor(a), sharding_spec=object())
+  spec = sharding.ShardingSpec(mesh=None, sequence_axis_name="sequence")
+  with pytest.raises(NotImplementedError, match="pmap"):
+    scan.linear_scan(torch.tensor(x), torch.tensor(a), sharding_spec=spec)
 
 
 def test_window_attention_plain_matches_jax():
@@ -418,10 +424,16 @@ def test_window_attention_backward_plain_is_split_like_the_kernels():
 
 
 def test_window_attention_rejects_halo():
-  q, k, v, seg = _attn_inputs(1, 8, 1, 8)
+  """The key halo (kv_prefix) is forward only: autograd through it raises,
+  and keys that do not hold the halo rows raise."""
+  q, k, v, seg = (torch.tensor(z) for z in _attn_inputs(1, 8, 1, 8))
+  halo = torch.zeros(1, 128, 1, 8)
+  k, v = torch.cat([halo, k], dim=1), torch.cat([halo, v], dim=1)
   with pytest.raises(NotImplementedError):
-    wa.window_attention(torch.tensor(q), torch.tensor(k), torch.tensor(v),
-                        torch.tensor(seg), 4, kv_prefix=128)
+    wa.window_attention(q.requires_grad_(), k, v, seg, 4, kv_prefix=128)
+  with pytest.raises(ValueError, match="kv_prefix"):
+    wa.window_attention(q.detach(), k[:, 1:], v[:, 1:], seg, 4,
+                        kv_prefix=128)
 
 
 # -- Card: CUDA kernels vs their plain versions ------------------------------
@@ -745,3 +757,146 @@ def test_new_cuda_wrappers_raise_on_unsupported_inputs():
   x = torch.zeros(2, 4, device="cuda", dtype=torch.bfloat16)
   with pytest.raises(ValueError, match="16 bytes"):
     fused_epilogue.fused_add_rmsnorm(x, x, x[0])
+
+
+# -- Card: the sequence-parallel variants ------------------------------------
+
+_A_PROD_CUDA_SHAPES = [(2, 64, 16), (1, 40, 200), (1, 9, 7), (3, 17, 129),
+                       (2, 4096, 2560)]
+
+
+@requires_cuda
+@pytest.mark.parametrize("shape", _A_PROD_CUDA_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("backprop", [False, True])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_lru_a_prod_cuda_kernel_matches_plain(shape, dtype, backprop,
+                                              reverse):
+  """The running product of `a` in all four walks, bit for bit; odd
+  channel counts take the unpaired bf16 path."""
+  x, a, _ = _lru_inputs(*shape, seed=13)
+  x = torch.tensor(x, device="cuda").to(dtype)
+  a = torch.tensor(a, device="cuda").to(dtype)
+  if backprop:
+    kernel, plain = lru_scan.lru_scan_backward, lru_scan.lru_scan_backward_plain
+    counter = "backward_a_prod_launches"
+  else:
+    kernel, plain = lru_scan.lru_scan_forward, lru_scan.lru_scan_plain
+    counter = "a_prod_launches"
+  before = (getattr(lru_scan, counter), lru_scan.launches,
+            lru_scan.backward_launches)
+  got = kernel(x, a, None, reverse, return_a_prod=True)
+  torch.cuda.synchronize()
+  assert (getattr(lru_scan, counter), lru_scan.launches,
+          lru_scan.backward_launches) == (before[0] + 1, *before[1:])
+  want = plain(x, a, None, reverse, return_a_prod=True)
+  # Separately rounded float32 operations in the same order on both sides.
+  for g, w in zip((*got[0], *got[1]), (*want[0], *want[1])):
+    assert g.dtype == w.dtype
+    assert torch.equal(g, w), (g.float() - w.float()).abs().max()
+  # The product does not change the scan's own outputs.
+  fn = lru_scan.lru_scan_backward if backprop else lru_scan.lru_scan_forward
+  y, h = fn(x, a, None, reverse)
+  assert torch.equal(y, got[0][0]) and torch.equal(h, got[0][1])
+
+
+_ATTN_PREFIX_CUDA_CASES = [
+    # (b, t, n, h, window, prefix, start, pad, boundary)
+    (1, 256, 2, 128, 128, 128, 1000, 0, None),
+    (2, 300, 2, 128, 128, 128, 5000, 0, 150),  # a document inside the shard
+    (2, 256, 3, 256, 128, 128, 0, 70, None),   # shard 0: padding, zero halo
+    (1, 200, 2, 256, 96, 100, 700, 0, None),   # prefix off the 64-key tiles
+    # The 2B's SP prefill shards: 4096 queries, a 2048-key halo.
+    (2, 4096, 10, 256, 2048, 2048, 4096, 0, 1500),
+    (2, 4096, 10, 256, 2048, 2048, 0, 1384, None),
+]
+
+
+def _prefix_inputs(b, t, n, h, prefix, start, pad, boundary, seed=14):
+  q, k, v, seg = _attn_inputs(b, t, n, h, pad=pad, boundary=boundary,
+                              offset=start, seed=seed)
+  if pad:
+    seg[0] = np.maximum(np.arange(t, dtype=np.int32) - pad, -1)
+  halo = np.random.default_rng(seed + 1).standard_normal(
+      (2, b, prefix, 1, h), dtype=np.float32)
+  if start == 0:
+    halo[:] = 0.0  # shard 0 receives zeros
+  k = np.concatenate([halo[0], k], axis=1)
+  v = np.concatenate([halo[1], v], axis=1)
+  return q, k, v, seg
+
+
+@requires_cuda
+@pytest.mark.parametrize("case", _ATTN_PREFIX_CUDA_CASES)
+def test_window_attention_kv_prefix_cuda_kernel_matches_plain(case):
+  b, t, n, h, window, prefix, start, pad, boundary = case
+  q, k, v, seg = _prefix_inputs(b, t, n, h, prefix, start, pad, boundary)
+  q, k, v = (torch.tensor(z, device="cuda").to(torch.bfloat16)
+             for z in (q, k, v))
+  seg = torch.tensor(seg, device="cuda")
+  before = (wa.kv_prefix_launches, wa.launches)
+  with torch.no_grad():
+    out, lse = wa.window_attention(q, k, v, seg, window, kv_prefix=prefix)
+  torch.cuda.synchronize()
+  assert (wa.kv_prefix_launches, wa.launches) == (before[0] + 1, before[1])
+  out_ref, lse_ref = wa.window_attention_plain(q, k, v, seg, window, prefix)
+  # The tolerances of the kernel without a halo.
+  torch.testing.assert_close(out.float(), out_ref.float(), atol=2e-2, rtol=0)
+  torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=1e-5)
+  if pad:
+    assert not out[0, :pad].any()
+    assert (lse[0, :, :pad] == wa.MASKED_LSE).all()
+
+
+@requires_cuda
+@pytest.mark.parametrize("case", [(1, 256, 2, 128, 64), (2, 700, 2, 256, 256),
+                                  (2, 3000, 10, 256, 2048)])
+def test_window_attention_masked_halo_gives_the_same_bits(case):
+  """A halo that every row masks (each row's document starts in the shard),
+  a multiple of the 64-key tiles long, leaves every tile and every sum of
+  the kernel as with kv_prefix = 0: the halo path changes no arithmetic.
+  That kv_prefix = 0 gives the bits of the kernel before the halo existed
+  is held by tools/compare_kernel_bits.py against a checkout of that
+  commit."""
+  b, t, n, h, window = case
+  q, k, v, seg = _attn_inputs(b, t, n, h, seed=15)
+  q, k, v = (torch.tensor(z, device="cuda").to(torch.bfloat16)
+             for z in (q, k, v))
+  seg = torch.tensor(seg, device="cuda")
+  halo = torch.randn(b, 128, 1, h, device="cuda").bfloat16()
+  out0, lse0 = wa.window_attention_forward(q, k, v, seg, window)
+  out1, lse1 = wa.window_attention_forward(
+      q, torch.cat([halo, k], dim=1), torch.cat([halo, v], dim=1), seg,
+      window, kv_prefix=128)
+  torch.cuda.synchronize()
+  assert torch.equal(out0, out1) and torch.equal(lse0, lse1)
+
+
+@requires_cuda
+def test_sequence_parallel_ops_on_cuda_match_unsharded():
+  """The SP scan and the halo attention on a four-shard mesh of the card(s)
+  against the unsharded kernels, in bfloat16; one launch a shard."""
+  devices = [f"cuda:{i % torch.cuda.device_count()}" for i in range(4)]
+  mesh = sharding.make_mesh((1, 4), ("data", "sequence"), devices)
+  spec = sharding.ShardingSpec(mesh=mesh, batch_axis_name="data",
+                               sequence_axis_name="sequence")
+  x, a, h0 = _lru_inputs(2, 1024, 256, seed=16)
+  x, a = (torch.tensor(z, device="cuda").bfloat16() for z in (x, a))
+  h0 = torch.tensor(h0, device="cuda")
+  before = lru_scan.a_prod_launches
+  y, h = scan.linear_scan(x, a, h0, sharding_spec=spec)
+  assert lru_scan.a_prod_launches == before + 4
+  y_ref, h_ref = lru_scan.lru_scan(x, a, h0)
+  # The correction adds h0 * a_prod in bf16: one or two bf16 roundings.
+  torch.testing.assert_close(y.float(), y_ref.float(), atol=3e-2, rtol=1.6e-2)
+  torch.testing.assert_close(h, h_ref, atol=1e-4, rtol=1e-4)
+
+  q, k, v, seg = _attn_inputs(2, 1024, 2, 256, pad=100, boundary=600,
+                              seed=17)
+  q, k, v = (torch.tensor(z, device="cuda").bfloat16() for z in (q, k, v))
+  seg = torch.tensor(seg, device="cuda")
+  before = wa.kv_prefix_launches
+  got = sp_attention.sequence_sharded_attention(q, k, v, seg, 128, spec)
+  assert wa.kv_prefix_launches == before + 4
+  want, _ = wa.window_attention(q, k, v, seg, 128)
+  torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)

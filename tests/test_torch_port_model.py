@@ -163,9 +163,9 @@ def test_config_from_numpy_params_equals_jax():
 
 
 def test_port_hygiene(monkeypatch):
-  """The port, its training and vision modules included, imports no JAX and
-  nothing of the JAX package, and its entry points refuse to fall back to
-  the CPU without being asked."""
+  """The port, its training, vision and parallel modules included, imports
+  no JAX and nothing of the JAX package, and its entry points refuse to fall
+  back to the CPU without being asked."""
   probe = (
       "import sys; before = set(sys.modules); "
       "import cadence_gemma_tpu_torch; "
@@ -174,6 +174,8 @@ def test_port_hygiene(monkeypatch):
       "import cadence_gemma_tpu_torch.training.data; "
       "import cadence_gemma_tpu_torch.models.vit; "
       "import cadence_gemma_tpu_torch.inference.modal_sampler; "
+      "import cadence_gemma_tpu_torch.parallel.sharding; "
+      "import cadence_gemma_tpu_torch.parallel.sp_attention; "
       "new = set(sys.modules) - before; "
       "print(sorted(m for m in new if m.split('.')[0] in "
       "('jax', 'jaxlib', 'flax', 'cadence_gemma_tpu')))"
@@ -206,6 +208,8 @@ def test_port_hygiene(monkeypatch):
     convert.griffin_from_flax_params(params, tmodel.config)
   with pytest.raises(RuntimeError, match="device='cpu'"):
     port.Sampler(tmodel, port.SimpleVocab(["a"]))
+  with pytest.raises(RuntimeError, match="devices=\\['cpu'\\]"):
+    port.make_mesh((1, 4), ("data", "sequence"))
 
 
 def test_vision_entry_points_need_a_card_unless_asked(monkeypatch):
