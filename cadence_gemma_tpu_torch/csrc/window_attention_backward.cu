@@ -1,10 +1,13 @@
 // Causal sliding-window multi-query flash attention, backward: two kernels.
 //
 // Inputs as the forward (csrc/window_attention.cu) saw them -- q [b, t, n, h],
-// k and v [b, t, 1, h], segment_pos [b, t] -- plus the forward's fp32
-// logsumexp lse [b, n, t], the output cotangent dO [b, t, n, h] and
-// delta = rowsum(dO * O) [b, n, t] in fp32. Key kp is visible to query qp iff
-//   max(0, qp - W, qp - segment_pos[qp]) <= kp <= qp  (segment_pos[qp] >= 0).
+// k and v [b, P + t, 1, h] whose first P = kv_prefix rows precede the
+// queries in time (a sequence-parallel shard's halo), segment_pos [b, t] --
+// plus the forward's fp32 logsumexp lse [b, n, t], the output cotangent
+// dO [b, t, n, h] and delta = rowsum(dO * O) [b, n, t] in fp32. Positions
+// are taken in the keys' frame, where query i sits at qp = P + i; key kp is
+// visible to it iff
+//   max(0, qp - W, qp - segment_pos[i]) <= kp <= qp  (segment_pos[i] >= 0).
 // Probabilities are recomputed from the logits and lse, p = exp(s - lse); a
 // row that saw no key has lse = 1e30 and no visible key, so its p is 0.
 //
@@ -21,7 +24,10 @@
 // products accumulate in fp32. The TPU kernel writes dk/dv per head and sums
 // the heads outside; here one block loops over the heads and keeps the sum
 // in fp32 registers, which needs no n-times larger buffer and rounds to bf16
-// once. The sequence-parallel key halo (kv_prefix) is not ported.
+// once. dk and dv cover all P + t keys: the halo's rows carry the gradient
+// back to the shard that sent them, and a halo key no query sees (shard 0's
+// zero halo) gets zeros. With P = 0 the arithmetic is the same as before
+// kv_prefix existed, and so are the bits.
 //
 // What bounds them: tensor-core operations. Per visible (query, key) pair
 // and head the dq kernel does 3 products of h multiply-adds (s, dO.v, ds k)
@@ -36,7 +42,10 @@
 // tile, batch); its 64-row query tiles run from the key tile's diagonal to
 // W rows past its end. At head_dim 256 the dq block takes ~175 KB of shared
 // memory and the dk/dv block ~126 KB, so one block runs per SM; wgmma, TMA
-// and pipelined tile rings are for a later change.
+// and pipelined tile rings are for a later change. With the halo the dk/dv
+// grid covers the P + t keys, and a key tile's query tiles run from
+// max(k0 - P, 0) to W rows past its end, less P (the TPU kernel's
+// _first_q_block(kv_block, q_offset)).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -83,12 +92,14 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, int ld,
   }
 }
 
-// A row's first visible key, or INT_MAX if it sees none (left padding, or
-// past the end of the sequence).
+// Query i's first visible key in the keys' frame, or INT_MAX if it sees
+// none (left padding, or past the end of the sequence).
 __device__ __forceinline__ int row_lower(const int* segment_pos, int64_t row0,
-                                         int qp, int seq, int window) {
-  if (qp >= seq) return INT_MAX;
-  const int pos = segment_pos[row0 + qp];
+                                         int i, int seq, int window,
+                                         int kv_prefix) {
+  if (i >= seq) return INT_MAX;
+  const int pos = segment_pos[row0 + i];
+  const int qp = kv_prefix + i;
   return pos < 0 ? INT_MAX : max(0, max(qp - window, qp - pos));
 }
 
@@ -166,7 +177,8 @@ __global__ void __launch_bounds__(kThreads)
                                const float* __restrict__ delta,
                                const __nv_bfloat16* __restrict__ d_out,
                                __nv_bfloat16* __restrict__ dq, int seq,
-                               int heads, int window, float scale) {
+                               int heads, int window, int kv_prefix,
+                               float scale) {
   using L = DqLayout<H>;
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* s_q = reinterpret_cast<__nv_bfloat16*>(smem + L::kQ);
@@ -188,13 +200,14 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int q_rows = min(kBlockQ, seq - q0);
+  const int kv_len = kv_prefix + seq;
 
   if (tid == 0) kv_lo = INT_MAX;
   __syncthreads();
   const int64_t stat0 = (static_cast<int64_t>(batch) * heads + head) * seq;
   for (int r = tid; r < kBlockQ; r += kThreads) {
     const int lower = row_lower(segment_pos, static_cast<int64_t>(batch) * seq,
-                                q0 + r, seq, window);
+                                q0 + r, seq, window, kv_prefix);
     s_lower[r] = lower;
     s_lse[r] = r < q_rows ? lse[stat0 + q0 + r] : 0.f;
     s_delta[r] = r < q_rows ? delta[stat0 + q0 + r] : 0.f;
@@ -216,10 +229,12 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int j = 0; j < kColFrags; ++j) wmma::fill_fragment(acc[j], 0.f);
 
-  const __nv_bfloat16* k_b = k + static_cast<int64_t>(batch) * seq * H;
-  const __nv_bfloat16* v_b = v + static_cast<int64_t>(batch) * seq * H;
+  const __nv_bfloat16* k_b = k + static_cast<int64_t>(batch) * kv_len * H;
+  const __nv_bfloat16* v_b = v + static_cast<int64_t>(batch) * kv_len * H;
+  // Key tiles from the block's first visible key to its diagonal.
   const int kb_first = kv_lo == INT_MAX ? 1 : kv_lo / kBlockK;
-  const int kb_last = kv_lo == INT_MAX ? 0 : (q0 + q_rows - 1) / kBlockK;
+  const int kb_last =
+      kv_lo == INT_MAX ? 0 : (kv_prefix + q0 + q_rows - 1) / kBlockK;
 
   // Elementwise split: 4 threads per row, 16 columns each.
   const int ew_row = tid / 4;
@@ -227,7 +242,7 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int kb = kb_first; kb <= kb_last; ++kb) {
     const int k0 = kb * kBlockK;
-    const int k_rows = min(kBlockK, seq - k0);
+    const int k_rows = min(kBlockK, kv_len - k0);
     load_tile<H>(s_k, L::kLdQkv, k_b + static_cast<int64_t>(k0) * H, H,
                  kBlockK, k_rows);
     load_tile<H>(s_v, L::kLdQkv, v_b + static_cast<int64_t>(k0) * H, H,
@@ -257,7 +272,7 @@ __global__ void __launch_bounds__(kThreads)
 
     // ds = p (dp - delta) scale, p = exp(s scale - lse) where visible.
     {
-      const int qp = q0 + ew_row;
+      const int qp = kv_prefix + q0 + ew_row;
       const int lower = s_lower[ew_row];
       const float row_lse = s_lse[ew_row];
       const float row_delta = s_delta[ew_row];
@@ -338,7 +353,8 @@ __global__ void __launch_bounds__(kThreads)
                                 const __nv_bfloat16* __restrict__ d_out,
                                 __nv_bfloat16* __restrict__ dk,
                                 __nv_bfloat16* __restrict__ dv, int seq,
-                                int heads, int window, float scale) {
+                                int heads, int window, int kv_prefix,
+                                float scale) {
   using L = DkvLayout<H>;
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* s_q = reinterpret_cast<__nv_bfloat16*>(smem + L::kQ);
@@ -359,10 +375,11 @@ __global__ void __launch_bounds__(kThreads)
   const int batch = blockIdx.y;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
-  const int k_rows = min(kBlockKv, seq - k0);
+  const int kv_len = kv_prefix + seq;
+  const int k_rows = min(kBlockKv, kv_len - k0);
 
-  const __nv_bfloat16* k_b = k + static_cast<int64_t>(batch) * seq * H;
-  const __nv_bfloat16* v_b = v + static_cast<int64_t>(batch) * seq * H;
+  const __nv_bfloat16* k_b = k + static_cast<int64_t>(batch) * kv_len * H;
+  const __nv_bfloat16* v_b = v + static_cast<int64_t>(batch) * kv_len * H;
   load_tile<H>(s_k, L::kLdQkv, k_b + static_cast<int64_t>(k0) * H, H,
                kBlockKv, k_rows);
   load_tile<H>(s_v, L::kLdQkv, v_b + static_cast<int64_t>(k0) * H, H,
@@ -380,9 +397,11 @@ __global__ void __launch_bounds__(kThreads)
   for (int j = 0; j < kColFrags; ++j) wmma::fill_fragment(acc[j], 0.f);
 
   // Query tiles that can see a key of this tile: from the tile's diagonal
-  // to W rows past its last key.
-  const int qb_first = k0 / kBlockQ;
-  const int qb_last = min(seq - 1, k0 + kBlockKv - 1 + window) / kBlockQ;
+  // to W rows past its last key, in the queries' frame (P rows earlier). A
+  // tile that no query reaches runs no step and writes zeros.
+  const int qb_first = max(k0 - kv_prefix, 0) / kBlockQ;
+  const int q_hi = min(seq - 1, k0 + kBlockKv - 1 + window - kv_prefix);
+  const int qb_last = q_hi < 0 ? -1 : q_hi / kBlockQ;
   const int64_t q_stride = static_cast<int64_t>(heads) * H;
 
   // Elementwise split over the [32 keys x 64 queries] tile: 8 threads per
@@ -399,7 +418,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int r = tid; r < kBlockQ; r += kThreads) {
         s_lower[r] = row_lower(segment_pos,
                                static_cast<int64_t>(batch) * seq, q0 + r, seq,
-                               window);
+                               window, kv_prefix);
         s_lse[r] = r < q_rows ? lse[stat0 + q0 + r] : 0.f;
         s_delta[r] = r < q_rows ? delta[stat0 + q0 + r] : 0.f;
       }
@@ -434,7 +453,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int c = ew_col + j;
-          const int qp = q0 + c;
+          const int qp = kv_prefix + q0 + c;
           float p = 0.f;
           float ds = 0.f;
           if (kp >= s_lower[c] && kp <= qp) {
@@ -479,7 +498,7 @@ __global__ void __launch_bounds__(kThreads)
         L::kLdOut, wmma::mem_row_major);
   }
   __syncthreads();
-  const int64_t kv_off = (static_cast<int64_t>(batch) * seq + k0) * H;
+  const int64_t kv_off = (static_cast<int64_t>(batch) * kv_len + k0) * H;
   store_rows_bf16<H>(dk + kv_off, H, s_dk_out, L::kLdOut, k_rows);
   store_rows_bf16<H>(dv + kv_off, H, s_dv_out, L::kLdOut, k_rows);
 }
@@ -488,8 +507,8 @@ template <int H>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const int* segment_pos, const float* lse,
                       const float* delta, const void* d_out, void* dq,
-                      int batch, int seq, int heads, int window, float scale,
-                      cudaStream_t stream) {
+                      int batch, int seq, int heads, int window,
+                      int kv_prefix, float scale, cudaStream_t stream) {
   if (batch == 0 || seq == 0 || heads == 0) return cudaSuccess;
   constexpr size_t kSmem = DqLayout<H>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
@@ -502,7 +521,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), segment_pos, lse, delta,
       static_cast<const __nv_bfloat16*>(d_out),
-      static_cast<__nv_bfloat16*>(dq), seq, heads, window, scale);
+      static_cast<__nv_bfloat16*>(dq), seq, heads, window, kv_prefix, scale);
   return cudaGetLastError();
 }
 
@@ -511,43 +530,45 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const int* segment_pos, const float* lse,
                        const float* delta, const void* d_out, void* dk,
                        void* dv, int batch, int seq, int heads, int window,
-                       float scale, cudaStream_t stream) {
-  if (batch == 0 || seq == 0) return cudaSuccess;
+                       int kv_prefix, float scale, cudaStream_t stream) {
+  if (batch == 0 || kv_prefix + seq == 0) return cudaSuccess;
   constexpr size_t kSmem = DkvLayout<H>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       window_attention_dkv_kernel<H>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((seq + kBlockKv - 1) / kBlockKv, batch);
+  const dim3 grid((kv_prefix + seq + kBlockKv - 1) / kBlockKv, batch);
   window_attention_dkv_kernel<H><<<grid, kThreads, kSmem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), segment_pos, lse, delta,
       static_cast<const __nv_bfloat16*>(d_out),
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), seq,
-      heads, window, scale);
+      heads, window, kv_prefix, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Pointers must be 16-byte aligned and the tensors contiguous; head_dim is
-// 256 (RecurrentGemma) or 128 (Griffin). Each returns the cudaError_t of its
-// launch (0 on success).
+// Pointers must be 16-byte aligned and the tensors contiguous; k, v, dk and
+// dv hold kv_prefix + seq rows a batch. head_dim is 256 (RecurrentGemma) or
+// 128 (Griffin). Each returns the cudaError_t of its launch (0 on success).
 extern "C" int cg_window_attention_dq(const void* q, const void* k,
                                       const void* v, const int* segment_pos,
                                       const float* lse, const float* delta,
                                       const void* d_out, void* dq, int batch,
                                       int seq, int heads, int head_dim,
-                                      int window, float scale, void* stream) {
+                                      int window, int kv_prefix, float scale,
+                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kv_prefix < 0) return static_cast<int>(cudaErrorInvalidValue);
   switch (head_dim) {
     case 128:
       return launch_dq<128>(q, k, v, segment_pos, lse, delta, d_out, dq,
-                            batch, seq, heads, window, scale, s);
+                            batch, seq, heads, window, kv_prefix, scale, s);
     case 256:
       return launch_dq<256>(q, k, v, segment_pos, lse, delta, d_out, dq,
-                            batch, seq, heads, window, scale, s);
+                            batch, seq, heads, window, kv_prefix, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -558,16 +579,18 @@ extern "C" int cg_window_attention_dkv(const void* q, const void* k,
                                        const float* lse, const float* delta,
                                        const void* d_out, void* dk, void* dv,
                                        int batch, int seq, int heads,
-                                       int head_dim, int window, float scale,
+                                       int head_dim, int window,
+                                       int kv_prefix, float scale,
                                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kv_prefix < 0) return static_cast<int>(cudaErrorInvalidValue);
   switch (head_dim) {
     case 128:
       return launch_dkv<128>(q, k, v, segment_pos, lse, delta, d_out, dk, dv,
-                             batch, seq, heads, window, scale, s);
+                             batch, seq, heads, window, kv_prefix, scale, s);
     case 256:
       return launch_dkv<256>(q, k, v, segment_pos, lse, delta, d_out, dk, dv,
-                             batch, seq, heads, window, scale, s);
+                             batch, seq, heads, window, kv_prefix, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -63,7 +63,7 @@ class Griffin(nn.Module):
     scan_sharding_spec: Runs every RG-LRU scan and every prompt's attention
       sequence-parallel over the spec's mesh (``griffin.py:41-47,100`` in
       JAX): the prompt's length must divide into the sequence shards. Adds
-      no weights; forward only on the kernel path.
+      no weights; prefill and training both run sharded.
   """
 
   def __init__(

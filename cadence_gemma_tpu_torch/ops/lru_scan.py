@@ -4,18 +4,18 @@ Computes ``h_t = a_t * h_{t-1} + x_t`` over the time axis of ``[b, t, d]``
 inputs with a float32 carry; ``y`` comes back in ``x``'s dtype and the final
 state ``h_last`` in float32. Counterpart of the JAX package's
 ``lru_pallas_scan`` (``cadence_gemma_tpu/ops/pallas_lru.py``) with its
-``custom_vjp`` and the forward of its sequence-parallel ``_sharded_scan``;
-complex operands are not ported.
+``custom_vjp``, unsharded and over the shards of a sequence-parallel
+``_sharded_scan``; complex operands are not ported.
 
-:func:`lru_scan` is differentiable. Its forward runs :func:`lru_scan_forward`
-and its backward :func:`lru_scan_backward`, the cotangent scan of
-``_lru_bwd``; each launches its kernel of ``csrc/lru_scan.cu`` for a CUDA
-tensor and takes its plain version (:func:`lru_scan_plain`,
-:func:`lru_scan_backward_plain`) only for a CPU tensor. With
-``return_a_prod=True`` either also returns the running product of ``a``
-(``compute_a_prod``), which :func:`sharded_scan` needs to stitch the shards
-of a sequence-parallel scan together. A kernel that fails to build or launch
-raises; nothing falls back.
+:func:`lru_scan` and :func:`sharded_scan` are differentiable. Their forwards
+run :func:`lru_scan_forward` and their backwards :func:`lru_scan_backward`,
+the cotangent scan of ``_lru_bwd``; each launches its kernel of
+``csrc/lru_scan.cu`` for a CUDA tensor and takes its plain version
+(:func:`lru_scan_plain`, :func:`lru_scan_backward_plain`) only for a CPU
+tensor. With ``return_a_prod=True`` either also returns the running product
+of ``a`` along its walk (``compute_a_prod``), which :func:`sharded_scan`
+needs to stitch the shards of a sequence-parallel scan together, in both
+walks. A kernel that fails to build or launch raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -235,16 +235,21 @@ class _LRUScan(torch.autograd.Function):
   def backward(ctx, dy, dh_last):
     y, a, h0 = ctx.saved_tensors
     dx, dh0 = lru_scan_backward(dy, a, dh_last, ctx.reverse)
-    # da_t = dx_t * h_{t-1}, with h_{t-1} taken from the rounded outputs y
-    # (as the JAX backward does) and h0 (or zeros) at the boundary.
-    boundary = (y.new_zeros(y.shape[0], 1, y.shape[2]) if h0 is None
-                else h0[:, None].to(y.dtype))
-    if ctx.reverse:
-      h_prev = torch.cat([y[:, 1:], boundary], dim=1)
-    else:
-      h_prev = torch.cat([boundary, y[:, :-1]], dim=1)
-    da = dx * h_prev
+    da = _decay_cotangent(dx, y, h0, ctx.reverse)
     return dx, da, (None if h0 is None else dh0), None
+
+
+def _decay_cotangent(dx, y, h0, reverse):
+  """``da_t = dx_t * h_{t-1}``, with ``h_{t-1}`` taken from the rounded
+  outputs ``y`` (as the JAX backward does) and ``h0`` (or zeros) at the
+  boundary: the end the walk starts from."""
+  boundary = (y.new_zeros(y.shape[0], 1, y.shape[2]) if h0 is None
+              else h0[:, None].to(y.dtype))
+  if reverse:
+    h_prev = torch.cat([y[:, 1:], boundary], dim=1)
+  else:
+    h_prev = torch.cat([boundary, y[:, :-1]], dim=1)
+  return dx * h_prev
 
 
 def lru_scan(
@@ -267,14 +272,68 @@ def lru_scan(
   return _LRUScan.apply(x, a, h0, reverse)
 
 
+def _cotangent_walk(g, a, dh, reverse, return_a_prod):
+  """The cotangent scan as a walk of its own direction: ``reverse`` here is
+  the backward walk's, the forward's flipped."""
+  return lru_scan_backward(g, a, dh, not reverse, return_a_prod)
+
+
+class _ShardedLRUScan(torch.autograd.Function):
+  """``_lru``'s ``custom_vjp`` over the shards of one scan domain
+  (``_lru_fwd``, ``_lru_bwd``; ``pallas_lru.py:489-554``).
+
+  ``apply(reverse, num_shards, *xs, *as_, *h0s)`` takes every shard's
+  operands, since one controller holds the whole domain, and returns
+  ``(*ys, *h_lasts)``.
+  """
+
+  @staticmethod
+  def forward(ctx, reverse, num_shards, *operands):
+    xs, as_, h0s = (operands[i * num_shards:(i + 1) * num_shards]
+                    for i in range(3))
+    ys, h_lasts, h0s_corrected = sharding.scan_with_correction(
+        lru_scan_forward, xs, as_, h0s, reverse)
+    # The residuals of _lru_fwd: y, a and the corrected h0 of every shard.
+    ctx.save_for_backward(*ys, *as_, *h0s_corrected)
+    ctx.reverse = reverse
+    ctx.num_shards = num_shards
+    ctx.has_h0 = [h0 is not None for h0 in h0s]
+    ctx.set_materialize_grads(False)
+    return (*ys, *h_lasts)
+
+  @staticmethod
+  def backward(ctx, *grads):
+    n = ctx.num_shards
+    saved = ctx.saved_tensors
+    ys, as_, h0s = saved[:n], saved[n:2 * n], saved[2 * n:]
+    devices = [y.device for y in ys]
+    dys = [torch.zeros_like(y) if g is None else g
+           for g, y in zip(grads[:n], ys)]
+    # Every shard returns the global h_last and the caller reads one of
+    # them, so the cotangent that starts the walk is their sum (the psum of
+    # _lru_bwd); shards with no cotangent add zero.
+    dh_lasts = sharding.psum(grads[n:], devices)
+    # The cotangent scan walks the shards against the forward's order; each
+    # step's incoming carry takes the product of `a` shifted one step, and
+    # only the walk's last shard (the forward's first) returns dh0.
+    dxs, dh0s, _ = sharding.scan_with_correction(
+        _cotangent_walk, dys, as_, dh_lasts, not ctx.reverse,
+        shift_a_prod=True, sync_h_last=False)
+    # The corrected h0 of each shard stands in at its boundary.
+    das = [_decay_cotangent(dx, y, h0, ctx.reverse)
+           for dx, y, h0 in zip(dxs, ys, h0s)]
+    dh0s = [dh0 if has else None for dh0, has in zip(dh0s, ctx.has_h0)]
+    return (None, None, *dxs, *das, *dh0s)
+
+
 def sharded_scan(
     xs: Sequence[torch.Tensor],
     as_: Sequence[torch.Tensor],
     h0s: Sequence[torch.Tensor | None],
     reverse: bool = False,
 ) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
-  """The scan of one sequence-parallel domain: the forward of ``_sharded_scan``
-  (``cadence_gemma_tpu/ops/pallas_lru.py:453-486``).
+  """The differentiable scan of one sequence-parallel domain: ``_lru`` over
+  ``_sharded_scan`` (``cadence_gemma_tpu/ops/pallas_lru.py:453-554``).
 
   ``xs[j]``, ``as_[j]`` are shard ``j``'s ``[b, t_j, d]`` chunks of the time
   axis, in time order, each on its own device, and ``h0s[j]`` the global
@@ -283,21 +342,15 @@ def sharded_scan(
   shard runs the kernel with the running product of ``a`` and no carry, and
   :func:`sharding.scan_with_correction` gathers the shards' ``(h_last,
   a_prod_last)`` pairs and turns each local scan into its part of the
-  global one (every shard returns the global final state).
+  global one (every shard returns the global final state). The backward
+  sums the shards' ``h_last`` cotangents, runs the cotangent-scan kernel
+  with the product on every shard and corrects it the same way, walking the
+  shards in reverse.
 
   Returns ``(ys, h_lasts)``, one entry per shard on the shard's device.
-
-  Forward only: a multi-shard scan raises ``NotImplementedError`` while
-  autograd records (the sharded cotangent scan is not ported).
   """
   if len(xs) == 1:
     y, h_last = lru_scan(xs[0], as_[0], h0s[0], reverse)
     return [y], [h_last]
-  if torch.is_grad_enabled() and any(
-      z is not None and z.requires_grad for z in (*xs, *as_, *h0s)):
-    raise NotImplementedError(
-        "Gradients of a sequence-parallel scan are not ported (SP training, "
-        "ROADMAP queue 1 item 14); run it under torch.no_grad()."
-    )
-  return sharding.scan_with_correction(lru_scan_forward, xs, as_, h0s,
-                                      reverse)
+  out = _ShardedLRUScan.apply(reverse, len(xs), *xs, *as_, *h0s)
+  return list(out[:len(xs)]), list(out[len(xs):])

@@ -15,9 +15,11 @@ With a sharding spec whose mesh has a sequence axis, the time axis is split
 into shards that each scan their chunk on their own device, corrected
 across shards from an all-gather of ``(h_last, a_prod_last)`` pairs (JAX's
 ``shard_map`` regime): :func:`linear_scan` splits, runs
-:func:`single_shard_rnn_scan` and concatenates. The kernel path of a
-multi-shard scan is forward only; the pmap regime (a spec without a mesh)
-and channel sharding raise ``NotImplementedError``.
+:func:`single_shard_rnn_scan` and concatenates. Every path is
+differentiable across shards: the kernel path through
+:func:`lru_scan.sharded_scan`'s autograd Function (the sharded cotangent
+scan), the native paths through autograd. The pmap regime (a spec without a
+mesh) and channel sharding raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -102,8 +104,11 @@ def single_shard_rnn_scan(
   if len(xs) == 1:
     y, h_last = scan_fn(xs[0], as_[0], h0s[0], reverse=reverse)
     return [y], [h_last]
-  # _native_scan_with_correction (``ops/scan.py:150-180``).
-  return sharding.scan_with_correction(scan_fn, xs, as_, h0s, reverse)
+  # _native_scan_with_correction (``ops/scan.py:150-180``), differentiable
+  # by autograd.
+  ys, h_lasts, _ = sharding.scan_with_correction(scan_fn, xs, as_, h0s,
+                                                reverse)
+  return ys, h_lasts
 
 
 def _sequence_sharded_scan(x, a, h0, reverse, scan_type, spec):

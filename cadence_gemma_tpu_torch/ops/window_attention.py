@@ -17,14 +17,14 @@ The backward recomputes the probabilities from ``(q, k, lse)``:
 ``delta = rowsum(dO * O)``; ``dq = ds k``, ``dk = sum_heads ds^T q`` and
 ``dv = sum_heads p^T dO``.
 
-:func:`window_attention` is differentiable. Its forward runs
-:func:`window_attention_forward` (``csrc/window_attention.cu``) and its
-backward :func:`window_attention_dq` and :func:`window_attention_dkv`
-(``csrc/window_attention_backward.cu``). Each wrapper launches its kernel for
-CUDA tensors and takes its plain version only for CPU tensors. A kernel that
-fails to build or launch raises; nothing falls back. With ``kv_prefix > 0``
-(``_flash_window_forward(kv_prefix=...)``) only the forward is ported, and
-:func:`window_attention` refuses autograd.
+:func:`window_attention` is differentiable, with or without a halo. Its
+forward runs :func:`window_attention_forward` (``csrc/window_attention.cu``)
+and its backward :func:`window_attention_dq` and :func:`window_attention_dkv`
+(``csrc/window_attention_backward.cu``); with ``kv_prefix > 0`` ``dk`` and
+``dv`` cover the halo's rows too, which carries their gradient back to the
+shard that sent them. Each wrapper launches its kernel for CUDA tensors and
+takes its plain version only for CPU tensors. A kernel that fails to build or
+launch raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -33,12 +33,14 @@ import torch
 
 from cadence_gemma_tpu_torch import _build
 
-# Kernel launches in this process (forward, dq, dk/dv, and the forward with
+# Kernel launches in this process (forward, dq, dk/dv, and each of them with
 # a key halo); callers reset them to count one run.
 launches = 0
 dq_launches = 0
 dkv_launches = 0
 kv_prefix_launches = 0
+dq_kv_prefix_launches = 0
+dkv_kv_prefix_launches = 0
 
 MIN_LOGITS_VALUE = -2.3819763e38  # Masked-logit fill of the einsum path.
 MASKED_LSE = 1e30  # lse of a row that sees no key.
@@ -89,12 +91,13 @@ def window_attention_plain(
   return out.to(q.dtype), lse[..., 0]
 
 
-def _probabilities_and_ds(q, k, v, segment_pos, lse, delta, d_out, window):
-  """The backward's recomputed [b, n, t, s] probabilities and ``ds`` in
-  float32 over the full masked square."""
+def _probabilities_and_ds(q, k, v, segment_pos, lse, delta, d_out, window,
+                          kv_prefix=0):
+  """The backward's recomputed [b, n, t, kv_prefix + t] probabilities and
+  ``ds`` in float32 over the full masked rectangle."""
   _, seq_len, _, head_dim = q.shape
   scale = head_dim**-0.5
-  visible = band_mask(segment_pos, seq_len, window)[:, None]
+  visible = band_mask(segment_pos, seq_len, window, kv_prefix)[:, None]
   s = torch.einsum("btnh,bsh->bnts", q.float(), k[:, :, 0].float()) * scale
   p = torch.where(visible, torch.exp(s - lse[..., None]), 0.0)
   dp = torch.einsum("btnh,bsh->bnts", d_out.float(), v[:, :, 0].float())
@@ -103,18 +106,20 @@ def _probabilities_and_ds(q, k, v, segment_pos, lse, delta, d_out, window):
 
 
 def window_attention_dq_plain(q, k, v, segment_pos, lse, delta, d_out,
-                              window) -> torch.Tensor:
+                              window, kv_prefix=0) -> torch.Tensor:
   """``dq = ds k`` in float32, returned in ``q.dtype``."""
   _, ds = _probabilities_and_ds(q, k, v, segment_pos, lse, delta, d_out,
-                                window)
+                                window, kv_prefix)
   return torch.einsum("bnts,bsh->btnh", ds, k[:, :, 0].float()).to(q.dtype)
 
 
 def window_attention_dkv_plain(q, k, v, segment_pos, lse, delta, d_out,
-                               window) -> tuple[torch.Tensor, torch.Tensor]:
-  """``(dk, dv)``, summed over the query heads in float32, in ``k.dtype``."""
+                               window, kv_prefix=0
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+  """``(dk, dv)`` over all ``kv_prefix + t`` keys, summed over the query
+  heads in float32, in ``k.dtype``."""
   p, ds = _probabilities_and_ds(q, k, v, segment_pos, lse, delta, d_out,
-                                window)
+                                window, kv_prefix)
   dk = torch.einsum("bnts,btnh->bsh", ds, q.float())[:, :, None]
   dv = torch.einsum("bnts,btnh->bsh", p, d_out.float())[:, :, None]
   return dk.to(k.dtype), dv.to(v.dtype)
@@ -137,14 +142,15 @@ def window_attention_backward_plain(
     lse: torch.Tensor,
     d_out: torch.Tensor,
     window: int,
+    kv_prefix: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-  """``(dq, dk, dv)`` by the kernels' formulas on the full masked square.
+  """``(dq, dk, dv)`` by the kernels' formulas on the full masked rectangle.
 
   Probabilities come from the forward's ``lse``, not from a new softmax;
   everything is float32 until the results are cast to the inputs' dtypes.
   """
   delta = attention_delta(out, d_out)
-  args = (q, k, v, segment_pos, lse, delta, d_out, window)
+  args = (q, k, v, segment_pos, lse, delta, d_out, window, kv_prefix)
   return (window_attention_dq_plain(*args), *window_attention_dkv_plain(*args))
 
 
@@ -276,9 +282,9 @@ def window_attention_forward(
   return out, lse
 
 
-def _backward_operands(q, k, v, segment_pos, lse, delta, d_out):
+def _backward_operands(q, k, v, segment_pos, lse, delta, d_out, kv_prefix):
   """Checks the backward's operands; returns them contiguous for a kernel."""
-  _check(q, k, v, segment_pos)
+  _check(q, k, v, segment_pos, kv_prefix)
   batch, seq_len, num_heads, _ = q.shape
   if d_out.shape != q.shape or d_out.dtype != q.dtype:
     raise ValueError("`d_out` must match `q` in shape and dtype.")
@@ -303,33 +309,41 @@ def window_attention_dq(
     delta: torch.Tensor,
     d_out: torch.Tensor,
     window: int,
+    kv_prefix: int = 0,
 ) -> torch.Tensor:
   """dq: its CUDA kernel on the card, the plain version on CPU.
 
   ``lse`` is the forward's, ``delta`` is :func:`attention_delta` and
-  ``d_out`` the output cotangent; returns dq [b, t, n, h] in ``q.dtype``.
+  ``d_out`` the output cotangent; ``k`` and ``v`` are
+  ``[b, kv_prefix + t, 1, h]``. Returns dq [b, t, n, h] in ``q.dtype``; a
+  launch with ``kv_prefix > 0`` counts in ``dq_kv_prefix_launches``, one
+  without in ``dq_launches``.
   """
-  global dq_launches
+  global dq_launches, dq_kv_prefix_launches
   if q.device.type == "cpu":
-    _check(q, k, v, segment_pos)
+    _check(q, k, v, segment_pos, kv_prefix)
     return window_attention_dq_plain(q, k, v, segment_pos, lse, delta, d_out,
-                                     window)
+                                     window, kv_prefix)
   q, k, v, seg, lse, delta, d_out = _backward_operands(
-      q, k, v, segment_pos, lse, delta, d_out
+      q, k, v, segment_pos, lse, delta, d_out, kv_prefix
   )
   batch, seq_len, num_heads, head_dim = q.shape
   fn = _build.function(
-      "window_attention_backward", "cg_window_attention_dq", "ppppppppiiiiifp"
+      "window_attention_backward", "cg_window_attention_dq",
+      "ppppppppiiiiiifp",
   )
   dq = torch.empty_like(q)
   with torch.cuda.device(q.device):
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), d_out.data_ptr(), dq.data_ptr(),
-        batch, seq_len, num_heads, head_dim, int(window),
+        batch, seq_len, num_heads, head_dim, int(window), int(kv_prefix),
         float(head_dim**-0.5), _stream(q),
     )
-  dq_launches += 1
+  if kv_prefix:
+    dq_kv_prefix_launches += 1
+  else:
+    dq_launches += 1
   if err:
     raise RuntimeError(
         f"window_attention dq CUDA kernel failed: cudaError_t {err}."
@@ -346,24 +360,27 @@ def window_attention_dkv(
     delta: torch.Tensor,
     d_out: torch.Tensor,
     window: int,
+    kv_prefix: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
   """(dk, dv): their CUDA kernel on the card, the plain version on CPU.
 
-  The gradients of the one key/value head, summed over the query heads
-  that share it, in ``k.dtype``.
+  The gradients of the one key/value head over all ``kv_prefix + t`` keys,
+  summed over the query heads that share it, in ``k.dtype``; a halo key no
+  query sees gets zeros. A launch with ``kv_prefix > 0`` counts in
+  ``dkv_kv_prefix_launches``, one without in ``dkv_launches``.
   """
-  global dkv_launches
+  global dkv_launches, dkv_kv_prefix_launches
   if q.device.type == "cpu":
-    _check(q, k, v, segment_pos)
+    _check(q, k, v, segment_pos, kv_prefix)
     return window_attention_dkv_plain(q, k, v, segment_pos, lse, delta,
-                                      d_out, window)
+                                      d_out, window, kv_prefix)
   q, k, v, seg, lse, delta, d_out = _backward_operands(
-      q, k, v, segment_pos, lse, delta, d_out
+      q, k, v, segment_pos, lse, delta, d_out, kv_prefix
   )
   batch, seq_len, num_heads, head_dim = q.shape
   fn = _build.function(
       "window_attention_backward", "cg_window_attention_dkv",
-      "pppppppppiiiiifp",
+      "pppppppppiiiiiifp",
   )
   dk = torch.empty_like(k)
   dv = torch.empty_like(v)
@@ -372,9 +389,12 @@ def window_attention_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), d_out.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), batch, seq_len, num_heads, head_dim, int(window),
-        float(head_dim**-0.5), _stream(q),
+        int(kv_prefix), float(head_dim**-0.5), _stream(q),
     )
-  dkv_launches += 1
+  if kv_prefix:
+    dkv_kv_prefix_launches += 1
+  else:
+    dkv_launches += 1
   if err:
     raise RuntimeError(
         f"window_attention dk/dv CUDA kernel failed: cudaError_t {err}."
@@ -386,11 +406,13 @@ class _WindowAttention(torch.autograd.Function):
   """``flash_window_attention``'s ``custom_vjp``: ``_fwd`` and ``_bwd``."""
 
   @staticmethod
-  def forward(ctx, q, k, v, segment_pos, window):
-    out, lse = window_attention_forward(q, k, v, segment_pos, window)
+  def forward(ctx, q, k, v, segment_pos, window, kv_prefix):
+    out, lse = window_attention_forward(q, k, v, segment_pos, window,
+                                        kv_prefix)
     # The residuals of _fwd; segment_pos gets no gradient.
     ctx.save_for_backward(q, k, v, segment_pos, out, lse)
     ctx.window = window
+    ctx.kv_prefix = kv_prefix
     ctx.mark_non_differentiable(lse)
     return out, lse
 
@@ -398,10 +420,11 @@ class _WindowAttention(torch.autograd.Function):
   def backward(ctx, d_out, _):
     q, k, v, segment_pos, out, lse = ctx.saved_tensors
     delta = attention_delta(out, d_out)
-    args = (q, k, v, segment_pos, lse, delta, d_out, ctx.window)
+    args = (q, k, v, segment_pos, lse, delta, d_out, ctx.window,
+            ctx.kv_prefix)
     dq = window_attention_dq(*args)
     dk, dv = window_attention_dkv(*args)
-    return dq, dk, dv, None, None
+    return dq, dk, dv, None, None, None
 
 
 def window_attention(
@@ -422,19 +445,11 @@ def window_attention(
       negative marks padding).
     window: The local attention window size.
     kv_prefix: Leading halo keys and values of a sequence-parallel shard
-      (``k`` and ``v`` are then ``[b, kv_prefix + t, 1, h]``); forward only.
+      (``k`` and ``v`` are then ``[b, kv_prefix + t, 1, h]``, and so are
+      their gradients).
 
   Returns:
     ``(out, lse)``: [b, t, n, h] outputs in ``q.dtype`` and the [b, n, t]
     float32 logsumexp of each query row (no gradient flows through it).
   """
-  if kv_prefix:
-    if torch.is_grad_enabled() and any(
-        z.requires_grad for z in (q, k, v)):
-      raise NotImplementedError(
-          "Gradients of window attention with a key halo (kv_prefix) are "
-          "not ported (SP training, ROADMAP queue 1 item 14); run it under "
-          "torch.no_grad()."
-      )
-    return window_attention_forward(q, k, v, segment_pos, window, kv_prefix)
-  return _WindowAttention.apply(q, k, v, segment_pos, window)
+  return _WindowAttention.apply(q, k, v, segment_pos, window, kv_prefix)

@@ -16,10 +16,11 @@ device of the mesh. The port mirrors that in plain PyTorch. A
 sequence-sharded function splits its operands along ``t`` (and the batch
 along the ``data`` axis) with :func:`shard_activations`, runs the per-shard
 work on each shard's device, and concatenates the results back on the
-operands' device. The two collectives the path needs are functions over the
-list of shards, :func:`all_gather` and :func:`ppermute`, each a ``.to``
-copy that is a no-op when the devices coincide; a later process-per-card
-backend (``torch.distributed``) replaces these two.
+operands' device. The collectives the path needs are functions over the
+list of shards, :func:`all_gather`, :func:`ppermute` and (in the backward)
+:func:`psum`, each built of ``.to`` copies that are no-ops when the devices
+coincide; a later process-per-card backend (``torch.distributed``) replaces
+them.
 
 A device may appear more than once in a mesh. JAX's CPU tests get 8 devices
 from ``--xla_force_host_platform_device_count=8``; torch has no such flag,
@@ -298,6 +299,21 @@ def all_gather(values: Sequence[Any], devices: Sequence[torch.device]
   return [[_to(v, dev) for v in values] for dev in devices]
 
 
+def psum(values: Sequence[torch.Tensor | None],
+         devices: Sequence[torch.device]) -> list[torch.Tensor | None]:
+  """Shard ``j`` receives the sum of every shard's value, in shard order, on
+  ``devices[j]`` (``jax.lax.psum`` over one scan domain). ``None`` counts as
+  zero; if every value is ``None`` every shard receives ``None``."""
+  present = [v for v in values if v is not None]
+  out = []
+  for dev in devices:
+    total = None
+    for v in present:
+      total = v.to(dev) if total is None else total + v.to(dev)
+    out.append(total)
+  return out
+
+
 def ppermute(values: Sequence[torch.Tensor], devices: Sequence[torch.device],
              perm: Sequence[tuple[int, int]]) -> list[torch.Tensor]:
   """Shard ``dst`` receives ``values[src]`` on ``devices[dst]`` for each
@@ -388,29 +404,39 @@ def scan_with_correction(
     as_: Sequence[torch.Tensor],
     h0s: Sequence[torch.Tensor | None],
     reverse: bool = False,
-) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
+    *,
+    shift_a_prod: bool = False,
+    sync_h_last: bool = True,
+) -> tuple[list[torch.Tensor], list[torch.Tensor], list[torch.Tensor]]:
   """Scans every shard of one scan domain from a zero state with the running
   product of ``a``, all-gathers the ``(h_last, a_prod_last)`` pairs and runs
-  :func:`multi_shard_correction` on every shard, on its own device
-  (``sync_h_last=True``): ``_native_scan_with_correction``
-  (``ops/scan.py:150-180``) and the forward of ``_sharded_scan``
-  (``ops/pallas_lru.py:453-486``), which differ only in the scan.
+  :func:`multi_shard_correction` on every shard, on its own device:
+  ``_native_scan_with_correction`` (``ops/scan.py:150-180``) and both walks
+  of ``_sharded_scan`` (``ops/pallas_lru.py:453-486``), which differ only in
+  the scan and the two options.
 
   ``scan_fn(x, a, h0, reverse=..., return_a_prod=True)`` returns
-  ``((y, h_last), (a_prod, a_prod_last))``. Returns ``(ys, h_lasts)``
-  corrected, one entry per shard.
+  ``((y, h_last), (a_prod, a_prod_last))`` and walks right to left when
+  ``reverse``; the correction takes the shards in that walk's order. The
+  forward keeps ``shift_a_prod=False, sync_h_last=True``; the cotangent walk
+  of the backward passes ``shift_a_prod=True, sync_h_last=False``, its
+  ``reverse`` flipped from the forward's. Returns ``(ys, h_lasts,
+  h0s_corrected)`` corrected, one entry per shard: the last is the state
+  that flowed into each shard, which the backward keeps as a residual.
   """
   local = [scan_fn(x, a, None, reverse=reverse, return_a_prod=True)
            for x, a in zip(xs, as_)]
   pairs = [(h, p_last) for (_, h), (_, p_last) in local]
   gathered = all_gather(pairs, [x.device for x in xs])
-  ys, h_lasts = [], []
+  ys, h_lasts, h0s_corrected = [], [], []
   for j, ((y, h_last), (a_prod, a_prod_last)) in enumerate(local):
     h_all, a_all = zip(*gathered[j])
-    y, h_last, _ = multi_shard_correction(
+    y, h_last, h0_corrected = multi_shard_correction(
         y=y, a_prod=a_prod, h0=h0s[j], h_last=h_last,
         a_prod_last=a_prod_last, reverse=reverse, h_last_all=h_all,
-        a_last_all=a_all, shard_index=j)
+        a_last_all=a_all, shard_index=j, shift_a_prod=shift_a_prod,
+        sync_h_last=sync_h_last)
     ys.append(y)
     h_lasts.append(h_last)
-  return ys, h_lasts
+    h0s_corrected.append(h0_corrected)
+  return ys, h_lasts, h0s_corrected

@@ -9,9 +9,12 @@ attention kernel on its own queries against ``[halo || local]`` keys with
 lower bound comes from the local ``segment_pos`` alone, and shard 0's zero
 halo stays masked because its documents start at or after the halo boundary.
 
-Forward only: with ``kv_prefix`` the attention refuses autograd (the dq and
-dk/dv kernels with the halo, and the halo's gradient routed back, are the
-SP-training slice).
+Differentiable: the attention's backward runs the dq and dk/dv kernels with
+the halo, whose ``dk``/``dv`` cover the halo's rows. Autograd carries those
+rows back through the ``torch.cat``, the ``.to`` of :func:`sharding.ppermute`
+and the slice ``k[:, -window:]`` to the shard that sent them: the transpose
+of the ``ppermute`` that JAX's autodiff derives. Shard 0's zero halo comes
+from no shard and its gradient goes nowhere.
 """
 
 from __future__ import annotations
@@ -53,8 +56,8 @@ def sequence_sharded_attention(
     window: int,
     spec: sharding.ShardingSpec,
 ) -> torch.Tensor:
-  """Window attention over a sequence-sharded batch, the prefill path
-  (``sp_attention.py:62-94``).
+  """Window attention over a sequence-sharded batch, for prefill and
+  training (``sp_attention.py:62-94``).
 
   Splits the operands over the spec's batch and sequence axes, sends each
   shard's last ``window`` keys and values to the next shard, runs the

@@ -9,9 +9,11 @@ into one update (``optax.MultiSteps``) and ``skip_nonfinite_updates``
 (``optax.apply_if_finite`` with 3 consecutive skips allowed).
 
 Not ported, and refused with ``NotImplementedError`` rather than ignored:
-LoRA, the frozen-connector stage, a device mesh, checkpoints and resume,
-prefetching, asynchronous saves and image batches. Preemption handling and
-the image encoder are not parameters yet.
+LoRA, the frozen-connector stage, a device mesh (the pjit DP/TP regime),
+checkpoints and resume, prefetching, asynchronous saves and image batches.
+Preemption handling and the image encoder are not parameters yet.
+Sequence-parallel training needs no mesh here: as in JAX it is a model built
+with ``scan_sharding_spec``, which this loop trains like any other.
 
 The model trains where its parameters live, on the card unless the caller
 passes ``device="cpu"``; ``device=None`` without a card raises.
@@ -55,6 +57,12 @@ class TrainingConfig:
 
 
 def _refuse_unported(config: TrainingConfig, mesh) -> None:
+  if mesh is not None:
+    raise NotImplementedError(
+        "train_loop(mesh=...) is the pjit DP/TP regime, which is not ported "
+        "to the PyTorch trainer yet. For sequence parallelism build the model "
+        "with scan_sharding_spec and pass no mesh."
+    )
   unported = {
       "lora": config.lora,
       "freeze_llm": config.freeze_llm,
@@ -62,7 +70,6 @@ def _refuse_unported(config: TrainingConfig, mesh) -> None:
       "checkpoint_dir": config.checkpoint_dir,
       "prefetch_batches": config.prefetch_batches,
       "async_checkpoints": config.async_checkpoints,
-      "mesh": mesh is not None,
   }
   asked = sorted(name for name, value in unported.items() if value)
   if asked:
@@ -104,7 +111,9 @@ def train_loop(
       when it is absent.
     pad_id: Tokenizer pad id.
     device: Where to train; ``None`` means CUDA and raises without a card.
-    mesh: A device mesh for sharded steps; not ported, must be ``None``.
+    mesh: A device mesh for the pjit-sharded (DP/TP) steps; not ported,
+      must be ``None``. A model with ``scan_sharding_spec`` trains
+      sequence-parallel without it.
   """
   _refuse_unported(config, mesh)
   device = griffin.resolve_device(device)

@@ -11,8 +11,12 @@ for full fine-tuning on one device, text only:
   * ``validation_step``: the loss only.
 
 The backward runs the CUDA backward kernels of the RG-LRU scan and of the
-windowed attention through their autograd Functions. The frozen-connector
-step, LoRA and the sharded step are not ported.
+windowed attention through their autograd Functions. A model built with
+``scan_sharding_spec`` trains sequence-parallel behind the same steps, as in
+JAX: its scans and attention split the time axis over the spec's mesh, and
+their backwards run the sharded cotangent scan and the halo attention's
+gradient. The frozen-connector step, LoRA and the pjit-sharded (DP/TP) step
+are not ported.
 """
 
 from __future__ import annotations
@@ -98,7 +102,9 @@ def forward_and_loss_fn(
   """Masked next-token NLL of a text batch.
 
   The model returns final hidden states; the last step has no target and
-  the first token is never predicted.
+  the first token is never predicted. A sequence-parallel model's batch must
+  divide into its mesh: its scans raise ``ValueError`` otherwise, as
+  ``shard_map`` would, before any update.
   """
   hidden, _ = model(
       input_tokens, positions, None, return_logits=True, return_cache=False,

@@ -81,14 +81,34 @@ Phases, each of which raises on failure (so the script exits non-zero):
      last position's logits against the same weights unsharded (a second
      ``Griffin`` from the same seed, through the unsharded kernels), whose
      generation's token agreement is printed; SP and unsharded prefill are
+     timed in balanced turns;
+ 11. the sequence-parallel backward variants at the shapes of the SP
+     training step's shards: the RG-LRU cotangent scan with the running
+     product of ``a`` ([1, 4096, 2560] bf16, bit for bit against the plain
+     loop) and the window attention's dq and dk/dv with a 2048-key halo
+     (q [1, 4096, 10, 256], k and v [1, 6144, 1, 256]; shard 0's zero halo
+     and a later shard), timed as in 5 with SDPA's backward over the same
+     band as the yardstick;
+ 12. the sequence-parallel training path: ``train_loop`` takes 3 AdamW
+     steps of a full-width, full-depth RecurrentGemma-2B (seeded random
+     bf16 weights) with ``scan_sharding_spec`` on the (1, 4) mesh, on one
+     repeated row of 16384 tokens right-padded after 15000, the loss over
+     the second half of the real tokens. The loss must be finite and fall;
+     the counters, reset just before, must show per step 144 LRU launches
+     with the product (18 recurrent blocks x 4 shards, twice under remat),
+     72 LRU backward launches with it, 64 halo attention forwards, 32 halo
+     dq and 32 halo dk/dv, and none of the unsharded kernels. The first
+     step's inputs to each backward kernel are held against its plain
+     version; the SP gradients against the unsharded gradients of the same
+     model on the same batch, leaf by leaf; SP and unsharded steps are
      timed in balanced turns.
 
   python3 chip_smoke.py --profile
 
 adds kernel time by name (torch.profiler) for the prefill and decode of the
 serving path, for one training step, for the encode and the
-image-conditioned prefill, and for the sequence-parallel prefill, with the
-device's idle share.
+image-conditioned prefill, for the sequence-parallel prefill and for one
+sequence-parallel training step, with the device's idle share.
 
 Needs a CUDA card and the CUDA toolkit (``nvcc``); without a card it exits
 with status 1 and prints no result. The line before the last is a JSON
@@ -203,6 +223,9 @@ RMSNORM_REPLACES = "cadence_gemma_tpu/ops/fused_epilogue.py:70"
 # with kv_prefix.
 LRU_A_PROD_REPLACES = "cadence_gemma_tpu/ops/pallas_lru.py:265"
 ATTN_PREFIX_REPLACES = "cadence_gemma_tpu/ops/pallas_attention.py:207"
+# The backward walk with the product: the same pallas_call, launched from
+# _lru_bwd (:516) through _sharded_scan(backprop=True).
+LRU_BWD_A_PROD_REPLACES = "cadence_gemma_tpu/ops/pallas_lru.py:265"
 
 # The towers' attention: DINOv2-L (729 patches + 5 prefix tokens, head_dim
 # 64) and SigLIP-so400m (729, head_dim 72) at 384 px, batch 2; then a longer
@@ -261,6 +284,18 @@ SP_LOGITS_REL_RMS = 5e-2
 # Turns of SP (True) and unsharded (False) prefills, balanced against linear
 # and quadratic drift as EPILOGUE_TURNS below.
 SP_TURNS = (True, False, False, True, False, True, True, False)
+
+# The sequence-parallel training path: the same (1, 4) mesh, one row of
+# 16384 tokens right-padded after 15000 (inside shard 3), 4096 tokens a
+# shard, the loss over the second half of the real tokens.
+SP_TRAIN_TOKENS = 16384
+SP_TRAIN_REAL_TOKENS = 15000
+SP_TRAIN_STEPS = 3
+SP_TRAIN_LOCAL_TOKENS = SP_TRAIN_TOKENS // SP_SHARDS
+LRU_SP_TRAIN_SHAPE = (1, SP_TRAIN_LOCAL_TOKENS, 2560)
+ATTN_SP_TRAIN_SHAPE = (1, SP_TRAIN_LOCAL_TOKENS, 10, 256)
+# Turns of SP (True) and unsharded (False) training steps.
+SP_TRAIN_TURNS = (True, False, False, True)
 
 
 def log(*args) -> None:
@@ -1800,6 +1835,349 @@ def profile_sequence_parallel(samplers, prompts, prefill_ms) -> None:
       log(f"    {ms:9.4f} ms  x{count:5d}  {name[:90]}")
 
 
+def phase_lru_backward_a_prod(dev) -> dict:
+  b, t, d = LRU_SP_TRAIN_SHAPE
+  rng = np.random.default_rng(SEED + 50)
+  g = torch.tensor(rng.standard_normal(LRU_SP_TRAIN_SHAPE, dtype=np.float32),
+                   device=dev).bfloat16()
+  a = torch.sigmoid(torch.tensor(
+      rng.standard_normal(LRU_SP_TRAIN_SHAPE, dtype=np.float32), device=dev
+  )).bfloat16()
+  dh_last = torch.tensor(rng.standard_normal((b, d), dtype=np.float32),
+                         device=dev)
+  log(f"== lru_scan_backward with the running product of a vs plain at "
+      f"[{b},{t},{d}] bf16, the SP training step's shard (tolerance "
+      f"{LRU_A_PROD_MAX_ABS_ERR} on dx, dh0, a_prod, a_prod_last)")
+  worst = 0.0
+  for reverse in (False, True):
+    for carry in (None, dh_last):
+      err = check_lru_a_prod(g, a, carry, reverse, backprop=True)
+      log(f"  reverse={reverse} dh_last={carry is not None}: max_abs_err "
+          f"{err}")
+      worst = max(worst, err)
+  # Timed as SP training calls it: the forward scan's cotangents, no carry
+  # (the loss does not reach h_last).
+  ms = cuda_ms(lambda: lru_scan.lru_scan_backward(g, a, None, False, True),
+               20)
+  plain_ms = cuda_ms(lambda: lru_scan.lru_scan_backward_plain(
+      g, a, None, False, True), 2)
+  # Read g and a, write dx and a_prod (bf16), dh0 and a_prod_last (fp32);
+  # three fp32 flops a step.
+  n_bytes = 4 * b * t * d * 2 + 2 * b * d * 4
+  bound_ms, bound_by = bound(n_bytes, 3 * b * t * d, FP32_FLOPS)
+  log(f"  ms {ms:.4f}  plain_ms {plain_ms:.3f}  bound_ms {bound_ms:.4f} "
+      f"({bound_by}, {n_bytes / 1e6:.1f} MB); the cotangent scan without "
+      f"the product on the same inputs "
+      f"{cuda_ms(lambda: lru_scan.lru_scan_backward(g, a), 20):.4f} ms")
+  return dict(name="lru_scan_backward_a_prod", route="cuda",
+              source="cadence_gemma_tpu_torch/csrc/lru_scan.cu",
+              replaces=LRU_BWD_A_PROD_REPLACES, max_abs_err=worst, ms=ms,
+              plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+              library_ms=None)
+
+
+def _halo_training_case(rng, dev, shard0: bool):
+  """q, [halo || local] k and v, segment_pos and an output cotangent of one
+  SP training shard: shard 0 (a zero halo, positions from 0) or shard 2
+  (positions from 8192, a halo of the previous shard's keys)."""
+  b, t, n, h = ATTN_SP_TRAIN_SHAPE
+  q, k, v, g = (torch.tensor(rng.standard_normal(s, dtype=np.float32),
+                             device=dev).bfloat16()
+                for s in ((b, t, n, h), (b, ATTN_WINDOW + t, 1, h),
+                          (b, ATTN_WINDOW + t, 1, h), (b, t, n, h)))
+  start = 0 if shard0 else 2 * t
+  if shard0:
+    k[:, :ATTN_WINDOW] = 0
+    v[:, :ATTN_WINDOW] = 0
+  seg = torch.arange(start, start + t, device=dev)[None].repeat(b, 1)
+  return q, k, v, seg, g
+
+
+def phase_attention_kv_prefix_backward(dev) -> list[dict]:
+  b, t, n, h = ATTN_SP_TRAIN_SHAPE
+  rng = np.random.default_rng(SEED + 51)
+  log(f"== window_attention dq and dk/dv with a {ATTN_WINDOW}-key halo vs "
+      f"plain: q [{b},{t},{n},{h}], k and v [{b},{ATTN_WINDOW + t},1,{h}] "
+      f"bf16, window {ATTN_WINDOW} (tolerance {ATTN_BWD_REL_ERR} of the "
+      f"largest gradient)")
+  errs = {"dq": 0.0, "dkv": 0.0}
+  for shard0, label in ((True, "shard 0: zero halo"),
+                        (False, f"shard 2: continuous positions from "
+                                f"{2 * t}")):
+    log(f"  {label}:")
+    q, k, v, seg, g = _halo_training_case(rng, dev, shard0)
+    out, lse = wa.window_attention_forward(q, k, v, seg, ATTN_WINDOW,
+                                           ATTN_WINDOW)
+    args = (q, k, v, seg, lse, wa.attention_delta(out, g), g, ATTN_WINDOW,
+            ATTN_WINDOW)
+    errs["dq"] = max(errs["dq"], check_dq(*args))
+    errs["dkv"] = max(errs["dkv"], check_dkv(*args))
+    if shard0:
+      dk, dv = wa.window_attention_dkv(*args)
+      if dk[:, :ATTN_WINDOW].any() or dv[:, :ATTN_WINDOW].any():
+        raise AssertionError("Shard 0's zero halo got a gradient.")
+  # Timed at the later shard.
+  visible = wa.band_mask(seg, t, ATTN_WINDOW, ATTN_WINDOW)  # [b, t, P + t]
+  pairs = int(visible.sum().item())
+  qt, kt, vt = (z.transpose(1, 2).detach().requires_grad_()
+                for z in (q, k, v))
+  gt = g.transpose(1, 2)
+
+  def sdpa():
+    return torch.nn.functional.scaled_dot_product_attention(
+        qt, kt.expand(-1, n, -1, -1), vt.expand(-1, n, -1, -1),
+        attn_mask=visible[:, None],
+    )
+
+  def sdpa_forward_backward():
+    torch.autograd.grad(sdpa(), (qt, kt, vt), gt)
+
+  with torch.no_grad():
+    sdpa_fwd_ms = cuda_ms(sdpa, 5)
+  library_ms = cuda_ms(sdpa_forward_backward, 5) - sdpa_fwd_ms
+  del qt, kt, vt, gt
+  dq_ms = cuda_ms(lambda: wa.window_attention_dq(*args), 10)
+  dkv_ms = cuda_ms(lambda: wa.window_attention_dkv(*args), 10)
+  dq_plain_ms = cuda_ms(lambda: wa.window_attention_dq_plain(*args), 2)
+  dkv_plain_ms = cuda_ms(lambda: wa.window_attention_dkv_plain(*args), 2)
+  # Bytes: q and dO, k and v over the halo and the shard in bf16,
+  # segment_pos, lse and delta in 32 bits, and the outputs (dq; dk and dv
+  # over P + t keys). Operations as the kernels without a halo.
+  kv_len = ATTN_WINDOW + t
+  small = 2 * (2 * b * t * n * h + 2 * b * kv_len * h) + 4 * b * t + (
+      2 * 4 * b * n * t)
+  rows = []
+  for name, ms, plain_ms, err, products, n_out in (
+      ("window_attention_dq_kv_prefix", dq_ms, dq_plain_ms, errs["dq"], 3,
+       b * t * n * h),
+      ("window_attention_dkv_kv_prefix", dkv_ms, dkv_plain_ms, errs["dkv"],
+       4, 2 * b * kv_len * h),
+  ):
+    flops = 2 * products * n * h * pairs
+    n_bytes = small + 2 * n_out
+    bound_ms, bound_by = bound(n_bytes, flops, BF16_TENSOR_FLOPS)
+    log(f"  {name}: ms {ms:.4f}  plain_ms {plain_ms:.3f}  bound_ms "
+        f"{bound_ms:.4f} ({bound_by}, {flops / 1e9:.1f} GFLOP over {pairs} "
+        f"visible pairs)")
+    rows.append(dict(
+        name=name, route="cuda",
+        source="cadence_gemma_tpu_torch/csrc/window_attention_backward.cu",
+        replaces=DQ_REPLACES if "dq" in name else DKV_REPLACES,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=library_ms,
+    ))
+  log(f"  library_ms (SDPA backward over the [{t}, {kv_len}] band, k and v "
+      f"expanded to {n} heads: dq, dk and dv together) {library_ms:.4f}")
+  return rows
+
+
+def _sp_training_counts() -> dict[str, int]:
+  return {"lru_scan_a_prod": lru_scan.a_prod_launches,
+          "lru_scan_backward_a_prod": lru_scan.backward_a_prod_launches,
+          "window_attention_kv_prefix": wa.kv_prefix_launches,
+          "window_attention_dq_kv_prefix": wa.dq_kv_prefix_launches,
+          "window_attention_dkv_kv_prefix": wa.dkv_kv_prefix_launches,
+          **_launch_counts()}
+
+
+def _reset_sp_training_counts() -> None:
+  _reset_launch_counts()
+  lru_scan.a_prod_launches = lru_scan.backward_a_prod_launches = 0
+  wa.kv_prefix_launches = wa.dq_kv_prefix_launches = 0
+  wa.dkv_kv_prefix_launches = 0
+
+
+def _use_sharding(model: griffin.Griffin, spec) -> None:
+  """Puts the model's scans and attention on ``spec`` (None: unsharded),
+  as ``_use_plain_path`` routes its kernels; the weights stay."""
+  model.scan_sharding_spec = spec
+  for block in model.blocks:
+    if block.temporal_block_type is common.TemporalBlockType.RECURRENT:
+      block.recurrent_block.rg_lru.scan_sharding_spec = spec
+    else:
+      block.attention_block.sharding_spec = spec
+
+
+def sp_training_batch(vocab_size: int) -> data_lib.TrainingInput:
+  """One row of random tokens after BOS: 15000 real ones, right-padded to
+  16384; the loss covers the second half of the real tokens."""
+  rng = np.random.default_rng(SEED + 52)
+  tokens = rng.integers(4, vocab_size, (1, SP_TRAIN_TOKENS)).astype(np.int32)
+  tokens[:, 0] = 1
+  tokens[:, SP_TRAIN_REAL_TOKENS:] = 0
+  mask = np.zeros(tokens.shape, bool)
+  mask[:, SP_TRAIN_REAL_TOKENS // 2:SP_TRAIN_REAL_TOKENS] = True
+  return data_lib.TrainingInput(input_tokens=tokens, target_mask=mask)
+
+
+def phase_sp_training(dev, kernels: list[dict], profile: bool) -> None:
+  config = common.GriffinConfig.from_preset(
+      common.Preset.RECURRENT_GEMMA_2B_V1
+  )
+  spec = sp_mesh_spec()
+  start = time.perf_counter()
+  model = griffin.Griffin(
+      config, device=dev, dtype=torch.bfloat16, scan_sharding_spec=spec,
+      generator=torch.Generator(dev).manual_seed(SEED + 53),
+  )
+  torch.cuda.synchronize()
+  log(f"== sequence-parallel training: RecurrentGemma-2B with "
+      f"scan_sharding_spec on {spec.mesh} (built in "
+      f"{time.perf_counter() - start:.1f} s); train_loop, {SP_TRAIN_STEPS} "
+      f"AdamW steps at learning rate {TRAIN_LEARNING_RATE}, one row of "
+      f"{SP_TRAIN_TOKENS} tokens ({SP_TRAIN_REAL_TOKENS} real, "
+      f"{SP_TRAIN_LOCAL_TOKENS} a shard)")
+  batch = sp_training_batch(config.vocab_size)
+  n_recurrent = sum(
+      bt is common.TemporalBlockType.RECURRENT for bt in config.block_types
+  )
+  n_attention = config.num_layers - n_recurrent
+
+  steps = []
+
+  def log_metrics(metrics, step):
+    steps.append((step, metrics["train_loss"], time.perf_counter()))
+
+  captures = [CaptureFirstCall(lru_scan, "lru_scan_backward"),
+              CaptureFirstCall(wa, "window_attention_dq"),
+              CaptureFirstCall(wa, "window_attention_dkv")]
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  _reset_sp_training_counts()
+  start = time.perf_counter()
+  try:
+    train_loop_lib.train_loop(
+        model, [batch] * SP_TRAIN_STEPS,
+        train_loop_lib.TrainingConfig(learning_rate=TRAIN_LEARNING_RATE,
+                                      eval_every_n=1,
+                                      max_steps=SP_TRAIN_STEPS),
+        log_metrics=log_metrics, device=dev,
+    )
+  finally:
+    for capture in captures:
+      capture.restore()
+  torch.cuda.synchronize()
+  launches = _sp_training_counts()
+  peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+  per_step = {"lru_scan_a_prod": 2 * n_recurrent * SP_SHARDS,
+              "lru_scan_backward_a_prod": n_recurrent * SP_SHARDS,
+              "window_attention_kv_prefix": 2 * n_attention * SP_SHARDS,
+              "window_attention_dq_kv_prefix": n_attention * SP_SHARDS,
+              "window_attention_dkv_kv_prefix": n_attention * SP_SHARDS,
+              **{name: 0 for name in _launch_counts()}}
+  want = {name: SP_TRAIN_STEPS * count for name, count in per_step.items()}
+  log(f"  launches in the {SP_TRAIN_STEPS} steps {launches}")
+  if launches != want:
+    raise AssertionError(f"SP training launched {launches}, want {want} "
+                         f"({per_step} a step).")
+  losses = [loss for _, loss, _ in steps]
+  times = [start] + [t for _, _, t in steps]
+  step_ms = [(b - a) * 1e3 for a, b in zip(times, times[1:])]
+  log(f"  losses {losses}")
+  if len(losses) != SP_TRAIN_STEPS or not all(np.isfinite(losses)):
+    raise AssertionError(f"Non-finite or missing losses: {losses}.")
+  if not losses[-1] < losses[0]:
+    raise AssertionError(f"The loss did not fall: {losses}.")
+  steady_ms = float(np.mean(step_ms[1:]))
+  log(f"  ms per step {[round(ms, 1) for ms in step_ms]} (the first "
+      f"includes warm-up); steady {steady_ms:.1f} ms "
+      f"({SP_TRAIN_REAL_TOKENS / steady_ms * 1e3:.0f} real tokens/s); peak "
+      f"{peak_gb:.2f} GB")
+
+  # Each backward kernel against its plain version on the inputs the first
+  # step gave it (for the scan: the first shard's cotangent walk).
+  checks = {
+      "lru_scan_backward": ("lru_scan_backward_a_prod",
+                            lambda *a, **k: check_lru_a_prod(
+                                *a, **k, backprop=True)),
+      "window_attention_dq": ("window_attention_dq_kv_prefix", check_dq),
+      "window_attention_dkv": ("window_attention_dkv_kv_prefix", check_dkv),
+  }
+  by_name = {kernel["name"]: kernel for kernel in kernels}
+  for capture in captures:
+    name, check = checks[capture.name]
+    if capture.args is None:
+      raise AssertionError(f"SP training never called {name}.")
+    tensors = [z for z in capture.args if isinstance(z, torch.Tensor)]
+    log(f"  {name} on the SP step's inputs "
+        f"{[(tuple(z.shape), str(z.dtype)) for z in tensors]} "
+        f"{[z for z in capture.args if not isinstance(z, torch.Tensor)]}:")
+    err = check(*capture.args, **capture.kwargs)
+    log(f"  {name} max_abs_err {err}")
+    by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], err)
+    by_name[name]["launches"] = launches[name]
+    capture.args = capture.kwargs = None
+  del captures
+  compare_sp_gradients(model, batch, spec, dev)
+  if profile:
+    profile_training(model, batch, dev, steady_ms)
+  del model
+  torch.cuda.empty_cache()
+
+
+def compare_sp_gradients(model, batch, spec, dev) -> None:
+  """The SP gradients of one batch against the unsharded gradients of the
+  same model (its spec switched off), leaf by leaf; then SP and unsharded
+  training steps in balanced turns."""
+  model.zero_grad(set_to_none=True)
+  torch.cuda.empty_cache()
+  tokens = torch.as_tensor(batch.input_tokens, device=dev).long()
+  mask = torch.as_tensor(batch.target_mask, device=dev)
+
+  def loss_and_grads():
+    loss = trainer.accumulate_gradients(model, 0, tokens, mask)
+    grads = {n: p.grad for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+  _reset_sp_training_counts()
+  loss_sp, grads_sp = loss_and_grads()
+  sp_counts = _sp_training_counts()
+  _use_sharding(model, None)
+  try:
+    loss_ref, grads_ref = loss_and_grads()
+  finally:
+    _use_sharding(model, spec)
+  ref_counts = {name: count - sp_counts[name]
+                for name, count in _sp_training_counts().items()}
+  if ref_counts["lru_scan_backward"] == 0 or ref_counts[
+      "window_attention_dq"] == 0 or ref_counts["lru_scan_a_prod"]:
+    raise AssertionError(f"The unsharded step launched {ref_counts}.")
+  rel_loss = abs(loss_sp - loss_ref) / abs(loss_ref)
+  stats = _leaf_stats(grads_sp, grads_ref)
+  log(f"  SP vs unsharded, same weights and batch: loss {loss_sp:.6f} vs "
+      f"{loss_ref:.6f} (rel {rel_loss:.2e}, tolerance {MODEL_LOSS_REL_ERR}); "
+      f"gradients of {len(stats)} leaves, limits per leaf rel_rms <= "
+      f"{GRAD_LEAF_REL_RMS}, cosine >= {GRAD_LEAF_MIN_COSINE}")
+  _log_leaf_stats("SP vs unsharded", stats)
+  del grads_sp, grads_ref
+  bad = [x for x in stats
+         if not (x[0] <= GRAD_LEAF_REL_RMS and x[1] >= GRAD_LEAF_MIN_COSINE)]
+  if not (np.isfinite(loss_sp) and rel_loss <= MODEL_LOSS_REL_ERR) or bad:
+    raise AssertionError(f"SP and unsharded gradients disagree: {bad[:5]}.")
+
+  # Whole steps (forward, backward, AdamW) in turns, from one optimizer.
+  optimizer = trainer.make_optimizer(model, TRAIN_LEARNING_RATE)
+  per_side = {True: [], False: []}
+  for sp in (True, *SP_TRAIN_TURNS):  # the first SP step allocates state
+    _use_sharding(model, spec if sp else None)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    trainer.train_step(model, optimizer, 0, tokens, mask).item()
+    per_side[sp].append((time.perf_counter() - start) * 1e3)
+  _use_sharding(model, spec)
+  sp_ms, ref_ms = per_side[True][1:], per_side[False]
+  log(f"  training step ms in turns {SP_TRAIN_TURNS}: SP "
+      f"{[round(ms, 1) for ms in sp_ms]}, unsharded "
+      f"{[round(ms, 1) for ms in ref_ms]}; ratio of means "
+      f"{np.mean(sp_ms) / np.mean(ref_ms):.4f}")
+  del optimizer
+  model.zero_grad(set_to_none=True)
+  torch.cuda.empty_cache()
+
+
 def main() -> int:
   profile = "--profile" in sys.argv[1:]
   if not torch.cuda.is_available():
@@ -1828,6 +2206,11 @@ def main() -> int:
   kernels += [phase_lru_a_prod(dev), phase_attention_kv_prefix(dev)]
   torch.cuda.empty_cache()
   phase_sequence_parallel(dev, kernels, profile)
+  torch.cuda.empty_cache()
+  kernels += [phase_lru_backward_a_prod(dev),
+              *phase_attention_kv_prefix_backward(dev)]
+  torch.cuda.empty_cache()
+  phase_sp_training(dev, kernels, profile)
   log(f"== total {time.perf_counter() - start:.1f} s")
   print(json.dumps({"kernels": kernels}))
   print(json.dumps({"ok": True, "device": device}), flush=True)

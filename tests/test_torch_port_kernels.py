@@ -424,16 +424,25 @@ def test_window_attention_backward_plain_is_split_like_the_kernels():
 
 
 def test_window_attention_rejects_halo():
-  """The key halo (kv_prefix) is forward only: autograd through it raises,
-  and keys that do not hold the halo rows raise."""
+  """Keys that do not hold the halo rows (kv_prefix) raise, in the forward
+  and in the dq and dk/dv wrappers; a well-formed halo takes gradients,
+  which cover the halo's rows (their values are held against JAX in
+  tests/test_torch_port_sp_training.py)."""
   q, k, v, seg = (torch.tensor(z) for z in _attn_inputs(1, 8, 1, 8))
   halo = torch.zeros(1, 128, 1, 8)
   k, v = torch.cat([halo, k], dim=1), torch.cat([halo, v], dim=1)
-  with pytest.raises(NotImplementedError):
-    wa.window_attention(q.requires_grad_(), k, v, seg, 4, kv_prefix=128)
   with pytest.raises(ValueError, match="kv_prefix"):
-    wa.window_attention(q.detach(), k[:, 1:], v[:, 1:], seg, 4,
-                        kv_prefix=128)
+    wa.window_attention(q, k[:, 1:], v[:, 1:], seg, 4, kv_prefix=128)
+  lse = torch.zeros(1, 1, 8)
+  for fn in (wa.window_attention_dq, wa.window_attention_dkv):
+    with pytest.raises(ValueError, match="kv_prefix"):
+      fn(q, k[:, 1:], v[:, 1:], seg, lse, lse, q, 4, kv_prefix=128)
+  qkv = [z.clone().requires_grad_() for z in (q, k, v)]
+  out, _ = wa.window_attention(*qkv, seg, 4, kv_prefix=128)
+  grads = torch.autograd.grad(out.square().sum(), qkv)
+  assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
+  # Positions from 0 put every query's document after the zero halo.
+  assert not grads[1][:, :128].any() and not grads[2][:, :128].any()
 
 
 # -- Card: CUDA kernels vs their plain versions ------------------------------
@@ -900,3 +909,145 @@ def test_sequence_parallel_ops_on_cuda_match_unsharded():
   assert wa.kv_prefix_launches == before + 4
   want, _ = wa.window_attention(q, k, v, seg, 128)
   torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)
+
+
+# -- Card: the backward kernels with a key halo (SP training) ----------------
+
+_ATTN_PREFIX_BWD_CUDA_CASES = [
+    # (b, t, n, h, window, prefix, start, pad, boundary, right_pad)
+    (1, 256, 2, 128, 128, 128, 1000, 0, None, 0),   # a later shard's halo
+    (2, 300, 2, 128, 128, 128, 5000, 0, 150, 0),    # a document in the
+                                                    # shard; partial tile
+    (2, 256, 3, 256, 128, 128, 0, 70, None, 0),     # shard 0: zero halo,
+                                                    # left padding
+    (1, 200, 2, 256, 96, 100, 700, 0, None, 0),     # prefix off the tiles
+    (2, 1024, 2, 256, 512, 512, 3072, 0, None, 300),  # row 1 right-padded
+    # The 2B's SP training shards: 4096 queries, a 2048-key halo.
+    (1, 4096, 10, 256, 2048, 2048, 8192, 0, None, 0),
+    (1, 4096, 10, 256, 2048, 2048, 0, 0, None, 0),
+]
+
+
+@requires_cuda
+@pytest.mark.parametrize("case", _ATTN_PREFIX_BWD_CUDA_CASES)
+def test_window_attention_kv_prefix_backward_cuda_kernels_match_plain(case):
+  """dq and dk/dv with kv_prefix against their plain versions, to the
+  tolerance of the kernels without a halo. dk and dv come from
+  torch.empty_like: a block reused from a NaN-filled tensor shows that the
+  halo rows no query sees are written (with zeros), not left."""
+  b, t, n, h, window, prefix, start, pad, boundary, right_pad = case
+  q, k, v, seg = _prefix_inputs(b, t, n, h, prefix, start, pad, boundary)
+  if right_pad:
+    seg[1, t - right_pad:] = seg[1, t - right_pad - 1]
+  q, k, v = (torch.tensor(z, device="cuda").to(torch.bfloat16)
+             for z in (q, k, v))
+  seg = torch.tensor(seg, device="cuda")
+  g = torch.randn(q.shape, device="cuda",
+                  generator=torch.Generator("cuda").manual_seed(5)).bfloat16()
+  with torch.no_grad():
+    out, lse = wa.window_attention(q, k, v, seg, window, kv_prefix=prefix)
+  delta = wa.attention_delta(out, g)
+  args = (q, k, v, seg, lse, delta, g, window, prefix)
+  before = (wa.dq_kv_prefix_launches, wa.dkv_kv_prefix_launches,
+            wa.dq_launches, wa.dkv_launches)
+  junk = torch.full((2, *k.shape), float("nan"), device="cuda",
+                    dtype=k.dtype)
+  del junk
+  dq = wa.window_attention_dq(*args)
+  dk, dv = wa.window_attention_dkv(*args)
+  torch.cuda.synchronize()
+  assert (wa.dq_kv_prefix_launches, wa.dkv_kv_prefix_launches,
+          wa.dq_launches, wa.dkv_launches) == (before[0] + 1, before[1] + 1,
+                                               *before[2:])
+  want = (wa.window_attention_dq_plain(*args),
+          *wa.window_attention_dkv_plain(*args))
+  assert dk.shape == dv.shape == (b, prefix + t, 1, h)
+  for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+    scale = ref.float().abs().max().item()
+    err = (got.float() - ref.float()).abs().max().item()
+    assert torch.isfinite(got).all(), name
+    assert err <= _ATTN_BWD_REL_ERR * scale, (name, err, scale)
+  # Keys no query sees get exact zeros: before the first query's window,
+  # and all of shard 0's halo.
+  unseen = prefix if start == 0 else max(0, prefix - window)
+  assert not dk[:, :unseen].any() and not dv[:, :unseen].any()
+  if start:
+    assert dk[:, unseen:prefix].abs().amax() > 0
+  if pad:
+    assert not dq[0, :pad].any()
+
+
+@requires_cuda
+def test_window_attention_kv_prefix_autograd_runs_the_kernels_on_cuda():
+  q, k, v, seg = _prefix_inputs(2, 300, 2, 128, 128, 1000, 0, 150, seed=18)
+  qkv = [torch.tensor(z, device="cuda").bfloat16().requires_grad_()
+         for z in (q, k, v)]
+  seg = torch.tensor(seg, device="cuda")
+  before = (wa.kv_prefix_launches, wa.dq_kv_prefix_launches,
+            wa.dkv_kv_prefix_launches, wa.launches, wa.dq_launches,
+            wa.dkv_launches)
+  out, _ = wa.window_attention(*qkv, seg, 128, kv_prefix=128)
+  grads = torch.autograd.grad(out.float().square().sum(), qkv)
+  assert (wa.kv_prefix_launches, wa.dq_kv_prefix_launches,
+          wa.dkv_kv_prefix_launches, wa.launches, wa.dq_launches,
+          wa.dkv_launches) == (before[0] + 1, before[1] + 1, before[2] + 1,
+                               *before[3:])
+  assert all(torch.isfinite(z).all() for z in grads)
+  assert grads[1].shape == (2, 428, 1, 128) and grads[1][:, :128].any()
+
+
+@requires_cuda
+def test_sequence_parallel_gradients_on_cuda_match_unsharded():
+  """Gradients of the SP scan and the halo attention on a four-shard mesh
+  of the card(s) against the unsharded kernels', in bfloat16: one LRU
+  backward with the product, one halo dq and one halo dk/dv a shard."""
+  devices = [f"cuda:{i % torch.cuda.device_count()}" for i in range(4)]
+  mesh = sharding.make_mesh((1, 4), ("data", "sequence"), devices)
+  spec = sharding.ShardingSpec(mesh=mesh, batch_axis_name="data",
+                               sequence_axis_name="sequence")
+  x, a, h0 = _lru_inputs(2, 1024, 256, seed=19)
+  gy = torch.randn(2, 1024, 256, device="cuda",
+                   generator=torch.Generator("cuda").manual_seed(6))
+  grads = []
+  for sharded in (True, False):
+    inputs = [torch.tensor(z, device="cuda").requires_grad_()
+              for z in (x, a, h0)]
+    xb, ab = inputs[0].bfloat16(), inputs[1].bfloat16()
+    before = (lru_scan.backward_a_prod_launches, lru_scan.backward_launches)
+    if sharded:
+      y, h = scan.linear_scan(xb, ab, inputs[2], sharding_spec=spec)
+    else:
+      y, h = lru_scan.lru_scan(xb, ab, inputs[2])
+    grads.append(torch.autograd.grad((y.float() * gy).sum() + h.sum(),
+                                     inputs))
+    want = (before[0] + 4, before[1]) if sharded else (before[0],
+                                                        before[1] + 1)
+    assert (lru_scan.backward_a_prod_launches,
+            lru_scan.backward_launches) == want
+  for got, ref in zip(*grads):
+    # bf16 cotangents corrected in bf16: a few bf16 steps of the largest.
+    scale = ref.abs().max().item()
+    assert (got - ref).abs().max().item() <= 3e-2 * scale
+
+  q, k, v, seg = _attn_inputs(2, 1024, 2, 256, pad=100, boundary=600,
+                              seed=20)
+  g = torch.randn(2, 1024, 2, 256, device="cuda",
+                  generator=torch.Generator("cuda").manual_seed(7)).bfloat16()
+  grads = []
+  for sharded in (True, False):
+    qkv = [torch.tensor(z, device="cuda").bfloat16().requires_grad_()
+           for z in (q, k, v)]
+    seg_t = torch.tensor(seg, device="cuda")
+    before = (wa.dq_kv_prefix_launches, wa.dkv_kv_prefix_launches)
+    if sharded:
+      out = sp_attention.sequence_sharded_attention(*qkv, seg_t, 128, spec)
+    else:
+      out, _ = wa.window_attention(*qkv, seg_t, 128)
+    grads.append(torch.autograd.grad(out, qkv, g))
+    if sharded:
+      assert (wa.dq_kv_prefix_launches, wa.dkv_kv_prefix_launches) == (
+          before[0] + 4, before[1] + 4)
+  for got, ref in zip(*grads):
+    scale = ref.float().abs().max().item()
+    assert (got.float() - ref.float()).abs().max().item() <= (
+        _ATTN_BWD_REL_ERR * scale)

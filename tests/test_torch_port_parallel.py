@@ -607,15 +607,20 @@ def test_sequence_parallel_refusals():
       sharding.make_mesh((4,), ("sequence",))
     finally:
       torch.cuda.is_available = torch_cuda
-  # The kernel path of a multi-shard scan and the halo attention are
-  # forward only.
+  # The kernel path of a multi-shard scan and the halo attention take
+  # gradients (SP training); their values are held against JAX in
+  # tests/test_torch_port_sp_training.py.
   xg = x.clone().requires_grad_()
-  with pytest.raises(NotImplementedError, match="SP training"):
-    scan.linear_scan(xg, a, h0, sharding_spec=tspec)
-  with torch.no_grad():
-    scan.linear_scan(xg, a, h0, sharding_spec=tspec)
-  q, k, v, seg = (torch.tensor(z) for z in _attn_inputs(1, 8, 1, 8, 4))
-  with pytest.raises(NotImplementedError, match="SP training"):
-    wa.window_attention(q.requires_grad_(), k, v, seg, 4, kv_prefix=4)
+  y, h = scan.linear_scan(xg, a, h0, sharding_spec=tspec)
+  (dx,) = torch.autograd.grad(y.sum() + h.sum(), xg)
+  assert dx.shape == x.shape and torch.isfinite(dx).all() and dx.any()
+  q, k, v, seg = (torch.tensor(z)
+                  for z in _attn_inputs(1, 8, 1, 8, 4, start=100))
+  kg = k.clone().requires_grad_()
+  out, _ = wa.window_attention(q.requires_grad_(), kg, v, seg, 4,
+                               kv_prefix=4)
+  dq, dk = torch.autograd.grad(out.sum(), (q, kg))
+  assert dq.shape == q.shape and dk.shape == k.shape
+  assert dk[:, :4].any()  # the halo keys' gradient
   with pytest.raises(ValueError, match="kv_prefix"):
     wa.window_attention_forward(q, k[:, 1:], v[:, 1:], seg, 4, kv_prefix=4)

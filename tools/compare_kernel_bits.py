@@ -8,10 +8,11 @@ parent commit, unpacked with ``git archive``). The script runs itself twice
 in child processes, once with each checkout's ``cadence_gemma_tpu_torch`` on
 ``PYTHONPATH``, in the order other, this, this, other. Each child builds its
 checkout's kernels, runs the API the two share (the RG-LRU forward and
-cotangent scans, the window attention forward, dq and dk/dv) on the same
-seeded inputs at the shapes of the RecurrentGemma-2B prefill and training
-step, saves the outputs and times each call (CUDA events, mean of 20 after
-a warm-up). The parent process checks that every output is bit-identical
+cotangent scans, the window attention forward, dq and dk/dv, each without a
+key halo: ``kv_prefix`` is 0 where the wrappers take it) on the same seeded
+inputs at the shapes of the RecurrentGemma-2B prefill and training step,
+saves the outputs and times each call (CUDA events, mean of 20 after a
+warm-up). The parent process checks that every output is bit-identical
 across the four runs and prints the times side by side with the card's name
 and power limit. Exits 1 without a CUDA device, and on any difference.
 """
@@ -56,6 +57,19 @@ def _child(out_path: str) -> None:
   out, lse = wa.window_attention_forward(q, k, v, seg, window)
   delta = wa.attention_delta(out, d_out)
   bwd_args = (q, k, v, seg, lse, delta, d_out, window)
+  # The training step's attention: 4096 tokens, row 1 right-padded after
+  # 3000 (its pad positions repeat the last real one).
+  t_train = 4096
+  qt, kt, vt, dt = (tensor(s) for s in ((b, t_train, n, h),
+                                        (b, t_train, 1, h),
+                                        (b, t_train, 1, h),
+                                        (b, t_train, n, h)))
+  seg_t = np.tile(np.arange(t_train, dtype=np.int32), (b, 1))
+  seg_t[1, 3000:] = 2999
+  seg_t = torch.tensor(seg_t, device=dev)
+  out_t, lse_t = wa.window_attention_forward(qt, kt, vt, seg_t, window)
+  train_args = (qt, kt, vt, seg_t, lse_t, wa.attention_delta(out_t, dt), dt,
+                window)
 
   calls = {
       "lru_scan_forward": lambda: lru_scan.lru_scan_forward(x, a, h0),
@@ -66,6 +80,10 @@ def _child(out_path: str) -> None:
           q, k, v, seg, window),
       "window_attention_dq": lambda: wa.window_attention_dq(*bwd_args),
       "window_attention_dkv": lambda: wa.window_attention_dkv(*bwd_args),
+      "window_attention_dq_train": lambda: wa.window_attention_dq(
+          *train_args),
+      "window_attention_dkv_train": lambda: wa.window_attention_dkv(
+          *train_args),
   }
   outputs, times = {}, {}
   for name, fn in calls.items():
