@@ -9,9 +9,12 @@ product of ``a`` for sequence parallelism) and its cotangent scan, the
 windowed multi-query flash attention (with a sequence shard's key halo) and
 its dq and dk/dv backward, the towers' bidirectional multi-head attention
 and the fused residual add + RMSNorm -- are hand-written CUDA C++
-(``csrc/``), built by ``nvcc`` at first use. Entry points run on the card
-unless the caller passes ``device="cpu"`` (``devices=["cpu"] * n`` for a
-mesh).
+(``csrc/``), built by ``nvcc`` at first use. The scan also takes
+complex-valued operands (``complex_lib.Complex`` pairs of real tensors, the
+complex kernels of ``csrc/lru_scan_complex.cu``), and
+``benchmarks.kernel_lab`` times the scan's two tuning variants. Entry
+points run on the card unless the caller passes ``device="cpu"``
+(``devices=["cpu"] * n`` for a mesh).
 
 This package imports torch, numpy and the standard library only; the JAX
 package ``cadence_gemma_tpu`` is the reference it is tested against.

@@ -22,7 +22,7 @@ import shutil
 import tempfile
 
 KERNELS = ("lru_scan", "window_attention", "window_attention_backward",
-           "mha_attention", "add_rmsnorm")
+           "mha_attention", "add_rmsnorm", "lru_scan_complex", "kernel_lab")
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"

@@ -11,6 +11,10 @@ Counterpart of the JAX package's ``cadence_gemma_tpu/ops/scan.py``:
     autograd.
   * ``ASSOCIATIVE_NATIVE`` -> the plain log-depth scan, on any device.
 
+Every path takes real tensors or :class:`complex_lib.Complex` operands (the
+complex-valued LRU), as JAX's dispatch does: the decode step and the native
+scans in the complex product, the kernel path through the complex kernels.
+
 With a sharding spec whose mesh has a sequence axis, the time axis is split
 into shards that each scan their chunk on their own device, corrected
 across shards from an all-gather of ``(h_last, a_prod_last)`` pairs (JAX's
@@ -29,6 +33,7 @@ from typing import Sequence
 import torch
 
 from cadence_gemma_tpu_torch import common
+from cadence_gemma_tpu_torch import complex_lib
 from cadence_gemma_tpu_torch.ops import lru_scan
 from cadence_gemma_tpu_torch.parallel import sharding
 
@@ -40,38 +45,41 @@ lru_linear_scan = lru_scan.lru_scan_plain
 
 
 def lru_associative_scan(
-    x: torch.Tensor,
-    a: torch.Tensor,
-    h0: torch.Tensor | None = None,
+    x: torch.Tensor | complex_lib.Complex,
+    a: torch.Tensor | complex_lib.Complex,
+    h0: torch.Tensor | complex_lib.Complex | None = None,
     reverse: bool = False,
     return_a_prod: bool = False,
 ):
   """Log-depth (Hillis-Steele) scan in float32 (``ops/scan.py:96-147``).
 
   log2(t) rounds of whole-tensor multiply-adds compose the recurrence's
-  monoid ``(a2, x2) o (a1, x1) = (a2 * a1, a2 * x1 + x2)``. Returns
-  ``(y, h_last)``, or with ``return_a_prod``
+  monoid ``(a2, x2) o (a1, x1) = (a2 * a1, a2 * x1 + x2)``, in the complex
+  product for Complex operands. Returns ``(y, h_last)``, or with
+  ``return_a_prod``
   ``((y, h_last), (a_prod in x.dtype, a_prod_last in float32))``.
   """
   if reverse:
+    flip = lambda v: complex_lib.flip(v, (1,))
     out = lru_associative_scan(
-        x.flip(1), a.flip(1), h0, reverse=False, return_a_prod=return_a_prod
+        flip(x), flip(a), h0, reverse=False, return_a_prod=return_a_prod
     )
     if return_a_prod:
       (y, h_last), (a_prod, p_last) = out
-      return (y.flip(1), h_last), (a_prod.flip(1), p_last)
+      return (flip(y), h_last), (flip(a_prod), p_last)
     y, h_last = out
-    return y.flip(1), h_last
+    return flip(y), h_last
   seq_len = x.shape[1]
-  h = x.float()
-  p = a.float()
+  h = x.to(torch.float32)
+  p = a.to(torch.float32)
   k = 1
   while k < seq_len:
-    h = h + p * torch.nn.functional.pad(h, (0, 0, k, 0))[:, :seq_len]
-    p = p * torch.nn.functional.pad(p, (0, 0, k, 0), value=1.0)[:, :seq_len]
+    # The padded steps are the monoid's identity (1, 0): 1 + 0i for Complex.
+    h = h + p * complex_lib.pad(h, (0, 0, k, 0))[:, :seq_len]
+    p = p * complex_lib.pad(p, (0, 0, k, 0), value=1.0)[:, :seq_len]
     k *= 2
   if h0 is not None:
-    h = h + p * h0.float()[:, None]
+    h = h + p * h0.to(torch.float32)[:, None]
   if return_a_prod:
     return (h.to(x.dtype), h[:, -1]), (p.to(x.dtype), p[:, -1])
   return h.to(x.dtype), h[:, -1]
@@ -117,8 +125,7 @@ def _sequence_sharded_scan(x, a, h0, reverse, scan_type, spec):
   device. ``h_last`` is replicated along the sequence axis, so it is read
   from sequence shard 0 of each batch shard."""
   if h0 is None:
-    h0 = torch.zeros(x.shape[0], x.shape[2], dtype=torch.float32,
-                     device=x.device)
+    h0 = complex_lib.zeros_like(x[:, 0], torch.float32)
   x_sh, a_sh, h0_sh = (sharding.shard_activations(x, spec),
                        sharding.shard_activations(a, spec),
                        sharding.shard_state(h0, spec))
@@ -151,7 +158,8 @@ def linear_scan(
   """Top-level RG-LRU scan entry point (``ops/scan.py:239-315``).
 
   Returns the per-step outputs (in ``x.dtype``) and the final hidden state
-  (in float32). With ``sharding_spec`` the time axis must divide into the
+  (in float32), real tensors or :class:`complex_lib.Complex` values as the
+  operands are. With ``sharding_spec`` the time axis must divide into the
   mesh's sequence shards (and the batch into its batch shards), as
   ``shard_map`` requires; otherwise this raises ``ValueError``.
   """

@@ -33,7 +33,10 @@ For ``h_t = a_t * h_{t-1} + x_t`` split into shards ``j = 0..J-1``, each
 shard scans its chunk from a zero state (``S_j``) and keeps the running
 product of its ``a`` (``P_j``); the true values are
 ``h_j(t) = S_j(t) + P_j(t) * H_{j-1}`` with the incoming states
-``H_j = P_j(last) * H_{j-1} + S_j(last)``, ``H_{-1} = h0``.
+``H_j = P_j(last) * H_{j-1} + S_j(last)``, ``H_{-1} = h0``. The same holds
+over the complex numbers: the sharding functions and the collectives carry
+a :class:`complex_lib.Complex` by its components, and the correction uses
+its product.
 """
 
 from __future__ import annotations
@@ -42,6 +45,10 @@ from typing import Any, Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
+
+from cadence_gemma_tpu_torch import complex_lib
+
+Complex = complex_lib.Complex
 
 # Canonical mesh axis names (``sharding.py:47-49``).
 BATCH_AXIS = "data"
@@ -179,16 +186,23 @@ def seq_axis_groups(
   return [list(group) for group in seq_axis_index_groups]
 
 
-def get_acc_dtype(x: torch.Tensor, h0: torch.Tensor | None) -> torch.dtype:
+def get_acc_dtype(x: torch.Tensor | Complex,
+                  h0: torch.Tensor | Complex | None) -> torch.dtype:
   """Accumulation dtype of the scan: float32 (``sharding.py:142-156``).
 
-  The kernels and the plain loops carry float32 only; complex operands are
-  not ported.
+  The kernels and the plain loops carry float32, for a
+  :class:`complex_lib.Complex` operand in each component. A native torch
+  complex tensor is refused: wrap it with ``complex_lib.to_custom_complex``.
   """
   if h0 is not None and h0.dtype != torch.float32:
     raise ValueError(f"h0 dtype {h0.dtype} must match accumulator float32.")
-  if x.is_complex():
-    raise NotImplementedError("Complex scans are not ported.")
+  for v in (x, h0):
+    if isinstance(v, torch.Tensor) and v.is_complex():
+      raise ValueError(
+          f"Native complex operand of dtype {v.dtype}: the scan takes a "
+          "complex_lib.Complex pair of real tensors "
+          "(complex_lib.to_custom_complex)."
+      )
   return torch.float32
 
 
@@ -234,8 +248,18 @@ def shard_devices(spec: ShardingSpec) -> list[list[torch.device]]:
   return grid
 
 
+def _componentwise(fn, x, *args):
+  """``fn`` over the components of a Complex ``x``, its nested-list result
+  zipped back into Complex values; ``fn(x, *args)`` for a real tensor."""
+  if not isinstance(x, Complex):
+    return fn(x, *args)
+  real, imag = fn(x.real, *args), fn(x.imag, *args)
+  return [[Complex(r, i) for r, i in zip(row_r, row_i)]
+          for row_r, row_i in zip(real, imag)]
+
+
 def shard_activations(
-    x: torch.Tensor, spec: ShardingSpec
+    x: torch.Tensor | Complex, spec: ShardingSpec
 ) -> list[list[torch.Tensor]]:
   """Splits ``[b, t, ...]`` into ``[i][j]`` chunks (batch over the batch
   axis, time over the sequence axis), each on its shard's device: the
@@ -243,8 +267,11 @@ def shard_activations(
   ``parallel/sp_attention.py:73-80``).
 
   Chunks are views of ``x`` where the shard's device is ``x``'s. Raises like
-  ``shard_map`` when a dimension does not divide by its axis size.
+  ``shard_map`` when a dimension does not divide by its axis size. A Complex
+  ``x`` is split by its components.
   """
+  if isinstance(x, Complex):
+    return _componentwise(shard_activations, x, spec)
   devices = shard_devices(spec)
   n_b, n_s = len(devices), len(devices[0])
   for dim, n, name in ((0, n_b, spec.batch_axis_name),
@@ -261,10 +288,12 @@ def shard_activations(
 
 
 def shard_state(
-    h: torch.Tensor, spec: ShardingSpec
+    h: torch.Tensor | Complex, spec: ShardingSpec
 ) -> list[list[torch.Tensor]]:
   """Splits ``[b, ...]`` over the batch axis and gives every sequence shard
   its batch chunk (replicated along the sequence axis), on its device."""
+  if isinstance(h, Complex):
+    return _componentwise(shard_state, h, spec)
   devices = shard_devices(spec)
   n_b = len(devices)
   if h.shape[0] % n_b:
@@ -280,7 +309,11 @@ def unshard(
     shards: Sequence[Sequence[torch.Tensor]], device: torch.device
 ) -> torch.Tensor:
   """Concatenates ``[i][j]`` chunks back into one tensor on ``device`` (a
-  single chunk is returned as it is, not copied)."""
+  single chunk is returned as it is, not copied); Complex chunks by their
+  components."""
+  if isinstance(shards[0][0], Complex):
+    return Complex(unshard([[z.real for z in row] for row in shards], device),
+                   unshard([[z.imag for z in row] for row in shards], device))
   rows = [torch.cat([z.to(device) for z in row], dim=1)
           if len(row) > 1 else row[0].to(device) for row in shards]
   return torch.cat(rows, dim=0) if len(rows) > 1 else rows[0]
@@ -290,6 +323,12 @@ def _to(value, device: torch.device):
   if isinstance(value, tuple):
     return tuple(_to(v, device) for v in value)
   return value.to(device)
+
+
+def _zeros_on(v, device: torch.device):
+  if isinstance(v, Complex):
+    return Complex(_zeros_on(v.real, device), _zeros_on(v.imag, device))
+  return torch.zeros_like(v, device=device)
 
 
 def all_gather(values: Sequence[Any], devices: Sequence[torch.device]
@@ -319,7 +358,7 @@ def ppermute(values: Sequence[torch.Tensor], devices: Sequence[torch.device],
   """Shard ``dst`` receives ``values[src]`` on ``devices[dst]`` for each
   ``(src, dst)`` of ``perm``, and zeros where no source sends
   (``jax.lax.ppermute``)."""
-  out = [torch.zeros_like(v, device=dev) for v, dev in zip(values, devices)]
+  out = [_zeros_on(v, dev) for v, dev in zip(values, devices)]
   for src, dst in perm:
     out[dst] = values[src].to(devices[dst])
   return out
@@ -363,9 +402,11 @@ def multi_shard_correction(
     ``(y_corrected, h_last_corrected, h0_corrected)``: the J-step recurrence
     runs in float32 and the correction ``y + h0_corrected * a_prod`` in
     ``a_prod``'s dtype, a rounded multiply then a rounded add for bfloat16.
+    For the complex scan every operand is a :class:`complex_lib.Complex`,
+    both products are complex and ``shift_a_prod``'s leading one is 1 + 0i.
   """
   get_acc_dtype(y, h0)
-  h0 = torch.zeros_like(h_last) if h0 is None else h0
+  h0 = complex_lib.zeros_like(h_last) if h0 is None else h0
 
   num_shards = 1 if h_last_all is None else len(h_last_all)
   if num_shards == 1:
@@ -377,7 +418,7 @@ def multi_shard_correction(
   # The J-step recurrence H_j = P_j * H_{j-1} + S_j, as every shard runs it;
   # this shard keeps the state that flows into it.
   carry = h0
-  h0_corrected = torch.zeros_like(h_last)
+  h0_corrected = complex_lib.zeros_like(h_last)
   for j in order:
     if j == shard_index:
       h0_corrected = h0_corrected + carry
@@ -385,11 +426,11 @@ def multi_shard_correction(
   h_last_corrected = carry
 
   if shift_a_prod:
-    one = torch.ones_like(a_prod[:, :1])
+    one = complex_lib.ones_like(a_prod[:, :1])  # 1 + 0i for Complex
     if reverse:
-      a_prod = torch.cat([a_prod[:, 1:], one], dim=1)
+      a_prod = complex_lib.concatenate([a_prod[:, 1:], one], axis=1)
     else:
-      a_prod = torch.cat([one, a_prod[:, :-1]], dim=1)
+      a_prod = complex_lib.concatenate([one, a_prod[:, :-1]], axis=1)
 
   y_corrected = y + h0_corrected[:, None].to(a_prod.dtype) * a_prod
 

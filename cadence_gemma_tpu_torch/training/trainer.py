@@ -160,10 +160,29 @@ def grads_finite(model: torch.nn.Module) -> bool:
   return bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
 
 
+def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> None:
+  """``optax.clip_by_global_norm`` in place: where the global norm of
+  ``grads`` reaches ``max_norm``, each gradient is divided by ``norm /
+  max_norm`` (optax's ``g / norm * max_norm``, the same bits at the trainer's
+  ``max_norm`` of 1.0); below it they stay as they are. Tensor ops only, no
+  host sync.
+  """
+  # Each leaf's norm accumulates in float64: a float32 sum over millions of
+  # elements drifts by 1e-4 on the CPU, where optax's pairwise sum does not.
+  norms = torch._foreach_norm(grads, 2, dtype=torch.float64)  # pylint: disable=protected-access
+  total = torch.linalg.vector_norm(torch.stack(norms)).float()
+  divisor = torch.where(total >= max_norm, total / max_norm,
+                        torch.ones_like(total))
+  for dtype in {g.dtype for g in grads}:
+    # optax divides by the norm in the gradient's dtype.
+    torch._foreach_div_([g for g in grads if g.dtype == dtype],  # pylint: disable=protected-access
+                        divisor.to(dtype))
+
+
 def apply_update(model: torch.nn.Module,
                  optimizer: torch.optim.Optimizer) -> None:
-  """Clips the accumulated gradients' global norm to 1.0, steps the
-  optimizer, then clears the gradients.
+  """Clips the accumulated gradients' global norm to 1.0 as optax does,
+  steps the optimizer, then clears the gradients.
 
   A trainable parameter the loss does not reach (the vision-language
   connector in a text-only step) takes a zero gradient, so AdamW still
@@ -172,8 +191,9 @@ def apply_update(model: torch.nn.Module,
   for param in model.parameters():
     if param.requires_grad and param.grad is None:
       param.grad = torch.zeros_like(param)
-  torch.nn.utils.clip_grad_norm_(
-      [p for p in model.parameters() if p.grad is not None], _GRAD_CLIP_NORM
+  clip_by_global_norm_(
+      [p.grad for p in model.parameters() if p.grad is not None],
+      _GRAD_CLIP_NORM,
   )
   optimizer.step()
   optimizer.zero_grad(set_to_none=True)

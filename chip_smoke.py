@@ -101,7 +101,26 @@ Phases, each of which raises on failure (so the script exits non-zero):
      step's inputs to each backward kernel are held against its plain
      version; the SP gradients against the unsharded gradients of the same
      model on the same batch, leaf by leaf; SP and unsharded steps are
-     timed in balanced turns.
+     timed in balanced turns;
+ 13. the complex-valued RG-LRU scan's four entry points (forward and
+     backward walks, each with and without the running product of ``a``)
+     at the 2B's ``lru_width``, [2, 4096, 2560] bf16 components with
+     ``reverse`` and ``h0`` both ways and one float32 case, bit for bit
+     against their plain loops, timed as in 3;
+ 14. the complex path: ``ops.scan.linear_scan`` of ``complex_lib.Complex``
+     operands, forward and ``torch.autograd.grad`` of x, a and h0.
+     Unsharded at [2, 4096, 2560] the counters, reset just before, must
+     show one complex forward and one complex backward launch, and the
+     kernel path is held against ``LINEAR_NATIVE`` on the same card;
+     sequence-sharded over the (1, 4) mesh at [1, 16384, 2560] they must
+     show 4 forwards and 4 backwards with the product and no unsharded
+     complex launch; the first shard's inputs to each kernel are held
+     against its plain loop, and the results against the same call with no
+     spec;
+ 15. the kernel lab: ``cadence_gemma_tpu_torch.benchmarks.kernel_lab.main()``
+     at [1, 2048, 2560] bf16 (the scan kernel, variant A's and variant B's
+     sweeps), then one configuration of each variant against its plain
+     version (A bit for bit, B within one bf16 step).
 
   python3 chip_smoke.py --profile
 
@@ -128,6 +147,8 @@ import torch
 
 from cadence_gemma_tpu_torch import _build
 from cadence_gemma_tpu_torch import common
+from cadence_gemma_tpu_torch import complex_lib
+from cadence_gemma_tpu_torch.benchmarks import kernel_lab
 from cadence_gemma_tpu_torch.inference import modal_sampler
 from cadence_gemma_tpu_torch.inference import sampler as sampler_lib
 from cadence_gemma_tpu_torch.models import griffin
@@ -135,6 +156,7 @@ from cadence_gemma_tpu_torch.models import vit
 from cadence_gemma_tpu_torch.ops import fused_epilogue
 from cadence_gemma_tpu_torch.ops import lru_scan
 from cadence_gemma_tpu_torch.ops import mha_attention
+from cadence_gemma_tpu_torch.ops import scan as scan_lib
 from cadence_gemma_tpu_torch.ops import window_attention as wa
 from cadence_gemma_tpu_torch.parallel import sharding
 from cadence_gemma_tpu_torch.tokenizers import SimpleVocab
@@ -296,6 +318,46 @@ LRU_SP_TRAIN_SHAPE = (1, SP_TRAIN_LOCAL_TOKENS, 2560)
 ATTN_SP_TRAIN_SHAPE = (1, SP_TRAIN_LOCAL_TOKENS, 10, 256)
 # Turns of SP (True) and unsharded (False) training steps.
 SP_TRAIN_TURNS = (True, False, False, True)
+
+# The complex scan at the 2B's lru_width: batch 2 x 4096 steps, bf16
+# components (and one float32 case); its path through ops.scan.linear_scan
+# unsharded at that shape and sequence-sharded over the (1, 4) mesh at
+# 1 x 16384.
+LRU_COMPLEX_SHAPE = (2, 4096, 2560)
+LRU_COMPLEX_SP_SHAPE = (1, 16384, 2560)
+# Every product and sum rounded alone in the same order on both sides.
+LRU_COMPLEX_MAX_ABS_ERR = 0.0
+# The replaced TPU kernel: the complex body of _lru_pallas_call, in all four
+# of its uses (forward, backward; each with compute_a_prod).
+LRU_COMPLEX_REPLACES = "cadence_gemma_tpu/ops/pallas_lru.py:171"
+# Kernel path vs LINEAR_NATIVE on one card: y and h_last bit for bit (the
+# kernels' bits are the plain loop's); the gradients of x and h0 (the
+# cotangent walk against autograd of the loop) by relative RMS. The decay's
+# gradient differs by bf16 rounding: the kernel path, as JAX's _lru_bwd,
+# multiplies dx by the bf16 outputs y in bf16, autograd of the loop by the
+# float32 carry in float32; one bf16 step is 2^-8 relative.
+COMPLEX_PATH_GRAD_REL_RMS = 1e-6
+COMPLEX_PATH_DA_REL_RMS = 1e-2
+# SP vs unsharded: the correction y + h0 * a_prod in bf16 (as the JAX
+# package computes it), which the unsharded scan does not round; h_last in
+# float32 relative to its largest value; gradients per operand. Each limit
+# is about ten times the reading on an H100 (y 1.3e-4, h_last 0, gradients
+# 2.2e-4 and cosine 1.000000): the product of `a` decays within a few steps
+# of a shard's start, so few outputs take a correction at all.
+COMPLEX_SP_Y_REL_RMS = 2e-3
+COMPLEX_SP_H_REL_ERR = 1e-5
+COMPLEX_SP_GRAD_REL_RMS = 5e-3
+COMPLEX_SP_GRAD_MIN_COSINE = 0.9999
+
+# The kernel lab: one configuration of each variant, held against its plain
+# version: A bit for bit, B within one bf16 step of y (2^-7 of |y|) and 1e-4
+# of h_last; the lab's replaced TPU kernels.
+LAB_UNROLLED_ST = 128
+LAB_LOGSCAN_TILE = (256, 32)  # the sweep's fastest on the H100
+LAB_Y_REL_ERR = 2.0**-7
+LAB_H_MAX_ABS_ERR = 1e-4
+LAB_UNROLLED_REPLACES = "benchmarks/kernel_lab.py:74"
+LAB_LOGSCAN_REPLACES = "benchmarks/kernel_lab.py:128"
 
 
 def log(*args) -> None:
@@ -2178,6 +2240,293 @@ def compare_sp_gradients(model, batch, spec, dev) -> None:
   torch.cuda.empty_cache()
 
 
+def _components(*values) -> list[torch.Tensor]:
+  """The real and imaginary tensors of Complex values, in order."""
+  return [z for v in values for z in (v.real, v.imag)]
+
+
+def _complex_operands(shape, dev, seed: int, dtype=torch.bfloat16):
+  """x, a and h0 of the complex scan as Complex pairs from a seeded numpy
+  generator: x and h0 normal, a a sigmoid plus 0.1i times a normal (a decay
+  of modulus near the real scan's); x and a in ``dtype``, h0 float32."""
+  b, t, d = shape
+  rng = np.random.default_rng(seed)
+  normal = lambda *s: torch.tensor(rng.standard_normal(s, dtype=np.float32),
+                                   device=dev)
+  x = complex_lib.Complex(normal(b, t, d), normal(b, t, d)).to(dtype)
+  a = complex_lib.Complex(torch.sigmoid(normal(b, t, d)),
+                          0.1 * normal(b, t, d)).to(dtype)
+  return x, a, complex_lib.Complex(normal(b, d), normal(b, d))
+
+
+def check_lru_complex(x, a, h0=None, reverse=False, return_a_prod=False,
+                      backprop=False) -> float:
+  """Max abs error of a complex scan entry point against its plain loop
+  over every output component; raises above the tolerance. Takes the
+  wrapper's own arguments, so a captured call replays as it is."""
+  if backprop:
+    kernel, plain = lru_scan.lru_scan_backward, lru_scan.lru_scan_backward_plain
+  else:
+    kernel, plain = lru_scan.lru_scan_forward, lru_scan.lru_scan_plain
+  got = kernel(x, a, h0, reverse, return_a_prod=return_a_prod)
+  want = plain(x, a, h0, reverse, return_a_prod=return_a_prod)
+  if return_a_prod:
+    got, want = (*got[0], *got[1]), (*want[0], *want[1])
+  err = max(max_err(g, w)
+            for g, w in zip(_components(*got), _components(*want)))
+  if not err <= LRU_COMPLEX_MAX_ABS_ERR:
+    raise AssertionError(f"The complex scan ({'backward' if backprop else 'forward'}"
+                         f", a_prod={return_a_prod}) disagrees with its "
+                         f"plain version: {err}")
+  return err
+
+
+# The complex scan's four entry points: (name, backward walk, product).
+COMPLEX_ENTRIES = (("lru_scan_complex", False, False),
+                   ("lru_scan_complex_backward", True, False),
+                   ("lru_scan_complex_a_prod", False, True),
+                   ("lru_scan_complex_backward_a_prod", True, True))
+
+
+def phase_lru_complex(dev) -> list[dict]:
+  b, t, d = LRU_COMPLEX_SHAPE
+  x, a, h0 = _complex_operands(LRU_COMPLEX_SHAPE, dev, SEED + 60)
+  log(f"== the complex scan's four entry points vs plain at [{b},{t},{d}] "
+      f"bf16 components (tolerance {LRU_COMPLEX_MAX_ABS_ERR} on every "
+      f"output component)")
+  entries = []
+  for name, backprop, a_prod in COMPLEX_ENTRIES:
+    worst = 0.0
+    for reverse in (False, True):
+      for carry in (None, h0):
+        err = check_lru_complex(x, a, carry, reverse, a_prod, backprop)
+        worst = max(worst, err)
+    kernel = lru_scan.lru_scan_backward if backprop else lru_scan.lru_scan_forward
+    plain = (lru_scan.lru_scan_backward_plain if backprop
+             else lru_scan.lru_scan_plain)
+    # Timed as the complex path calls it: the unsharded walks with a carry,
+    # a shard's (with the product) without.
+    carry = None if a_prod else h0
+    ms = cuda_ms(lambda: kernel(x, a, carry, False, a_prod), 20)
+    plain_ms = cuda_ms(lambda: plain(x, a, carry, False, a_prod), 1)
+    # Read x and a, write y (and a_prod): two bf16 components each; the
+    # carry in, h_last (and a_prod_last) out: two float32 components each.
+    # Per element and step 8 float32 operations, 14 with the product.
+    states = 1 + (carry is not None) + a_prod
+    n_bytes = (8 if a_prod else 6) * b * t * d * 2 + 2 * states * b * d * 4
+    bound_ms, bound_by = bound(n_bytes, (14 if a_prod else 8) * b * t * d,
+                               FP32_FLOPS)
+    log(f"  {name}: max_abs_err {worst} (reverse and carry both ways); ms "
+        f"{ms:.4f}  plain_ms {plain_ms:.3f}  bound_ms {bound_ms:.4f} "
+        f"({bound_by}, {n_bytes / 1e6:.1f} MB)")
+    entries.append(dict(name=name, route="cuda",
+                        source="cadence_gemma_tpu_torch/csrc/lru_scan_complex.cu",
+                        replaces=LRU_COMPLEX_REPLACES, max_abs_err=worst,
+                        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, library_ms=None))
+  # float32 components: the unpaired loads.
+  err = check_lru_complex(x.to(torch.float32), a.to(torch.float32), h0, True)
+  log(f"  float32 components, forward, reverse, with h0: max_abs_err {err}")
+  entries[0]["max_abs_err"] = max(entries[0]["max_abs_err"], err)
+  return entries
+
+
+def _complex_counts() -> dict[str, int]:
+  return {"lru_scan_complex": lru_scan.complex_launches,
+          "lru_scan_complex_backward": lru_scan.complex_backward_launches,
+          "lru_scan_complex_a_prod": lru_scan.complex_a_prod_launches,
+          "lru_scan_complex_backward_a_prod":
+              lru_scan.complex_backward_a_prod_launches}
+
+
+def _reset_complex_counts() -> None:
+  lru_scan.complex_launches = lru_scan.complex_backward_launches = 0
+  lru_scan.complex_a_prod_launches = 0
+  lru_scan.complex_backward_a_prod_launches = 0
+
+
+def _complex_scan_and_grads(x, a, h0, gy, gh, **kwargs):
+  """``ops.scan.linear_scan`` of Complex operands: (y and h_last
+  components, gradients of <y, gy> + <h_last, gh> with respect to the
+  components of x, a and h0), the host's ms of the forward and backward."""
+  leaves = [z.clone().requires_grad_() for z in _components(x, a, h0)]
+  pairs = [complex_lib.Complex(*leaves[i:i + 2]) for i in range(0, 6, 2)]
+  torch.cuda.synchronize()
+  start = time.perf_counter()
+  y, h = scan_lib.linear_scan(*pairs, **kwargs)
+  loss = sum((u.float() * g).sum() for u, g in zip(_components(y, h),
+                                                   _components(gy, gh)))
+  grads = torch.autograd.grad(loss, leaves)
+  torch.cuda.synchronize()
+  ms = (time.perf_counter() - start) * 1e3
+  return [z.detach() for z in _components(y, h)], grads, ms
+
+
+_COMPLEX_LEAVES = ("x.real", "x.imag", "a.real", "a.imag", "h0.real",
+                   "h0.imag")
+
+
+def phase_complex_path(dev, kernels: list[dict]) -> None:
+  """The slice's path: ``ops.scan.linear_scan`` with Complex operands,
+  forward and gradients, unsharded and over the (1, 4) mesh."""
+  by_name = {kernel["name"]: kernel for kernel in kernels}
+  b, t, d = LRU_COMPLEX_SHAPE
+  x, a, h0 = _complex_operands(LRU_COMPLEX_SHAPE, dev, SEED + 61)
+  gy, _, gh = _complex_operands(LRU_COMPLEX_SHAPE, dev, SEED + 62,
+                                torch.float32)
+  log(f"== the complex path: ops.scan.linear_scan of Complex [{b},{t},{d}] "
+      f"bf16 operands with h0, forward and torch.autograd.grad of x, a, h0; "
+      f"AUTO (the kernels) vs LINEAR_NATIVE (the plain loop through "
+      f"autograd) on the same card")
+  _reset_complex_counts()
+  out, grads, ms = _complex_scan_and_grads(x, a, h0, gy, gh)
+  launches = _complex_counts()
+  want = {"lru_scan_complex": 1, "lru_scan_complex_backward": 1,
+          "lru_scan_complex_a_prod": 0, "lru_scan_complex_backward_a_prod": 0}
+  log(f"  launches {launches}; forward + backward {ms:.1f} ms")
+  if launches != want:
+    raise AssertionError(f"The complex path launched {launches}, want {want}.")
+  for name in ("lru_scan_complex", "lru_scan_complex_backward"):
+    by_name[name]["launches"] = launches[name]
+  out_ref, grads_ref, ms_ref = _complex_scan_and_grads(
+      x, a, h0, gy, gh, scan_type=common.ScanType.LINEAR_NATIVE)
+  y_err = max(max_err(u, v) for u, v in zip(out, out_ref))
+  rel = [_rel_rms(g, r) for g, r in zip(grads, grads_ref)]
+  limits = [COMPLEX_PATH_DA_REL_RMS if name.startswith("a.")
+            else COMPLEX_PATH_GRAD_REL_RMS for name in _COMPLEX_LEAVES]
+  log(f"  LINEAR_NATIVE {ms_ref:.1f} ms; y and h_last max_abs_err {y_err} "
+      f"(tolerance 0.0); gradients rel_rms "
+      f"{dict(zip(_COMPLEX_LEAVES, (f'{r:.3e}' for r in rel)))} (limits: a "
+      f"{COMPLEX_PATH_DA_REL_RMS}, x and h0 {COMPLEX_PATH_GRAD_REL_RMS})")
+  if not (y_err == 0.0 and all(r <= lim for r, lim in zip(rel, limits))):
+    raise AssertionError("The complex kernel path and the plain path differ.")
+  del out, grads, out_ref, grads_ref, x, a, h0, gy, gh
+  torch.cuda.empty_cache()
+
+  spec = sp_mesh_spec()
+  b, t, d = LRU_COMPLEX_SP_SHAPE
+  x, a, h0 = _complex_operands(LRU_COMPLEX_SP_SHAPE, dev, SEED + 63)
+  gy, _, gh = _complex_operands(LRU_COMPLEX_SP_SHAPE, dev, SEED + 64,
+                                torch.float32)
+  log(f"== the complex path sequence-sharded: [{b},{t},{d}] bf16 with h0 on "
+      f"{spec.mesh} ({t // SP_SHARDS} steps a shard), forward and "
+      f"gradients, vs the same call with no spec")
+  captures = [CaptureFirstCall(lru_scan, "lru_scan_forward"),
+              CaptureFirstCall(lru_scan, "lru_scan_backward")]
+  _reset_complex_counts()
+  try:
+    out, grads, ms = _complex_scan_and_grads(x, a, h0, gy, gh,
+                                             sharding_spec=spec)
+  finally:
+    for capture in captures:
+      capture.restore()
+  launches = _complex_counts()
+  want = {"lru_scan_complex": 0, "lru_scan_complex_backward": 0,
+          "lru_scan_complex_a_prod": SP_SHARDS,
+          "lru_scan_complex_backward_a_prod": SP_SHARDS}
+  log(f"  launches {launches}; forward + backward {ms:.1f} ms")
+  if launches != want:
+    raise AssertionError(f"The SP complex path launched {launches}, want "
+                         f"{want}.")
+  for name in ("lru_scan_complex_a_prod", "lru_scan_complex_backward_a_prod"):
+    by_name[name]["launches"] = launches[name]
+  # Each kernel with the product against its plain loop on the inputs the
+  # path gave its first call (the first shard's).
+  for capture, name, backprop in zip(
+      captures, ("lru_scan_complex_a_prod", "lru_scan_complex_backward_a_prod"),
+      (False, True)):
+    err = check_lru_complex(*capture.args, **capture.kwargs,
+                            backprop=backprop)
+    log(f"  {name} on the path's first shard [{capture.args[0].shape}]: "
+        f"max_abs_err {err}")
+    by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], err)
+  del captures
+  out_ref, grads_ref, ms_ref = _complex_scan_and_grads(x, a, h0, gy, gh)
+  y_rel = max(_rel_rms(u, v) for u, v in zip(out[:2], out_ref[:2]))
+  h_rel = max(max_err(u, v) / v.abs().max().item()
+              for u, v in zip(out[2:], out_ref[2:]))
+  stats = [(_rel_rms(g, r), torch.nn.functional.cosine_similarity(
+      g.float().flatten(), r.float().flatten(), dim=0).item())
+           for g, r in zip(grads, grads_ref)]
+  log(f"  unsharded {ms_ref:.1f} ms; y rel_rms {y_rel:.3e} (limit "
+      f"{COMPLEX_SP_Y_REL_RMS}); h_last max err / max {h_rel:.3e} (limit "
+      f"{COMPLEX_SP_H_REL_ERR}); gradients (rel_rms, cosine) "
+      f"{dict(zip(_COMPLEX_LEAVES, ((f'{r:.3e}', f'{c:.6f}') for r, c in stats)))}"
+      f" (limits {COMPLEX_SP_GRAD_REL_RMS}, {COMPLEX_SP_GRAD_MIN_COSINE})")
+  if not (y_rel <= COMPLEX_SP_Y_REL_RMS and h_rel <= COMPLEX_SP_H_REL_ERR
+          and all(r <= COMPLEX_SP_GRAD_REL_RMS
+                  and c >= COMPLEX_SP_GRAD_MIN_COSINE for r, c in stats)):
+    raise AssertionError("The SP complex path and the unsharded one differ.")
+  del out, grads, out_ref, grads_ref
+  # Both again, warm, in turns.
+  turns = {True: [], False: []}
+  for sharded in (True, False, False, True):
+    turns[sharded].append(_complex_scan_and_grads(
+        x, a, h0, gy, gh, sharding_spec=spec if sharded else None)[2])
+  log(f"  forward + backward ms in turns (SP, unsharded, unsharded, SP): SP "
+      f"{[round(v, 2) for v in turns[True]]}, unsharded "
+      f"{[round(v, 2) for v in turns[False]]}")
+
+
+def phase_kernel_lab(dev) -> list[dict]:
+  """The lab's entry point, then one configuration of each variant against
+  its plain version."""
+  b, t, d = kernel_lab.SHAPE
+  log(f"== kernel lab: cadence_gemma_tpu_torch.benchmarks.kernel_lab.main() "
+      f"at [{b},{t},{d}] bf16")
+  kernel_lab.unrolled_launches = kernel_lab.logscan_launches = 0
+  lines = {line["name"]: line for line in kernel_lab.main(dev)}
+  launches = {"kernel_lab_unrolled": kernel_lab.unrolled_launches,
+              "kernel_lab_logscan": kernel_lab.logscan_launches}
+  log(f"  launches {launches}")
+  if not all(launches.values()):
+    raise AssertionError(f"The lab launched {launches}.")
+  x, a, h0 = kernel_lab.make_inputs(device=dev)
+  st = LAB_UNROLLED_ST
+  st_b, dl = LAB_LOGSCAN_TILE
+  y, h = kernel_lab.run_unrolled(x, a, h0, st)
+  y_ref, h_ref = kernel_lab.unrolled_plain(x, a, h0, st)
+  err_a = max(max_err(y, y_ref), max_err(h, h_ref))
+  y, h = kernel_lab.run_logscan(x, a, h0, st_b, dl)
+  y_ref, h_ref = kernel_lab.logscan_plain(x, a, h0, st_b, dl)
+  y_excess = ((y.float() - y_ref.float()).abs()
+              - LAB_Y_REL_ERR * y_ref.float().abs()).max().item()
+  err_b = max(max_err(y, y_ref), max_err(h, h_ref))
+  log(f"  unrolled st={st} vs its plain version: max_abs_err {err_a} "
+      f"(tolerance 0.0); logscan st={st_b} dl={dl}: max_abs_err {err_b} "
+      f"(y within {LAB_Y_REL_ERR} of |y|: excess {y_excess:.3e}; h_last "
+      f"{max_err(h, h_ref)}, tolerance {LAB_H_MAX_ABS_ERR})")
+  if not (err_a == 0.0 and y_excess <= 0.0
+          and max_err(h, h_ref) <= LAB_H_MAX_ABS_ERR):
+    raise AssertionError("A lab kernel disagrees with its plain version.")
+  # Read x and a, write y (bf16); h0 in, h_last out (float32). A does two
+  # float32 operations a step; B three in each of its log2(st) rounds and
+  # two more.
+  n_bytes = 3 * b * t * d * 2 + 2 * b * d * 4
+  row1 = lines["lru_scan_forward (the library's kernel)"]["us"] / 1e3
+  entries = []
+  for name, label, flops, plain, err, replaces in (
+      ("kernel_lab_unrolled", f"unrolled st={st} dw={kernel_lab.UNROLLED_CHANNELS}",
+       2, lambda: kernel_lab.unrolled_plain(x, a, h0, st), err_a,
+       LAB_UNROLLED_REPLACES),
+      ("kernel_lab_logscan", f"logscan st={st_b} dl={dl}",
+       3 * (st_b.bit_length() - 1) + 2,
+       lambda: kernel_lab.logscan_plain(x, a, h0, st_b, dl), err_b,
+       LAB_LOGSCAN_REPLACES)):
+    ms = lines[label]["us"] / 1e3
+    plain_ms = cuda_ms(plain, 1)
+    bound_ms, bound_by = bound(n_bytes, flops * b * t * d, FP32_FLOPS)
+    log(f"  {name} ({label}): ms {ms:.4f} (the library's scan kernel at the "
+        f"same shape {row1:.4f})  plain_ms {plain_ms:.3f}  bound_ms "
+        f"{bound_ms:.4f} ({bound_by}, {n_bytes / 1e6:.2f} MB)")
+    entries.append(dict(name=name, route="cuda",
+                        source="cadence_gemma_tpu_torch/csrc/kernel_lab.cu",
+                        replaces=replaces, launches=launches[name],
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+  return entries
+
+
 def main() -> int:
   profile = "--profile" in sys.argv[1:]
   if not torch.cuda.is_available():
@@ -2211,7 +2560,15 @@ def main() -> int:
               *phase_attention_kv_prefix_backward(dev)]
   torch.cuda.empty_cache()
   phase_sp_training(dev, kernels, profile)
-  log(f"== total {time.perf_counter() - start:.1f} s")
+  torch.cuda.empty_cache()
+  phase_start = time.perf_counter()
+  kernels += phase_lru_complex(dev)
+  torch.cuda.empty_cache()
+  phase_complex_path(dev, kernels)
+  torch.cuda.empty_cache()
+  kernels += phase_kernel_lab(dev)
+  log(f"== the complex scan and lab phases {time.perf_counter() - phase_start:.1f}"
+      f" s; total {time.perf_counter() - start:.1f} s")
   print(json.dumps({"kernels": kernels}))
   print(json.dumps({"ok": True, "device": device}), flush=True)
   return 0

@@ -9,8 +9,8 @@ forwards, and the backwards through the port's autograd Functions against
 Card tests (skipped without CUDA) build the CUDA kernels and hold them
 against the plain versions on the card, at small shapes and at the shapes
 of the RecurrentGemma-2B prefill and training step, of the vision towers
-and of the sequence-parallel prefill's shards that ``chip_smoke.py``
-drives. They import
+of the sequence-parallel prefill's shards that ``chip_smoke.py``
+drives, and the complex scan's four entry points. They import
 no JAX, so they also run where JAX is not installed:
 ``python -m pytest --noconftest tests/test_torch_port_kernels.py -k cuda``.
 """
@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from cadence_gemma_tpu_torch import complex_lib
 from cadence_gemma_tpu_torch.ops import fused_epilogue
 from cadence_gemma_tpu_torch.ops import lru_scan
 from cadence_gemma_tpu_torch.ops import mha_attention
@@ -1051,3 +1052,130 @@ def test_sequence_parallel_gradients_on_cuda_match_unsharded():
     scale = ref.float().abs().max().item()
     assert (got.float() - ref.float()).abs().max().item() <= (
         _ATTN_BWD_REL_ERR * scale)
+
+
+# -- Card: the complex scan ---------------------------------------------------
+
+_COMPLEX_CUDA_SHAPES = [(2, 64, 16), (1, 40, 200), (1, 9, 7), (3, 17, 129),
+                        (2, 4096, 2560)]
+# (walk, with the product): the four C entry points.
+_COMPLEX_ENTRIES = [(False, False), (True, False), (False, True),
+                    (True, True)]
+
+
+def _complex_inputs(b, t, d, seed=0):
+  """x, a and h0 as Complex pairs on the card: x and h0 normal, a of
+  modulus below 1 (a sigmoid and a 0.1 imaginary part)."""
+  rng = np.random.default_rng(seed)
+  xr, xi = rng.standard_normal((2, b, t, d), dtype=np.float32)
+  ar = 1.0 / (1.0 + np.exp(-rng.standard_normal((b, t, d), dtype=np.float32)))
+  ai = 0.1 * rng.standard_normal((b, t, d), dtype=np.float32)
+  h0r, h0i = rng.standard_normal((2, b, d), dtype=np.float32)
+  return (complex_lib.from_numpy(xr, xi, device="cuda"),
+          complex_lib.from_numpy(ar, ai, device="cuda"),
+          complex_lib.from_numpy(h0r, h0i, device="cuda"))
+
+
+@requires_cuda
+@pytest.mark.parametrize("shape", _COMPLEX_CUDA_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("backprop,a_prod", _COMPLEX_ENTRIES)
+def test_lru_complex_cuda_kernel_matches_plain(shape, dtype, backprop,
+                                               a_prod):
+  """Each complex entry point, both directions, with and without a carry,
+  bit for bit against its plain loop; odd channel counts take the unpaired
+  bf16 path, and the backward's conj(a) is taken as `a` loads."""
+  x, a, h0 = _complex_inputs(*shape, seed=21)
+  x, a = x.to(dtype), a.to(dtype)
+  if backprop:
+    kernel, plain = lru_scan.lru_scan_backward, lru_scan.lru_scan_backward_plain
+  else:
+    kernel, plain = lru_scan.lru_scan_forward, lru_scan.lru_scan_plain
+  counter = "complex_" + ("backward_" if backprop else "") + (
+      "a_prod_launches" if a_prod else "launches")
+  for reverse in (False, True):
+    for carry in (None, h0):
+      before = getattr(lru_scan, counter)
+      got = kernel(x, a, carry, reverse, return_a_prod=a_prod)
+      torch.cuda.synchronize()
+      assert getattr(lru_scan, counter) == before + 1
+      want = plain(x, a, carry, reverse, return_a_prod=a_prod)
+      if not a_prod:
+        got, want = (got,), (want,)
+      for pair_got, pair_want in zip(got, want):
+        for g, w in zip(pair_got, pair_want):
+          assert isinstance(g, complex_lib.Complex) and g.dtype == w.dtype
+          for part in ("real", "imag"):
+            gp, wp = getattr(g, part), getattr(w, part)
+            assert torch.equal(gp, wp), (reverse, carry is not None, part,
+                                         (gp.float() - wp.float()).abs().max())
+
+
+@requires_cuda
+def test_lru_complex_autograd_runs_both_kernels_on_cuda():
+  x, a, h0 = _complex_inputs(2, 300, 96, seed=22)
+  leaves = [z.clone().requires_grad_() for v in (x, a, h0)
+            for z in (v.real, v.imag)]
+  before = (lru_scan.complex_launches, lru_scan.complex_backward_launches)
+  y, h = lru_scan.lru_scan(complex_lib.Complex(*leaves[:2]),
+                           complex_lib.Complex(*leaves[2:4]),
+                           complex_lib.Complex(*leaves[4:]))
+  grads = torch.autograd.grad(
+      (y.real.square() + y.imag.square()).sum() + h.real.sum(), leaves)
+  assert (lru_scan.complex_launches,
+          lru_scan.complex_backward_launches) == (before[0] + 1, before[1] + 1)
+  cpu = [z.detach().cpu().requires_grad_() for z in leaves]
+  y_c, h_c = lru_scan.lru_scan(complex_lib.Complex(*cpu[:2]),
+                               complex_lib.Complex(*cpu[2:4]),
+                               complex_lib.Complex(*cpu[4:]))
+  want = torch.autograd.grad(
+      (y_c.real.square() + y_c.imag.square()).sum() + h_c.real.sum(), cpu)
+  for got, ref in zip(grads, want):
+    # The kernels' bits equal the plain loops'; da is the same torch
+    # product on both devices.
+    torch.testing.assert_close(got.cpu(), ref, atol=1e-5, rtol=1e-5)
+
+
+@requires_cuda
+def test_lru_complex_sequence_parallel_on_cuda_matches_unsharded():
+  """The complex scan on a four-shard mesh of the card(s): 4 forwards and 4
+  backwards with the product, none unsharded; y, h_last and the gradients
+  against the unsharded kernels'."""
+  devices = [f"cuda:{i % torch.cuda.device_count()}" for i in range(4)]
+  mesh = sharding.make_mesh((1, 4), ("data", "sequence"), devices)
+  spec = sharding.ShardingSpec(mesh=mesh, batch_axis_name="data",
+                               sequence_axis_name="sequence")
+  x, a, h0 = _complex_inputs(1, 1024, 128, seed=23)
+  results = []
+  for sharded in (True, False):
+    leaves = [z.clone().requires_grad_() for v in (x, a, h0)
+              for z in (v.real, v.imag)]
+    counts = (lru_scan.complex_a_prod_launches,
+              lru_scan.complex_backward_a_prod_launches,
+              lru_scan.complex_launches, lru_scan.complex_backward_launches)
+    y, h = scan.linear_scan(
+        complex_lib.Complex(*leaves[:2]), complex_lib.Complex(*leaves[2:4]),
+        complex_lib.Complex(*leaves[4:]),
+        sharding_spec=spec if sharded else None)
+    grads = torch.autograd.grad(
+        (y.real * 0.5 + y.imag).sum() + (h.real - h.imag).sum(), leaves)
+    moved = tuple(n - c for n, c in zip(
+        (lru_scan.complex_a_prod_launches,
+         lru_scan.complex_backward_a_prod_launches,
+         lru_scan.complex_launches, lru_scan.complex_backward_launches),
+        counts))
+    assert moved == ((4, 4, 0, 0) if sharded else (0, 0, 1, 1))
+    results.append((y.real, y.imag, h.real, h.imag, *grads))
+  for got, ref in zip(*results):
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+
+
+@requires_cuda
+def test_lru_complex_wrappers_raise_on_unsupported_inputs():
+  x, a, _ = _complex_inputs(1, 8, 4)
+  with pytest.raises(ValueError, match="to_custom_complex"):
+    lru_scan.lru_scan_forward(x.to_complex64(), a.to_complex64())
+  with pytest.raises(ValueError, match="dtype"):
+    lru_scan.lru_scan_forward(x.to(torch.float16), a.to(torch.float16))
+  with pytest.raises(ValueError, match="both be real or both Complex"):
+    lru_scan.lru_scan_backward(x, a.real)

@@ -163,8 +163,8 @@ def test_config_from_numpy_params_equals_jax():
 
 
 def test_port_hygiene(monkeypatch):
-  """The port, its training, vision and parallel modules included, imports
-  no JAX and nothing of the JAX package, and its entry points refuse to fall
+  """The port, its training, vision, parallel, complex and kernel-lab
+  modules included, imports no JAX and nothing of the JAX package, and its entry points refuse to fall
   back to the CPU without being asked."""
   probe = (
       "import sys; before = set(sys.modules); "
@@ -176,6 +176,8 @@ def test_port_hygiene(monkeypatch):
       "import cadence_gemma_tpu_torch.inference.modal_sampler; "
       "import cadence_gemma_tpu_torch.parallel.sharding; "
       "import cadence_gemma_tpu_torch.parallel.sp_attention; "
+      "import cadence_gemma_tpu_torch.complex_lib; "
+      "import cadence_gemma_tpu_torch.benchmarks.kernel_lab; "
       "new = set(sys.modules) - before; "
       "print(sorted(m for m in new if m.split('.')[0] in "
       "('jax', 'jaxlib', 'flax', 'cadence_gemma_tpu')))"

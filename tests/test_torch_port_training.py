@@ -222,6 +222,70 @@ def test_one_train_step_matches_jax(jax_pair, jax_loss_and_grads):
   assert (moved - original).abs().max() > lr / 2
 
 
+# Global gradient norms of the three steps: clipped every step, never
+# clipped, and a run whose norm crosses 1.0 and back.
+_CLIP_CASES = {"clipped": (5.0, 20.0, 3.0), "unclipped": (0.2, 0.5, 0.9),
+               "crossing": (0.5, 2.0, 0.7)}
+
+
+_OPTAX_LR = 1e-3
+
+
+@pytest.fixture(scope="module")
+def optax_step():
+  """The JAX trainer's optimizer at ``_OPTAX_LR`` and one jitted update
+  (compiled once for all cases)."""
+  import optax  # pylint: disable=import-outside-toplevel
+
+  optimizer = jtrainer.make_optimizer(_OPTAX_LR)
+
+  @jax.jit
+  def step(p, s, g):
+    updates, s = optimizer.update(g, s, p)
+    return optax.apply_updates(p, updates), s
+
+  return optimizer, step
+
+
+@pytest.mark.parametrize("case", sorted(_CLIP_CASES))
+def test_optimizer_matches_optax_over_three_steps(jax_pair, optax_step, case):
+  """The same seeded gradients fed to optax's chain (clip_by_global_norm,
+  masked AdamW) and to the port's optimizer + apply_update for 3 steps.
+  Holding every step pins the clip (formula and threshold), b1, b2, eps and
+  the decay mask; a first Adam step alone moves each weight by about
+  lr * sign(g) whatever those are."""
+  _, params = jax_pair
+  lr = _OPTAX_LR
+  optimizer_j, step_j = optax_step
+  params_j = jax.tree_util.tree_map(jnp.asarray, params)
+  state_j = optimizer_j.init(params_j)
+
+  port = _port_model(params)
+  optimizer = trainer.make_optimizer(port, lr)
+  rng = np.random.default_rng(7)
+  leaves, treedef = jax.tree_util.tree_flatten(params)
+  for norm in _CLIP_CASES[case]:
+    grads = [rng.standard_normal(p.shape).astype(np.float32) for p in leaves]
+    total = np.sqrt(sum(float(np.sum(g.astype(np.float64) ** 2))
+                        for g in grads))
+    grads = [(g * (norm / total)).astype(np.float32) for g in grads]
+    grads_j = jax.tree_util.tree_unflatten(treedef, grads)
+    params_j, state_j = step_j(params_j, state_j, grads_j)
+
+    named = dict(port.named_parameters())
+    for name, g in convert.state_dict_from_flax({"params": grads_j}).items():
+      named[name].grad = g.clone()
+    trainer.apply_update(port, optimizer)
+
+    want = convert.state_dict_from_flax({"params": params_j})
+    for name, got in port.state_dict().items():
+      # float32 on both sides: the two compute Adam's update (about lr) in
+      # another order, a few roundings of it (atol), and the weights then
+      # round to float32 (rtol).
+      np.testing.assert_allclose(got.numpy(), want[name].numpy(), rtol=1e-6,
+                                 atol=1e-9, err_msg=f"{case} {norm} {name}")
+
+
 def test_weight_decay_mask_matches_jax(jax_pair):
   _, params = jax_pair
   # Each leaf's flag, broadcast to the leaf's shape so the converter maps
