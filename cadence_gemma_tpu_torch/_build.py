@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared library
 with a plain C interface, loaded through ``ctypes``. No PyTorch header is
 included, so a build takes seconds, not minutes. Libraries land in
 ``_build/`` beside this file under a name that carries the hash of the
-source and the flags, so an edited source is rebuilt and a stale library is
-never loaded. :func:`build` starts one ``nvcc`` per missing library, all at
-once, and waits for all of them.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header is rebuilt and a stale library is never loaded.
+:func:`build` starts one ``nvcc`` per missing library, all at once, and
+waits for all of them.
 
 ``ctypes``, ``subprocess`` and ``nvcc`` are touched only inside the
 functions below, so importing this module (as the CPU tests do) needs no
@@ -56,6 +57,8 @@ def library_path(name: str) -> pathlib.Path:
   if name not in KERNELS:
     raise ValueError(f"Unknown kernel {name!r}; known: {KERNELS}.")
   digest = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
+  for header in sorted(_CSRC.glob("*.cuh")):
+    digest.update(header.read_bytes())
   digest.update(" ".join(_NVCC_FLAGS).encode())
   return _BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 

@@ -16,8 +16,8 @@ hand in CUDA C++ (``csrc/kernel_lab.cu``) and nothing the JAX lab lacks:
     lru_scan_forward``) at the same shape, as the baseline line.
 
 Each wrapper launches its kernel for a CUDA tensor and takes its plain
-PyTorch version (:func:`unrolled_plain`, :func:`logscan_plain`) for a CPU
-tensor, and counts its launches.
+PyTorch version for a CPU tensor (:func:`reference` for A, whose tiles
+change no rounding; :func:`logscan_plain` for B), and counts its launches.
 
 Run on a machine with a card and ``nvcc``:
 
@@ -29,8 +29,8 @@ warm-up), GB/s by the lab's own count of bytes (``3 * b * t * d * 2``: x
 and a read, y written), and ``err`` / ``herr``, the largest differences of
 ``y`` and ``h_last`` from :func:`reference`.
 
-The sweep: A at ``st`` 64, 128 and 256 with ``dw`` = 64 channels a block
-(the JAX lab's ``st`` values); B at ``(st, dl)`` = (32, 256), (64, 128),
+The sweep: A at ``st`` 64, 128 and 256 (the JAX lab's values), 64 channels
+a block; B at ``(st, dl)`` = (32, 256), (64, 128),
 (128, 64) and (256, 32). The JAX lab swept B up to 256 x 2560 tiles, 5.2 MB
 of fp32 ``h`` and ``p`` in a TPU's VMEM; a block here has 227 KB of shared
 memory, and B double-buffers ``h`` and ``p`` in fp32 (``16 * st * dl``
@@ -78,7 +78,7 @@ def reference(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor):
   return lru_scan.lru_scan_plain(x, a, h0)
 
 
-def _check(x, a, h0, st, width, name):
+def _check(x, a, h0, st, width):
   if x.ndim != 3 or a.shape != x.shape or a.dtype != x.dtype:
     raise ValueError("`x` and `a` must be [b, t, d] of one shape and dtype.")
   if x.dtype not in _DTYPE_CODES:
@@ -90,21 +90,8 @@ def _check(x, a, h0, st, width, name):
   if x.shape[1] % st or x.shape[2] % width:
     raise ValueError(
         f"[b, t, d] = {tuple(x.shape)} must divide into st = {st} steps and "
-        f"{name} = {width} channels, as the lab's grid does."
+        f"blocks of {width} channels, as the lab's grid does."
     )
-
-
-def unrolled_plain(x, a, h0, st: int = 128):
-  """Variant A's plain version: the sequential scan walked tile by tile,
-  the carry kept between tiles (the same operations as :func:`reference`).
-  """
-  h = h0.float()
-  ys = []
-  for t0 in range(0, x.shape[1], st):
-    for t in range(t0, t0 + st):
-      h = a[:, t].float() * h + x[:, t].float()
-      ys.append(h.to(x.dtype))
-  return torch.stack(ys, dim=1), h
 
 
 def logscan_plain(x, a, h0, st: int = 64, dl: int = 128):
@@ -147,20 +134,20 @@ def _launch(symbol, signature, x, a, h0, *sizes):
   return y, h_last
 
 
-def run_unrolled(x, a, h0, st: int = 128, dw: int = UNROLLED_CHANNELS):
-  """Variant A: its kernel on the card, :func:`unrolled_plain` on CPU.
-  Returns ``(y, h_last)``."""
+def run_unrolled(x, a, h0, st: int = 128):
+  """Variant A (:data:`UNROLLED_CHANNELS` channels a block): its kernel on
+  the card, :func:`reference` on CPU. Returns ``(y, h_last)``."""
   global unrolled_launches
-  _check(x, a, h0, st, dw, "dw")
+  _check(x, a, h0, st, UNROLLED_CHANNELS)
   if x.device.type == "cpu":
-    return unrolled_plain(x, a, h0, st)
+    return reference(x, a, h0)
   if x.device.type != "cuda":
     raise ValueError(f"The lab runs on CUDA or CPU tensors, not {x.device}.")
-  if not 0 < dw <= 1024 or 2 * st * dw * x.element_size() > _MAX_SHARED_BYTES:
-    raise ValueError(f"Tile st={st} x dw={dw} does not fit one block.")
+  if 2 * st * UNROLLED_CHANNELS * x.element_size() > _MAX_SHARED_BYTES:
+    raise ValueError(f"Tile st={st} does not fit one block.")
   b, t, d = x.shape
   out = _launch("cg_lab_unrolled", "pppppiiiiiip", x, a, h0, b, t, d,
-                _DTYPE_CODES[x.dtype], st, dw)
+                _DTYPE_CODES[x.dtype], st, UNROLLED_CHANNELS)
   unrolled_launches += 1
   return out
 
@@ -169,7 +156,7 @@ def run_logscan(x, a, h0, st: int = 64, dl: int = 128):
   """Variant B (batch 1): its kernel on the card, :func:`logscan_plain` on
   CPU. Returns ``(y, h_last)``."""
   global logscan_launches
-  _check(x, a, h0, st, dl, "dl")
+  _check(x, a, h0, st, dl)
   if x.shape[0] != 1:
     raise ValueError("The log-scan variant takes batch 1, as the lab's does.")
   if x.device.type == "cpu":
@@ -185,19 +172,19 @@ def run_logscan(x, a, h0, st: int = 64, dl: int = 128):
   return out
 
 
-def time_us(fn, iters: int = 20) -> float:
-  """Mean time of one call in µs: CUDA events around ``iters`` calls after
-  a warm-up."""
+def cuda_ms(fn, reps: int = 20) -> float:
+  """Mean time of one call of ``fn`` in ms: CUDA events around ``reps``
+  calls after one warm-up."""
   fn()
   torch.cuda.synchronize()
   start = torch.cuda.Event(enable_timing=True)
   end = torch.cuda.Event(enable_timing=True)
   start.record()
-  for _ in range(iters):
+  for _ in range(reps):
     fn()
   end.record()
   end.synchronize()
-  return start.elapsed_time(end) / iters * 1e3
+  return start.elapsed_time(end) / reps
 
 
 def errors(got, want) -> tuple[float, float]:
@@ -213,19 +200,13 @@ def main(device=None) -> list[dict]:
   device = torch.device(device or "cuda")
   if device.type != "cuda" or not torch.cuda.is_available():
     raise RuntimeError("The kernel lab times CUDA kernels; it needs a card.")
-  return sweep(device)
-
-
-def sweep(device) -> list[dict]:
-  """The lab's lines on ``device``; :func:`main` without its check."""
   b, t, d = SHAPE
   x, a, h0 = make_inputs(device=device)
   want = reference(x, a, h0)
   gb = 3 * b * t * d * 2 / 1e9
   runs = [("lru_scan_forward (the library's kernel)",
            lambda: lru_scan.lru_scan_forward(x, a, h0))]
-  runs += [(f"unrolled st={st} dw={UNROLLED_CHANNELS}",
-            lambda st=st: run_unrolled(x, a, h0, st))
+  runs += [(f"unrolled st={st}", lambda st=st: run_unrolled(x, a, h0, st))
            for st in UNROLLED_SWEEP]
   runs += [(f"logscan st={st} dl={dl}",
             lambda st=st, dl=dl: run_logscan(x, a, h0, st, dl))
@@ -233,7 +214,7 @@ def sweep(device) -> list[dict]:
   lines = []
   for name, fn in runs:
     err, herr = errors(fn(), want)
-    us = time_us(fn)
+    us = cuda_ms(fn) * 1e3
     print(f"{name}: {us:.1f}us ({gb / (us * 1e-6):.0f} GB/s) err={err} "
           f"herr={herr}", flush=True)
     lines.append(dict(name=name, us=us, err=err, herr=herr))

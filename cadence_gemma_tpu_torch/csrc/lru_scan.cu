@@ -48,50 +48,12 @@
 
 #include <cstdint>
 
+#include "lru_access.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kUnroll = 8;
-
-template <typename T, int V>
-struct Access;
-
-template <>
-struct Access<float, 1> {
-  static __device__ __forceinline__ void load(const float* p, float* out) {
-    out[0] = __ldg(p);
-  }
-  static __device__ __forceinline__ void store(float* p, const float* v) {
-    p[0] = v[0];
-  }
-};
-
-template <>
-struct Access<__nv_bfloat16, 1> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                              float* out) {
-    out[0] = __bfloat162float(p[0]);
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p,
-                                               const float* v) {
-    p[0] = __float2bfloat16_rn(v[0]);
-  }
-};
-
-template <>
-struct Access<__nv_bfloat16, 2> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                              float* out) {
-    const float2 f =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-    out[0] = f.x;
-    out[1] = f.y;
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p,
-                                               const float* v) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
-  }
-};
 
 // kBackprop = false: the forward scan, time ascending unless `reverse`.
 // kBackprop = true: the cotangent scan of that forward, walked the other way.
@@ -195,12 +157,7 @@ int dispatch(const void* x, const void* a, const void* h0, void* y,
                                                reverse, s);
   }
   if (dtype == 1) {
-    const bool paired =
-        dim % 2 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0 &&
-        reinterpret_cast<uintptr_t>(a) % 4 == 0 &&
-        reinterpret_cast<uintptr_t>(y) % 4 == 0 &&
-        reinterpret_cast<uintptr_t>(a_prod) % 4 == 0;
-    if (paired) {
+    if (paired_bf16(dim, x, a, y, a_prod)) {
       return launch<__nv_bfloat16, 2, kBackprop, kAProd>(
           x, a, h0, y, h_last, a_prod, a_prod_last, batch, seq, dim, reverse,
           s);

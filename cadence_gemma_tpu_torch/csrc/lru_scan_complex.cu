@@ -49,50 +49,12 @@
 
 #include <cstdint>
 
+#include "lru_access.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kUnroll = 8;
-
-template <typename T, int V>
-struct Access;
-
-template <>
-struct Access<float, 1> {
-  static __device__ __forceinline__ void load(const float* p, float* out) {
-    out[0] = __ldg(p);
-  }
-  static __device__ __forceinline__ void store(float* p, const float* v) {
-    p[0] = v[0];
-  }
-};
-
-template <>
-struct Access<__nv_bfloat16, 1> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                              float* out) {
-    out[0] = __bfloat162float(p[0]);
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p,
-                                               const float* v) {
-    p[0] = __float2bfloat16_rn(v[0]);
-  }
-};
-
-template <>
-struct Access<__nv_bfloat16, 2> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                              float* out) {
-    const float2 f =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-    out[0] = f.x;
-    out[1] = f.y;
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p,
-                                               const float* v) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
-  }
-};
 
 // The planar (re, im) pointers of the scan's streams.
 template <typename T>
@@ -253,10 +215,6 @@ Streams<T> streams(const void* xr, const void* xi, const void* ar,
       static_cast<float*>(plr),     static_cast<float*>(pli)};
 }
 
-bool aligned4(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 4 == 0;
-}
-
 template <bool kBackprop, bool kAProd>
 int dispatch(const void* xr, const void* xi, const void* ar, const void* ai,
              const void* h0r, const void* h0i, void* yr, void* yi, void* hlr,
@@ -272,10 +230,7 @@ int dispatch(const void* xr, const void* xi, const void* ar, const void* ai,
   if (dtype == 1) {
     const auto s = streams<__nv_bfloat16>(xr, xi, ar, ai, h0r, h0i, yr, yi,
                                           hlr, hli, pr, pi, plr, pli);
-    const bool paired = dim % 2 == 0 && aligned4(xr) && aligned4(xi) &&
-                        aligned4(ar) && aligned4(ai) && aligned4(yr) &&
-                        aligned4(yi) && aligned4(pr) && aligned4(pi);
-    if (paired) {
+    if (paired_bf16(dim, xr, xi, ar, ai, yr, yi, pr, pi)) {
       return launch<__nv_bfloat16, 2, kBackprop, kAProd>(s, batch, seq, dim,
                                                          reverse, cs);
     }

@@ -120,7 +120,8 @@ Phases, each of which raises on failure (so the script exits non-zero):
  15. the kernel lab: ``cadence_gemma_tpu_torch.benchmarks.kernel_lab.main()``
      at [1, 2048, 2560] bf16 (the scan kernel, variant A's and variant B's
      sweeps), then one configuration of each variant against its plain
-     version (A bit for bit, B within one bf16 step).
+     version, bit for bit, and B within one bf16 step of the sequential
+     scan.
 
   python3 chip_smoke.py --profile
 
@@ -149,6 +150,7 @@ from cadence_gemma_tpu_torch import _build
 from cadence_gemma_tpu_torch import common
 from cadence_gemma_tpu_torch import complex_lib
 from cadence_gemma_tpu_torch.benchmarks import kernel_lab
+from cadence_gemma_tpu_torch.benchmarks.kernel_lab import cuda_ms
 from cadence_gemma_tpu_torch.inference import modal_sampler
 from cadence_gemma_tpu_torch.inference import sampler as sampler_lib
 from cadence_gemma_tpu_torch.models import griffin
@@ -349,12 +351,17 @@ COMPLEX_SP_H_REL_ERR = 1e-5
 COMPLEX_SP_GRAD_REL_RMS = 5e-3
 COMPLEX_SP_GRAD_MIN_COSINE = 0.9999
 
-# The kernel lab: one configuration of each variant, held against its plain
-# version: A bit for bit, B within one bf16 step of y (2^-7 of |y|) and 1e-4
-# of h_last; the lab's replaced TPU kernels.
+# The kernel lab: one configuration of each variant, held bit for bit
+# against its plain version (A's is the sequential scan); B's association
+# differs from the sequential scan's, so against that it is held within one
+# bf16 step of y (2^-7 of |y|) and 1e-4 of h_last. Near y = 0 the two
+# float32 carries' difference (~5e-7 on an H100) exceeds a bf16 step of y,
+# so y also has 1e-6 absolute, as the lab's card test. The lab's replaced
+# TPU kernels.
 LAB_UNROLLED_ST = 128
 LAB_LOGSCAN_TILE = (256, 32)  # the sweep's fastest on the H100
 LAB_Y_REL_ERR = 2.0**-7
+LAB_Y_ABS_ERR = 1e-6
 LAB_H_MAX_ABS_ERR = 1e-4
 LAB_UNROLLED_REPLACES = "benchmarks/kernel_lab.py:74"
 LAB_LOGSCAN_REPLACES = "benchmarks/kernel_lab.py:128"
@@ -362,20 +369,6 @@ LAB_LOGSCAN_REPLACES = "benchmarks/kernel_lab.py:128"
 
 def log(*args) -> None:
   print(*args, flush=True)
-
-
-def cuda_ms(fn, reps: int) -> float:
-  """Mean device time of ``fn`` over ``reps`` calls, after one warm-up."""
-  fn()
-  torch.cuda.synchronize()
-  start = torch.cuda.Event(enable_timing=True)
-  end = torch.cuda.Event(enable_timing=True)
-  start.record()
-  for _ in range(reps):
-    fn()
-  end.record()
-  end.synchronize()
-  return start.elapsed_time(end) / reps
 
 
 def device_ms(fn, reps: int) -> float:
@@ -2484,21 +2477,26 @@ def phase_kernel_lab(dev) -> list[dict]:
   x, a, h0 = kernel_lab.make_inputs(device=dev)
   st = LAB_UNROLLED_ST
   st_b, dl = LAB_LOGSCAN_TILE
+  y_seq, h_seq = kernel_lab.reference(x, a, h0)
   y, h = kernel_lab.run_unrolled(x, a, h0, st)
-  y_ref, h_ref = kernel_lab.unrolled_plain(x, a, h0, st)
-  err_a = max(max_err(y, y_ref), max_err(h, h_ref))
+  err_a = max(max_err(y, y_seq), max_err(h, h_seq))
   y, h = kernel_lab.run_logscan(x, a, h0, st_b, dl)
   y_ref, h_ref = kernel_lab.logscan_plain(x, a, h0, st_b, dl)
-  y_excess = ((y.float() - y_ref.float()).abs()
-              - LAB_Y_REL_ERR * y_ref.float().abs()).max().item()
   err_b = max(max_err(y, y_ref), max_err(h, h_ref))
-  log(f"  unrolled st={st} vs its plain version: max_abs_err {err_a} "
-      f"(tolerance 0.0); logscan st={st_b} dl={dl}: max_abs_err {err_b} "
-      f"(y within {LAB_Y_REL_ERR} of |y|: excess {y_excess:.3e}; h_last "
-      f"{max_err(h, h_ref)}, tolerance {LAB_H_MAX_ABS_ERR})")
-  if not (err_a == 0.0 and y_excess <= 0.0
-          and max_err(h, h_ref) <= LAB_H_MAX_ABS_ERR):
+  y_excess = ((y.float() - y_seq.float()).abs() - LAB_Y_ABS_ERR
+              - LAB_Y_REL_ERR * y_seq.float().abs()).max().item()
+  h_seq_err = max_err(h, h_seq)
+  log(f"  unrolled st={st} vs its plain version (the sequential scan): "
+      f"max_abs_err {err_a} (tolerance 0.0); logscan st={st_b} dl={dl} vs "
+      f"its plain version: max_abs_err {err_b} (tolerance 0.0), vs the "
+      f"sequential scan: y within {LAB_Y_REL_ERR} of |y| + {LAB_Y_ABS_ERR} "
+      f"(excess {y_excess:.3e}), h_last {h_seq_err} (tolerance "
+      f"{LAB_H_MAX_ABS_ERR})")
+  if err_a != 0.0 or err_b != 0.0:
     raise AssertionError("A lab kernel disagrees with its plain version.")
+  if y_excess > 0.0 or h_seq_err > LAB_H_MAX_ABS_ERR:
+    raise AssertionError("The log-scan kernel strays from the sequential "
+                         "scan beyond one bf16 step.")
   # Read x and a, write y (bf16); h0 in, h_last out (float32). A does two
   # float32 operations a step; B three in each of its log2(st) rounds and
   # two more.
@@ -2506,8 +2504,8 @@ def phase_kernel_lab(dev) -> list[dict]:
   row1 = lines["lru_scan_forward (the library's kernel)"]["us"] / 1e3
   entries = []
   for name, label, flops, plain, err, replaces in (
-      ("kernel_lab_unrolled", f"unrolled st={st} dw={kernel_lab.UNROLLED_CHANNELS}",
-       2, lambda: kernel_lab.unrolled_plain(x, a, h0, st), err_a,
+      ("kernel_lab_unrolled", f"unrolled st={st}", 2,
+       lambda: kernel_lab.reference(x, a, h0), err_a,
        LAB_UNROLLED_REPLACES),
       ("kernel_lab_logscan", f"logscan st={st_b} dl={dl}",
        3 * (st_b.bit_length() - 1) + 2,

@@ -173,7 +173,7 @@ def test_unrolled_cuda_kernel_matches_plain(shape, dtype, st):
   y, h = kernel_lab.run_unrolled(x, a, h0, st)
   torch.cuda.synchronize()
   assert kernel_lab.unrolled_launches == before + 1
-  y_ref, h_ref = kernel_lab.unrolled_plain(x, a, h0, st)
+  y_ref, h_ref = kernel_lab.reference(x, a, h0)
   assert torch.equal(y, y_ref), (y.float() - y_ref.float()).abs().max()
   assert torch.equal(h, h_ref), (h - h_ref).abs().max()
 
