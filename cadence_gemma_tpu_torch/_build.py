@@ -125,3 +125,19 @@ def function(name: str, symbol: str, signature: str):
   fn.restype = ctypes.c_int
   _functions[(name, symbol)] = fn
   return fn
+
+
+def kernel_attributes(name: str, symbol: str, *args: int) -> dict[str, int]:
+  """The resources of a kernel of library ``name``, from its C function
+  ``symbol(*args, int info[4])``: registers a thread at launch, local
+  (spilled) bytes a thread, dynamic shared memory bytes and threads of a
+  block."""
+  import ctypes  # pylint: disable=import-outside-toplevel
+
+  info = (ctypes.c_int * 4)()
+  err = function(name, symbol, "i" * len(args) + "p")(
+      *args, ctypes.addressof(info))
+  if err:
+    raise RuntimeError(f"{symbol}{args} failed: cudaError_t {err}.")
+  return dict(zip(("registers", "local_bytes", "shared_bytes", "threads"),
+                  info))

@@ -7,12 +7,17 @@ Phases, each of which raises on failure (so the script exits non-zero):
 
   1. card: the device's name, and its name and power limit from nvidia-smi;
   2. build: ``nvcc`` compiles every kernel under
-     ``cadence_gemma_tpu_torch/csrc`` (one process per source, in parallel);
+     ``cadence_gemma_tpu_torch/csrc`` (one process per source, in parallel)
+     and prints ptxas' registers and spills of each kernel, and the two
+     attention forwards' registers, local bytes and shared memory as
+     launched;
   3. each forward kernel against its plain PyTorch version at the shapes of
      the serving path's prefill (batch 2 of 3000 tokens, the shorter prompt
      left-padded), with its time, the plain version's time, the least time
      the card could take (bound) and, where one PyTorch call computes the
-     same function, that call's;
+     same function, that call's; for the attention kernels also the achieved
+     TFLOP/s, the share of the bound and the ratio to SDPA, and the window
+     forward again at the training step's [2, 4096, 10, 256];
   4. the serving path: a full-width, full-depth RecurrentGemma-2B (random
      bf16 weights from a seeded ``torch.Generator``) behind a ``Sampler``
      generates 32 greedy tokens for two prompts longer than the attention
@@ -43,9 +48,11 @@ Phases, each of which raises on failure (so the script exits non-zero):
      [2, 729, 16, 72]) and at a longer sequence ([2, 1600, 16, 72], where
      the TPU needed its tiled kernel), and the fused residual add + RMSNorm
      kernel at the multimodal prefill's and a decode step's shapes, each
-     timed by its device time under torch.profiler, with the host's time a
-     call (CUDA events) beside it; the MHA's yardstick is one unmasked SDPA
-     call;
+     timed by its device time with the launch queue full (CUDA events around
+     calls enqueued behind a sleep on the card; add_rmsnorm's on copies of
+     its inputs that exceed the L2 together), with the host's time a call
+     beside it; the MHA's yardstick is one unmasked SDPA call,
+     and each shape prints its TFLOP/s, share of the bound and ratio to it;
   8. the multimodal serving path: the DINOv2-L || SigLIP-so400m encoder at
      its published widths (blocks 0-22 of each) and a full-width, full-depth
      RecurrentGemma-2B with the fused epilogue, seeded random weights, behind
@@ -67,7 +74,8 @@ Phases, each of which raises on failure (so the script exits non-zero):
      attention with a 2048-key halo (q [2, 4096, 10, 256], k and v
      [2, 6144, 1, 256]; a later shard's continuous positions, and shard 0's
      zero halo with a row left-padded by 1384), timed as in 3 with one
-     boolean-masked SDPA call over the same band as the yardstick;
+     boolean-masked SDPA call over the same band as the yardstick, and the
+     same figures as in 3;
  10. the sequence-parallel serving path: a full-width, full-depth
      RecurrentGemma-2B (seeded random bf16 weights) with
      ``scan_sharding_spec`` on a (1, 4) data x sequence mesh (four shards on
@@ -139,6 +147,7 @@ object ``{"kernels": [...]}``; the last line is
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -371,14 +380,64 @@ def log(*args) -> None:
   print(*args, flush=True)
 
 
-def device_ms(fn, reps: int) -> float:
-  """Mean device time of the kernels one call of ``fn`` launches, summed
-  (torch.profiler), after one warm-up. Unlike :func:`cuda_ms` it leaves out
-  the host's launch overhead, which exceeds a short kernel's time."""
-  fn()
+# Cycles of the card-side sleep that keeps the launch queue full while
+# device_ms enqueues its calls (~50 ms at the H100's 1.98 GHz boost clock).
+QUEUE_SLEEP_CYCLES = 100_000_000
+
+
+def device_ms(fn, reps: int, inputs=None) -> float:
+  """Mean device time of one call of ``fn`` with the launch queue full.
+
+  The calls are enqueued behind a sleep on the card and timed by CUDA events
+  around them, so they run back to back: the host's launch, which takes
+  longer than a short kernel, stays out, and so does the idle time in which
+  the L2 would write a call's outputs back to memory unseen. Outputs are
+  kept to the end, so every call writes memory of its own. With ``inputs``
+  (argument tuples) call i is ``fn(*inputs[i % len])``: copies of a
+  byte-bound kernel's inputs that together exceed the L2, so no call reads
+  what the call before left in it (see :func:`cold_copies`). Raises if the
+  host took longer to enqueue the calls than the card slept."""
+  def call(i):
+    return fn() if inputs is None else fn(*inputs[i % len(inputs)])
+
+  # A first pass warms up and leaves the caching allocator holding every
+  # output block the timed pass needs: a fresh cudaMalloc a call would
+  # outlast the sleep.
+  outputs = [call(i) for i in range(reps)]
+  del outputs
   torch.cuda.synchronize()
-  times = kernel_times(lambda: [fn() for _ in range(reps)])
-  return sum(ms for ms, _ in times.values()) / reps
+  asleep, start, end = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(3))
+  asleep.record()
+  torch.cuda._sleep(QUEUE_SLEEP_CYCLES)  # pylint: disable=protected-access
+  start.record()
+  host_start = time.perf_counter()
+  outputs = [call(i) for i in range(reps)]
+  host_ms = (time.perf_counter() - host_start) * 1e3
+  end.record()
+  end.synchronize()
+  del outputs
+  if host_ms >= asleep.elapsed_time(start):
+    raise RuntimeError(f"The launch queue drained: enqueueing took "
+                       f"{host_ms:.2f} ms, the card slept "
+                       f"{asleep.elapsed_time(start):.2f} ms.")
+  return start.elapsed_time(end) / reps
+
+
+# The H100's L2 cache.
+L2_BYTES = 50e6
+
+
+def cold_copies(*tensors: torch.Tensor) -> list[tuple]:
+  """Copies of ``tensors`` that together hold more than twice the L2, for
+  :func:`device_ms` to rotate through; the tensors themselves if they hold
+  less than 1 MB (a decode step's inputs, which its caller leaves warm)."""
+  n_bytes = sum(t.numel() * t.element_size() for t in tensors)
+  if n_bytes < 1e6:
+    return [tensors]
+  count = int(np.ceil(2 * L2_BYTES / n_bytes)) + 1
+  return [tensors] + [tuple(t.clone() for t in tensors)
+                      for _ in range(count - 1)]
 
 
 def bound(n_bytes: float, flops: float, flops_per_s: float):
@@ -412,8 +471,24 @@ def phase_build() -> None:
       f"(built {sorted(reports) or 'nothing: up to date'})")
   for name, report in reports.items():
     for line in report.splitlines():
-      if "registers" in line or "spill" in line:
+      entry = "Compiling entry function" in line and re.search(
+          r"([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?", line)
+      if entry:
+        kernel = entry.group(1) + (f"<{entry.group(2)}>" if entry.group(2)
+                                   else "")
+        log(f"  {name}: {kernel}")
+      elif "registers" in line or "spill" in line:
         log(f"  {name}: {line.strip()}")
+  # The redesigned attention kernels' resources as launched (setmaxnreg
+  # moves the window kernel's producer registers to its consumers).
+  for name, dims in (("window_attention", wa.KERNEL_HEAD_DIMS),
+                     ("mha_attention", mha_attention.KERNEL_HEAD_DIMS)):
+    for head_dim in dims:
+      info = _build.kernel_attributes(name, f"cg_{name}_attributes", head_dim)
+      log(f"  {name} head_dim {head_dim}: {info['registers']} registers a "
+          f"thread at launch, {info['local_bytes']} local (spilled) bytes, "
+          f"{info['shared_bytes']} bytes of shared memory and "
+          f"{info['threads']} threads a block")
 
 
 def phase_lru(dev) -> dict:
@@ -449,6 +524,55 @@ def phase_lru(dev) -> dict:
               library_ms=None)
 
 
+def window_forward_figures(q, k, v, seg, kv_prefix=0, plain=True) -> dict:
+  """Times the window forward on these inputs beside one SDPA call with the
+  same visibility as a boolean mask (the yardstick) and, if ``plain``, the
+  plain version; the bound of this run's band, the achieved rate, the share
+  of the bound and the ratio to SDPA."""
+  b, t, n, h = q.shape
+  visible = wa.band_mask(seg, t, ATTN_WINDOW, kv_prefix)  # [b, t, P + t]
+  qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
+
+  def library():
+    return torch.nn.functional.scaled_dot_product_attention(
+        qt, kt.expand(-1, n, -1, -1), vt.expand(-1, n, -1, -1),
+        attn_mask=visible[:, None],
+    )
+
+  ms = cuda_ms(lambda: wa.window_attention_forward(q, k, v, seg, ATTN_WINDOW,
+                                                   kv_prefix), 20)
+  library_ms = cuda_ms(library, 5)
+  plain_ms = cuda_ms(lambda: wa.window_attention_plain(
+      q, k, v, seg, ATTN_WINDOW, kv_prefix), 2) if plain else None
+  # Work of this run's band: QK^T and PV, 2 * h flops each per visible
+  # (query, key) pair and head; bytes: q, k, v, segment_pos in, out, lse out.
+  pairs = int(visible.sum().item())
+  flops = 4 * n * h * pairs
+  n_bytes = (2 * (2 * b * t * n * h + 2 * b * (kv_prefix + t) * h)
+             + 4 * b * t + 4 * b * n * t)
+  bound_ms, bound_by = bound(n_bytes, flops, BF16_TENSOR_FLOPS)
+  return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+              bound_ms=bound_ms, bound_by=bound_by, pairs=pairs, flops=flops,
+              **speed(ms, flops, bound_ms, library_ms))
+
+
+def speed(ms: float, flops: float, bound_ms: float, library_ms) -> dict:
+  """What a redesign is judged on: achieved TFLOP/s, the share of the bound
+  reached and the time as a multiple of the library call's."""
+  return dict(tflops=flops / ms / 1e9, bound_share=bound_ms / ms,
+              sdpa_ratio=None if library_ms is None else ms / library_ms)
+
+
+def log_figures(label: str, f: dict) -> None:
+  plain = "" if f["plain_ms"] is None else f"  plain_ms {f['plain_ms']:.3f}"
+  log(f"  {label}: ms {f['ms']:.4f}{plain}  library_ms (SDPA) "
+      f"{f['library_ms']:.4f}  bound_ms {f['bound_ms']:.4f} "
+      f"({f['bound_by']}, {f['flops'] / 1e9:.1f} GFLOP over {f['pairs']} "
+      f"visible pairs): {f['tflops']:.1f} TFLOP/s, "
+      f"{100 * f['bound_share']:.1f}% of the bound, "
+      f"{f['sdpa_ratio']:.3f} x SDPA")
+
+
 def phase_attention(dev) -> dict:
   b, t, n, h = ATTN_SHAPE
   rng = np.random.default_rng(SEED + 1)
@@ -466,42 +590,39 @@ def phase_attention(dev) -> dict:
       f"lse {ATTN_LSE_MAX_ABS_ERR})")
 
   out_err, lse_err = check_attention(q, k, v, seg, ATTN_WINDOW)
+  figures = window_forward_figures(q, k, v, seg)
+  log_figures(f"[{b},{t},{n},{h}], the prefill's", figures)
+  del q, k, v
 
-  # The yardstick: one SDPA call with the same visibility as a boolean mask.
-  pos = torch.arange(t, device=dev)
-  lower = torch.maximum(pos[None] - ATTN_WINDOW, pos[None] - seg.long())
-  visible = ((pos[None, None] >= lower[..., None])
-             & (pos[None, None] <= pos[None, :, None])
-             & (seg >= 0)[..., None])  # [b, t(q), t(k)]
-  qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
-
-  def library():
-    return torch.nn.functional.scaled_dot_product_attention(
-        qt, kt.expand(-1, n, -1, -1), vt.expand(-1, n, -1, -1),
-        attn_mask=visible[:, None],
-    )
-
-  ms = cuda_ms(
-      lambda: wa.window_attention_forward(q, k, v, seg, ATTN_WINDOW), 10
+  # The training step's shape: batch 2 x 4096, row 1 right-padded after
+  # 3000 (its forward runs twice a block under remat).
+  b, t, n, h = ATTN_TRAIN_SHAPE
+  q, k, v = (
+      torch.tensor(rng.standard_normal(s, dtype=np.float32),
+                   device=dev).bfloat16()
+      for s in ((b, t, n, h), (b, t, 1, h), (b, t, 1, h))
   )
-  plain_ms = cuda_ms(
-      lambda: wa.window_attention_plain(q, k, v, seg, ATTN_WINDOW), 2
-  )
-  library_ms = cuda_ms(library, 5)
-  # Work of this run's band: QK^T and PV, 2 * h flops each per visible
-  # (query, key) pair and head; bytes: q, k, v, segment_pos in, out, lse out.
-  pairs = int(visible.sum().item())
-  flops = 4 * n * h * pairs
-  n_bytes = 2 * (2 * b * t * n * h + 2 * b * t * h) + 4 * b * t + 4 * b * n * t
-  bound_ms, bound_by = bound(n_bytes, flops, BF16_TENSOR_FLOPS)
-  log(f"  ms {ms:.4f}  plain_ms {plain_ms:.3f}  library_ms (SDPA) "
-      f"{library_ms:.4f}  bound_ms {bound_ms:.4f} ({bound_by}, "
-      f"{flops / 1e9:.1f} GFLOP over {pairs} visible pairs)")
+  train = window_forward_figures(q, k, v, training_segment_pos(dev),
+                                 plain=False)
+  log_figures(f"[{b},{t},{n},{h}], the training step's", train)
+  keys = ("ms", "library_ms", "bound_ms", "tflops", "bound_share",
+          "sdpa_ratio")
   return dict(name="window_attention", route="cuda",
               source="cadence_gemma_tpu_torch/csrc/window_attention.cu",
               replaces=ATTN_REPLACES, max_abs_err=max(out_err, lse_err),
-              ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-              library_ms=library_ms)
+              **{key: figures[key] for key in (
+                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                  "tflops", "bound_share", "sdpa_ratio")},
+              train_shape={"shape": list(ATTN_TRAIN_SHAPE),
+                           **{key: train[key] for key in keys}},
+              **resources("window_attention", h))
+
+
+def resources(name: str, head_dim: int) -> dict:
+  """The kernel's registers, spilled bytes and shared memory at head_dim."""
+  info = _build.kernel_attributes(name, f"cg_{name}_attributes", head_dim)
+  return dict(registers=info["registers"], local_bytes=info["local_bytes"],
+              shared_bytes=info["shared_bytes"])
 
 
 def check_lru(x, a, h0=None, reverse=False) -> float:
@@ -1181,8 +1302,8 @@ def check_add_rmsnorm(x, residual, scale, eps=1e-6) -> float:
 def phase_mha(dev) -> dict:
   log(f"== mha_attention vs plain, bf16 (tolerance {MHA_MAX_ABS_ERR}); "
       f"library: one unmasked SDPA call on the same [b, n, t, h] tensors; "
-      f"ms: device time a call (torch.profiler)")
-  row = None
+      f"ms: device time a call with the launch queue full (CUDA events)")
+  rows = []
   worst = 0.0
   for i, (b, t, n, h) in enumerate(MHA_SHAPES):
     rng = np.random.default_rng(SEED + 20 + i)
@@ -1204,25 +1325,34 @@ def phase_mha(dev) -> dict:
     flops = 4 * b * n * t * t * h
     n_bytes = 4 * b * t * n * h * 2
     bound_ms, bound_by = bound(n_bytes, flops, BF16_TENSOR_FLOPS)
+    figures = speed(ms, flops, bound_ms, library_ms)
     log(f"  [{b},{t},{n},{h}]: max_abs_err {err:.3e}  ms {ms:.4f}  plain_ms "
         f"{plain_ms:.3f}  library_ms (SDPA) {library_ms:.4f}  bound_ms "
-        f"{bound_ms:.5f} ({bound_by}, {flops / 1e9:.2f} GFLOP); a call with "
-        f"the host's launch (CUDA events): kernel {call_ms:.4f}, SDPA "
-        f"{library_call_ms:.4f}")
-    if row is None:
-      row = dict(name="mha_attention", route="cuda",
-                 source="cadence_gemma_tpu_torch/csrc/mha_attention.cu",
-                 replaces=MHA_REPLACES, ms=ms, plain_ms=plain_ms,
-                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
-  row["max_abs_err"] = worst
-  return row
+        f"{bound_ms:.5f} ({bound_by}, {flops / 1e9:.2f} GFLOP): "
+        f"{figures['tflops']:.1f} TFLOP/s, "
+        f"{100 * figures['bound_share']:.1f}% of the bound, "
+        f"{figures['sdpa_ratio']:.3f} x SDPA; a call with the host's launch "
+        f"(CUDA events): kernel {call_ms:.4f}, SDPA {library_call_ms:.4f}")
+    rows.append(dict(shape=[b, t, n, h], ms=ms, call_ms=call_ms,
+                     plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                     library_ms=library_ms, **figures))
+  # The first shape (DINOv2-L's) is the row of the kernels line.
+  first = rows[0]
+  return dict(name="mha_attention", route="cuda",
+              source="cadence_gemma_tpu_torch/csrc/mha_attention.cu",
+              replaces=MHA_REPLACES, max_abs_err=worst,
+              **{key: first[key] for key in (
+                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                  "tflops", "bound_share", "sdpa_ratio")},
+              shapes=rows[1:], **resources("mha_attention", first["shape"][3]))
 
 
 def phase_add_rmsnorm(dev) -> dict:
   log(f"== add_rmsnorm vs plain, bf16 (y exact, normed within "
       f"{RMSNORM_NORMED_REL_ERR} relative); library: none (no one PyTorch "
       f"call adds the residual and applies the (scale + 1) gain); ms: device "
-      f"time a call (torch.profiler)")
+      f"time a call with the launch queue full (CUDA events), on copies of "
+      f"the inputs that exceed the L2")
   row = None
   worst = 0.0
   for i, shape in enumerate(RMSNORM_SHAPES):
@@ -1235,7 +1365,10 @@ def phase_add_rmsnorm(dev) -> dict:
     worst = max(worst, err)
     kernel = lambda: fused_epilogue.add_rmsnorm_forward(x, r, scale)
     plain = lambda: fused_epilogue.reference_add_rmsnorm(x, r, scale)
-    ms, call_ms = device_ms(kernel, 50), cuda_ms(kernel, 50)
+    # Byte-bound: timed on copies of x and r that exceed the L2 together.
+    ms = device_ms(lambda x, r: fused_epilogue.add_rmsnorm_forward(x, r, scale),
+                   48, inputs=cold_copies(x, r))
+    call_ms = cuda_ms(kernel, 50)
     plain_ms, plain_call_ms = device_ms(plain, 20), cuda_ms(plain, 50)
     rows = x.numel() // shape[-1]
     # x and residual read, y and normed written (bf16), scale read; about 6
@@ -1638,36 +1771,14 @@ def phase_attention_kv_prefix(dev) -> dict:
     errs += check_attention(*case, ATTN_WINDOW, ATTN_WINDOW)
     if not shard0:
       timed = case
-  q, k, v, seg = timed
-  visible = wa.band_mask(seg, t, ATTN_WINDOW, ATTN_WINDOW)  # [b, t, P + t]
-  qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
-
-  def library():
-    return torch.nn.functional.scaled_dot_product_attention(
-        qt, kt.expand(-1, n, -1, -1), vt.expand(-1, n, -1, -1),
-        attn_mask=visible[:, None],
-    )
-
-  kernel = lambda: wa.window_attention_forward(q, k, v, seg, ATTN_WINDOW,
-                                               ATTN_WINDOW)
-  ms = cuda_ms(kernel, 10)
-  plain_ms = cuda_ms(lambda: wa.window_attention_plain(
-      q, k, v, seg, ATTN_WINDOW, ATTN_WINDOW), 2)
-  library_ms = cuda_ms(library, 5)
-  pairs = int(visible.sum().item())
-  flops = 4 * n * h * pairs
-  n_bytes = (2 * (2 * b * t * n * h + 2 * b * (ATTN_WINDOW + t) * h)
-             + 4 * b * t + 4 * b * n * t)
-  bound_ms, bound_by = bound(n_bytes, flops, BF16_TENSOR_FLOPS)
-  log(f"  ms {ms:.4f}  plain_ms {plain_ms:.3f}  library_ms (SDPA, boolean "
-      f"mask over the [{t}, {ATTN_WINDOW + t}] band) {library_ms:.4f}  "
-      f"bound_ms {bound_ms:.4f} ({bound_by}, {flops / 1e9:.1f} GFLOP over "
-      f"{pairs} visible pairs)")
+  figures = window_forward_figures(*timed, ATTN_WINDOW)
+  log_figures(f"shard 1, the [{t}, {ATTN_WINDOW + t}] band", figures)
   return dict(name="window_attention_kv_prefix", route="cuda",
               source="cadence_gemma_tpu_torch/csrc/window_attention.cu",
-              replaces=ATTN_PREFIX_REPLACES, max_abs_err=max(errs), ms=ms,
-              plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-              library_ms=library_ms)
+              replaces=ATTN_PREFIX_REPLACES, max_abs_err=max(errs),
+              **{key: figures[key] for key in (
+                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                  "tflops", "bound_share", "sdpa_ratio")})
 
 
 def _sp_counts() -> dict[str, int]:
