@@ -1,8 +1,8 @@
 // Hopper building blocks shared by the attention kernels (window_attention.cu,
-// mha_attention.cu): mbarriers, TMA tile loads, wgmma shared-memory
-// descriptors and products, register rebalancing between warpgroups, and
-// tensor maps encoded on the host through the driver's entry point (so the
-// libraries need no -lcuda).
+// window_attention_backward.cu, mha_attention.cu): mbarriers, named
+// barriers, TMA tile loads, wgmma shared-memory descriptors and products,
+// register rebalancing between warpgroups, and tensor maps encoded on the
+// host through the driver's entry point (so the libraries need no -lcuda).
 //
 // Layout conventions (PTX ISA, "Matrix Descriptor" of wgmma; the same
 // canonical layouts as CuTe's GMMA atoms):
@@ -62,6 +62,17 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
                : "memory");
 }
 
+// Named barriers between warpgroups (id 0 is __syncthreads): `count`
+// threads take part, those that arrive and those that wait. Memory accesses
+// before the arrive are visible to the waiters after the sync.
+__device__ __forceinline__ void named_barrier_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void named_barrier_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // Waits until the phase of parity `parity` has completed.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
@@ -112,6 +123,22 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
          static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
          static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
          static_cast<uint64_t>(swizzle) << 62;
+}
+
+// The two words of a descriptor under the 128-byte swizzle with 8-row atoms
+// of 1 KB (SBO 1024). The high word is a constant; the low word holds the
+// start address and the leading byte offset, so the operand `off` bytes
+// further is the low word plus off / 16 (shared memory addresses stay below
+// 2^18: no carry out of the address field). One add per product instead of
+// rebuilding the descriptor.
+constexpr uint32_t kDesc128Hi = (1024 >> 4) | (kSwizzle128B << 30);
+
+__device__ __forceinline__ uint32_t desc128_lo(uint32_t addr, uint32_t lbo) {
+  return ((addr & 0x3FFFF) >> 4) | ((lbo >> 4) & 0x3FFF) << 16;
+}
+
+__device__ __forceinline__ uint64_t desc128(uint32_t lo) {
+  return static_cast<uint64_t>(kDesc128Hi) << 32 | lo;
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -197,12 +224,13 @@ __device__ __forceinline__ void online_softmax(float (&s)[32], float (&m)[2],
 }
 
 // P in bf16 as wgmma's A operand from registers: the accumulator layout of
-// a 64 x 64 product is the A layout of four 64 x 16 steps, register pairs
-// packed (step kk takes p[4 kk .. 4 kk + 3]).
-__device__ __forceinline__ void to_bf16(const float (&s)[32],
-                                        uint32_t (&p)[16]) {
+// a 64 x N product (N / 2 floats a thread) is the A layout of N / 16 steps
+// of 64 x 16, register pairs packed (step kk takes p[4 kk .. 4 kk + 3]).
+template <int N>
+__device__ __forceinline__ void to_bf16(const float (&s)[N],
+                                        uint32_t (&p)[N / 2]) {
 #pragma unroll
-  for (int v = 0; v < 32; v += 2) p[v / 2] = pack_bf16(s[v], s[v + 1]);
+  for (int v = 0; v < N; v += 2) p[v / 2] = pack_bf16(s[v], s[v + 1]);
 }
 
 template <int N>
@@ -243,6 +271,38 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32],
           "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// S[64 x 32] (+)= A[64 x 16] * B[16 x 32], both from shared memory and
+// K-major; `accumulate` 0 overwrites S.
+__device__ __forceinline__ void wgmma_ss_m64n32k16(float (&d)[16],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// The product of a 64 x N score tile (N = 32 or 64 keys) from shared
+// memory, for code templated on the tile's width.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
+                                         uint64_t desc_b, int accumulate) {
+  static_assert(N == 32 || N == 64, "score tiles are 32 or 64 keys wide");
+  if constexpr (N == 32) {
+    wgmma_ss_m64n32k16(d, desc_a, desc_b, accumulate);
+  } else {
+    wgmma_ss_m64n64k16(d, desc_a, desc_b, accumulate);
+  }
 }
 
 // O[64 x N] += P[64 x 16] * V[16 x N]: P from registers in the accumulator

@@ -8,9 +8,9 @@ Phases, each of which raises on failure (so the script exits non-zero):
   1. card: the device's name, and its name and power limit from nvidia-smi;
   2. build: ``nvcc`` compiles every kernel under
      ``cadence_gemma_tpu_torch/csrc`` (one process per source, in parallel)
-     and prints ptxas' registers and spills of each kernel, and the two
-     attention forwards' registers, local bytes and shared memory as
-     launched;
+     and prints ptxas' registers and spills of each kernel, and the Hopper
+     attention kernels' (the window forward, dq, dk/dv and the MHA)
+     registers, local bytes and shared memory as launched;
   3. each forward kernel against its plain PyTorch version at the shapes of
      the serving path's prefill (batch 2 of 3000 tokens, the shorter prompt
      left-padded), with its time, the plain version's time, the least time
@@ -31,7 +31,9 @@ Phases, each of which raises on failure (so the script exits non-zero):
   5. each backward kernel (the RG-LRU cotangent scan, the attention's dq
      and dk/dv) against its plain version at the shapes of the training
      step (batch 2 of 4096 tokens, row 1 right-padded after 3000), timed
-     as in 3;
+     as in 3; dq and dk/dv also print their TFLOP/s, share of the bound and
+     resources, and their summed time against SDPA's backward (one
+     boolean-masked call that computes dq, dk and dv together);
   6. the training path: ``train_loop`` takes 3 AdamW steps of full
      fine-tuning of a full-width, full-depth RecurrentGemma-2B (seeded
      random bf16 weights) on one repeated batch of 2 x 4096 tokens, the loss
@@ -479,16 +481,20 @@ def phase_build() -> None:
         log(f"  {name}: {kernel}")
       elif "registers" in line or "spill" in line:
         log(f"  {name}: {line.strip()}")
-  # The redesigned attention kernels' resources as launched (setmaxnreg
-  # moves the window kernel's producer registers to its consumers).
-  for name, dims in (("window_attention", wa.KERNEL_HEAD_DIMS),
-                     ("mha_attention", mha_attention.KERNEL_HEAD_DIMS)):
+  # The Hopper attention kernels' resources as launched (setmaxnreg moves
+  # the window kernels' producer registers to their consumers).
+  for library, kernel, dims in (
+      ("window_attention", "window_attention", wa.KERNEL_HEAD_DIMS),
+      ("window_attention_backward", "window_attention_dq",
+       wa.KERNEL_HEAD_DIMS),
+      ("window_attention_backward", "window_attention_dkv",
+       wa.KERNEL_HEAD_DIMS),
+      ("mha_attention", "mha_attention", mha_attention.KERNEL_HEAD_DIMS)):
     for head_dim in dims:
-      info = _build.kernel_attributes(name, f"cg_{name}_attributes", head_dim)
-      log(f"  {name} head_dim {head_dim}: {info['registers']} registers a "
+      info = resources(library, head_dim, kernel)
+      log(f"  {kernel} head_dim {head_dim}: {info['registers']} registers a "
           f"thread at launch, {info['local_bytes']} local (spilled) bytes, "
-          f"{info['shared_bytes']} bytes of shared memory and "
-          f"{info['threads']} threads a block")
+          f"{info['shared_bytes']} bytes of shared memory")
 
 
 def phase_lru(dev) -> dict:
@@ -618,9 +624,11 @@ def phase_attention(dev) -> dict:
               **resources("window_attention", h))
 
 
-def resources(name: str, head_dim: int) -> dict:
-  """The kernel's registers, spilled bytes and shared memory at head_dim."""
-  info = _build.kernel_attributes(name, f"cg_{name}_attributes", head_dim)
+def resources(library: str, head_dim: int, kernel: str | None = None) -> dict:
+  """The registers, spilled bytes and shared memory at head_dim of
+  ``kernel`` (default: the library's name) of library ``library``."""
+  info = _build.kernel_attributes(
+      library, f"cg_{kernel or library}_attributes", head_dim)
   return dict(registers=info["registers"], local_bytes=info["local_bytes"],
               shared_bytes=info["shared_bytes"])
 
@@ -945,10 +953,23 @@ def phase_attention_backward(dev) -> list[dict]:
   args = (q, k, v, seg, lse, delta, g, ATTN_WINDOW)
   dq_err = check_dq(*args)
   dkv_err = check_dkv(*args)
+  return backward_rows(args, dq_err, dkv_err)
 
+
+def backward_rows(args, dq_err: float, dkv_err: float,
+                  suffix: str = "") -> list[dict]:
+  """Times dq and dk/dv on ``args`` (the wrappers' arguments) and their
+  plain versions; their bounds over this run's visible (query, key) pairs,
+  TFLOP/s, shares of the bound and resources, and the pair's summed time
+  against SDPA's backward, which computes dq, dk and dv in one call."""
+  q, k, v, seg, _, _, g, window, *rest = args
+  kv_prefix = rest[0] if rest else 0
+  b, t, n, h = q.shape
+  kv_len = k.shape[1]
   # The yardstick: SDPA's backward with the same visibility as a boolean
-  # mask (forward + backward, minus the forward); it computes dq, dk and dv.
-  visible = wa.band_mask(seg, t, ATTN_WINDOW)
+  # mask (forward + backward, minus the forward), k and v expanded to the
+  # n query heads.
+  visible = wa.band_mask(seg, t, window, kv_prefix)  # [b, t, P + t]
   pairs = int(visible.sum().item())
   qt, kt, vt = (z.transpose(1, 2).detach().requires_grad_()
                 for z in (q, k, v))
@@ -966,37 +987,44 @@ def phase_attention_backward(dev) -> list[dict]:
   with torch.no_grad():
     sdpa_fwd_ms = cuda_ms(sdpa, 5)
   library_ms = cuda_ms(sdpa_forward_backward, 5) - sdpa_fwd_ms
-
+  del qt, kt, vt, gt, visible
   dq_ms = cuda_ms(lambda: wa.window_attention_dq(*args), 10)
   dkv_ms = cuda_ms(lambda: wa.window_attention_dkv(*args), 10)
   dq_plain_ms = cuda_ms(lambda: wa.window_attention_dq_plain(*args), 2)
   dkv_plain_ms = cuda_ms(lambda: wa.window_attention_dkv_plain(*args), 2)
-  # Bytes: q, dO (dq: also dq out; dk/dv: dk, dv out), k, v in bf16,
-  # segment_pos, lse and delta in 32 bits. Operations: 2 h flops per product
-  # per visible pair and head; dq does 3 products (s, dO.v, ds k), dk/dv 4
-  # (s, dO.v, p dO, ds q).
-  small = 2 * b * t * h * 2 + 4 * b * t + 2 * 4 * b * n * t
+  pair_ms = dq_ms + dkv_ms
+  # Bytes: q and dO, k and v over all kv_len keys in bf16, segment_pos, lse
+  # and delta in 32 bits, and the outputs (dq; dk and dv over kv_len keys).
+  # Operations: 2 h flops per product per visible pair and head; dq does 3
+  # products (s, dO.v, ds k), dk/dv 4 (s, dO.v, p dO, ds q).
+  inputs = 2 * (2 * b * t * n * h + 2 * b * kv_len * h) + 4 * b * t + (
+      2 * 4 * b * n * t)
   rows = []
   for name, ms, plain_ms, err, products, n_out, replaces in (
       ("window_attention_dq", dq_ms, dq_plain_ms, dq_err, 3, b * t * n * h,
        DQ_REPLACES),
       ("window_attention_dkv", dkv_ms, dkv_plain_ms, dkv_err, 4,
-       2 * b * t * h, DKV_REPLACES),
+       2 * b * kv_len * h, DKV_REPLACES),
   ):
     flops = 2 * products * n * h * pairs
-    n_bytes = small + 2 * (2 * b * t * n * h) + 2 * n_out
-    bound_ms, bound_by = bound(n_bytes, flops, BF16_TENSOR_FLOPS)
-    log(f"  {name}: ms {ms:.4f}  plain_ms {plain_ms:.3f}  bound_ms "
+    bound_ms, bound_by = bound(inputs + 2 * n_out, flops, BF16_TENSOR_FLOPS)
+    figures = speed(ms, flops, bound_ms, None)
+    log(f"  {name + suffix}: ms {ms:.4f}  plain_ms {plain_ms:.3f}  bound_ms "
         f"{bound_ms:.4f} ({bound_by}, {flops / 1e9:.1f} GFLOP over {pairs} "
-        f"visible pairs)")
+        f"visible pairs): {figures['tflops']:.1f} TFLOP/s, "
+        f"{100 * figures['bound_share']:.1f}% of the bound")
     rows.append(dict(
-        name=name, route="cuda",
+        name=name + suffix, route="cuda",
         source="cadence_gemma_tpu_torch/csrc/window_attention_backward.cu",
         replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+        tflops=figures["tflops"], bound_share=figures["bound_share"],
+        pair_ms=pair_ms, pair_sdpa_ratio=pair_ms / library_ms,
+        **resources("window_attention_backward", h, name),
     ))
-  log(f"  library_ms (SDPA backward: dq, dk and dv together) "
-      f"{library_ms:.4f}")
+  log(f"  the pair dq + dk/dv {pair_ms:.4f} ms against SDPA's backward "
+      f"{library_ms:.4f} ms (dq, dk and dv together; k and v expanded to {n} "
+      f"heads): {pair_ms / library_ms:.3f} x SDPA")
   return rows
 
 
@@ -2082,59 +2110,8 @@ def phase_attention_kv_prefix_backward(dev) -> list[dict]:
       dk, dv = wa.window_attention_dkv(*args)
       if dk[:, :ATTN_WINDOW].any() or dv[:, :ATTN_WINDOW].any():
         raise AssertionError("Shard 0's zero halo got a gradient.")
-  # Timed at the later shard.
-  visible = wa.band_mask(seg, t, ATTN_WINDOW, ATTN_WINDOW)  # [b, t, P + t]
-  pairs = int(visible.sum().item())
-  qt, kt, vt = (z.transpose(1, 2).detach().requires_grad_()
-                for z in (q, k, v))
-  gt = g.transpose(1, 2)
-
-  def sdpa():
-    return torch.nn.functional.scaled_dot_product_attention(
-        qt, kt.expand(-1, n, -1, -1), vt.expand(-1, n, -1, -1),
-        attn_mask=visible[:, None],
-    )
-
-  def sdpa_forward_backward():
-    torch.autograd.grad(sdpa(), (qt, kt, vt), gt)
-
-  with torch.no_grad():
-    sdpa_fwd_ms = cuda_ms(sdpa, 5)
-  library_ms = cuda_ms(sdpa_forward_backward, 5) - sdpa_fwd_ms
-  del qt, kt, vt, gt
-  dq_ms = cuda_ms(lambda: wa.window_attention_dq(*args), 10)
-  dkv_ms = cuda_ms(lambda: wa.window_attention_dkv(*args), 10)
-  dq_plain_ms = cuda_ms(lambda: wa.window_attention_dq_plain(*args), 2)
-  dkv_plain_ms = cuda_ms(lambda: wa.window_attention_dkv_plain(*args), 2)
-  # Bytes: q and dO, k and v over the halo and the shard in bf16,
-  # segment_pos, lse and delta in 32 bits, and the outputs (dq; dk and dv
-  # over P + t keys). Operations as the kernels without a halo.
-  kv_len = ATTN_WINDOW + t
-  small = 2 * (2 * b * t * n * h + 2 * b * kv_len * h) + 4 * b * t + (
-      2 * 4 * b * n * t)
-  rows = []
-  for name, ms, plain_ms, err, products, n_out in (
-      ("window_attention_dq_kv_prefix", dq_ms, dq_plain_ms, errs["dq"], 3,
-       b * t * n * h),
-      ("window_attention_dkv_kv_prefix", dkv_ms, dkv_plain_ms, errs["dkv"],
-       4, 2 * b * kv_len * h),
-  ):
-    flops = 2 * products * n * h * pairs
-    n_bytes = small + 2 * n_out
-    bound_ms, bound_by = bound(n_bytes, flops, BF16_TENSOR_FLOPS)
-    log(f"  {name}: ms {ms:.4f}  plain_ms {plain_ms:.3f}  bound_ms "
-        f"{bound_ms:.4f} ({bound_by}, {flops / 1e9:.1f} GFLOP over {pairs} "
-        f"visible pairs)")
-    rows.append(dict(
-        name=name, route="cuda",
-        source="cadence_gemma_tpu_torch/csrc/window_attention_backward.cu",
-        replaces=DQ_REPLACES if "dq" in name else DKV_REPLACES,
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=library_ms,
-    ))
-  log(f"  library_ms (SDPA backward over the [{t}, {kv_len}] band, k and v "
-      f"expanded to {n} heads: dq, dk and dv together) {library_ms:.4f}")
-  return rows
+  log(f"  timed at shard 2 over the [{t}, {ATTN_WINDOW + t}] band:")
+  return backward_rows(args, errs["dq"], errs["dkv"], suffix="_kv_prefix")
 
 
 def _sp_training_counts() -> dict[str, int]:

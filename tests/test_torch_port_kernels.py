@@ -12,7 +12,7 @@ of the RecurrentGemma-2B prefill and training step, of the vision towers
 of the sequence-parallel prefill's shards that ``chip_smoke.py``
 drives, and the complex scan's four entry points. They import
 no JAX, so they also run where JAX is not installed:
-``python -m pytest --noconftest tests/test_torch_port_kernels.py -k cuda``.
+``python -m pytest --noconftest tests/test_torch_port_kernels.py -k "cuda or bits"``.
 """
 
 import numpy as np
@@ -565,6 +565,20 @@ _ATTN_BWD_CUDA_CASES = [
     # The 2B training step of chip_smoke.py: 4096 tokens, row 1 right-padded
     # after 3000 tokens.
     (2, 4096, 10, 256, 2048, 0, None, 1096),
+    # Edges of the Hopper design (dq: 64 queries x 2 heads a block, 32-key
+    # tiles at head_dim 256 and 64 at 128; dk/dv: 64 keys a block): a window
+    # smaller than one tile; an odd head count, which leaves the last dq
+    # block's second warpgroup without a head; t = 2 (at t = 1 the one query
+    # sees only its own key, p = 1 and dq is 0 exactly, which a tolerance
+    # relative to the largest gradient cannot hold) and t just past a tile;
+    # head_dim 128 at the training step's 4096 tokens.
+    (2, 200, 2, 256, 16, 30, 120, 10),
+    (2, 300, 3, 128, 24, 40, 150, 20),
+    (2, 300, 3, 256, 128, 40, 150, 20),
+    (2, 2, 3, 256, 2048, 0, None, 0),
+    (2, 65, 2, 256, 2048, 10, 30, 5),
+    (2, 97, 3, 128, 40, 0, 70, 0),
+    (2, 4096, 10, 128, 2048, 0, None, 1096),
 ]
 # The kernels round p and ds to bf16 before their products and the results
 # to bf16; the plain version keeps float32 until the end. 2e-2 of the
@@ -965,6 +979,9 @@ _ATTN_PREFIX_BWD_CUDA_CASES = [
     # The 2B's SP training shards: 4096 queries, a 2048-key halo.
     (1, 4096, 10, 256, 2048, 2048, 8192, 0, None, 0),
     (1, 4096, 10, 256, 2048, 2048, 0, 0, None, 0),
+    # A window smaller than a tile, a halo off the tiles, odd heads.
+    (2, 130, 3, 128, 16, 40, 900, 0, 60, 10),
+    (1, 65, 3, 256, 24, 70, 500, 0, None, 0),
 ]
 
 
@@ -1015,6 +1032,62 @@ def test_window_attention_kv_prefix_backward_cuda_kernels_match_plain(case):
     assert dk[:, unseen:prefix].abs().amax() > 0
   if pad:
     assert not dq[0, :pad].any()
+
+
+@requires_cuda
+@pytest.mark.parametrize("case", [(1, 256, 2, 128, 64), (2, 700, 3, 256, 256),
+                                  (2, 4096, 10, 256, 2048)])
+def test_window_attention_backward_masked_halo_gives_the_same_bits(case):
+  """A 128-key halo that every row masks (each row's document starts in
+  the shard) gives dq and dk/dv[:, 128:] the bits of the kernels without a
+  halo, and exact zeros to dk/dv[:, :128]: the halo path changes no tile
+  and no sum. (Against a checkout from before the Hopper redesign of the
+  backward, tools/compare_kernel_bits.py finds other bits; both are held to
+  the plain versions instead.)"""
+  b, t, n, h, window = case
+  q, k, v, seg = _attn_inputs(b, t, n, h, seed=24)
+  q, k, v = (torch.tensor(z, device="cuda").to(torch.bfloat16)
+             for z in (q, k, v))
+  seg = torch.tensor(seg, device="cuda")
+  g = torch.randn(q.shape, device="cuda",
+                  generator=torch.Generator("cuda").manual_seed(8)).bfloat16()
+  out, lse = wa.window_attention_forward(q, k, v, seg, window)
+  delta = wa.attention_delta(out, g)
+  halo = torch.randn(2, b, 128, 1, h, device="cuda").bfloat16()
+  k1, v1 = torch.cat([halo[0], k], dim=1), torch.cat([halo[1], v], dim=1)
+  dq0 = wa.window_attention_dq(q, k, v, seg, lse, delta, g, window)
+  dk0, dv0 = wa.window_attention_dkv(q, k, v, seg, lse, delta, g, window)
+  dq1 = wa.window_attention_dq(q, k1, v1, seg, lse, delta, g, window, 128)
+  dk1, dv1 = wa.window_attention_dkv(q, k1, v1, seg, lse, delta, g, window,
+                                     128)
+  torch.cuda.synchronize()
+  assert torch.equal(dq0, dq1)
+  assert torch.equal(dk0, dk1[:, 128:]) and torch.equal(dv0, dv1[:, 128:])
+  assert not dk1[:, :128].any() and not dv1[:, :128].any()
+
+
+@requires_cuda
+@pytest.mark.parametrize("case", [(2, 700, 3, 256, 256, 0),
+                                  (2, 300, 3, 128, 64, 100),
+                                  (1, 4096, 10, 256, 2048, 2048)])
+def test_window_attention_backward_repeats_its_bits(case):
+  """Two launches of dq and of dk/dv on the same inputs give the same bits:
+  tiles run in one order, heads are summed in registers, and nothing is
+  summed by atomics."""
+  b, t, n, h, window, prefix = case
+  q, k, v, seg = _prefix_inputs(b, t, n, h, prefix, prefix + 1000, 0, 100)
+  q, k, v = (torch.tensor(z, device="cuda").to(torch.bfloat16)
+             for z in (q, k, v))
+  seg = torch.tensor(seg, device="cuda")
+  g = torch.randn(q.shape, device="cuda",
+                  generator=torch.Generator("cuda").manual_seed(9)).bfloat16()
+  out, lse = wa.window_attention_forward(q, k, v, seg, window, prefix)
+  args = (q, k, v, seg, lse, wa.attention_delta(out, g), g, window, prefix)
+  first = (wa.window_attention_dq(*args), *wa.window_attention_dkv(*args))
+  second = (wa.window_attention_dq(*args), *wa.window_attention_dkv(*args))
+  torch.cuda.synchronize()
+  for name, x, y in zip(("dq", "dk", "dv"), first, second):
+    assert torch.equal(x, y), name
 
 
 @requires_cuda
