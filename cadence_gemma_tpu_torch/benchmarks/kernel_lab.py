@@ -13,7 +13,8 @@ hand in CUDA C++ (``csrc/kernel_lab.cu``) and nothing the JAX lab lacks:
     sequential scan's: ``y`` lands within one bf16 step of
     :func:`reference` and ``h_last`` within 1e-4;
   * the scan kernel the library runs (``ops/lru_scan.py::
-    lru_scan_forward``) at the same shape, as the baseline line.
+    lru_scan_forward``, the TMA ring of ``csrc/lru_scan.cu``) at the same
+    shape, as the baseline line.
 
 Each wrapper launches its kernel for a CUDA tensor and takes its plain
 PyTorch version for a CPU tensor (:func:`reference` for A, whose tiles
@@ -24,10 +25,12 @@ Run on a machine with a card and ``nvcc``:
   python -m cadence_gemma_tpu_torch.benchmarks.kernel_lab
 
 It prints a line per configuration at the lab's shape ``[1, 2048, 2560]``
-in bf16: the mean time of a call in µs (CUDA events over 20 calls after a
-warm-up), GB/s by the lab's own count of bytes (``3 * b * t * d * 2``: x
-and a read, y written), and ``err`` / ``herr``, the largest differences of
-``y`` and ``h_last`` from :func:`reference`.
+in bf16: the mean time of a call in µs (:func:`device_ms`: CUDA events
+around 20 calls enqueued behind a sleep on the card after a warm-up, so a
+call shorter than its launch on the host is timed and not the launch; the
+inputs stay in the L2), GB/s by the lab's own count of bytes
+(``3 * b * t * d * 2``: x and a read, y written), and ``err`` / ``herr``,
+the largest differences of ``y`` and ``h_last`` from :func:`reference`.
 
 The sweep: A at ``st`` 64, 128 and 256 (the JAX lab's values), 64 channels
 a block; B at ``(st, dl)`` = (32, 256), (64, 128),
@@ -39,6 +42,8 @@ bytes), so every B tile holds 8192 elements (128 KB).
 
 from __future__ import annotations
 
+import time
+
 import torch
 
 from cadence_gemma_tpu_torch import _build
@@ -48,6 +53,7 @@ SHAPE = (1, 2048, 2560)
 UNROLLED_SWEEP = (64, 128, 256)
 UNROLLED_CHANNELS = 64
 LOGSCAN_SWEEP = ((32, 256), (64, 128), (128, 64), (256, 32))
+SCAN_ROW = "lru_scan_forward (the library's TMA-ring kernel)"
 
 # Kernel launches in this process; callers reset them to count one run.
 unrolled_launches = 0
@@ -187,6 +193,51 @@ def cuda_ms(fn, reps: int = 20) -> float:
   return start.elapsed_time(end) / reps
 
 
+# Cycles of the card-side sleep that keeps the launch queue full while
+# device_ms enqueues its calls (~50 ms at the H100's 1.98 GHz boost clock).
+QUEUE_SLEEP_CYCLES = 100_000_000
+
+
+def device_ms(fn, reps: int, inputs=None) -> float:
+  """Mean device time of one call of ``fn`` with the launch queue full.
+
+  The calls are enqueued behind a sleep on the card and timed by CUDA events
+  around them, so they run back to back: the host's launch, which takes
+  longer than a short kernel, stays out, and so does the idle time in which
+  the L2 would write a call's outputs back to memory unseen. Outputs are
+  kept to the end, so every call writes memory of its own. With ``inputs``
+  (argument tuples) call i is ``fn(*inputs[i % len])``: copies of a
+  byte-bound kernel's inputs that together exceed the L2, so no call reads
+  what the call before left in it (``chip_smoke.py``'s ``cold_copies``).
+  Raises if the host took longer to enqueue the calls than the card
+  slept."""
+  def call(i):
+    return fn() if inputs is None else fn(*inputs[i % len(inputs)])
+
+  # A first pass warms up and leaves the caching allocator holding every
+  # output block the timed pass needs: a fresh cudaMalloc a call would
+  # outlast the sleep.
+  outputs = [call(i) for i in range(reps)]
+  del outputs
+  torch.cuda.synchronize()
+  asleep, start, end = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(3))
+  asleep.record()
+  torch.cuda._sleep(QUEUE_SLEEP_CYCLES)  # pylint: disable=protected-access
+  start.record()
+  host_start = time.perf_counter()
+  outputs = [call(i) for i in range(reps)]
+  host_ms = (time.perf_counter() - host_start) * 1e3
+  end.record()
+  end.synchronize()
+  del outputs
+  if host_ms >= asleep.elapsed_time(start):
+    raise RuntimeError(f"The launch queue drained: enqueueing took "
+                       f"{host_ms:.2f} ms, the card slept "
+                       f"{asleep.elapsed_time(start):.2f} ms.")
+  return start.elapsed_time(end) / reps
+
+
 def errors(got, want) -> tuple[float, float]:
   """``(err, herr)``: the largest differences of ``y`` and ``h_last``."""
   (y, h), (y_ref, h_ref) = got, want
@@ -204,7 +255,7 @@ def main(device=None) -> list[dict]:
   x, a, h0 = make_inputs(device=device)
   want = reference(x, a, h0)
   gb = 3 * b * t * d * 2 / 1e9
-  runs = [("lru_scan_forward (the library's kernel)",
+  runs = [(SCAN_ROW,
            lambda: lru_scan.lru_scan_forward(x, a, h0))]
   runs += [(f"unrolled st={st}", lambda st=st: run_unrolled(x, a, h0, st))
            for st in UNROLLED_SWEEP]
@@ -214,7 +265,7 @@ def main(device=None) -> list[dict]:
   lines = []
   for name, fn in runs:
     err, herr = errors(fn(), want)
-    us = cuda_ms(fn) * 1e3
+    us = device_ms(fn, 20) * 1e3
     print(f"{name}: {us:.1f}us ({gb / (us * 1e-6):.0f} GB/s) err={err} "
           f"herr={herr}", flush=True)
     lines.append(dict(name=name, us=us, err=err, herr=herr))

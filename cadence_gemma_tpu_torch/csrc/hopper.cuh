@@ -1,8 +1,9 @@
 // Hopper building blocks shared by the attention kernels (window_attention.cu,
-// window_attention_backward.cu, mha_attention.cu): mbarriers, named
-// barriers, TMA tile loads, wgmma shared-memory descriptors and products,
-// register rebalancing between warpgroups, and tensor maps encoded on the
-// host through the driver's entry point (so the libraries need no -lcuda).
+// window_attention_backward.cu, mha_attention.cu) and the real RG-LRU scan
+// (lru_scan.cu): mbarriers, named barriers, TMA tile loads and stores, wgmma
+// shared-memory descriptors and products, register rebalancing between
+// warpgroups, and tensor maps encoded on the host through the driver's entry
+// point (so the libraries need no -lcuda).
 //
 // Layout conventions (PTX ISA, "Matrix Descriptor" of wgmma; the same
 // canonical layouts as CuTe's GMMA atoms):
@@ -111,6 +112,44 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// One TMA box from shared memory to global memory in this thread's bulk
+// async-group; elements out of the tensor's bounds are not written. The
+// writes that filled `src` must reach the async proxy first
+// (fence_proxy_async_shared, then a barrier).
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Closes this thread's bulk async-group of the stores issued since the last.
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's bulk groups still read shared
+// memory (their sources may then be overwritten).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Waits until at most N of this thread's bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Orders this thread's shared-memory writes before later reads of the async
+// proxy (a TMA store of what it wrote).
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 enum : uint32_t { kSwizzle128B = 1, kSwizzle32B = 3 };
@@ -475,20 +514,20 @@ inline cudaError_t encode_tiled(EncodeTiled* fn) {
   return cudaSuccess;
 }
 
-// A bf16 tensor map of `rank` dimensions (innermost first; `strides` in
-// bytes for dimensions 1..rank-1), boxes of `box` elements, zero fill out of
-// bounds.
-inline cudaError_t make_tensor_map(CUtensorMap* map, const void* base,
-                                   cuuint32_t rank, const cuuint64_t* dims,
-                                   const cuuint64_t* strides,
-                                   const cuuint32_t* box,
-                                   CUtensorMapSwizzle swizzle) {
+// A tensor map of `rank` dimensions (innermost first; `strides` in bytes
+// for dimensions 1..rank-1) of `type` elements (bf16 unless named), boxes of
+// `box` elements, zero fill out of bounds.
+inline cudaError_t make_tensor_map(
+    CUtensorMap* map, const void* base, cuuint32_t rank, const cuuint64_t* dims,
+    const cuuint64_t* strides, const cuuint32_t* box,
+    CUtensorMapSwizzle swizzle,
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiled encode;
   cudaError_t err = encode_tiled(&encode);
   if (err != cudaSuccess) return err;
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+      map, type, rank, const_cast<void*>(base),
       dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

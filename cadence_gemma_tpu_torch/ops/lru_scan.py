@@ -46,6 +46,10 @@ launches = 0
 backward_launches = 0
 a_prod_launches = 0
 backward_a_prod_launches = 0
+# The route each real launch took in csrc/lru_scan.cu: the TMA ring, or the
+# per-thread walk for tensors TMA cannot describe (see _takes_ring).
+ring_launches = 0
+thread_walk_launches = 0
 # The same four for complex operands.
 complex_launches = 0
 complex_backward_launches = 0
@@ -175,11 +179,22 @@ def _components(v) -> tuple:
   return (v.real, v.imag) if isinstance(v, Complex) else (v,)
 
 
+def _takes_ring(*streams: torch.Tensor) -> bool:
+  """Whether ``csrc/lru_scan.cu`` runs a real scan over these ``[b, t, d]``
+  streams on its TMA ring: a non-empty time axis, rows of a multiple of 16
+  bytes and 16-byte aligned bases; the twin of the source's
+  ``takes_ring``."""
+  _, t, d = streams[0].shape
+  return (t > 0 and d * streams[0].element_size() % 16 == 0
+          and all(z.data_ptr() % 16 == 0 for z in streams))
+
+
 def _launch(symbol: str, x, a, h0, reverse, return_a_prod=False):
   """Runs one scan kernel of ``csrc/lru_scan.cu`` (real operands) or of
   ``csrc/lru_scan_complex.cu`` (Complex operands, every stream passed as
   its two components); returns (out, carry), or ((out, carry), (a_prod,
   a_prod_last)) with ``return_a_prod``."""
+  global ring_launches, thread_walk_launches
   if x.device.type != "cuda":
     raise ValueError(f"lru_scan runs on CUDA or CPU tensors, not {x.device}.")
   is_complex = isinstance(x, Complex)
@@ -210,6 +225,11 @@ def _launch(symbol: str, x, a, h0, reverse, return_a_prod=False):
              int(reverse), torch.cuda.current_stream(x.device).cuda_stream)
   if err:
     raise RuntimeError(f"{symbol} CUDA kernel failed: cudaError_t {err}.")
+  if not is_complex and batch and dim:
+    if _takes_ring(x, a, out, *products[:1]):
+      ring_launches += 1
+    else:
+      thread_walk_launches += 1
   return ((out, carry), products) if return_a_prod else (out, carry)
 
 

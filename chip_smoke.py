@@ -9,21 +9,26 @@ Phases, each of which raises on failure (so the script exits non-zero):
   2. build: ``nvcc`` compiles every kernel under
      ``cadence_gemma_tpu_torch/csrc`` (one process per source, in parallel)
      and prints ptxas' registers and spills of each kernel, and the Hopper
-     attention kernels' (the window forward, dq, dk/dv and the MHA)
-     registers, local bytes and shared memory as launched;
+     kernels' (the scan's TMA ring, the window forward, dq, dk/dv and the
+     MHA) registers, local bytes and shared memory as launched;
   3. each forward kernel against its plain PyTorch version at the shapes of
      the serving path's prefill (batch 2 of 3000 tokens, the shorter prompt
      left-padded), with its time, the plain version's time, the least time
      the card could take (bound) and, where one PyTorch call computes the
      same function, that call's; for the attention kernels also the achieved
      TFLOP/s, the share of the bound and the ratio to SDPA, and the window
-     forward again at the training step's [2, 4096, 10, 256];
+     forward again at the training step's [2, 4096, 10, 256]. The RG-LRU
+     scans (here and in 5, 9 and 11) are timed by their device time with
+     the launch queue full on copies of their inputs that exceed the L2,
+     with GB/s, the share of the bound and the host's microseconds a call;
   4. the serving path: a full-width, full-depth RecurrentGemma-2B (random
      bf16 weights from a seeded ``torch.Generator``) behind a ``Sampler``
      generates 32 greedy tokens for two prompts longer than the attention
      window. The kernels' launch counters, reset just before, must show
      that the prefill ran the RG-LRU kernel once per recurrent block and the
-     attention kernel once per attention block, and that decode ran none.
+     attention kernel once per attention block, and that decode ran none;
+     here and in 6, 8, 10 and 12 every real scan launch must have taken the
+     TMA ring of ``csrc/lru_scan.cu``, none the per-thread walk.
      The inputs the prefill gave each kernel's first call are captured and
      the kernel's output on them held against its plain version; the same
      model's logits through the kernels are held against its plain path
@@ -162,6 +167,7 @@ from cadence_gemma_tpu_torch import common
 from cadence_gemma_tpu_torch import complex_lib
 from cadence_gemma_tpu_torch.benchmarks import kernel_lab
 from cadence_gemma_tpu_torch.benchmarks.kernel_lab import cuda_ms
+from cadence_gemma_tpu_torch.benchmarks.kernel_lab import device_ms
 from cadence_gemma_tpu_torch.inference import modal_sampler
 from cadence_gemma_tpu_torch.inference import sampler as sampler_lib
 from cadence_gemma_tpu_torch.models import griffin
@@ -382,50 +388,6 @@ def log(*args) -> None:
   print(*args, flush=True)
 
 
-# Cycles of the card-side sleep that keeps the launch queue full while
-# device_ms enqueues its calls (~50 ms at the H100's 1.98 GHz boost clock).
-QUEUE_SLEEP_CYCLES = 100_000_000
-
-
-def device_ms(fn, reps: int, inputs=None) -> float:
-  """Mean device time of one call of ``fn`` with the launch queue full.
-
-  The calls are enqueued behind a sleep on the card and timed by CUDA events
-  around them, so they run back to back: the host's launch, which takes
-  longer than a short kernel, stays out, and so does the idle time in which
-  the L2 would write a call's outputs back to memory unseen. Outputs are
-  kept to the end, so every call writes memory of its own. With ``inputs``
-  (argument tuples) call i is ``fn(*inputs[i % len])``: copies of a
-  byte-bound kernel's inputs that together exceed the L2, so no call reads
-  what the call before left in it (see :func:`cold_copies`). Raises if the
-  host took longer to enqueue the calls than the card slept."""
-  def call(i):
-    return fn() if inputs is None else fn(*inputs[i % len(inputs)])
-
-  # A first pass warms up and leaves the caching allocator holding every
-  # output block the timed pass needs: a fresh cudaMalloc a call would
-  # outlast the sleep.
-  outputs = [call(i) for i in range(reps)]
-  del outputs
-  torch.cuda.synchronize()
-  asleep, start, end = (torch.cuda.Event(enable_timing=True)
-                        for _ in range(3))
-  asleep.record()
-  torch.cuda._sleep(QUEUE_SLEEP_CYCLES)  # pylint: disable=protected-access
-  start.record()
-  host_start = time.perf_counter()
-  outputs = [call(i) for i in range(reps)]
-  host_ms = (time.perf_counter() - host_start) * 1e3
-  end.record()
-  end.synchronize()
-  del outputs
-  if host_ms >= asleep.elapsed_time(start):
-    raise RuntimeError(f"The launch queue drained: enqueueing took "
-                       f"{host_ms:.2f} ms, the card slept "
-                       f"{asleep.elapsed_time(start):.2f} ms.")
-  return start.elapsed_time(end) / reps
-
-
 # The H100's L2 cache.
 L2_BYTES = 50e6
 
@@ -449,6 +411,53 @@ def bound(n_bytes: float, flops: float, flops_per_s: float):
   return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# Calls a scan's device time averages over.
+SCAN_REPS = 48
+
+
+def time_scan(call, inputs: tuple, n_bytes: float, flops: float) -> dict:
+  """A real scan's figures as the paths call it: the device time of a call
+  with the launch queue full, on copies of its inputs that exceed the L2
+  (:func:`device_ms`: at ~0.05 ms a call, CUDA events around calls launched
+  one after another would time the host's launch), the host's time to
+  launch one call, the bound of these inputs, GB/s and the share of the
+  bound."""
+  ms = device_ms(call, SCAN_REPS, inputs=cold_copies(*inputs))
+  torch.cuda.synchronize()
+  start = time.perf_counter()
+  for _ in range(SCAN_REPS):
+    call(*inputs)
+  host_us = (time.perf_counter() - start) / SCAN_REPS * 1e6
+  torch.cuda.synchronize()
+  bound_ms, bound_by = bound(n_bytes, flops, FP32_FLOPS)
+  return dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+              gbps=n_bytes / ms / 1e6, bound_share=bound_ms / ms,
+              host_us=host_us)
+
+
+def log_scan(f: dict, plain_ms: float, n_bytes: float) -> None:
+  log(f"  ms {f['ms']:.4f} (a call with the launch queue full, cold inputs)"
+      f"  plain_ms {plain_ms:.3f}  bound_ms {f['bound_ms']:.4f} "
+      f"({f['bound_by']}, {n_bytes / 1e6:.1f} MB): {f['gbps']:.0f} GB/s, "
+      f"{100 * f['bound_share']:.1f}% of the bound; host "
+      f"{f['host_us']:.1f} us a call")
+
+
+def reset_scan_routes() -> None:
+  lru_scan.ring_launches = lru_scan.thread_walk_launches = 0
+
+
+def check_scan_routes(scans: int) -> None:
+  """Every real scan launch since :func:`reset_scan_routes` (``scans`` of
+  them) took the TMA ring of ``csrc/lru_scan.cu``."""
+  routes = (lru_scan.ring_launches, lru_scan.thread_walk_launches)
+  log(f"  scan routes: {routes[0]} launches on the TMA ring, {routes[1]} on "
+      f"the per-thread walk (want {scans}, 0)")
+  if routes != (scans, 0):
+    raise AssertionError(f"Scan routes (ring, per-thread walk) {routes}, "
+                         f"want ({scans}, 0).")
+
+
 def max_err(got: torch.Tensor, want: torch.Tensor) -> float:
   return (got.float() - want.float()).abs().max().item()
 
@@ -466,6 +475,14 @@ def phase_card() -> dict:
   return {"platform": "gpu", "kind": kind, "count": count}
 
 
+def template_args(mangled: str) -> str:
+  """A kernel's mangled template arguments as ptxas names them, readable:
+  ``13__nv_bfloat16Li32ELb0E`` -> ``bf16, 32, 0``."""
+  return ", ".join(
+      {"13__nv_bfloat16": "bf16", "f": "f32"}.get(m.group(0), m.group(1))
+      for m in re.finditer(r"13__nv_bfloat16|^f|L[ib](\d+)E", mangled))
+
+
 def phase_build() -> None:
   start = time.perf_counter()
   reports = _build.build()
@@ -474,13 +491,25 @@ def phase_build() -> None:
   for name, report in reports.items():
     for line in report.splitlines():
       entry = "Compiling entry function" in line and re.search(
-          r"([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?", line)
+          r"([a-z][a-z_]*_kernel)(?:I(.*?E)Ev)?", line)
       if entry:
-        kernel = entry.group(1) + (f"<{entry.group(2)}>" if entry.group(2)
-                                   else "")
+        kernel = entry.group(1) + (f"<{template_args(entry.group(2))}>"
+                                   if entry.group(2) else "")
         log(f"  {name}: {kernel}")
       elif "registers" in line or "spill" in line:
         log(f"  {name}: {line.strip()}")
+  # The scan's TMA-ring kernel as launched, bf16, for each entry point at
+  # both channel counts (32 a block at batch 2 of the 2B, 16 at batch 1).
+  for backprop, a_prod in ((0, 0), (1, 0), (0, 1), (1, 1)):
+    for channels in (32, 16):
+      info = _build.kernel_attributes("lru_scan", "cg_lru_scan_attributes",
+                                      backprop, a_prod, 1, channels)
+      log(f"  lru_scan ring_kernel {'cotangent' if backprop else 'forward'}"
+          f"{' + product' if a_prod else ''}, C = {channels}: "
+          f"{info['registers']} registers a thread at launch, "
+          f"{info['local_bytes']} local (spilled) bytes, "
+          f"{info['shared_bytes']} bytes of shared memory, "
+          f"{info['threads']} threads")
   # The Hopper attention kernels' resources as launched (setmaxnreg moves
   # the window kernels' producer registers to their consumers).
   for library, kernel, dims in (
@@ -515,19 +544,17 @@ def phase_lru(dev) -> dict:
       log(f"  reverse={reverse} h0={init is not None}: max_abs_err {err}")
       worst = max(worst, err)
 
-  # Timed as the prefill calls it: forward, no initial state.
-  ms = cuda_ms(lambda: lru_scan.lru_scan_forward(x, a), reps=20)
-  plain_ms = cuda_ms(lambda: lru_scan.lru_scan_plain(x, a), reps=2)
-  # Read x and a, write y (bf16) and h_last (fp32); two fp32 flops a step.
+  # Timed as the prefill calls it: forward, no initial state. Read x and a,
+  # write y (bf16) and h_last (fp32); two fp32 flops a step.
   n_bytes = 3 * b * t * d * 2 + b * d * 4
-  bound_ms, bound_by = bound(n_bytes, 2 * b * t * d, FP32_FLOPS)
-  log(f"  ms {ms:.4f}  plain_ms {plain_ms:.3f}  bound_ms {bound_ms:.4f} "
-      f"({bound_by}, {n_bytes / 1e6:.1f} MB)")
+  figures = time_scan(lru_scan.lru_scan_forward, (x, a), n_bytes,
+                      2 * b * t * d)
+  plain_ms = cuda_ms(lambda: lru_scan.lru_scan_plain(x, a), reps=2)
+  log_scan(figures, plain_ms, n_bytes)
   return dict(name="lru_scan", route="cuda",
               source="cadence_gemma_tpu_torch/csrc/lru_scan.cu",
-              replaces=LRU_REPLACES, max_abs_err=worst, ms=ms,
-              plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-              library_ms=None)
+              replaces=LRU_REPLACES, max_abs_err=worst, plain_ms=plain_ms,
+              library_ms=None, **figures)
 
 
 def window_forward_figures(q, k, v, seg, kv_prefix=0, plain=True) -> dict:
@@ -753,6 +780,7 @@ def phase_main_path(dev, kernels: list[dict], profile: bool) -> None:
   torch.cuda.reset_peak_memory_stats()
   lru_scan.launches = 0
   wa.launches = 0
+  reset_scan_routes()
   start = time.perf_counter()
   out = sampler(prompts, total_generation_steps=DECODE_STEPS,
                 return_logits=True, end_sampling_at_eos_token=False)
@@ -760,6 +788,7 @@ def phase_main_path(dev, kernels: list[dict], profile: bool) -> None:
   wall_s = time.perf_counter() - start
   launches = {"lru_scan": lru_scan.launches, "window_attention": wa.launches}
   peak_gb = torch.cuda.max_memory_allocated() / 1e9
+  check_scan_routes(launches["lru_scan"])
 
   if len(calls) != DECODE_STEPS:
     raise AssertionError(f"{len(calls)} forwards for {DECODE_STEPS} tokens.")
@@ -917,22 +946,21 @@ def phase_lru_backward(dev) -> dict:
       err = check_lru_backward(g, a, carry, reverse)
       log(f"  reverse={reverse} dh_last={carry is not None}: max_abs_err {err}")
       worst = max(worst, err)
-  # Timed as training calls it: the forward scan's cotangents, dh_last given.
-  ms = cuda_ms(lambda: lru_scan.lru_scan_backward(g, a, dh_last), reps=20)
+  # Timed as training calls it: the forward scan's cotangents, dh_last
+  # given. Read g and a, write dx (bf16); read dh_last, write dh0 (fp32);
+  # two fp32 flops a step.
+  n_bytes = 3 * b * t * d * 2 + 2 * b * d * 4
+  figures = time_scan(
+      lambda g, a: lru_scan.lru_scan_backward(g, a, dh_last), (g, a),
+      n_bytes, 2 * b * t * d)
   plain_ms = cuda_ms(
       lambda: lru_scan.lru_scan_backward_plain(g, a, dh_last), reps=2
   )
-  # Read g and a, write dx (bf16); read dh_last, write dh0 (fp32); two
-  # fp32 flops a step.
-  n_bytes = 3 * b * t * d * 2 + 2 * b * d * 4
-  bound_ms, bound_by = bound(n_bytes, 2 * b * t * d, FP32_FLOPS)
-  log(f"  ms {ms:.4f}  plain_ms {plain_ms:.3f}  bound_ms {bound_ms:.4f} "
-      f"({bound_by}, {n_bytes / 1e6:.1f} MB)")
+  log_scan(figures, plain_ms, n_bytes)
   return dict(name="lru_scan_backward", route="cuda",
               source="cadence_gemma_tpu_torch/csrc/lru_scan.cu",
-              replaces=LRU_BWD_REPLACES, max_abs_err=worst, ms=ms,
-              plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-              library_ms=None)
+              replaces=LRU_BWD_REPLACES, max_abs_err=worst,
+              plain_ms=plain_ms, library_ms=None, **figures)
 
 
 def phase_attention_backward(dev) -> list[dict]:
@@ -1089,6 +1117,7 @@ def _launch_counts() -> dict[str, int]:
 def _reset_launch_counts() -> None:
   lru_scan.launches = lru_scan.backward_launches = 0
   wa.launches = wa.dq_launches = wa.dkv_launches = 0
+  reset_scan_routes()
 
 
 def phase_training(dev, kernels: list[dict], profile: bool) -> None:
@@ -1148,6 +1177,7 @@ def phase_training(dev, kernels: list[dict], profile: bool) -> None:
   if launches != want:
     raise AssertionError(f"Training launched {launches}, want {want} "
                          f"({per_step} a step).")
+  check_scan_routes(launches["lru_scan"] + launches["lru_scan_backward"])
   losses = [loss for _, loss, _ in steps]
   times = [start] + [t for _, _, t in steps]
   step_ms = [(b - a) * 1e3 for a, b in zip(times, times[1:])]
@@ -1530,6 +1560,7 @@ def phase_multimodal(dev, kernels: list[dict], profile: bool) -> None:
   torch.cuda.reset_peak_memory_stats()
   mha_attention.launches = fused_epilogue.launches = 0
   lru_scan.launches = wa.launches = 0
+  reset_scan_routes()
   start = time.perf_counter()
   out = sampler(prompts, total_generation_steps=MM_DECODE_STEPS,
                 pixels=pixels, return_logits=True,
@@ -1537,6 +1568,7 @@ def phase_multimodal(dev, kernels: list[dict], profile: bool) -> None:
   torch.cuda.synchronize()
   wall_s = time.perf_counter() - start
   launches = _mm_counts()
+  check_scan_routes(launches["lru_scan"])
   peak_gb = torch.cuda.max_memory_allocated() / 1e9
   for hook in hooks:
     hook.remove()
@@ -1745,23 +1777,23 @@ def phase_lru_a_prod(dev) -> dict:
       log(f"  {'backward' if backprop else 'forward'} walk, reverse={reverse}:"
           f" max_abs_err {err}")
       worst = max(worst, err)
-  # Timed as the SP prefill calls it: forward, no carry.
-  kernel = lambda: lru_scan.lru_scan_forward(x, a, None, False, True)
-  ms = cuda_ms(kernel, 20)
+  # Timed as the SP prefill calls it: forward, no carry. Read x and a, write
+  # y and a_prod (bf16), h_last and a_prod_last (fp32); three fp32 flops a
+  # step (the scan's multiply-add, the product's multiply).
+  n_bytes = 4 * b * t * d * 2 + 2 * b * d * 4
+  figures = time_scan(
+      lambda x, a: lru_scan.lru_scan_forward(x, a, None, False, True), (x, a),
+      n_bytes, 3 * b * t * d)
   plain_ms = cuda_ms(lambda: lru_scan.lru_scan_plain(x, a, None, False, True),
                      2)
-  # Read x and a, write y and a_prod (bf16), h_last and a_prod_last (fp32);
-  # three fp32 flops a step (the scan's multiply-add, the product's multiply).
-  n_bytes = 4 * b * t * d * 2 + 2 * b * d * 4
-  bound_ms, bound_by = bound(n_bytes, 3 * b * t * d, FP32_FLOPS)
-  log(f"  ms {ms:.4f}  plain_ms {plain_ms:.3f}  bound_ms {bound_ms:.4f} "
-      f"({bound_by}, {n_bytes / 1e6:.1f} MB); the scan without the product "
-      f"on the same inputs {cuda_ms(lambda: lru_scan.lru_scan_forward(x, a), 20):.4f} ms")
+  log_scan(figures, plain_ms, n_bytes)
+  without = device_ms(lru_scan.lru_scan_forward, SCAN_REPS,
+                      inputs=cold_copies(x, a))
+  log(f"  the scan without the product on the same inputs {without:.4f} ms")
   return dict(name="lru_scan_a_prod", route="cuda",
               source="cadence_gemma_tpu_torch/csrc/lru_scan.cu",
-              replaces=LRU_A_PROD_REPLACES, max_abs_err=worst, ms=ms,
-              plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-              library_ms=None)
+              replaces=LRU_A_PROD_REPLACES, max_abs_err=worst,
+              plain_ms=plain_ms, library_ms=None, **figures)
 
 
 def _halo_case(rng, dev, shard0: bool):
@@ -1819,6 +1851,7 @@ def _sp_counts() -> dict[str, int]:
 def _reset_sp_counts() -> None:
   lru_scan.a_prod_launches = wa.kv_prefix_launches = 0
   lru_scan.launches = wa.launches = 0
+  reset_scan_routes()
 
 
 def sp_mesh_spec() -> sharding.ShardingSpec:
@@ -1922,6 +1955,7 @@ def phase_sequence_parallel(dev, kernels: list[dict], profile: bool) -> None:
                   "window_attention_kv_prefix": n_attention * SP_SHARDS,
                   "lru_scan": 0, "window_attention": 0}
   log(f"  launches in the run {launches}; after the prefill {sp_calls[0][2]}")
+  check_scan_routes(launches["lru_scan_a_prod"] + launches["lru_scan"])
   if (len(sp_calls) != SP_DECODE_STEPS or sp_calls[0][2] != want_prefill
       or launches != want_prefill):
     raise AssertionError(
@@ -2050,24 +2084,23 @@ def phase_lru_backward_a_prod(dev) -> dict:
           f"{err}")
       worst = max(worst, err)
   # Timed as SP training calls it: the forward scan's cotangents, no carry
-  # (the loss does not reach h_last).
-  ms = cuda_ms(lambda: lru_scan.lru_scan_backward(g, a, None, False, True),
-               20)
+  # (the loss does not reach h_last). Read g and a, write dx and a_prod
+  # (bf16), dh0 and a_prod_last (fp32); three fp32 flops a step.
+  n_bytes = 4 * b * t * d * 2 + 2 * b * d * 4
+  figures = time_scan(
+      lambda g, a: lru_scan.lru_scan_backward(g, a, None, False, True),
+      (g, a), n_bytes, 3 * b * t * d)
   plain_ms = cuda_ms(lambda: lru_scan.lru_scan_backward_plain(
       g, a, None, False, True), 2)
-  # Read g and a, write dx and a_prod (bf16), dh0 and a_prod_last (fp32);
-  # three fp32 flops a step.
-  n_bytes = 4 * b * t * d * 2 + 2 * b * d * 4
-  bound_ms, bound_by = bound(n_bytes, 3 * b * t * d, FP32_FLOPS)
-  log(f"  ms {ms:.4f}  plain_ms {plain_ms:.3f}  bound_ms {bound_ms:.4f} "
-      f"({bound_by}, {n_bytes / 1e6:.1f} MB); the cotangent scan without "
-      f"the product on the same inputs "
-      f"{cuda_ms(lambda: lru_scan.lru_scan_backward(g, a), 20):.4f} ms")
+  log_scan(figures, plain_ms, n_bytes)
+  without = device_ms(lru_scan.lru_scan_backward, SCAN_REPS,
+                      inputs=cold_copies(g, a))
+  log(f"  the cotangent scan without the product on the same inputs "
+      f"{without:.4f} ms")
   return dict(name="lru_scan_backward_a_prod", route="cuda",
               source="cadence_gemma_tpu_torch/csrc/lru_scan.cu",
-              replaces=LRU_BWD_A_PROD_REPLACES, max_abs_err=worst, ms=ms,
-              plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-              library_ms=None)
+              replaces=LRU_BWD_A_PROD_REPLACES, max_abs_err=worst,
+              plain_ms=plain_ms, library_ms=None, **figures)
 
 
 def _halo_training_case(rng, dev, shard0: bool):
@@ -2214,6 +2247,9 @@ def phase_sp_training(dev, kernels: list[dict], profile: bool) -> None:
   if launches != want:
     raise AssertionError(f"SP training launched {launches}, want {want} "
                          f"({per_step} a step).")
+  check_scan_routes(sum(launches[name] for name in (
+      "lru_scan", "lru_scan_backward", "lru_scan_a_prod",
+      "lru_scan_backward_a_prod")))
   losses = [loss for _, loss, _ in steps]
   times = [start] + [t for _, _, t in steps]
   step_ms = [(b - a) * 1e3 for a, b in zip(times, times[1:])]
@@ -2589,7 +2625,7 @@ def phase_kernel_lab(dev) -> list[dict]:
   # float32 operations a step; B three in each of its log2(st) rounds and
   # two more.
   n_bytes = 3 * b * t * d * 2 + 2 * b * d * 4
-  row1 = lines["lru_scan_forward (the library's kernel)"]["us"] / 1e3
+  row1 = lines[kernel_lab.SCAN_ROW]["us"] / 1e3
   entries = []
   for name, label, flops, plain, err, replaces in (
       ("kernel_lab_unrolled", f"unrolled st={st}", 2,

@@ -350,6 +350,25 @@ def test_lru_backward_plain_is_exact_cotangent_scan():
   np.testing.assert_allclose(dh0.numpy(), carry, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("shape, dtype, misaligned, ring", [
+    ((2, 3000, 2560), torch.bfloat16, False, True),
+    ((1, 4096, 2560), torch.float32, False, True),
+    ((3, 5, 8), torch.bfloat16, False, True),
+    ((3, 5, 4), torch.float32, False, True),
+    ((1, 9, 7), torch.float32, False, False),
+    ((2, 64, 33), torch.bfloat16, False, False),
+    ((2, 64, 12), torch.bfloat16, False, False),
+    ((2, 0, 2560), torch.bfloat16, False, False),
+    ((2, 300, 2560), torch.bfloat16, True, False),
+])
+def test_lru_ring_route_rule(shape, dtype, misaligned, ring):
+  """Which real scans csrc/lru_scan.cu runs on its TMA ring: rows of a
+  multiple of 16 bytes, 16-byte aligned bases, a non-empty time axis."""
+  x = torch.zeros(shape, dtype=dtype)
+  streams = [_misaligned(x) if misaligned else x, torch.zeros_like(x)]
+  assert lru_scan._takes_ring(*streams) == ring  # pylint: disable=protected-access
+
+
 def _attention_cotangent(q, seg, seed=7, real_only=False):
   g = np.random.default_rng(seed).standard_normal(q.shape, dtype=np.float32)
   return g * (seg >= 0)[..., None, None] if real_only else g
@@ -449,7 +468,15 @@ def test_window_attention_rejects_halo():
 # -- Card: CUDA kernels vs their plain versions ------------------------------
 
 _LRU_CUDA_SHAPES = [(2, 64, 16), (1, 40, 200), (3, 17, 128), (1, 9, 7),
-                    (2, 3000, 2560)]
+                    (2, 3000, 2560),
+                    # Edges of the TMA ring's 128-step tiles at the model's
+                    # width: t = 1, st - 1, st + 1; batch 1 (16 channels a
+                    # block) and 3; widths that leave the last block of
+                    # channels partial (200, 2568); an odd bf16 width and
+                    # (1, 9, 7) above, which take the per-thread walk.
+                    (2, 1, 2560), (2, 127, 2560), (2, 129, 2560),
+                    (1, 3000, 2560), (3, 300, 2560), (2, 300, 200),
+                    (1, 130, 2568), (2, 64, 33)]
 
 
 @requires_cuda
@@ -806,7 +833,10 @@ def test_new_cuda_wrappers_raise_on_unsupported_inputs():
 # -- Card: the sequence-parallel variants ------------------------------------
 
 _A_PROD_CUDA_SHAPES = [(2, 64, 16), (1, 40, 200), (1, 9, 7), (3, 17, 129),
-                       (2, 4096, 2560)]
+                       (2, 4096, 2560),
+                       # The SP training shard; the ring's tile edges.
+                       (1, 4096, 2560), (1, 1, 2560), (2, 129, 2560),
+                       (2, 300, 200), (2, 64, 33)]
 
 
 @requires_cuda
@@ -842,6 +872,82 @@ def test_lru_a_prod_cuda_kernel_matches_plain(shape, dtype, backprop,
   fn = lru_scan.lru_scan_backward if backprop else lru_scan.lru_scan_forward
   y, h = fn(x, a, None, reverse)
   assert torch.equal(y, got[0][0]) and torch.equal(h, got[0][1])
+
+
+_RING_EDGE_SHAPES = [(2, 1, 2560), (2, 127, 2560), (2, 129, 2560),
+                     (1, 300, 2568), (3, 17, 128), (1, 9, 7)]
+
+
+@requires_cuda
+@pytest.mark.parametrize("shape", _RING_EDGE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("backprop", [False, True])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("with_carry", [False, True])
+def test_lru_a_prod_with_carry_cuda_kernel_matches_plain(shape, dtype,
+                                                         backprop, reverse,
+                                                         with_carry):
+  """Both walks with the product and a carry, bit for bit, across the TMA
+  ring's tile and channel edges (and the per-thread walk at (1, 9, 7))."""
+  x, a, h0 = _lru_inputs(*shape, seed=17)
+  x = torch.tensor(x, device="cuda").to(dtype)
+  a = torch.tensor(a, device="cuda").to(dtype)
+  h0 = torch.tensor(h0, device="cuda") if with_carry else None
+  if backprop:
+    kernel, plain = lru_scan.lru_scan_backward, lru_scan.lru_scan_backward_plain
+  else:
+    kernel, plain = lru_scan.lru_scan_forward, lru_scan.lru_scan_plain
+  got = kernel(x, a, h0, reverse, return_a_prod=True)
+  torch.cuda.synchronize()
+  want = plain(x, a, h0, reverse, return_a_prod=True)
+  for g, w in zip((*got[0], *got[1]), (*want[0], *want[1])):
+    assert torch.equal(g, w), (g.float() - w.float()).abs().max()
+
+
+def _misaligned(z: torch.Tensor) -> torch.Tensor:
+  """A contiguous copy of ``z`` whose base lies one element past a 16-byte
+  boundary."""
+  buf = torch.empty(z.numel() + 1, dtype=z.dtype, device=z.device)
+  out = buf[1:].view(z.shape)
+  out.copy_(z)
+  return out
+
+
+@requires_cuda
+def test_lru_scan_cuda_routes_model_shapes_to_the_tma_ring():
+  """The model paths' shapes launch the TMA ring in all four walks; a row
+  TMA cannot describe (odd width, (1, 9, 7)) or a base off 16 bytes takes
+  the per-thread walk, with the same bits."""
+  cases = [((2, 3000, 2560), torch.bfloat16, False, True),
+           ((2, 4096, 2560), torch.bfloat16, False, True),
+           ((1, 4096, 2560), torch.bfloat16, False, True),
+           ((1, 9, 7), torch.float32, False, False),
+           ((1, 9, 7), torch.bfloat16, False, False),
+           ((2, 64, 33), torch.bfloat16, False, False),
+           ((2, 300, 2560), torch.bfloat16, True, False)]
+  for shape, dtype, misaligned, ring in cases:
+    x, a, h0 = _lru_inputs(*shape, seed=21)
+    x = torch.tensor(x, device="cuda").to(dtype)
+    a = torch.tensor(a, device="cuda").to(dtype)
+    if misaligned:
+      x = _misaligned(x)
+    h0 = torch.tensor(h0, device="cuda")
+    for backprop in (False, True):
+      for with_product in (False, True):
+        kernel = (lru_scan.lru_scan_backward if backprop
+                  else lru_scan.lru_scan_forward)
+        plain = (lru_scan.lru_scan_backward_plain if backprop
+                 else lru_scan.lru_scan_plain)
+        before = (lru_scan.ring_launches, lru_scan.thread_walk_launches)
+        got = kernel(x, a, h0, False, with_product)
+        torch.cuda.synchronize()
+        after = (lru_scan.ring_launches, lru_scan.thread_walk_launches)
+        assert after == (before[0] + ring, before[1] + (not ring)), (
+            shape, dtype, misaligned, backprop, with_product)
+        want = plain(x, a, h0, False, with_product)
+        flat = lambda v: (*v[0], *v[1]) if with_product else v
+        for g, w in zip(flat(got), flat(want)):
+          assert torch.equal(g, w), (g.float() - w.float()).abs().max()
 
 
 _ATTN_PREFIX_CUDA_CASES = [
