@@ -5,8 +5,11 @@ that tuned the Pallas scan on a TPU), with the same two variants written by
 hand in CUDA C++ (``csrc/kernel_lab.cu``) and nothing the JAX lab lacks:
 
   * variant A, :func:`run_unrolled`: a sequential scan over ``st``-step time
-    tiles staged in shared memory, one thread a channel, the carry in a
-    register; bit for bit :func:`reference`;
+    tiles, the real forward walk of the scans' TMA ring
+    (``csrc/lru_ring.cuh``) at that tile length, one thread a channel, the
+    carry in a register; bit for bit :func:`reference`. At ``st`` 128 it
+    runs the library's forward scan's code, so its line and the baseline's
+    time the same walk;
   * variant B, :func:`run_logscan`: a Hillis-Steele log-scan of ``(st, dl)``
     tiles with time on the rows, then ``h + p * carry`` from the previous
     tile; batch 1, as the JAX lab asserts. Its association differs from the
@@ -32,8 +35,8 @@ inputs stay in the L2), GB/s by the lab's own count of bytes
 (``3 * b * t * d * 2``: x and a read, y written), and ``err`` / ``herr``,
 the largest differences of ``y`` and ``h_last`` from :func:`reference`.
 
-The sweep: A at ``st`` 64, 128 and 256 (the JAX lab's values), 64 channels
-a block; B at ``(st, dl)`` = (32, 256), (64, 128),
+The sweep: A at ``st`` 64, 128 and 256 (the JAX lab's values; the ring's
+own channels a block and stages); B at ``(st, dl)`` = (32, 256), (64, 128),
 (128, 64) and (256, 32). The JAX lab swept B up to 256 x 2560 tiles, 5.2 MB
 of fp32 ``h`` and ``p`` in a TPU's VMEM; a block here has 227 KB of shared
 memory, and B double-buffers ``h`` and ``p`` in fp32 (``16 * st * dl``
@@ -51,7 +54,6 @@ from cadence_gemma_tpu_torch.ops import lru_scan
 
 SHAPE = (1, 2048, 2560)
 UNROLLED_SWEEP = (64, 128, 256)
-UNROLLED_CHANNELS = 64
 LOGSCAN_SWEEP = ((32, 256), (64, 128), (128, 64), (256, 32))
 SCAN_ROW = "lru_scan_forward (the library's TMA-ring kernel)"
 
@@ -84,7 +86,7 @@ def reference(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor):
   return lru_scan.lru_scan_plain(x, a, h0)
 
 
-def _check(x, a, h0, st, width):
+def _check(x, a, h0, st, width=1):
   if x.ndim != 3 or a.shape != x.shape or a.dtype != x.dtype:
     raise ValueError("`x` and `a` must be [b, t, d] of one shape and dtype.")
   if x.dtype not in _DTYPE_CODES:
@@ -95,8 +97,9 @@ def _check(x, a, h0, st, width):
     raise ValueError("`x`, `a` and `h0` must be on one device.")
   if x.shape[1] % st or x.shape[2] % width:
     raise ValueError(
-        f"[b, t, d] = {tuple(x.shape)} must divide into st = {st} steps and "
-        f"blocks of {width} channels, as the lab's grid does."
+        f"[b, t, d] = {tuple(x.shape)} must divide into st = {st} steps"
+        + (f" and blocks of {width} channels" if width > 1 else "")
+        + ", as the lab's grid does."
     )
 
 
@@ -140,20 +143,33 @@ def _launch(symbol, signature, x, a, h0, *sizes):
   return y, h_last
 
 
+def _check_ring(x, st):
+  """What variant A's ring takes: a tile length ``csrc/kernel_lab.cu``
+  instances, and rows TMA can describe (a multiple of 16 bytes)."""
+  if st not in UNROLLED_SWEEP:
+    raise ValueError(f"Tile st={st}: the ring is built for st in "
+                     f"{UNROLLED_SWEEP}.")
+  if x.shape[2] * x.element_size() % 16:
+    raise ValueError(f"A row of {x.shape[2]} {x.dtype} channels is not a "
+                     "multiple of 16 bytes, which TMA needs.")
+
+
 def run_unrolled(x, a, h0, st: int = 128):
-  """Variant A (:data:`UNROLLED_CHANNELS` channels a block): its kernel on
+  """Variant A, the ring's forward walk in ``st``-step tiles: its kernel on
   the card, :func:`reference` on CPU. Returns ``(y, h_last)``."""
   global unrolled_launches
-  _check(x, a, h0, st, UNROLLED_CHANNELS)
+  _check(x, a, h0, st)
+  _check_ring(x, st)
   if x.device.type == "cpu":
     return reference(x, a, h0)
   if x.device.type != "cuda":
     raise ValueError(f"The lab runs on CUDA or CPU tensors, not {x.device}.")
-  if 2 * st * UNROLLED_CHANNELS * x.element_size() > _MAX_SHARED_BYTES:
-    raise ValueError(f"Tile st={st} does not fit one block.")
+  x, a = x.contiguous(), a.contiguous()
+  if x.data_ptr() % 16 or a.data_ptr() % 16:
+    raise ValueError("TMA needs 16-byte aligned bases of `x` and `a`.")
   b, t, d = x.shape
-  out = _launch("cg_lab_unrolled", "pppppiiiiiip", x, a, h0, b, t, d,
-                _DTYPE_CODES[x.dtype], st, UNROLLED_CHANNELS)
+  out = _launch("cg_lab_unrolled", "pppppiiiiip", x, a, h0, b, t, d,
+                _DTYPE_CODES[x.dtype], st)
   unrolled_launches += 1
   return out
 

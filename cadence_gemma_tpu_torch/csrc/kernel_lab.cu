@@ -7,12 +7,15 @@
 //
 //   A (cg_lab_unrolled): replaces benchmarks/kernel_lab.py::kernel_unrolled
 //     (its pallas_call at :74): a sequential scan over `st`-step time tiles
-//     with the carry kept between tiles. Each block owns `dw` channels of
-//     one batch row; it stages the [st, dw] tiles of x and a into shared
-//     memory with coalesced loads (neighbouring threads, neighbouring
-//     channels), then each thread walks its channel through the tile with
-//     the carry in a register. Multiply and add are rounded apart
-//     (__fmul_rn, __fadd_rn): bit for bit the plain sequential loop.
+//     with the carry kept between tiles. It is the real forward walk of the
+//     scans' TMA ring (lru_ring.cuh: ring_kernel with RealWalk), instanced
+//     at st = 64, 128 and 256, the JAX lab's values: a block owns C = 32
+//     channels of one row (16 when the blocks would not cover the SMs), a
+//     producer thread streams [1, st, C] boxes of x and a into the ring's
+//     stages, one thread a channel walks each tile with the carry in a
+//     register and y leaves by TMA store. At st = 128 it is the code of the
+//     library's forward scan (lru_scan.cu). Multiply and add are rounded
+//     apart (__fmul_rn, __fadd_rn): bit for bit the plain sequential loop.
 //
 //   B (cg_lab_logscan): replaces benchmarks/kernel_lab.py::kernel_logscan
 //     (its pallas_call at :128): a Hillis-Steele log-scan of an (st, dl)
@@ -30,19 +33,23 @@
 // What bounds them: device memory in principle (each element of x and a
 // read once, y written once, 2 flops a step for A, ~2 log2(st) for B), far
 // below the ~295 flops per byte where an H100 stops being memory-bound. In
-// practice the number of blocks in flight: A has batch * dim / dw blocks of
-// dw threads, B dim / dl blocks of 1024 threads, and each walks its time
-// tiles one after the other.
+// practice A's walk, one dependent step after another in each thread, and
+// B's number of blocks in flight: dim / dl blocks of 1024 threads, each
+// walking its time tiles one after the other.
 //
 // The TPU lab's tiles are VMEM sizes (B up to 256 x 2560 of fp32 h and p,
-// 5.2 MB); here a tile must fit the 227 KB a block may use: A takes
-// 2 * st * dw * sizeof(T) bytes, B 16 * st * dl + 4 * dl bytes
+// 5.2 MB); here a tile must fit the 227 KB a block may use: A's ring holds
+// lru_ring::kElements elements whatever st (96 KB in bf16), so st = 256 at
+// C = 32 leaves 3 stages, the least a ring that releases a stage kLag = 2
+// tiles late can run on; B takes 16 * st * dl + 4 * dl bytes
 // (double-buffered fp32 h and p, and the carry).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "lru_ring.cuh"
 
 namespace {
 
@@ -59,42 +66,6 @@ __device__ __forceinline__ float from_float<float>(float v) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
-}
-
-// Variant A. blockDim.x == dw; grid (dim / dw, batch).
-template <typename T>
-__global__ void lab_unrolled_kernel(const T* __restrict__ x,
-                                    const T* __restrict__ a,
-                                    const float* __restrict__ h0,
-                                    T* __restrict__ y,
-                                    float* __restrict__ h_last, int seq,
-                                    int dim, int st) {
-  extern __shared__ unsigned char smem[];
-  const int dw = blockDim.x;
-  T* xs = reinterpret_cast<T*>(smem);
-  T* as = xs + st * dw;
-  const int b = blockIdx.y;
-  const int c0 = blockIdx.x * dw;
-  const int c = c0 + threadIdx.x;
-  const int64_t row = static_cast<int64_t>(b) * seq * dim;
-  float h = h0[static_cast<int64_t>(b) * dim + c];
-  for (int t0 = 0; t0 < seq; t0 += st) {
-    // Stage the tile: element e is row e / dw, channel e % dw.
-    for (int e = threadIdx.x; e < st * dw; e += dw) {
-      const int64_t off = row + static_cast<int64_t>(t0 + e / dw) * dim +
-                          c0 + e % dw;
-      xs[e] = x[off];
-      as[e] = a[off];
-    }
-    __syncthreads();
-    for (int r = 0; r < st; ++r) {
-      h = __fadd_rn(__fmul_rn(to_float(as[r * dw + threadIdx.x]), h),
-                    to_float(xs[r * dw + threadIdx.x]));
-      y[row + static_cast<int64_t>(t0 + r) * dim + c] = from_float<T>(h);
-    }
-    __syncthreads();  // the next tile overwrites xs and as
-  }
-  h_last[static_cast<int64_t>(b) * dim + c] = h;
 }
 
 constexpr int kLogscanThreads = 1024;
@@ -158,20 +129,39 @@ __global__ void __launch_bounds__(kLogscanThreads)
   for (int e = threadIdx.x; e < dl; e += blockDim.x) h_last[c0 + e] = carry[e];
 }
 
+template <typename T, int kSteps>
+int unrolled_at(const void* x, const void* a, const void* h0, void* y,
+                void* h_last, int batch, int seq, int dim,
+                cudaStream_t stream) {
+  using Wide = lru_ring::RealWalk<T, 32, kSteps, false, false>;
+  using Narrow = lru_ring::RealWalk<T, 16, kSteps, false, false>;
+  const void* loads[2] = {x, a};
+  void* stores[1] = {y};
+  const lru_ring::Carries carries{{static_cast<const float*>(h0), nullptr},
+                                  {static_cast<float*>(h_last), nullptr},
+                                  {nullptr, nullptr}};
+  return static_cast<int>(lru_ring::launch<Wide, Narrow>(
+      loads, stores, carries, batch, seq, dim, false, stream));
+}
+
 template <typename T>
 int unrolled(const void* x, const void* a, const void* h0, void* y,
-             void* h_last, int batch, int seq, int dim, int st, int dw,
+             void* h_last, int batch, int seq, int dim, int st,
              cudaStream_t stream) {
-  const size_t smem = 2 * static_cast<size_t>(st) * dw * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      lab_unrolled_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  lab_unrolled_kernel<T><<<dim3(dim / dw, batch), dw, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(a),
-      static_cast<const float*>(h0), static_cast<T*>(y),
-      static_cast<float*>(h_last), seq, dim, st);
-  return static_cast<int>(cudaGetLastError());
+  if (batch == 0 || dim == 0) return cudaSuccess;
+  if (!lru_ring::takes_ring(seq, dim, sizeof(T), x, a, y)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (st) {
+    case 64:
+      return unrolled_at<T, 64>(x, a, h0, y, h_last, batch, seq, dim, stream);
+    case 128:
+      return unrolled_at<T, 128>(x, a, h0, y, h_last, batch, seq, dim, stream);
+    case 256:
+      return unrolled_at<T, 256>(x, a, h0, y, h_last, batch, seq, dim, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 template <typename T>
@@ -192,19 +182,20 @@ int logscan(const void* x, const void* a, const void* h0, void* y,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. seq % st == 0 and dim % dw == 0 (the
-// wrapper checks); dw threads a block. Returns the cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16; st 64, 128 or 256. Tensors TMA can
+// describe (a non-empty time axis, rows of a multiple of 16 bytes, 16-byte
+// aligned bases; the wrapper checks, as it checks seq % st == 0, which the
+// lab's grid requires). Returns the cudaError_t.
 extern "C" int cg_lab_unrolled(const void* x, const void* a, const void* h0,
                                void* y, void* h_last, int batch, int seq,
-                               int dim, int dtype, int st, int dw,
-                               void* stream) {
+                               int dim, int dtype, int st, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return unrolled<float>(x, a, h0, y, h_last, batch, seq, dim, st, dw, s);
+    return unrolled<float>(x, a, h0, y, h_last, batch, seq, dim, st, s);
   }
   if (dtype == 1) {
     return unrolled<__nv_bfloat16>(x, a, h0, y, h_last, batch, seq, dim, st,
-                                   dw, s);
+                                   s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

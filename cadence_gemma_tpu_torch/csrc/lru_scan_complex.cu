@@ -22,22 +22,31 @@
 // here the backward entry points negate it as they load it, so no
 // conjugated copy of `a` is written or read.
 //
-// What bounds it: device memory, as for the real scan. Each step reads four
-// components (x, a) and writes two (y), four with the product, with six to
-// ten flops in between, far below the ~295 flops per byte where an H100
-// stops being memory-bound. The step's latency, a dependent chain of a
-// multiply, a subtract and an add on the carry, sets the time at the 2B's
-// b * d threads, as for the real scan.
+// What bounds it: device memory in principle. Each step reads four
+// components (x, a) and writes two (y), four with the product, with eight
+// to fourteen flops in between, far below the ~295 flops per byte where an
+// H100 stops being memory-bound. In practice the walk, as for the real
+// scan: the step's dependent chain (a multiply, a subtract and an add on
+// the carry) and the shared-memory accesses the warp issues for it, four
+// loads and two stores a step (four stores with the product).
 //
-// Design: one thread owns one (batch, channel) pair -- two adjacent
-// channels for bf16, loaded as one bf16x2 per component -- and keeps the
-// carry (hr, hi) and the product's (pr, pi) in registers while it walks the
-// time axis. Neighbouring threads own neighbouring channels, so every load
-// and store of a warp is one coalesced row segment of one component. The
-// TPU kernel's (re, im) lane blocks with their [b, t, d/128, 128] reshape
-// and neutral padding become two planar tensors with a ragged last warp.
-// Loads of kUnroll steps are issued before their arithmetic so that several
-// memory requests are in flight per thread.
+// Design: the TMA ring of lru_ring.cuh with the complex walk below
+// (ComplexWalk) in tiles of st = 64 steps. A stage holds the x.real,
+// x.imag, a.real and a.imag tiles of one row's C channels, which one
+// producer thread loads by TMA behind one expect_tx: 6 stages at C = 32,
+// 12 at C = 16 (96 KB a block in bf16, so two blocks share an SM; 192 KB in
+// fp32). One consumer thread a channel keeps the carry (hr, hi), and the
+// product's (pr, pi), in registers; y (dx) overwrites the x tiles and the
+// product the a tiles, and one TMA store a stream writes each tile back.
+// The cotangent walk negates a.imag as it widens the loaded value.
+//
+// Launches TMA cannot describe (a row of dim * sizeof(T) that is not a
+// multiple of 16 bytes, a component whose base is not 16-byte aligned, or
+// an empty time axis) take the per-thread walk (thread_walk_kernel): one
+// thread owns one (batch, channel) pair -- two adjacent channels for bf16,
+// loaded as one bf16x2 a component -- and walks the whole time axis from
+// global memory, kUnroll steps of loads issued before their arithmetic.
+// ops/lru_scan.py counts the two routes apart.
 //
 // Every product and sum is rounded on its own (__fmul_rn, __fadd_rn,
 // __fsub_rn, which nvcc never contracts into a fused multiply-add), in the
@@ -48,10 +57,138 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "lru_access.cuh"
+#include "lru_ring.cuh"
 
 namespace {
+
+// ------------------------------------------------------- the TMA ring route
+
+constexpr int kRingSteps = 64;  // st: time steps a tile
+
+// The complex walk: streams x.real, x.imag, a.real and a.imag (g for x in
+// the cotangent walk); y (dx) over x, the running product over a. Each step
+// rounds today's operations alone in the plain loops' order.
+template <typename Elem, int kC, bool kBackprop, bool kAProd>
+struct ComplexWalk {
+  using T = Elem;
+  static constexpr int kChannels = kC;
+  static constexpr int kSteps = kRingSteps;
+  static constexpr int kStreams = 4;
+  static constexpr int kStores = kAProd ? 4 : 2;
+  // Steps of operands loaded a chunk ahead: 8 keeps the four streams' raw
+  // and widened chunks (64 registers) clear of spills.
+  static constexpr int kChunk = 8;
+  static_assert(kSteps % kChunk == 0, "a tile is whole chunks");
+  static constexpr int kTileBytes = kSteps * kC * static_cast<int>(sizeof(T));
+
+  struct Carry {
+    float hr, hi, pr, pi;
+  };
+
+  static __device__ __forceinline__ Carry start(const lru_ring::Carries& c,
+                                                int64_t at, bool valid) {
+    return {c.h0[0] != nullptr && valid ? c.h0[0][at] : 0.f,
+            c.h0[1] != nullptr && valid ? c.h0[1][at] : 0.f, 1.f, 0.f};
+  }
+
+  static __device__ __forceinline__ void finish(const lru_ring::Carries& c,
+                                                int64_t at,
+                                                const Carry& carry) {
+    c.h_last[0][at] = carry.hr;
+    c.h_last[1][at] = carry.hi;
+    if (kAProd) {
+      c.a_prod_last[0][at] = carry.pr;
+      c.a_prod_last[1][at] = carry.pi;
+    }
+  }
+
+  // As RealWalk::tile: chunks of kChunk steps in a loop that is not
+  // unrolled, each chunk's raw operands loaded by the iteration before and
+  // widened after the back-edge. Stream s of step j of a chunk lies at
+  // base + s * kTileBytes + j * kStep.
+  template <bool kDescending, bool kPartial>
+  static __device__ __forceinline__ void tile(uint32_t col, int rows,
+                                              Carry& carry) {
+    using S = lru_ring::Smem<T>;
+    constexpr int kStep =
+        (kDescending ? -1 : 1) * kC * static_cast<int>(sizeof(T));
+    const int first = kDescending ? kSteps - 1 : 0;
+    uint32_t base = col + first * kC * sizeof(T);
+    float hr = carry.hr, hi = carry.hi, pr = carry.pr, pi = carry.pi;
+    typename S::Raw raw[kStreams][kChunk];
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+#pragma unroll
+      for (int s = 0; s < kStreams; ++s) {
+        raw[s][j] = S::load(base + s * kTileBytes + j * kStep);
+      }
+    }
+#pragma unroll 1
+    for (int s0 = 0; s0 < kSteps; s0 += kChunk) {
+      float v[kStreams][kChunk];
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) {
+#pragma unroll
+        for (int s = 0; s < kStreams; ++s) v[s][j] = S::to_f32(raw[s][j]);
+        if (kBackprop) v[3][j] = -v[3][j];  // conj(a)
+      }
+      if (s0 + kChunk < kSteps) {
+#pragma unroll
+        for (int j = 0; j < kChunk; ++j) {
+#pragma unroll
+          for (int s = 0; s < kStreams; ++s) {
+            raw[s][j] = S::load(base + s * kTileBytes + (kChunk + j) * kStep);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) {
+        if (kPartial) {
+          const int s = s0 + j;
+          if ((kDescending ? kSteps - 1 - s : s) >= rows) continue;
+        }
+        const float xr = v[0][j], xi = v[1][j], mr = v[2][j], mi = v[3][j];
+        if (kBackprop) {
+          // premultiply: emit h + g, then multiply the carry by conj(a).
+          hr = __fadd_rn(hr, xr);
+          hi = __fadd_rn(hi, xi);
+          S::store(base + j * kStep, hr);
+          S::store(base + kTileBytes + j * kStep, hi);
+          const float nr = __fsub_rn(__fmul_rn(hr, mr), __fmul_rn(hi, mi));
+          const float ni = __fadd_rn(__fmul_rn(hr, mi), __fmul_rn(hi, mr));
+          hr = nr;
+          hi = ni;
+        } else {
+          const float nr = __fadd_rn(
+              __fsub_rn(__fmul_rn(mr, hr), __fmul_rn(mi, hi)), xr);
+          const float ni = __fadd_rn(
+              __fadd_rn(__fmul_rn(mr, hi), __fmul_rn(mi, hr)), xi);
+          hr = nr;
+          hi = ni;
+          S::store(base + j * kStep, hr);
+          S::store(base + kTileBytes + j * kStep, hi);
+        }
+        if (kAProd) {
+          // p = p * m, rounded as the Pallas body's pr*mr - pi*mi and
+          // pr*mi + pi*mr.
+          const float nr = __fsub_rn(__fmul_rn(pr, mr), __fmul_rn(pi, mi));
+          const float ni = __fadd_rn(__fmul_rn(pr, mi), __fmul_rn(pi, mr));
+          pr = nr;
+          pi = ni;
+          S::store(base + 2 * kTileBytes + j * kStep, pr);
+          S::store(base + 3 * kTileBytes + j * kStep, pi);
+        }
+      }
+      base += kChunk * kStep;
+    }
+    carry = Carry{hr, hi, pr, pi};
+  }
+};
+
+// ------------------------------------------------ the per-thread walk route
 
 constexpr int kThreads = 128;
 constexpr int kUnroll = 8;
@@ -81,8 +218,8 @@ struct Streams {
 // kAProd: also write the running product of the multipliers.
 template <typename T, int V, bool kBackprop, bool kAProd>
 __global__ void __launch_bounds__(kThreads)
-    lru_scan_complex_kernel(Streams<T> s, int batch, int seq, int dim,
-                            int reverse) {
+    thread_walk_kernel(Streams<T> s, int batch, int seq, int dim,
+                       int reverse) {
   const bool descending = (reverse != 0) != kBackprop;
   const int groups = dim / V;
   const int64_t idx =
@@ -189,12 +326,12 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T, int V, bool kBackprop, bool kAProd>
-cudaError_t launch(const Streams<T>& s, int batch, int seq, int dim,
-                   int reverse, cudaStream_t stream) {
+cudaError_t launch_thread_walk(const Streams<T>& s, int batch, int seq,
+                               int dim, int reverse, cudaStream_t stream) {
   const int64_t threads = static_cast<int64_t>(batch) * (dim / V);
   if (threads == 0) return cudaSuccess;
   const int64_t blocks = (threads + kThreads - 1) / kThreads;
-  lru_scan_complex_kernel<T, V, kBackprop, kAProd>
+  thread_walk_kernel<T, V, kBackprop, kAProd>
       <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
           s, batch, seq, dim, reverse);
   return cudaGetLastError();
@@ -215,6 +352,31 @@ Streams<T> streams(const void* xr, const void* xi, const void* ar,
       static_cast<float*>(plr),     static_cast<float*>(pli)};
 }
 
+template <typename T, bool kBackprop, bool kAProd>
+int dispatch_type(const Streams<T>& s, int batch, int seq, int dim,
+                  int reverse, cudaStream_t stream) {
+  if (batch == 0 || dim == 0) return cudaSuccess;
+  if (lru_ring::takes_ring(seq, dim, sizeof(T), s.xr, s.xi, s.ar, s.ai, s.yr,
+                           s.yi, s.pr, s.pi)) {
+    const void* loads[4] = {s.xr, s.xi, s.ar, s.ai};
+    void* stores[4] = {s.yr, s.yi, s.pr, s.pi};
+    const lru_ring::Carries carries{
+        {s.h0r, s.h0i}, {s.hlr, s.hli}, {s.plr, s.pli}};
+    return lru_ring::launch<ComplexWalk<T, 32, kBackprop, kAProd>,
+                            ComplexWalk<T, 16, kBackprop, kAProd>>(
+        loads, stores, carries, batch, seq, dim, (reverse != 0) != kBackprop,
+        stream);
+  }
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    if (paired_bf16(dim, s.xr, s.xi, s.ar, s.ai, s.yr, s.yi, s.pr, s.pi)) {
+      return launch_thread_walk<T, 2, kBackprop, kAProd>(s, batch, seq, dim,
+                                                         reverse, stream);
+    }
+  }
+  return launch_thread_walk<T, 1, kBackprop, kAProd>(s, batch, seq, dim,
+                                                     reverse, stream);
+}
+
 template <bool kBackprop, bool kAProd>
 int dispatch(const void* xr, const void* xi, const void* ar, const void* ai,
              const void* h0r, const void* h0i, void* yr, void* yi, void* hlr,
@@ -222,20 +384,16 @@ int dispatch(const void* xr, const void* xi, const void* ar, const void* ai,
              int seq, int dim, int dtype, int reverse, void* stream) {
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch<float, 1, kBackprop, kAProd>(
+    return dispatch_type<float, kBackprop, kAProd>(
         streams<float>(xr, xi, ar, ai, h0r, h0i, yr, yi, hlr, hli, pr, pi,
                        plr, pli),
         batch, seq, dim, reverse, cs);
   }
   if (dtype == 1) {
-    const auto s = streams<__nv_bfloat16>(xr, xi, ar, ai, h0r, h0i, yr, yi,
-                                          hlr, hli, pr, pi, plr, pli);
-    if (paired_bf16(dim, xr, xi, ar, ai, yr, yi, pr, pi)) {
-      return launch<__nv_bfloat16, 2, kBackprop, kAProd>(s, batch, seq, dim,
-                                                         reverse, cs);
-    }
-    return launch<__nv_bfloat16, 1, kBackprop, kAProd>(s, batch, seq, dim,
-                                                       reverse, cs);
+    return dispatch_type<__nv_bfloat16, kBackprop, kAProd>(
+        streams<__nv_bfloat16>(xr, xi, ar, ai, h0r, h0i, yr, yi, hlr, hli, pr,
+                               pi, plr, pli),
+        batch, seq, dim, reverse, cs);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -289,4 +447,16 @@ extern "C" int cg_lru_scan_complex_backward_a_prod(
   return dispatch<true, true>(gr, gi, ar, ai, dhr, dhi, dxr, dxi, dh0r, dh0i,
                               pr, pi, plr, pli, batch, seq, dim, dtype,
                               reverse, stream);
+}
+
+// The TMA ring kernel's resources (its ascending walk) for the entry point
+// named by `backprop` and `a_prod`, at dtype (0 float32, 1 bfloat16) and C =
+// `channels` (16 or 32): info = {registers a thread at launch, local
+// (spilled) bytes a thread, dynamic shared memory bytes a block, threads a
+// block}.
+extern "C" int cg_lru_scan_complex_attributes(int backprop, int a_prod,
+                                              int dtype, int channels,
+                                              int* info) {
+  return lru_ring::walk_attributes<ComplexWalk>(backprop, a_prod, dtype,
+                                                channels, info);
 }

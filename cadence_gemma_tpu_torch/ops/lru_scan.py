@@ -55,6 +55,9 @@ complex_launches = 0
 complex_backward_launches = 0
 complex_a_prod_launches = 0
 complex_backward_a_prod_launches = 0
+# The route each complex launch took in csrc/lru_scan_complex.cu.
+complex_ring_launches = 0
+complex_thread_walk_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -179,14 +182,15 @@ def _components(v) -> tuple:
   return (v.real, v.imag) if isinstance(v, Complex) else (v,)
 
 
-def _takes_ring(*streams: torch.Tensor) -> bool:
-  """Whether ``csrc/lru_scan.cu`` runs a real scan over these ``[b, t, d]``
-  streams on its TMA ring: a non-empty time axis, rows of a multiple of 16
-  bytes and 16-byte aligned bases; the twin of the source's
-  ``takes_ring``."""
-  _, t, d = streams[0].shape
-  return (t > 0 and d * streams[0].element_size() % 16 == 0
-          and all(z.data_ptr() % 16 == 0 for z in streams))
+def _takes_ring(*streams: torch.Tensor | Complex) -> bool:
+  """Whether a scan over these ``[b, t, d]`` streams runs on the TMA ring
+  (``csrc/lru_ring.cuh``): a non-empty time axis, rows of a multiple of 16
+  bytes and 16-byte aligned bases of every component of every stream; the
+  twin of the source's ``takes_ring``."""
+  tensors = [z for v in streams for z in _components(v)]
+  _, t, d = tensors[0].shape
+  return (t > 0 and d * tensors[0].element_size() % 16 == 0
+          and all(z.data_ptr() % 16 == 0 for z in tensors))
 
 
 def _launch(symbol: str, x, a, h0, reverse, return_a_prod=False):
@@ -195,6 +199,7 @@ def _launch(symbol: str, x, a, h0, reverse, return_a_prod=False):
   its two components); returns (out, carry), or ((out, carry), (a_prod,
   a_prod_last)) with ``return_a_prod``."""
   global ring_launches, thread_walk_launches
+  global complex_ring_launches, complex_thread_walk_launches
   if x.device.type != "cuda":
     raise ValueError(f"lru_scan runs on CUDA or CPU tensors, not {x.device}.")
   is_complex = isinstance(x, Complex)
@@ -225,11 +230,14 @@ def _launch(symbol: str, x, a, h0, reverse, return_a_prod=False):
              int(reverse), torch.cuda.current_stream(x.device).cuda_stream)
   if err:
     raise RuntimeError(f"{symbol} CUDA kernel failed: cudaError_t {err}.")
-  if not is_complex and batch and dim:
-    if _takes_ring(x, a, out, *products[:1]):
-      ring_launches += 1
+  if batch and dim:
+    ring = _takes_ring(x, a, out, *products[:1])
+    if is_complex:
+      complex_ring_launches += ring
+      complex_thread_walk_launches += not ring
     else:
-      thread_walk_launches += 1
+      ring_launches += ring
+      thread_walk_launches += not ring
   return ((out, carry), products) if return_a_prod else (out, carry)
 
 

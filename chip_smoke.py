@@ -9,8 +9,9 @@ Phases, each of which raises on failure (so the script exits non-zero):
   2. build: ``nvcc`` compiles every kernel under
      ``cadence_gemma_tpu_torch/csrc`` (one process per source, in parallel)
      and prints ptxas' registers and spills of each kernel, and the Hopper
-     kernels' (the scan's TMA ring, the window forward, dq, dk/dv and the
-     MHA) registers, local bytes and shared memory as launched;
+     kernels' (the real and complex scans' TMA ring, the window forward,
+     dq, dk/dv and the MHA) registers, local bytes and shared memory as
+     launched;
   3. each forward kernel against its plain PyTorch version at the shapes of
      the serving path's prefill (batch 2 of 3000 tokens, the shorter prompt
      left-padded), with its time, the plain version's time, the least time
@@ -121,7 +122,10 @@ Phases, each of which raises on failure (so the script exits non-zero):
      backward walks, each with and without the running product of ``a``)
      at the 2B's ``lru_width``, [2, 4096, 2560] bf16 components with
      ``reverse`` and ``h0`` both ways and one float32 case, bit for bit
-     against their plain loops, timed as in 3;
+     against their plain loops, timed as the real scans in 3 (device time
+     with the launch queue full on cold copies, GB/s, share of the bound,
+     host us a call), on the TMA ring and, on copies TMA cannot describe,
+     on the per-thread walk that ran them before the ring;
  14. the complex path: ``ops.scan.linear_scan`` of ``complex_lib.Complex``
      operands, forward and ``torch.autograd.grad`` of x, a and h0.
      Unsharded at [2, 4096, 2560] the counters, reset just before, must
@@ -129,14 +133,16 @@ Phases, each of which raises on failure (so the script exits non-zero):
      kernel path is held against ``LINEAR_NATIVE`` on the same card;
      sequence-sharded over the (1, 4) mesh at [1, 16384, 2560] they must
      show 4 forwards and 4 backwards with the product and no unsharded
-     complex launch; the first shard's inputs to each kernel are held
-     against its plain loop, and the results against the same call with no
-     spec;
+     complex launch; every complex launch of both runs must have taken the
+     TMA ring of ``csrc/lru_scan_complex.cu``. The first shard's inputs to
+     each kernel are held against its plain loop and timed as in 13 (batch
+     1), and the results against the same call with no spec;
  15. the kernel lab: ``cadence_gemma_tpu_torch.benchmarks.kernel_lab.main()``
      at [1, 2048, 2560] bf16 (the scan kernel, variant A's and variant B's
-     sweeps), then one configuration of each variant against its plain
-     version, bit for bit, and B within one bf16 step of the sequential
-     scan.
+     sweeps), then variant A at every st of its sweep and one configuration
+     of B against their plain versions, bit for bit, B within one bf16 step
+     of the sequential scan, and A at st = 128 within 10 % of the scan
+     kernel's line, whose code it runs.
 
   python3 chip_smoke.py --profile
 
@@ -153,6 +159,7 @@ object ``{"kernels": [...]}``; the last line is
 
 from __future__ import annotations
 
+import inspect
 import json
 import re
 import subprocess
@@ -373,9 +380,12 @@ COMPLEX_SP_GRAD_MIN_COSINE = 0.9999
 # differs from the sequential scan's, so against that it is held within one
 # bf16 step of y (2^-7 of |y|) and 1e-4 of h_last. Near y = 0 the two
 # float32 carries' difference (~5e-7 on an H100) exceeds a bf16 step of y,
-# so y also has 1e-6 absolute, as the lab's card test. The lab's replaced
-# TPU kernels.
+# so y also has 1e-6 absolute, as the lab's card test. Variant A is held at
+# every st of its sweep; at st = 128 it runs the code of the library's
+# forward scan, which the lab times on its first line, so the two lines
+# agree within 10 %. The lab's replaced TPU kernels.
 LAB_UNROLLED_ST = 128
+LAB_SAME_AS_SCAN_REL = 0.10
 LAB_LOGSCAN_TILE = (256, 32)  # the sweep's fastest on the H100
 LAB_Y_REL_ERR = 2.0**-7
 LAB_Y_ABS_ERR = 1e-6
@@ -392,14 +402,17 @@ def log(*args) -> None:
 L2_BYTES = 50e6
 
 
-def cold_copies(*tensors: torch.Tensor) -> list[tuple]:
+def cold_copies(*tensors: torch.Tensor, copy=None) -> list[tuple]:
   """Copies of ``tensors`` that together hold more than twice the L2, for
   :func:`device_ms` to rotate through; the tensors themselves if they hold
-  less than 1 MB (a decode step's inputs, which its caller leaves warm)."""
+  less than 1 MB (a decode step's inputs, which its caller leaves warm).
+  With ``copy``, every set (the first too) is made by it."""
   n_bytes = sum(t.numel() * t.element_size() for t in tensors)
-  if n_bytes < 1e6:
+  if n_bytes < 1e6 and copy is None:
     return [tensors]
   count = int(np.ceil(2 * L2_BYTES / n_bytes)) + 1
+  if copy is not None:
+    return [tuple(copy(t) for t in tensors) for _ in range(count)]
   return [tensors] + [tuple(t.clone() for t in tensors)
                       for _ in range(count - 1)]
 
@@ -415,18 +428,20 @@ def bound(n_bytes: float, flops: float, flops_per_s: float):
 SCAN_REPS = 48
 
 
-def time_scan(call, inputs: tuple, n_bytes: float, flops: float) -> dict:
-  """A real scan's figures as the paths call it: the device time of a call
+def time_scan(call, inputs: tuple, n_bytes: float, flops: float,
+              copy=None) -> dict:
+  """A scan's figures as the paths call it: the device time of a call
   with the launch queue full, on copies of its inputs that exceed the L2
   (:func:`device_ms`: at ~0.05 ms a call, CUDA events around calls launched
-  one after another would time the host's launch), the host's time to
-  launch one call, the bound of these inputs, GB/s and the share of the
-  bound."""
-  ms = device_ms(call, SCAN_REPS, inputs=cold_copies(*inputs))
+  one after another would time the host's launch; ``copy`` makes them, see
+  :func:`cold_copies`), the host's time to launch one call, the bound of
+  these inputs, GB/s and the share of the bound."""
+  copies = cold_copies(*inputs, copy=copy)
+  ms = device_ms(call, SCAN_REPS, inputs=copies)
   torch.cuda.synchronize()
   start = time.perf_counter()
   for _ in range(SCAN_REPS):
-    call(*inputs)
+    call(*copies[0])
   host_us = (time.perf_counter() - start) / SCAN_REPS * 1e6
   torch.cuda.synchronize()
   bound_ms, bound_by = bound(n_bytes, flops, FP32_FLOPS)
@@ -477,10 +492,15 @@ def phase_card() -> dict:
 
 def template_args(mangled: str) -> str:
   """A kernel's mangled template arguments as ptxas names them, readable:
-  ``13__nv_bfloat16Li32ELb0E`` -> ``bf16, 32, 0``."""
-  return ", ".join(
-      {"13__nv_bfloat16": "bf16", "f": "f32"}.get(m.group(0), m.group(1))
-      for m in re.finditer(r"13__nv_bfloat16|^f|L[ib](\d+)E", mangled))
+  ``13__nv_bfloat16Li32ELb0E`` -> ``bf16, 32, 0``; a ring kernel's walk
+  leads (``NS0_8RealWalkIfLi16E...`` -> ``RealWalk: f32, 16, ...``)."""
+  walk = re.search(r"\d+([A-Z][A-Za-z]*Walk)I", mangled)
+  args = ", ".join(
+      "bf16" if m.group(0) == "13__nv_bfloat16" else
+      "f32" if m.group(1) is None else m.group(1)
+      for m in re.finditer(r"13__nv_bfloat16|(?:^|I)f(?=L)|L[ib](\d+)E",
+                           mangled))
+  return f"{walk.group(1)}: {args}" if walk else args
 
 
 def phase_build() -> None:
@@ -498,18 +518,20 @@ def phase_build() -> None:
         log(f"  {name}: {kernel}")
       elif "registers" in line or "spill" in line:
         log(f"  {name}: {line.strip()}")
-  # The scan's TMA-ring kernel as launched, bf16, for each entry point at
+  # The scans' TMA-ring kernels as launched, bf16, for each entry point at
   # both channel counts (32 a block at batch 2 of the 2B, 16 at batch 1).
-  for backprop, a_prod in ((0, 0), (1, 0), (0, 1), (1, 1)):
-    for channels in (32, 16):
-      info = _build.kernel_attributes("lru_scan", "cg_lru_scan_attributes",
-                                      backprop, a_prod, 1, channels)
-      log(f"  lru_scan ring_kernel {'cotangent' if backprop else 'forward'}"
-          f"{' + product' if a_prod else ''}, C = {channels}: "
-          f"{info['registers']} registers a thread at launch, "
-          f"{info['local_bytes']} local (spilled) bytes, "
-          f"{info['shared_bytes']} bytes of shared memory, "
-          f"{info['threads']} threads")
+  for library in ("lru_scan", "lru_scan_complex"):
+    for backprop, a_prod in ((0, 0), (1, 0), (0, 1), (1, 1)):
+      for channels in (32, 16):
+        info = _build.kernel_attributes(library, f"cg_{library}_attributes",
+                                        backprop, a_prod, 1, channels)
+        log(f"  {library} ring_kernel "
+            f"{'cotangent' if backprop else 'forward'}"
+            f"{' + product' if a_prod else ''}, C = {channels}: "
+            f"{info['registers']} registers a thread at launch, "
+            f"{info['local_bytes']} local (spilled) bytes, "
+            f"{info['shared_bytes']} bytes of shared memory, "
+            f"{info['threads']} threads")
   # The Hopper attention kernels' resources as launched (setmaxnreg moves
   # the window kernels' producer registers to their consumers).
   for library, kernel, dims in (
@@ -2405,6 +2427,48 @@ COMPLEX_ENTRIES = (("lru_scan_complex", False, False),
                    ("lru_scan_complex_backward_a_prod", True, True))
 
 
+def _off_ring(z: torch.Tensor) -> torch.Tensor:
+  """A copy of ``z`` whose base lies 4 bytes past a 16-byte boundary: TMA
+  cannot describe it, so a complex scan over such copies takes the
+  per-thread walk (with bf16 pairs, 4-byte aligned)."""
+  buf = torch.empty(z.numel() * z.element_size() + 4, dtype=torch.uint8,
+                    device=z.device)
+  out = buf[4:].view(z.dtype).view(z.shape)
+  out.copy_(z)
+  return out
+
+
+def complex_scan_call(kernel, a_prod: bool, reverse: bool = False):
+  """The complex scan wrapper ``kernel`` as a function of its operands'
+  components (x.real, x.imag, a.real, a.imag and, if given, h0's two), for
+  :func:`time_scan`."""
+  def call(xr, xi, ar, ai, *h):
+    return kernel(complex_lib.Complex(xr, xi), complex_lib.Complex(ar, ai),
+                  complex_lib.Complex(*h) if h else None, reverse, a_prod)
+  return call
+
+
+def complex_scan_work(shape, with_carry: bool, a_prod: bool):
+  """(bytes, float32 operations) a complex scan must move and do: read x
+  and a, write y (and a_prod), two components each in the input type
+  (bf16 here); the carry in, h_last (and a_prod_last) out, two float32
+  components each; per element and step 8 operations, 14 with the
+  product."""
+  b, t, d = shape
+  states = 1 + with_carry + a_prod
+  n_bytes = (8 if a_prod else 6) * b * t * d * 2 + 2 * states * b * d * 4
+  return n_bytes, (14 if a_prod else 8) * b * t * d
+
+
+def reset_complex_routes() -> None:
+  lru_scan.complex_ring_launches = lru_scan.complex_thread_walk_launches = 0
+
+
+def complex_routes() -> tuple[int, int]:
+  return (lru_scan.complex_ring_launches,
+          lru_scan.complex_thread_walk_launches)
+
+
 def phase_lru_complex(dev) -> list[dict]:
   b, t, d = LRU_COMPLEX_SHAPE
   x, a, h0 = _complex_operands(LRU_COMPLEX_SHAPE, dev, SEED + 60)
@@ -2424,24 +2488,47 @@ def phase_lru_complex(dev) -> list[dict]:
     # Timed as the complex path calls it: the unsharded walks with a carry,
     # a shard's (with the product) without.
     carry = None if a_prod else h0
-    ms = cuda_ms(lambda: kernel(x, a, carry, False, a_prod), 20)
+    inputs = tuple(_components(x, a, *([] if carry is None else [carry])))
+    call = complex_scan_call(kernel, a_prod)
+    n_bytes, flops = complex_scan_work(LRU_COMPLEX_SHAPE, carry is not None,
+                                       a_prod)
+    reset_complex_routes()
+    figures = time_scan(call, inputs, n_bytes, flops)
+    ring_routes = complex_routes()
+    # The per-thread walk, the route before the ring, on copies TMA cannot
+    # describe: the same bits, timed the same way.
+    reset_complex_routes()
+    walk = time_scan(call, inputs, n_bytes, flops, copy=_off_ring)
+    walk_routes = complex_routes()
+    if not (ring_routes[0] and not ring_routes[1]
+            and walk_routes[1] and not walk_routes[0]):
+      raise AssertionError(f"{name}: routes (ring, per-thread walk) "
+                           f"{ring_routes} timing the ring, {walk_routes} "
+                           f"timing the per-thread walk.")
+    got = call(*(_off_ring(z) for z in inputs))
+    want = plain(x, a, carry, False, return_a_prod=a_prod)
+    if a_prod:
+      got, want = (*got[0], *got[1]), (*want[0], *want[1])
+    walk_err = max(max_err(g, w)
+                   for g, w in zip(_components(*got), _components(*want)))
+    if walk_err != 0.0:
+      raise AssertionError(f"{name}: the per-thread walk differs from the "
+                           f"plain loop by {walk_err}.")
     plain_ms = cuda_ms(lambda: plain(x, a, carry, False, a_prod), 1)
-    # Read x and a, write y (and a_prod): two bf16 components each; the
-    # carry in, h_last (and a_prod_last) out: two float32 components each.
-    # Per element and step 8 float32 operations, 14 with the product.
-    states = 1 + (carry is not None) + a_prod
-    n_bytes = (8 if a_prod else 6) * b * t * d * 2 + 2 * states * b * d * 4
-    bound_ms, bound_by = bound(n_bytes, (14 if a_prod else 8) * b * t * d,
-                               FP32_FLOPS)
-    log(f"  {name}: max_abs_err {worst} (reverse and carry both ways); ms "
-        f"{ms:.4f}  plain_ms {plain_ms:.3f}  bound_ms {bound_ms:.4f} "
-        f"({bound_by}, {n_bytes / 1e6:.1f} MB)")
+    log(f"  {name}: max_abs_err {worst} (reverse and carry both ways)")
+    log_scan(figures, plain_ms, n_bytes)
+    log(f"  per-thread walk (inputs off 16 B; max_abs_err {walk_err}): ms "
+        f"{walk['ms']:.4f}, {walk['gbps']:.0f} GB/s, "
+        f"{100 * walk['bound_share']:.1f}% of the bound, host "
+        f"{walk['host_us']:.1f} us a call; the ring takes "
+        f"{figures['ms'] / walk['ms']:.4f} of its time")
     entries.append(dict(name=name, route="cuda",
                         source="cadence_gemma_tpu_torch/csrc/lru_scan_complex.cu",
                         replaces=LRU_COMPLEX_REPLACES, max_abs_err=worst,
-                        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                        bound_by=bound_by, library_ms=None))
-  # float32 components: the unpaired loads.
+                        plain_ms=plain_ms, library_ms=None,
+                        **{k: figures[k] for k in ("ms", "bound_ms",
+                                                   "bound_by")}))
+  # float32 components: the ring's fp32 stages and the unpaired loads.
   err = check_lru_complex(x.to(torch.float32), a.to(torch.float32), h0, True)
   log(f"  float32 components, forward, reverse, with h0: max_abs_err {err}")
   entries[0]["max_abs_err"] = max(entries[0]["max_abs_err"], err)
@@ -2460,6 +2547,17 @@ def _reset_complex_counts() -> None:
   lru_scan.complex_launches = lru_scan.complex_backward_launches = 0
   lru_scan.complex_a_prod_launches = 0
   lru_scan.complex_backward_a_prod_launches = 0
+  reset_complex_routes()
+
+
+def check_complex_routes(routes: tuple[int, int], scans: int) -> None:
+  """Every complex scan launch of a run (``scans`` of them) took the TMA
+  ring of ``csrc/lru_scan_complex.cu``."""
+  log(f"  complex scan routes: {routes[0]} launches on the TMA ring, "
+      f"{routes[1]} on the per-thread walk (want {scans}, 0)")
+  if routes != (scans, 0):
+    raise AssertionError(f"Complex scan routes (ring, per-thread walk) "
+                         f"{routes}, want ({scans}, 0).")
 
 
 def _complex_scan_and_grads(x, a, h0, gy, gh, **kwargs):
@@ -2497,12 +2595,13 @@ def phase_complex_path(dev, kernels: list[dict]) -> None:
       f"autograd) on the same card")
   _reset_complex_counts()
   out, grads, ms = _complex_scan_and_grads(x, a, h0, gy, gh)
-  launches = _complex_counts()
+  launches, routes = _complex_counts(), complex_routes()
   want = {"lru_scan_complex": 1, "lru_scan_complex_backward": 1,
           "lru_scan_complex_a_prod": 0, "lru_scan_complex_backward_a_prod": 0}
   log(f"  launches {launches}; forward + backward {ms:.1f} ms")
   if launches != want:
     raise AssertionError(f"The complex path launched {launches}, want {want}.")
+  check_complex_routes(routes, 2)
   for name in ("lru_scan_complex", "lru_scan_complex_backward"):
     by_name[name]["launches"] = launches[name]
   out_ref, grads_ref, ms_ref = _complex_scan_and_grads(
@@ -2537,7 +2636,7 @@ def phase_complex_path(dev, kernels: list[dict]) -> None:
   finally:
     for capture in captures:
       capture.restore()
-  launches = _complex_counts()
+  launches, routes = _complex_counts(), complex_routes()
   want = {"lru_scan_complex": 0, "lru_scan_complex_backward": 0,
           "lru_scan_complex_a_prod": SP_SHARDS,
           "lru_scan_complex_backward_a_prod": SP_SHARDS}
@@ -2545,6 +2644,7 @@ def phase_complex_path(dev, kernels: list[dict]) -> None:
   if launches != want:
     raise AssertionError(f"The SP complex path launched {launches}, want "
                          f"{want}.")
+  check_complex_routes(routes, 2 * SP_SHARDS)
   for name in ("lru_scan_complex_a_prod", "lru_scan_complex_backward_a_prod"):
     by_name[name]["launches"] = launches[name]
   # Each kernel with the product against its plain loop on the inputs the
@@ -2557,6 +2657,20 @@ def phase_complex_path(dev, kernels: list[dict]) -> None:
     log(f"  {name} on the path's first shard [{capture.args[0].shape}]: "
         f"max_abs_err {err}")
     by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], err)
+    # The shard timed as phase 13 times batch 2: a batch-1 walk takes as
+    # long, for half the bytes.
+    args = inspect.signature(capture.wrapper).bind(
+        *capture.args, **capture.kwargs).arguments
+    operands = list(args.values())[:2]
+    n_bytes, flops = complex_scan_work(operands[0].shape, False, True)
+    figures = time_scan(
+        complex_scan_call(capture.wrapper, True, args["reverse"]),
+        tuple(_components(*operands)), n_bytes, flops)
+    log(f"  {name} on the shard: ms {figures['ms']:.4f} (queue full, cold "
+        f"inputs), {figures['gbps']:.0f} GB/s, "
+        f"{100 * figures['bound_share']:.1f}% of its bound "
+        f"{figures['bound_ms']:.4f} ms; host {figures['host_us']:.1f} us a "
+        f"call")
   del captures
   out_ref, grads_ref, ms_ref = _complex_scan_and_grads(x, a, h0, gy, gh)
   y_rel = max(_rel_rms(u, v) for u, v in zip(out[:2], out_ref[:2]))
@@ -2602,16 +2716,20 @@ def phase_kernel_lab(dev) -> list[dict]:
   st = LAB_UNROLLED_ST
   st_b, dl = LAB_LOGSCAN_TILE
   y_seq, h_seq = kernel_lab.reference(x, a, h0)
-  y, h = kernel_lab.run_unrolled(x, a, h0, st)
-  err_a = max(max_err(y, y_seq), max_err(h, h_seq))
+  # Variant A at every tile length of its sweep, bit for bit.
+  errs_a = {}
+  for st_a in kernel_lab.UNROLLED_SWEEP:
+    y, h = kernel_lab.run_unrolled(x, a, h0, st_a)
+    errs_a[st_a] = max(max_err(y, y_seq), max_err(h, h_seq))
+  err_a = max(errs_a.values())
   y, h = kernel_lab.run_logscan(x, a, h0, st_b, dl)
   y_ref, h_ref = kernel_lab.logscan_plain(x, a, h0, st_b, dl)
   err_b = max(max_err(y, y_ref), max_err(h, h_ref))
   y_excess = ((y.float() - y_seq.float()).abs() - LAB_Y_ABS_ERR
               - LAB_Y_REL_ERR * y_seq.float().abs()).max().item()
   h_seq_err = max_err(h, h_seq)
-  log(f"  unrolled st={st} vs its plain version (the sequential scan): "
-      f"max_abs_err {err_a} (tolerance 0.0); logscan st={st_b} dl={dl} vs "
+  log(f"  unrolled vs its plain version (the sequential scan), max_abs_err "
+      f"by st: {errs_a} (tolerance 0.0); logscan st={st_b} dl={dl} vs "
       f"its plain version: max_abs_err {err_b} (tolerance 0.0), vs the "
       f"sequential scan: y within {LAB_Y_REL_ERR} of |y| + {LAB_Y_ABS_ERR} "
       f"(excess {y_excess:.3e}), h_last {h_seq_err} (tolerance "
@@ -2626,6 +2744,13 @@ def phase_kernel_lab(dev) -> list[dict]:
   # two more.
   n_bytes = 3 * b * t * d * 2 + 2 * b * d * 4
   row1 = lines[kernel_lab.SCAN_ROW]["us"] / 1e3
+  same = lines[f"unrolled st={st}"]["us"] / 1e3 / row1
+  log(f"  unrolled st={st} / the library's scan: {same:.4f} (limit 1 +- "
+      f"{LAB_SAME_AS_SCAN_REL})")
+  if abs(same - 1.0) > LAB_SAME_AS_SCAN_REL:
+    raise AssertionError(f"Variant A at st={st} takes "
+                         f"{same:.4f} x the library's scan, which runs its "
+                         f"code.")
   entries = []
   for name, label, flops, plain, err, replaces in (
       ("kernel_lab_unrolled", f"unrolled st={st}", 2,

@@ -148,6 +148,12 @@ def test_lab_rejects_what_its_kernels_do_not_take(monkeypatch):
                            torch.cat([h0, h0]), 64, 128)
   with pytest.raises(ValueError, match="divide"):
     kernel_lab.run_unrolled(x, a, h0, st=100)
+  # Variant A runs on the scans' TMA ring: the tile lengths it is built for,
+  # and rows of a multiple of 16 bytes.
+  with pytest.raises(ValueError, match="ring is built for"):
+    kernel_lab.run_unrolled(x, a, h0, st=32)
+  with pytest.raises(ValueError, match="16 bytes"):
+    kernel_lab.run_unrolled(x[..., :4], a[..., :4], h0[:, :4], st=64)
   with pytest.raises(ValueError, match="divide"):
     kernel_lab.run_logscan(x, a, h0, 64, dl=96)
   with pytest.raises(ValueError, match="h0"):
@@ -165,7 +171,9 @@ def test_lab_rejects_what_its_kernels_do_not_take(monkeypatch):
     ((1, 2048, 2560), torch.bfloat16, 64),
     ((1, 2048, 2560), torch.bfloat16, 128),
     ((1, 2048, 2560), torch.bfloat16, 256),
-    ((2, 256, 192), torch.float32, 32),
+    # float32 at batch 2 (16 channels a block); st 64, the shortest tile
+    # the ring is built for.
+    ((2, 256, 192), torch.float32, 64),
 ])
 def test_unrolled_cuda_kernel_matches_plain(shape, dtype, st):
   x, a, h0 = kernel_lab.make_inputs(shape, dtype=dtype, device="cuda")

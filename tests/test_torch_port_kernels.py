@@ -350,6 +350,24 @@ def test_lru_backward_plain_is_exact_cotangent_scan():
   np.testing.assert_allclose(dh0.numpy(), carry, rtol=1e-5, atol=1e-6)
 
 
+# A complex case's dtype: its components' dtype, marked Complex.
+_COMPLEX_BF16 = (complex_lib.Complex, torch.bfloat16)
+_COMPLEX_F32 = (complex_lib.Complex, torch.float32)
+
+
+def _route_streams(shape, dtype, misaligned):
+  """x and a of a route case: real tensors, or Complex pairs for a dtype
+  marked Complex. ``misaligned`` puts x's base (a Complex x's imaginary
+  component's) one element past a 16-byte boundary."""
+  if isinstance(dtype, tuple):
+    z = torch.zeros(shape, dtype=dtype[1])
+    imag = _misaligned(z) if misaligned else torch.zeros_like(z)
+    return [complex_lib.Complex(z, imag),
+            complex_lib.Complex(torch.zeros_like(z), torch.zeros_like(z))]
+  x = torch.zeros(shape, dtype=dtype)
+  return [_misaligned(x) if misaligned else x, torch.zeros_like(x)]
+
+
 @pytest.mark.parametrize("shape, dtype, misaligned, ring", [
     ((2, 3000, 2560), torch.bfloat16, False, True),
     ((1, 4096, 2560), torch.float32, False, True),
@@ -360,12 +378,22 @@ def test_lru_backward_plain_is_exact_cotangent_scan():
     ((2, 64, 12), torch.bfloat16, False, False),
     ((2, 0, 2560), torch.bfloat16, False, False),
     ((2, 300, 2560), torch.bfloat16, True, False),
+    # Complex operands: the complex path's shapes in bf16 and fp32 take the
+    # ring; a misaligned imaginary component, an odd width or t = 0 not.
+    ((2, 4096, 2560), _COMPLEX_BF16, False, True),
+    ((1, 4096, 2560), _COMPLEX_BF16, False, True),
+    ((2, 4096, 2560), _COMPLEX_F32, False, True),
+    ((1, 4096, 2560), _COMPLEX_F32, False, True),
+    ((2, 300, 2560), _COMPLEX_BF16, True, False),
+    ((2, 300, 2560), _COMPLEX_F32, True, False),
+    ((2, 64, 33), _COMPLEX_BF16, False, False),
+    ((2, 0, 2560), _COMPLEX_BF16, False, False),
 ])
 def test_lru_ring_route_rule(shape, dtype, misaligned, ring):
-  """Which real scans csrc/lru_scan.cu runs on its TMA ring: rows of a
-  multiple of 16 bytes, 16-byte aligned bases, a non-empty time axis."""
-  x = torch.zeros(shape, dtype=dtype)
-  streams = [_misaligned(x) if misaligned else x, torch.zeros_like(x)]
+  """Which scans run on the TMA ring (csrc/lru_ring.cuh): rows of a
+  multiple of 16 bytes, 16-byte aligned bases of every component of every
+  stream, a non-empty time axis."""
+  streams = _route_streams(shape, dtype, misaligned)
   assert lru_scan._takes_ring(*streams) == ring  # pylint: disable=protected-access
 
 
@@ -1275,7 +1303,16 @@ def test_sequence_parallel_gradients_on_cuda_match_unsharded():
 # -- Card: the complex scan ---------------------------------------------------
 
 _COMPLEX_CUDA_SHAPES = [(2, 64, 16), (1, 40, 200), (1, 9, 7), (3, 17, 129),
-                        (2, 4096, 2560)]
+                        (2, 4096, 2560),
+                        # Edges of the TMA ring's 64-step tiles at the
+                        # model's width: t = 1, st +- 1, 2 st +- 1 and 300 (a
+                        # partial top tile); d = 2568 leaves the last block
+                        # of channels partial; (1, 300, 2568) and
+                        # (3, 17, 128) run 16 channels a block; (1, 9, 7)
+                        # above takes the per-thread walk.
+                        (2, 1, 2560), (2, 63, 2560), (2, 65, 2560),
+                        (2, 127, 2560), (2, 129, 2560), (2, 300, 2560),
+                        (1, 300, 2568), (3, 17, 128)]
 # (walk, with the product): the four C entry points.
 _COMPLEX_ENTRIES = [(False, False), (True, False), (False, True),
                     (True, True)]
@@ -1294,6 +1331,27 @@ def _complex_inputs(b, t, d, seed=0):
           complex_lib.from_numpy(h0r, h0i, device="cuda"))
 
 
+def _assert_complex_equal(got, want, *context):
+  """Every component of every Complex output, bit for bit."""
+  for g, w in zip(got, want):
+    assert isinstance(g, complex_lib.Complex) and g.dtype == w.dtype
+    for part in ("real", "imag"):
+      gp, wp = getattr(g, part), getattr(w, part)
+      assert torch.equal(gp, wp), (*context, part,
+                                   (gp.float() - wp.float()).abs().max())
+
+
+def _complex_entry(backprop, a_prod):
+  """The kernel and plain loop of an entry point, and a function that
+  flattens either's outputs into a tuple of Complex values."""
+  if backprop:
+    kernel, plain = lru_scan.lru_scan_backward, lru_scan.lru_scan_backward_plain
+  else:
+    kernel, plain = lru_scan.lru_scan_forward, lru_scan.lru_scan_plain
+  flat = (lambda v: (*v[0], *v[1])) if a_prod else tuple
+  return kernel, plain, flat
+
+
 @requires_cuda
 @pytest.mark.parametrize("shape", _COMPLEX_CUDA_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1301,32 +1359,52 @@ def _complex_inputs(b, t, d, seed=0):
 def test_lru_complex_cuda_kernel_matches_plain(shape, dtype, backprop,
                                                a_prod):
   """Each complex entry point, both directions, with and without a carry,
-  bit for bit against its plain loop; odd channel counts take the unpaired
+  bit for bit against its plain loop, across the TMA ring's tile and
+  channel edges; odd channel counts take the per-thread walk's unpaired
   bf16 path, and the backward's conj(a) is taken as `a` loads."""
   x, a, h0 = _complex_inputs(*shape, seed=21)
   x, a = x.to(dtype), a.to(dtype)
-  if backprop:
-    kernel, plain = lru_scan.lru_scan_backward, lru_scan.lru_scan_backward_plain
-  else:
-    kernel, plain = lru_scan.lru_scan_forward, lru_scan.lru_scan_plain
+  kernel, plain, flat = _complex_entry(backprop, a_prod)
   counter = "complex_" + ("backward_" if backprop else "") + (
       "a_prod_launches" if a_prod else "launches")
   for reverse in (False, True):
     for carry in (None, h0):
       before = getattr(lru_scan, counter)
-      got = kernel(x, a, carry, reverse, return_a_prod=a_prod)
+      got = flat(kernel(x, a, carry, reverse, return_a_prod=a_prod))
       torch.cuda.synchronize()
       assert getattr(lru_scan, counter) == before + 1
-      want = plain(x, a, carry, reverse, return_a_prod=a_prod)
-      if not a_prod:
-        got, want = (got,), (want,)
-      for pair_got, pair_want in zip(got, want):
-        for g, w in zip(pair_got, pair_want):
-          assert isinstance(g, complex_lib.Complex) and g.dtype == w.dtype
-          for part in ("real", "imag"):
-            gp, wp = getattr(g, part), getattr(w, part)
-            assert torch.equal(gp, wp), (reverse, carry is not None, part,
-                                         (gp.float() - wp.float()).abs().max())
+      want = flat(plain(x, a, carry, reverse, return_a_prod=a_prod))
+      _assert_complex_equal(got, want, reverse, carry is not None)
+
+
+@requires_cuda
+def test_lru_complex_cuda_routes_path_shapes_to_the_tma_ring():
+  """The complex path's shapes launch the TMA ring in all four walks; a row
+  TMA cannot describe (odd width, (1, 9, 7)) or an imaginary component off
+  16 bytes takes the per-thread walk, with the same bits."""
+  cases = [((2, 4096, 2560), torch.bfloat16, False, True),
+           ((1, 4096, 2560), torch.bfloat16, False, True),
+           ((1, 9, 7), torch.float32, False, False),
+           ((1, 9, 7), torch.bfloat16, False, False),
+           ((2, 64, 33), torch.bfloat16, False, False),
+           ((2, 300, 2560), torch.bfloat16, True, False)]
+  for shape, dtype, misaligned, ring in cases:
+    x, a, h0 = _complex_inputs(*shape, seed=25)
+    x, a = x.to(dtype), a.to(dtype)
+    if misaligned:
+      x = complex_lib.Complex(x.real, _misaligned(x.imag))
+    for backprop, a_prod in _COMPLEX_ENTRIES:
+      kernel, plain, flat = _complex_entry(backprop, a_prod)
+      before = (lru_scan.complex_ring_launches,
+                lru_scan.complex_thread_walk_launches)
+      got = flat(kernel(x, a, h0, False, a_prod))
+      torch.cuda.synchronize()
+      after = (lru_scan.complex_ring_launches,
+               lru_scan.complex_thread_walk_launches)
+      assert after == (before[0] + ring, before[1] + (not ring)), (
+          shape, dtype, misaligned, backprop, a_prod)
+      _assert_complex_equal(got, flat(plain(x, a, h0, False, a_prod)),
+                            shape, dtype, backprop, a_prod)
 
 
 @requires_cuda
