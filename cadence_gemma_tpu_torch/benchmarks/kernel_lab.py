@@ -10,11 +10,21 @@ hand in CUDA C++ (``csrc/kernel_lab.cu``) and nothing the JAX lab lacks:
     carry in a register; bit for bit :func:`reference`. At ``st`` 128 it
     runs the library's forward scan's code, so its line and the baseline's
     time the same walk;
-  * variant B, :func:`run_logscan`: a Hillis-Steele log-scan of ``(st, dl)``
+  * variant B, :func:`run_logscan`: a Hillis-Steele log-scan of ``st``-step
     tiles with time on the rows, then ``h + p * carry`` from the previous
     tile; batch 1, as the JAX lab asserts. Its association differs from the
     sequential scan's: ``y`` lands within one bf16 step of
-    :func:`reference` and ``h_last`` within 1e-4;
+    :func:`reference` and ``h_last`` within 1e-4; against its plain version,
+    :func:`logscan_plain`, it is bit for bit. The kernel is time-parallel:
+    a warp scans one channel's tile with the rows on its lanes and the
+    rounds in registers; an item is 16 channels of 256 rows (one tile at
+    ``st`` 512); persistent blocks on every SM draw the items group by
+    group, so the time axis runs in parallel, and the carry crosses groups
+    by a chained scan through a scratch buffer the wrapper zeroes at each
+    call.
+    The JAX lab's ``dl`` only tiled its grid's channels, which are
+    independent: the wrapper checks that it divides ``d``, as the JAX grid
+    needs, and the kernel takes its own;
   * the scan kernel the library runs (``ops/lru_scan.py::
     lru_scan_forward``, the TMA ring of ``csrc/lru_scan.cu``) at the same
     shape, as the baseline line.
@@ -36,11 +46,12 @@ inputs stay in the L2), GB/s by the lab's own count of bytes
 the largest differences of ``y`` and ``h_last`` from :func:`reference`.
 
 The sweep: A at ``st`` 64, 128 and 256 (the JAX lab's values; the ring's
-own channels a block and stages); B at ``(st, dl)`` = (32, 256), (64, 128),
-(128, 64) and (256, 32). The JAX lab swept B up to 256 x 2560 tiles, 5.2 MB
-of fp32 ``h`` and ``p`` in a TPU's VMEM; a block here has 227 KB of shared
-memory, and B double-buffers ``h`` and ``p`` in fp32 (``16 * st * dl``
-bytes), so every B tile holds 8192 elements (128 KB).
+own channels a block and stages); B at the JAX lab's own ``(st, dl)``
+tiles, (256, 512), (256, 1280), (512, 640), (128, 2560) and (256, 2560).
+The three st = 256 lines run the same kernel on the same work. What
+bounds B is the shared-memory pipe and the order of its phases, not the
+tile: 10 warp shuffles and ~10 shared-memory accesses an element, and each
+item's load, scan, chain and store one after another (PERF.md, section 7).
 """
 
 from __future__ import annotations
@@ -54,7 +65,11 @@ from cadence_gemma_tpu_torch.ops import lru_scan
 
 SHAPE = (1, 2048, 2560)
 UNROLLED_SWEEP = (64, 128, 256)
-LOGSCAN_SWEEP = ((32, 256), (64, 128), (128, 64), (256, 32))
+LOGSCAN_SWEEP = ((256, 512), (256, 1280), (512, 640), (128, 2560),
+                 (256, 2560))
+# The tile lengths cg_lab_logscan is built for, and its channels a block.
+LOGSCAN_STEPS = (32, 64, 128, 256, 512)
+LOGSCAN_CHANNELS = 16
 SCAN_ROW = "lru_scan_forward (the library's TMA-ring kernel)"
 
 # Kernel launches in this process; callers reset them to count one run.
@@ -62,8 +77,6 @@ unrolled_launches = 0
 logscan_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# A block may use 227 KB of shared memory.
-_MAX_SHARED_BYTES = 232448
 
 
 def make_inputs(shape: tuple[int, int, int] | None = None,
@@ -174,22 +187,51 @@ def run_unrolled(x, a, h0, st: int = 128):
   return out
 
 
+def _check_logscan(x, st):
+  """What variant B's kernel takes: batch 1, a tile length
+  ``csrc/kernel_lab.cu`` instances, and whole strips of 16 channels."""
+  if x.shape[0] != 1:
+    raise ValueError("The log-scan variant takes batch 1, as the lab's does.")
+  if st not in LOGSCAN_STEPS:
+    raise ValueError(f"Tile st={st}: the log-scan kernel is built for st in "
+                     f"{LOGSCAN_STEPS}.")
+  if x.shape[2] % LOGSCAN_CHANNELS:
+    raise ValueError(f"d = {x.shape[2]} is not a multiple of the log-scan "
+                     f"kernel's {LOGSCAN_CHANNELS} channels a block.")
+
+
+def logscan_scratch(x, st):
+  """Variant B's scratch buffer (its ticket counter and the carry words of
+  its chained scan), zeroed on the current stream: the kernel's own size."""
+  import ctypes  # pylint: disable=import-outside-toplevel
+
+  n_bytes = ctypes.c_int64()
+  err = _build.function("kernel_lab", "cg_lab_logscan_scratch_bytes",
+                        "iiip")(x.shape[1], x.shape[2], st,
+                                ctypes.addressof(n_bytes))
+  if err:
+    raise RuntimeError(f"cg_lab_logscan_scratch_bytes failed: cudaError_t "
+                       f"{err}.")
+  return torch.zeros(n_bytes.value // 8, dtype=torch.int64, device=x.device)
+
+
 def run_logscan(x, a, h0, st: int = 64, dl: int = 128):
   """Variant B (batch 1): its kernel on the card, :func:`logscan_plain` on
   CPU. Returns ``(y, h_last)``."""
   global logscan_launches
   _check(x, a, h0, st, dl)
-  if x.shape[0] != 1:
-    raise ValueError("The log-scan variant takes batch 1, as the lab's does.")
+  _check_logscan(x, st)
   if x.device.type == "cpu":
     return logscan_plain(x, a, h0, st, dl)
   if x.device.type != "cuda":
     raise ValueError(f"The lab runs on CUDA or CPU tensors, not {x.device}.")
-  if (4 * st * dl + dl) * 4 > _MAX_SHARED_BYTES:
-    raise ValueError(f"Tile st={st} x dl={dl} does not fit one block.")
+  x, a = x.contiguous(), a.contiguous()
+  if x.data_ptr() % 16 or a.data_ptr() % 16:
+    raise ValueError("The log-scan kernel reads 16-byte aligned `x` and `a`.")
   _, t, d = x.shape
-  out = _launch("cg_lab_logscan", "pppppiiiiip", x, a, h0, t, d,
-                _DTYPE_CODES[x.dtype], st, dl)
+  scratch = logscan_scratch(x, st)
+  out = _launch("cg_lab_logscan", "ppppppiiiip", x, a, h0,
+                scratch.data_ptr(), t, d, _DTYPE_CODES[x.dtype], st)
   logscan_launches += 1
   return out
 

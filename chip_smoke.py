@@ -138,11 +138,14 @@ Phases, each of which raises on failure (so the script exits non-zero):
      each kernel are held against its plain loop and timed as in 13 (batch
      1), and the results against the same call with no spec;
  15. the kernel lab: ``cadence_gemma_tpu_torch.benchmarks.kernel_lab.main()``
-     at [1, 2048, 2560] bf16 (the scan kernel, variant A's and variant B's
-     sweeps), then variant A at every st of its sweep and one configuration
-     of B against their plain versions, bit for bit, B within one bf16 step
-     of the sequential scan, and A at st = 128 within 10 % of the scan
-     kernel's line, whose code it runs.
+     at [1, 2048, 2560] bf16 (the scan kernel, variant A's sweep and
+     variant B's, the JAX lab's own tiles), then variant A at every st and
+     variant B at every tile of their sweeps against their plain versions,
+     bit for bit, B's worst tile within one bf16 step of the sequential
+     scan, A at st = 128 within 10 % of the scan kernel's line, and the
+     spread of B's three st = 256 lines; then the probe: B at st = 256 and
+     the library's forward scan on one SP shard's [1, 4096, 2560] bf16,
+     timed as the scans in 3, B bit for bit there too.
 
   python3 chip_smoke.py --profile
 
@@ -383,10 +386,14 @@ COMPLEX_SP_GRAD_MIN_COSINE = 0.9999
 # so y also has 1e-6 absolute, as the lab's card test. Variant A is held at
 # every st of its sweep; at st = 128 it runs the code of the library's
 # forward scan, which the lab times on its first line, so the two lines
-# agree within 10 %. The lab's replaced TPU kernels.
+# agree within 10 %. Variant B is held at every tile of its sweep, and
+# timed at st = 256 beside the library's scan on one SP shard's shape (the
+# probe). The lab's replaced TPU kernels.
 LAB_UNROLLED_ST = 128
 LAB_SAME_AS_SCAN_REL = 0.10
-LAB_LOGSCAN_TILE = (256, 32)  # the sweep's fastest on the H100
+LAB_LOGSCAN_TILE = (256, 512)  # the st = 256 lines tie on the H100
+LAB_PROBE_SHAPE = (1, 4096, 2560)
+LAB_PROBE_TILE = (256, 2560)
 LAB_Y_REL_ERR = 2.0**-7
 LAB_Y_ABS_ERR = 1e-6
 LAB_H_MAX_ABS_ERR = 1e-4
@@ -532,6 +539,16 @@ def phase_build() -> None:
             f"{info['local_bytes']} local (spilled) bytes, "
             f"{info['shared_bytes']} bytes of shared memory, "
             f"{info['threads']} threads")
+  # The kernel lab's log-scan (variant B) at every st it is built for.
+  for dtype, label in ((1, "bf16"), (0, "f32")):
+    for st in kernel_lab.LOGSCAN_STEPS:
+      info = _build.kernel_attributes("kernel_lab",
+                                      "cg_lab_logscan_attributes", dtype, st)
+      log(f"  kernel_lab lab_logscan_kernel {label} st {st}: "
+          f"{info['registers']} registers a thread at launch, "
+          f"{info['local_bytes']} local (spilled) bytes, "
+          f"{info['shared_bytes']} bytes of shared memory, "
+          f"{info['threads']} threads")
   # The Hopper attention kernels' resources as launched (setmaxnreg moves
   # the window kernels' producer registers to their consumers).
   for library, kernel, dims in (
@@ -2699,9 +2716,16 @@ def phase_complex_path(dev, kernels: list[dict]) -> None:
       f"{[round(v, 2) for v in turns[False]]}")
 
 
+def logscan_flops(st: int) -> float:
+  """Variant B's float32 operations an element: three on each row r >= k
+  of the log2(st) rounds (rows below k do none), two in the fix-up."""
+  rounds = st.bit_length() - 1
+  return 3 * (rounds - (st - 1) / st) + 2
+
+
 def phase_kernel_lab(dev) -> list[dict]:
-  """The lab's entry point, then one configuration of each variant against
-  its plain version."""
+  """The lab's entry point, then every configuration of each variant
+  against its plain version, and the probe."""
   b, t, d = kernel_lab.SHAPE
   log(f"== kernel lab: cadence_gemma_tpu_torch.benchmarks.kernel_lab.main() "
       f"at [{b},{t},{d}] bf16")
@@ -2722,26 +2746,43 @@ def phase_kernel_lab(dev) -> list[dict]:
     y, h = kernel_lab.run_unrolled(x, a, h0, st_a)
     errs_a[st_a] = max(max_err(y, y_seq), max_err(h, h_seq))
   err_a = max(errs_a.values())
-  y, h = kernel_lab.run_logscan(x, a, h0, st_b, dl)
-  y_ref, h_ref = kernel_lab.logscan_plain(x, a, h0, st_b, dl)
-  err_b = max(max_err(y, y_ref), max_err(h, h_ref))
-  y_excess = ((y.float() - y_seq.float()).abs() - LAB_Y_ABS_ERR
-              - LAB_Y_REL_ERR * y_seq.float().abs()).max().item()
-  h_seq_err = max_err(h, h_seq)
+  # Variant B at every tile of its sweep, bit for bit; its worst tile
+  # against the sequential scan.
+  errs_b, y_excess, h_seq_err = {}, -np.inf, 0.0
+  for tile in kernel_lab.LOGSCAN_SWEEP:
+    y, h = kernel_lab.run_logscan(x, a, h0, *tile)
+    y_ref, h_ref = kernel_lab.logscan_plain(x, a, h0, *tile)
+    errs_b[tile] = max(max_err(y, y_ref), max_err(h, h_ref))
+    y_excess = max(y_excess, ((y.float() - y_seq.float()).abs()
+                              - LAB_Y_ABS_ERR - LAB_Y_REL_ERR
+                              * y_seq.float().abs()).max().item())
+    h_seq_err = max(h_seq_err, max_err(h, h_seq))
+  err_b = max(errs_b.values())
   log(f"  unrolled vs its plain version (the sequential scan), max_abs_err "
-      f"by st: {errs_a} (tolerance 0.0); logscan st={st_b} dl={dl} vs "
-      f"its plain version: max_abs_err {err_b} (tolerance 0.0), vs the "
-      f"sequential scan: y within {LAB_Y_REL_ERR} of |y| + {LAB_Y_ABS_ERR} "
-      f"(excess {y_excess:.3e}), h_last {h_seq_err} (tolerance "
-      f"{LAB_H_MAX_ABS_ERR})")
+      f"by st: {errs_a} (tolerance 0.0); logscan vs its plain version, "
+      f"max_abs_err by (st, dl): {errs_b} (tolerance 0.0); the worst tile "
+      f"vs the sequential scan: y within {LAB_Y_REL_ERR} of |y| + "
+      f"{LAB_Y_ABS_ERR} (excess {y_excess:.3e}), h_last {h_seq_err} "
+      f"(tolerance {LAB_H_MAX_ABS_ERR})")
   if err_a != 0.0 or err_b != 0.0:
     raise AssertionError("A lab kernel disagrees with its plain version.")
   if y_excess > 0.0 or h_seq_err > LAB_H_MAX_ABS_ERR:
     raise AssertionError("The log-scan kernel strays from the sequential "
                          "scan beyond one bf16 step.")
+  st256 = {tile: lines[f"logscan st={tile[0]} dl={tile[1]}"]["us"] / 1e3
+           for tile in kernel_lab.LOGSCAN_SWEEP if tile[0] == 256}
+  log(f"  logscan's st = 256 lines (the same kernel on the same work), ms: "
+      f"{ {k: round(v, 5) for k, v in st256.items()} }, spread "
+      f"{max(st256.values()) / min(st256.values()) - 1:.4f} of the fastest")
+  # Each logscan call zeroes its scratch buffer (ticket and carry words)
+  # on the stream before its kernel; its lines above include that.
+  scratch = kernel_lab.logscan_scratch(x, st_b)
+  zero_ms = kernel_lab.device_ms(
+      lambda: kernel_lab.logscan_scratch(x, st_b), 20)
+  log(f"  logscan's scratch zero-fill alone ({scratch.numel() * 8} bytes at "
+      f"st={st_b}): ms {zero_ms:.4f}, part of each logscan call")
   # Read x and a, write y (bf16); h0 in, h_last out (float32). A does two
-  # float32 operations a step; B three in each of its log2(st) rounds and
-  # two more.
+  # float32 operations a step.
   n_bytes = 3 * b * t * d * 2 + 2 * b * d * 4
   row1 = lines[kernel_lab.SCAN_ROW]["us"] / 1e3
   same = lines[f"unrolled st={st}"]["us"] / 1e3 / row1
@@ -2757,7 +2798,7 @@ def phase_kernel_lab(dev) -> list[dict]:
        lambda: kernel_lab.reference(x, a, h0), err_a,
        LAB_UNROLLED_REPLACES),
       ("kernel_lab_logscan", f"logscan st={st_b} dl={dl}",
-       3 * (st_b.bit_length() - 1) + 2,
+       logscan_flops(st_b),
        lambda: kernel_lab.logscan_plain(x, a, h0, st_b, dl), err_b,
        LAB_LOGSCAN_REPLACES)):
     ms = lines[label]["us"] / 1e3
@@ -2765,13 +2806,44 @@ def phase_kernel_lab(dev) -> list[dict]:
     bound_ms, bound_by = bound(n_bytes, flops * b * t * d, FP32_FLOPS)
     log(f"  {name} ({label}): ms {ms:.4f} (the library's scan kernel at the "
         f"same shape {row1:.4f})  plain_ms {plain_ms:.3f}  bound_ms "
-        f"{bound_ms:.4f} ({bound_by}, {n_bytes / 1e6:.2f} MB)")
+        f"{bound_ms:.4f} ({bound_by}, {n_bytes / 1e6:.2f} MB): "
+        f"{100 * bound_ms / ms:.1f}% of the bound")
     entries.append(dict(name=name, route="cuda",
                         source="cadence_gemma_tpu_torch/csrc/kernel_lab.cu",
                         replaces=replaces, launches=launches[name],
                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+  phase_lab_probe(dev)
   return entries
+
+
+def phase_lab_probe(dev) -> None:
+  """Variant B, time-parallel, beside the library's sequential walk on one
+  SP shard's shape: what a parallel-in-time walk could save the batch-1
+  shards."""
+  b, t, d = LAB_PROBE_SHAPE
+  st_b, dl = LAB_PROBE_TILE
+  x, a, h0 = kernel_lab.make_inputs(LAB_PROBE_SHAPE, device=dev, seed=1)
+  y, h = kernel_lab.run_logscan(x, a, h0, st_b, dl)
+  y_ref, h_ref = kernel_lab.logscan_plain(x, a, h0, st_b, dl)
+  err = max(max_err(y, y_ref), max_err(h, h_ref))
+  log(f"== lab probe at [{b},{t},{d}] bf16 (one SP shard of the 2B): logscan "
+      f"st={st_b} vs its plain version max_abs_err {err} (tolerance 0.0)")
+  if err != 0.0:
+    raise AssertionError("The log-scan kernel disagrees with its plain "
+                         "version at the probe's shape.")
+  n_bytes = 3 * b * t * d * 2 + 2 * b * d * 4
+  walk = time_scan(lru_scan.lru_scan_forward, (x, a, h0), n_bytes,
+                   2 * b * t * d)
+  tree = time_scan(lambda *xs: kernel_lab.run_logscan(*xs, st_b, dl),
+                   (x, a, h0), n_bytes, logscan_flops(st_b) * b * t * d)
+  for label, f in (("lru_scan_forward (the ring's batch-1 walk)", walk),
+                   (f"logscan st={st_b} (time-parallel)", tree)):
+    log(f"  {label}: ms {f['ms']:.4f} (cold inputs, queue full), bound_ms "
+        f"{f['bound_ms']:.4f} ({f['bound_by']}): {f['gbps']:.0f} GB/s, "
+        f"{100 * f['bound_share']:.1f}% of the bound; host "
+        f"{f['host_us']:.1f} us a call")
+  log(f"  logscan / lru_scan_forward: {tree['ms'] / walk['ms']:.4f}")
 
 
 def main() -> int:
