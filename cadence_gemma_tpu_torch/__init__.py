@@ -1,7 +1,9 @@
 """PyTorch / CUDA port of CadenceGemma-TPU for NVIDIA Hopper (H100).
 
-Text generation, image-conditioned generation (DINOv2-L || SigLIP-so400m
-towers, the vision-language connector), full SFT fine-tuning and the
+Text generation (chunked prefill, prefix caching and conversational state,
+per-row sampling, the decode loop captured as a CUDA graph),
+image-conditioned generation (DINOv2-L || SigLIP-so400m towers, the
+vision-language connector), full SFT fine-tuning and the
 sequence-parallel long-context prefill (``Griffin(scan_sharding_spec=...)``
 over a ``make_mesh`` mesh) on the Griffin / RecurrentGemma backbone. Plain
 tensor code is PyTorch; the kernels -- the RG-LRU scan (with the running
@@ -29,6 +31,7 @@ from cadence_gemma_tpu_torch.convert import encoder_from_flax_params
 from cadence_gemma_tpu_torch.convert import griffin_from_flax_params
 from cadence_gemma_tpu_torch.convert import read_npz_params
 from cadence_gemma_tpu_torch.inference.modal_sampler import ModalSampler
+from cadence_gemma_tpu_torch.inference.sampler import PrefixState
 from cadence_gemma_tpu_torch.inference.sampler import Sampler
 from cadence_gemma_tpu_torch.inference.sampler import SamplerOutput
 from cadence_gemma_tpu_torch.models.griffin import Griffin
@@ -40,6 +43,7 @@ from cadence_gemma_tpu_torch.parallel.sharding import ShardingSpec
 from cadence_gemma_tpu_torch.parallel.sharding import make_mesh
 from cadence_gemma_tpu_torch.tokenizers import SimpleVocab
 from cadence_gemma_tpu_torch.tokenizers import Vocabulary
+from cadence_gemma_tpu_torch.tokenizers import load_sentencepiece
 
 __all__ = [
     "DINOV2_LARGE_REG4_384",
@@ -48,6 +52,7 @@ __all__ = [
     "GriffinConfig",
     "ModalSampler",
     "Preset",
+    "PrefixState",
     "SIGLIP_SO400M_384",
     "Sampler",
     "SamplerOutput",
@@ -60,6 +65,7 @@ __all__ = [
     "apply_it_formatter",
     "encoder_from_flax_params",
     "griffin_from_flax_params",
+    "load_sentencepiece",
     "make_mesh",
     "read_npz_params",
 ]

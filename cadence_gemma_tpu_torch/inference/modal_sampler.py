@@ -8,8 +8,10 @@ features are cast to bfloat16 (whatever the model's dtype, as in JAX) before
 the model's connector projects them and splices them in after BOS. From
 pixels to the first sampled token nothing returns to the host.
 
-Prefix and conversational state (``prefix_state``, ``return_state``) and
-grammar constraints are not ported.
+``return_state`` and ``prefix_state`` follow the :class:`Sampler`: an
+image-grounded first turn with ``return_state=True`` encodes and prefills
+the image once, and follow-up turns continue text-only from its state.
+Grammar constraints are not ported.
 """
 
 from __future__ import annotations
@@ -85,16 +87,26 @@ class ModalSampler(sampler_lib.Sampler):
     """Samples completions, optionally conditioned on one image per batch.
 
     At most one of ``img_path``, ``pixels`` and ``img_embed`` may be given;
-    an empty ``img_path`` means text only. The other arguments are the
+    an empty ``img_path`` means text only. ``prefix_state`` continues a
+    cached context and takes no image argument. The other arguments are the
     :class:`Sampler`'s.
     """
-    if prefix_state is not None or return_state or constraint is not None:
-      raise NotImplementedError(
-          "prefix_state, return_state and constraint are not ported."
-      )
+    if constraint is not None:
+      raise NotImplementedError("Grammar constraints are not ported.")
     given = [img_path != "", pixels is not None, img_embed is not None]
     if sum(given) > 1:
       raise ValueError("Pass at most one of img_path, pixels, or img_embed.")
+    if prefix_state is not None and any(given):
+      raise ValueError(
+          "prefix_state cannot be combined with an image argument: the "
+          "image splices in after the BOS token, which lives in the "
+          "cached context."
+      )
+    # Validate before the encoder runs, as the Sampler does before any
+    # device work.
+    self._validate_sampling_args(total_generation_steps, generator)
+    if return_state and total_generation_steps < 1:
+      raise ValueError("return_state requires total_generation_steps >= 1.")
     if img_path:
       img_embed = self.encode_image(img_path)
     elif pixels is not None:
@@ -103,5 +115,6 @@ class ModalSampler(sampler_lib.Sampler):
         input_strings, total_generation_steps, generator=generator, echo=echo,
         return_logits=return_logits,
         end_sampling_at_eos_token=end_sampling_at_eos_token,
-        img_embed=img_embed,
+        img_embed=img_embed, prefix_state=prefix_state,
+        return_state=return_state,
     )

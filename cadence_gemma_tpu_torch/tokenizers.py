@@ -1,9 +1,9 @@
-"""Tokenizer protocol and the tiny whitespace vocabulary.
+"""Tokenizer protocol, the SentencePiece loader and a tiny vocabulary.
 
 The sampler only needs five methods of SentencePiece's processor, captured
 here as :class:`Vocabulary`; anything duck-typing it works. A copy of the
-JAX package's ``cadence_gemma_tpu/tokenizers.py`` (``Vocabulary`` and
-``SimpleVocab``); the SentencePiece loader is not ported yet.
+JAX package's ``cadence_gemma_tpu/tokenizers.py`` (``Vocabulary``,
+``load_sentencepiece`` and ``SimpleVocab``).
 """
 
 from __future__ import annotations
@@ -29,6 +29,24 @@ class Vocabulary(Protocol):
 
   def DecodeIds(self, ids: Sequence[int]) -> str:  # noqa: N802
     ...
+
+
+def load_sentencepiece(model_path: str) -> Vocabulary:
+  """Loads a SentencePiece ``tokenizer.model`` (e.g. the official Gemma one).
+
+  Uses the ``sentencepiece`` extension when it is installed, else the
+  port's self-contained :class:`sp_native.NativeSentencePiece` (protobuf
+  wire parser, unigram and BPE segmentation with a native C++ hot loop).
+  """
+  try:
+    import sentencepiece as spm  # pylint: disable=import-outside-toplevel
+  except ImportError:
+    from cadence_gemma_tpu_torch import sp_native  # pylint: disable=import-outside-toplevel
+
+    return sp_native.NativeSentencePiece(model_path)
+  vocab = spm.SentencePieceProcessor()
+  vocab.Load(model_path)
+  return vocab
 
 
 class SimpleVocab:

@@ -25,9 +25,14 @@ Phases, each of which raises on failure (so the script exits non-zero):
   4. the serving path: a full-width, full-depth RecurrentGemma-2B (random
      bf16 weights from a seeded ``torch.Generator``) behind a ``Sampler``
      generates 32 greedy tokens for two prompts longer than the attention
-     window. The kernels' launch counters, reset just before, must show
-     that the prefill ran the RG-LRU kernel once per recurrent block and the
-     attention kernel once per attention block, and that decode ran none;
+     window, its decode one step captured as a CUDA graph and replayed (a
+     warm-up call of the same shapes captures it; here and in 8, 10 and 16
+     a captured step's launches are counted by the wrappers' counters at
+     its capture and multiplied by the replays, and decode ms a step comes
+     from CUDA events around the decode loop). The kernels' launch
+     counters, reset just before, must show that the prefill ran the RG-LRU
+     kernel once per recurrent block and the attention kernel once per
+     attention block, and that decode ran none;
      here and in 6, 8, 10 and 12 every real scan launch must have taken the
      TMA ring of ``csrc/lru_scan.cu``, none the per-thread walk.
      The inputs the prefill gave each kernel's first call are captured and
@@ -69,11 +74,17 @@ Phases, each of which raises on failure (so the script exits non-zero):
      tokens, and generates 32 greedy tokens. The counters, reset just
      before, must show 46 MHA launches (23 blocks of each tower), 18 LRU and
      8 window-attention launches in the prefill and none in decode, and 26
-     add_rmsnorm launches in each of the 32 forwards. Each kernel is held
+     add_rmsnorm launches in each of the 32 forwards (the prefill's and 31
+     replays of the captured step's). Each kernel is held
      against its plain version on the inputs of its first call; the resize
      on the card against the CPU's; the fused features and the last
      position's logits against the plain path of the same weights (towers
      on the einsum, Griffin unfused, sequential scan, einsum attention).
+     Then decode ms a step fused and unfused in turns, and an image turn
+     with ``return_state`` followed by a text turn from its state (18 LRU
+     launches with a carry, add_rmsnorm replayed in the captured step), the
+     follow-up's first logits held against one teacher-forced call of the
+     whole history with the image;
 
   9. the sequence-parallel variants of two kernels at the shapes of the SP
      prefill's shards: the RG-LRU kernel with the running product of ``a``
@@ -145,12 +156,30 @@ Phases, each of which raises on failure (so the script exits non-zero):
      scan, A at st = 128 within 10 % of the scan kernel's line, and the
      spread of B's three st = 256 lines; then the probe: B at st = 256 and
      the library's forward scan on one SP shard's [1, 4096, 2560] bf16,
-     timed as the scans in 3, B bit for bit there too.
+     timed as the scans in 3, B bit for bit there too;
+ 16. the serving features, run right after 4 on its 2B: the same prompts
+     with ``prefill_chunk_size=1024`` (padded to 3072, three chunks: 54 LRU
+     launches, all on the ring, no window-attention launch; the second
+     chunk's first scan, whose carry comes from the cache, bit for bit
+     against its plain loop; last logits against the single-shot prefill,
+     time to the first token and peak memory of both in turns); a
+     2048-token prefix at batch 1 continued by two calls of 2 x 512 tokens
+     (18 LRU launches each with a carry; last logits against the full
+     prompts in one call; the prefix's cache unchanged; time to the first
+     token against the full prompts' in turns); three conversation turns
+     with ``return_state``, each turn's first logits against a
+     teacher-forced call of the whole history; captured against eager
+     decode in turns (decode ms a step, greedy tokens identical, logits'
+     largest difference), and categorical sampling (temperature 0.8, top-k
+     50, top-p 0.95) and greedy with ``repetition_penalty=1.3``, each
+     captured and eager from generators seeded alike: identical tokens and
+     generator offsets.
 
   python3 chip_smoke.py --profile
 
 adds kernel time by name (torch.profiler) for the prefill and decode of the
-serving path, for one training step, for the encode and the
+serving path (and the idle share of captured and eager decode), for one
+training step, for the encode and the
 image-conditioned prefill, for the sequence-parallel prefill and for one
 sequence-parallel training step, with the device's idle share.
 
@@ -399,6 +428,24 @@ LAB_Y_ABS_ERR = 1e-6
 LAB_H_MAX_ABS_ERR = 1e-4
 LAB_UNROLLED_REPLACES = "benchmarks/kernel_lab.py:74"
 LAB_LOGSCAN_REPLACES = "benchmarks/kernel_lab.py:128"
+
+# The serving features on the main path's 2B (phase 16): the main path's
+# prompts prefilled in chunks of CHUNK_TOKENS (padded to 3072, three
+# chunks); a PREFIX_TOKENS prefix at batch 1, continued by two calls of 2 x
+# CONTINUATION_TOKENS; conversation turns of TURN_TOKENS prompt tokens and
+# TURN_STEPS generated ones; captured and eager decode in GRAPH_TURNS
+# (True: captured), balanced against drift as EPILOGUE_TURNS below.
+CHUNK_TOKENS = 1024
+PREFIX_TOKENS = 2048
+CONTINUATION_TOKENS = 512
+TURN_TOKENS = (300, 200, 120)
+TURN_STEPS = 8
+GRAPH_TURNS = (False, True, True, False)
+CATEGORICAL = dict(temperature=0.8, top_k=50, top_p=0.95)
+SERVING_PENALTY = 1.3
+# The ModalSampler's image turn and its text follow-up (phase 8).
+MODAL_TURN_STEPS = 8
+MODAL_FOLLOWUP_TOKENS = 64
 
 
 def log(*args) -> None:
@@ -728,23 +775,93 @@ def check_attention(q, k, v, seg, window, kv_prefix=0) -> tuple[float, float]:
 
 class CaptureFirstCall:
   """Stands in for a kernel wrapper in a module and keeps a copy of the
-  arguments of its first call."""
+  arguments of its first call (its ``index``-th with ``index``)."""
 
-  def __init__(self, module, name: str):
+  def __init__(self, module, name: str, index: int = 0):
     self.module, self.name = module, name
     self.wrapper = getattr(module, name)
     self.args = self.kwargs = None
+    self.calls, self.index = 0, index
     setattr(module, name, self)
 
   def __call__(self, *args, **kwargs):
-    if self.args is None:
+    if self.args is None and self.calls == self.index:
       copy = lambda z: z.clone() if isinstance(z, torch.Tensor) else z
       self.args = tuple(copy(z) for z in args)
       self.kwargs = {key: copy(z) for key, z in kwargs.items()}
+    self.calls += 1
     return self.wrapper(*args, **kwargs)
 
   def restore(self):
     setattr(self.module, self.name, self.wrapper)
+
+
+class DecodeProbe:
+  """Sees the samplers' decode loops, captured as CUDA graphs or eager.
+
+  CUDA events around each ``Sampler._decode`` call and the steps it ran give
+  decode ms a step. A replay of a captured step runs no Python, so the
+  kernel wrappers' counters miss its launches: ``counts()`` (the counters)
+  read around a decode step's Python, which runs at a graph's warm-up and
+  capture, give one step's launches, and a run's launches are the
+  counters' plus those times the replays (:meth:`run_launches`).
+  """
+
+  def __init__(self, counts):
+    self.counts = counts
+    self.step_launches = None
+    self.decodes = []  # [start event, end event, steps]
+    self.replays = 0
+    self._saved = (sampler_lib.Sampler._decode, sampler_lib._DecodeGraph._step,
+                   sampler_lib._DecodeGraph.replay)
+    decode, step, replay = self._saved
+    probe = self
+
+    def timed_decode(sampler, state, *args, **kwargs):
+      first = int(state.step)
+      start = torch.cuda.Event(enable_timing=True)
+      start.record()
+      state = decode(sampler, state, *args, **kwargs)
+      end = torch.cuda.Event(enable_timing=True)
+      end.record()
+      probe.decodes.append([start, end, int(state.step) - first])
+      return state
+
+    def counted_step(graph, sampler):
+      before = probe.counts()
+      logits = step(graph, sampler)
+      after = probe.counts()
+      probe.step_launches = {k: after[k] - before[k] for k in after}
+      return logits
+
+    def counted_replay(graph):
+      probe.replays += 1
+      return replay(graph)
+
+    sampler_lib.Sampler._decode = timed_decode
+    sampler_lib._DecodeGraph._step = counted_step
+    sampler_lib._DecodeGraph.replay = counted_replay
+
+  def reset(self) -> None:
+    self.decodes.clear()
+    self.replays = 0
+
+  def decode_ms(self) -> float:
+    """Decode ms a step of the last decode loop."""
+    start, end, steps = self.decodes[-1]
+    end.synchronize()
+    return start.elapsed_time(end) / steps
+
+  def run_launches(self, counted: dict[str, int]) -> dict[str, int]:
+    """The launches of a run: the counters' and the replays'."""
+    if not self.replays:
+      return dict(counted)
+    return {k: counted[k] + self.step_launches[k] * self.replays
+            for k in counted}
+
+  def close(self) -> None:
+    (sampler_lib.Sampler._decode, sampler_lib._DecodeGraph._step,
+     sampler_lib._DecodeGraph.replay) = self._saved
 
 
 def _use_plain_path(model: griffin.Griffin, plain: bool) -> None:
@@ -790,7 +907,8 @@ def phase_main_path(dev, kernels: list[dict], profile: bool) -> None:
   sampler = sampler_lib.Sampler(model, vocab, device=dev)
 
   # Per model forward: [start event, end event, the two launch counters at
-  # its end]. The first forward of a call is the prefill.
+  # its end]. The first forward of a call is the prefill; the decode steps
+  # replay a captured graph, which the probe sees.
   calls = []
 
   def before_forward(*_):
@@ -802,42 +920,56 @@ def phase_main_path(dev, kernels: list[dict], profile: bool) -> None:
     end.record()
     calls[-1] += [end, lru_scan.launches, wa.launches]
 
-  model.register_forward_pre_hook(before_forward)
-  model.register_forward_hook(after_forward)
-
-  # Warm-up, which also keeps the inputs that this prefill (the same as the
-  # measured run's) gives each kernel's first call.
-  captures = [CaptureFirstCall(lru_scan, "lru_scan"),
-              CaptureFirstCall(wa, "window_attention")]
+  hooks = [model.register_forward_pre_hook(before_forward),
+           model.register_forward_hook(after_forward)]
+  counts = lambda: {"lru_scan": lru_scan.launches,
+                    "window_attention": wa.launches}
+  probe = DecodeProbe(counts)
+  run_kw = dict(total_generation_steps=DECODE_STEPS, return_logits=True,
+                end_sampling_at_eos_token=False)
   try:
-    sampler(prompts, total_generation_steps=2)
+    # Warm-up with the measured run's shapes (its decode graph is captured
+    # here), which also keeps the inputs that this prefill (the same as the
+    # measured run's) gives each kernel's first call.
+    captures = [CaptureFirstCall(lru_scan, "lru_scan"),
+                CaptureFirstCall(wa, "window_attention")]
+    try:
+      sampler(prompts, **run_kw)
+    finally:
+      for capture in captures:
+        capture.restore()
+    torch.cuda.synchronize()
+    calls.clear()
+    probe.reset()
+    torch.cuda.reset_peak_memory_stats()
+    lru_scan.launches = 0
+    wa.launches = 0
+    reset_scan_routes()
+    start = time.perf_counter()
+    out = sampler(prompts, **run_kw)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - start
+    launches = probe.run_launches(counts())
+    replays, step_launches = probe.replays, probe.step_launches
+    decode_ms = probe.decode_ms()
   finally:
-    for capture in captures:
-      capture.restore()
-  torch.cuda.synchronize()
-  calls.clear()
-  torch.cuda.reset_peak_memory_stats()
-  lru_scan.launches = 0
-  wa.launches = 0
-  reset_scan_routes()
-  start = time.perf_counter()
-  out = sampler(prompts, total_generation_steps=DECODE_STEPS,
-                return_logits=True, end_sampling_at_eos_token=False)
-  torch.cuda.synchronize()
-  wall_s = time.perf_counter() - start
-  launches = {"lru_scan": lru_scan.launches, "window_attention": wa.launches}
+    probe.close()
+    for hook in hooks:
+      hook.remove()
   peak_gb = torch.cuda.max_memory_allocated() / 1e9
-  check_scan_routes(launches["lru_scan"])
+  check_scan_routes(lru_scan.launches)
 
-  if len(calls) != DECODE_STEPS:
-    raise AssertionError(f"{len(calls)} forwards for {DECODE_STEPS} tokens.")
+  if len(calls) + replays != DECODE_STEPS or replays != DECODE_STEPS - 1:
+    raise AssertionError(f"{len(calls)} forwards and {replays} replays of "
+                         f"the captured step for {DECODE_STEPS} tokens.")
   prefill = tuple(calls[0][2:])
   if prefill != (n_recurrent, n_attention):
     raise AssertionError(f"Prefill launched (lru, attention) = {prefill}, "
                          f"want {(n_recurrent, n_attention)}.")
-  if tuple(launches.values()) != prefill:
+  if tuple(launches.values()) != prefill or any(step_launches.values()):
     raise AssertionError(f"Decode launched kernels: {launches} after "
-                         f"prefill {prefill}.")
+                         f"prefill {prefill}; a captured step "
+                         f"{step_launches}.")
   tokens = torch.stack(out.tokens)
   logits = torch.stack(out.logits)
   if tokens.shape != (2, DECODE_STEPS) or logits.shape != (
@@ -849,10 +981,10 @@ def phase_main_path(dev, kernels: list[dict], profile: bool) -> None:
     raise AssertionError("Token out of range.")
 
   prefill_ms = calls[0][0].elapsed_time(calls[0][1])
-  decode_ms = calls[0][1].elapsed_time(calls[-1][1]) / (len(calls) - 1)
   padded = max(PROMPT_TOKENS)
   log(f"  prompts {PROMPT_TOKENS} tokens (padded to {padded}), "
-      f"{DECODE_STEPS} greedy steps")
+      f"{DECODE_STEPS} greedy steps, decode captured ({replays} replays of "
+      f"one step, whose capture launched {step_launches})")
   log(f"  launches in the run {launches}; prefill {prefill}")
   prompt_rate = sum(PROMPT_TOKENS) / prefill_ms * 1e3  # real tokens only
   log(f"  prefill_ms {prefill_ms:.2f} ({prompt_rate:.0f} prompt tokens/s)  "
@@ -901,22 +1033,28 @@ def phase_main_path(dev, kernels: list[dict], profile: bool) -> None:
     raise AssertionError("Kernel path and plain path disagree.")
   if profile:
     profile_main_path(sampler, prompts, prefill_ms, decode_ms)
+  return model, vocab, prompts, sampler, out
 
 
-def profile_main_path(sampler, prompts, prefill_ms, decode_ms) -> None:
-  """Logs kernel time by name, per step, for prefill and for decode."""
-  # Where the time goes: kernel time by name for a prefill-only call and for
-  # the same call with DECODE_STEPS more tokens; their difference is decode.
+def decode_kernel_times(sampler, prompts):
+  """(prefill's, DECODE_STEPS decode steps') kernel times by name: a
+  prefill-only call's trace and the difference of a call with DECODE_STEPS
+  more tokens. That call's decode graph is captured before its trace."""
+  longer = lambda: sampler(prompts, total_generation_steps=1 + DECODE_STEPS,
+                           end_sampling_at_eos_token=False)
+  longer()
   prefill_k = kernel_times(lambda: sampler(prompts, total_generation_steps=1))
-  both_k = kernel_times(lambda: sampler(
-      prompts, total_generation_steps=1 + DECODE_STEPS,
-      end_sampling_at_eos_token=False,
-  ))
-  decode_k = {
+  both_k = kernel_times(longer)
+  return prefill_k, {
       name: (ms - prefill_k.get(name, (0.0, 0))[0],
              count - prefill_k.get(name, (0.0, 0))[1])
       for name, (ms, count) in both_k.items()
   }
+
+
+def profile_main_path(sampler, prompts, prefill_ms, decode_ms) -> None:
+  """Logs kernel time by name, per step, for prefill and for decode."""
+  prefill_k, decode_k = decode_kernel_times(sampler, prompts)
   for label, times, steps, wall_ms in (
       ("prefill", prefill_k, 1, prefill_ms),
       ("decode", decode_k, DECODE_STEPS, decode_ms),
@@ -957,6 +1095,264 @@ def kernel_times(fn) -> dict[str, tuple[float, int]]:
     log(f"  torch.profiler recorded no device event (trace {attempt + 1} of "
         f"{PROFILE_ATTEMPTS})")
   raise RuntimeError("torch.profiler recorded no kernel on the card.")
+
+
+def _timed_call(fn) -> tuple[float, float]:
+  """(ms, peak GB) of one call: CUDA events around it, the peak of the
+  memory it allocated."""
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+  start.record()
+  fn()
+  end.record()
+  end.synchronize()
+  return start.elapsed_time(end), torch.cuda.max_memory_allocated() / 1e9
+
+
+def _turns(turns, calls: dict) -> dict:
+  """{side: [ms, ...]} of ``calls[side]()`` timed in ``turns``."""
+  times = {side: [] for side in calls}
+  for side in turns:
+    times[side].append(_timed_call(calls[side])[0])
+  return times
+
+
+def _check_carry(capture: CaptureFirstCall, what: str) -> float:
+  """The captured LRU call had a carry from the cache; its kernel output
+  bit for bit against the plain loop."""
+  if capture.args is None:
+    raise AssertionError(f"{what} never called lru_scan.")
+  h0 = capture.args[2] if len(capture.args) > 2 else capture.kwargs.get("h0")
+  if h0 is None or not bool(h0.any()):
+    raise AssertionError(f"{what}: the scan took no carry from the cache.")
+  err = check_lru(*capture.args, **capture.kwargs)
+  log(f"  {what}: lru_scan on {tuple(capture.args[0].shape)} with a carry "
+      f"from the cache, max_abs_err {err} vs lru_scan_plain (tolerance "
+      f"{LRU_MAX_ABS_ERR})")
+  return err
+
+
+def phase_serving(dev, model, vocab, prompts, sampler, single,
+                  kernels: list[dict], profile: bool) -> None:
+  """The Sampler's serving features on the main path's 2B."""
+  config = model.config
+  n_recurrent = sum(
+      bt is common.TemporalBlockType.RECURRENT for bt in config.block_types
+  )
+  log(f"== serving features on the main path's 2B: chunked prefill "
+      f"({CHUNK_TOKENS}-token chunks), prefix caching, conversational "
+      f"state, captured vs eager decode")
+  by_name = {kernel["name"]: kernel for kernel in kernels}
+  counts = lambda: {"lru_scan": lru_scan.launches,
+                    "window_attention": wa.launches}
+  rng = np.random.default_rng(SEED + 50)
+
+  def words(n):
+    return " ".join(f"w{i}" for i in rng.integers(0, config.vocab_size - 4, n))
+
+  def launched(fn, want, what):
+    """Runs ``fn`` with the counters reset; checks its launches."""
+    lru_scan.launches = wa.launches = 0
+    reset_scan_routes()
+    result = fn()
+    torch.cuda.synchronize()
+    got = counts()
+    log(f"  {what}: launches {got}")
+    check_scan_routes(got["lru_scan"])
+    if got != want:
+      raise AssertionError(f"{what} launched {got}, want {want}.")
+    return result
+
+  run_kw = dict(total_generation_steps=DECODE_STEPS, return_logits=True,
+                end_sampling_at_eos_token=False)
+  served = 0  # LRU launches of the serving runs below
+
+  # Chunked prefill of the main path's prompts.
+  chunked = sampler_lib.Sampler(model, vocab, device=dev,
+                                prefill_chunk_size=CHUNK_TOKENS)
+  chunked(prompts, **run_kw)  # warm-up; captures its decode graph
+  n_chunks = -(-max(PROMPT_TOKENS) // CHUNK_TOKENS)
+  # The first scan of the second chunk: its carry comes from the cache.
+  capture = CaptureFirstCall(lru_scan, "lru_scan", index=n_recurrent)
+  try:
+    out = launched(lambda: chunked(prompts, **run_kw),
+                   {"lru_scan": n_chunks * n_recurrent,
+                    "window_attention": 0},
+                   f"chunked prefill ({n_chunks} chunks) + decode")
+  finally:
+    capture.restore()
+  served += n_chunks * n_recurrent
+  err = _check_carry(capture, "chunk 2")
+  by_name["lru_scan"]["max_abs_err"] = max(by_name["lru_scan"]["max_abs_err"],
+                                           err)
+  chunk_logits = torch.stack(out.logits)
+  single_logits = torch.stack(single.logits)
+  rel = _rel_rms(chunk_logits[:, 0], single_logits[:, 0])
+  agree = (torch.stack(out.tokens) == torch.stack(single.tokens)).float()
+  log(f"  chunked vs single-shot prefill, last prompt position: logits "
+      f"rel_rms {rel:.3e} (tolerance {MODEL_LOGITS_REL_RMS}); token "
+      f"agreement of the {DECODE_STEPS}-token generations "
+      f"{agree.mean().item():.4f}")
+  if not (torch.isfinite(chunk_logits).all() and rel <= MODEL_LOGITS_REL_RMS):
+    raise AssertionError("Chunked and single-shot prefill disagree.")
+  ttft = {True: lambda: chunked(prompts, total_generation_steps=1),
+          False: lambda: sampler(prompts, total_generation_steps=1)}
+  peaks = {side: _timed_call(fn)[1] for side, fn in ttft.items()}
+  times = _turns(GRAPH_TURNS, ttft)
+  log(f"  prefill (time to the first token) ms in turns {GRAPH_TURNS} "
+      f"(True: chunked): chunked {[round(t, 2) for t in times[True]]}, "
+      f"single-shot {[round(t, 2) for t in times[False]]}; peak memory "
+      f"chunked {peaks[True]:.2f} GB, single-shot {peaks[False]:.2f} GB")
+  if profile:
+    for side, label in ((True, "chunked"), (False, "single-shot")):
+      profile_call(ttft[side], float(np.median(times[side])),
+                   f"{label} prefill")
+
+  # Prefix caching: a batch-1 prefix (two chunks) continued by two calls.
+  prefix = words(PREFIX_TOKENS - 1)
+  state = chunked.prefill_prefix(prefix)
+  before = [t.clone() for t in sampler_lib._cache_leaves(state.cache)]
+  for call in range(2):
+    rows = [words(CONTINUATION_TOKENS) for _ in range(2)]
+    capture = CaptureFirstCall(lru_scan, "lru_scan")
+    try:
+      got = launched(
+          lambda: chunked(rows, total_generation_steps=1, return_logits=True,
+                          prefix_state=state),
+          {"lru_scan": n_recurrent, "window_attention": 0},
+          f"continuation {call + 1} (2 x {CONTINUATION_TOKENS} tokens after "
+          f"{PREFIX_TOKENS})")
+    finally:
+      capture.restore()
+    served += n_recurrent
+    err = _check_carry(capture, f"continuation {call + 1}")
+    by_name["lru_scan"]["max_abs_err"] = max(
+        by_name["lru_scan"]["max_abs_err"], err)
+    full_rows = [f"{prefix} {r}" for r in rows]
+    full = sampler(full_rows, total_generation_steps=1, return_logits=True)
+    rel = _rel_rms(got.logits[0][0][None], full.logits[0][0][None])
+    rel = max(rel, _rel_rms(got.logits[1][0][None], full.logits[1][0][None]))
+    log(f"  continuation {call + 1} vs the full "
+        f"{PREFIX_TOKENS + CONTINUATION_TOKENS}-token prompts in one call: "
+        f"last logits "
+        f"rel_rms {rel:.3e} (tolerance {MODEL_LOGITS_REL_RMS})")
+    if not rel <= MODEL_LOGITS_REL_RMS:
+      raise AssertionError("A prefix continuation disagrees with its full "
+                           "prompt.")
+  for a, b in zip(before, sampler_lib._cache_leaves(state.cache)):
+    if not torch.equal(a, b):
+      raise AssertionError("A continuation changed the prefix's cache.")
+  times = _turns(GRAPH_TURNS, {
+      True: lambda: chunked(rows, total_generation_steps=1,
+                            prefix_state=state),
+      False: lambda: sampler(full_rows, total_generation_steps=1)})
+  log(f"  time to the first token, ms in turns {GRAPH_TURNS} (True: the "
+      f"continuation from the prefix): continuation "
+      f"{[round(t, 2) for t in times[True]]}, full prompt "
+      f"{[round(t, 2) for t in times[False]]}; ratio of medians "
+      f"{np.median(times[True]) / np.median(times[False]):.4f}")
+  if profile:
+    profile_call(lambda: chunked(rows, total_generation_steps=1,
+                                 prefix_state=state),
+                 float(np.median(times[True])), "continuation prefill")
+  del state, before
+
+  # Conversational state: each turn continues the last one's state.
+  state, history = None, [vocab.bos_id()]
+  for turn, n in enumerate(TURN_TOKENS):
+    text = words(n)
+    got = launched(
+        lambda: sampler([text], total_generation_steps=TURN_STEPS,
+                        return_logits=True, end_sampling_at_eos_token=False,
+                        return_state=True, prefix_state=state),
+        {"lru_scan": n_recurrent, "window_attention": 0},
+        f"turn {turn + 1} ({n} prompt tokens)")
+    served += n_recurrent
+    history += vocab.EncodeAsIds(text)
+    ids = torch.tensor([history], device=dev)
+    with torch.inference_mode():
+      whole, _ = model(ids, torch.arange(len(history), device=dev)[None],
+                       return_cache=False, last_logits_only=True)
+    rel = _rel_rms(got.logits[0][0], whole[0, 0])
+    log(f"  turn {turn + 1} vs the {len(history)}-token history in one "
+        f"call (teacher-forced): first logits rel_rms {rel:.3e} (tolerance "
+        f"{MODEL_LOGITS_REL_RMS})")
+    if not rel <= MODEL_LOGITS_REL_RMS:
+      raise AssertionError(f"Turn {turn + 1} disagrees with its history.")
+    history += got.tokens[0].tolist()
+    state = got.state
+  del state
+
+  # Captured decode against eager decode, in turns.
+  eager = sampler_lib.Sampler(model, vocab, device=dev, jit_compile=False)
+  sides = {True: sampler, False: eager}
+  per_step, outs = {True: [], False: []}, {True: [], False: []}
+  probe = DecodeProbe(counts)
+  try:
+    for graph in GRAPH_TURNS:
+      outs[graph].append(sides[graph](prompts, **run_kw))
+      per_step[graph].append(probe.decode_ms())
+  finally:
+    probe.close()
+  ref_tokens = torch.stack(outs[True][0].tokens)
+  same = all(torch.equal(torch.stack(o.tokens), ref_tokens)
+             for side in outs.values() for o in side)
+  diff = max_err(torch.stack(outs[True][0].logits),
+                 torch.stack(outs[False][0].logits))
+  log(f"  decode ms a step in turns {GRAPH_TURNS} (True: captured): captured "
+      f"{[round(ms, 3) for ms in per_step[True]]} (median "
+      f"{np.median(per_step[True]):.3f}), eager "
+      f"{[round(ms, 3) for ms in per_step[False]]} (median "
+      f"{np.median(per_step[False]):.3f}); greedy tokens identical {same}; "
+      f"logits max_abs_diff {diff:.3e}")
+  if not same:
+    raise AssertionError("Captured and eager greedy decode disagree.")
+  for label, kw in (("categorical " + str(CATEGORICAL),
+                     dict(deterministic_sampling=False, **CATEGORICAL)),
+                    (f"greedy, repetition_penalty {SERVING_PENALTY}",
+                     dict(repetition_penalty=SERVING_PENALTY))):
+    got = {}
+    for graph in (True, False):
+      gen = torch.Generator(dev).manual_seed(SEED + 51)
+      s = sampler_lib.Sampler(model, vocab, device=dev, jit_compile=graph,
+                              **kw)
+      got[graph] = (torch.stack(s(prompts, generator=gen, **run_kw).tokens),
+                    gen.get_state())
+    same = torch.equal(got[True][0], got[False][0])
+    same_gen = torch.equal(got[True][1], got[False][1])
+    log(f"  {label}: captured and eager tokens identical {same}, "
+        f"generators at the same offset {same_gen}; first tokens "
+        f"{got[True][0][:, :6].tolist()}")
+    if not (same and same_gen):
+      raise AssertionError(f"Captured and eager decode disagree ({label}).")
+  if profile:
+    for graph in (True, False):
+      profile_decode(sides[graph], prompts, float(np.median(per_step[graph])),
+                     "captured" if graph else "eager")
+
+  by_name["lru_scan"]["launches"] += served
+  log(f"  LRU launches of the serving runs: {served} (added to the "
+      f"lru_scan row)")
+
+
+def profile_call(fn, wall_ms: float, label: str) -> None:
+  """Kernel time of one call against its time: the device's idle share."""
+  times = kernel_times(fn)
+  busy = sum(ms for ms, _ in times.values())
+  log(f"  {label}: kernels busy {busy:.3f} ms of {wall_ms:.3f} ms (device "
+      f"idle share {1 - busy / wall_ms:.3f}), "
+      f"{sum(n for _, n in times.values())} kernels")
+
+
+def profile_decode(sampler, prompts, decode_ms: float, label: str) -> None:
+  """Kernel time of a decode step against its time: the idle share."""
+  _, decode_k = decode_kernel_times(sampler, prompts)
+  busy = sum(ms for ms, _ in decode_k.values()) / DECODE_STEPS
+  kernels = sum(n for _, n in decode_k.values()) / DECODE_STEPS
+  log(f"  {label} decode: kernels busy {busy:.3f} ms of {decode_ms:.3f} ms "
+      f"a step (device idle share {1 - busy / decode_ms:.3f}), {kernels:.1f} "
+      f"kernels a step")
 
 
 def training_segment_pos(dev) -> torch.Tensor:
@@ -1582,38 +1978,46 @@ def phase_multimodal(dev, kernels: list[dict], profile: bool) -> None:
            encoder.register_forward_hook(encode_end),
            model.register_forward_pre_hook(forward_start),
            model.register_forward_hook(forward_end)]
-
-  # Warm-up; it also keeps the inputs that this run (the same as the
-  # measured one) gives each kernel's first call.
-  captures = [CaptureFirstCall(mha_attention, "flash_mha_attention"),
-              CaptureFirstCall(fused_epilogue, "fused_add_rmsnorm"),
-              CaptureFirstCall(lru_scan, "lru_scan"),
-              CaptureFirstCall(wa, "window_attention")]
+  probe = DecodeProbe(_mm_counts)
+  run_kw = dict(total_generation_steps=MM_DECODE_STEPS, pixels=pixels,
+                return_logits=True, end_sampling_at_eos_token=False)
   try:
-    sampler(prompts, total_generation_steps=2, pixels=pixels)
+    # Warm-up with the measured run's shapes (its decode graph is captured
+    # here); it also keeps the inputs that this run (the same as the
+    # measured one) gives each kernel's first call.
+    captures = [CaptureFirstCall(mha_attention, "flash_mha_attention"),
+                CaptureFirstCall(fused_epilogue, "fused_add_rmsnorm"),
+                CaptureFirstCall(lru_scan, "lru_scan"),
+                CaptureFirstCall(wa, "window_attention")]
+    try:
+      sampler(prompts, **run_kw)
+    finally:
+      for capture in captures:
+        capture.restore()
+    torch.cuda.synchronize()
+    calls.clear()
+    probe.reset()
+    torch.cuda.reset_peak_memory_stats()
+    mha_attention.launches = fused_epilogue.launches = 0
+    lru_scan.launches = wa.launches = 0
+    reset_scan_routes()
+    start = time.perf_counter()
+    out = sampler(prompts, **run_kw)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - start
+    launches = probe.run_launches(_mm_counts())
+    replays, step_launches = probe.replays, probe.step_launches
+    decode_ms = probe.decode_ms()
   finally:
-    for capture in captures:
-      capture.restore()
-  torch.cuda.synchronize()
-  calls.clear()
-  torch.cuda.reset_peak_memory_stats()
-  mha_attention.launches = fused_epilogue.launches = 0
-  lru_scan.launches = wa.launches = 0
-  reset_scan_routes()
-  start = time.perf_counter()
-  out = sampler(prompts, total_generation_steps=MM_DECODE_STEPS,
-                pixels=pixels, return_logits=True,
-                end_sampling_at_eos_token=False)
-  torch.cuda.synchronize()
-  wall_s = time.perf_counter() - start
-  launches = _mm_counts()
-  check_scan_routes(launches["lru_scan"])
+    probe.close()
+    for hook in hooks:
+      hook.remove()
+  check_scan_routes(lru_scan.launches)
   peak_gb = torch.cuda.max_memory_allocated() / 1e9
-  for hook in hooks:
-    hook.remove()
 
   log(f"  launches in the run {launches}; after the encode "
-      f"{marks['encode_counts']}; after the prefill {calls[0][2]}")
+      f"{marks['encode_counts']}; after the prefill {calls[0][2]}; a "
+      f"captured decode step {step_launches}, replayed {replays} times")
   want_encode = {"mha_attention": n_blocks, "lru_scan": 0,
                  "window_attention": 0, "add_rmsnorm": 0}
   want_prefill = {"mha_attention": n_blocks, "lru_scan": n_recurrent,
@@ -1621,16 +2025,21 @@ def phase_multimodal(dev, kernels: list[dict], profile: bool) -> None:
                   "add_rmsnorm": config.num_layers}
   want_run = dict(want_prefill,
                   add_rmsnorm=config.num_layers * MM_DECODE_STEPS)
-  if (len(calls) != MM_DECODE_STEPS or marks["encode_counts"] != want_encode
+  if (len(calls) + replays != MM_DECODE_STEPS
+      or marks["encode_counts"] != want_encode
       or calls[0][2] != want_prefill or launches != want_run):
     raise AssertionError(
-        f"Launches: {len(calls)} forwards, encode {marks['encode_counts']} "
-        f"(want {want_encode}), prefill {calls[0][2]} (want {want_prefill}), "
-        f"run {launches} (want {want_run}).")
-  for i, call in enumerate(calls[1:]):
-    if call[2]["add_rmsnorm"] != config.num_layers * (i + 2):
-      raise AssertionError(f"Decode step {i + 1} did not launch "
-                           f"add_rmsnorm once per block: {call[2]}.")
+        f"Launches: {len(calls)} forwards and {replays} replays, encode "
+        f"{marks['encode_counts']} (want {want_encode}), prefill "
+        f"{calls[0][2]} (want {want_prefill}), run {launches} (want "
+        f"{want_run}).")
+  # Each of the 31 decode forwards (replays of the captured step) launched
+  # add_rmsnorm once per block, and no other kernel.
+  want_step = dict.fromkeys(want_prefill, 0)
+  want_step["add_rmsnorm"] = config.num_layers
+  if step_launches != want_step or replays != MM_DECODE_STEPS - 1:
+    raise AssertionError(f"A captured decode step launched {step_launches} "
+                         f"(want {want_step}), replayed {replays} times.")
   tokens = torch.stack(out.tokens)
   logits = torch.stack(out.logits)
   if tokens.shape != (2, MM_DECODE_STEPS) or logits.shape != (
@@ -1642,7 +2051,6 @@ def phase_multimodal(dev, kernels: list[dict], profile: bool) -> None:
   encode_ms = marks["encode_start"].elapsed_time(marks["encode_end"])
   ttft_ms = marks["encode_start"].elapsed_time(calls[0][1])
   prefill_ms = calls[0][0].elapsed_time(calls[0][1])
-  decode_ms = calls[0][1].elapsed_time(calls[-1][1]) / (len(calls) - 1)
   spliced = MM_PROMPT_TOKENS + config.vision_tokens
   log(f"  pixels {list(MM_PIXELS)}, prompts 2 x {MM_PROMPT_TOKENS} tokens, "
       f"spliced prefill 2 x {spliced} tokens, {MM_DECODE_STEPS} greedy steps")
@@ -1675,6 +2083,7 @@ def phase_multimodal(dev, kernels: list[dict], profile: bool) -> None:
 
   compare_multimodal_paths(model, encoder, config, pixels, dev)
   compare_epilogue_decode(sampler, prompts, pixels)
+  modal_conversation(sampler, prompts, pixels, by_name)
   if profile:
     profile_multimodal(sampler, prompts, pixels, encode_ms, ttft_ms)
 
@@ -1727,37 +2136,100 @@ EPILOGUE_TURNS = (True, False, False, True, False, True, True, False)
 
 def compare_epilogue_decode(sampler, prompts, pixels) -> None:
   """Decode ms a step with the fused epilogue and with the unfused one, in
-  turns from the same image features: what the kernel does to a step the
-  host bounds."""
+  turns from the same image features: what the kernel does to a step. A
+  captured step keeps the model's code path as captured, so each side has a
+  sampler (and a graph) of its own, warmed up before the turns."""
   features = sampler.encode(pixels)
   model = sampler.model
-  ends = []
-
-  def forward_end(*_):
-    ends.append(torch.cuda.Event(enable_timing=True))
-    ends[-1].record()
-
-  hook = model.register_forward_hook(forward_end)
+  samplers = {True: sampler,
+              False: modal_sampler.ModalSampler(model, sampler.vocab,
+                                                device=sampler.device)}
   per_step = {True: [], False: []}
+  probe = DecodeProbe(_mm_counts)
+
+  def run(fused):
+    for block in model.blocks:
+      block.fused_epilogue = fused
+    samplers[fused](prompts, total_generation_steps=MM_DECODE_STEPS,
+                    img_embed=features, end_sampling_at_eos_token=False)
+    torch.cuda.synchronize()
+
   try:
+    for fused in (True, False):
+      run(fused)
     for fused in EPILOGUE_TURNS:
-      for block in model.blocks:
-        block.fused_epilogue = fused
-      ends.clear()
-      sampler(prompts, total_generation_steps=MM_DECODE_STEPS,
-              img_embed=features, end_sampling_at_eos_token=False)
-      torch.cuda.synchronize()
-      per_step[fused].append(ends[0].elapsed_time(ends[-1])
-                             / (len(ends) - 1))
+      run(fused)
+      per_step[fused].append(probe.decode_ms())
   finally:
-    hook.remove()
+    probe.close()
     for block in model.blocks:
       block.fused_epilogue = True
-  log(f"  decode ms a step, in turns {EPILOGUE_TURNS}: fused epilogue "
-      f"{[round(ms, 3) for ms in per_step[True]]} (median "
+  log(f"  decode ms a step (captured), in turns {EPILOGUE_TURNS}: fused "
+      f"epilogue {[round(ms, 3) for ms in per_step[True]]} (median "
       f"{np.median(per_step[True]):.3f}), unfused "
       f"{[round(ms, 3) for ms in per_step[False]]} (median "
       f"{np.median(per_step[False]):.3f})")
+
+
+def modal_conversation(sampler, prompts, pixels, by_name) -> None:
+  """A pixel first turn with ``return_state``, then a text follow-up from
+  its state: the image is encoded and prefilled once, and the follow-up's
+  decode steps replay add_rmsnorm inside the captured step. Its first
+  logits are held against one teacher-forced call of the whole history
+  with the image."""
+  model = sampler.model
+  config = model.config
+  n_recurrent = sum(
+      bt is common.TemporalBlockType.RECURRENT for bt in config.block_types
+  )
+  rng = np.random.default_rng(SEED + 13)
+  follow_up = [" ".join(f"w{i}" for i in rng.integers(
+      0, config.vocab_size - 4, MODAL_FOLLOWUP_TOKENS)) for _ in prompts]
+  kw = dict(total_generation_steps=MODAL_TURN_STEPS,
+            end_sampling_at_eos_token=False)
+  probe = DecodeProbe(_mm_counts)
+  try:
+    first = sampler(prompts, pixels=pixels, return_state=True, **kw)
+    torch.cuda.synchronize()
+    mha_attention.launches = fused_epilogue.launches = 0
+    lru_scan.launches = wa.launches = 0
+    reset_scan_routes()
+    probe.reset()
+    got = sampler(follow_up, prefix_state=first.state, return_logits=True,
+                  **kw)
+    torch.cuda.synchronize()
+    launches = probe.run_launches(_mm_counts())
+    replays, step_launches = probe.replays, probe.step_launches
+  finally:
+    probe.close()
+  check_scan_routes(lru_scan.launches)
+  want = {"mha_attention": 0, "lru_scan": n_recurrent, "window_attention": 0,
+          "add_rmsnorm": config.num_layers * MODAL_TURN_STEPS}
+  log(f"  image turn ({MODAL_TURN_STEPS} steps, return_state) then a text "
+      f"follow-up of 2 x {MODAL_FOLLOWUP_TOKENS} tokens: launches {launches} "
+      f"(a captured step {step_launches}, replayed {replays} times)")
+  if (launches != want or replays != MODAL_TURN_STEPS - 1
+      or step_launches["add_rmsnorm"] != config.num_layers):
+    raise AssertionError(f"The follow-up launched {launches}, want {want}.")
+  for name in ("lru_scan", "add_rmsnorm"):
+    by_name[name]["launches"] += launches[name]
+
+  # The whole history in one call: BOS + prompt, the first turn's tokens
+  # and the follow-up, with the image spliced after BOS.
+  ids = torch.tensor(
+      [sampler.tokenize(p) + t.tolist() + sampler.vocab.EncodeAsIds(f)
+       for p, t, f in zip(prompts, first.tokens, follow_up)],
+      device=sampler.device)
+  pos = torch.arange(ids.shape[1], device=ids.device)[None].expand(2, -1)
+  with torch.inference_mode():
+    whole, _ = model(ids, pos, image=sampler.encode(pixels),
+                     return_cache=False, last_logits_only=True)
+  rel = _rel_rms(torch.stack([l[0] for l in got.logits]), whole[:, 0])
+  log(f"  follow-up vs the {ids.shape[1]}-token history and the image in "
+      f"one call: first logits rel_rms {rel:.3e} (tolerance "
+      f"{MM_LOGITS_REL_RMS})")
+  if not rel <= MM_LOGITS_REL_RMS:
+    raise AssertionError("The follow-up disagrees with its history.")
 
 
 def profile_multimodal(sampler, prompts, pixels, encode_ms, ttft_ms) -> None:
@@ -1967,39 +2439,53 @@ def phase_sequence_parallel(dev, kernels: list[dict], profile: bool) -> None:
   hooks += [m.register_forward_hook(after_forward) for m in
             (model, ref_model)]
 
-  # Warm-up of both; the SP one keeps the inputs of each kernel's first call.
-  captures = [CaptureFirstCall(lru_scan, "lru_scan_forward"),
-              CaptureFirstCall(wa, "window_attention")]
+  probe = DecodeProbe(_sp_counts)
+  run_kw = dict(total_generation_steps=SP_DECODE_STEPS, return_logits=True,
+                end_sampling_at_eos_token=False)
   try:
-    samplers[True](prompts, total_generation_steps=2)
-  finally:
-    for capture in captures:
-      capture.restore()
-  samplers[False](prompts, total_generation_steps=2)
-  torch.cuda.synchronize()
+    # Warm-up of both with the measured runs' shapes (their decode graphs
+    # are captured here); the SP one keeps the inputs of each kernel's
+    # first call.
+    captures = [CaptureFirstCall(lru_scan, "lru_scan_forward"),
+                CaptureFirstCall(wa, "window_attention")]
+    try:
+      samplers[True](prompts, **run_kw)
+    finally:
+      for capture in captures:
+        capture.restore()
+    samplers[False](prompts, **run_kw)
+    torch.cuda.synchronize()
 
-  calls.clear()
-  torch.cuda.reset_peak_memory_stats()
-  _reset_sp_counts()
-  start = time.perf_counter()
-  out = samplers[True](prompts, total_generation_steps=SP_DECODE_STEPS,
-                       return_logits=True, end_sampling_at_eos_token=False)
-  torch.cuda.synchronize()
-  wall_s = time.perf_counter() - start
-  launches = _sp_counts()
+    calls.clear()
+    probe.reset()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_sp_counts()
+    start = time.perf_counter()
+    out = samplers[True](prompts, **run_kw)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - start
+    launches = probe.run_launches(_sp_counts())
+    replays, step_launches = probe.replays, probe.step_launches
+    decode_ms = probe.decode_ms()
+  finally:
+    probe.close()
   peak_gb = torch.cuda.max_memory_allocated() / 1e9
   sp_calls = list(calls)
 
   want_prefill = {"lru_scan_a_prod": n_recurrent * SP_SHARDS,
                   "window_attention_kv_prefix": n_attention * SP_SHARDS,
                   "lru_scan": 0, "window_attention": 0}
-  log(f"  launches in the run {launches}; after the prefill {sp_calls[0][2]}")
+  log(f"  launches in the run {launches}; after the prefill {sp_calls[0][2]}"
+      f"; a captured decode step {step_launches}, replayed {replays} times")
   check_scan_routes(launches["lru_scan_a_prod"] + launches["lru_scan"])
-  if (len(sp_calls) != SP_DECODE_STEPS or sp_calls[0][2] != want_prefill
-      or launches != want_prefill):
+  if (len(sp_calls) + replays != SP_DECODE_STEPS
+      or replays != SP_DECODE_STEPS - 1 or sp_calls[0][2] != want_prefill
+      or launches != want_prefill or any(step_launches.values())):
     raise AssertionError(
-        f"Launches: {len(sp_calls)} forwards, prefill {sp_calls[0][2]}, run "
-        f"{launches}; want {want_prefill} in the prefill and none in decode.")
+        f"Launches: {len(sp_calls)} forwards and {replays} replays, prefill "
+        f"{sp_calls[0][2]}, run {launches}, a captured step "
+        f"{step_launches}; want {want_prefill} in the prefill and none in "
+        f"decode.")
   tokens = torch.stack(out.tokens)
   logits = torch.stack(out.logits)
   if tokens.shape != (2, SP_DECODE_STEPS) or logits.shape != (
@@ -2008,12 +2494,10 @@ def phase_sequence_parallel(dev, kernels: list[dict], profile: bool) -> None:
   if not torch.isfinite(logits).all():
     raise AssertionError("Non-finite logits.")
   prefill_ms = sp_calls[0][0].elapsed_time(sp_calls[0][1])
-  decode_ms = sp_calls[0][1].elapsed_time(sp_calls[-1][1]) / (
-      len(sp_calls) - 1)
   prompt_rate = sum(SP_PROMPT_TOKENS) / prefill_ms * 1e3
   log(f"  prompts {SP_PROMPT_TOKENS} tokens (padded to "
       f"{max(SP_PROMPT_TOKENS)}, {SP_LOCAL_TOKENS} a shard), "
-      f"{SP_DECODE_STEPS} greedy steps")
+      f"{SP_DECODE_STEPS} greedy steps, decode captured")
   log(f"  SP prefill_ms {prefill_ms:.2f} ({prompt_rate:.0f} prompt tokens/s) "
       f" decode_ms_per_step {decode_ms:.3f}  wall {wall_s:.3f} s  peak "
       f"{peak_gb:.2f} GB (both models' weights included)")
@@ -2862,7 +3346,10 @@ def main() -> int:
   device = phase_card()
   phase_build()
   kernels = [phase_lru(dev), phase_attention(dev)]
-  phase_main_path(dev, kernels, profile)
+  model, vocab, prompts, sampler, single = phase_main_path(dev, kernels,
+                                                           profile)
+  phase_serving(dev, model, vocab, prompts, sampler, single, kernels, profile)
+  del model, vocab, prompts, sampler, single
   torch.cuda.empty_cache()
   kernels += [phase_lru_backward(dev), *phase_attention_backward(dev)]
   torch.cuda.empty_cache()

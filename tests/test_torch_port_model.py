@@ -163,8 +163,8 @@ def test_config_from_numpy_params_equals_jax():
 
 
 def test_port_hygiene(monkeypatch):
-  """The port, its training, vision, parallel, complex and kernel-lab
-  modules included, imports no JAX and nothing of the JAX package, and its entry points refuse to fall
+  """The port, its training, vision, parallel, complex, kernel-lab and
+  tokenizer modules included, imports no JAX and nothing of the JAX package, and its entry points refuse to fall
   back to the CPU without being asked."""
   probe = (
       "import sys; before = set(sys.modules); "
@@ -178,6 +178,8 @@ def test_port_hygiene(monkeypatch):
       "import cadence_gemma_tpu_torch.parallel.sp_attention; "
       "import cadence_gemma_tpu_torch.complex_lib; "
       "import cadence_gemma_tpu_torch.benchmarks.kernel_lab; "
+      "import cadence_gemma_tpu_torch.sp_native; "
+      "import cadence_gemma_tpu_torch.utils.sp_cpp; "
       "new = set(sys.modules) - before; "
       "print(sorted(m for m in new if m.split('.')[0] in "
       "('jax', 'jaxlib', 'flax', 'cadence_gemma_tpu')))"

@@ -262,10 +262,15 @@ def test_modal_sampler_image_arguments(golden):
     s([gold.MM_PROMPT], img_path=DOG, pixels=pixels, **kw)
   with pytest.raises(ValueError, match="equal-length"):
     s(["a photo", "the red car"], img_embed=features.expand(2, -1, -1), **kw)
-  for bad in (dict(prefix_state=object()), dict(return_state=True),
-              dict(constraint=object())):
-    with pytest.raises(NotImplementedError):
-      s([gold.MM_PROMPT], **bad, **kw)
+  # Grammar constraints stay refused; the prefix and state arguments are
+  # checked as JAX checks them, before the encoder runs.
+  with pytest.raises(NotImplementedError):
+    s([gold.MM_PROMPT], constraint=object(), **kw)
+  with pytest.raises(ValueError, match="prefix_state"):
+    s([gold.MM_PROMPT], prefix_state=object(), pixels=pixels, **kw)
+  with pytest.raises(ValueError, match="return_state"):
+    s([gold.MM_PROMPT], pixels=pixels, total_generation_steps=0,
+      return_state=True)
   text_only = modal_sampler.ModalSampler(s.model, s.vocab, device="cpu")
   with pytest.raises(ValueError, match="vision_encoder"):
     text_only([gold.MM_PROMPT], img_path=DOG, **kw)
