@@ -34,6 +34,9 @@ from cadence_gemma_tpu_torch.inference.modal_sampler import ModalSampler
 from cadence_gemma_tpu_torch.inference.sampler import PrefixState
 from cadence_gemma_tpu_torch.inference.sampler import Sampler
 from cadence_gemma_tpu_torch.inference.sampler import SamplerOutput
+from cadence_gemma_tpu_torch.inference.server import ServingFrontend
+from cadence_gemma_tpu_torch.inference.server import ServingHTTPServer
+from cadence_gemma_tpu_torch.inference.serving import ContinuousBatcher
 from cadence_gemma_tpu_torch.models.griffin import Griffin
 from cadence_gemma_tpu_torch.models.vit import DINOV2_LARGE_REG4_384
 from cadence_gemma_tpu_torch.models.vit import SIGLIP_SO400M_384
@@ -46,6 +49,7 @@ from cadence_gemma_tpu_torch.tokenizers import Vocabulary
 from cadence_gemma_tpu_torch.tokenizers import load_sentencepiece
 
 __all__ = [
+    "ContinuousBatcher",
     "DINOV2_LARGE_REG4_384",
     "DinoSigLIPEncoder",
     "Griffin",
@@ -57,6 +61,8 @@ __all__ = [
     "Sampler",
     "SamplerOutput",
     "ScanType",
+    "ServingFrontend",
+    "ServingHTTPServer",
     "ShardingSpec",
     "SimpleVocab",
     "TemporalBlockType",

@@ -10,7 +10,8 @@ records. A record of the LLaVA form::
 becomes one example: the human turns are prompt (masked out of the loss),
 the gpt turns are targets, everything is wrapped in the Gemma chat template
 and truncated or right-padded to ``max_seq_len``. Records with an image
-raise until the vision slice is ported. Pure Python and numpy.
+raise: image SFT is not ported yet (ROADMAP queue 1 item 5). Pure Python and
+numpy.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from cadence_gemma_tpu_torch import common
 
 @dataclasses.dataclass
 class TrainingInput:
-  """One batch: token ids and the loss mask (images are not ported)."""
+  """One batch: token ids and the loss mask (image SFT is not ported)."""
 
   input_tokens: np.ndarray          # [b, t] int32
   target_mask: np.ndarray           # [b, t] bool
@@ -63,8 +64,8 @@ class DatasetBuilder:
     """Tokenizes one conversation; mask is True on answer tokens only."""
     if record.get("image"):
       raise NotImplementedError(
-          "A record with an image needs the vision path, which is not ported "
-          "yet."
+          "A record with an image needs image SFT, which is not ported yet "
+          "(ROADMAP queue 1 item 5)."
       )
     ids: list[int] = [self.vocab.bos_id()]
     mask: list[bool] = [False]

@@ -83,7 +83,8 @@ def _refuse_unported(config: TrainingConfig, mesh) -> None:
 def _to_device(batch, device: torch.device):
   if batch.image_paths or batch.pixels is not None:
     raise NotImplementedError(
-        "Image batches need the vision path, which is not ported yet."
+        "Image batches need image SFT, which is not ported yet (ROADMAP "
+        "queue 1 item 5)."
     )
   return (torch.as_tensor(np.asarray(batch.input_tokens), device=device).long(),
           torch.as_tensor(np.asarray(batch.target_mask), device=device))

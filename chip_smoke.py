@@ -174,12 +174,39 @@ Phases, each of which raises on failure (so the script exits non-zero):
      50, top-p 0.95) and greedy with ``repetition_penalty=1.3``, each
      captured and eager from generators seeded alike: identical tokens and
      generator offsets.
+ 17. continuous batching and the HTTP front end, run after 16 on 4's 2B:
+     (a) a one-slot ``ContinuousBatcher`` with one 3000-token request,
+     whose greedy tokens must equal the solo Sampler's; (b) an eight-slot
+     batcher (``admission_chunks_per_tick=1``, ``per_request_sampling``,
+     ``record_logprobs``) takes 16 requests of 64 tokens that join over its
+     ticks -- a 3000-token single shot (the window kernel), the same length
+     in chunks of 1024, two continuations of one shared 2048-token prefix,
+     four categorical and eight greedy prompts of 300-1500 tokens, each
+     with a repetition penalty (the random weights otherwise repeat a
+     token at probability ~1) -- in two join orders: the counters, reset
+     before each, must show the admissions' LRU and attention launches as
+     their chunks and lengths predict, all on the ring, and none in the
+     ticks; the window kernel's
+     and a continued chunk's scan inputs held against their plain versions;
+     every request's tokens, greedy and categorical, identical between the
+     orders; its recorded log-probabilities held against a teacher-forced
+     batch-1 forward; the greedy ones' token agreement with solo batch-1
+     calls printed; (c) time to the first token from submission (p50,
+     p90), each tick's time by the admission work it did (the stall of one
+     chunk), and the eight-slot tick's ms a step and tokens/s against the
+     Sampler's captured batch-2 step in turns (with ``--profile`` the
+     tick's idle share); (d) ``ServingHTTPServer`` on 127.0.0.1 (its driver
+     thread captures its own tick): ``/v1/generate`` plain (tokens equal to
+     a direct batcher run at the same width) and streaming, a two-turn
+     session, ``/v1/chat/completions`` streaming, ``/v1/completions`` with
+     ``n=2``, ``/v1/cancel``, ``/v1/health`` and ``/metrics``, every body
+     well-formed.
 
   python3 chip_smoke.py --profile
 
 adds kernel time by name (torch.profiler) for the prefill and decode of the
-serving path (and the idle share of captured and eager decode), for one
-training step, for the encode and the
+serving path (and the idle share of captured and eager decode, and of the
+eight-slot batcher's tick), for one training step, for the encode and the
 image-conditioned prefill, for the sequence-parallel prefill and for one
 sequence-parallel training step, with the device's idle share.
 
@@ -197,6 +224,7 @@ import re
 import subprocess
 import sys
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -209,6 +237,8 @@ from cadence_gemma_tpu_torch.benchmarks.kernel_lab import cuda_ms
 from cadence_gemma_tpu_torch.benchmarks.kernel_lab import device_ms
 from cadence_gemma_tpu_torch.inference import modal_sampler
 from cadence_gemma_tpu_torch.inference import sampler as sampler_lib
+from cadence_gemma_tpu_torch.inference import server as server_lib
+from cadence_gemma_tpu_torch.inference import serving
 from cadence_gemma_tpu_torch.models import griffin
 from cadence_gemma_tpu_torch.models import vit
 from cadence_gemma_tpu_torch.ops import fused_epilogue
@@ -446,6 +476,45 @@ SERVING_PENALTY = 1.3
 # The ModalSampler's image turn and its text follow-up (phase 8).
 MODAL_TURN_STEPS = 8
 MODAL_FOLLOWUP_TOKENS = 64
+
+# Continuous batching on the main path's 2B (phase 17): BATCH_SLOTS slots
+# take BATCH_REQUESTS requests of BATCH_STEPS tokens, one joining a tick
+# while a slot is free, in ticks of BATCH_TICK steps: one
+# BATCH_LONG_TOKENS-token single shot, one as long in CHUNK_TOKENS chunks,
+# two continuations of BATCH_CONTINUATION_TOKENS after one PREFIX_TOKENS
+# prefix, BATCH_CATEGORICAL categorical (CATEGORICAL's knobs) and the rest
+# greedy (top_k 1), of BATCH_PROMPT_RANGE tokens.
+BATCH_SLOTS = 8
+BATCH_REQUESTS = 16
+BATCH_STEPS = 64
+BATCH_TICK = 8
+BATCH_LONG_TOKENS = 3000
+BATCH_PROMPT_RANGE = (300, 1500)
+BATCH_CONTINUATION_TOKENS = 200
+BATCH_CATEGORICAL = 4
+# Every batching request (and the one-slot run) carries this repetition
+# penalty: the random-weight 2B repeats the last prompt token at probability
+# ~1 (its tied embedding dominates the soft-capped logits), which would make
+# identical tokens and log-probabilities hold trivially. Divided by it, an
+# emitted token's logit (<= 30) falls below the other tokens' largest.
+BATCH_PENALTY = 30.0
+# Recorded log-probabilities (decode at eight slots, one closed-form LRU step
+# and the ring's einsum a token) against one teacher-forced batch-1 forward
+# (the scan kernel and multi-token attention): the whole bf16 model's
+# rounding at other places, as MODEL_LOGITS_REL_RMS. Relative RMS of the
+# difference over every emitted token.
+LOGPROB_REL_RMS = 5e-2
+# The eight-slot tick (True) and the Sampler's batch-2 decode step (False),
+# in turns; TICK_REPEATS ticks a turn.
+TICK_TURNS = (False, True, True, False)
+TICK_REPEATS = 4
+# The HTTP front end: HTTP_SLOTS slots, HTTP_PROMPT_TOKENS-word prompts,
+# HTTP_STEPS tokens; a streamed request of HTTP_CANCEL_STEPS is cancelled.
+HTTP_SLOTS = 4
+HTTP_PROMPT_TOKENS = 200
+HTTP_STEPS = 16
+HTTP_CANCEL_STEPS = 1024
+HTTP_TIMEOUT_S = 300
 
 
 def log(*args) -> None:
@@ -1334,6 +1403,496 @@ def phase_serving(dev, model, vocab, prompts, sampler, single,
   by_name["lru_scan"]["launches"] += served
   log(f"  LRU launches of the serving runs: {served} (added to the "
       f"lru_scan row)")
+
+
+class CaptureFirstCarry(CaptureFirstCall):
+  """Keeps the arguments of the first scan that takes a carry (``h0``)."""
+
+  def __call__(self, *args, **kwargs):
+    h0 = args[2] if len(args) > 2 else kwargs.get("h0")
+    if self.args is None and h0 is not None and bool(h0.any()):
+      copy = lambda z: z.clone() if isinstance(z, torch.Tensor) else z
+      self.args = tuple(copy(z) for z in args)
+      self.kwargs = {key: copy(z) for key, z in kwargs.items()}
+    self.calls += 1
+    return self.wrapper(*args, **kwargs)
+
+
+def _quantile(xs, q: float) -> float:
+  xs = sorted(xs)
+  return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+class BatcherRun:
+  """Drives one ``ContinuousBatcher`` through a join schedule: one request
+  joins a tick while a slot is free, every tick decodes BATCH_TICK steps.
+
+  Records each request's tokens and log-probabilities, its time to the first
+  token from its submission (host clock; a tick ends in a host fetch), each
+  tick's host time with the admission work it did (prefill calls and their
+  tokens), and the kernel launches of the ticks' decode (``_tick``)."""
+
+  def __init__(self, batcher, sampler, counts):
+    self.batcher, self.sampler, self.counts = batcher, sampler, counts
+    self.tokens, self.logprobs, self.ttft_ms = {}, {}, {}
+    self.ticks = []  # (host ms, [(prefill call, tokens), ...])
+    self.tick_launches = {k: 0 for k in counts()}
+    self._submitted, self._first, self._work = {}, {}, []
+    batcher.stream_callback = self._on_tokens
+    self._saved = (sampler._prefill_chunk_step, sampler._prefill)
+    chunk_step, prefill = self._saved
+
+    def counted_chunk(tokens, *args, **kwargs):
+      self._work.append(("chunk", tokens.shape[1]))
+      return chunk_step(tokens, *args, **kwargs)
+
+    def counted_prefill(tokens, *args, **kwargs):
+      self._work.append(("final", tokens.shape[1]))
+      return prefill(tokens, *args, **kwargs)
+
+    sampler._prefill_chunk_step = counted_chunk
+    sampler._prefill = counted_prefill
+    tick = batcher._tick
+
+    def counted_tick(n):
+      before = counts()
+      tick(n)
+      after = counts()
+      for k in after:
+        self.tick_launches[k] += after[k] - before[k]
+
+    batcher._tick = counted_tick
+
+  def close(self) -> None:
+    del self.sampler._prefill_chunk_step, self.sampler._prefill
+    del self.batcher._tick
+
+  def _on_tokens(self, rid, tokens, done) -> None:
+    if tokens and rid not in self._first:
+      self._first[rid] = time.perf_counter()
+
+  def run(self, specs: list[dict]) -> None:
+    b, queue, names = self.batcher, list(specs), {}
+    while queue or b.active_count:
+      if queue and b.has_capacity:
+        spec = queue.pop(0)
+        # The chunk plan is made at add_request: the sampler's chunk size
+        # is set for the chunked request alone.
+        self.sampler.prefill_chunk_size = spec["chunk"]
+        try:
+          rid = b.add_request(spec["prompt"], **spec["kwargs"]())
+        finally:
+          self.sampler.prefill_chunk_size = None
+        names[rid] = spec["name"]
+        self._submitted[rid] = time.perf_counter()
+      self._work = []
+      start = time.perf_counter()
+      b.step(BATCH_TICK)
+      self.ticks.append(((time.perf_counter() - start) * 1e3, self._work))
+      for rid, tokens, _ in b.pop_finished():
+        name = names[rid]
+        self.tokens[name] = tokens
+        self.logprobs[name] = b.take_logprobs(rid)["token_logprobs"]
+        self.ttft_ms[name] = (self._first[rid] - self._submitted[rid]) * 1e3
+
+
+def _batch_specs(vocab, config, prefix_state, prefix_ids, seed: int):
+  """The 16 requests of phase 17 (b): name, prompt, the chunk size of its
+  plan, its add_request arguments (a fresh generator each run), and its
+  token ids as the model sees them (for the teacher-forced check)."""
+  rng = np.random.default_rng(seed)
+
+  def words(n):
+    return " ".join(f"w{i}" for i in rng.integers(0, config.vocab_size - 4, n))
+
+  specs = []
+
+  def add(name, n_tokens, chunk=None, categorical=False, prefix=False):
+    text = words(n_tokens - (0 if prefix else 1))
+    gen_seed = seed + len(specs)
+    greedy = {} if categorical else {"top_k": 1}
+
+    def kwargs():
+      kw = dict(generator=torch.Generator("cuda").manual_seed(gen_seed),
+                repetition_penalty=BATCH_PENALTY, **greedy)
+      if prefix:
+        kw["prefix_state"] = prefix_state
+      return kw
+
+    ids = (prefix_ids + vocab.EncodeAsIds(text) if prefix
+           else [vocab.bos_id()] + vocab.EncodeAsIds(text))
+    specs.append(dict(name=name, prompt=text, chunk=chunk, kwargs=kwargs,
+                      ids=ids, categorical=categorical, prefix=prefix,
+                      prefill_calls=-(-n_tokens // chunk) if chunk else 1,
+                      window=not prefix and chunk is None
+                      and n_tokens > ATTN_WINDOW))
+
+  add("single_3000", BATCH_LONG_TOKENS)
+  add("chunked_3000", BATCH_LONG_TOKENS, chunk=CHUNK_TOKENS)
+  for i in range(2):
+    add(f"prefix_{i}", BATCH_CONTINUATION_TOKENS, prefix=True)
+  lengths = rng.integers(*BATCH_PROMPT_RANGE,
+                         size=BATCH_REQUESTS - len(specs))
+  for i, n in enumerate(lengths):
+    categorical = i < BATCH_CATEGORICAL
+    add(f"{'categorical' if categorical else 'greedy'}_{i}", int(n),
+        categorical=categorical)
+  return specs
+
+
+def _teacher_logprobs(model, ids: list[int], tokens: list[int], dev):
+  """Log-probabilities of ``tokens`` after ``ids`` from one batch-1 forward
+  of the prompt (its cache) and one of the tokens, teacher-forced."""
+  n = len(ids)
+  with torch.inference_mode():
+    first, cache = model(torch.tensor([ids], device=dev),
+                         torch.arange(n, device=dev)[None],
+                         last_logits_only=True)
+    rest, _ = model(torch.tensor([tokens[:-1]], device=dev),
+                    torch.arange(n, n + len(tokens) - 1, device=dev)[None],
+                    cache, return_cache=False)
+  logits = torch.cat([first, rest], dim=1)[0].float()
+  lp = torch.log_softmax(logits, dim=-1)
+  return lp.gather(1, torch.tensor(tokens, device=dev)[:, None])[:, 0]
+
+
+def phase_batcher(dev, model, vocab, prompts, sampler, kernels: list[dict],
+                  profile: bool) -> None:
+  """Continuous batching and the HTTP front end on the main path's 2B."""
+  config = model.config
+  n_recurrent = sum(
+      bt is common.TemporalBlockType.RECURRENT for bt in config.block_types
+  )
+  n_attention = config.num_layers - n_recurrent
+  by_name = {kernel["name"]: kernel for kernel in kernels}
+  counts = lambda: {"lru_scan": lru_scan.launches,  # noqa: E731
+                    "window_attention": wa.launches}
+  log(f"== continuous batching on the main path's 2B: one slot against the "
+      f"solo Sampler, {BATCH_SLOTS} slots x {BATCH_REQUESTS} requests in two "
+      f"join orders, the {BATCH_SLOTS}-slot tick against the batch-2 decode "
+      f"step, the HTTP front end")
+  served = {k: 0 for k in counts()}
+
+  # (a) One slot against the solo Sampler: the same batch-1 prefill, and a
+  # captured one-row decode step on each side.
+  rng = np.random.default_rng(SEED + 60)
+  one = " ".join(f"w{i}" for i in rng.integers(0, config.vocab_size - 4,
+                                               BATCH_LONG_TOKENS - 1))
+  penalized = sampler_lib.Sampler(model, vocab, device=dev,
+                                  repetition_penalty=BATCH_PENALTY)
+  solo = penalized([one], total_generation_steps=DECODE_STEPS,
+                   end_sampling_at_eos_token=False).tokens[0].tolist()
+  b1 = serving.ContinuousBatcher(penalized, num_slots=1,
+                                 max_steps_default=DECODE_STEPS)
+  before = counts()
+  b1.add_request(one)
+  ((_, got, _),) = b1.run_until_drained(BATCH_TICK)
+  for k, v in counts().items():
+    served[k] += v - before[k]
+  log(f"  (a) one slot, a {BATCH_LONG_TOKENS}-token prompt, {DECODE_STEPS} "
+      f"greedy steps, repetition penalty {BATCH_PENALTY}: tokens identical to "
+      f"the solo Sampler's {got == solo}; {len(set(got))} distinct tokens, "
+      f"first {got[:6]}")
+  if got != solo or len(got) != len(solo):
+    raise AssertionError("The one-slot batcher and the solo Sampler "
+                         "disagree.")
+  del b1, penalized
+
+  # (b) Eight slots, sixteen requests joining over the ticks, twice.
+  cat = sampler_lib.Sampler(model, vocab, device=dev,
+                            deterministic_sampling=False, **CATEGORICAL)
+  prefix_text = " ".join(f"w{i}" for i in rng.integers(
+      0, config.vocab_size - 4, PREFIX_TOKENS - 1))
+  prefix_state = cat.prefill_prefix(prefix_text)
+  prefix_ids = cat.tokenize(prefix_text)
+  specs = _batch_specs(vocab, config, prefix_state, prefix_ids, SEED + 61)
+  want = {"lru_scan": n_recurrent * sum(s["prefill_calls"] for s in specs),
+          "window_attention": n_attention * sum(s["window"] for s in specs)}
+  orders = {"A": specs, "B": specs[::-1][1::2] + specs[::-1][0::2]}
+  runs = {}
+  for label, order in orders.items():
+    batcher = serving.ContinuousBatcher(
+        cat, num_slots=BATCH_SLOTS, max_steps_default=BATCH_STEPS,
+        admission_chunks_per_tick=1, per_request_sampling=True,
+        record_logprobs=1)
+    run = BatcherRun(batcher, cat, counts)
+    window_cap = CaptureFirstCall(wa, "window_attention")
+    carry_cap = CaptureFirstCarry(lru_scan, "lru_scan")
+    lru_scan.launches = wa.launches = 0
+    reset_scan_routes()
+    start = time.perf_counter()
+    try:
+      run.run(order)
+      torch.cuda.synchronize()
+    finally:
+      window_cap.restore()
+      carry_cap.restore()
+      run.close()
+    wall_s = time.perf_counter() - start
+    got = counts()
+    check_scan_routes(got["lru_scan"])
+    for k, v in got.items():
+      served[k] += v
+    log(f"  (b) order {label}: {len(run.ticks)} ticks in {wall_s:.2f} s; "
+        f"launches {got} (want {want}), in the ticks {run.tick_launches}")
+    if got != want or any(run.tick_launches.values()):
+      raise AssertionError(f"Order {label} launched {got} (ticks "
+                           f"{run.tick_launches}), want {want} and none in "
+                           f"the ticks.")
+    if sorted(run.tokens) != sorted(s["name"] for s in specs):
+      raise AssertionError(f"Order {label} finished {sorted(run.tokens)}.")
+    if label == "A":
+      err = max(check_attention(*window_cap.args, **window_cap.kwargs))
+      by_name["window_attention"]["max_abs_err"] = max(
+          by_name["window_attention"]["max_abs_err"], err)
+      err = _check_carry(carry_cap, "an admission's continued chunk")
+      by_name["lru_scan"]["max_abs_err"] = max(
+          by_name["lru_scan"]["max_abs_err"], err)
+    runs[label] = (run, batcher)
+
+  run_a, batcher_a = runs["A"]
+  run_b, _ = runs["B"]
+  same = {s["name"]: run_a.tokens[s["name"]] == run_b.tokens[s["name"]]
+          for s in specs}
+  distinct = [len(set(t)) for t in run_a.tokens.values()]
+  log(f"  distinct tokens a request: min {min(distinct)}, median "
+      f"{int(np.median(distinct))}, max {max(distinct)} of {BATCH_STEPS}")
+  log(f"  tokens identical between the join orders: "
+      f"{sum(same.values())} of {len(same)} (greedy "
+      f"{sum(v for n, v in same.items() if 'categorical' not in n)}, "
+      f"categorical {sum(v for n, v in same.items() if 'categorical' in n)})")
+  if not all(same.values()):
+    raise AssertionError(f"Join orders disagree: "
+                         f"{[n for n, v in same.items() if not v]}.")
+  diffs, refs = [], []
+  for s in specs:
+    tokens = run_a.tokens[s["name"]]
+    if not (len(tokens) == BATCH_STEPS or (
+        0 < len(tokens) < BATCH_STEPS and tokens[-1] == vocab.eos_id())):
+      raise AssertionError(f"{s['name']} emitted {len(tokens)} tokens.")
+    teacher = _teacher_logprobs(model, s["ids"], tokens, dev)
+    got_lp = torch.tensor(run_a.logprobs[s["name"]], device=dev)
+    diffs.append(got_lp - teacher)
+    refs.append(teacher)
+  diff, ref = torch.cat(diffs), torch.cat(refs)
+  rel = (diff.square().mean().sqrt() / ref.square().mean().sqrt()).item()
+  log(f"  recorded log-probabilities vs one teacher-forced batch-1 forward "
+      f"of each request's prompt and tokens ({diff.numel()} tokens): rel_rms "
+      f"{rel:.3e} (tolerance {LOGPROB_REL_RMS}), max_abs "
+      f"{diff.abs().max().item():.3e}, mean log-probability "
+      f"{ref.mean().item():.3f}")
+  if not rel <= LOGPROB_REL_RMS:
+    raise AssertionError("Recorded log-probabilities disagree with the "
+                         "teacher-forced forward.")
+  # Against solo batch-1 calls the shapes differ (cuBLAS may take other
+  # algorithms for one row than for eight): printed, not required.
+  solo_sampler = sampler_lib.Sampler(model, vocab, device=dev,
+                                     repetition_penalty=BATCH_PENALTY)
+  agree = total = 0
+  for s in specs:
+    if s["categorical"]:
+      continue
+    kw = {"prefix_state": prefix_state} if s["prefix"] else {}
+    want_tokens = solo_sampler([s["prompt"]], BATCH_STEPS,
+                               **kw).tokens[0].tolist()
+    got_tokens = run_a.tokens[s["name"]]
+    agree += sum(a == b for a, b in zip(got_tokens, want_tokens))
+    total += len(got_tokens)
+  log(f"  greedy requests against solo batch-1 Sampler calls (penalty "
+      f"{BATCH_PENALTY}): token agreement {agree} of {total}")
+  del solo_sampler
+
+  # (c) Numbers: time to the first token under load, the admission stall,
+  # and the eight-slot tick against the batch-2 decode step in turns.
+  ttfts = [ms for r in (run_a, run_b) for ms in r.ttft_ms.values()]
+  log(f"  time to the first token from submission under load (both orders, "
+      f"{len(ttfts)} requests): p50 {_quantile(ttfts, 0.5):.1f} ms, p90 "
+      f"{_quantile(ttfts, 0.9):.1f} ms, max {max(ttfts):.1f} ms")
+  kinds = {}
+  for ms, work in run_a.ticks[1:] + run_b.ticks[1:]:  # not the captures
+    if not work:
+      key = "no admission"
+    elif work == [("chunk", CHUNK_TOKENS)]:
+      key = f"one {CHUNK_TOKENS}-token chunk"
+    elif len(work) == 1 and work[0][0] == "final":
+      key = ("a 3000-token single shot" if work[0][1] > ATTN_WINDOW
+             else "a final prefill of <= 1500 tokens")
+    else:
+      key = "other"
+    kinds.setdefault(key, []).append(ms)
+  idle_tick = float(np.median(kinds["no admission"]))
+  for key, values in sorted(kinds.items()):
+    med = float(np.median(values))
+    log(f"    tick ({BATCH_TICK} steps) with {key}: median {med:.2f} ms over "
+        f"{len(values)} ticks (stall {med - idle_tick:+.2f} ms)")
+
+  steady = serving.ContinuousBatcher(sampler, num_slots=BATCH_SLOTS,
+                                     max_steps_default=4096)
+  for i in range(BATCH_SLOTS):
+    steady.add_request(" ".join(f"w{j}" for j in rng.integers(
+        0, config.vocab_size - 4, 300)))
+  steady.step(BATCH_TICK)  # admits all eight and captures the tick
+  probe = DecodeProbe(counts)
+  tick_ms, step2_ms = [], []
+  try:
+    for tick in TICK_TURNS:
+      if tick:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        with torch.inference_mode():
+          for _ in range(TICK_REPEATS):
+            steady._tick(BATCH_TICK)
+        end.record()
+        end.synchronize()
+        tick_ms.append(start.elapsed_time(end) / TICK_REPEATS)
+      else:
+        sampler(prompts, total_generation_steps=DECODE_STEPS,
+                end_sampling_at_eos_token=False)
+        step2_ms.append(probe.decode_ms())
+  finally:
+    probe.close()
+  live = steady.active_count
+  per_step = [ms / BATCH_TICK for ms in tick_ms]
+  log(f"  decode ms a step in turns {TICK_TURNS} (True: the "
+      f"{BATCH_SLOTS}-slot tick of {BATCH_TICK} steps, {live} rows live, "
+      f"CUDA events around {TICK_REPEATS} ticks; False: the Sampler's "
+      f"captured batch-2 step): {BATCH_SLOTS} slots "
+      f"{[round(ms, 3) for ms in per_step]}, batch 2 "
+      f"{[round(ms, 3) for ms in step2_ms]}; ratio of medians "
+      f"{np.median(per_step) / np.median(step2_ms):.3f}; aggregate "
+      f"{live * 1e3 / np.median(per_step):.1f} tokens/s at "
+      f"{BATCH_SLOTS} slots against {2 * 1e3 / np.median(step2_ms):.1f} at "
+      f"batch 2")
+  if live != BATCH_SLOTS:
+    raise AssertionError(f"{live} of {BATCH_SLOTS} steady rows live.")
+  if profile:
+    with torch.inference_mode():
+      profile_call(lambda: steady._tick(BATCH_TICK),
+                   float(np.median(tick_ms)),
+                   f"{BATCH_SLOTS}-slot tick of {BATCH_TICK} steps")
+  del steady, runs, run_a, run_b, batcher_a, prefix_state
+
+  # (d) The HTTP front end, on a driver thread that captures its own tick.
+  http_rng = np.random.default_rng(SEED + 62)
+  http_prompt = " ".join(f"w{i}" for i in http_rng.integers(
+      0, config.vocab_size - 4, HTTP_PROMPT_TOKENS))
+  direct = serving.ContinuousBatcher(sampler, num_slots=HTTP_SLOTS,
+                                     max_steps_default=HTTP_STEPS,
+                                     preserve_states=True,
+                                     per_request_sampling=True)
+  direct.add_request(http_prompt, repetition_penalty=BATCH_PENALTY)
+  ((_, direct_tokens, _),) = direct.run_until_drained(BATCH_TICK)
+  del direct
+  frontend = server_lib.ServingFrontend(
+      serving.ContinuousBatcher(sampler, num_slots=HTTP_SLOTS,
+                                max_steps_default=HTTP_STEPS,
+                                preserve_states=True,
+                                per_request_sampling=True,
+                                reuse_programs=False),
+      step_size=BATCH_TICK)
+  srv = server_lib.ServingHTTPServer(frontend, host="127.0.0.1", port=0,
+                                     model_name="recurrentgemma-2b")
+  before = counts()
+  try:
+    http_checks(srv.port, http_prompt, direct_tokens)
+  finally:
+    srv.close()
+  for k, v in counts().items():
+    served[k] += v - before[k]
+  if frontend._error is not None:
+    raise AssertionError(f"The serving driver died: {frontend._error}")
+
+  for name in served:
+    by_name[name]["launches"] += served[name]
+  log(f"  launches of the batching runs: {served} (added to their rows)")
+
+
+def _http(port: int, path: str, body: dict | None = None, stream=False):
+  url = f"http://127.0.0.1:{port}{path}"
+  data = None if body is None else json.dumps(body).encode()
+  req = urllib.request.Request(url, data=data,
+                               headers={"Content-Type": "application/json"})
+  resp = urllib.request.urlopen(req, timeout=HTTP_TIMEOUT_S)
+  if stream:
+    return resp
+  with resp:
+    raw = resp.read()
+    return (resp.status, resp.headers["Content-Type"],
+            json.loads(raw) if raw.startswith(b"{") else raw.decode())
+
+
+def http_checks(port: int, prompt: str, direct_tokens: list[int]) -> None:
+  """Every route of the front end once; each body must be well-formed.
+  Generation requests carry BATCH_PENALTY (a per-request sampling
+  batcher)."""
+  gen = {"max_tokens": HTTP_STEPS, "repetition_penalty": BATCH_PENALTY}
+  status, _, out = _http(port, "/v1/generate", {"prompt": prompt, **gen})
+  log(f"  (d) /v1/generate: status {status}, {len(out['tokens'])} tokens "
+      f"({len(set(out['tokens']))} distinct), identical to a direct "
+      f"{HTTP_SLOTS}-slot batcher run {out['tokens'] == direct_tokens}")
+  if status != 200 or out["tokens"] != direct_tokens or not isinstance(
+      out["text"], str):
+    raise AssertionError(f"/v1/generate answered {out}.")
+  with _http(port, "/v1/generate", {"prompt": prompt, "stream": True, **gen},
+             stream=True) as resp:
+    lines = [json.loads(line) for line in resp]
+  streamed = [t for line in lines for t in line.get("tokens", [])]
+  log(f"  /v1/generate streaming: {len(lines)} NDJSON lines, tokens equal "
+      f"to the plain call's {streamed == direct_tokens}")
+  if not lines[-1].get("done") or streamed != direct_tokens:
+    raise AssertionError(f"Streaming /v1/generate answered {lines}.")
+  turns = []
+  for text in (prompt, "w1 w2 w3"):
+    _, _, out = _http(port, "/v1/generate",
+                      {"prompt": text, "session": "s1", **gen})
+    turns.append(out["tokens"])
+  log(f"  a two-turn session: {[len(t) for t in turns]} tokens; turn 1 as "
+      f"the plain call {turns[0] == direct_tokens}")
+  if turns[0] != direct_tokens or not turns[1]:
+    raise AssertionError(f"The session answered {turns}.")
+  events = []
+  with _http(port, "/v1/chat/completions", {
+      "messages": [{"role": "user", "content": prompt}], "stream": True,
+      **gen}, stream=True) as resp:
+    for line in resp:
+      line = line.decode().strip()
+      if line.startswith("data: "):
+        events.append(line[len("data: "):])
+  chunks = [json.loads(e) for e in events[:-1]]
+  content = "".join(c["choices"][0]["delta"].get("content", "")
+                    for c in chunks)
+  log(f"  /v1/chat/completions streaming: {len(chunks)} chunks, "
+      f"{len(content)} characters, finish "
+      f"{chunks[-1]['choices'][0]['finish_reason']}")
+  if events[-1] != "[DONE]" or not content or chunks[-1]["choices"][0][
+      "finish_reason"] not in ("stop", "length"):
+    raise AssertionError(f"Chat streaming answered {events}.")
+  _, _, out = _http(port, "/v1/completions", {"prompt": prompt, "n": 2, **gen})
+  texts = [c["text"] for c in out["choices"]]
+  log(f"  /v1/completions n=2: choices {[c['index'] for c in out['choices']]}"
+      f", usage {out['usage']}, texts identical (greedy) "
+      f"{texts[0] == texts[1]}")
+  if [c["index"] for c in out["choices"]] != [0, 1] or texts[0] != texts[1]:
+    raise AssertionError(f"/v1/completions answered {out}.")
+  with _http(port, "/v1/generate",
+             {"prompt": prompt, "stream": True, **gen,
+              "max_tokens": HTTP_CANCEL_STEPS}, stream=True) as resp:
+    first = json.loads(resp.readline())
+    _, _, cancelled = _http(port, "/v1/cancel", {"id": first["id"]})
+    rest = [json.loads(line) for line in resp]
+  log(f"  /v1/cancel of request {first['id']} after its first "
+      f"{len(first['tokens'])} tokens: {cancelled}; the stream ended with "
+      f"{rest[-1]}")
+  if cancelled != {"cancelled": True} or not rest[-1].get("cancelled"):
+    raise AssertionError("/v1/cancel did not end the stream.")
+  _, _, health = _http(port, "/v1/health")
+  _, kind, metrics = _http(port, "/metrics")
+  log(f"  /v1/health: {health}")
+  log(f"  /metrics ({kind}): {len(metrics.splitlines())} lines, "
+      f"{[l for l in metrics.splitlines() if 'completed' in l]}")
+  if not (health["ok"] and health["completed"] >= 6
+          and health["cancelled"] == 1 and "cadence_up 1" in metrics):
+    raise AssertionError("/v1/health or /metrics is wrong.")
 
 
 def profile_call(fn, wall_ms: float, label: str) -> None:
@@ -3349,6 +3908,7 @@ def main() -> int:
   model, vocab, prompts, sampler, single = phase_main_path(dev, kernels,
                                                            profile)
   phase_serving(dev, model, vocab, prompts, sampler, single, kernels, profile)
+  phase_batcher(dev, model, vocab, prompts, sampler, kernels, profile)
   del model, vocab, prompts, sampler, single
   torch.cuda.empty_cache()
   kernels += [phase_lru_backward(dev), *phase_attention_backward(dev)]

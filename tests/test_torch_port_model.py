@@ -163,8 +163,8 @@ def test_config_from_numpy_params_equals_jax():
 
 
 def test_port_hygiene(monkeypatch):
-  """The port, its training, vision, parallel, complex, kernel-lab and
-  tokenizer modules included, imports no JAX and nothing of the JAX package, and its entry points refuse to fall
+  """The port, its training, vision, serving, parallel, complex, kernel-lab
+  and tokenizer modules included, imports no JAX and nothing of the JAX package, and its entry points refuse to fall
   back to the CPU without being asked."""
   probe = (
       "import sys; before = set(sys.modules); "
@@ -174,6 +174,8 @@ def test_port_hygiene(monkeypatch):
       "import cadence_gemma_tpu_torch.training.data; "
       "import cadence_gemma_tpu_torch.models.vit; "
       "import cadence_gemma_tpu_torch.inference.modal_sampler; "
+      "import cadence_gemma_tpu_torch.inference.serving; "
+      "import cadence_gemma_tpu_torch.inference.server; "
       "import cadence_gemma_tpu_torch.parallel.sharding; "
       "import cadence_gemma_tpu_torch.parallel.sp_attention; "
       "import cadence_gemma_tpu_torch.complex_lib; "
