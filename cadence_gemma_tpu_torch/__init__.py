@@ -9,9 +9,11 @@ over a ``make_mesh`` mesh) on the Griffin / RecurrentGemma backbone. Plain
 tensor code is PyTorch; the kernels -- the RG-LRU scan (with the running
 product of ``a`` for sequence parallelism) and its cotangent scan, the
 windowed multi-query flash attention (with a sequence shard's key halo) and
-its dq and dk/dv backward, the towers' bidirectional multi-head attention
-and the fused residual add + RMSNorm -- are hand-written CUDA C++
-(``csrc/``), built by ``nvcc`` at first use. The scan also takes
+its dq and dk/dv backward, the towers' bidirectional multi-head attention,
+the fused residual add + RMSNorm and the weight-only int8 product of int8
+serving (``Griffin(quantized=True)``, ``quantize_params``,
+``prefill_act_quant``) -- are hand-written CUDA C++ (``csrc/``), built by
+``nvcc`` at first use. The scan also takes
 complex-valued operands (``complex_lib.Complex`` pairs of real tensors, the
 complex kernels of ``csrc/lru_scan_complex.cu``), and
 ``benchmarks.kernel_lab`` times the scan's two tuning variants. Entry
@@ -42,6 +44,7 @@ from cadence_gemma_tpu_torch.models.vit import DINOV2_LARGE_REG4_384
 from cadence_gemma_tpu_torch.models.vit import SIGLIP_SO400M_384
 from cadence_gemma_tpu_torch.models.vit import DinoSigLIPEncoder
 from cadence_gemma_tpu_torch.models.vit import ViTConfig
+from cadence_gemma_tpu_torch.ops.quantization import quantize_params
 from cadence_gemma_tpu_torch.parallel.sharding import ShardingSpec
 from cadence_gemma_tpu_torch.parallel.sharding import make_mesh
 from cadence_gemma_tpu_torch.tokenizers import SimpleVocab
@@ -73,5 +76,6 @@ __all__ = [
     "griffin_from_flax_params",
     "load_sentencepiece",
     "make_mesh",
+    "quantize_params",
     "read_npz_params",
 ]

@@ -23,7 +23,8 @@ import shutil
 import tempfile
 
 KERNELS = ("lru_scan", "window_attention", "window_attention_backward",
-           "mha_attention", "add_rmsnorm", "lru_scan_complex", "kernel_lab")
+           "mha_attention", "add_rmsnorm", "lru_scan_complex", "kernel_lab",
+           "int8_matmul")
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
@@ -104,7 +105,8 @@ def function(name: str, symbol: str, signature: str):
   """C function ``symbol`` of kernel ``name``, built and loaded if needed.
 
   ``signature`` spells the argument types, one letter each: ``p`` a pointer
-  or stream (``c_void_p``), ``i`` an ``int``, ``f`` a ``float``. Every
+  or stream (``c_void_p``), ``i`` an ``int``, ``l`` a ``long long``, ``f``
+  a ``float``. Every
   function returns its ``cudaError_t`` as an ``int``.
   """
   import ctypes  # pylint: disable=import-outside-toplevel
@@ -119,7 +121,8 @@ def function(name: str, symbol: str, signature: str):
       build([name])
     lib = ctypes.CDLL(str(path))
     _loaded[name] = lib
-  types = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+  types = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong,
+           "f": ctypes.c_float}
   fn = getattr(lib, symbol)
   fn.argtypes = [types[c] for c in signature]
   fn.restype = ctypes.c_int

@@ -9,6 +9,13 @@ A flax parameter tree -- nested dicts whose leaves are numpy arrays, keyed
 convolution ``kernel`` (flax HWIO) to PyTorch's OIHW. A missing, unexpected
 or misshaped leaf raises.
 
+A quantized tree (JAX's ``quantize_params``) carries ``name_q`` (int8) and
+``name_scale`` (float32) leaves: ``kernel_q`` is transposed as ``kernel``
+is, and the 3-D ``w_q`` of the fused up-projection ``(c, d, D)`` and of the
+gates' block-diagonal ``(h, i, j)`` to the contraction-last ``(c, D, d)``
+and ``(h, j, i)`` the port's int8 kernel reads. int8 leaves keep their
+dtype.
+
 :func:`read_npz_params` reads the flattened ``p['blocks.0']['...']`` key
 scheme of ``np.savez`` files written from ``jax.tree_util.keystr`` paths
 (``tests/fixtures/golden_tiny.npz``), with numpy only.
@@ -67,7 +74,10 @@ def state_dict_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
   out = {}
   for name, value in _flatten(params).items():
     tensor = _to_tensor(value)
-    if name.endswith(".kernel"):
+    leaf = name.rsplit(".", 1)[-1]
+    if leaf == "w_q" and tensor.ndim == 3:
+      tensor = tensor.transpose(1, 2)
+    elif leaf in ("kernel", "kernel_q"):
       if tensor.ndim == 2:
         tensor = tensor.T
       elif tensor.ndim == 4:  # HWIO -> OIHW
@@ -97,7 +107,18 @@ def load_flax_params(model: torch.nn.Module, params: Mapping[str, Any]) -> None:
           f"{name}: flax leaf has shape {tuple(source[name].shape)} after "
           f"layout conversion, the model expects {tuple(dest.shape)}."
       )
+    if (source[name].dtype == torch.int8) != (dest.dtype == torch.int8):
+      raise ValueError(
+          f"{name}: flax leaf is {source[name].dtype}, the model holds "
+          f"{dest.dtype}; int8 weights load only into int8 parameters."
+      )
     dest.copy_(source[name])
+
+
+def is_quantized(params: Mapping[str, Any]) -> bool:
+  """Whether a flax tree holds int8 leaves of ``quantize_params``."""
+  params = params.get("params", params)
+  return any(name.endswith("_q") for name in _flatten(params))
 
 
 def griffin_from_flax_params(
@@ -108,21 +129,36 @@ def griffin_from_flax_params(
     use_flash_attention: bool | None = None,
     fused_epilogue: bool = False,
     scan_sharding_spec: sharding.ShardingSpec | None = None,
+    quantized: bool | None = None,
+    act_quant: bool = False,
 ) -> griffin.Griffin:
   """Builds a ``Griffin`` holding a flax tree's weights.
 
   ``config`` defaults to the one the tree's shapes imply
   (``GriffinConfig.from_flax_params_or_variables``); ``device=None`` means
   CUDA, and raises when there is none. ``scan_sharding_spec`` adds no
-  weights; it is passed to the ``Griffin``.
+  weights; it is passed to the ``Griffin``. ``quantized=None`` builds a
+  quantized model when the tree holds int8 (``_q``) leaves. A quantized
+  tree has no ``input_embedding`` to read the config from, so it needs
+  ``config`` (JAX's ``examples/serve.py`` reads it from the bfloat16 tree
+  before quantizing).
   """
   device = griffin.resolve_device(device)
+  if quantized is None:
+    quantized = is_quantized(params)
   if config is None:
+    if is_quantized(params):
+      raise ValueError(
+          "A quantized parameter tree has no input_embedding to infer the "
+          "config from; pass config= (read it from the bfloat16 tree before "
+          "quantizing)."
+      )
     config = common.GriffinConfig.from_flax_params_or_variables(params)
   model = griffin.Griffin(
       config, device="meta", dtype=dtype,
       use_flash_attention=use_flash_attention, fused_epilogue=fused_epilogue,
-      scan_sharding_spec=scan_sharding_spec,
+      scan_sharding_spec=scan_sharding_spec, quantized=quantized,
+      act_quant=act_quant,
   )
   model.to_empty(device=device)
   load_flax_params(model, params)
@@ -135,14 +171,22 @@ def encoder_from_flax_params(
     siglip_config: vit.ViTConfig = vit.SIGLIP_SO400M_384,
     device=None,
     dtype: torch.dtype = torch.bfloat16,
+    quantized: bool | None = None,
+    act_quant: bool = False,
+    softmax_bf16: bool = False,
 ) -> vit.DinoSigLIPEncoder:
   """Builds a ``DinoSigLIPEncoder`` holding a JAX encoder's weights
   (``read_npz_params(path, "v")`` reads them from an ``.npz``) in float32,
   computing in ``dtype``; ``device=None`` means CUDA, and raises when there
-  is none."""
+  is none. ``quantized=None`` builds int8 towers when the tree holds int8
+  leaves (JAX's ``quantize_params(vparams)``); ``act_quant`` and
+  ``softmax_bf16`` are :class:`vit.DinoSigLIPEncoder`'s."""
   device = griffin.resolve_device(device)
+  if quantized is None:
+    quantized = is_quantized(vparams)
   encoder = vit.DinoSigLIPEncoder(
-      dino_config, siglip_config, device="meta", dtype=dtype
+      dino_config, siglip_config, device="meta", dtype=dtype,
+      quantized=quantized, act_quant=act_quant, softmax_bf16=softmax_bf16,
   )
   encoder.to_empty(device=device)
   load_flax_params(encoder, vparams)

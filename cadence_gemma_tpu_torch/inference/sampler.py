@@ -40,8 +40,15 @@ length. When it does not, each attention block falls back to its unsharded
 path (``can_sequence_shard`` is false), as in JAX, but the RG-LRU scan
 raises ``ValueError``, as JAX's ``shard_map`` does. Decode steps (one token)
 never shard.
-Grammar constraints, tensor-parallel serving (``mesh``) and int8
-activations in the prefill (``prefill_act_quant``) are not ported yet.
+
+With ``prefill_act_quant`` a quantized model runs every prefill forward --
+the single-shot prompt, each chunk, a prefix, a continuation, and the
+continuous batcher's admissions, which go through the same methods -- with
+int8 activations as well (:meth:`Griffin.act_quant_view`, over the same
+weights), while every decode step, the captured ones included, stays
+weight-only.
+Grammar constraints and tensor-parallel serving (``mesh``) are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -325,6 +332,10 @@ class Sampler:
     repetition_penalty: > 1 penalizes tokens generated so far in this call
       (positive logits divided by it, negative multiplied); the prompt and
       the first sampled token are never penalized. 1.0 = off.
+    prefill_act_quant: Run every prefill forward with int8 activations as
+      well as int8 weights (``sampler.py:232-259`` in JAX); decode stays
+      weight-only. Requires a ``quantized=True`` model, whose weights both
+      phases share.
   """
 
   def __init__(
@@ -342,6 +353,7 @@ class Sampler:
       jit_compile: bool = True,
       prefill_chunk_size: int | None = None,
       repetition_penalty: float = 1.0,
+      prefill_act_quant: bool = False,
   ):
     self.device = griffin.resolve_device(device)
     param = next(model.parameters())
@@ -364,9 +376,21 @@ class Sampler:
       raise ValueError(
           f"repetition_penalty must be > 0 (got {repetition_penalty})."
       )
+    if prefill_act_quant and not getattr(model, "quantized", False):
+      raise ValueError(
+          "prefill_act_quant requires a quantized=True model (the int8 "
+          "product contracts against int8 weights)."
+      )
     self.model = model
+    # The prefill forwards' model: an act_quant view over the same weights.
+    self._prefill_model = (model.act_quant_view() if prefill_act_quant
+                           else model)
+    self.prefill_act_quant = prefill_act_quant
     self.vocab = vocab
-    self.dtype = param.dtype
+    # The activations' dtype: a quantized model's first parameter is its
+    # int8 table, its embedder knows the compute dtype.
+    self.dtype = (model.embedder.dtype if getattr(model, "quantized", False)
+                  else param.dtype)
     self.deterministic_sampling = deterministic_sampling
     self.temperature = float(temperature)
     self.top_k = top_k
@@ -466,21 +490,21 @@ class Sampler:
 
     cache = None
     if total_generation_steps == 0:
-      prev_logits, _ = self.model(
+      prev_logits, _ = self._prefill_model(
           tokens, positions, initial_cache,
           return_logits=return_logits and echo, return_cache=False,
           image=img_embed,
       )
       logits = None
     elif prompt_length == 1:
-      logits, cache = self.model(tokens, positions, initial_cache,
-                                 image=img_embed)
+      logits, cache = self._prefill_model(tokens, positions, initial_cache,
+                                          image=img_embed)
       # With an image only the last position's logits seed decoding.
       logits = logits[:, -1:]
       prev_logits = logits[:, :0]
     else:
       want_prompt_logits = return_logits and echo
-      all_logits, cache = self.model(
+      all_logits, cache = self._prefill_model(
           tokens, positions, initial_cache,
           last_logits_only=not want_prompt_logits, image=img_embed,
       )
@@ -568,7 +592,8 @@ class Sampler:
                           return_logits: bool = False):
     """One chunk of a long prompt through the cache; its per-token logits
     only with ``return_logits`` (echo with return_logits)."""
-    return self.model(tokens, positions, cache, return_logits=return_logits)
+    return self._prefill_model(tokens, positions, cache,
+                               return_logits=return_logits)
 
   # -- decode -----------------------------------------------------------------
 

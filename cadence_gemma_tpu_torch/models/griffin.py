@@ -13,6 +13,7 @@ The model lives on the card unless the caller asks for another device:
 
 from __future__ import annotations
 
+import copy
 import math
 
 import torch
@@ -42,6 +43,20 @@ def resolve_device(device=None) -> torch.device:
 _OUTPUT_PROJECTIONS = ("proj_final", "linear_out", "ffw_down")
 
 
+def _share_parameters(module: nn.Module) -> nn.Module:
+  """A copy of ``module``'s tree of module objects whose parameters and
+  buffers are the original's tensors (so flags set on the copy's modules
+  leave the original alone)."""
+  clone = copy.copy(module)
+  clone._parameters = dict(module._parameters)  # pylint: disable=protected-access
+  clone._buffers = dict(module._buffers)  # pylint: disable=protected-access
+  clone._modules = {  # pylint: disable=protected-access
+      name: None if child is None else _share_parameters(child)
+      for name, child in module._modules.items()  # pylint: disable=protected-access
+  }
+  return clone
+
+
 class Griffin(nn.Module):
   """Griffin: a hybrid RG-LRU / local-attention language model.
 
@@ -64,6 +79,15 @@ class Griffin(nn.Module):
       sequence-parallel over the spec's mesh (``griffin.py:41-47,100`` in
       JAX): the prompt's length must divide into the sequence shards. Adds
       no weights; prefill and training both run sharded.
+    quantized: int8 weights with float32 per-output-channel scales in every
+      projection, the gates' block-diagonals and the embedding table
+      (``griffin.py:49,75,95,116`` in JAX); load them with
+      ``load_state_dict(quantize_params(...))`` or
+      ``convert.griffin_from_flax_params``. The weight-only products run
+      through the int8 CUDA kernel on the card.
+    act_quant: int8 activations too in every ``Dense`` and ``Einsum``
+      (requires ``quantized``; adds no weights). :meth:`act_quant_view`
+      gives this mode over an existing quantized model's own weights.
   """
 
   def __init__(
@@ -76,16 +100,23 @@ class Griffin(nn.Module):
       gradient_checkpointing: bool = True,
       fused_epilogue: bool = False,
       scan_sharding_spec: sharding.ShardingSpec | None = None,
+      quantized: bool = False,
+      act_quant: bool = False,
   ):
     super().__init__()
+    if act_quant and not quantized:
+      raise ValueError("act_quant=True requires quantized=True.")
     device = resolve_device(device)
     self.config = config
     self.gradient_checkpointing = gradient_checkpointing
     self.scan_sharding_spec = scan_sharding_spec
+    self.quantized = quantized
+    self.act_quant = act_quant
     kw = dict(device=device, dtype=dtype)
+    qkw = dict(kw, quantized=quantized, act_quant=act_quant)
     self.embedder = modules.Embedder(
         config.vocab_size, config.width,
-        config.embeddings_scale_by_sqrt_dim, **kw,
+        config.embeddings_scale_by_sqrt_dim, quantized=quantized, **kw,
     )
     self.blocks = nn.ModuleList([
         modules.ResidualBlock(
@@ -99,7 +130,7 @@ class Griffin(nn.Module):
             use_flash_attention=use_flash_attention,
             fused_epilogue=fused_epilogue,
             scan_sharding_spec=scan_sharding_spec,
-            **kw,
+            **qkw,
         )
         for block_type in config.block_types
     ])
@@ -107,7 +138,7 @@ class Griffin(nn.Module):
     # Registered last: init_weights draws in registration order, so the text
     # model's weights do not depend on the connector.
     self.vl_connector = modules.VisionLanguageConnector(
-        config.width, config.vl_expanded_width, config.vision_width, **kw
+        config.width, config.vl_expanded_width, config.vision_width, **qkw
     )
     if device.type != "meta":
       if generator is None:
@@ -121,13 +152,19 @@ class Griffin(nn.Module):
     Normals of variance ``scale / fan_in`` (scale ``2 / num_layers`` for each
     block's output projection, 0.01 for the conv), zero biases and norm
     scales, and the RG-LRU ``a_param`` drawn so that ``a`` is uniform in
-    radius on the ring [0.9, 0.999].
+    radius on the ring [0.9, 0.999]. A quantized model's int8 weights are
+    zeros and their scales ones, as the flax initializers of JAX's
+    ``quantized=True`` layers draw them.
     """
     final_scale = 2.0 / self.config.num_layers
     for name, p in self.named_parameters():
       leaf = name.rsplit(".", 1)[-1]
       parent = name.rsplit(".", 2)[-2] if name.count(".") else ""
-      if leaf in ("scale", "bias", "b"):
+      if leaf.endswith("_q"):
+        p.zero_()
+      elif leaf.endswith("_scale"):
+        p.fill_(1.0)
+      elif leaf in ("scale", "bias", "b"):
         p.zero_()
       elif leaf == "a_param":
         u = torch.rand(p.shape, generator=generator, device=p.device)
@@ -145,6 +182,22 @@ class Griffin(nn.Module):
         scale = (final_scale if parent in _OUTPUT_PROJECTIONS
                  and not name.startswith("vl_connector.") else 1.0)
         p.normal_(0.0, math.sqrt(scale / p.shape[1]), generator=generator)
+
+  def act_quant_view(self) -> "Griffin":
+    """This quantized model with int8 activations in every ``Dense`` and
+    ``Einsum``: the counterpart of flax's ``model.clone(act_quant=True)``.
+
+    The view is a new tree of module objects over the same parameter
+    tensors (no weight is copied), sharing this model's hooks; changing a
+    parameter of one changes the other.
+    """
+    if not self.quantized:
+      raise ValueError("act_quant_view requires a quantized=True model.")
+    view = _share_parameters(self)
+    for module in view.modules():
+      if getattr(module, "quantized", False) and hasattr(module, "act_quant"):
+        module.act_quant = True
+    return view
 
   def _splice_image(
       self, x: torch.Tensor, segment_pos: torch.Tensor, image: torch.Tensor

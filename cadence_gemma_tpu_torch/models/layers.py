@@ -9,6 +9,19 @@ tree across leaf by leaf. Only ``Dense.kernel`` changes layout: PyTorch's
 Modules allocate their parameters uninitialized; ``Griffin`` fills them from
 an explicit ``torch.Generator`` or ``convert.py`` loads them.
 
+``quantized=True`` layers hold int8 weights (``kernel_q`` / ``w_q``, stored
+contraction-last) and float32 per-output-channel scales (``kernel_scale`` /
+``w_scale``), as :func:`ops.quantization.quantize_params` makes them, and
+contract through the CUDA kernel of :mod:`ops.int8_matmul` on the card.
+``act_quant=True`` (``Dense`` and ``Einsum``) also quantizes the activations
+per row and contracts int8 x int8 into int32
+(:func:`ops.quantization.int8_act_matmul`). The roundings follow JAX's
+order: weight-only, the product in the compute dtype, times the scale in
+the compute dtype, plus the bias in the compute dtype; ``act_quant``, the
+int32 product times the activation scale times the weight scale in float32,
+then the bias (in float32 in ``Einsum``, after the cast in ``Dense``).
+LoRA adapters (``lora_rank``, ``lora_rows``) are not ported.
+
 Numerics follow the JAX layers: RMSNorm's ``(scale + 1)`` gain, the RG-LRU's
 ``log_a = -8 * sigmoid(W_a x) * softplus(a_param)`` with a float32 carry and
 ``a`` zeroed at document starts, and the document-masked causal Conv1D.
@@ -22,6 +35,8 @@ from torch.nn import functional as F
 
 from cadence_gemma_tpu_torch import common
 from cadence_gemma_tpu_torch.ops import fused_epilogue
+from cadence_gemma_tpu_torch.ops import int8_matmul
+from cadence_gemma_tpu_torch.ops import quantization
 from cadence_gemma_tpu_torch.ops import scan
 from cadence_gemma_tpu_torch.parallel import sharding
 
@@ -31,6 +46,21 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
   return F.gelu(x, approximate="tanh")
 
 
+def _check_quant_flags(quantized: bool, act_quant: bool) -> None:
+  if act_quant and not quantized:
+    raise ValueError("act_quant=True requires quantized=True (it contracts "
+                     "against the int8 weights).")
+
+
+def refuse_lora(lora_rank: int = 0, lora_rows: int = 0) -> None:
+  """LoRA adapters are ROADMAP queue 1 item 4 of the port."""
+  if lora_rank or lora_rows:
+    raise NotImplementedError(
+        "LoRA adapters (lora_rank, lora_rows) are not ported (ROADMAP "
+        "queue 1 item 4)."
+    )
+
+
 class Dense(nn.Module):
   """A linear layer with flax's parameter names.
 
@@ -38,20 +68,52 @@ class Dense(nn.Module):
   ``[in, out]``) so the forward is one ``F.linear``. Parameters are cast to
   the input's dtype, as flax's ``Dense(dtype=...)`` casts them (the vision
   towers keep float32 weights and compute in bfloat16).
+
+  ``quantized=True`` holds ``kernel_q`` (int8 ``[out, in]``) and
+  ``kernel_scale`` (float32 ``[out]``) instead of ``kernel``, the
+  ``QuantizableDense`` of JAX; ``act_quant=True`` also quantizes the input
+  per row (see the module docstring for both).
   """
 
   def __init__(self, in_features: int, out_features: int,
-               use_bias: bool = True, device=None, dtype=None):
+               use_bias: bool = True, device=None, dtype=None,
+               quantized: bool = False, act_quant: bool = False,
+               lora_rank: int = 0, lora_rows: int = 0):
     super().__init__()
+    _check_quant_flags(quantized, act_quant)
+    refuse_lora(lora_rank, lora_rows)
+    self.quantized = quantized
+    self.act_quant = act_quant
     kw = dict(device=device, dtype=dtype)
-    self.kernel = nn.Parameter(torch.empty(out_features, in_features, **kw))
+    if quantized:
+      self.kernel_q = nn.Parameter(
+          torch.empty(out_features, in_features, device=device,
+                      dtype=torch.int8), requires_grad=False)
+      self.kernel_scale = nn.Parameter(
+          torch.empty(out_features, device=device, dtype=torch.float32),
+          requires_grad=False)
+    else:
+      self.kernel = nn.Parameter(torch.empty(out_features, in_features, **kw))
     self.bias = (
         nn.Parameter(torch.empty(out_features, **kw)) if use_bias else None
     )
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     bias = None if self.bias is None else self.bias.to(x.dtype)
-    return F.linear(x, self.kernel.to(x.dtype), bias)
+    if not self.quantized:
+      return F.linear(x, self.kernel.to(x.dtype), bias)
+    lead, n = x.shape[:-1], self.kernel_q.shape[0]
+    if self.act_quant:
+      xq, x_scale = quantization.quantize_activations(x)
+      y = quantization.int8_act_matmul(xq.reshape(-1, x.shape[-1]),
+                                       self.kernel_q).view(*lead, n)
+      y = (y.float() * x_scale * self.kernel_scale).to(x.dtype)
+    else:
+      y = int8_matmul.int8_weight_matmul(
+          x.reshape(1, -1, x.shape[-1]), self.kernel_q[None],
+          self.kernel_scale[None],
+      ).view(*lead, n)
+    return y if bias is None else y + bias
 
 
 class RMSNorm(nn.Module):
@@ -82,22 +144,45 @@ class RMSNorm(nn.Module):
 
 
 class BlockDiagonalLinear(nn.Module):
-  """Per-head block-diagonal projection used by the RG-LRU gates."""
+  """Per-head block-diagonal projection used by the RG-LRU gates.
 
-  def __init__(self, width: int, num_blocks: int, device=None, dtype=None):
+  ``quantized=True`` holds ``w_q`` (int8, stored ``(h, j, i)``, the
+  contraction axis last) and ``w_scale`` (float32 ``(h, j)``) instead of
+  ``w`` ``(h, i, j)``; the heads run as one batched launch of the int8
+  kernel that reads each head's slice of the input in place.
+  """
+
+  def __init__(self, width: int, num_blocks: int, device=None, dtype=None,
+               quantized: bool = False):
     super().__init__()
     if width % num_blocks:
       raise ValueError(f"width {width} is not a multiple of {num_blocks}.")
     self.num_blocks = num_blocks
+    self.quantized = quantized
     block = width // num_blocks
     kw = dict(device=device, dtype=dtype)
-    self.w = nn.Parameter(torch.empty(num_blocks, block, block, **kw))
+    if quantized:
+      self.w_q = nn.Parameter(
+          torch.empty(num_blocks, block, block, device=device,
+                      dtype=torch.int8), requires_grad=False)
+      self.w_scale = nn.Parameter(
+          torch.empty(num_blocks, block, device=device, dtype=torch.float32),
+          requires_grad=False)
+    else:
+      self.w = nn.Parameter(torch.empty(num_blocks, block, block, **kw))
     self.b = nn.Parameter(torch.empty(num_blocks, block, **kw))
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     x = x.unflatten(-1, (self.num_blocks, -1))
-    y = torch.einsum("...hi,hij->...hj", x, self.w) + self.b
-    return y.flatten(-2)
+    if not self.quantized:
+      y = torch.einsum("...hi,hij->...hj", x, self.w) + self.b
+      return y.flatten(-2)
+    lead = x.shape[:-2]
+    # [h, rows, i]: batch stride i, row stride h * i, read in place.
+    a = x.reshape(-1, *x.shape[-2:]).transpose(0, 1)
+    y = int8_matmul.int8_weight_matmul(a, self.w_q, self.w_scale)
+    y = y + self.b.to(y.dtype)[:, None, :]
+    return y.transpose(0, 1).reshape(*lead, -1)
 
 
 class _SqrtBoundDerivative(torch.autograd.Function):
@@ -146,16 +231,17 @@ class RGLRU(nn.Module):
       scan_sharding_spec: sharding.ShardingSpec | None = None,
       device=None,
       dtype=None,
+      quantized: bool = False,
   ):
     super().__init__()
     self.scan_type = scan_type
     self.scan_sharding_spec = scan_sharding_spec
     self.a_param = nn.Parameter(torch.empty(width, device=device, dtype=dtype))
     self.input_gate = BlockDiagonalLinear(
-        width, num_heads, device=device, dtype=dtype
+        width, num_heads, device=device, dtype=dtype, quantized=quantized
     )
     self.a_gate = BlockDiagonalLinear(
-        width, num_heads, device=device, dtype=dtype
+        width, num_heads, device=device, dtype=dtype, quantized=quantized
     )
 
   def forward(
@@ -270,14 +356,54 @@ class Conv1D(nn.Module):
 
 
 class Einsum(nn.Module):
-  """A parameterized einsum with bias (the fused MLP up-projection)."""
+  """A parameterized einsum with bias (the fused MLP up-projection).
 
-  def __init__(self, w_shape, b_shape, eqn: str, device=None, dtype=None):
+  ``quantized=True`` (the 3-D ``(c, d, D)`` layout contracting axis 1)
+  holds ``w_q`` (int8, stored ``(c, D, d)``) and ``w_scale`` (float32
+  ``(c, D)``) instead of ``w``; the ``c`` projections of the shared input
+  run as one batched launch of the int8 kernel, or with ``act_quant`` as one
+  int8 x int8 product of width ``c * D``.
+  """
+
+  def __init__(self, w_shape, b_shape, eqn: str, device=None, dtype=None,
+               quantized: bool = False, act_quant: bool = False,
+               lora_rank: int = 0, lora_rows: int = 0):
     super().__init__()
+    _check_quant_flags(quantized, act_quant)
+    refuse_lora(lora_rank, lora_rows)
     self.eqn = eqn
+    self.quantized = quantized
+    self.act_quant = act_quant
     kw = dict(device=device, dtype=dtype)
-    self.w = nn.Parameter(torch.empty(*w_shape, **kw))
+    if quantized:
+      if len(w_shape) != 3:
+        raise ValueError(f"A quantized Einsum takes a 3-D (c, d, D) weight, "
+                         f"got {tuple(w_shape)}.")
+      c, d, out = w_shape
+      self.w_q = nn.Parameter(
+          torch.empty(c, out, d, device=device, dtype=torch.int8),
+          requires_grad=False)
+      self.w_scale = nn.Parameter(
+          torch.empty(c, out, device=device, dtype=torch.float32),
+          requires_grad=False)
+    else:
+      self.w = nn.Parameter(torch.empty(*w_shape, **kw))
     self.b = nn.Parameter(torch.empty(*b_shape, **kw))
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
-    return torch.einsum(self.eqn, x, self.w) + self.b
+    if not self.quantized:
+      return torch.einsum(self.eqn, x, self.w) + self.b
+    c, out, d = self.w_q.shape
+    lead = x.shape[:-1]
+    # The output is c...tD; the scale broadcasts as (c, 1, ..., 1, D).
+    scale = self.w_scale.view(c, *([1] * len(lead)), out)
+    if self.act_quant:
+      xq, x_scale = quantization.quantize_activations(x)
+      y = quantization.int8_act_matmul(xq.reshape(-1, d),
+                                       self.w_q.reshape(c * out, d))
+      y = y.view(-1, c, out).transpose(0, 1).reshape(c, *lead, out)
+      y = y.float() * x_scale * scale
+      return (y + self.b.float()).to(x.dtype)
+    a = x.reshape(1, -1, d).expand(c, -1, -1)  # batch stride 0
+    y = int8_matmul.int8_weight_matmul(a, self.w_q, self.w_scale)
+    return y.view(c, *lead, out) + self.b.to(y.dtype)

@@ -18,6 +18,10 @@ with the same parameter names and cache semantics:
     one fused epilogue (``fused_epilogue=True``, a CUDA kernel on the card).
   * Tied-embedding encoder/decoder with optional ``sqrt(width)`` scaling
     (rounded through bfloat16 to match Gemma training).
+
+Every block takes ``quantized`` (int8 weights in each projection, the gates'
+block-diagonal and the embedding table) and ``act_quant`` (int8 activations
+in each ``Dense`` and ``Einsum``; see ``layers.py``), as the JAX blocks do.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from torch import nn
 
 from cadence_gemma_tpu_torch import common
 from cadence_gemma_tpu_torch.models import layers
+from cadence_gemma_tpu_torch.ops import int8_matmul
 from cadence_gemma_tpu_torch.ops import window_attention as window_attention_lib
 from cadence_gemma_tpu_torch.parallel import sharding
 from cadence_gemma_tpu_torch.parallel import sp_attention
@@ -258,6 +263,8 @@ class LocalAttentionBlock(nn.Module):
       sharding_spec: sharding.ShardingSpec | None = None,
       device=None,
       dtype=None,
+      quantized: bool = False,
+      act_quant: bool = False,
   ):
     super().__init__()
     self.num_heads = num_heads
@@ -265,7 +272,8 @@ class LocalAttentionBlock(nn.Module):
     self.use_flash_attention = use_flash_attention
     self.sharding_spec = sharding_spec
     self.head_dim = width // num_heads
-    kw = dict(device=device, dtype=dtype)
+    kw = dict(device=device, dtype=dtype, quantized=quantized,
+              act_quant=act_quant)
     self.proj_q = layers.Dense(width, width, use_bias=False, **kw)
     self.proj_k = layers.Dense(width, self.head_dim, use_bias=False, **kw)
     self.proj_v = layers.Dense(width, self.head_dim, use_bias=False, **kw)
@@ -359,16 +367,19 @@ class RecurrentBlock(nn.Module):
       scan_sharding_spec: sharding.ShardingSpec | None = None,
       device=None,
       dtype=None,
+      quantized: bool = False,
+      act_quant: bool = False,
   ):
     super().__init__()
     lru_width = lru_width or width
     kw = dict(device=device, dtype=dtype)
-    self.linear_y = layers.Dense(width, lru_width, **kw)
-    self.linear_x = layers.Dense(width, lru_width, **kw)
-    self.linear_out = layers.Dense(lru_width, width, **kw)
+    qkw = dict(kw, quantized=quantized, act_quant=act_quant)
+    self.linear_y = layers.Dense(width, lru_width, **qkw)
+    self.linear_x = layers.Dense(width, lru_width, **qkw)
+    self.linear_out = layers.Dense(lru_width, width, **qkw)
     self.conv_1d = layers.Conv1D(lru_width, conv1d_temporal_width, **kw)
     self.rg_lru = layers.RGLRU(lru_width, num_heads, scan_type,
-                               scan_sharding_spec, **kw)
+                               scan_sharding_spec, quantized=quantized, **kw)
 
   def forward(
       self,
@@ -408,9 +419,10 @@ class MLPBlock(nn.Module):
   """Gated-GeLU MLP with a fused gate/up projection."""
 
   def __init__(self, width: int, expanded_width: int, device=None,
-               dtype=None):
+               dtype=None, quantized: bool = False, act_quant: bool = False):
     super().__init__()
-    kw = dict(device=device, dtype=dtype)
+    kw = dict(device=device, dtype=dtype, quantized=quantized,
+              act_quant=act_quant)
     self.ffw_up = layers.Einsum(
         w_shape=(2, width, expanded_width),
         b_shape=(2, 1, 1, expanded_width),
@@ -429,9 +441,11 @@ class VisionLanguageConnector(nn.Module):
   down to the model width (the JAX ``vl_connector`` tree)."""
 
   def __init__(self, width: int, expanded_width: int, vision_width: int,
-               device=None, dtype=None):
+               device=None, dtype=None, quantized: bool = False,
+               act_quant: bool = False):
     super().__init__()
-    kw = dict(device=device, dtype=dtype)
+    kw = dict(device=device, dtype=dtype, quantized=quantized,
+              act_quant=act_quant)
     self.ffw_up = layers.Einsum(
         w_shape=(1, vision_width, expanded_width),
         b_shape=(1, 1, 1, expanded_width),
@@ -468,24 +482,27 @@ class ResidualBlock(nn.Module):
       scan_sharding_spec: sharding.ShardingSpec | None = None,
       device=None,
       dtype=None,
+      quantized: bool = False,
+      act_quant: bool = False,
   ):
     super().__init__()
     kw = dict(device=device, dtype=dtype)
+    qkw = dict(kw, quantized=quantized, act_quant=act_quant)
     self.temporal_block_type = temporal_block_type
     self.fused_epilogue = fused_epilogue
     self.temporal_pre_norm = layers.RMSNorm(width, **kw)
     if temporal_block_type is common.TemporalBlockType.RECURRENT:
       self.recurrent_block = RecurrentBlock(
           width, num_heads, lru_width, conv1d_temporal_width, scan_type,
-          scan_sharding_spec, **kw
+          scan_sharding_spec, **qkw
       )
     else:
       self.attention_block = LocalAttentionBlock(
           width, num_heads, attention_window_size, use_flash_attention,
-          scan_sharding_spec, **kw
+          scan_sharding_spec, **qkw
       )
     self.channel_pre_norm = layers.RMSNorm(width, **kw)
-    self.mlp_block = MLPBlock(width, mlp_expanded_width, **kw)
+    self.mlp_block = MLPBlock(width, mlp_expanded_width, **qkw)
 
   @property
   def temporal_block(self) -> nn.Module:
@@ -514,19 +531,42 @@ class ResidualBlock(nn.Module):
 
 
 class Embedder(nn.Module):
-  """Tied input/output token embedding."""
+  """Tied input/output token embedding.
+
+  ``quantized=True`` holds ``input_embedding_q`` (int8 ``[vocab, width]``)
+  and ``input_embedding_scale`` (float32 ``[vocab]``), as JAX's
+  ``Embedder(quantized=True)`` (``modules.py:885-952``): ``encode`` gathers
+  int8 rows and multiplies by their scales in ``dtype``; ``decode``
+  contracts against the int8 table through the int8 kernel and applies the
+  per-vocabulary scales after the contraction.
+  """
 
   def __init__(self, vocab_size: int, embed_dim: int, scale_by_sqrt_dim: bool,
-               device=None, dtype=None):
+               device=None, dtype=None, quantized: bool = False):
     super().__init__()
     self.embed_dim = embed_dim
     self.scale_by_sqrt_dim = scale_by_sqrt_dim
-    self.input_embedding = nn.Parameter(
-        torch.empty(vocab_size, embed_dim, device=device, dtype=dtype)
-    )
+    self.quantized = quantized
+    # The compute dtype of a quantized table (JAX: ``dtype or bfloat16``).
+    self.dtype = dtype or torch.bfloat16
+    if quantized:
+      self.input_embedding_q = nn.Parameter(
+          torch.empty(vocab_size, embed_dim, device=device, dtype=torch.int8),
+          requires_grad=False)
+      self.input_embedding_scale = nn.Parameter(
+          torch.empty(vocab_size, device=device, dtype=torch.float32),
+          requires_grad=False)
+    else:
+      self.input_embedding = nn.Parameter(
+          torch.empty(vocab_size, embed_dim, device=device, dtype=dtype)
+      )
 
   def encode(self, x: torch.Tensor) -> torch.Tensor:
-    emb = self.input_embedding[x]
+    if self.quantized:
+      emb = self.input_embedding_q[x].to(self.dtype)
+      emb = emb * self.input_embedding_scale[x][..., None].to(self.dtype)
+    else:
+      emb = self.input_embedding[x]
     if self.scale_by_sqrt_dim:
       # The sqrt is rounded through bfloat16, as the models were trained.
       scale = torch.tensor(math.sqrt(self.embed_dim), dtype=torch.float32)
@@ -534,4 +574,11 @@ class Embedder(nn.Module):
     return emb
 
   def decode(self, x: torch.Tensor) -> torch.Tensor:
-    return x @ self.input_embedding.T
+    if not self.quantized:
+      return x @ self.input_embedding.T
+    lead = x.shape[:-1]
+    logits = int8_matmul.int8_weight_matmul(
+        x.to(self.dtype).reshape(1, -1, self.embed_dim),
+        self.input_embedding_q[None], self.input_embedding_scale[None],
+    )
+    return logits.view(*lead, -1)

@@ -14,8 +14,10 @@ the LayerNorms compute their statistics and affine map in float32 with
 flax's ``E[x^2] - E[x]^2`` variance. The attention runs through the CUDA
 MHA kernel on the card (``use_flash_attention=None``) and through the
 einsum, with the token count padded to a multiple of ``pad_tokens_to`` and
-the padded keys masked, on the CPU. Int8 towers (``quantized``,
-``act_quant``) and bfloat16 logits (``softmax_bf16``) are not ported.
+the padded keys masked, on the CPU. ``quantized`` towers hold int8 weights
+in every ``Dense`` (the patch embedding's convolution stays float), and
+``act_quant`` also quantizes their activations (``vit.py:127-194,225-228``
+in JAX); ``softmax_bf16`` keeps the einsum path's logits in bfloat16.
 """
 
 from __future__ import annotations
@@ -97,14 +99,6 @@ def _use_flash(override: bool | None, device: torch.device) -> bool:
   return override if override is not None else device.type == "cuda"
 
 
-def _refuse_unported(quantized: bool, act_quant: bool,
-                     softmax_bf16: bool) -> None:
-  for name, value in (("quantized", quantized), ("act_quant", act_quant),
-                      ("softmax_bf16", softmax_bf16)):
-    if value:
-      raise NotImplementedError(f"{name}=True towers are not ported.")
-
-
 class LayerNorm(nn.Module):
   """flax's ``LayerNorm``: float32 statistics by ``E[x^2] - E[x]^2``, the
   affine map in float32, the result in the input dtype."""
@@ -151,22 +145,31 @@ class ViTBlock(nn.Module):
 
   ``key_bias`` (``[1, 1, 1, t]`` additive logits bias: 0 for real tokens,
   -inf for padding) masks the padded keys of the einsum path.
+  ``quantized`` / ``act_quant`` go to the four ``Dense`` layers.
+  ``softmax_bf16`` rounds the einsum path's logits to bfloat16 before the
+  softmax, whose max, exponentials and sum stay float32 (JAX
+  ``vit.py:185-194``); the MHA kernel path ignores it, as JAX's flash
+  branch does.
   """
 
   def __init__(self, config: ViTConfig, device=None,
                dtype: torch.dtype = torch.float32,
-               use_flash_attention: bool | None = None):
+               use_flash_attention: bool | None = None,
+               quantized: bool = False, act_quant: bool = False,
+               softmax_bf16: bool = False):
     super().__init__()
     self.config = config
     self.use_flash_attention = use_flash_attention
+    self.softmax_bf16 = softmax_bf16
     d = config.embed_dim
     kw = dict(device=device, dtype=dtype)
+    qkw = dict(kw, quantized=quantized, act_quant=act_quant)
     self.norm1 = LayerNorm(d, **kw)
-    self.attn_qkv = layers.Dense(d, 3 * d, **kw)
-    self.attn_proj = layers.Dense(d, d, **kw)
+    self.attn_qkv = layers.Dense(d, 3 * d, **qkw)
+    self.attn_proj = layers.Dense(d, d, **qkw)
     self.norm2 = LayerNorm(d, **kw)
-    self.mlp_fc1 = layers.Dense(d, config.mlp_hidden_dim, **kw)
-    self.mlp_fc2 = layers.Dense(config.mlp_hidden_dim, d, **kw)
+    self.mlp_fc1 = layers.Dense(d, config.mlp_hidden_dim, **qkw)
+    self.mlp_fc2 = layers.Dense(config.mlp_hidden_dim, d, **qkw)
     if config.use_layer_scale:
       self.ls1 = nn.Parameter(torch.empty(d, **kw))
       self.ls2 = nn.Parameter(torch.empty(d, **kw))
@@ -192,7 +195,14 @@ class ViTBlock(nn.Module):
       logits = logits * (head_dim**-0.5)
       if key_bias is not None:
         logits = logits + key_bias
-      probs = torch.softmax(logits, dim=-1).to(x.dtype)
+      if self.softmax_bf16:
+        # bfloat16-resident logits, float32 exponentials and sum; the -inf
+        # key bias survives the cast.
+        logits = logits.to(torch.bfloat16)
+        e = torch.exp((logits - logits.amax(dim=-1, keepdim=True)).float())
+        probs = (e / e.sum(dim=-1, keepdim=True)).to(x.dtype)
+      else:
+        probs = torch.softmax(logits, dim=-1).to(x.dtype)
       out = torch.einsum("bnqk,bknh->bqnh", probs, v)
     out = self.attn_proj(out.reshape(b, t, cfg.embed_dim))
     x = x + self._layer_scale("ls1", out)
@@ -214,6 +224,8 @@ class VisionTransformer(nn.Module):
       einsum on the CPU; ``True`` / ``False`` force one path.
     pad_tokens_to: On the einsum path, pad the token count to this multiple
       and mask the padded keys (0 disables). The kernel masks by itself.
+    quantized, act_quant, softmax_bf16: As :class:`ViTBlock`, for every
+      block.
   """
 
   def __init__(
@@ -229,7 +241,6 @@ class VisionTransformer(nn.Module):
       softmax_bf16: bool = False,
   ):
     super().__init__()
-    _refuse_unported(quantized, act_quant, softmax_bf16)
     self.config = config
     self.dtype = dtype
     self.use_flash_attention = use_flash_attention
@@ -244,7 +255,9 @@ class VisionTransformer(nn.Module):
       )
     self.blocks = []
     for i in range(config.last_block + 1):
-      block = ViTBlock(config, use_flash_attention=use_flash_attention, **kw)
+      block = ViTBlock(config, use_flash_attention=use_flash_attention,
+                       quantized=quantized, act_quant=act_quant,
+                       softmax_bf16=softmax_bf16, **kw)
       self.add_module(f"block{i}", block)
       self.blocks.append(block)
 
@@ -314,6 +327,10 @@ class DinoSigLIPEncoder(nn.Module):
       :class:`VisionTransformer`.
     generator: The ``torch.Generator`` (on ``device``) that draws the random
       weights; ``None`` draws them from one seeded with 0.
+    quantized, act_quant, softmax_bf16: As :class:`ViTBlock`, for both
+      towers (the int8 serving encoder of JAX's
+      ``benchmarks/multimodal_bench.py`` is ``quantized=True,
+      act_quant=True``).
   """
 
   def __init__(
@@ -331,13 +348,14 @@ class DinoSigLIPEncoder(nn.Module):
       softmax_bf16: bool = False,
   ):
     super().__init__()
-    _refuse_unported(quantized, act_quant, softmax_bf16)
     device = griffin.resolve_device(device)
     self.dino_config = dino_config
     self.siglip_config = siglip_config
+    self.quantized = quantized
     kw = dict(device=device, dtype=dtype, param_dtype=param_dtype,
               use_flash_attention=use_flash_attention,
-              pad_tokens_to=pad_tokens_to)
+              pad_tokens_to=pad_tokens_to, quantized=quantized,
+              act_quant=act_quant, softmax_bf16=softmax_bf16)
     self.dino = VisionTransformer(dino_config, **kw)
     self.siglip = VisionTransformer(siglip_config, **kw)
     if device.type != "meta":
@@ -358,10 +376,15 @@ class DinoSigLIPEncoder(nn.Module):
     """Draws random weights as the JAX initializers scale them: normals of
     variance ``1 / fan_in`` for the dense and conv kernels, ``pos_embed``
     normal with std 0.02, zero prefix tokens and biases, unit LayerNorm
-    scales, LayerScale 1e-5."""
+    scales, LayerScale 1e-5; a quantized tower's int8 kernels zeros and
+    their scales ones (JAX's initializers)."""
     for name, p in self.named_parameters():
       leaf = name.rsplit(".", 1)[-1]
-      if leaf == "pos_embed":
+      if leaf == "kernel_q":
+        p.zero_()
+      elif leaf == "kernel_scale":
+        p.fill_(1.0)
+      elif leaf == "pos_embed":
         p.normal_(0.0, 0.02, generator=generator)
       elif leaf in ("ls1", "ls2"):
         p.fill_(1e-5)

@@ -201,6 +201,28 @@ Phases, each of which raises on failure (so the script exits non-zero):
      session, ``/v1/chat/completions`` streaming, ``/v1/completions`` with
      ``n=2``, ``/v1/cancel``, ``/v1/health`` and ``/metrics``, every body
      well-formed.
+ 18. int8 serving, last: a full-width, full-depth RecurrentGemma-2B drawn by
+     ``checkpoint.synthetic.realistic_params`` (bf16) and its
+     ``quantize_params`` copy (``Griffin(quantized=True)``), and the two
+     towers in float32 and int8 with ``act_quant``. The int8 text run (the
+     phase-4 prompts, 32 greedy steps, ``prefill_act_quant=True``): the
+     counters, reset just before, must show the prefill's weight-only
+     launches (the gates' 36 and the logits' one) and ``torch._int_mm``
+     products (every other projection), and a captured decode step that
+     launches the int8 kernel once for each int8 layer and the logits (175)
+     and no ``_int_mm``. The kernel is held against its plain version on
+     the inputs of its first call at every shape the run gave it, and timed
+     there (device time, queue full, cold copies) beside its plain version,
+     a bf16 product on a stored bf16 weight, dequantize + matmul and its
+     byte or operation bound; at one projection's prefill shape ([6000,
+     2560] x [2560, 2560]) also ``quantize_activations``, ``torch._int_mm``
+     and the whole ``act_quant`` layer. Int8 against bf16 on the same weights: the
+     first-token logits' largest difference over the largest bf16 logit
+     (with act_quant, and weight-only) and the greedy tokens' agreement;
+     then, in turns, the text prefill and the captured decode step, pixels
+     to the first token through the int8 towers (their encode: 46 MHA and
+     184 ``_int_mm`` launches, no weight-only one) and the eight-slot
+     captured tick.
 
   python3 chip_smoke.py --profile
 
@@ -208,7 +230,8 @@ adds kernel time by name (torch.profiler) for the prefill and decode of the
 serving path (and the idle share of captured and eager decode, and of the
 eight-slot batcher's tick), for one training step, for the encode and the
 image-conditioned prefill, for the sequence-parallel prefill and for one
-sequence-parallel training step, with the device's idle share.
+sequence-parallel training step, with the device's idle share; and for
+phase 18, the int8 and bf16 text serving and the int8 eight-slot tick.
 
 Needs a CUDA card and the CUDA toolkit (``nvcc``); without a card it exits
 with status 1 and prints no result. The line before the last is a JSON
@@ -235,6 +258,7 @@ from cadence_gemma_tpu_torch import complex_lib
 from cadence_gemma_tpu_torch.benchmarks import kernel_lab
 from cadence_gemma_tpu_torch.benchmarks.kernel_lab import cuda_ms
 from cadence_gemma_tpu_torch.benchmarks.kernel_lab import device_ms
+from cadence_gemma_tpu_torch.checkpoint import synthetic
 from cadence_gemma_tpu_torch.inference import modal_sampler
 from cadence_gemma_tpu_torch.inference import sampler as sampler_lib
 from cadence_gemma_tpu_torch.inference import server as server_lib
@@ -242,8 +266,10 @@ from cadence_gemma_tpu_torch.inference import serving
 from cadence_gemma_tpu_torch.models import griffin
 from cadence_gemma_tpu_torch.models import vit
 from cadence_gemma_tpu_torch.ops import fused_epilogue
+from cadence_gemma_tpu_torch.ops import int8_matmul
 from cadence_gemma_tpu_torch.ops import lru_scan
 from cadence_gemma_tpu_torch.ops import mha_attention
+from cadence_gemma_tpu_torch.ops import quantization
 from cadence_gemma_tpu_torch.ops import scan as scan_lib
 from cadence_gemma_tpu_torch.ops import window_attention as wa
 from cadence_gemma_tpu_torch.parallel import sharding
@@ -255,6 +281,7 @@ from cadence_gemma_tpu_torch.training import trainer
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
+INT8_TENSOR_OPS = 1979e12
 FP32_FLOPS = 67e12
 
 SEED = 0
@@ -515,6 +542,20 @@ HTTP_PROMPT_TOKENS = 200
 HTTP_STEPS = 16
 HTTP_CANCEL_STEPS = 1024
 HTTP_TIMEOUT_S = 300
+# Int8 serving (phase 18): the text-serving prompts, the image run's pixels
+# and prompts, and the eight-slot tick, each int8 against bf16 in these
+# turns.
+INT8_TURNS = ("bf16", "int8", "int8", "bf16")
+INT8_REPS = 24
+INT8_PREFILL_ROWS = 2 * max(PROMPT_TOKENS)
+# The int8 kernel and its plain version sum in other orders, round the sum
+# to bf16, multiply by the bf16 scale and round again: one step of the first
+# rounding and the second together reach 1.5 x 2^-7 of the larger value;
+# sums that cancel keep 1e-4 of the largest output.
+INT8_REL = 2**-6
+INT8_ABS_OF_MAX = 1e-4
+INT8_REPLACES = ("none (no pl.pallas_call): XLA's int8 dot with the convert "
+                 "fused, cadence_gemma_tpu/models/layers.py:166")
 
 
 def log(*args) -> None:
@@ -1133,7 +1174,7 @@ def profile_main_path(sampler, prompts, prefill_ms, decode_ms) -> None:
         f"(device idle share {1 - busy / wall_ms:.3f}); top kernels:")
     for name, (ms, count) in sorted(
         times.items(), key=lambda kv: -kv[1][0])[:8]:
-      log(f"    {ms / steps:9.4f} ms  x{count / steps:6.1f}  {name[:90]}")
+      log(f"    {ms / steps:9.4f} ms  x{count / steps:6.1f}  {name[:160]}")
 
 
 # Traces of one call to take before giving up when the profiler hands back no
@@ -3889,6 +3930,417 @@ def phase_lab_probe(dev) -> None:
   log(f"  logscan / lru_scan_forward: {tree['ms'] / walk['ms']:.4f}")
 
 
+# -- phase 18: int8 serving --------------------------------------------------
+
+
+class CaptureInt8Calls:
+  """Stands in for ``int8_matmul.int8_weight_matmul`` and keeps the inputs
+  of its first call at each distinct shape (batches, rows, width, depth,
+  shared activation): a copy of the activation (a shared one as its one
+  row block, expanded again), the weights themselves (parameters)."""
+
+  def __init__(self):
+    self.wrapper = int8_matmul.int8_weight_matmul
+    self.calls = {}
+    int8_matmul.int8_weight_matmul = self
+
+  def __call__(self, a, q, scale):
+    shared = a.stride(0) == 0 and a.shape[0] > 1
+    key = (*q.shape, a.shape[1], shared)
+    if key not in self.calls:
+      kept = a[:1].clone() if shared else a.clone()
+      self.calls[key] = (kept, a.shape[0] if shared else 0, q, scale)
+    return self.wrapper(a, q, scale)
+
+  def inputs(self):
+    for key, (kept, batches, q, scale) in self.calls.items():
+      a = kept.expand(batches, -1, -1) if batches else kept
+      yield key, (a, q, scale)
+
+  def restore(self):
+    int8_matmul.int8_weight_matmul = self.wrapper
+
+
+def check_int8(a, q, scale) -> float:
+  """The kernel against its plain version (JAX's expression) on the same
+  inputs: within INT8_REL of the larger value plus INT8_ABS_OF_MAX of the
+  largest output (see the constants). Returns the largest difference."""
+  got = int8_matmul.int8_weight_matmul(a, q, scale).float()
+  want = int8_matmul.int8_weight_matmul_plain(a, q, scale).float()
+  diff = (got - want).abs()
+  allowed = (torch.maximum(got.abs(), want.abs()) * INT8_REL
+             + INT8_ABS_OF_MAX * want.abs().max())
+  if not bool(torch.isfinite(got).all()) or bool((diff > allowed).any()):
+    raise AssertionError(f"int8_weight_matmul disagrees with its plain "
+                         f"version at {tuple(a.shape)} x {tuple(q.shape)}: "
+                         f"max_abs_err {diff.max().item():.3e}.")
+  return diff.max().item()
+
+
+def int8_figures(a, q, scale) -> dict:
+  """The kernel's device time (queue full, copies of its inputs larger than
+  the L2), the plain version's, a bf16 product of the same shape on a stored
+  bf16 weight (``F.linear`` / ``torch.matmul``), the dequantize + matmul
+  composition, and ``torch._weight_int8pack_mm`` where the card has it."""
+  batches, m, k = a.shape
+  n = q.shape[1]
+  ms = device_ms(int8_matmul.int8_weight_matmul, INT8_REPS,
+                 inputs=cold_copies(a.contiguous(), q, scale))
+  plain_ms = cuda_ms(lambda: int8_matmul.int8_weight_matmul_plain(
+      a, q, scale), reps=5)
+  w = quantization.dequantize_tensor(q, scale, (2,), torch.bfloat16)
+  bf16_ms = device_ms(
+      lambda a_, w_: torch.matmul(a_, w_.transpose(1, 2)), INT8_REPS,
+      inputs=cold_copies(a.contiguous(), w))
+  dequant_ms = cuda_ms(lambda: torch.matmul(
+      a, quantization.dequantize_tensor(q, scale, (2,)).transpose(1, 2)),
+      reps=5)
+  library_ms = None
+  if batches == 1:
+    try:
+      library_ms = cuda_ms(lambda: torch._weight_int8pack_mm(  # pylint: disable=protected-access
+          a[0], q[0], scale[0].bfloat16()), reps=10)
+    except (RuntimeError, NotImplementedError) as e:
+      log(f"    torch._weight_int8pack_mm is not available here: "
+          f"{str(e).splitlines()[0][:100]}")
+  del w
+  n_bytes = (q.numel() + 2 * batches * m * k + 4 * scale.numel()
+             + 2 * batches * m * n)
+  if a.stride(0) == 0:
+    n_bytes -= 2 * (batches - 1) * m * k  # one activation, read once
+  bound_ms, bound_by = bound(n_bytes, 2.0 * batches * m * n * k,
+                             BF16_TENSOR_FLOPS)
+  return dict(ms=ms, plain_ms=plain_ms, bf16_ms=bf16_ms,
+              dequant_ms=dequant_ms, library_ms=library_ms,
+              bound_ms=bound_ms, bound_by=bound_by, n_bytes=n_bytes)
+
+
+def int8_prefill_products(qmodel, dev) -> None:
+  """One [2560 -> 2560] projection at the text prefill's 2 x 3000 rows:
+  the weight-only kernel (bound by operations here), and the act_quant
+  layer's parts: ``quantize_activations``, ``torch._int_mm`` and the whole
+  layer, beside a bf16 product."""
+  layer = qmodel.blocks[0].recurrent_block.linear_x
+  q, scale = layer.kernel_q, layer.kernel_scale
+  gen = torch.Generator(dev).manual_seed(SEED + 85)
+  a = torch.randn(1, INT8_PREFILL_ROWS, q.shape[1], device=dev,
+                  generator=gen).bfloat16()
+  f = int8_figures(a, q[None], scale[None])
+  xq, _ = quantization.quantize_activations(a[0])
+  m, n, k = INT8_PREFILL_ROWS, q.shape[0], q.shape[1]
+  int_mm_ms = device_ms(lambda: quantization.int8_act_matmul(xq, q),
+                        INT8_REPS)
+  int_mm_bound, int_mm_by = bound(m * k + n * k + 4 * m * n, 2.0 * m * n * k,
+                                  INT8_TENSOR_OPS)
+  quantize_ms = cuda_ms(lambda: quantization.quantize_activations(a[0]))
+  layer.act_quant = True
+  try:
+    act_layer_ms = cuda_ms(lambda: layer(a[0]))
+  finally:
+    layer.act_quant = False
+  log(f"  a [{m}, {k}] x [{n}, {k}] (a projection at the text prefill's "
+      f"rows): weight-only int8 kernel {f['ms']:.4f} ms (bound "
+      f"{f['bound_ms']:.4f}, {f['bound_by']}: "
+      f"{100 * f['bound_ms'] / f['ms']:.1f}%), bf16 {f['bf16_ms']:.4f}, "
+      f"dequant {f['dequant_ms']:.4f}; act_quant: quantize_activations "
+      f"{quantize_ms:.4f}, torch._int_mm {int_mm_ms:.4f} (bound "
+      f"{int_mm_bound:.4f}, {int_mm_by}: "
+      f"{100 * int_mm_bound / int_mm_ms:.1f}%), the whole layer "
+      f"{act_layer_ms:.4f}")
+
+
+def _int8_counts() -> dict[str, int]:
+  return {"int8_weight_matmul": int8_matmul.launches,
+          "int_mm": quantization.int_mm_calls,
+          "lru_scan": lru_scan.launches,
+          "window_attention": wa.launches,
+          "mha_attention": mha_attention.launches}
+
+
+def _reset_int8_counts() -> None:
+  int8_matmul.launches = quantization.int_mm_calls = 0
+  lru_scan.launches = wa.launches = mha_attention.launches = 0
+
+
+def _weight_only_launches(model) -> int:
+  """The int8 kernel's launches in one weight-only text forward of a
+  quantized model: one for each int8 layer of the blocks (``Dense``,
+  ``Einsum``, ``BlockDiagonalLinear``) and one for the logits."""
+  return 1 + sum(hasattr(module, "kernel_q") or hasattr(module, "w_q")
+                 for module in model.blocks.modules())
+
+
+class ForwardTimes:
+  """CUDA events around every forward of the given modules (hooks), with
+  the counters at each end."""
+
+  def __init__(self, modules):
+    self.calls = []
+    self.hooks = []
+    for label, module in modules.items():
+      self.hooks += [
+          module.register_forward_pre_hook(
+              lambda *_, label=label: self.calls.append(
+                  [label, self._event()])),
+          module.register_forward_hook(
+              lambda *_: self.calls[-1].extend(
+                  [self._event(), _int8_counts()])),
+      ]
+
+  @staticmethod
+  def _event():
+    e = torch.cuda.Event(enable_timing=True)
+    e.record()
+    return e
+
+  def first(self, label):
+    return next(c for c in self.calls if c[0] == label)
+
+  def close(self):
+    for hook in self.hooks:
+      hook.remove()
+
+
+def phase_int8(dev, kernels: list[dict], profile: bool) -> None:
+  """Int8 serving on the 2B and both towers: the weight-only kernel and the
+  act_quant prefill against bf16 in turns."""
+  phase_start = time.perf_counter()
+  config = common.GriffinConfig.from_preset(
+      common.Preset.RECURRENT_GEMMA_2B_V1)
+  model = griffin.Griffin(config, device=dev, dtype=torch.bfloat16,
+                          generator=torch.Generator(dev).manual_seed(SEED))
+  state = synthetic.realistic_params(
+      model, torch.Generator(dev).manual_seed(SEED + 80))
+  qmodel = griffin.Griffin(config, device="meta", quantized=True)
+  qmodel.to_empty(device=dev)
+  qmodel.load_state_dict(quantization.quantize_params(state))
+  encoder = vit.DinoSigLIPEncoder(
+      device=dev, generator=torch.Generator(dev).manual_seed(SEED + 81))
+  qencoder = vit.DinoSigLIPEncoder(device="meta", quantized=True,
+                                   act_quant=True)
+  qencoder.to_empty(device=dev)
+  qencoder.load_state_dict(quantization.quantize_params(
+      encoder.state_dict()))
+  torch.cuda.synchronize()
+  bytes_ = {"bf16": quantization.quantized_bytes(state),
+            "int8": quantization.quantized_bytes(qmodel.state_dict()),
+            "towers f32": quantization.quantized_bytes(encoder.state_dict()),
+            "towers int8": quantization.quantized_bytes(
+                qencoder.state_dict())}
+  log(f"== int8 serving: RecurrentGemma-2B from realistic_params (norm "
+      f"scales N(0, 0.35), table + 0.3 N(0, 1)) and its quantize_params "
+      f"copy; DINOv2-L || SigLIP-so400m and their int8 (act_quant) copy "
+      f"(built in {time.perf_counter() - phase_start:.1f} s)")
+  log(f"  weight bytes: {', '.join(f'{k} {v / 1e9:.4f} GB' for k, v in bytes_.items())}"
+      f"; int8 / bf16 {bytes_['int8'] / bytes_['bf16']:.4f}")
+
+  vocab = SimpleVocab([f"w{i}" for i in range(config.vocab_size - 4)])
+  rng = np.random.default_rng(SEED + 82)
+  prompts = [" ".join(f"w{i}" for i in rng.integers(
+      0, config.vocab_size - 4, n - 1)) for n in PROMPT_TOKENS]
+  samplers = {
+      "bf16": sampler_lib.Sampler(model, vocab, device=dev),
+      "int8": sampler_lib.Sampler(qmodel, vocab, device=dev,
+                                  prefill_act_quant=True),
+  }
+  run_kw = dict(total_generation_steps=DECODE_STEPS, return_logits=True,
+                end_sampling_at_eos_token=False)
+
+  # (a) The int8 text run: launches, and the kernel on its inputs.
+  times = ForwardTimes({"bf16": model, "int8": qmodel})
+  probe = DecodeProbe(_int8_counts)
+  captures = CaptureInt8Calls()
+  try:
+    try:
+      for side in ("bf16", "int8"):  # warm-ups: capture the decode graphs
+        samplers[side](prompts, **run_kw)
+    finally:
+      captures.restore()
+    torch.cuda.synchronize()
+    times.calls.clear()
+    probe.reset()
+    _reset_int8_counts()
+    reset_scan_routes()
+    out = {"int8": samplers["int8"](prompts, **run_kw)}
+    torch.cuda.synchronize()
+    launches = probe.run_launches(_int8_counts())
+    step_launches, replays = probe.step_launches, probe.replays
+    prefill_counts = times.first("int8")[3]
+    check_scan_routes(lru_scan.launches)
+    # (b) Text serving in turns, two runs of each.
+    text = {"bf16": [], "int8": []}
+    for side in INT8_TURNS:
+      times.calls.clear()
+      out[side] = samplers[side](prompts, **run_kw)
+      first = times.first(side)
+      text[side].append((first[1].elapsed_time(first[2]),
+                         probe.decode_ms()))
+  finally:
+    probe.close()
+    times.close()
+  n_recurrent = sum(bt is common.TemporalBlockType.RECURRENT
+                    for bt in config.block_types)
+  per_step = _weight_only_launches(qmodel)
+  want_step = {"int8_weight_matmul": per_step, "int_mm": 0, "lru_scan": 0,
+               "window_attention": 0, "mha_attention": 0}
+  want_prefill = {"int8_weight_matmul": 2 * n_recurrent + 1,
+                  "int_mm": per_step - 1 - 2 * n_recurrent,
+                  "lru_scan": n_recurrent,
+                  "window_attention": config.num_layers - n_recurrent,
+                  "mha_attention": 0}
+  log(f"  int8 run: prefill launched {prefill_counts}; a captured decode "
+      f"step {step_launches}, replayed {replays} times; the run {launches}")
+  if (prefill_counts != want_prefill or step_launches != want_step
+      or replays != DECODE_STEPS - 1):
+    raise AssertionError(f"int8 launches: prefill {prefill_counts} (want "
+                         f"{want_prefill}), step {step_launches} (want "
+                         f"{want_step}), {replays} replays.")
+  row = {"name": "int8_weight_matmul", "route": "cuda",
+         "source": "cadence_gemma_tpu_torch/csrc/int8_matmul.cu",
+         "replaces": INT8_REPLACES,
+         "launches": launches["int8_weight_matmul"], "max_abs_err": 0.0}
+  for key, args in captures.inputs():
+    err = check_int8(*args)
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    log(f"  int8_weight_matmul on the path's inputs a {tuple(args[0].shape)}"
+        f"{' (shared)' if key[-1] else ''} x q {tuple(args[1].shape)}: "
+        f"max_abs_err {err:.3e} (tolerance {INT8_REL} of the larger value "
+        f"+ {INT8_ABS_OF_MAX} of the largest)")
+
+  # (c) The kernel's time at the decode step's shapes (the step's layouts)
+  # and at the prefill's block-diagonal; the JSON row is the logits product.
+  log(f"  int8_weight_matmul timed (ms; device time, queue full, cold "
+      f"copies; plain = its plain version; bf16 = matmul on a stored bf16 "
+      f"weight; dequant = dequantize + matmul; int8pack = "
+      f"torch._weight_int8pack_mm):")
+  for key, args in captures.inputs():
+    f = int8_figures(*args)
+    log(f"    a {tuple(args[0].shape)} x q {tuple(args[1].shape)}: ms "
+        f"{f['ms']:.4f}  plain {f['plain_ms']:.4f}  bf16 {f['bf16_ms']:.4f}"
+        f"  dequant {f['dequant_ms']:.4f}  int8pack "
+        f"{'n/a' if f['library_ms'] is None else round(f['library_ms'], 4)}"
+        f"  bound {f['bound_ms']:.4f} ({f['bound_by']}, "
+        f"{f['n_bytes'] / 1e6:.1f} MB): {100 * f['bound_ms'] / f['ms']:.1f}%"
+        f" of the bound")
+    if key == (1, config.vocab_size, config.width, 2, False):
+      row.update(ms=f["ms"], plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
+                 bound_by=f["bound_by"], library_ms=f["library_ms"])
+  if "ms" not in row:
+    raise AssertionError("The path never ran the logits product.")
+  kernels.append(row)
+  int8_prefill_products(qmodel, dev)
+
+  # (d) Greedy int8 vs bf16 on realistic weights.
+  agree = synthetic.greedy_token_agreement(torch.stack(out["int8"].tokens),
+                                           torch.stack(out["bf16"].tokens))
+  l8 = torch.stack(out["int8"].logits)[:, 0].float()
+  l16 = torch.stack(out["bf16"].logits)[:, 0].float()
+  ids = torch.tensor([samplers["bf16"].tokenize(prompts[0])], device=dev)
+  pos = torch.arange(ids.shape[1], device=dev)[None]
+  with torch.inference_mode():
+    weight_only, _ = qmodel(ids, pos, return_cache=False,
+                            last_logits_only=True)
+    ref, _ = model(ids, pos, return_cache=False, last_logits_only=True)
+  rel = lambda a, b: ((a.float() - b.float()).abs().max()
+                      / b.float().abs().max()).item()
+  log(f"  first-token logits vs bf16: int8 + act_quant prefill "
+      f"int8_logit_rel_err {rel(l8, l16):.5f} (max |bf16| "
+      f"{l16.abs().max().item():.2f}); weight-only int8 {rel(weight_only, ref):.5f}"
+      f" (prompt 0); greedy tokens over {DECODE_STEPS} steps, 2 rows: "
+      f"{agree}")
+  log(f"  text serving in turns {INT8_TURNS}: prefill ms (2 x 3000 tokens "
+      f"padded; int8 with act_quant) bf16 "
+      f"{[round(p, 2) for p, _ in text['bf16']]}, int8 "
+      f"{[round(p, 2) for p, _ in text['int8']]}; captured decode ms a step "
+      f"(batch 2) bf16 {[round(d, 3) for _, d in text['bf16']]}, int8 "
+      f"{[round(d, 3) for _, d in text['int8']]}")
+  if profile:
+    for side in ("bf16", "int8"):
+      log(f"  {side} text serving, kernel time by name:")
+      profile_main_path(samplers[side], prompts,
+                        float(np.median([p for p, _ in text[side]])),
+                        float(np.median([d for _, d in text[side]])))
+
+  # (e) Pixels -> first token, int8 towers with act_quant.
+  mm_rng = np.random.default_rng(SEED + 83)
+  mm_prompts = [" ".join(f"w{i}" for i in mm_rng.integers(
+      0, config.vocab_size - 4, MM_PROMPT_TOKENS - 1)) for _ in range(2)]
+  pixels = torch.rand(MM_PIXELS, device=dev,
+                      generator=torch.Generator(dev).manual_seed(SEED + 84))
+  modal = {"bf16": modal_sampler.ModalSampler(model, vocab, encoder,
+                                              device=dev),
+           "int8": modal_sampler.ModalSampler(qmodel, vocab, qencoder,
+                                              device=dev,
+                                              prefill_act_quant=True)}
+  times = ForwardTimes({"bf16 encode": encoder, "int8 encode": qencoder,
+                        "bf16": model, "int8": qmodel})
+  ttft = {"bf16": [], "int8": []}
+  try:
+    features = {side: modal[side].encode(pixels) for side in modal}
+    for side in modal:  # warm-ups
+      modal[side](mm_prompts, total_generation_steps=1, pixels=pixels)
+    for i, side in enumerate(INT8_TURNS):
+      times.calls.clear()
+      if i == 1:  # the first int8 turn's launches
+        _reset_int8_counts()
+      mm_out = modal[side](mm_prompts, total_generation_steps=1,
+                           pixels=pixels)
+      torch.cuda.synchronize()
+      enc, fwd = times.first(f"{side} encode"), times.first(side)
+      ttft[side].append((enc[1].elapsed_time(enc[2]),
+                         enc[1].elapsed_time(fwd[2])))
+      if i == 1:
+        encode_counts, mm_counts = enc[3], fwd[3]
+  finally:
+    times.close()
+  log(f"  int8 image run: the encode launched {encode_counts}; through the "
+      f"prefill {mm_counts}; int8 features vs bf16 rel_rms "
+      f"{_rel_rms(features['int8'], features['bf16']):.4f}; first tokens "
+      f"{[int(t[0]) for t in mm_out.tokens]}")
+  n_towers = len(encoder.dino.blocks) + len(encoder.siglip.blocks)
+  if (encode_counts["mha_attention"] != n_towers
+      or encode_counts["int_mm"] != 4 * n_towers
+      or encode_counts["int8_weight_matmul"] != 0):
+    raise AssertionError(f"The int8 encode launched {encode_counts}; want "
+                         f"{n_towers} MHA, {4 * n_towers} int8 products.")
+  log(f"  pixels {list(MM_PIXELS)} -> first token, 2 x {MM_PROMPT_TOKENS} "
+      f"tokens, in turns {INT8_TURNS}: (encode ms, ttft ms) bf16 "
+      f"{[(round(e, 2), round(t, 2)) for e, t in ttft['bf16']]}, int8 "
+      f"{[(round(e, 2), round(t, 2)) for e, t in ttft['int8']]}")
+  del modal, encoder, qencoder, features
+
+  # (f) The eight-slot batcher's captured tick, int8 against bf16.
+  steady = {}
+  for side in ("bf16", "int8"):
+    steady[side] = serving.ContinuousBatcher(samplers[side],
+                                             num_slots=BATCH_SLOTS,
+                                             max_steps_default=4096)
+    for _ in range(BATCH_SLOTS):
+      steady[side].add_request(" ".join(f"w{j}" for j in rng.integers(
+          0, config.vocab_size - 4, 300)))
+    steady[side].step(BATCH_TICK)  # admits all eight, captures the tick
+  tick_ms = {"bf16": [], "int8": []}
+  for side in INT8_TURNS:
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    with torch.inference_mode():
+      for _ in range(TICK_REPEATS):
+        steady[side]._tick(BATCH_TICK)
+    end.record()
+    end.synchronize()
+    tick_ms[side].append(start.elapsed_time(end) / TICK_REPEATS / BATCH_TICK)
+  log(f"  {BATCH_SLOTS}-slot captured tick, ms a step in turns "
+      f"{INT8_TURNS}: bf16 {[round(t, 3) for t in tick_ms['bf16']]}, int8 "
+      f"{[round(t, 3) for t in tick_ms['int8']]}")
+  if profile:
+    with torch.inference_mode():
+      profile_call(lambda: steady["int8"]._tick(BATCH_TICK),
+                   float(np.median(tick_ms["int8"])) * BATCH_TICK,
+                   f"int8 {BATCH_SLOTS}-slot tick of {BATCH_TICK} steps")
+  del steady, samplers, model, qmodel, state
+  log(f"  phase 18 took {time.perf_counter() - phase_start:.1f} s")
+
+
 def main() -> int:
   profile = "--profile" in sys.argv[1:]
   if not torch.cuda.is_available():
@@ -3935,6 +4387,9 @@ def main() -> int:
   kernels += phase_kernel_lab(dev)
   log(f"== the complex scan and lab phases {time.perf_counter() - phase_start:.1f}"
       f" s; total {time.perf_counter() - start:.1f} s")
+  torch.cuda.empty_cache()
+  phase_int8(dev, kernels, profile)
+  log(f"== total {time.perf_counter() - start:.1f} s")
   print(json.dumps({"kernels": kernels}))
   print(json.dumps({"ok": True, "device": device}), flush=True)
   return 0

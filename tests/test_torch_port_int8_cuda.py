@@ -1,0 +1,191 @@
+"""The int8 weight-only CUDA kernel and the int8 x int8 product on the card.
+
+Card tests: they skip without a CUDA device. ``cg_int8_weight_matmul``
+(``csrc/int8_matmul.cu``) against its plain version
+(``int8_weight_matmul_plain``, JAX's ``(x @ q.astype(bf16)) * scale``) at
+the 2B's four layouts -- a ``Dense`` [2560 -> 2560], the fused ``ffw_up``
+(two [2560 -> 7680] over one shared activation, batch stride 0), the gates'
+block-diagonal (10 heads of [256 -> 256] read in place from a [m, 2560]
+activation) and ``Embedder.decode`` [2560 -> 256000] -- at 1, 2, 8, 17 and
+3000 rows: both sum in float32 in other orders, round the sum to bfloat16,
+multiply by the bfloat16 scale and round again, so one step of the first
+rounding and the second rounding together differ by up to 1.5 x 2^-7 of the
+larger value: they must agree within 2^-6 of it (plus 1e-4 of the largest
+output for sums that cancel). Two launches give the same bits, and
+a captured CUDA graph replays them. ``int8_act_matmul`` (``torch._int_mm``,
+zero rows padded under 17) equals the exact integer product. A small bf16
+``Griffin(quantized=True)``: captured decode (the kernel inside the graph)
+gives the eager loop's tokens and the prefill_act_quant Sampler runs.
+
+  python -m pytest --noconftest tests/test_torch_port_int8_cuda.py -q
+"""
+
+import pytest
+import torch
+
+from cadence_gemma_tpu_torch import common
+from cadence_gemma_tpu_torch.inference import sampler as sampler_lib
+from cadence_gemma_tpu_torch.models import griffin
+from cadence_gemma_tpu_torch.ops import int8_matmul
+from cadence_gemma_tpu_torch.ops import quantization
+from cadence_gemma_tpu_torch.tokenizers import SimpleVocab
+
+requires_cuda = pytest.mark.skipif(
+    "not torch.cuda.is_available()", reason="needs a CUDA device"
+)
+
+ROWS = (1, 2, 8, 17, 3000)
+LAYOUTS = ("dense", "ffw_up", "block_diagonal", "embed")
+
+
+def operands(layout: str, m: int, seed: int = 0):
+  """(a, q, scale) on the card as the 2B's layer hands them to the kernel."""
+  gen = torch.Generator("cuda").manual_seed(seed)
+  dev = "cuda"
+
+  def qs(batches, n, k):
+    q = torch.randint(-127, 128, (batches, n, k), generator=gen, device=dev,
+                      dtype=torch.int8)
+    scale = torch.rand(batches, n, generator=gen, device=dev) * 1e-2
+    return q, scale
+
+  x = torch.randn(m, 2560, generator=gen, device=dev).bfloat16()
+  if layout == "dense":
+    return (x[None], *qs(1, 2560, 2560))
+  if layout == "ffw_up":
+    return (x[None].expand(2, -1, -1), *qs(2, 7680, 2560))
+  if layout == "block_diagonal":
+    return (x.view(m, 10, 256).transpose(0, 1), *qs(10, 256, 256))
+  return (x[None], *qs(1, 256000, 2560))
+
+
+def assert_matches_plain(got: torch.Tensor, want: torch.Tensor) -> None:
+  got, want = got.float(), want.float()
+  big = torch.maximum(got.abs(), want.abs())
+  allowed = big * 2.0**-6 + 1e-4 * want.abs().max()
+  worst = ((got - want).abs() - allowed).max().item()
+  assert worst <= 0, worst
+
+
+@pytest.fixture(autouse=True)
+def _full_precision_reference():
+  """The plain version's cuBLAS product keeps float32 partial sums."""
+  if not torch.cuda.is_available():
+    yield
+    return
+  saved = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+  torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+  yield
+  torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = saved
+
+
+@requires_cuda
+@pytest.mark.parametrize("m", ROWS)
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_int8_weight_matmul_cuda_matches_plain(layout, m):
+  a, q, scale = operands(layout, m)
+  before = int8_matmul.launches
+  got = int8_matmul.int8_weight_matmul(a, q, scale)
+  assert int8_matmul.launches == before + 1
+  want = int8_matmul.int8_weight_matmul_plain(a, q, scale)
+  torch.cuda.synchronize()
+  assert got.shape == want.shape and got.dtype == torch.bfloat16
+  assert got.is_contiguous()
+  assert_matches_plain(got, want)
+
+
+@requires_cuda
+@pytest.mark.parametrize("layout,m", [("dense", 2), ("block_diagonal", 8),
+                                      ("ffw_up", 17), ("embed", 2)])
+def test_int8_weight_matmul_cuda_bits_repeat_and_replay(layout, m):
+  """Two launches, and the replays of a captured graph, give one result
+  (split-K at the decode shapes sums its slices in a fixed order)."""
+  a, q, scale = operands(layout, m, seed=1)
+  first = int8_matmul.int8_weight_matmul(a, q, scale)
+  second = int8_matmul.int8_weight_matmul(a, q, scale)
+  torch.cuda.synchronize()
+  assert torch.equal(first, second)
+  side = torch.cuda.Stream()
+  side.wait_stream(torch.cuda.current_stream())
+  with torch.cuda.stream(side):
+    int8_matmul.int8_weight_matmul(a, q, scale)
+  torch.cuda.current_stream().wait_stream(side)
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    out = int8_matmul.int8_weight_matmul(a, q, scale)
+  for _ in range(3):
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, first)
+
+
+@requires_cuda
+def test_int8_weight_matmul_cuda_refuses_what_it_cannot_take():
+  a, q, scale = operands("dense", 2)
+  with pytest.raises(ValueError, match="bfloat16"):
+    int8_matmul.int8_weight_matmul(a.float(), q, scale)
+  with pytest.raises(ValueError, match="multiple of 16"):
+    int8_matmul.int8_weight_matmul(a[..., :40], q[..., :40], scale)
+
+
+@requires_cuda
+@pytest.mark.parametrize("m", (1, 5, 16, 17))
+def test_int8_act_matmul_cuda_is_exact(m):
+  gen = torch.Generator("cuda").manual_seed(m)
+  xq = torch.randint(-127, 128, (m, 2560), generator=gen, device="cuda",
+                     dtype=torch.int8)
+  q = torch.randint(-127, 128, (256, 2560), generator=gen, device="cuda",
+                    dtype=torch.int8)
+  before = quantization.int_mm_calls
+  got = quantization.int8_act_matmul(xq, q)
+  assert quantization.int_mm_calls == before + 1
+  want = quantization.int8_act_matmul(xq.cpu(), q.cpu())
+  assert got.shape == (m, 256) and got.dtype == torch.int32
+  assert torch.equal(got.cpu(), want)
+  with pytest.raises(ValueError, match="multiples of 8"):
+    quantization.int8_act_matmul(xq[:, :36], q[:, :36])
+
+
+def _tiny_int8_model():
+  config = common.GriffinConfig(
+      vocab_size=512, width=128, mlp_expanded_width=384, num_heads=2,
+      block_types=(common.TemporalBlockType.RECURRENT,
+                   common.TemporalBlockType.ATTENTION,
+                   common.TemporalBlockType.RECURRENT),
+      embeddings_scale_by_sqrt_dim=True, attention_window_size=32,
+      logits_soft_cap=30.0, lru_width=128)
+  model = griffin.Griffin(config, device="cuda", dtype=torch.bfloat16,
+                          generator=torch.Generator("cuda").manual_seed(0))
+  with torch.no_grad():
+    for p in model.parameters():  # large enough to pick varied tokens
+      if p.dtype == torch.bfloat16:
+        p.normal_(0.0, 0.5, generator=torch.Generator("cuda").manual_seed(1))
+  qmodel = griffin.Griffin(config, device="meta", quantized=True)
+  qmodel.to_empty(device="cuda")
+  qmodel.load_state_dict(quantization.quantize_params(model.state_dict()))
+  return qmodel
+
+
+@requires_cuda
+def test_int8_captured_decode_matches_eager():
+  qmodel = _tiny_int8_model()
+  vocab = SimpleVocab([f"w{i}" for i in range(508)])
+  prompts = ["w1 w7 w9 w300 w2", "w4 w5"]
+  runs = {}
+  for captured in (True, False):
+    s = sampler_lib.Sampler(qmodel, vocab, jit_compile=captured,
+                            prefill_act_quant=True)
+    s(prompts, total_generation_steps=12, end_sampling_at_eos_token=False)
+    int8_matmul.launches = 0
+    quantization.int_mm_calls = 0
+    out = s(prompts, total_generation_steps=12,
+            end_sampling_at_eos_token=False)
+    runs[captured] = (torch.stack(out.tokens).cpu(), int8_matmul.launches,
+                      quantization.int_mm_calls)
+  assert torch.equal(runs[True][0], runs[False][0])
+  # The prefill's weight-only launches are the gates' and the logits'; the
+  # eager decode launches every product each step, the replays none the
+  # counter sees.
+  assert runs[True][1] > 0 and runs[False][1] > runs[True][1]
+  assert runs[True][2] == runs[False][2] > 0

@@ -254,9 +254,17 @@ def test_encoder_init_and_refusals():
   assert abs(float(kernel.std()) - (3 * 49) ** -0.5) < 0.02
   with torch.no_grad():
     assert torch.isfinite(enc(torch.rand(1, 3, 28, 28))).all()
-  for flag in ("quantized", "act_quant", "softmax_bf16"):
-    with pytest.raises(NotImplementedError, match=flag):
-      vit.DinoSigLIPEncoder(device="meta", **{flag: True})
+  # The int8 towers build (no longer refused): int8 kernels in every Dense,
+  # the patch embedding's convolution stays float; act_quant needs them.
+  qenc = vit.DinoSigLIPEncoder(device="meta", quantized=True, act_quant=True,
+                               softmax_bf16=True)
+  qstate = qenc.state_dict()
+  assert qstate["dino.block0.attn_qkv.kernel_q"].dtype == torch.int8
+  assert qstate["siglip.block3.mlp_fc2.kernel_scale"].dtype == torch.float32
+  assert qstate["dino.patch_embed.kernel"].dtype == torch.float32
+  assert not any(name.endswith(".attn_qkv.kernel") for name in qstate)
+  with pytest.raises(ValueError, match="act_quant"):
+    vit.DinoSigLIPEncoder(device="meta", act_quant=True)
 
 
 def test_presets_equal_jax():
