@@ -3,7 +3,9 @@
 Text generation (chunked prefill, prefix caching and conversational state,
 per-row sampling, the decode loop captured as a CUDA graph),
 image-conditioned generation (DINOv2-L || SigLIP-so400m towers, the
-vision-language connector), full SFT fine-tuning and the
+vision-language connector), fine-tuning (full SFT, image SFT and the
+two-stage recipe of ``two_stage_sft``, LoRA adapters over a bf16 or an int8
+base: ``Griffin(lora_rank=...)``, ``lora``) and the
 sequence-parallel long-context prefill (``Griffin(scan_sharding_spec=...)``
 over a ``make_mesh`` mesh) on the Griffin / RecurrentGemma backbone. Plain
 tensor code is PyTorch; the kernels -- the RG-LRU scan (with the running
@@ -12,7 +14,8 @@ windowed multi-query flash attention (with a sequence shard's key halo) and
 its dq and dk/dv backward, the towers' bidirectional multi-head attention,
 the fused residual add + RMSNorm and the weight-only int8 product of int8
 serving (``Griffin(quantized=True)``, ``quantize_params``,
-``prefill_act_quant``) -- are hand-written CUDA C++ (``csrc/``), built by
+``prefill_act_quant``) and its input gradient (QLoRA) -- are hand-written
+CUDA C++ (``csrc/``), built by
 ``nvcc`` at first use. The scan also takes
 complex-valued operands (``complex_lib.Complex`` pairs of real tensors, the
 complex kernels of ``csrc/lru_scan_complex.cu``), and
@@ -50,6 +53,10 @@ from cadence_gemma_tpu_torch.parallel.sharding import make_mesh
 from cadence_gemma_tpu_torch.tokenizers import SimpleVocab
 from cadence_gemma_tpu_torch.tokenizers import Vocabulary
 from cadence_gemma_tpu_torch.tokenizers import load_sentencepiece
+from cadence_gemma_tpu_torch.training import lora
+from cadence_gemma_tpu_torch.training.train_loop import TrainingConfig
+from cadence_gemma_tpu_torch.training.train_loop import train_loop
+from cadence_gemma_tpu_torch.training.train_loop import two_stage_sft
 
 __all__ = [
     "ContinuousBatcher",
@@ -69,13 +76,17 @@ __all__ = [
     "ShardingSpec",
     "SimpleVocab",
     "TemporalBlockType",
+    "TrainingConfig",
     "ViTConfig",
     "Vocabulary",
     "apply_it_formatter",
     "encoder_from_flax_params",
     "griffin_from_flax_params",
     "load_sentencepiece",
+    "lora",
     "make_mesh",
     "quantize_params",
     "read_npz_params",
+    "train_loop",
+    "two_stage_sft",
 ]

@@ -14,7 +14,10 @@ A quantized tree (JAX's ``quantize_params``) carries ``name_q`` (int8) and
 is, and the 3-D ``w_q`` of the fused up-projection ``(c, d, D)`` and of the
 gates' block-diagonal ``(h, i, j)`` to the contraction-last ``(c, D, d)``
 and ``(h, j, i)`` the port's int8 kernel reads. int8 leaves keep their
-dtype.
+dtype. LoRA adapters (``lora_a`` / ``lora_b``) keep flax's layouts in the
+port and cross unchanged, beside a bf16 or an int8 base.
+:func:`flax_params_from_state_dict` goes the other way (the tests hand a
+port's weights back to the JAX package with it).
 
 :func:`read_npz_params` reads the flattened ``p['blocks.0']['...']`` key
 scheme of ``np.savez`` files written from ``jax.tree_util.keystr`` paths
@@ -90,6 +93,37 @@ def state_dict_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
   return out
 
 
+def flax_params_from_state_dict(
+    state_dict: Mapping[str, torch.Tensor]) -> dict[str, Any]:
+  """The flax tree (nested dicts of numpy arrays) of a port's state dict:
+  the inverse of :func:`state_dict_from_flax`'s layout changes. A numeric
+  part of a name belongs to the key before it (flax's ``blocks.0``).
+  bfloat16 leaves come back as float32 (numpy has no bfloat16 of its
+  own)."""
+  tree: dict[str, Any] = {}
+  for name, tensor in state_dict.items():
+    tensor = tensor.detach().cpu()
+    leaf = name.rsplit(".", 1)[-1]
+    if leaf == "w_q" and tensor.ndim == 3:
+      tensor = tensor.transpose(1, 2)
+    elif leaf in ("kernel", "kernel_q"):
+      tensor = tensor.T if tensor.ndim == 2 else tensor.permute(2, 3, 1, 0)
+    if tensor.dtype == torch.bfloat16:
+      tensor = tensor.float()
+    keys = []
+    for part in name.split("."):
+      if part.isdigit() and keys:
+        keys[-1] += f".{part}"
+      else:
+        keys.append(part)
+    node = tree
+    *parents, last = keys
+    for part in parents:
+      node = node.setdefault(part, {})
+    node[last] = tensor.contiguous().numpy()
+  return tree
+
+
 @torch.no_grad()
 def load_flax_params(model: torch.nn.Module, params: Mapping[str, Any]) -> None:
   """Copies a flax tree into ``model`` in place, casting to its dtypes."""
@@ -131,6 +165,8 @@ def griffin_from_flax_params(
     scan_sharding_spec: sharding.ShardingSpec | None = None,
     quantized: bool | None = None,
     act_quant: bool = False,
+    lora_rank: int = 0,
+    lora_alpha: float | None = None,
 ) -> griffin.Griffin:
   """Builds a ``Griffin`` holding a flax tree's weights.
 
@@ -141,7 +177,9 @@ def griffin_from_flax_params(
   quantized model when the tree holds int8 (``_q``) leaves. A quantized
   tree has no ``input_embedding`` to read the config from, so it needs
   ``config`` (JAX's ``examples/serve.py`` reads it from the bfloat16 tree
-  before quantizing).
+  before quantizing). ``lora_rank`` / ``lora_alpha`` build the adapters of
+  JAX's ``Griffin(lora_rank=...)``; the tree must then carry them (a bf16
+  or a quantized base with its ``lora_a`` / ``lora_b`` leaves).
   """
   device = griffin.resolve_device(device)
   if quantized is None:
@@ -158,7 +196,7 @@ def griffin_from_flax_params(
       config, device="meta", dtype=dtype,
       use_flash_attention=use_flash_attention, fused_epilogue=fused_epilogue,
       scan_sharding_spec=scan_sharding_spec, quantized=quantized,
-      act_quant=act_quant,
+      act_quant=act_quant, lora_rank=lora_rank, lora_alpha=lora_alpha,
   )
   model.to_empty(device=device)
   load_flax_params(model, params)

@@ -72,7 +72,7 @@ Grammar-constrained surfaces -- ``constraint=`` on ``/v1/generate``,
 "required"`` or a named function, and ``ServingFrontend(constraint_names=)``
 -- are not ported yet (ROADMAP queue 1 item 11): the routes answer 400 with
 an OpenAI error saying so. Per-request LoRA adapters (``adapter=``) wait for
-item 5.
+item 5b (multi-LoRA serving).
 
 ``ServingFrontend`` is usable without HTTP (library callers submit and
 wait); ``ServingHTTPServer`` wraps it for the wire.
@@ -722,8 +722,8 @@ class ServingFrontend:
           f"constraint_names: {GRAMMAR_NOT_PORTED}")
     if adapter_resolver is not None:
       raise NotImplementedError(
-          "adapter_resolver: per-request LoRA adapters are not ported yet "
-          "(ROADMAP queue 1 item 5)")
+          "adapter_resolver: per-request LoRA adapters are multi-LoRA "
+          "serving, not ported yet (ROADMAP queue 1 item 5b)")
     self.device = serving_lib._check_device(
         griffin.resolve_device(device), batcher.device, "frontend",
         "batcher")
@@ -800,8 +800,8 @@ class ServingFrontend:
                                 f"{GRAMMAR_NOT_PORTED}")
     if adapter is not None:
       raise NotImplementedError(
-          "adapter=: per-request LoRA adapters are not ported yet (ROADMAP "
-          "queue 1 item 5)")
+          "adapter=: per-request LoRA adapters are multi-LoRA serving, not "
+          "ported yet (ROADMAP queue 1 item 5b)")
     if self.max_queue is not None and self._inbox.qsize() >= self.max_queue:
       raise QueueFull(
           f"submission queue is full ({self.max_queue} waiting); retry "

@@ -367,7 +367,7 @@ class ContinuousBatcher:
     if draft_len:
       raise _not_ported("Speculative decoding (draft_len > 0)", "item 10")
     if multi_lora:
-      raise _not_ported("Multi-LoRA serving (multi_lora)", "item 5")
+      raise _not_ported("Multi-LoRA serving (multi_lora)", "item 5b")
     if (constraints is not None and len(constraints)) or (
         dynamic_grammar_slots or dynamic_grammar_budget is not None):
       raise _not_ported("Grammar constraints (constraints, "
@@ -593,7 +593,7 @@ class ContinuousBatcher:
     if constraint is not None:
       raise _not_ported("Grammar constraints (constraint=)", "item 11")
     if adapters is not None:
-      raise _not_ported("Per-request LoRA adapters (adapters=)", "item 5")
+      raise _not_ported("Per-request LoRA adapters (adapters=)", "item 5b")
     sampling = None
     overridden = [
         a is not None

@@ -88,6 +88,12 @@ class Griffin(nn.Module):
     act_quant: int8 activations too in every ``Dense`` and ``Einsum``
       (requires ``quantized``; adds no weights). :meth:`act_quant_view`
       gives this mode over an existing quantized model's own weights.
+    lora_rank: A LoRA adapter pair of this rank on every ``Dense`` and
+      ``Einsum`` projection, the connector's included (``griffin.py:53-61``
+      in JAX; 0 = none), over a bf16 or a ``quantized`` base.
+      ``training.lora`` trains the adapters alone.
+    lora_alpha: The adapters' scale is ``lora_alpha / lora_rank``
+      (``None``: 1).
   """
 
   def __init__(
@@ -102,6 +108,8 @@ class Griffin(nn.Module):
       scan_sharding_spec: sharding.ShardingSpec | None = None,
       quantized: bool = False,
       act_quant: bool = False,
+      lora_rank: int = 0,
+      lora_alpha: float | None = None,
   ):
     super().__init__()
     if act_quant and not quantized:
@@ -112,8 +120,11 @@ class Griffin(nn.Module):
     self.scan_sharding_spec = scan_sharding_spec
     self.quantized = quantized
     self.act_quant = act_quant
+    self.lora_rank = lora_rank
+    self.lora_alpha = lora_alpha
     kw = dict(device=device, dtype=dtype)
-    qkw = dict(kw, quantized=quantized, act_quant=act_quant)
+    qkw = dict(kw, quantized=quantized, act_quant=act_quant,
+               lora_rank=lora_rank, lora_alpha=lora_alpha)
     self.embedder = modules.Embedder(
         config.vocab_size, config.width,
         config.embeddings_scale_by_sqrt_dim, quantized=quantized, **kw,
@@ -154,13 +165,18 @@ class Griffin(nn.Module):
     scales, and the RG-LRU ``a_param`` drawn so that ``a`` is uniform in
     radius on the ring [0.9, 0.999]. A quantized model's int8 weights are
     zeros and their scales ones, as the flax initializers of JAX's
-    ``quantized=True`` layers draw them.
+    ``quantized=True`` layers draw them. LoRA adapters are drawn after every
+    other weight (so the base equals a ``lora_rank=0`` model's from the same
+    generator): ``lora_a`` normal(fan_in^-0.5), ``lora_b`` zeros.
     """
     final_scale = 2.0 / self.config.num_layers
+    adapters = []
     for name, p in self.named_parameters():
       leaf = name.rsplit(".", 1)[-1]
       parent = name.rsplit(".", 2)[-2] if name.count(".") else ""
-      if leaf.endswith("_q"):
+      if leaf in layers.LORA_LEAF_NAMES:
+        adapters.append((name, p))
+      elif leaf.endswith("_q"):
         p.zero_()
       elif leaf.endswith("_scale"):
         p.fill_(1.0)
@@ -182,6 +198,8 @@ class Griffin(nn.Module):
         scale = (final_scale if parent in _OUTPUT_PROJECTIONS
                  and not name.startswith("vl_connector.") else 1.0)
         p.normal_(0.0, math.sqrt(scale / p.shape[1]), generator=generator)
+    for name, p in adapters:
+      layers.init_lora_(name, p, generator)
 
   def act_quant_view(self) -> "Griffin":
     """This quantized model with int8 activations in every ``Dense`` and

@@ -20,7 +20,20 @@ order: weight-only, the product in the compute dtype, times the scale in
 the compute dtype, plus the bias in the compute dtype; ``act_quant``, the
 int32 product times the activation scale times the weight scale in float32,
 then the bias (in float32 in ``Einsum``, after the cast in ``Dense``).
-LoRA adapters (``lora_rank``, ``lora_rows``) are not ported.
+The weight-only product has a gradient for its input (a second CUDA
+kernel), so a quantized model back-propagates to adapters upstream of it;
+``act_quant`` has none (``torch._int_mm``) and refuses a gradient.
+
+``lora_rank > 0`` (``Dense`` and ``Einsum``) adds a LoRA adapter pair,
+``lora_a`` drawn normal(fan_in^-0.5) and ``lora_b`` zero, and adds
+``((x @ a) @ b) * alpha / r`` (``alpha`` is ``lora_alpha``, the rank when
+``None``; 0.0 nulls the term) in the compute dtype, over a
+bf16 base or a ``quantized`` one (JAX's ``lora_term``,
+``layers.py:108-140``). The adapters keep flax's layouts: ``Dense``
+``lora_a`` ``[in, r]`` and ``lora_b`` ``[r, out]`` (not transposed as
+``kernel`` is), ``Einsum`` ``[c, d, r]`` and ``[c, r, D]``, one pair per
+leading index. ``lora_rows`` (one adapter per batch row, multi-LoRA
+serving) is not ported.
 
 Numerics follow the JAX layers: RMSNorm's ``(scale + 1)`` gain, the RG-LRU's
 ``log_a = -8 * sigmoid(W_a x) * softplus(a_param)`` with a float32 carry and
@@ -52,16 +65,60 @@ def _check_quant_flags(quantized: bool, act_quant: bool) -> None:
                      "against the int8 weights).")
 
 
-def refuse_lora(lora_rank: int = 0, lora_rows: int = 0) -> None:
-  """LoRA adapters are ROADMAP queue 1 item 4 of the port."""
-  if lora_rank or lora_rows:
+def refuse_lora_rows(lora_rows: int = 0) -> None:
+  """Per-row adapters are multi-LoRA serving, ROADMAP queue 1 item 5b."""
+  if lora_rows:
     raise NotImplementedError(
-        "LoRA adapters (lora_rank, lora_rows) are not ported (ROADMAP "
-        "queue 1 item 4)."
+        "Per-row LoRA adapters (lora_rows) are multi-LoRA serving, which is "
+        "not ported (ROADMAP queue 1 item 5b)."
     )
 
 
-class Dense(nn.Module):
+def _refuse_act_quant_gradient(*tensors) -> None:
+  if torch.is_grad_enabled() and any(
+      t is not None and t.requires_grad for t in tensors):
+    raise ValueError(
+        "act_quant has no gradient (torch._int_mm); train a quantized model "
+        "weight-only (act_quant=False), as JAX's LoRA does.")
+
+
+LORA_LEAF_NAMES = ("lora_a", "lora_b")
+
+
+@torch.no_grad()
+def init_lora_(name: str, p: torch.Tensor,
+               generator: torch.Generator) -> None:
+  """Draws the adapter leaf ``name`` in place as JAX's initializers do:
+  ``lora_a`` (its input axis second to last) normal(fan_in^-0.5),
+  ``lora_b`` zeros."""
+  if name.rsplit(".", 1)[-1] == "lora_b":
+    p.zero_()
+  else:
+    p.normal_(0.0, p.shape[-2] ** -0.5, generator=generator)
+
+
+class _LoRA:
+  """The adapter pair of ``Dense`` and ``Einsum`` (JAX's ``lora_term``)."""
+
+  def _init_lora(self, lora_rank: int, lora_alpha: float | None,
+                 a_shape, b_shape, device, dtype) -> None:
+    self.lora_rank = lora_rank
+    self.lora_alpha = lora_alpha
+    if not lora_rank:
+      self.lora_a = self.lora_b = None
+      return
+    kw = dict(device=device, dtype=dtype)
+    self.lora_a = nn.Parameter(torch.empty(*a_shape, **kw))
+    self.lora_b = nn.Parameter(torch.empty(*b_shape, **kw))
+
+  @property
+  def lora_scaling(self) -> float:
+    alpha = (self.lora_alpha if self.lora_alpha is not None
+             else float(self.lora_rank))
+    return alpha / self.lora_rank
+
+
+class Dense(nn.Module, _LoRA):
   """A linear layer with flax's parameter names.
 
   ``kernel`` is stored ``[out, in]`` (PyTorch's layout; flax keeps
@@ -72,16 +129,18 @@ class Dense(nn.Module):
   ``quantized=True`` holds ``kernel_q`` (int8 ``[out, in]``) and
   ``kernel_scale`` (float32 ``[out]``) instead of ``kernel``, the
   ``QuantizableDense`` of JAX; ``act_quant=True`` also quantizes the input
-  per row (see the module docstring for both).
+  per row (see the module docstring for both). ``lora_rank > 0`` adds
+  ``lora_a`` ``[in, r]`` and ``lora_b`` ``[r, out]`` (flax's layouts).
   """
 
   def __init__(self, in_features: int, out_features: int,
                use_bias: bool = True, device=None, dtype=None,
                quantized: bool = False, act_quant: bool = False,
-               lora_rank: int = 0, lora_rows: int = 0):
+               lora_rank: int = 0, lora_rows: int = 0,
+               lora_alpha: float | None = None):
     super().__init__()
     _check_quant_flags(quantized, act_quant)
-    refuse_lora(lora_rank, lora_rows)
+    refuse_lora_rows(lora_rows)
     self.quantized = quantized
     self.act_quant = act_quant
     kw = dict(device=device, dtype=dtype)
@@ -97,13 +156,24 @@ class Dense(nn.Module):
     self.bias = (
         nn.Parameter(torch.empty(out_features, **kw)) if use_bias else None
     )
+    self._init_lora(lora_rank, lora_alpha, (in_features, lora_rank),
+                    (lora_rank, out_features), device, dtype)
+
+  def _lora_term(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return ((x.to(dtype) @ self.lora_a.to(dtype)) @ self.lora_b.to(dtype)
+            ) * self.lora_scaling
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     bias = None if self.bias is None else self.bias.to(x.dtype)
     if not self.quantized:
-      return F.linear(x, self.kernel.to(x.dtype), bias)
+      if not self.lora_rank:
+        return F.linear(x, self.kernel.to(x.dtype), bias)
+      y = F.linear(x, self.kernel.to(x.dtype))
+      y = y + self._lora_term(x, y.dtype)
+      return y if bias is None else y + bias
     lead, n = x.shape[:-1], self.kernel_q.shape[0]
     if self.act_quant:
+      _refuse_act_quant_gradient(x, self.lora_a, self.lora_b)
       xq, x_scale = quantization.quantize_activations(x)
       y = quantization.int8_act_matmul(xq.reshape(-1, x.shape[-1]),
                                        self.kernel_q).view(*lead, n)
@@ -113,6 +183,8 @@ class Dense(nn.Module):
           x.reshape(1, -1, x.shape[-1]), self.kernel_q[None],
           self.kernel_scale[None],
       ).view(*lead, n)
+    if self.lora_rank:
+      y = y + self._lora_term(x, y.dtype)
     return y if bias is None else y + bias
 
 
@@ -355,7 +427,7 @@ class Conv1D(nn.Module):
     )
 
 
-class Einsum(nn.Module):
+class Einsum(nn.Module, _LoRA):
   """A parameterized einsum with bias (the fused MLP up-projection).
 
   ``quantized=True`` (the 3-D ``(c, d, D)`` layout contracting axis 1)
@@ -363,14 +435,22 @@ class Einsum(nn.Module):
   ``(c, D)``) instead of ``w``; the ``c`` projections of the shared input
   run as one batched launch of the int8 kernel, or with ``act_quant`` as one
   int8 x int8 product of width ``c * D``.
+
+  ``lora_rank > 0`` (the 3-D layout only) adds one adapter pair per leading
+  index, ``lora_a`` ``[c, d, r]`` and ``lora_b`` ``[c, r, D]`` (flax's
+  layouts): the low-rank hop reuses ``eqn`` with ``D -> r``.
   """
 
   def __init__(self, w_shape, b_shape, eqn: str, device=None, dtype=None,
                quantized: bool = False, act_quant: bool = False,
-               lora_rank: int = 0, lora_rows: int = 0):
+               lora_rank: int = 0, lora_rows: int = 0,
+               lora_alpha: float | None = None):
     super().__init__()
     _check_quant_flags(quantized, act_quant)
-    refuse_lora(lora_rank, lora_rows)
+    refuse_lora_rows(lora_rows)
+    if lora_rank and len(w_shape) != 3:
+      raise ValueError(f"Einsum LoRA supports the fused (c, d, D) layout "
+                       f"only; got {tuple(w_shape)}.")
     self.eqn = eqn
     self.quantized = quantized
     self.act_quant = act_quant
@@ -389,21 +469,41 @@ class Einsum(nn.Module):
     else:
       self.w = nn.Parameter(torch.empty(*w_shape, **kw))
     self.b = nn.Parameter(torch.empty(*b_shape, **kw))
+    if lora_rank:
+      c, d, out = w_shape
+      self._init_lora(lora_rank, lora_alpha, (c, d, lora_rank),
+                      (c, lora_rank, out), device, dtype)
+    else:
+      self._init_lora(0, lora_alpha, None, None, device, dtype)
+
+  def _lora_term(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    xa = torch.einsum(self.eqn, x.to(dtype), self.lora_a.to(dtype))
+    return torch.einsum("g...r,grD->g...D", xa,
+                        self.lora_b.to(dtype)) * self.lora_scaling
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     if not self.quantized:
-      return torch.einsum(self.eqn, x, self.w) + self.b
+      y = torch.einsum(self.eqn, x, self.w)
+      if self.lora_rank:
+        y = y + self._lora_term(x, y.dtype)
+      return y + self.b
     c, out, d = self.w_q.shape
     lead = x.shape[:-1]
     # The output is c...tD; the scale broadcasts as (c, 1, ..., 1, D).
     scale = self.w_scale.view(c, *([1] * len(lead)), out)
     if self.act_quant:
+      _refuse_act_quant_gradient(x, self.lora_a, self.lora_b)
       xq, x_scale = quantization.quantize_activations(x)
       y = quantization.int8_act_matmul(xq.reshape(-1, d),
                                        self.w_q.reshape(c * out, d))
       y = y.view(-1, c, out).transpose(0, 1).reshape(c, *lead, out)
       y = y.float() * x_scale * scale
+      if self.lora_rank:
+        y = y + self._lora_term(x, x.dtype).float()
       return (y + self.b.float()).to(x.dtype)
-    a = x.reshape(1, -1, d).expand(c, -1, -1)  # batch stride 0
-    y = int8_matmul.int8_weight_matmul(a, self.w_q, self.w_scale)
-    return y.view(c, *lead, out) + self.b.to(y.dtype)
+    # One activation for the c products: its gradient sums over them.
+    y = int8_matmul.int8_weight_matmul(x.reshape(1, -1, d), self.w_q,
+                                       self.w_scale).view(c, *lead, out)
+    if self.lora_rank:
+      y = y + self._lora_term(x, y.dtype)
+    return y + self.b.to(y.dtype)

@@ -1,4 +1,5 @@
-"""Weight-only int8 product: the CUDA kernel and its plain version.
+"""Weight-only int8 product and its input gradient: CUDA kernels and their
+plain versions.
 
 Computes, for ``a`` bfloat16 ``[B, M, K]``, ``q`` int8 ``[B, N, K]`` and
 ``scale`` float32 ``[B, N]``::
@@ -14,16 +15,25 @@ int8 -> bf16 convert into the dot's operand read, and
 device memory. One launch shape covers every weight-only product:
 
   * ``Dense``: ``B = 1``;
-  * the fused ``ffw_up`` ``Einsum``: ``B = 2`` over one activation (batch
-    stride 0);
+  * the fused ``ffw_up`` ``Einsum``: ``B = 2`` over one activation (``a``
+    of batch 1, or batch stride 0);
   * ``BlockDiagonalLinear``: ``B`` = heads, the heads of the activation
     read in place (batch stride ``i``, row stride ``h * i``);
   * ``Embedder.decode``: ``B = 1``, ``N`` = the vocabulary.
 
-:func:`int8_weight_matmul` launches the kernel for CUDA tensors and takes
-:func:`int8_weight_matmul_plain` only for CPU tensors. A kernel that fails
-to build or launch raises; nothing falls back. It launches on the current
-stream and allocates only through torch, so CUDA graphs capture it.
+Its gradient with respect to ``a`` (the weight and its scale are frozen:
+int8 serving, and the base of a QLoRA fine-tune) is JAX's autodiff of that
+expression, ``da = bf16(dy * bf16(scale)) @ q.astype(bf16)``, contracting
+along N; a shared activation's gradient sums over the batches too. The
+second kernel of ``csrc/int8_matmul.cu`` (``cg_int8_weight_matmul_dgrad``)
+computes it from the int8 weight as stored, with no bf16 copy of it.
+
+:func:`int8_weight_matmul` launches the kernels for CUDA tensors (the
+forward, and the input gradient when autograd asks for it) and takes
+:func:`int8_weight_matmul_plain` and :func:`int8_weight_matmul_dgrad_plain`
+only for CPU tensors. A kernel that fails to build or launch raises; nothing
+falls back. They launch on the current stream and allocate only through
+torch, so CUDA graphs capture them.
 """
 
 from __future__ import annotations
@@ -32,9 +42,11 @@ import torch
 
 from cadence_gemma_tpu_torch import _build
 
-# Kernel launches in this process (a split-K call's two kernels count once);
-# callers reset it to count one run.
+# Kernel launches in this process (a split-K call's two kernels count once):
+# the forward's and the input gradient's. Callers reset them to count one
+# run.
 launches = 0
+dgrad_launches = 0
 
 # The kernel's output tile is 64 columns wide and its K tile 64 deep; K is
 # split when the output tiles would not give each of the card's SMs two
@@ -53,6 +65,24 @@ def int8_weight_matmul_plain(a: torch.Tensor, q: torch.Tensor,
   """
   y = a @ q.to(a.dtype).transpose(-1, -2)
   return y * scale.to(a.dtype)[..., None, :]
+
+
+def int8_weight_matmul_dgrad_plain(g: torch.Tensor, q: torch.Tensor,
+                                   scale: torch.Tensor,
+                                   reduce_batches: bool = False
+                                   ) -> torch.Tensor:
+  """JAX's input gradient: ``(g * scale.to(g.dtype)) @ q.to(g.dtype)``.
+
+  ``g`` is the cotangent ``[B, M, N]``; the result is ``[B, M, K]``, or
+  ``[1, M, K]`` summed over the batches (in float32, rounded once) with
+  ``reduce_batches``. Widens the whole weight; the tests, the CPU and the
+  smoke's comparisons use it.
+  """
+  scaled = g * scale.to(g.dtype)[..., None, :]
+  if not reduce_batches:
+    return scaled @ q.to(g.dtype)
+  return torch.einsum("bmn,bnk->mk", scaled.float(),
+                      q.float()).to(g.dtype)[None]
 
 
 def block_rows(m: int) -> int:
@@ -80,7 +110,7 @@ def _check(a: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> None:
         f"{tuple(a.shape)}, {tuple(q.shape)} and {tuple(scale.shape)}."
     )
   batches, _, k = a.shape
-  if q.shape[0] != batches or q.shape[2] != k:
+  if (q.shape[0] != batches and batches != 1) or q.shape[2] != k:
     raise ValueError(f"`q` {tuple(q.shape)} does not match `a` "
                      f"{tuple(a.shape)}.")
   if tuple(scale.shape) != tuple(q.shape[:2]):
@@ -90,22 +120,9 @@ def _check(a: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> None:
     raise ValueError(f"`q` must be int8, got {q.dtype}.")
 
 
-def int8_weight_matmul(a: torch.Tensor, q: torch.Tensor,
-                       scale: torch.Tensor) -> torch.Tensor:
-  """The weight-only product: the CUDA kernel on the card, the plain
-  version on CPU tensors.
-
-  Args:
-    a: Activations ``[B, M, K]`` (bfloat16 on the card), K contiguous; the
-      batch and row strides are free (batch stride 0 shares one activation).
-    q: int8 weights ``[B, N, K]``.
-    scale: float32 per-output-channel scales ``[B, N]``.
-
-  Returns:
-    ``[B, M, N]`` in ``a.dtype``, contiguous.
-  """
+def _forward(a: torch.Tensor, q: torch.Tensor,
+             scale: torch.Tensor) -> torch.Tensor:
   global launches
-  _check(a, q, scale)
   if a.device.type == "cpu":
     return int8_weight_matmul_plain(a, q, scale)
   if a.device.type != "cuda":
@@ -114,8 +131,8 @@ def int8_weight_matmul(a: torch.Tensor, q: torch.Tensor,
   if a.dtype != torch.bfloat16:
     raise ValueError(f"The CUDA int8 kernel takes bfloat16 activations, got "
                      f"{a.dtype}.")
-  batches, m, k = a.shape
-  n = q.shape[1]
+  m, k = a.shape[1:]
+  batches, n = q.shape[:2]
   if k % 16:
     raise ValueError(f"The CUDA int8 kernel needs a depth that is a multiple "
                      f"of 16, got {k}.")
@@ -137,7 +154,7 @@ def int8_weight_matmul(a: torch.Tensor, q: torch.Tensor,
     err = fn(
         a.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
         None if partial is None else partial.data_ptr(), batches, m, n, k,
-        a.stride(0), a.stride(1), splits,
+        a.stride(0) if a.shape[0] == batches else 0, a.stride(1), splits,
         torch.cuda.current_stream(a.device).cuda_stream,
     )
   launches += 1
@@ -145,3 +162,106 @@ def int8_weight_matmul(a: torch.Tensor, q: torch.Tensor,
     raise RuntimeError(f"int8_weight_matmul CUDA kernel failed: cudaError_t "
                        f"{err}.")
   return y
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+  """``t`` contiguous and 16-byte aligned (a view may start anywhere)."""
+  t = t.contiguous()
+  return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def int8_weight_matmul_dgrad(g: torch.Tensor, q: torch.Tensor,
+                             scale: torch.Tensor,
+                             reduce_batches: bool = False) -> torch.Tensor:
+  """The input gradient: the CUDA kernel on the card, the plain version on
+  CPU tensors.
+
+  Args:
+    g: The cotangent of the product, ``[B, M, N]`` (bfloat16 on the card).
+    q: int8 weights ``[B, N, K]``, as the forward took them.
+    scale: float32 per-output-channel scales ``[B, N]``.
+    reduce_batches: Sum over the batches too (a shared activation).
+
+  Returns:
+    ``[B, M, K]`` in ``g.dtype``, contiguous; ``[1, M, K]`` with
+    ``reduce_batches``.
+  """
+  global dgrad_launches
+  if g.ndim != 3 or tuple(g.shape[::2]) != (q.shape[0], q.shape[1]):
+    raise ValueError(f"`g` must be [B, M, N] for q {tuple(q.shape)}, got "
+                     f"{tuple(g.shape)}.")
+  if g.device.type == "cpu":
+    return int8_weight_matmul_dgrad_plain(g, q, scale, reduce_batches)
+  if g.device.type != "cuda":
+    raise ValueError(f"int8_weight_matmul_dgrad runs on CUDA or CPU tensors, "
+                     f"not {g.device}.")
+  if g.dtype != torch.bfloat16:
+    raise ValueError(f"The CUDA int8 input-gradient kernel takes a bfloat16 "
+                     f"cotangent, got {g.dtype}.")
+  batches, m, n = g.shape
+  k = q.shape[2]
+  if n % 8 or k % 16:
+    raise ValueError(f"The CUDA int8 input-gradient kernel needs N a "
+                     f"multiple of 8 and K of 16, got N {n}, K {k}.")
+  g, q, scale = _aligned(g), _aligned(q), _aligned(scale.float())
+  out_batches = 1 if reduce_batches else batches
+  out = torch.empty(out_batches, m, k, dtype=torch.bfloat16, device=g.device)
+  # The forward's split rule: the output is [M, K] (once, or per batch),
+  # the contraction runs over N (of every batch when reducing).
+  splits = split_k(out_batches, m, k, n * (batches if reduce_batches else 1))
+  partial = (torch.empty(splits, out_batches, m, k, dtype=torch.float32,
+                         device=g.device) if splits > 1 else None)
+  fn = _build.function("int8_matmul", "cg_int8_weight_matmul_dgrad",
+                       "pppppiiiiiip")
+  with torch.cuda.device(g.device):
+    err = fn(
+        g.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        None if partial is None else partial.data_ptr(), batches, m, n, k,
+        int(reduce_batches), splits,
+        torch.cuda.current_stream(g.device).cuda_stream,
+    )
+  dgrad_launches += 1
+  if err:
+    raise RuntimeError(f"int8_weight_matmul_dgrad CUDA kernel failed: "
+                       f"cudaError_t {err}.")
+  return out
+
+
+class _Int8WeightMatmul(torch.autograd.Function):
+  """The product with a gradient for ``a`` only: the weight and its scale
+  are frozen (``requires_grad=False`` parameters)."""
+
+  @staticmethod
+  def forward(ctx, a, q, scale):  # pylint: disable=arguments-differ
+    ctx.save_for_backward(q, scale)
+    ctx.reduce_batches = a.shape[0] == 1 and q.shape[0] > 1
+    return _forward(a, q, scale)
+
+  @staticmethod
+  def backward(ctx, g):  # pylint: disable=arguments-differ
+    q, scale = ctx.saved_tensors
+    return int8_weight_matmul_dgrad(g, q, scale, ctx.reduce_batches), None, None
+
+
+def int8_weight_matmul(a: torch.Tensor, q: torch.Tensor,
+                       scale: torch.Tensor) -> torch.Tensor:
+  """The weight-only product: the CUDA kernel on the card, the plain
+  version on CPU tensors; differentiable in ``a``.
+
+  Args:
+    a: Activations ``[B, M, K]`` (bfloat16 on the card), K contiguous; the
+      batch and row strides are free. ``[1, M, K]`` (or batch stride 0)
+      shares one activation between the B products.
+    q: int8 weights ``[B, N, K]``.
+    scale: float32 per-output-channel scales ``[B, N]``.
+
+  Returns:
+    ``[B, M, N]`` in ``a.dtype``, contiguous. When autograd records and
+    ``a`` requires a gradient, the backward computes it with
+    :func:`int8_weight_matmul_dgrad` (summed over the B products for a
+    batch-1 ``a``); ``q`` and ``scale`` get none.
+  """
+  _check(a, q, scale)
+  if torch.is_grad_enabled() and a.requires_grad:
+    return _Int8WeightMatmul.apply(a, q, scale)
+  return _forward(a, q, scale)

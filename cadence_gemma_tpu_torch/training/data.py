@@ -1,17 +1,21 @@
-"""Text SFT data: batches of token ids and loss masks from chat JSON records.
+"""SFT data: batches of token ids, loss masks and images from chat JSON.
 
 Counterpart of the JAX package's ``cadence_gemma_tpu/training/data.py``
-(``TrainingInput``, ``DatasetBuilder``, ``apply_it_template``) for text
-records. A record of the LLaVA form::
+(``TrainingInput``, ``DatasetBuilder``, ``apply_it_template``). A record of
+the LLaVA form::
 
-    {"conversations": [{"from": "human", "value": "..."},
+    {"image": "...jpg",
+     "conversations": [{"from": "human", "value": "..."},
                        {"from": "gpt", "value": "..."}, ...]}
 
 becomes one example: the human turns are prompt (masked out of the loss),
 the gpt turns are targets, everything is wrapped in the Gemma chat template
-and truncated or right-padded to ``max_seq_len``. Records with an image
-raise: image SFT is not ported yet (ROADMAP queue 1 item 5). Pure Python and
-numpy.
+and truncated or right-padded to ``max_seq_len``. A batch whose records all
+name an image carries their paths (under ``image_root``), and with
+``load_pixels`` their pixels, decoded on the host by
+:mod:`cadence_gemma_tpu_torch.utils.image_cpp`; the vision towers encode
+them on the card inside the training loop. Pure Python and numpy (the
+decoder is native C++, or PIL).
 """
 
 from __future__ import annotations
@@ -27,12 +31,12 @@ from cadence_gemma_tpu_torch import common
 
 @dataclasses.dataclass
 class TrainingInput:
-  """One batch: token ids and the loss mask (image SFT is not ported)."""
+  """One batch: token ids, loss mask, and (optionally) its images."""
 
   input_tokens: np.ndarray          # [b, t] int32
   target_mask: np.ndarray           # [b, t] bool
   image_paths: list[str] | None = None
-  pixels: np.ndarray | None = None
+  pixels: np.ndarray | None = None  # [b, 3, h, w] float32 in [0, 1]
 
 
 @dataclasses.dataclass
@@ -42,14 +46,19 @@ class DatasetBuilder:
   Attributes:
     vocab: Tokenizer implementing the ``Vocabulary`` protocol.
     json_path: Path to the JSON list of conversation records.
+    image_root: Directory prefix for the records' image paths.
     max_seq_len: Examples are truncated / right-padded to this length.
     batch_size: Examples per batch.
+    load_pixels: Decode a batch's images to [b, 3, 384, 384] float32
+      pixels; otherwise only their paths are carried.
   """
 
   vocab: Any
   json_path: str
+  image_root: str = ""
   max_seq_len: int = 1024
   batch_size: int = 1
+  load_pixels: bool = False
 
   def __post_init__(self):
     with open(self.json_path) as f:
@@ -62,11 +71,6 @@ class DatasetBuilder:
       self, record: dict[str, Any]
   ) -> tuple[np.ndarray, np.ndarray]:
     """Tokenizes one conversation; mask is True on answer tokens only."""
-    if record.get("image"):
-      raise NotImplementedError(
-          "A record with an image needs image SFT, which is not ported yet "
-          "(ROADMAP queue 1 item 5)."
-      )
     ids: list[int] = [self.vocab.bos_id()]
     mask: list[bool] = [False]
     for turn in record.get("conversations", []):
@@ -92,6 +96,12 @@ class DatasetBuilder:
     target = np.asarray(mask + [False] * pad, bool)
     return tokens, target
 
+  def _image_path(self, record: dict[str, Any]) -> str | None:
+    name = record.get("image")
+    if not name:
+      return None
+    return f"{self.image_root}/{name}" if self.image_root else name
+
   def __iter__(self) -> Iterator[TrainingInput]:
     return self.iterate()
 
@@ -100,11 +110,19 @@ class DatasetBuilder:
   ) -> Iterator[TrainingInput]:
     records = self._records[start:limit]
     for lo in range(0, len(records) - self.batch_size + 1, self.batch_size):
-      encoded = [self._encode_record(rec)
-                 for rec in records[lo : lo + self.batch_size]]
+      chunk = records[lo : lo + self.batch_size]
+      encoded = [self._encode_record(rec) for rec in chunk]
+      paths = [self._image_path(rec) for rec in chunk]
+      pixels = None
+      if self.load_pixels and all(paths):
+        from cadence_gemma_tpu_torch.utils import image_cpp  # pylint: disable=import-outside-toplevel
+
+        pixels = image_cpp.load_jpeg_batch(paths, size=384)
       yield TrainingInput(
           input_tokens=np.stack([tokens for tokens, _ in encoded]),
           target_mask=np.stack([mask for _, mask in encoded]),
+          image_paths=paths if all(paths) else None,
+          pixels=pixels,
       )
 
 

@@ -1,19 +1,28 @@
-"""The SFT loop for one device: full fine-tuning of a ``Griffin``.
+"""The SFT loop for one device: the two-stage multimodal recipe.
 
 Counterpart of the JAX package's ``cadence_gemma_tpu/training/train_loop.py``
-(``TrainingConfig``, ``train_loop``) with the same configuration fields and
-loop semantics: ``num_epochs`` over the data, ``max_steps`` counting loop
-steps (microbatches), ``eval_every_n`` metrics and validation,
-``gradient_accumulation_steps`` averaging the gradients of K microbatches
-into one update (``optax.MultiSteps``) and ``skip_nonfinite_updates``
-(``optax.apply_if_finite`` with 3 consecutive skips allowed).
+(``TrainingConfig``, ``train_loop``, ``two_stage_sft``) with the same
+configuration fields and loop semantics: ``num_epochs`` over the data,
+``max_steps`` counting loop steps (microbatches), ``eval_every_n`` metrics
+and validation, ``gradient_accumulation_steps`` averaging the gradients of K
+microbatches into one update (``optax.MultiSteps``) and
+``skip_nonfinite_updates`` (``optax.apply_if_finite`` with 3 consecutive
+skips allowed), around any of the three steps: full fine-tuning,
+``freeze_llm`` (the connector alone, stage 1 of ``two_stage_sft``) and
+``lora`` (the adapters alone, over a bf16 or an int8 base).
 
-Not ported, and refused with ``NotImplementedError`` rather than ignored:
-LoRA, the frozen-connector stage, a device mesh (the pjit DP/TP regime),
-checkpoints and resume, prefetching, asynchronous saves and image batches.
-Preemption handling and the image encoder are not parameters yet.
-Sequence-parallel training needs no mesh here: as in JAX it is a model built
-with ``scan_sharding_spec``, which this loop trains like any other.
+Images: ``encode_image`` maps a batch's pixels (or its paths) to features,
+under ``torch.no_grad()`` (the towers are frozen and keep no graph). A batch
+that carries images when no ``encode_image`` is given raises, where JAX
+trains its text alone: a multimodal SFT that silently dropped its images
+would be a different run.
+
+Not ported, and refused with ``NotImplementedError`` rather than ignored: a
+device mesh (the pjit DP/TP regime, ROADMAP queue 1 item 14c), checkpoints
+and resume, prefetching and asynchronous saves (item 13). Preemption
+handling is not a parameter yet. Sequence-parallel training needs no mesh
+here: as in JAX it is a model built with ``scan_sharding_spec``, which this
+loop trains like any other.
 
 The model trains where its parameters live, on the card unless the caller
 passes ``device="cpu"``; ``device=None`` without a card raises.
@@ -24,11 +33,13 @@ from __future__ import annotations
 import dataclasses
 import time
 from typing import Any, Callable, Iterable
+import warnings
 
 import numpy as np
 import torch
 
 from cadence_gemma_tpu_torch.models import griffin
+from cadence_gemma_tpu_torch.training import lora as lora_lib
 from cadence_gemma_tpu_torch.training import trainer
 
 # optax.apply_if_finite's max_consecutive_errors in the JAX loop.
@@ -60,12 +71,11 @@ def _refuse_unported(config: TrainingConfig, mesh) -> None:
   if mesh is not None:
     raise NotImplementedError(
         "train_loop(mesh=...) is the pjit DP/TP regime, which is not ported "
-        "to the PyTorch trainer yet. For sequence parallelism build the model "
-        "with scan_sharding_spec and pass no mesh."
+        "to the PyTorch trainer yet (ROADMAP queue 1 item 14c). For sequence "
+        "parallelism build the model with scan_sharding_spec and pass no "
+        "mesh."
     )
   unported = {
-      "lora": config.lora,
-      "freeze_llm": config.freeze_llm,
       "resume_from": config.resume_from,
       "checkpoint_dir": config.checkpoint_dir,
       "prefetch_batches": config.prefetch_batches,
@@ -74,20 +84,70 @@ def _refuse_unported(config: TrainingConfig, mesh) -> None:
   asked = sorted(name for name, value in unported.items() if value)
   if asked:
     raise NotImplementedError(
-        f"Not ported to the PyTorch trainer yet: {', '.join(asked)}."
+        f"Not ported to the PyTorch trainer yet: {', '.join(asked)} (ROADMAP "
+        f"queue 1 item 13)."
     )
   if config.gradient_accumulation_steps < 1:
     raise ValueError("gradient_accumulation_steps must be at least 1.")
 
 
-def _to_device(batch, device: torch.device):
-  if batch.image_paths or batch.pixels is not None:
-    raise NotImplementedError(
-        "Image batches need image SFT, which is not ported yet (ROADMAP "
-        "queue 1 item 5)."
-    )
-  return (torch.as_tensor(np.asarray(batch.input_tokens), device=device).long(),
-          torch.as_tensor(np.asarray(batch.target_mask), device=device))
+def _make_optimizer(model, config: TrainingConfig):
+  """The stage's optimizer (JAX ``train_loop.py:116-206``): Adam over the
+  adapters with ``lora``, AdamW over the connector with ``freeze_llm``,
+  AdamW over every parameter otherwise."""
+  if config.lora:
+    if config.freeze_llm:
+      raise ValueError(
+          "config.lora and config.freeze_llm are mutually exclusive: the "
+          "frozen stage trains the vl_connector with everything else "
+          "frozen, LoRA trains adapters with the base frozen — pick one "
+          "per stage (two_stage_sft runs freeze_llm first, then lora)."
+      )
+    if config.weight_decay != TrainingConfig.weight_decay:
+      warnings.warn(
+          "TrainingConfig.weight_decay is ignored when lora=True: LoRA "
+          "adapters train with plain Adam (lora.make_optimizer), the "
+          "standard no-decay setup for low-rank adapters.",
+          stacklevel=3,
+      )
+    adapters = lora_lib.lora_parameters(model)
+    if not adapters:
+      raise ValueError(
+          "config.lora=True but the parameter tree has no lora_a/lora_b "
+          "leaves — build the model with lora_rank > 0 and initialize "
+          "adapters (training.lora.init_adapters)."
+      )
+    return lora_lib.make_optimizer(adapters, config.learning_rate)
+  if config.freeze_llm:
+    return trainer.make_optimizer(model.vl_connector, config.learning_rate,
+                                  weight_decay=config.weight_decay)
+  return trainer.make_optimizer(model, config.learning_rate,
+                                weight_decay=config.weight_decay)
+
+
+def _to_device(batch, device: torch.device, encode_image):
+  """Token ids, loss mask and image features of a batch on ``device``."""
+  tokens = torch.as_tensor(np.asarray(batch.input_tokens),
+                           device=device).long()
+  mask = torch.as_tensor(np.asarray(batch.target_mask), device=device)
+  return tokens, mask, _features_for(batch, encode_image, device)
+
+
+def _features_for(batch, encode_image, device):
+  """``encode_image`` of the batch's pixels, else of its paths (JAX
+  ``train_loop.py:349-356``), under ``torch.no_grad()``."""
+  pixels = getattr(batch, "pixels", None)
+  paths = getattr(batch, "image_paths", None)
+  if pixels is None and not paths:
+    return None
+  if encode_image is None:
+    raise ValueError(
+        "The batch carries images but train_loop was given no encode_image; "
+        "pass encode_image= (e.g. a DinoSigLIPEncoder) to train on them.")
+  with torch.no_grad():
+    if pixels is not None:
+      return encode_image(torch.as_tensor(np.asarray(pixels), device=device))
+    return encode_image(paths)
 
 
 def train_loop(
@@ -95,19 +155,25 @@ def train_loop(
     train_data: Iterable,
     config: TrainingConfig,
     validation_data: Iterable | None = None,
+    encode_image: Callable[[Any], torch.Tensor] | None = None,
     log_metrics: Callable[[dict[str, float], int], None] | None = None,
     pad_id: int = 0,
     device=None,
     mesh: Any | None = None,
 ) -> griffin.Griffin:
-  """Runs one full fine-tuning stage; returns the model, trained in place.
+  """Runs one SFT stage; returns the model, trained in place.
 
   Args:
     model: The ``Griffin`` to train; its parameters must live on ``device``.
+      With ``config.lora`` it must carry adapters (``lora_rank > 0``).
     train_data: Iterable of ``TrainingInput`` batches (numpy arrays),
       iterated once per epoch.
-    config: Stage hyper-parameters.
+    config: Stage hyper-parameters (``freeze_llm`` and ``lora`` select the
+      step).
     validation_data: Optional iterable, re-iterated at each eval point.
+    encode_image: ``pixels [b, 3, h, w] on device | paths -> [b, n,
+      vision_width]`` features (e.g. a ``DinoSigLIPEncoder``, or its
+      ``preprocess_path``-based wrapper); run under ``torch.no_grad()``.
     log_metrics: Optional callback ``(metrics, step)``; metrics are printed
       when it is absent.
     pad_id: Tokenizer pad id.
@@ -117,25 +183,26 @@ def train_loop(
       sequence-parallel without it.
   """
   _refuse_unported(config, mesh)
+  optimizer = _make_optimizer(model, config)
   device = griffin.resolve_device(device)
   if any(p.device.type != device.type for p in model.parameters()):
     raise ValueError(f"The model's parameters must live on {device}.")
 
   model.train()
-  optimizer = trainer.make_optimizer(
-      model, config.learning_rate, weight_decay=config.weight_decay
-  )
-  optimizer.zero_grad(set_to_none=True)
+  params = trainer.optimizer_parameters(optimizer)
+  model.zero_grad(set_to_none=True)
   accumulate = config.gradient_accumulation_steps
   step = 0
   nonfinite = 0
   t_start = time.perf_counter()
   for _ in range(config.num_epochs):
     for batch in train_data:
-      tokens, mask = _to_device(batch, device)
-      loss = trainer.accumulate_gradients(
-          model, pad_id, tokens, mask, scale=1.0 / accumulate
-      )
+      tokens, mask, img = _to_device(batch, device, encode_image)
+      with trainer.trainable_only(model, params):
+        loss = trainer.accumulate_gradients(
+            model, pad_id, tokens, mask, scale=1.0 / accumulate,
+            img_embed=img,
+        )
       step += 1
       if step % accumulate == 0:
         finite = (not config.skip_nonfinite_updates
@@ -144,7 +211,7 @@ def train_loop(
         if finite or nonfinite > _MAX_CONSECUTIVE_NONFINITE:
           trainer.apply_update(model, optimizer)
         else:
-          optimizer.zero_grad(set_to_none=True)
+          model.zero_grad(set_to_none=True)
 
       if step % config.eval_every_n == 0:
         metrics = {
@@ -155,7 +222,7 @@ def train_loop(
           metrics["consecutive_nonfinite_steps"] = float(nonfinite)
         if validation_data is not None:
           metrics["val_loss"] = _validate(model, validation_data, pad_id,
-                                          device)
+                                          device, encode_image)
         if log_metrics is not None:
           log_metrics(metrics, step)
         else:
@@ -166,10 +233,27 @@ def train_loop(
   return model
 
 
-def _validate(model, validation_data, pad_id, device) -> float:
+def _validate(model, validation_data, pad_id, device, encode_image) -> float:
   losses = [
       float(trainer.validation_step(model, pad_id,
-                                    *_to_device(batch, device)))
+                                    *_to_device(batch, device, encode_image)))
       for batch in validation_data
   ]
   return float(np.mean(losses)) if losses else float("nan")
+
+
+def two_stage_sft(
+    model: griffin.Griffin,
+    train_data_factory: Callable[[], Iterable],
+    stage1: TrainingConfig,
+    stage2: TrainingConfig,
+    **kwargs,
+) -> griffin.Griffin:
+  """The reference's two-stage schedule (JAX ``train_loop.py:376-399``):
+  the connector alone with the LM frozen, then ``stage2`` (a full fine-tune,
+  or LoRA with ``stage2.lora``). ``train_data_factory`` makes each stage's
+  data afresh; ``kwargs`` go to both :func:`train_loop` calls."""
+  train_loop(model, train_data_factory(),
+             dataclasses.replace(stage1, freeze_llm=True), **kwargs)
+  return train_loop(model, train_data_factory(),
+                    dataclasses.replace(stage2, freeze_llm=False), **kwargs)

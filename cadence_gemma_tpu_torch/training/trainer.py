@@ -1,25 +1,39 @@
 """SFT training: the chunked loss, train and validation steps, the optimizer.
 
 Counterpart of the JAX package's ``cadence_gemma_tpu/training/trainer.py``
-for full fine-tuning on one device, text only:
+on one device, with or without an image:
 
   * the masked next-token NLL, with the vocabulary projection run per time
     chunk under ``torch.utils.checkpoint`` so the [b, t, vocab] logits never
-    exist (the JAX ``lax.map`` over ``jax.checkpoint(chunk_nll)``);
+    exist (the JAX ``lax.map`` over ``jax.checkpoint(chunk_nll)``); with an
+    image the targets and mask are left-padded by the spliced visual
+    tokens, which take no loss (``trainer.py:86-93`` in JAX);
   * ``train_step``: one step of AdamW with the Griffin weight-decay mask,
     global-norm clipping before the update, b2 = 0.96;
+  * ``frozen_train_step``: stage 1 of the recipe, which trains the
+    vision-language connector alone (``trainer.py:184-210``);
   * ``validation_step``: the loss only.
+
+A step differentiates only what its optimizer updates: the others'
+``requires_grad`` is off for its forward and backward
+(:func:`trainable_only`), so a frozen LM or a frozen base keeps no gradient,
+as JAX's ``value_and_grad`` of the connector's or the adapters' subtree
+gives none. The clip sees the optimizer's gradients alone, and a parameter
+of the optimizer that the loss does not reach takes a zero gradient (AdamW
+still decays it and counts the step, as optax does).
 
 The backward runs the CUDA backward kernels of the RG-LRU scan and of the
 windowed attention through their autograd Functions. A model built with
 ``scan_sharding_spec`` trains sequence-parallel behind the same steps, as in
 JAX: its scans and attention split the time axis over the spec's mesh, and
 their backwards run the sharded cotangent scan and the halo attention's
-gradient. The frozen-connector step, LoRA and the pjit-sharded (DP/TP) step
-are not ported.
+gradient. LoRA's step is ``training.lora.lora_train_step``; the pjit-sharded
+(DP/TP) step is not ported.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch.nn import functional as F
@@ -97,22 +111,33 @@ def forward_and_loss_fn(
     input_tokens: torch.Tensor,
     input_mask: torch.Tensor,
     positions: torch.Tensor,
+    image: torch.Tensor | None = None,
     vocab_chunk_size: int | None = None,
 ) -> torch.Tensor:
-  """Masked next-token NLL of a text batch.
+  """Masked next-token NLL of a batch, with zero loss on spliced visual
+  positions.
 
   The model returns final hidden states; the last step has no target and
-  the first token is never predicted. A sequence-parallel model's batch must
-  divide into its mesh: its scans raise ``ValueError`` otherwise, as
-  ``shard_map`` would, before any update.
+  the first token is never predicted. ``image`` ([b, vision_tokens,
+  vision_width] features) is spliced in after BOS; the targets and mask
+  are left-padded by the visual tokens so the text lines up. A
+  sequence-parallel model's batch must divide into its mesh: its scans
+  raise ``ValueError`` otherwise, as ``shard_map`` would, before any update.
   """
   hidden, _ = model(
       input_tokens, positions, None, return_logits=True, return_cache=False,
-      return_hidden=True,
+      return_hidden=True, image=image,
   )
+  hidden = hidden[:, :-1]
+  targets = input_tokens[:, 1:]
+  target_mask = input_mask[:, 1:]
+  if image is not None:
+    n_img = hidden.shape[1] - targets.shape[1]
+    targets = F.pad(targets, (n_img, 0))
+    target_mask = F.pad(target_mask, (n_img, 0))
   return chunked_masked_nll(
-      hidden[:, :-1], input_tokens[:, 1:], input_mask[:, 1:],
-      model.decode_hidden, vocab_chunk_size=vocab_chunk_size,
+      hidden, targets, target_mask, model.decode_hidden,
+      vocab_chunk_size=vocab_chunk_size,
   )
 
 
@@ -125,13 +150,15 @@ def decays(name: str) -> bool:
 
 
 def weight_decay_param_groups(
-    model: torch.nn.Module, weight_decay: float
+    model: torch.nn.Module, weight_decay: float, use_decay_mask: bool = True,
 ) -> list[dict]:
-  """AdamW parameter groups realizing the Griffin decay mask."""
+  """AdamW parameter groups realizing the Griffin decay mask (every
+  trainable parameter decays without it)."""
   decay, no_decay = [], []
   for name, param in model.named_parameters():
     if param.requires_grad:
-      (decay if decays(name) else no_decay).append(param)
+      (decay if decays(name) or not use_decay_mask
+       else no_decay).append(param)
   return [
       {"params": decay, "weight_decay": weight_decay},
       {"params": no_decay, "weight_decay": 0.0},
@@ -142,14 +169,39 @@ def make_optimizer(
     model: torch.nn.Module,
     learning_rate: float,
     weight_decay: float = 0.1,
+    use_decay_mask: bool = True,
 ) -> torch.optim.AdamW:
   """AdamW with the JAX trainer's settings: b1 0.9, b2 0.96, eps 1e-8 and
-  decoupled weight decay under the Griffin mask. :func:`apply_update` clips
-  the gradients' global norm to 1.0 before each step."""
+  decoupled weight decay under the Griffin mask (``use_decay_mask=False``:
+  on every parameter). :func:`apply_update` clips the gradients' global
+  norm to 1.0 before each step. For the frozen stage pass
+  ``model.vl_connector``: the optimizer then holds the connector alone."""
   return torch.optim.AdamW(
-      weight_decay_param_groups(model, weight_decay), lr=learning_rate,
-      betas=(0.9, _ADAM_B2), eps=1e-8,
+      weight_decay_param_groups(model, weight_decay, use_decay_mask),
+      lr=learning_rate, betas=(0.9, _ADAM_B2), eps=1e-8,
   )
+
+
+def optimizer_parameters(
+    optimizer: torch.optim.Optimizer) -> list[torch.Tensor]:
+  """The parameters ``optimizer`` updates, in its groups' order."""
+  return [p for group in optimizer.param_groups for p in group["params"]]
+
+
+@contextlib.contextmanager
+def trainable_only(model: torch.nn.Module, params):
+  """Within the block, only ``params`` of ``model`` require a gradient; the
+  flags are restored after it."""
+  keep = {id(p) for p in params}
+  saved = [(p, p.requires_grad) for p in model.parameters()
+           if p.is_floating_point()]
+  try:
+    for p, _ in saved:
+      p.requires_grad_(id(p) in keep)
+    yield
+  finally:
+    for p, flag in saved:
+      p.requires_grad_(flag)
 
 
 def grads_finite(model: torch.nn.Module) -> bool:
@@ -181,22 +233,21 @@ def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> None:
 
 def apply_update(model: torch.nn.Module,
                  optimizer: torch.optim.Optimizer) -> None:
-  """Clips the accumulated gradients' global norm to 1.0 as optax does,
-  steps the optimizer, then clears the gradients.
+  """Clips the accumulated gradients of the optimizer's parameters to a
+  global norm of 1.0 as optax does, steps the optimizer, then clears every
+  gradient of ``model``.
 
-  A trainable parameter the loss does not reach (the vision-language
-  connector in a text-only step) takes a zero gradient, so AdamW still
-  decays it, as the JAX update of the whole parameter tree does.
+  A parameter of the optimizer the loss does not reach (the connector in a
+  text-only step) takes a zero gradient, so AdamW still decays it and its
+  moments, as the JAX update of the whole tree does.
   """
-  for param in model.parameters():
-    if param.requires_grad and param.grad is None:
+  params = optimizer_parameters(optimizer)
+  for param in params:
+    if param.grad is None:
       param.grad = torch.zeros_like(param)
-  clip_by_global_norm_(
-      [p.grad for p in model.parameters() if p.grad is not None],
-      _GRAD_CLIP_NORM,
-  )
+  clip_by_global_norm_([p.grad for p in params], _GRAD_CLIP_NORM)
   optimizer.step()
-  optimizer.zero_grad(set_to_none=True)
+  model.zero_grad(set_to_none=True)
 
 
 def accumulate_gradients(
@@ -205,13 +256,16 @@ def accumulate_gradients(
     input_tokens: torch.Tensor,
     input_mask: torch.Tensor,
     scale: float = 1.0,
+    img_embed: torch.Tensor | None = None,
 ) -> torch.Tensor:
-  """Adds ``scale`` times the gradient of one batch's loss to ``.grad``;
-  returns the loss (detached)."""
+  """Adds ``scale`` times the gradient of one batch's loss to ``.grad`` of
+  every parameter that requires one; returns the loss (detached)."""
   loss = forward_and_loss_fn(
-      model, input_tokens, input_mask, get_positions(input_tokens, pad_id)
+      model, input_tokens, input_mask, get_positions(input_tokens, pad_id),
+      image=img_embed,
   )
-  (loss * scale).backward()
+  if loss.requires_grad:  # a frozen stage's text-only batch reaches nothing
+    (loss * scale).backward()
   return loss.detach()
 
 
@@ -221,12 +275,42 @@ def train_step(
     pad_id: int,
     input_tokens: torch.Tensor,
     input_mask: torch.Tensor,
+    img_embed: torch.Tensor | None = None,
 ) -> torch.Tensor:
-  """One full fine-tuning step; returns the loss (detached)."""
-  optimizer.zero_grad(set_to_none=True)
-  loss = accumulate_gradients(model, pad_id, input_tokens, input_mask)
+  """One fine-tuning step of the optimizer's parameters (every parameter,
+  from :func:`make_optimizer` of the model); returns the loss (detached)."""
+  model.zero_grad(set_to_none=True)
+  with trainable_only(model, optimizer_parameters(optimizer)):
+    loss = accumulate_gradients(model, pad_id, input_tokens, input_mask,
+                                img_embed=img_embed)
   apply_update(model, optimizer)
   return loss
+
+
+def _check_connector_optimizer(model, optimizer) -> None:
+  """Raises unless ``optimizer`` updates ``model.vl_connector`` alone."""
+  connector = {id(p) for p in model.vl_connector.parameters()}
+  if not all(id(p) in connector for p in optimizer_parameters(optimizer)):
+    raise ValueError(
+        "frozen_train_step trains the vision-language connector alone: "
+        "build its optimizer with make_optimizer(model.vl_connector, ...).")
+
+
+def frozen_train_step(
+    model: torch.nn.Module,
+    optimizer: torch.optim.Optimizer,
+    pad_id: int,
+    input_tokens: torch.Tensor,
+    input_mask: torch.Tensor,
+    img_embed: torch.Tensor | None,
+) -> torch.Tensor:
+  """Stage-1 step: only the vision-language connector trains, the LM stays
+  frozen (``optimizer`` from ``make_optimizer(model.vl_connector, ...)``).
+  Without an image the connector gets a zero gradient and is still
+  decayed. Returns the loss (detached)."""
+  _check_connector_optimizer(model, optimizer)
+  return train_step(model, optimizer, pad_id, input_tokens, input_mask,
+                    img_embed)
 
 
 @torch.no_grad()
@@ -235,8 +319,10 @@ def validation_step(
     pad_id: int,
     input_tokens: torch.Tensor,
     input_mask: torch.Tensor,
+    img_embed: torch.Tensor | None = None,
 ) -> torch.Tensor:
   """The loss only."""
   return forward_and_loss_fn(
-      model, input_tokens, input_mask, get_positions(input_tokens, pad_id)
+      model, input_tokens, input_mask, get_positions(input_tokens, pad_id),
+      image=img_embed,
   )

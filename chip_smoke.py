@@ -223,6 +223,32 @@ Phases, each of which raises on failure (so the script exits non-zero):
      to the first token through the int8 towers (their encode: 46 MHA and
      184 ``_int_mm`` launches, no weight-only one) and the eight-slot
      captured tick.
+ 19. multimodal fine-tuning, after 18: a full-width, full-depth
+     RecurrentGemma-2B (seeded bf16) and the two towers as in 8 (384 px,
+     blocks 0-22, frozen), one batch of seeded [2, 3, 384, 384] pixels and
+     2 x 2048 text tokens (row 1 right-padded after 1500), 2777 spliced
+     tokens a row. (a) ``two_stage_sft``: 3 frozen-connector steps, which
+     must leave every other parameter bit for bit and move the connector,
+     then 2 full steps, which must move the embedder; the counters, reset
+     just before, must show per step 36 LRU, 18 LRU backward, 16 window
+     attention, 8 dq, 8 dk/dv and 46 MHA launches and no int8 one, for
+     each stage. (b) 3 ``train_loop(lora=True)`` steps of rank-8 adapters
+     on the bf16 base (the base bit for bit, every ``lora_b`` moved), and
+     ``merge_lora``'s plain model against the LoRA model (last prefill
+     logits, rel. RMS within 5e-2 and within half the base's without
+     adapters). (c) 3 QLoRA steps on the base's ``quantize_params`` copy
+     with fresh bf16 adapters: the int8 forward and input-gradient kernels
+     launched (the others as in (a)), the base bit for bit; both int8
+     kernels held against their plain versions on the first inputs of each
+     shape the step gave them (the logits' [1, 4096, 2560] x [256000,
+     2560] forward and [1, 4096, 256000] x [256000, 2560] gradient, the
+     fused up-projection's shared activation and summed pair among them)
+     and the gradient kernel timed at the logits', a [2560 -> 2560]
+     projection's and the up-projection's beside the library composition;
+     the adapters' gradients through the kernels against the plain path
+     (every int8 product plain; rel. RMS 0.1, cosine 0.99 a leaf); 16
+     greedy steps of the QLoRA model through the ``Sampler``, captured and
+     eager identical. Each stage's step ms, real tokens/s and peak memory.
 
   python3 chip_smoke.py --profile
 
@@ -230,8 +256,9 @@ adds kernel time by name (torch.profiler) for the prefill and decode of the
 serving path (and the idle share of captured and eager decode, and of the
 eight-slot batcher's tick), for one training step, for the encode and the
 image-conditioned prefill, for the sequence-parallel prefill and for one
-sequence-parallel training step, with the device's idle share; and for
-phase 18, the int8 and bf16 text serving and the int8 eight-slot tick.
+sequence-parallel training step, with the device's idle share; for
+phase 18, the int8 and bf16 text serving and the int8 eight-slot tick; for
+phase 19, one QLoRA step.
 
 Needs a CUDA card and the CUDA toolkit (``nvcc``); without a card it exits
 with status 1 and prints no result. The line before the last is a JSON
@@ -275,6 +302,7 @@ from cadence_gemma_tpu_torch.ops import window_attention as wa
 from cadence_gemma_tpu_torch.parallel import sharding
 from cadence_gemma_tpu_torch.tokenizers import SimpleVocab
 from cadence_gemma_tpu_torch.training import data as data_lib
+from cadence_gemma_tpu_torch.training import lora as sft_lora
 from cadence_gemma_tpu_torch.training import train_loop as train_loop_lib
 from cadence_gemma_tpu_torch.training import trainer
 
@@ -556,6 +584,36 @@ INT8_REL = 2**-6
 INT8_ABS_OF_MAX = 1e-4
 INT8_REPLACES = ("none (no pl.pallas_call): XLA's int8 dot with the convert "
                  "fused, cadence_gemma_tpu/models/layers.py:166")
+
+
+# Multimodal fine-tuning (phase 19): batch 2 of seeded [2, 3, 384, 384]
+# pixels (729 visual tokens) and 2048 text tokens (row 1 right-padded after
+# 1500), the loss over the second half of each row's real text; 3
+# frozen-connector steps then 2 full steps (two_stage_sft), 3 LoRA steps on
+# the bf16 base and 3 on its int8 copy (QLoRA), rank 8.
+SFT_PIXELS = (2, 3, 384, 384)
+SFT_TEXT_TOKENS = 2048
+SFT_REAL_TOKENS = (2048, 1500)
+SFT_FROZEN_STEPS = 3
+SFT_FULL_STEPS = 2
+SFT_LORA_STEPS = 3
+SFT_LORA_RANK = 8
+SFT_LEARNING_RATE = 1e-3
+SFT_DECODE_STEPS = 16
+SFT_PROMPT_TOKENS = 1000
+# The merged model's logits against the LoRA model's: the merge rounds
+# W + a @ b * s to bf16 once, the LoRA model adds the term in bf16. Also
+# within SFT_MERGE_OF_BASE of the base's (no adapters), which a merge that
+# dropped the adapters would not be.
+SFT_MERGE_REL_RMS = 5e-2
+SFT_MERGE_OF_BASE = 0.5
+# The input-gradient kernel and its plain version round the bf16-scaled
+# cotangent the same way and their float32 sums once each: the forward's
+# INT8_REL covers one bf16 step; the adapters' gradients through the kernel
+# path against the plain path, per leaf, as the training phase's.
+INT8_DGRAD_REPLACES = ("none (no pl.pallas_call): XLA's transposed int8 dot, "
+                       "cadence_gemma_tpu/models/layers.py:171")
+INT8_DGRAD_REPS = 12
 
 
 def log(*args) -> None:
@@ -3933,29 +3991,37 @@ def phase_lab_probe(dev) -> None:
 # -- phase 18: int8 serving --------------------------------------------------
 
 
+def _shared(a: torch.Tensor, q: torch.Tensor) -> bool:
+  """Whether the product's batches share one activation (a batch-1 ``a``,
+  or batch stride 0)."""
+  return q.shape[0] > 1 and (a.shape[0] == 1 or a.stride(0) == 0)
+
+
 class CaptureInt8Calls:
   """Stands in for ``int8_matmul.int8_weight_matmul`` and keeps the inputs
   of its first call at each distinct shape (batches, rows, width, depth,
   shared activation): a copy of the activation (a shared one as its one
-  row block, expanded again), the weights themselves (parameters)."""
+  row block; on the host with ``host``, out of a measured peak), the
+  weights themselves (parameters)."""
 
-  def __init__(self):
+  def __init__(self, host: bool = False):
     self.wrapper = int8_matmul.int8_weight_matmul
     self.calls = {}
+    self.host = host
     int8_matmul.int8_weight_matmul = self
 
   def __call__(self, a, q, scale):
-    shared = a.stride(0) == 0 and a.shape[0] > 1
+    shared = _shared(a, q)
     key = (*q.shape, a.shape[1], shared)
     if key not in self.calls:
-      kept = a[:1].clone() if shared else a.clone()
-      self.calls[key] = (kept, a.shape[0] if shared else 0, q, scale)
+      kept = (a[:1] if shared else a).detach().to(
+          "cpu" if self.host else a.device, copy=True)
+      self.calls[key] = (kept, q, scale)
     return self.wrapper(a, q, scale)
 
   def inputs(self):
-    for key, (kept, batches, q, scale) in self.calls.items():
-      a = kept.expand(batches, -1, -1) if batches else kept
-      yield key, (a, q, scale)
+    for key, (a, q, scale) in self.calls.items():
+      yield key, (a.to(q.device), q, scale)
 
   def restore(self):
     int8_matmul.int8_weight_matmul = self.wrapper
@@ -3982,8 +4048,8 @@ def int8_figures(a, q, scale) -> dict:
   the L2), the plain version's, a bf16 product of the same shape on a stored
   bf16 weight (``F.linear`` / ``torch.matmul``), the dequantize + matmul
   composition, and ``torch._weight_int8pack_mm`` where the card has it."""
-  batches, m, k = a.shape
-  n = q.shape[1]
+  _, m, k = a.shape
+  batches, n = q.shape[:2]
   ms = device_ms(int8_matmul.int8_weight_matmul, INT8_REPS,
                  inputs=cold_copies(a.contiguous(), q, scale))
   plain_ms = cuda_ms(lambda: int8_matmul.int8_weight_matmul_plain(
@@ -4006,7 +4072,7 @@ def int8_figures(a, q, scale) -> dict:
   del w
   n_bytes = (q.numel() + 2 * batches * m * k + 4 * scale.numel()
              + 2 * batches * m * n)
-  if a.stride(0) == 0:
+  if _shared(a, q):
     n_bytes -= 2 * (batches - 1) * m * k  # one activation, read once
   bound_ms, bound_by = bound(n_bytes, 2.0 * batches * m * n * k,
                              BF16_TENSOR_FLOPS)
@@ -4341,6 +4407,523 @@ def phase_int8(dev, kernels: list[dict], profile: bool) -> None:
   log(f"  phase 18 took {time.perf_counter() - phase_start:.1f} s")
 
 
+class CaptureDgradCalls:
+  """Stands in for ``int8_matmul.int8_weight_matmul_dgrad`` (the backward
+  looks it up at each call) and keeps the inputs of its first call at each
+  distinct shape: a host copy of the cotangent, the weights themselves."""
+
+  def __init__(self):
+    self.wrapper = int8_matmul.int8_weight_matmul_dgrad
+    self.calls = {}
+    int8_matmul.int8_weight_matmul_dgrad = self
+
+  def __call__(self, g, q, scale, reduce_batches=False):
+    key = (*q.shape, g.shape[1], reduce_batches)
+    if key not in self.calls:  # kept on the host: out of the stage's peak
+      self.calls[key] = (g.detach().to("cpu", copy=True), q, scale,
+                         reduce_batches)
+    return self.wrapper(g, q, scale, reduce_batches)
+
+  def inputs(self):
+    for key, (g, q, scale, reduce_batches) in self.calls.items():
+      yield key, (g.to(q.device), q, scale, reduce_batches)
+
+  def restore(self):
+    int8_matmul.int8_weight_matmul_dgrad = self.wrapper
+
+
+def check_int8_dgrad(g, q, scale, reduce_batches) -> float:
+  """The input-gradient kernel against its plain version on the same
+  inputs, within INT8_REL of the larger value plus INT8_ABS_OF_MAX of the
+  largest. Returns the largest difference."""
+  got = int8_matmul.int8_weight_matmul_dgrad(g, q, scale,
+                                             reduce_batches).float()
+  want = int8_matmul.int8_weight_matmul_dgrad_plain(g, q, scale,
+                                                    reduce_batches).float()
+  diff = (got - want).abs()
+  allowed = (torch.maximum(got.abs(), want.abs()) * INT8_REL
+             + INT8_ABS_OF_MAX * want.abs().max())
+  if not bool(torch.isfinite(got).all()) or bool((diff > allowed).any()):
+    raise AssertionError(f"int8_weight_matmul_dgrad disagrees with its plain "
+                         f"version at g {tuple(g.shape)} x q "
+                         f"{tuple(q.shape)}: max_abs_err "
+                         f"{diff.max().item():.3e}.")
+  return diff.max().item()
+
+
+def int8_dgrad_figures(g, q, scale, reduce_batches) -> dict:
+  """The input-gradient kernel's time (device time with the queue full on
+  cold copies; CUDA events over a few calls where one call's inputs exceed
+  the L2 many times over), its plain version's, the library composition
+  ``matmul(dy * scale, q.to(bf16))`` (a bf16 copy of the weight written
+  and read each call; for a shared activation the batches folded into the
+  contraction), and the bound: each input read once, the output written
+  once, or the bf16 operations."""
+  batches, m, n = g.shape
+  k = q.shape[2]
+  fn = lambda g_, q_, s_: int8_matmul.int8_weight_matmul_dgrad(  # pylint: disable=g-long-lambda
+      g_, q_, s_, reduce_batches)
+  if g.numel() * 2 > 4 * L2_BYTES:
+    ms = cuda_ms(lambda: fn(g, q, scale), reps=5)
+  else:
+    ms = device_ms(fn, INT8_DGRAD_REPS, inputs=cold_copies(g, q, scale))
+  plain_ms = cuda_ms(lambda: int8_matmul.int8_weight_matmul_dgrad_plain(
+      g, q, scale, reduce_batches), reps=3)
+  scaled = g * scale.to(g.dtype)[..., None, :]
+  if reduce_batches:
+    library = lambda: torch.matmul(  # pylint: disable=g-long-lambda
+        scaled.transpose(0, 1).reshape(m, batches * n),
+        q.to(torch.bfloat16).reshape(batches * n, k))
+  else:
+    library = lambda: torch.matmul(scaled, q.to(torch.bfloat16))
+  library_ms = cuda_ms(library, reps=3)
+  del scaled
+  out_batches = 1 if reduce_batches else batches
+  n_bytes = (2 * batches * m * n + q.numel() + 4 * scale.numel()
+             + 2 * out_batches * m * k)
+  flops = 2.0 * batches * m * n * k
+  bound_ms, bound_by = bound(n_bytes, flops, BF16_TENSOR_FLOPS)
+  return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+              bound_ms=bound_ms, bound_by=bound_by, n_bytes=n_bytes,
+              tflops=flops / ms / 1e9)
+
+
+def _sft_counts() -> dict[str, int]:
+  return {"lru_scan": lru_scan.launches,
+          "lru_scan_backward": lru_scan.backward_launches,
+          "window_attention": wa.launches,
+          "window_attention_dq": wa.dq_launches,
+          "window_attention_dkv": wa.dkv_launches,
+          "mha_attention": mha_attention.launches,
+          "int8_weight_matmul": int8_matmul.launches,
+          "int8_weight_matmul_dgrad": int8_matmul.dgrad_launches}
+
+
+def _reset_sft_counts() -> None:
+  lru_scan.launches = lru_scan.backward_launches = 0
+  wa.launches = wa.dq_launches = wa.dkv_launches = 0
+  mha_attention.launches = 0
+  int8_matmul.launches = int8_matmul.dgrad_launches = 0
+  reset_scan_routes()
+
+
+def sft_batch(vocab_size: int) -> data_lib.TrainingInput:
+  """Two rows of random text after BOS (row 1 right-padded after 1500), the
+  loss over the second half of each row's real tokens, and seeded pixels in
+  [0, 1]."""
+  rng = np.random.default_rng(SEED + 90)
+  tokens = rng.integers(4, vocab_size, (2, SFT_TEXT_TOKENS)).astype(np.int32)
+  tokens[:, 0] = 1
+  mask = np.zeros(tokens.shape, bool)
+  for row, real in enumerate(SFT_REAL_TOKENS):
+    tokens[row, real:] = 0
+    mask[row, real // 2:real] = True
+  pixels = rng.random(SFT_PIXELS, dtype=np.float32)
+  return data_lib.TrainingInput(input_tokens=tokens, target_mask=mask,
+                                pixels=pixels)
+
+
+class StageClock:
+  """``log_metrics`` of a training stage: each step's loss and the host
+  clock after it reached the host (the loss read syncs the card)."""
+
+  def __init__(self):
+    self.steps = []
+    self.start = time.perf_counter()
+
+  def __call__(self, metrics, step):
+    self.steps.append((step, metrics["train_loss"], time.perf_counter()))
+
+  def restart(self):
+    self.steps.clear()
+    self.start = time.perf_counter()
+
+  def summary(self, label: str, real_tokens: int, peak_gb: float) -> dict:
+    losses = [loss for _, loss, _ in self.steps]
+    times = [self.start] + [t for _, _, t in self.steps]
+    step_ms = [(b - a) * 1e3 for a, b in zip(times, times[1:])]
+    steady = float(np.mean(step_ms[1:])) if len(step_ms) > 1 else step_ms[0]
+    log(f"  {label}: losses {losses}; ms per step "
+        f"{[round(ms, 1) for ms in step_ms]} (the first includes warm-up); "
+        f"steady {steady:.1f} ms ({real_tokens / steady * 1e3:.0f} real "
+        f"tokens/s); peak {peak_gb:.2f} GB")
+    if not losses or not all(np.isfinite(losses)):
+      raise AssertionError(f"{label}: non-finite or missing losses {losses}.")
+    return dict(losses=losses, step_ms=step_ms, steady_ms=steady,
+                peak_gb=peak_gb)
+
+
+def _snapshot(model, keep) -> dict[str, torch.Tensor]:
+  """Host copies of the parameters ``keep`` selects (out of the peak)."""
+  return {n: p.detach().to("cpu", copy=True)
+          for n, p in model.named_parameters() if keep(n)}
+
+
+def _unchanged(model, snapshot) -> list[str]:
+  """The names of ``snapshot`` whose parameter is no longer bit for bit
+  what it holds."""
+  params = dict(model.named_parameters())
+  return [n for n, v in snapshot.items()
+          if not torch.equal(params[n].detach().cpu(), v)]
+
+
+def _lora_gradients(model, tokens, mask, img, plain: bool):
+  """Loss and adapter gradients of one batch; ``plain`` routes every int8
+  product (forward and input gradient) through its plain version."""
+  params = sft_lora.lora_parameters(model)
+  model.zero_grad(set_to_none=True)
+  saved = int8_matmul.int8_weight_matmul
+  if plain:
+    int8_matmul.int8_weight_matmul = int8_matmul.int8_weight_matmul_plain
+  try:
+    with trainer.trainable_only(model, params):
+      loss = trainer.accumulate_gradients(model, 0, tokens, mask,
+                                          img_embed=img)
+  finally:
+    int8_matmul.int8_weight_matmul = saved
+  grads = {n: p.grad.clone() for n, p in model.named_parameters()
+           if sft_lora.is_lora_path(n)}
+  model.zero_grad(set_to_none=True)
+  return loss.item(), grads
+
+
+def phase_multimodal_sft(dev, kernels: list[dict], profile: bool) -> None:
+  """Multimodal fine-tuning on the 2B at full width and depth: the two-stage
+  recipe, LoRA on the bf16 base, QLoRA on its int8 copy (the new input
+  gradient kernel), each stage's step time and peak memory; with
+  ``profile`` the kernel time by name of one QLoRA step."""
+  phase_start = time.perf_counter()
+  config = common.GriffinConfig.from_preset(
+      common.Preset.RECURRENT_GEMMA_2B_V1)
+  model = griffin.Griffin(config, device=dev, dtype=torch.bfloat16,
+                          generator=torch.Generator(dev).manual_seed(SEED + 91))
+  encoder = vit.DinoSigLIPEncoder(
+      device=dev, generator=torch.Generator(dev).manual_seed(SEED + 92))
+  torch.cuda.synchronize()
+  batch = sft_batch(config.vocab_size)
+  spliced = SFT_TEXT_TOKENS + config.vision_tokens
+  real_tokens = sum(SFT_REAL_TOKENS) + 2 * config.vision_tokens
+  n_recurrent = sum(bt is common.TemporalBlockType.RECURRENT
+                    for bt in config.block_types)
+  n_attention = config.num_layers - n_recurrent
+  n_towers = len(encoder.dino.blocks) + len(encoder.siglip.blocks)
+  log(f"== multimodal fine-tuning: RecurrentGemma-2B (bf16, seeded) with "
+      f"DINOv2-L || SigLIP-so400m (blocks 0-22, 384 px) frozen; pixels "
+      f"{list(SFT_PIXELS)}, 2 x {SFT_TEXT_TOKENS} text tokens "
+      f"({SFT_REAL_TOKENS} real), {spliced} spliced tokens a row; "
+      f"{real_tokens} real tokens a step (text + visual); built in "
+      f"{time.perf_counter() - phase_start:.1f} s")
+  per_step = {"lru_scan": 2 * n_recurrent, "lru_scan_backward": n_recurrent,
+              "window_attention": 2 * n_attention,
+              "window_attention_dq": n_attention,
+              "window_attention_dkv": n_attention,
+              "mha_attention": n_towers}
+  stats = {}
+
+  # (a) two_stage_sft: the connector alone, then everything. The data
+  # factory's second call comes between the stages: it reads and checks
+  # stage 1, then sets the counts to 0 for stage 2.
+  clock = StageClock()
+  connector = lambda n: n.startswith("vl_connector.")  # pylint: disable=g-long-lambda
+  frozen = _snapshot(model, lambda n: not connector(n))
+  connector_before = _snapshot(model, connector)
+  embedding_before = model.embedder.input_embedding.detach().to(
+      "cpu", copy=True)
+  stage_counts = {}
+  factory_calls = 0
+
+  def factory():
+    nonlocal factory_calls
+    factory_calls += 1
+    if factory_calls == 2:
+      torch.cuda.synchronize()
+      stage_counts["frozen"] = _sft_counts()
+      check_scan_routes(lru_scan.ring_launches
+                        + lru_scan.thread_walk_launches)
+      stats["frozen"] = clock.summary(
+          f"stage 1 (frozen LM, connector trains), {SFT_FROZEN_STEPS} steps",
+          real_tokens, torch.cuda.max_memory_allocated() / 1e9)
+      moved = _unchanged(model, frozen)
+      if moved:
+        raise AssertionError(f"Stage 1 moved frozen weights: {moved[:5]}.")
+      if not set(_unchanged(model, connector_before)) == set(
+          connector_before):
+        raise AssertionError("Stage 1 left part of the connector in place.")
+      log(f"  stage 1 left all {len(frozen)} non-connector parameters bit "
+          f"for bit and moved all {len(connector_before)} of the "
+          f"connector's")
+      frozen.clear()
+      torch.cuda.reset_peak_memory_stats()
+      _reset_sft_counts()
+      clock.restart()
+    return [batch] * 4
+
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  _reset_sft_counts()
+  clock.restart()
+  train_loop_lib.two_stage_sft(
+      model, factory,
+      train_loop_lib.TrainingConfig(learning_rate=SFT_LEARNING_RATE,
+                                    eval_every_n=1,
+                                    max_steps=SFT_FROZEN_STEPS),
+      train_loop_lib.TrainingConfig(learning_rate=SFT_LEARNING_RATE,
+                                    eval_every_n=1, max_steps=SFT_FULL_STEPS),
+      encode_image=encoder, log_metrics=clock, device=dev)
+  torch.cuda.synchronize()
+  stats["full"] = clock.summary(
+      f"stage 2 (full fine-tune), {SFT_FULL_STEPS} steps", real_tokens,
+      torch.cuda.max_memory_allocated() / 1e9)
+  stage_counts["full"] = _sft_counts()
+  del frozen, connector_before
+  for stage, steps in (("frozen", SFT_FROZEN_STEPS),
+                       ("full", SFT_FULL_STEPS)):
+    want = {name: steps * count for name, count in per_step.items()}
+    want.update(int8_weight_matmul=0, int8_weight_matmul_dgrad=0)
+    log(f"  {stage} stage launches {stage_counts[stage]}")
+    if stage_counts[stage] != want:
+      raise AssertionError(f"The {stage} stage launched "
+                           f"{stage_counts[stage]}, want {want}.")
+  check_scan_routes(lru_scan.ring_launches + lru_scan.thread_walk_launches)
+  if torch.equal(model.embedder.input_embedding.detach().cpu(),
+                 embedding_before):
+    raise AssertionError("Stage 2 left the embedder in place.")
+  del embedding_before
+
+  # (b) LoRA on the bf16 base: the two-stage model's weights, fresh rank-8
+  # adapters, train_loop(lora=True).
+  lmodel = griffin.Griffin(config, device="meta", dtype=torch.bfloat16,
+                           lora_rank=SFT_LORA_RANK)
+  lmodel.to_empty(device=dev)
+  adapters = sft_lora.init_adapters(
+      lmodel, torch.Generator(dev).manual_seed(SEED + 93))
+  lmodel.load_state_dict(sft_lora.merge_params(model.state_dict(), adapters))
+  del model, adapters
+  n_adapter = sum(p.numel() for p in sft_lora.lora_parameters(lmodel))
+  base_before = _snapshot(lmodel, lambda n: not sft_lora.is_lora_path(n))
+  b_before = _snapshot(lmodel, lambda n: n.endswith("lora_b"))
+  lora_cfg = train_loop_lib.TrainingConfig(
+      learning_rate=SFT_LEARNING_RATE, eval_every_n=1,
+      max_steps=SFT_LORA_STEPS, lora=True)
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  _reset_sft_counts()
+  clock = StageClock()
+  train_loop_lib.train_loop(lmodel, [batch] * SFT_LORA_STEPS, lora_cfg,
+                            encode_image=encoder, log_metrics=clock,
+                            device=dev)
+  torch.cuda.synchronize()
+  stats["lora"] = clock.summary(
+      f"LoRA rank {SFT_LORA_RANK} on the bf16 base ({n_adapter / 1e6:.2f} M "
+      f"adapter parameters), {SFT_LORA_STEPS} steps", real_tokens,
+      torch.cuda.max_memory_allocated() / 1e9)
+  log(f"  LoRA launches {_sft_counts()}")
+  if _unchanged(lmodel, base_before):
+    raise AssertionError("LoRA moved base weights.")
+  if not any(n for n in _unchanged(lmodel, b_before)):
+    raise AssertionError("LoRA left every lora_b at zero.")
+  log(f"  LoRA left all {len(base_before)} base parameters bit for bit; "
+      f"{len(_unchanged(lmodel, b_before))} of {len(b_before)} lora_b moved")
+  del base_before, b_before
+
+  # The merged model against the LoRA model: prefill logits of the batch.
+  tokens = torch.as_tensor(batch.input_tokens, device=dev).long()
+  positions = trainer.get_positions(tokens, 0)
+  with torch.no_grad():
+    img = encoder(torch.as_tensor(batch.pixels, device=dev))
+  # The base without its adapters sets the scale: a merge that dropped
+  # them would be as far from the LoRA model as the base is.
+  merged = griffin.Griffin(config, device="meta", dtype=torch.bfloat16)
+  merged.to_empty(device=dev)
+  merged.load_state_dict(sft_lora.split_lora(lmodel.state_dict())[1])
+  logits_of = lambda m: m(tokens, positions, image=img, return_cache=False,  # pylint: disable=g-long-lambda
+                          last_logits_only=True)[0]
+  with torch.inference_mode():
+    want = logits_of(lmodel)
+    base_rel = _rel_rms(logits_of(merged), want)
+    merged.load_state_dict(sft_lora.merge_lora(lmodel.state_dict()))
+    got = logits_of(merged)
+  merge_rel = _rel_rms(got, want)
+  log(f"  merge_lora: the merged bf16 model's last prefill logits vs the "
+      f"LoRA model's rel_rms {merge_rel:.3e} (tolerance {SFT_MERGE_REL_RMS} "
+      f"and {SFT_MERGE_OF_BASE} of the base's); the base without adapters "
+      f"{base_rel:.3e}; same argmax "
+      f"{(got.argmax(-1) == want.argmax(-1)).tolist()}")
+  if not (torch.isfinite(got).all() and merge_rel <= SFT_MERGE_REL_RMS
+          and merge_rel <= SFT_MERGE_OF_BASE * base_rel):
+    raise AssertionError("The merged model disagrees with the LoRA model.")
+  del merged, got, want
+
+  # (c) QLoRA: quantize_params of the base, fresh bf16 adapters.
+  base_state = sft_lora.split_lora(lmodel.state_dict())[1]
+  qmodel = griffin.Griffin(config, device="meta", quantized=True,
+                           lora_rank=SFT_LORA_RANK)
+  qmodel.to_empty(device=dev)
+  qstate = quantization.quantize_params(base_state)
+  del lmodel, base_state
+  adapters = sft_lora.init_adapters(
+      qmodel, torch.Generator(dev).manual_seed(SEED + 94))
+  qmodel.load_state_dict(sft_lora.merge_params(qstate, adapters))
+  del qstate, adapters
+  base_before = _snapshot(qmodel, lambda n: not sft_lora.is_lora_path(n))
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  _reset_sft_counts()
+  clock = StageClock()
+  forward_capture = CaptureInt8Calls(host=True)
+  capture = CaptureDgradCalls()
+  try:
+    train_loop_lib.train_loop(qmodel, [batch] * SFT_LORA_STEPS, lora_cfg,
+                              encode_image=encoder, log_metrics=clock,
+                              device=dev)
+  finally:
+    capture.restore()
+    forward_capture.restore()
+  torch.cuda.synchronize()
+  stats["qlora"] = clock.summary(
+      f"QLoRA rank {SFT_LORA_RANK} on the int8 base, {SFT_LORA_STEPS} "
+      f"steps", real_tokens, torch.cuda.max_memory_allocated() / 1e9)
+  qlora_counts = _sft_counts()
+  int8_layers = _weight_only_launches(qmodel) - 1
+  log(f"  QLoRA launches {qlora_counts}; {int8_layers} int8 layers in the "
+      f"blocks and the logits")
+  # The int8 products run forward twice a step (remat; the logits' under
+  # the loss chunks' checkpoints), and their input gradient wherever the
+  # activation requires one: everywhere after the splice (the connector's
+  # adapters reach every position through attention and the scan), not in
+  # the connector's up-projection, whose input is the towers' features.
+  if (qlora_counts["int8_weight_matmul_dgrad"] == 0
+      or qlora_counts["int8_weight_matmul"] == 0
+      or any(qlora_counts[k] != SFT_LORA_STEPS * v
+             for k, v in per_step.items())):
+    raise AssertionError(f"QLoRA launched {qlora_counts}; want the int8 "
+                         f"kernels > 0 and {per_step} a step.")
+  if _unchanged(qmodel, base_before):
+    raise AssertionError("QLoRA moved base weights.")
+  del base_before
+
+  # The forward kernel on the inputs the step passed it (phase 18 checked
+  # it at the serving shapes; its row takes the larger error).
+  int8_row = next(r for r in kernels if r["name"] == "int8_weight_matmul")
+  for key, args in forward_capture.inputs():
+    err = check_int8(*args)
+    int8_row["max_abs_err"] = max(int8_row["max_abs_err"], err)
+    log(f"  int8_weight_matmul on the QLoRA step's inputs a "
+        f"{tuple(args[0].shape)}{' (shared)' if key[-1] else ''} x q "
+        f"{tuple(args[1].shape)}: max_abs_err {err:.3e} (tolerance "
+        f"{INT8_REL} of the larger value + {INT8_ABS_OF_MAX} of the largest)")
+  forward_capture.calls.clear()
+
+  # The input-gradient kernel on the inputs the step passed it.
+  row = {"name": "int8_weight_matmul_dgrad", "route": "cuda",
+         "source": "cadence_gemma_tpu_torch/csrc/int8_matmul.cu",
+         "replaces": INT8_DGRAD_REPLACES,
+         "launches": qlora_counts["int8_weight_matmul_dgrad"],
+         "max_abs_err": 0.0}
+  logits_key = (1, config.vocab_size, config.width)
+  dense_key = (1, config.width, config.width)
+  for key, args in capture.inputs():
+    err = check_int8_dgrad(*args)
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    log(f"  int8_weight_matmul_dgrad on the step's inputs g "
+        f"{tuple(args[0].shape)} x q {tuple(args[1].shape)}"
+        f"{' (summed over the batches)' if args[3] else ''}: max_abs_err "
+        f"{err:.3e} (tolerance {INT8_REL} of the larger value + "
+        f"{INT8_ABS_OF_MAX} of the largest)")
+  if not any(k[:3] == logits_key for k in capture.calls) or not any(
+      k[4] for k in capture.calls):
+    raise AssertionError(f"The QLoRA step never passed the logits' or an "
+                         f"Einsum's gradient: {list(capture.calls)}.")
+  log("  int8_weight_matmul_dgrad timed (ms; plain = its plain version; "
+      "library = matmul(dy * scale, q.to(bf16)), a bf16 weight copy each "
+      "call):")
+  for key, args in capture.inputs():
+    if not (key[:3] in (logits_key, dense_key) or key[4]):
+      continue
+    f = int8_dgrad_figures(*args)
+    log(f"    g {tuple(args[0].shape)} x q {tuple(args[1].shape)}: ms "
+        f"{f['ms']:.4f} ({f['tflops']:.1f} TFLOP/s)  plain "
+        f"{f['plain_ms']:.4f}  library {f['library_ms']:.4f}  bound "
+        f"{f['bound_ms']:.4f} ({f['bound_by']}, {f['n_bytes'] / 1e6:.1f} MB)"
+        f": {100 * f['bound_ms'] / f['ms']:.1f}% of the bound")
+    if key[:3] == logits_key and "ms" not in row:
+      row.update(ms=f["ms"], plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
+                 bound_by=f["bound_by"], library_ms=f["library_ms"])
+  capture.calls.clear()
+  kernels.append(row)
+
+  # The adapters' gradients, kernel path against plain path.
+  mask = torch.as_tensor(batch.target_mask, device=dev)
+  torch.cuda.empty_cache()
+  _reset_sft_counts()
+  loss_k, grads_k = _lora_gradients(qmodel, tokens, mask, img, plain=False)
+  if _sft_counts()["int8_weight_matmul_dgrad"] == 0:
+    raise AssertionError("The kernel path launched no input gradient.")
+  _reset_sft_counts()
+  loss_p, grads_p = _lora_gradients(qmodel, tokens, mask, img, plain=True)
+  plain_counts = _sft_counts()
+  if plain_counts["int8_weight_matmul"] or plain_counts[
+      "int8_weight_matmul_dgrad"]:
+    raise AssertionError("The plain path launched an int8 kernel.")
+  rel_loss = abs(loss_k - loss_p) / abs(loss_p)
+  leaf_stats = _leaf_stats(grads_k, grads_p)
+  log(f"  QLoRA kernel path vs plain path (every int8 product plain): loss "
+      f"{loss_k:.6f} vs {loss_p:.6f} (rel {rel_loss:.2e}, tolerance "
+      f"{MODEL_LOSS_REL_ERR}); {len(leaf_stats)} adapter leaves, limits "
+      f"rel_rms <= {GRAD_LEAF_REL_RMS}, cosine >= {GRAD_LEAF_MIN_COSINE}")
+  _log_leaf_stats("adapters' gradients, kernel vs plain", leaf_stats)
+  bad = [x for x in leaf_stats
+         if not (x[0] <= GRAD_LEAF_REL_RMS and x[1] >= GRAD_LEAF_MIN_COSINE)]
+  if not (np.isfinite(loss_k) and rel_loss <= MODEL_LOSS_REL_ERR) or bad:
+    raise AssertionError(f"QLoRA gradients disagree: {bad[:5]}.")
+  del grads_k, grads_p
+
+  if profile:
+    optimizer = sft_lora.make_optimizer(sft_lora.lora_parameters(qmodel),
+                                        SFT_LEARNING_RATE)
+    step = lambda: sft_lora.lora_train_step(qmodel, optimizer, 0, tokens,  # pylint: disable=g-long-lambda
+                                            mask, img)
+    step()
+    times = kernel_times(step)
+    busy = sum(ms for ms, _ in times.values())
+    top = sorted(times.items(), key=lambda kv: -kv[1][0])[:10]
+    log(f"  one QLoRA step, kernel time by name: busy {busy:.1f} ms of "
+        f"{stats['qlora']['steady_ms']:.1f} (idle share "
+        f"{1 - busy / stats['qlora']['steady_ms']:.3f}), "
+        f"{sum(n for _, n in times.values())} kernels; top: " +
+        "; ".join(f"{name[:60]} {ms:.1f} ms x{n}" for name, (ms, n) in top))
+    del optimizer, step
+
+  # The QLoRA model serves: captured and eager greedy decode agree.
+  vocab = SimpleVocab([f"w{i}" for i in range(config.vocab_size - 4)])
+  rng = np.random.default_rng(SEED + 95)
+  prompts = [" ".join(f"w{i}" for i in rng.integers(
+      0, config.vocab_size - 4, SFT_PROMPT_TOKENS - 1)) for _ in range(2)]
+  run_kw = dict(total_generation_steps=SFT_DECODE_STEPS,
+                end_sampling_at_eos_token=False)
+  tokens_by_mode = {}
+  for captured in (True, False):
+    qsampler = sampler_lib.Sampler(qmodel, vocab, device=dev,
+                                   jit_compile=captured)
+    qsampler(prompts, **run_kw)  # warm-up (captures the decode step)
+    out = qsampler(prompts, **run_kw)
+    tokens_by_mode[captured] = torch.stack(out.tokens).cpu()
+    del qsampler
+  log(f"  QLoRA Sampler, {SFT_DECODE_STEPS} greedy steps on 2 x "
+      f"{SFT_PROMPT_TOKENS} tokens: captured == eager "
+      f"{torch.equal(tokens_by_mode[True], tokens_by_mode[False])}; first "
+      f"tokens {tokens_by_mode[True][:, :8].tolist()}")
+  if not torch.equal(tokens_by_mode[True], tokens_by_mode[False]):
+    raise AssertionError("QLoRA captured and eager decode disagree.")
+
+  log(f"  fine-tuning stages (step ms steady, real tokens/s, peak GB): " +
+      "; ".join(f"{k} {v['steady_ms']:.1f} ms, "
+                f"{real_tokens / v['steady_ms'] * 1e3:.0f}/s, "
+                f"{v['peak_gb']:.2f} GB" for k, v in stats.items()))
+  del qmodel, encoder, img
+  log(f"  phase 19 took {time.perf_counter() - phase_start:.1f} s")
+
+
 def main() -> int:
   profile = "--profile" in sys.argv[1:]
   if not torch.cuda.is_available():
@@ -4389,6 +4972,8 @@ def main() -> int:
       f" s; total {time.perf_counter() - start:.1f} s")
   torch.cuda.empty_cache()
   phase_int8(dev, kernels, profile)
+  torch.cuda.empty_cache()
+  phase_multimodal_sft(dev, kernels, profile)
   log(f"== total {time.perf_counter() - start:.1f} s")
   print(json.dumps({"kernels": kernels}))
   print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -12,7 +12,17 @@ multiply by the bfloat16 scale and round again, so one step of the first
 rounding and the second rounding together differ by up to 1.5 x 2^-7 of the
 larger value: they must agree within 2^-6 of it (plus 1e-4 of the largest
 output for sums that cancel). Two launches give the same bits, and
-a captured CUDA graph replays them. ``int8_act_matmul`` (``torch._int_mm``,
+a captured CUDA graph replays them. The input gradient
+(``cg_int8_weight_matmul_dgrad``) against its plain version
+(``int8_weight_matmul_dgrad_plain``, JAX's ``(dy * scale.astype(bf16)) @
+q.astype(bf16)``) at the same layouts and at training rows (odd ones
+included), with the plain version's sum taken in float64: the kernel rounds
+the scaled cotangent to bfloat16 as JAX does, sums in float32 and rounds
+once, within the same 2^-6 of the exact product. (cuBLAS' own bf16 product
+sums the logits' 256000 terms 0.02 beyond that at 2049 rows, so it is not
+the yardstick there.) At ragged N and K the kernel is held against the
+plain version itself, and ``int8_weight_matmul(...).backward()`` against
+the plain expression's autograd gradient. ``int8_act_matmul`` (``torch._int_mm``,
 zero rows padded under 17) equals the exact integer product. A small bf16
 ``Griffin(quantized=True)``: captured decode (the kernel inside the graph)
 gives the eager loop's tokens and the prefill_act_quant Sampler runs.
@@ -127,6 +137,99 @@ def test_int8_weight_matmul_cuda_refuses_what_it_cannot_take():
     int8_matmul.int8_weight_matmul(a.float(), q, scale)
   with pytest.raises(ValueError, match="multiple of 16"):
     int8_matmul.int8_weight_matmul(a[..., :40], q[..., :40], scale)
+
+
+DGRAD_ROWS = (1, 17, 333, 4096)
+
+
+def dgrad_operands(layout: str, m: int, seed: int = 0):
+  """(g, q, scale, reduce) on the card: the cotangent of the layer's product
+  as the backward hands it to the kernel."""
+  a, q, scale = operands(layout, m, seed)
+  gen = torch.Generator("cuda").manual_seed(seed + 100)
+  g = torch.randn(q.shape[0], m, q.shape[1], generator=gen,
+                  device="cuda").bfloat16()
+  return g, q, scale, layout == "ffw_up"
+
+
+@requires_cuda
+@pytest.mark.parametrize("m", DGRAD_ROWS)
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_int8_dgrad_cuda_matches_plain(layout, m):
+  """The input gradient at the 2B's four layouts (the fused up-projection
+  summed over its two products into the shared activation's gradient)."""
+  if layout == "embed" and m == 4096:
+    m = 2049  # the logits' [M, 256000] cotangent: odd rows, 1 GB
+  g, q, scale, reduce = dgrad_operands(layout, m)
+  before = int8_matmul.dgrad_launches
+  got = int8_matmul.int8_weight_matmul_dgrad(g, q, scale, reduce)
+  assert int8_matmul.dgrad_launches == before + 1
+  # The plain version's arithmetic, its sum exact: the scaled cotangent
+  # rounded to bf16 as JAX rounds it, the product in float64.
+  scaled = (g * scale.to(g.dtype)[..., None, :]).double()
+  want = (torch.einsum("bmn,bnk->mk", scaled, q.double())[None] if reduce
+          else scaled @ q.double())
+  torch.cuda.synchronize()
+  assert got.shape == want.shape == ((1 if reduce else q.shape[0]), m,
+                                     q.shape[2])
+  assert got.dtype == torch.bfloat16 and got.is_contiguous()
+  assert_matches_plain(got, want)
+
+
+@requires_cuda
+@pytest.mark.parametrize("batches,m,n,k,reduce", [
+    (3, 5, 200, 80, False), (3, 5, 200, 80, True), (1, 65, 8, 16, False),
+    (2, 129, 72, 2576, True)])
+def test_int8_dgrad_cuda_ragged_shapes(batches, m, n, k, reduce):
+  """Tile edges: N a multiple of 8 short of the 64-deep tile, K a multiple
+  of 16 short of the 64-wide one, M off both row tiles; split and not."""
+  gen = torch.Generator("cuda").manual_seed(m + n)
+  g = torch.randn(batches, m, n, generator=gen, device="cuda").bfloat16()
+  q = torch.randint(-127, 128, (batches, n, k), generator=gen, device="cuda",
+                    dtype=torch.int8)
+  scale = torch.rand(batches, n, generator=gen, device="cuda") * 1e-2
+  got = int8_matmul.int8_weight_matmul_dgrad(g, q, scale, reduce)
+  want = int8_matmul.int8_weight_matmul_dgrad_plain(g, q, scale, reduce)
+  torch.cuda.synchronize()
+  assert_matches_plain(got, want)
+  again = int8_matmul.int8_weight_matmul_dgrad(g, q, scale, reduce)
+  assert torch.equal(got, again)
+
+
+@requires_cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_int8_weight_matmul_backward_matches_plain_autograd(layout):
+  """``int8_weight_matmul(a, ...).backward(g)`` launches the forward and
+  the input-gradient kernels once each, and ``a.grad`` is autograd's of
+  the plain expression; the weight and scale get none. The fused
+  up-projection's shared activation is one [1, M, K] tensor."""
+  m = 257
+  a, q, scale = operands(layout, m, seed=3)
+  if layout == "ffw_up":
+    a = a[:1]
+  a = a.detach().clone().requires_grad_()
+  ref = a.detach().clone().requires_grad_()
+  g = torch.randn(q.shape[0], m, q.shape[1], device="cuda",
+                  generator=torch.Generator("cuda").manual_seed(4)).bfloat16()
+  before = (int8_matmul.launches, int8_matmul.dgrad_launches)
+  int8_matmul.int8_weight_matmul(a, q, scale).backward(g)
+  assert (int8_matmul.launches, int8_matmul.dgrad_launches) == (
+      before[0] + 1, before[1] + 1)
+  y = int8_matmul.int8_weight_matmul_plain(ref, q, scale)
+  y.float().backward(g.float())  # cuBLAS' bf16 products, as in the forward
+  torch.cuda.synchronize()
+  assert a.grad.shape == a.shape
+  assert_matches_plain(a.grad, ref.grad)
+  assert not q.requires_grad and not scale.requires_grad
+
+
+@requires_cuda
+def test_int8_dgrad_cuda_refuses_what_it_cannot_take():
+  g, q, scale, _ = dgrad_operands("dense", 2)
+  with pytest.raises(ValueError, match="bfloat16"):
+    int8_matmul.int8_weight_matmul_dgrad(g.float(), q, scale)
+  with pytest.raises(ValueError, match="multiple of 8"):
+    int8_matmul.int8_weight_matmul_dgrad(g[..., :36], q[:, :36], scale[:, :36])
 
 
 @requires_cuda

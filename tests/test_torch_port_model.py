@@ -163,8 +163,9 @@ def test_config_from_numpy_params_equals_jax():
 
 
 def test_port_hygiene(monkeypatch):
-  """The port, its training, vision, serving, parallel, complex, kernel-lab,
-  tokenizer and int8 modules included, imports no JAX and nothing of the JAX package, and its entry points refuse to fall
+  """The port, its training (LoRA and the image loader too), vision,
+  serving, parallel, complex, kernel-lab, tokenizer and int8 modules
+  included, imports no JAX and nothing of the JAX package, and its entry points refuse to fall
   back to the CPU without being asked."""
   probe = (
       "import sys; before = set(sys.modules); "
@@ -184,6 +185,8 @@ def test_port_hygiene(monkeypatch):
       "import cadence_gemma_tpu_torch.utils.sp_cpp; "
       "import cadence_gemma_tpu_torch.checkpoint.synthetic; "
       "import cadence_gemma_tpu_torch.ops.int8_matmul; "
+      "import cadence_gemma_tpu_torch.training.lora; "
+      "import cadence_gemma_tpu_torch.utils.image_cpp; "
       "new = set(sys.modules) - before; "
       "print(sorted(m for m in new if m.split('.')[0] in "
       "('jax', 'jaxlib', 'flax', 'cadence_gemma_tpu')))"

@@ -638,11 +638,27 @@ def test_quantized_init_draws_zeros_and_ones(tiny):
 
 
 def test_lora_is_refused():
-  with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-    layers.Dense(8, 8, device="meta", quantized=True, lora_rank=4)
-  with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+  """Per-row adapters (multi-LoRA serving) stay refused, naming their
+  item; a rank-r pair over an int8 base builds, and int8 activations
+  refuse a gradient (``torch._int_mm`` has none)."""
+  with pytest.raises(NotImplementedError, match="queue 1 item 5b"):
+    layers.Dense(8, 8, device="meta", quantized=True, lora_rows=2)
+  with pytest.raises(NotImplementedError, match="queue 1 item 5b"):
     layers.Einsum((2, 8, 8), (2, 1, 1, 8), "...td,cdD->c...tD",
                   device="meta", lora_rows=2)
+  layer = layers.Dense(16, 16, device="cpu", dtype=torch.float32,
+                       quantized=True, act_quant=True, lora_rank=4)
+  with torch.no_grad():
+    layer.kernel_q.fill_(1)
+    layer.kernel_scale.fill_(0.1)
+    layer.bias.zero_()
+    layer.lora_a.fill_(0.5)
+    layer.lora_b.fill_(0.5)
+  x = torch.randn(3, 16)
+  with torch.no_grad():
+    assert layer(x).shape == (3, 16)
+  with pytest.raises(ValueError, match="act_quant has no gradient"):
+    layer(x)
 
 
 def test_realistic_params_shapes_and_stats(tiny):

@@ -375,8 +375,8 @@ def test_skip_nonfinite_updates_leaves_the_weights(jax_pair):
 
 
 _UNPORTED = [
-    ({"lora": True}, {}),
-    ({"freeze_llm": True}, {}),
+    ({"lora": True}, {"mesh": object()}),
+    ({"freeze_llm": True, "checkpoint_dir": "ckpts"}, {}),
     ({"resume_from": "ckpt"}, {}),
     ({"checkpoint_dir": "ckpts"}, {}),
     ({"prefetch_batches": 2}, {}),
@@ -394,11 +394,13 @@ def test_train_loop_refuses_what_is_not_ported(fields, options):
 
 def test_train_loop_refuses_image_batches_and_the_missing_card(monkeypatch,
                                                                jax_pair):
+  """An image batch without an ``encode_image`` raises (JAX would train its
+  text alone; the port refuses to drop the images silently)."""
   _, params = jax_pair
   tokens, mask = _batch()
   port = _port_model(params)
   image_batch = data.TrainingInput(tokens, mask, image_paths=["a.jpg"] * 2)
-  with pytest.raises(NotImplementedError, match="Image"):
+  with pytest.raises(ValueError, match="encode_image"):
     tl.train_loop(port, [image_batch], tl.TrainingConfig(), device="cpu")
   monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
   with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -437,11 +439,21 @@ def test_dataset_builder_matches_jax(tmp_path, max_seq_len, batch_size):
 
 
 def test_dataset_builder_refuses_image_records(tmp_path):
+  """Image records carry their paths; with ``load_pixels`` an image that
+  cannot be read raises, as JAX's loader does."""
   path = tmp_path / "records.json"
   path.write_text(json.dumps([{"image": "a.jpg", **_RECORDS[0]}]))
-  builder = data.DatasetBuilder(tokenizers.SimpleVocab(_WORDS), str(path))
-  with pytest.raises(NotImplementedError, match="image"):
+  builder = data.DatasetBuilder(tokenizers.SimpleVocab(_WORDS), str(path),
+                                image_root=str(tmp_path))
+  (batch,) = list(builder)
+  assert batch.image_paths == [f"{tmp_path}/a.jpg"] and batch.pixels is None
+  builder = data.DatasetBuilder(tokenizers.SimpleVocab(_WORDS), str(path),
+                                image_root=str(tmp_path), load_pixels=True)
+  with pytest.raises(FileNotFoundError):
     list(builder)
+  with pytest.raises(FileNotFoundError):
+    list(jdata.DatasetBuilder(jtokenizers.SimpleVocab(_WORDS), str(path),
+                              image_root=str(tmp_path), load_pixels=True))
 
 
 def test_the_sampler_path_is_unchanged_by_remat(jax_pair):
