@@ -24,7 +24,7 @@ import tempfile
 
 KERNELS = ("lru_scan", "window_attention", "window_attention_backward",
            "mha_attention", "add_rmsnorm", "lru_scan_complex", "kernel_lab",
-           "int8_matmul")
+           "int8_matmul", "int8_wgmma")
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"

@@ -516,14 +516,21 @@ inline cudaError_t encode_tiled(EncodeTiled* fn) {
 
 // A tensor map of `rank` dimensions (innermost first; `strides` in bytes
 // for dimensions 1..rank-1) of `type` elements (bf16 unless named), boxes of
-// `box` elements, zero fill out of bounds.
+// `box` elements, zero fill out of bounds. Makes the current device's
+// primary context current on this thread first: a thread of torch's
+// autograd engine may run a backward before any CUDA call has bound one
+// there, and cuTensorMapEncodeTiled then fails (CUresult 201).
 inline cudaError_t make_tensor_map(
     CUtensorMap* map, const void* base, cuuint32_t rank, const cuuint64_t* dims,
     const cuuint64_t* strides, const cuuint32_t* box,
     CUtensorMapSwizzle swizzle,
     CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+  int device;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
   EncodeTiled encode;
-  cudaError_t err = encode_tiled(&encode);
+  err = encode_tiled(&encode);
   if (err != cudaSuccess) return err;
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   const CUresult res = encode(

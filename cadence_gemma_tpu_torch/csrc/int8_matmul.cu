@@ -28,29 +28,10 @@
 // over blockIdx.z: each split writes fp32 partial sums to a workspace and a
 // second kernel adds them in split order and applies the epilogue. No
 // atomics, so two launches give the same bits.
-
-// The input gradient (cg_int8_weight_matmul_dgrad, below) back-propagates
-// through the same product with the weight frozen:
 //
-//   dA[b, m, k] = bf16( sum_n bf16( dY[b, m, n] * bf16(scale[b, n]) ) * Q[b, n, k] )
-//
-// JAX's autodiff of `(x @ q.astype(bf16)) * scale.astype(bf16)`
-// (models/layers.py:171-173): the cotangent times the bf16 scale, rounded to
-// bf16, contracted against the bf16-widened weight with fp32 sums. With a
-// shared activation (the fused up-projection's batch stride 0) the batches
-// are one contraction too: dA[0, m, k] sums over (b, n). XLA transposes the
-// int8 dot and fuses the convert into the operand read, so no bf16 copy of
-// a weight exists; neither does one here. The contraction runs along N,
-// Q's strided axis: each B fragment's two k-values come from two rows of the
-// int8 tile and are widened byte by byte in registers. The scale is applied
-// to each A fragment as it leaves shared memory (one bf16 rounding, as in
-// JAX). What bounds it: at training rows the bf16 tensor-core operations.
-// Same tiles, ring and split-K scheme as the forward; its split pass only
-// sums and rounds. The contraction is long (the logits' N is the 256000
-// words of the vocabulary), and a tensor core's fp32 accumulator does not
-// round to nearest: summed in the mma's own accumulator alone, its error
-// grew with N. Each 64-deep tile's products are summed by mma into a fresh
-// accumulator and then added to the running sum with an fp32 add.
+// This is the decode-row kernel (ops/int8_matmul.py routes by rows:
+// `uses_wgmma`); the Hopper forward for prefill and training rows and the
+// input gradient are in int8_wgmma.cu.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -270,224 +251,6 @@ __global__ void int8_matmul_reduce_kernel(const float* __restrict__ partial,
   y[i] = epilogue(sum, scale[batch * n + col]);
 }
 
-struct DgradArgs {
-  const __nv_bfloat16* g;  // dY, [B, M, N] contiguous
-  const int8_t* q;         // [B, N, K] contiguous
-  const float* scale;      // [B, N]
-  __nv_bfloat16* out;      // dA, [B_out, M, K] contiguous
-  float* partial;          // [splits, B_out, M, K] fp32, or null
-  int batches, m, n, k;
-  int reduce;  // 1: B_out = 1, the contraction runs over (b, n)
-  int splits;
-};
-
-// Two int8 values -> a packed pair of bf16 (first in the low half), exactly.
-__device__ __forceinline__ uint32_t widen_bytes(int8_t lo, int8_t hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(static_cast<float>(lo),
-                                                 static_cast<float>(hi));
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// A packed pair of bf16 times two scales, each rounded to bf16 first; the
-// product of two bf16 is exact in fp32, so this is one bf16 rounding.
-__device__ __forceinline__ uint32_t scale_pair(uint32_t pair, float s0,
-                                               float s1) {
-  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&pair);
-  const float lo = __bfloat162float(v.x) *
-                   __bfloat162float(__float2bfloat16_rn(s0));
-  const float hi = __bfloat162float(v.y) *
-                   __bfloat162float(__float2bfloat16_rn(s1));
-  const __nv_bfloat162 r = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&r);
-}
-
-// WARPS_M x WARPS_N warps over a BM x 64 tile of dA (rows m, columns k); the
-// contraction walks 64-deep tiles of n (and of b when reducing).
-template <int WARPS_M, int WARPS_N, int MI, int NJ>
-__global__ void __launch_bounds__(kThreads)
-    int8_dgrad_kernel(const DgradArgs args) {
-  static_assert(WARPS_M * WARPS_N * 32 == kThreads, "four warps");
-  static_assert(WARPS_N * NJ * 8 == kBN, "64 columns");
-  constexpr int kBM = WARPS_M * MI * 16;
-  __shared__ __align__(16) __nv_bfloat16 s_g[kStages][kBM * kAPitch];
-  __shared__ __align__(16) int8_t s_q[kStages][kBK * kQPitch];
-  __shared__ __align__(16) float s_scale[kStages][kBK];
-
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int warp_m = warp / WARPS_N;
-  const int warp_n = warp % WARPS_N;
-  const int k0 = blockIdx.x * kBN;   // output columns: Q's contiguous axis
-  const int m0 = blockIdx.y * kBM;
-  const int out_batch = blockIdx.z / args.splits;
-  const int split = blockIdx.z % args.splits;
-
-  // Contraction tiles: n tiles of one batch, or of every batch in turn.
-  const int n_tiles = (args.n + kBK - 1) / kBK;
-  const int total = args.reduce ? n_tiles * args.batches : n_tiles;
-  const int t_begin = static_cast<int>(
-      static_cast<int64_t>(total) * split / args.splits);
-  const int t_end = static_cast<int>(
-      static_cast<int64_t>(total) * (split + 1) / args.splits);
-  const int tiles = t_end - t_begin;
-
-  // Contraction tile `tile` (n0 in batch b) into stage `stage`: dY rows m0..
-  // (8 chunks of 8 bf16), the 64 scales (16 chunks of 4 fp32) and Q rows n0..
-  // (64 rows x 4 chunks of 16 int8); chunks past M, N or K land as zeros.
-  auto load_tile = [&](int tile, int stage) {
-    const int b = args.reduce ? tile / n_tiles : out_batch;
-    const int n0 = (args.reduce ? tile % n_tiles : tile) * kBK;
-    const __nv_bfloat16* g_base =
-        args.g + static_cast<int64_t>(b) * args.m * args.n;
-    const int8_t* q_base =
-        args.q + static_cast<int64_t>(b) * args.n * args.k;
-    for (int c = tid; c < kBM * (kBK / 8); c += kThreads) {
-      const int row = c / (kBK / 8);
-      const int col = (c % (kBK / 8)) * 8;
-      const bool valid = m0 + row < args.m && n0 + col < args.n;
-      const __nv_bfloat16* src =
-          valid ? g_base + static_cast<int64_t>(m0 + row) * args.n + n0 + col
-                : args.g;
-      cp_async16(&s_g[stage][row * kAPitch + col], src, valid);
-    }
-    if (tid < kBK / 4) {
-      const int col = tid * 4;
-      const bool valid = n0 + col < args.n;
-      const float* src =
-          valid ? args.scale + static_cast<int64_t>(b) * args.n + n0 + col
-                : args.scale;
-      cp_async16(&s_scale[stage][col], src, valid);
-    }
-    for (int c = tid; c < kBK * (kBN / 16); c += kThreads) {
-      const int row = c / (kBN / 16);
-      const int col = (c % (kBN / 16)) * 16;
-      const bool valid = n0 + row < args.n && k0 + col < args.k;
-      const int8_t* src =
-          valid ? q_base + static_cast<int64_t>(n0 + row) * args.k + k0 + col
-                : args.q;
-      cp_async16(&s_q[stage][row * kQPitch + col], src, valid);
-    }
-  };
-
-  float sum[MI][NJ][4];
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sum[i][j][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < tiles) load_tile(t_begin + s, s);
-    cp_async_commit();
-  }
-
-  const int group = lane / 4;
-  const int pair = (lane % 4) * 2;
-  for (int t = 0; t < tiles; ++t) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const int next = t + kStages - 1;
-    if (next < tiles) load_tile(t_begin + next, next % kStages);
-    cp_async_commit();
-
-    float acc[MI][NJ][4];
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-    const __nv_bfloat16* sg = s_g[t % kStages];
-    const int8_t* sq = s_q[t % kStages];
-    const float* ss = s_scale[t % kStages];
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      const float s0 = ss[kk + pair], s1 = ss[kk + pair + 1];
-      const float s8 = ss[kk + pair + 8], s9 = ss[kk + pair + 9];
-      uint32_t af[MI][4];
-#pragma unroll
-      for (int i = 0; i < MI; ++i) {
-        const int row = (warp_m * MI + i) * 16 + group;
-        const __nv_bfloat16* p = sg + row * kAPitch + kk + pair;
-        af[i][0] = scale_pair(*reinterpret_cast<const uint32_t*>(p), s0, s1);
-        af[i][1] = scale_pair(
-            *reinterpret_cast<const uint32_t*>(p + 8 * kAPitch), s0, s1);
-        af[i][2] =
-            scale_pair(*reinterpret_cast<const uint32_t*>(p + 8), s8, s9);
-        af[i][3] = scale_pair(
-            *reinterpret_cast<const uint32_t*>(p + 8 * kAPitch + 8), s8, s9);
-      }
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        // B[kk + r][c] = Q tile row (kk + r), column c: the fragment's two
-        // k-values are two rows apart in shared memory.
-        const int col = (warp_n * NJ + j) * 8 + group;
-        const int8_t* p = sq + (kk + pair) * kQPitch + col;
-        uint32_t bf[2];
-        bf[0] = widen_bytes(p[0], p[kQPitch]);
-        bf[1] = widen_bytes(p[8 * kQPitch], p[9 * kQPitch]);
-#pragma unroll
-        for (int i = 0; i < MI; ++i) mma_bf16(acc[i][j], af[i], bf);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sum[i][j][e] += acc[i][j][e];
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int i = 0; i < MI; ++i) {
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = m0 + (warp_m * MI + i) * 16 + group + (e >= 2 ? 8 : 0);
-        const int k = k0 + (warp_n * NJ + j) * 8 + pair + (e % 2);
-        if (m >= args.m || k >= args.k) continue;
-        const int64_t out =
-            (static_cast<int64_t>(out_batch) * args.m + m) * args.k + k;
-        if (args.partial != nullptr) {
-          const int64_t plane = static_cast<int64_t>(gridDim.z / args.splits) *
-                                args.m * args.k;
-          args.partial[split * plane + out] = sum[i][j][e];
-        } else {
-          args.out[out] = __float2bfloat16_rn(sum[i][j][e]);
-        }
-      }
-    }
-  }
-}
-
-// The input gradient's split pass: sums the partials in split order.
-__global__ void int8_dgrad_reduce_kernel(const float* __restrict__ partial,
-                                         __nv_bfloat16* __restrict__ out,
-                                         int64_t elements, int splits) {
-  const int64_t i =
-      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= elements) return;
-  float sum = 0.f;
-  for (int s = 0; s < splits; ++s) sum += partial[s * elements + i];
-  out[i] = __float2bfloat16_rn(sum);
-}
-
-template <int WARPS_M, int WARPS_N, int MI, int NJ>
-cudaError_t launch_dgrad(const DgradArgs& args, cudaStream_t stream) {
-  constexpr int kBM = WARPS_M * MI * 16;
-  const int out_batches = args.reduce ? 1 : args.batches;
-  const dim3 grid((args.k + kBN - 1) / kBN, (args.m + kBM - 1) / kBM,
-                  out_batches * args.splits);
-  int8_dgrad_kernel<WARPS_M, WARPS_N, MI, NJ>
-      <<<grid, kThreads, 0, stream>>>(args);
-  return cudaGetLastError();
-}
-
 template <int WARPS_M, int WARPS_N, int MI, int NJ>
 cudaError_t launch(const Args& args, int batches, cudaStream_t stream) {
   constexpr int kBM = WARPS_M * MI * 16;
@@ -537,44 +300,5 @@ extern "C" int cg_int8_weight_matmul(const void* a, const void* q,
       s>>>(static_cast<const float*>(partial),
            static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(y),
            elements, m, n, splits);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The input gradient. g: bf16 [batches, m, n] contiguous (the cotangent of
-// y); q: int8 [batches, n, k] contiguous; scale: fp32 [batches, n]; out: bf16
-// [reduce ? 1 : batches, m, k] contiguous. reduce = 1 sums over the batches
-// too (a shared activation). splits > 1 needs `partial`, fp32 [splits,
-// reduce ? 1 : batches, m, k]; splits must not exceed the contraction's
-// 64-deep tiles (ceil(n / 64), times batches when reducing). n must be a
-// multiple of 8, k of 16; g, q and scale 16-byte aligned. Returns the
-// cudaError_t of the launches (0 on success).
-extern "C" int cg_int8_weight_matmul_dgrad(const void* g, const void* q,
-                                           const void* scale, void* out,
-                                           void* partial, int batches, int m,
-                                           int n, int k, int reduce,
-                                           int splits, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (batches <= 0 || m <= 0 || k <= 0) return cudaSuccess;
-  const int tiles = (n + kBK - 1) / kBK * (reduce ? batches : 1);
-  if (n <= 0 || n % 8 || k % 16 || splits < 1 || splits > tiles ||
-      (splits > 1 && partial == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  DgradArgs args{static_cast<const __nv_bfloat16*>(g),
-                 static_cast<const int8_t*>(q),
-                 static_cast<const float*>(scale),
-                 static_cast<__nv_bfloat16*>(out),
-                 splits > 1 ? static_cast<float*>(partial) : nullptr,
-                 batches, m, n, k, reduce ? 1 : 0, splits};
-  cudaError_t err = m <= 16 ? launch_dgrad<1, 4, 1, 2>(args, s)
-                            : launch_dgrad<2, 2, 2, 4>(args, s);
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const int64_t elements =
-      static_cast<int64_t>(reduce ? 1 : batches) * m * k;
-  const int threads = 256;
-  int8_dgrad_reduce_kernel<<<
-      static_cast<unsigned>((elements + threads - 1) / threads), threads, 0,
-      s>>>(static_cast<const float*>(partial), static_cast<__nv_bfloat16*>(out),
-           elements, splits);
   return static_cast<int>(cudaGetLastError());
 }

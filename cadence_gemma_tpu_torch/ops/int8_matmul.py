@@ -24,9 +24,16 @@ device memory. One launch shape covers every weight-only product:
 Its gradient with respect to ``a`` (the weight and its scale are frozen:
 int8 serving, and the base of a QLoRA fine-tune) is JAX's autodiff of that
 expression, ``da = bf16(dy * bf16(scale)) @ q.astype(bf16)``, contracting
-along N; a shared activation's gradient sums over the batches too. The
-second kernel of ``csrc/int8_matmul.cu`` (``cg_int8_weight_matmul_dgrad``)
-computes it from the int8 weight as stored, with no bf16 copy of it.
+along N; a shared activation's gradient sums over the batches too.
+``cg_int8_wgmma_dgrad`` (``csrc/int8_wgmma.cu``) computes it from the int8
+weight as stored, with no bf16 copy of it, at every shape.
+
+The forward has two designs, chosen by :func:`uses_wgmma` from the rows: at
+decode rows (the step, the batcher's tick, captured graphs) the ``mma.sync``
+kernel of ``csrc/int8_matmul.cu`` with split-K; at prefill and training
+rows, where the tensor cores set the pace, the Hopper kernel of
+``csrc/int8_wgmma.cu`` (a TMA ring, the int8 tile widened once a block in
+shared memory, ``wgmma``). Each kernel has its launch counter.
 
 :func:`int8_weight_matmul` launches the kernels for CUDA tensors (the
 forward, and the input gradient when autograd asks for it) and takes
@@ -38,15 +45,18 @@ torch, so CUDA graphs capture them.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from cadence_gemma_tpu_torch import _build
 
 # Kernel launches in this process (a split-K call's two kernels count once):
-# the forward's and the input gradient's. Callers reset them to count one
-# run.
+# the mma.sync forward's, the wgmma forward's and the wgmma input
+# gradient's. Callers reset them to count one run.
 launches = 0
-dgrad_launches = 0
+wgmma_launches = 0
+dgrad_wgmma_launches = 0
 
 # The kernel's output tile is 64 columns wide and its K tile 64 deep; K is
 # split when the output tiles would not give each of the card's SMs two
@@ -54,6 +64,13 @@ dgrad_launches = 0
 _BLOCK_N = 64
 _BLOCK_K = 64
 _TARGET_BLOCKS = 2 * 132
+
+# Rows from which the forward goes to the wgmma kernel: from 256 rows it
+# matches or beats the mma.sync kernel at every layout of the 2B but the
+# gates' (10 x [256 x 256], ~5 us slower up to 1024 rows); at 192 rows the
+# [7680 -> 2560] forward takes 1.55 x the mma.sync kernel's time
+# (tools/int8_crossover.py on an H100, PERF.md row 10).
+WGMMA_MIN_ROWS = 256
 
 
 def int8_weight_matmul_plain(a: torch.Tensor, q: torch.Tensor,
@@ -103,6 +120,46 @@ def split_k(batches: int, m: int, n: int, k: int) -> int:
   return max(1, min(-(-_TARGET_BLOCKS // tiles), -(-k // _BLOCK_K)))
 
 
+def uses_wgmma(m: int) -> bool:
+  """Whether a forward of ``m`` rows of ``a`` goes to the wgmma kernel
+  (prefill, training) or to the mma.sync kernel with split-K (decode, the
+  batcher's tick, captured decode graphs). The input gradient takes the
+  wgmma kernel at every shape."""
+  return m >= WGMMA_MIN_ROWS
+
+
+class ALayout(NamedTuple):
+  """The 3D tensor map through which the wgmma forward reads ``a``:
+  ``dims`` innermost first (elements), ``strides`` of dims 1 and 2 in
+  bytes. ``heads``: dim 1 is the batch (coordinates (k, b, m)), else dim 1
+  is the row and dim 2 the batch (coordinates (k, m, b)); ``shared``: one
+  activation for every batch, read at batch 0."""
+  heads: bool
+  shared: bool
+  dims: tuple[int, int, int]
+  strides: tuple[int, int]
+
+
+def a_layout(a: torch.Tensor, batches: int) -> ALayout:
+  """The tensor map of ``a`` ``[B or 1, M, K]`` (K contiguous, strides
+  multiples of 8) for ``batches`` products: a shared activation (batch 1
+  or batch stride 0) maps its one [M, K]; heads read in place (batch
+  stride below the row stride: the block-diagonal gates' [M, H, I]) map
+  as [M, H, K] with H innermost after K; otherwise [B, M, K]. Needs no
+  device: the tests check it on meta tensors."""
+  _, m, k = a.shape
+  size = a.element_size()
+  batch_stride, row_stride = a.stride(0), a.stride(1)
+  if a.shape[0] == 1 or batch_stride == 0:
+    return ALayout(False, True, (k, m, 1),
+                   (row_stride * size, row_stride * size * m))
+  if batch_stride < row_stride:
+    return ALayout(True, False, (k, batches, m),
+                   (batch_stride * size, row_stride * size))
+  return ALayout(False, False, (k, m, batches),
+                 (row_stride * size, batch_stride * size))
+
+
 def _check(a: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> None:
   if a.ndim != 3 or q.ndim != 3 or scale.ndim != 2:
     raise ValueError(
@@ -122,7 +179,7 @@ def _check(a: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> None:
 
 def _forward(a: torch.Tensor, q: torch.Tensor,
              scale: torch.Tensor) -> torch.Tensor:
-  global launches
+  global launches, wgmma_launches
   if a.device.type == "cpu":
     return int8_weight_matmul_plain(a, q, scale)
   if a.device.type != "cuda":
@@ -145,6 +202,20 @@ def _forward(a: torch.Tensor, q: torch.Tensor,
       raise ValueError(f"The CUDA int8 kernel needs `{name}` 16-byte "
                        "aligned.")
   y = torch.empty(batches, m, n, dtype=torch.bfloat16, device=a.device)
+  stream = torch.cuda.current_stream(a.device).cuda_stream
+  if uses_wgmma(m):
+    layout = a_layout(a, batches)
+    fn = _build.function("int8_wgmma", "cg_int8_wgmma_forward",
+                         "ppppiiiilllliip")
+    with torch.cuda.device(a.device):
+      err = fn(a.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
+               batches, m, n, k, *layout.dims[1:], *layout.strides,
+               int(layout.heads), int(layout.shared), stream)
+    wgmma_launches += 1
+    if err:
+      raise RuntimeError(f"int8_weight_matmul wgmma CUDA kernel failed: "
+                         f"cudaError_t {err}.")
+    return y
   splits = split_k(batches, m, n, k)
   partial = (torch.empty(splits, batches, m, n, dtype=torch.float32,
                          device=a.device) if splits > 1 else None)
@@ -155,7 +226,7 @@ def _forward(a: torch.Tensor, q: torch.Tensor,
         a.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
         None if partial is None else partial.data_ptr(), batches, m, n, k,
         a.stride(0) if a.shape[0] == batches else 0, a.stride(1), splits,
-        torch.cuda.current_stream(a.device).cuda_stream,
+        stream,
     )
   launches += 1
   if err:
@@ -173,7 +244,7 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 def int8_weight_matmul_dgrad(g: torch.Tensor, q: torch.Tensor,
                              scale: torch.Tensor,
                              reduce_batches: bool = False) -> torch.Tensor:
-  """The input gradient: the CUDA kernel on the card, the plain version on
+  """The input gradient: the wgmma kernel on the card, the plain version on
   CPU tensors.
 
   Args:
@@ -186,7 +257,7 @@ def int8_weight_matmul_dgrad(g: torch.Tensor, q: torch.Tensor,
     ``[B, M, K]`` in ``g.dtype``, contiguous; ``[1, M, K]`` with
     ``reduce_batches``.
   """
-  global dgrad_launches
+  global dgrad_wgmma_launches
   if g.ndim != 3 or tuple(g.shape[::2]) != (q.shape[0], q.shape[1]):
     raise ValueError(f"`g` must be [B, M, N] for q {tuple(q.shape)}, got "
                      f"{tuple(g.shape)}.")
@@ -206,23 +277,14 @@ def int8_weight_matmul_dgrad(g: torch.Tensor, q: torch.Tensor,
   g, q, scale = _aligned(g), _aligned(q), _aligned(scale.float())
   out_batches = 1 if reduce_batches else batches
   out = torch.empty(out_batches, m, k, dtype=torch.bfloat16, device=g.device)
-  # The forward's split rule: the output is [M, K] (once, or per batch),
-  # the contraction runs over N (of every batch when reducing).
-  splits = split_k(out_batches, m, k, n * (batches if reduce_batches else 1))
-  partial = (torch.empty(splits, out_batches, m, k, dtype=torch.float32,
-                         device=g.device) if splits > 1 else None)
-  fn = _build.function("int8_matmul", "cg_int8_weight_matmul_dgrad",
-                       "pppppiiiiiip")
+  stream = torch.cuda.current_stream(g.device).cuda_stream
+  fn = _build.function("int8_wgmma", "cg_int8_wgmma_dgrad", "ppppiiiiip")
   with torch.cuda.device(g.device):
-    err = fn(
-        g.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        None if partial is None else partial.data_ptr(), batches, m, n, k,
-        int(reduce_batches), splits,
-        torch.cuda.current_stream(g.device).cuda_stream,
-    )
-  dgrad_launches += 1
+    err = fn(g.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+             batches, m, n, k, int(reduce_batches), stream)
+  dgrad_wgmma_launches += 1
   if err:
-    raise RuntimeError(f"int8_weight_matmul_dgrad CUDA kernel failed: "
+    raise RuntimeError(f"int8_weight_matmul_dgrad wgmma CUDA kernel failed: "
                        f"cudaError_t {err}.")
   return out
 

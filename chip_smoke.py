@@ -207,11 +207,14 @@ Phases, each of which raises on failure (so the script exits non-zero):
      towers in float32 and int8 with ``act_quant``. The int8 text run (the
      phase-4 prompts, 32 greedy steps, ``prefill_act_quant=True``): the
      counters, reset just before, must show the prefill's weight-only
-     launches (the gates' 36 and the logits' one) and ``torch._int_mm``
-     products (every other projection), and a captured decode step that
-     launches the int8 kernel once for each int8 layer and the logits (175)
-     and no ``_int_mm``. The kernel is held against its plain version on
-     the inputs of its first call at every shape the run gave it, and timed
+     launches (the gates' 36 at 6000 rows on the wgmma kernel, the logits'
+     one on the mma.sync kernel) and ``torch._int_mm`` products (every
+     other projection), and a captured decode step that launches the
+     mma.sync kernel once for each int8 layer and the logits (175) and no
+     ``_int_mm``; a weight-only prefill (``prefill_act_quant=False``) its
+     174 block products on the wgmma kernel. The kernels are held against
+     their plain version on the inputs of their first call at every shape
+     the run gave them, each into its own row, and timed
      there (device time, queue full, cold copies) beside its plain version,
      a bf16 product on a stored bf16 weight, dequantize + matmul and its
      byte or operation bound; at one projection's prefill shape ([6000,
@@ -219,7 +222,8 @@ Phases, each of which raises on failure (so the script exits non-zero):
      and the whole ``act_quant`` layer. Int8 against bf16 on the same weights: the
      first-token logits' largest difference over the largest bf16 logit
      (with act_quant, and weight-only) and the greedy tokens' agreement;
-     then, in turns, the text prefill and the captured decode step, pixels
+     then, in turns, the text prefill (bf16, ``act_quant``, weight-only)
+     and the captured decode step, pixels
      to the first token through the int8 towers (their encode: 46 MHA and
      184 ``_int_mm`` launches, no weight-only one) and the eight-slot
      captured tick.
@@ -237,14 +241,15 @@ Phases, each of which raises on failure (so the script exits non-zero):
      ``merge_lora``'s plain model against the LoRA model (last prefill
      logits, rel. RMS within 5e-2 and within half the base's without
      adapters). (c) 3 QLoRA steps on the base's ``quantize_params`` copy
-     with fresh bf16 adapters: the int8 forward and input-gradient kernels
-     launched (the others as in (a)), the base bit for bit; both int8
+     with fresh bf16 adapters: every int8 product on the wgmma forward and
+     input-gradient kernels and none on the mma.sync pair (the others as
+     in (a)), the base bit for bit; both int8
      kernels held against their plain versions on the first inputs of each
      shape the step gave them (the logits' [1, 4096, 2560] x [256000,
      2560] forward and [1, 4096, 256000] x [256000, 2560] gradient, the
      fused up-projection's shared activation and summed pair among them)
-     and the gradient kernel timed at the logits', a [2560 -> 2560]
-     projection's and the up-projection's beside the library composition;
+     and both timed at the logits', a [2560 -> 2560] projection's and the
+     up-projection's beside the library composition;
      the adapters' gradients through the kernels against the plain path
      (every int8 product plain; rel. RMS 0.1, cosine 0.99 a leaf); 16
      greedy steps of the QLoRA model through the ``Sampler``, captured and
@@ -574,6 +579,10 @@ HTTP_TIMEOUT_S = 300
 # and prompts, and the eight-slot tick, each int8 against bf16 in these
 # turns.
 INT8_TURNS = ("bf16", "int8", "int8", "bf16")
+# The text prefill's turns: bf16, int8 with act_quant, weight-only int8
+# (every product through the wgmma forward kernel).
+INT8_TEXT_TURNS = ("bf16", "int8", "int8 weight-only", "int8 weight-only",
+                   "int8", "bf16")
 INT8_REPS = 24
 INT8_PREFILL_ROWS = 2 * max(PROMPT_TOKENS)
 # The int8 kernel and its plain version sum in other orders, round the sum
@@ -584,6 +593,7 @@ INT8_REL = 2**-6
 INT8_ABS_OF_MAX = 1e-4
 INT8_REPLACES = ("none (no pl.pallas_call): XLA's int8 dot with the convert "
                  "fused, cadence_gemma_tpu/models/layers.py:166")
+INT8_WGMMA_SOURCE = "cadence_gemma_tpu_torch/csrc/int8_wgmma.cu"
 
 
 # Multimodal fine-tuning (phase 19): batch 2 of seeded [2, 3, 384, 384]
@@ -778,6 +788,13 @@ def phase_build() -> None:
       log(f"  {kernel} head_dim {head_dim}: {info['registers']} registers a "
           f"thread at launch, {info['local_bytes']} local (spilled) bytes, "
           f"{info['shared_bytes']} bytes of shared memory")
+  # The int8 wgmma kernels (setmaxnreg: producers 40, consumers 232).
+  for which, kernel in ((0, "int8_wgmma_forward"), (1, "int8_wgmma_dgrad")):
+    info = _build.kernel_attributes("int8_wgmma", "cg_int8_wgmma_attributes",
+                                    which)
+    log(f"  {kernel}: {info['registers']} registers a thread at launch, "
+        f"{info['local_bytes']} local (spilled) bytes, "
+        f"{info['shared_bytes']} bytes of shared memory")
 
 
 def phase_lru(dev) -> dict:
@@ -4047,7 +4064,9 @@ def int8_figures(a, q, scale) -> dict:
   """The kernel's device time (queue full, copies of its inputs larger than
   the L2), the plain version's, a bf16 product of the same shape on a stored
   bf16 weight (``F.linear`` / ``torch.matmul``), the dequantize + matmul
-  composition, and ``torch._weight_int8pack_mm`` where the card has it."""
+  composition, and ``torch._weight_int8pack_mm`` at decode rows where the
+  card has it (a decode kernel: at prefill rows it takes ~500 x the wgmma
+  kernel's time, at the logits' training rows seconds a call)."""
   _, m, k = a.shape
   batches, n = q.shape[:2]
   ms = device_ms(int8_matmul.int8_weight_matmul, INT8_REPS,
@@ -4062,7 +4081,7 @@ def int8_figures(a, q, scale) -> dict:
       a, quantization.dequantize_tensor(q, scale, (2,)).transpose(1, 2)),
       reps=5)
   library_ms = None
-  if batches == 1:
+  if batches == 1 and not int8_matmul.uses_wgmma(m):
     try:
       library_ms = cuda_ms(lambda: torch._weight_int8pack_mm(  # pylint: disable=protected-access
           a[0], q[0], scale[0].bfloat16()), reps=10)
@@ -4081,11 +4100,12 @@ def int8_figures(a, q, scale) -> dict:
               bound_ms=bound_ms, bound_by=bound_by, n_bytes=n_bytes)
 
 
-def int8_prefill_products(qmodel, dev) -> None:
+def int8_prefill_products(qmodel, dev) -> dict:
   """One [2560 -> 2560] projection at the text prefill's 2 x 3000 rows:
-  the weight-only kernel (bound by operations here), and the act_quant
-  layer's parts: ``quantize_activations``, ``torch._int_mm`` and the whole
-  layer, beside a bf16 product."""
+  the weight-only kernel (the wgmma forward, bound by operations here), and
+  the act_quant layer's parts: ``quantize_activations``, ``torch._int_mm``
+  and the whole layer, beside a bf16 product. Returns the weight-only
+  kernel's figures."""
   layer = qmodel.blocks[0].recurrent_block.linear_x
   q, scale = layer.kernel_q, layer.kernel_scale
   gen = torch.Generator(dev).manual_seed(SEED + 85)
@@ -4105,18 +4125,27 @@ def int8_prefill_products(qmodel, dev) -> None:
   finally:
     layer.act_quant = False
   log(f"  a [{m}, {k}] x [{n}, {k}] (a projection at the text prefill's "
-      f"rows): weight-only int8 kernel {f['ms']:.4f} ms (bound "
+      f"rows): weight-only int8 kernel (wgmma) {f['ms']:.4f} ms (bound "
       f"{f['bound_ms']:.4f}, {f['bound_by']}: "
-      f"{100 * f['bound_ms'] / f['ms']:.1f}%), bf16 {f['bf16_ms']:.4f}, "
-      f"dequant {f['dequant_ms']:.4f}; act_quant: quantize_activations "
+      f"{100 * f['bound_ms'] / f['ms']:.1f}%), plain {f['plain_ms']:.4f}, "
+      f"bf16 {f['bf16_ms']:.4f}, dequant {f['dequant_ms']:.4f}; act_quant: "
+      f"quantize_activations "
       f"{quantize_ms:.4f}, torch._int_mm {int_mm_ms:.4f} (bound "
       f"{int_mm_bound:.4f}, {int_mm_by}: "
       f"{100 * int_mm_bound / int_mm_ms:.1f}%), the whole layer "
       f"{act_layer_ms:.4f}")
+  return f
+
+
+def int8_rows(row: dict, wgmma_row: dict, m: int) -> dict:
+  """The kernel row of a product of ``m`` rows: the wgmma kernel's at or
+  above the crossover, the mma.sync kernel's below."""
+  return wgmma_row if int8_matmul.uses_wgmma(m) else row
 
 
 def _int8_counts() -> dict[str, int]:
   return {"int8_weight_matmul": int8_matmul.launches,
+          "int8_weight_matmul_wgmma": int8_matmul.wgmma_launches,
           "int_mm": quantization.int_mm_calls,
           "lru_scan": lru_scan.launches,
           "window_attention": wa.launches,
@@ -4124,7 +4153,8 @@ def _int8_counts() -> dict[str, int]:
 
 
 def _reset_int8_counts() -> None:
-  int8_matmul.launches = quantization.int_mm_calls = 0
+  int8_matmul.launches = int8_matmul.wgmma_launches = 0
+  quantization.int_mm_calls = 0
   lru_scan.launches = wa.launches = mha_attention.launches = 0
 
 
@@ -4208,7 +4238,9 @@ def phase_int8(dev, kernels: list[dict], profile: bool) -> None:
       "bf16": sampler_lib.Sampler(model, vocab, device=dev),
       "int8": sampler_lib.Sampler(qmodel, vocab, device=dev,
                                   prefill_act_quant=True),
+      "int8 weight-only": sampler_lib.Sampler(qmodel, vocab, device=dev),
   }
+  module_of = {"bf16": "bf16", "int8": "int8", "int8 weight-only": "int8"}
   run_kw = dict(total_generation_steps=DECODE_STEPS, return_logits=True,
                 end_sampling_at_eos_token=False)
 
@@ -4218,7 +4250,7 @@ def phase_int8(dev, kernels: list[dict], profile: bool) -> None:
   captures = CaptureInt8Calls()
   try:
     try:
-      for side in ("bf16", "int8"):  # warm-ups: capture the decode graphs
+      for side in samplers:  # warm-ups: capture the decode graphs
         samplers[side](prompts, **run_kw)
     finally:
       captures.restore()
@@ -4233,12 +4265,18 @@ def phase_int8(dev, kernels: list[dict], profile: bool) -> None:
     step_launches, replays = probe.step_launches, probe.replays
     prefill_counts = times.first("int8")[3]
     check_scan_routes(lru_scan.launches)
-    # (b) Text serving in turns, two runs of each.
-    text = {"bf16": [], "int8": []}
-    for side in INT8_TURNS:
+    # (b) Text serving in turns, two runs of each; the first weight-only
+    # prefill's launches.
+    text = {side: [] for side in samplers}
+    weight_only_counts = None
+    for side in INT8_TEXT_TURNS:
       times.calls.clear()
+      if side == "int8 weight-only" and weight_only_counts is None:
+        _reset_int8_counts()
       out[side] = samplers[side](prompts, **run_kw)
-      first = times.first(side)
+      first = times.first(module_of[side])
+      if side == "int8 weight-only" and weight_only_counts is None:
+        weight_only_counts = first[3]
       text[side].append((first[1].elapsed_time(first[2]),
                          probe.decode_ms()))
   finally:
@@ -4247,28 +4285,45 @@ def phase_int8(dev, kernels: list[dict], profile: bool) -> None:
   n_recurrent = sum(bt is common.TemporalBlockType.RECURRENT
                     for bt in config.block_types)
   per_step = _weight_only_launches(qmodel)
-  want_step = {"int8_weight_matmul": per_step, "int_mm": 0, "lru_scan": 0,
-               "window_attention": 0, "mha_attention": 0}
-  want_prefill = {"int8_weight_matmul": 2 * n_recurrent + 1,
+  # The decode step's products (2 rows) take the mma.sync kernel, the
+  # prefill's gates (6000 rows) the wgmma kernel and its logits (the last
+  # row of each prompt) the mma.sync kernel; the weight-only prefill sends
+  # every block's product through the wgmma kernel.
+  want_step = {"int8_weight_matmul": per_step, "int8_weight_matmul_wgmma": 0,
+               "int_mm": 0, "lru_scan": 0, "window_attention": 0,
+               "mha_attention": 0}
+  want_prefill = {"int8_weight_matmul": 1,
+                  "int8_weight_matmul_wgmma": 2 * n_recurrent,
                   "int_mm": per_step - 1 - 2 * n_recurrent,
                   "lru_scan": n_recurrent,
                   "window_attention": config.num_layers - n_recurrent,
                   "mha_attention": 0}
+  want_weight_only = dict(want_prefill, int8_weight_matmul_wgmma=per_step - 1,
+                          int_mm=0)
   log(f"  int8 run: prefill launched {prefill_counts}; a captured decode "
-      f"step {step_launches}, replayed {replays} times; the run {launches}")
+      f"step {step_launches}, replayed {replays} times; the run {launches}; "
+      f"a weight-only prefill {weight_only_counts}")
   if (prefill_counts != want_prefill or step_launches != want_step
-      or replays != DECODE_STEPS - 1):
+      or replays != DECODE_STEPS - 1
+      or weight_only_counts != want_weight_only):
     raise AssertionError(f"int8 launches: prefill {prefill_counts} (want "
                          f"{want_prefill}), step {step_launches} (want "
-                         f"{want_step}), {replays} replays.")
+                         f"{want_step}), {replays} replays, weight-only "
+                         f"prefill {weight_only_counts} (want "
+                         f"{want_weight_only}).")
   row = {"name": "int8_weight_matmul", "route": "cuda",
          "source": "cadence_gemma_tpu_torch/csrc/int8_matmul.cu",
          "replaces": INT8_REPLACES,
          "launches": launches["int8_weight_matmul"], "max_abs_err": 0.0}
+  wgmma_row = {"name": "int8_weight_matmul_wgmma", "route": "cuda",
+               "source": INT8_WGMMA_SOURCE, "replaces": INT8_REPLACES,
+               "launches": launches["int8_weight_matmul_wgmma"],
+               "max_abs_err": 0.0}
   for key, args in captures.inputs():
     err = check_int8(*args)
-    row["max_abs_err"] = max(row["max_abs_err"], err)
-    log(f"  int8_weight_matmul on the path's inputs a {tuple(args[0].shape)}"
+    target = int8_rows(row, wgmma_row, key[3])
+    target["max_abs_err"] = max(target["max_abs_err"], err)
+    log(f"  {target['name']} on the path's inputs a {tuple(args[0].shape)}"
         f"{' (shared)' if key[-1] else ''} x q {tuple(args[1].shape)}: "
         f"max_abs_err {err:.3e} (tolerance {INT8_REL} of the larger value "
         f"+ {INT8_ABS_OF_MAX} of the largest)")
@@ -4281,7 +4336,8 @@ def phase_int8(dev, kernels: list[dict], profile: bool) -> None:
       f"torch._weight_int8pack_mm):")
   for key, args in captures.inputs():
     f = int8_figures(*args)
-    log(f"    a {tuple(args[0].shape)} x q {tuple(args[1].shape)}: ms "
+    log(f"    {int8_rows(row, wgmma_row, key[3])['name']} a "
+        f"{tuple(args[0].shape)} x q {tuple(args[1].shape)}: ms "
         f"{f['ms']:.4f}  plain {f['plain_ms']:.4f}  bf16 {f['bf16_ms']:.4f}"
         f"  dequant {f['dequant_ms']:.4f}  int8pack "
         f"{'n/a' if f['library_ms'] is None else round(f['library_ms'], 4)}"
@@ -4294,7 +4350,13 @@ def phase_int8(dev, kernels: list[dict], profile: bool) -> None:
   if "ms" not in row:
     raise AssertionError("The path never ran the logits product.")
   kernels.append(row)
-  int8_prefill_products(qmodel, dev)
+  f = int8_prefill_products(qmodel, dev)
+  # The library figure at prefill rows is the dequantize + matmul
+  # composition (torch._weight_int8pack_mm is a decode kernel: ~500 x this
+  # kernel's time here); int8pack stays the decode row's.
+  wgmma_row.update(ms=f["ms"], plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
+                   bound_by=f["bound_by"], library_ms=f["dequant_ms"])
+  kernels.append(wgmma_row)
 
   # (d) Greedy int8 vs bf16 on realistic weights.
   agree = synthetic.greedy_token_agreement(torch.stack(out["int8"].tokens),
@@ -4314,14 +4376,17 @@ def phase_int8(dev, kernels: list[dict], profile: bool) -> None:
       f"{l16.abs().max().item():.2f}); weight-only int8 {rel(weight_only, ref):.5f}"
       f" (prompt 0); greedy tokens over {DECODE_STEPS} steps, 2 rows: "
       f"{agree}")
-  log(f"  text serving in turns {INT8_TURNS}: prefill ms (2 x 3000 tokens "
-      f"padded; int8 with act_quant) bf16 "
-      f"{[round(p, 2) for p, _ in text['bf16']]}, int8 "
-      f"{[round(p, 2) for p, _ in text['int8']]}; captured decode ms a step "
-      f"(batch 2) bf16 {[round(d, 3) for _, d in text['bf16']]}, int8 "
-      f"{[round(d, 3) for _, d in text['int8']]}")
+  log(f"  text serving in turns {INT8_TEXT_TURNS}: prefill ms (2 x 3000 "
+      f"tokens padded) bf16 {[round(p, 2) for p, _ in text['bf16']]}, int8 "
+      f"with act_quant {[round(p, 2) for p, _ in text['int8']]}, "
+      f"weight-only int8 "
+      f"{[round(p, 2) for p, _ in text['int8 weight-only']]}; captured "
+      f"decode ms a step (batch 2) bf16 "
+      f"{[round(d, 3) for _, d in text['bf16']]}, int8 "
+      f"{[round(d, 3) for _, d in text['int8']]}, weight-only int8 "
+      f"{[round(d, 3) for _, d in text['int8 weight-only']]}")
   if profile:
-    for side in ("bf16", "int8"):
+    for side in samplers:
       log(f"  {side} text serving, kernel time by name:")
       profile_main_path(samplers[side], prompts,
                         float(np.median([p for p, _ in text[side]])),
@@ -4496,14 +4561,16 @@ def _sft_counts() -> dict[str, int]:
           "window_attention_dkv": wa.dkv_launches,
           "mha_attention": mha_attention.launches,
           "int8_weight_matmul": int8_matmul.launches,
-          "int8_weight_matmul_dgrad": int8_matmul.dgrad_launches}
+          "int8_weight_matmul_wgmma": int8_matmul.wgmma_launches,
+          "int8_weight_matmul_dgrad_wgmma": int8_matmul.dgrad_wgmma_launches}
 
 
 def _reset_sft_counts() -> None:
   lru_scan.launches = lru_scan.backward_launches = 0
   wa.launches = wa.dq_launches = wa.dkv_launches = 0
   mha_attention.launches = 0
-  int8_matmul.launches = int8_matmul.dgrad_launches = 0
+  int8_matmul.launches = int8_matmul.wgmma_launches = 0
+  int8_matmul.dgrad_wgmma_launches = 0
   reset_scan_routes()
 
 
@@ -4679,7 +4746,8 @@ def phase_multimodal_sft(dev, kernels: list[dict], profile: bool) -> None:
   for stage, steps in (("frozen", SFT_FROZEN_STEPS),
                        ("full", SFT_FULL_STEPS)):
     want = {name: steps * count for name, count in per_step.items()}
-    want.update(int8_weight_matmul=0, int8_weight_matmul_dgrad=0)
+    want.update(int8_weight_matmul=0, int8_weight_matmul_wgmma=0,
+                int8_weight_matmul_dgrad_wgmma=0)
     log(f"  {stage} stage launches {stage_counts[stage]}")
     if stage_counts[stage] != want:
       raise AssertionError(f"The {stage} stage launched "
@@ -4792,33 +4860,59 @@ def phase_multimodal_sft(dev, kernels: list[dict], profile: bool) -> None:
   # activation requires one: everywhere after the splice (the connector's
   # adapters reach every position through attention and the scan), not in
   # the connector's up-projection, whose input is the towers' features.
-  if (qlora_counts["int8_weight_matmul_dgrad"] == 0
-      or qlora_counts["int8_weight_matmul"] == 0
+  # Every forward has thousands of rows: the wgmma kernel takes them all.
+  if (qlora_counts["int8_weight_matmul_dgrad_wgmma"] == 0
+      or qlora_counts["int8_weight_matmul_wgmma"] == 0
+      or qlora_counts["int8_weight_matmul"]
       or any(qlora_counts[k] != SFT_LORA_STEPS * v
              for k, v in per_step.items())):
     raise AssertionError(f"QLoRA launched {qlora_counts}; want the int8 "
-                         f"kernels > 0 and {per_step} a step.")
+                         f"wgmma kernels > 0, the mma.sync one 0 and "
+                         f"{per_step} a step.")
+  log(f"  QLoRA int8 launches a step by route: forward wgmma "
+      f"{qlora_counts['int8_weight_matmul_wgmma'] / SFT_LORA_STEPS:g}, "
+      f"mma.sync {qlora_counts['int8_weight_matmul'] / SFT_LORA_STEPS:g}; "
+      f"input gradient (wgmma) "
+      f"{qlora_counts['int8_weight_matmul_dgrad_wgmma'] / SFT_LORA_STEPS:g}")
   if _unchanged(qmodel, base_before):
     raise AssertionError("QLoRA moved base weights.")
   del base_before
 
   # The forward kernel on the inputs the step passed it (phase 18 checked
-  # it at the serving shapes; its row takes the larger error).
-  int8_row = next(r for r in kernels if r["name"] == "int8_weight_matmul")
+  # it at the serving shapes; its row takes the larger error and adds the
+  # step's launches), timed at the step's largest shapes.
+  int8_row = next(r for r in kernels
+                  if r["name"] == "int8_weight_matmul_wgmma")
+  int8_row["launches"] += qlora_counts["int8_weight_matmul_wgmma"]
   for key, args in forward_capture.inputs():
     err = check_int8(*args)
     int8_row["max_abs_err"] = max(int8_row["max_abs_err"], err)
-    log(f"  int8_weight_matmul on the QLoRA step's inputs a "
+    log(f"  int8_weight_matmul_wgmma on the QLoRA step's inputs a "
         f"{tuple(args[0].shape)}{' (shared)' if key[-1] else ''} x q "
         f"{tuple(args[1].shape)}: max_abs_err {err:.3e} (tolerance "
         f"{INT8_REL} of the larger value + {INT8_ABS_OF_MAX} of the largest)")
+  log("  int8_weight_matmul_wgmma timed at the QLoRA step's shapes (ms; "
+      "plain = its plain version, the library composition matmul(a, "
+      "q.to(bf16)) * scale; dequant = dequantize + matmul; bf16 = matmul on "
+      "a stored bf16 weight):")
+  for key, args in forward_capture.inputs():
+    if not (key[:3] in ((1, config.vocab_size, config.width),
+                        (1, config.width, config.width)) or key[-1]):
+      continue
+    f = int8_figures(*args)
+    log(f"    a {tuple(args[0].shape)}{' (shared)' if key[-1] else ''} x q "
+        f"{tuple(args[1].shape)}: ms {f['ms']:.4f} "
+        f"({2e-9 * args[1].numel() * key[3] / f['ms']:.1f} TFLOP/s)  plain "
+        f"{f['plain_ms']:.4f}  dequant {f['dequant_ms']:.4f}  bf16 "
+        f"{f['bf16_ms']:.4f}  bound "
+        f"{f['bound_ms']:.4f} ({f['bound_by']}): "
+        f"{100 * f['bound_ms'] / f['ms']:.1f}% of the bound")
   forward_capture.calls.clear()
 
   # The input-gradient kernel on the inputs the step passed it.
-  row = {"name": "int8_weight_matmul_dgrad", "route": "cuda",
-         "source": "cadence_gemma_tpu_torch/csrc/int8_matmul.cu",
-         "replaces": INT8_DGRAD_REPLACES,
-         "launches": qlora_counts["int8_weight_matmul_dgrad"],
+  row = {"name": "int8_weight_matmul_dgrad_wgmma", "route": "cuda",
+         "source": INT8_WGMMA_SOURCE, "replaces": INT8_DGRAD_REPLACES,
+         "launches": qlora_counts["int8_weight_matmul_dgrad_wgmma"],
          "max_abs_err": 0.0}
   logits_key = (1, config.vocab_size, config.width)
   dense_key = (1, config.width, config.width)
@@ -4834,9 +4928,9 @@ def phase_multimodal_sft(dev, kernels: list[dict], profile: bool) -> None:
       k[4] for k in capture.calls):
     raise AssertionError(f"The QLoRA step never passed the logits' or an "
                          f"Einsum's gradient: {list(capture.calls)}.")
-  log("  int8_weight_matmul_dgrad timed (ms; plain = its plain version; "
-      "library = matmul(dy * scale, q.to(bf16)), a bf16 weight copy each "
-      "call):")
+  log("  int8_weight_matmul_dgrad_wgmma timed (ms; plain = its plain "
+      "version; library = matmul(dy * scale, q.to(bf16)), a bf16 weight copy "
+      "each call):")
   for key, args in capture.inputs():
     if not (key[:3] in (logits_key, dense_key) or key[4]):
       continue
@@ -4857,13 +4951,14 @@ def phase_multimodal_sft(dev, kernels: list[dict], profile: bool) -> None:
   torch.cuda.empty_cache()
   _reset_sft_counts()
   loss_k, grads_k = _lora_gradients(qmodel, tokens, mask, img, plain=False)
-  if _sft_counts()["int8_weight_matmul_dgrad"] == 0:
+  if _sft_counts()["int8_weight_matmul_dgrad_wgmma"] == 0:
     raise AssertionError("The kernel path launched no input gradient.")
   _reset_sft_counts()
   loss_p, grads_p = _lora_gradients(qmodel, tokens, mask, img, plain=True)
   plain_counts = _sft_counts()
-  if plain_counts["int8_weight_matmul"] or plain_counts[
-      "int8_weight_matmul_dgrad"]:
+  if any(plain_counts[k] for k in (
+      "int8_weight_matmul", "int8_weight_matmul_wgmma",
+      "int8_weight_matmul_dgrad_wgmma")):
     raise AssertionError("The plain path launched an int8 kernel.")
   rel_loss = abs(loss_k - loss_p) / abs(loss_p)
   leaf_stats = _leaf_stats(grads_k, grads_p)

@@ -1,22 +1,28 @@
-"""The int8 weight-only CUDA kernel and the int8 x int8 product on the card.
+"""The int8 weight-only CUDA kernels and the int8 x int8 product on the card.
 
-Card tests: they skip without a CUDA device. ``cg_int8_weight_matmul``
-(``csrc/int8_matmul.cu``) against its plain version
+Card tests: they skip without a CUDA device. The weight-only product --
+``cg_int8_weight_matmul`` (``csrc/int8_matmul.cu``, mma.sync) below
+``int8_matmul.WGMMA_MIN_ROWS`` rows, ``cg_int8_wgmma_forward``
+(``csrc/int8_wgmma.cu``) from there on -- against its plain version
 (``int8_weight_matmul_plain``, JAX's ``(x @ q.astype(bf16)) * scale``) at
 the 2B's four layouts -- a ``Dense`` [2560 -> 2560], the fused ``ffw_up``
 (two [2560 -> 7680] over one shared activation, batch stride 0), the gates'
 block-diagonal (10 heads of [256 -> 256] read in place from a [m, 2560]
-activation) and ``Embedder.decode`` [2560 -> 256000] -- at 1, 2, 8, 17 and
-3000 rows: both sum in float32 in other orders, round the sum to bfloat16,
+activation) and ``Embedder.decode`` [2560 -> 256000] -- at 1, 2, 8, 17,
+255, 256, 257, 3000 and 5554 rows, each on its route's launch counter:
+both sum in float32 in other orders, round the sum to bfloat16,
 multiply by the bfloat16 scale and round again, so one step of the first
 rounding and the second rounding together differ by up to 1.5 x 2^-7 of the
 larger value: they must agree within 2^-6 of it (plus 1e-4 of the largest
 output for sums that cancel). Two launches give the same bits, and
-a captured CUDA graph replays them. The input gradient
-(``cg_int8_weight_matmul_dgrad``) against its plain version
+a captured CUDA graph replays them, on both routes. At decode rows the
+wrapper's output is bit for bit a direct call of the mma.sync kernel with
+the split rule's slices. The input gradient (``cg_int8_wgmma_dgrad`` at
+every shape) against its plain version
 (``int8_weight_matmul_dgrad_plain``, JAX's ``(dy * scale.astype(bf16)) @
-q.astype(bf16)``) at the same layouts and at training rows (odd ones
-included), with the plain version's sum taken in float64: the kernel rounds
+q.astype(bf16)``) at the same layouts, from 1 row to training rows (odd
+ones included, 255 to 257 and 5554), with the plain version's sum taken in
+float64: the kernel rounds
 the scaled cotangent to bfloat16 as JAX does, sums in float32 and rounds
 once, within the same 2^-6 of the exact product. (cuBLAS' own bf16 product
 sums the logits' 256000 terms 0.02 beyond that at 2049 rows, so it is not
@@ -33,6 +39,7 @@ gives the eager loop's tokens and the prefill_act_quant Sampler runs.
 import pytest
 import torch
 
+from cadence_gemma_tpu_torch import _build
 from cadence_gemma_tpu_torch import common
 from cadence_gemma_tpu_torch.inference import sampler as sampler_lib
 from cadence_gemma_tpu_torch.models import griffin
@@ -44,7 +51,7 @@ requires_cuda = pytest.mark.skipif(
     "not torch.cuda.is_available()", reason="needs a CUDA device"
 )
 
-ROWS = (1, 2, 8, 17, 3000)
+ROWS = (1, 2, 8, 17, 255, 256, 257, 3000, 5554)
 LAYOUTS = ("dense", "ffw_up", "block_diagonal", "embed")
 
 
@@ -94,9 +101,11 @@ def _full_precision_reference():
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_int8_weight_matmul_cuda_matches_plain(layout, m):
   a, q, scale = operands(layout, m)
-  before = int8_matmul.launches
+  before = (int8_matmul.launches, int8_matmul.wgmma_launches)
   got = int8_matmul.int8_weight_matmul(a, q, scale)
-  assert int8_matmul.launches == before + 1
+  wgmma = m >= int8_matmul.WGMMA_MIN_ROWS
+  assert (int8_matmul.launches, int8_matmul.wgmma_launches) == (
+      before[0] + (not wgmma), before[1] + wgmma)
   want = int8_matmul.int8_weight_matmul_plain(a, q, scale)
   torch.cuda.synchronize()
   assert got.shape == want.shape and got.dtype == torch.bfloat16
@@ -106,10 +115,14 @@ def test_int8_weight_matmul_cuda_matches_plain(layout, m):
 
 @requires_cuda
 @pytest.mark.parametrize("layout,m", [("dense", 2), ("block_diagonal", 8),
-                                      ("ffw_up", 17), ("embed", 2)])
+                                      ("ffw_up", 17), ("embed", 2),
+                                      ("dense", 3000), ("ffw_up", 300),
+                                      ("block_diagonal", 5554),
+                                      ("embed", 257)])
 def test_int8_weight_matmul_cuda_bits_repeat_and_replay(layout, m):
   """Two launches, and the replays of a captured graph, give one result
-  (split-K at the decode shapes sums its slices in a fixed order)."""
+  (split-K at the decode shapes sums its slices in a fixed order; the
+  wgmma kernel's tensor maps are kernel parameters the graph keeps)."""
   a, q, scale = operands(layout, m, seed=1)
   first = int8_matmul.int8_weight_matmul(a, q, scale)
   second = int8_matmul.int8_weight_matmul(a, q, scale)
@@ -131,6 +144,50 @@ def test_int8_weight_matmul_cuda_bits_repeat_and_replay(layout, m):
 
 
 @requires_cuda
+@pytest.mark.parametrize("m", (1, 2, 8, 16))
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_int8_decode_rows_are_the_mma_sync_kernel(layout, m):
+  """Below the crossover the wrapper launches the mma.sync kernel as it
+  did before the wgmma kernels existed: its output equals, bit for bit, a
+  direct call of ``cg_int8_weight_matmul`` with the split rule's slices."""
+  a, q, scale = operands(layout, m, seed=2)
+  before = int8_matmul.wgmma_launches
+  got = int8_matmul.int8_weight_matmul(a, q, scale)
+  assert int8_matmul.wgmma_launches == before
+  batches, n, k = q.shape
+  splits = int8_matmul.split_k(batches, m, n, k)
+  want = torch.empty(batches, m, n, dtype=torch.bfloat16, device="cuda")
+  partial = torch.empty(max(splits, 1), batches, m, n, device="cuda")
+  fn = _build.function("int8_matmul", "cg_int8_weight_matmul",
+                       "pppppiiiillip")
+  err = fn(a.data_ptr(), q.data_ptr(), scale.data_ptr(), want.data_ptr(),
+           partial.data_ptr() if splits > 1 else None, batches, m, n, k,
+           a.stride(0) if a.shape[0] == batches else 0, a.stride(1), splits,
+           torch.cuda.current_stream().cuda_stream)
+  torch.cuda.synchronize()
+  assert err == 0 and torch.equal(got, want)
+
+
+@requires_cuda
+@pytest.mark.parametrize("batches,m,n,k", [
+    (1, 333, 200, 80), (3, 257, 7, 16), (2, 300, 300, 2576),
+    (1, 129, 200, 80)])
+def test_int8_weight_matmul_cuda_ragged_shapes(batches, m, n, k):
+  """Tile edges on both routes: N odd or short of the 256-wide tile, K a
+  multiple of 16 short of the 64-deep one, M off the 128-row tile."""
+  gen = torch.Generator("cuda").manual_seed(m + n)
+  a = torch.randn(batches, m, k, generator=gen, device="cuda").bfloat16()
+  q = torch.randint(-127, 128, (batches, n, k), generator=gen, device="cuda",
+                    dtype=torch.int8)
+  scale = torch.rand(batches, n, generator=gen, device="cuda") * 1e-2
+  got = int8_matmul.int8_weight_matmul(a, q, scale)
+  want = int8_matmul.int8_weight_matmul_plain(a, q, scale)
+  torch.cuda.synchronize()
+  assert_matches_plain(got, want)
+  assert torch.equal(got, int8_matmul.int8_weight_matmul(a, q, scale))
+
+
+@requires_cuda
 def test_int8_weight_matmul_cuda_refuses_what_it_cannot_take():
   a, q, scale = operands("dense", 2)
   with pytest.raises(ValueError, match="bfloat16"):
@@ -139,7 +196,7 @@ def test_int8_weight_matmul_cuda_refuses_what_it_cannot_take():
     int8_matmul.int8_weight_matmul(a[..., :40], q[..., :40], scale)
 
 
-DGRAD_ROWS = (1, 17, 333, 4096)
+DGRAD_ROWS = (1, 17, 255, 256, 257, 333, 4096, 5554)
 
 
 def dgrad_operands(layout: str, m: int, seed: int = 0):
@@ -158,12 +215,13 @@ def dgrad_operands(layout: str, m: int, seed: int = 0):
 def test_int8_dgrad_cuda_matches_plain(layout, m):
   """The input gradient at the 2B's four layouts (the fused up-projection
   summed over its two products into the shared activation's gradient)."""
-  if layout == "embed" and m == 4096:
-    m = 2049  # the logits' [M, 256000] cotangent: odd rows, 1 GB
+  if layout == "embed" and m >= 4096:
+    # The logits' [M, 256000] cotangent at odd rows: 1 and 1.5 GB.
+    m = {4096: 2049, 5554: 3001}[m]
   g, q, scale, reduce = dgrad_operands(layout, m)
-  before = int8_matmul.dgrad_launches
+  before = int8_matmul.dgrad_wgmma_launches
   got = int8_matmul.int8_weight_matmul_dgrad(g, q, scale, reduce)
-  assert int8_matmul.dgrad_launches == before + 1
+  assert int8_matmul.dgrad_wgmma_launches == before + 1
   # The plain version's arithmetic, its sum exact: the scaled cotangent
   # rounded to bf16 as JAX rounds it, the product in float64.
   scaled = (g * scale.to(g.dtype)[..., None, :]).double()
@@ -179,10 +237,12 @@ def test_int8_dgrad_cuda_matches_plain(layout, m):
 @requires_cuda
 @pytest.mark.parametrize("batches,m,n,k,reduce", [
     (3, 5, 200, 80, False), (3, 5, 200, 80, True), (1, 65, 8, 16, False),
-    (2, 129, 72, 2576, True)])
+    (2, 129, 72, 2576, True), (3, 333, 200, 80, True),
+    (1, 257, 8, 16, False), (2, 300, 72, 2576, True)])
 def test_int8_dgrad_cuda_ragged_shapes(batches, m, n, k, reduce):
   """Tile edges: N a multiple of 8 short of the 64-deep tile, K a multiple
-  of 16 short of the 64-wide one, M off both row tiles; split and not."""
+  of 16 short of the 64- and 128-wide ones, M off the 128-row tile and
+  short of it."""
   gen = torch.Generator("cuda").manual_seed(m + n)
   g = torch.randn(batches, m, n, generator=gen, device="cuda").bfloat16()
   q = torch.randint(-127, 128, (batches, n, k), generator=gen, device="cuda",
@@ -197,12 +257,37 @@ def test_int8_dgrad_cuda_ragged_shapes(batches, m, n, k, reduce):
 
 
 @requires_cuda
+@pytest.mark.parametrize("layout,m", [("dense", 1000),
+                                      ("block_diagonal", 1000),
+                                      ("ffw_up", 17)])
+def test_int8_dgrad_cuda_bits_repeat_and_replay(layout, m):
+  """The wgmma input gradient: two launches and a captured graph's
+  replays give one result."""
+  g, q, scale, reduce = dgrad_operands(layout, m, seed=5)
+  first = int8_matmul.int8_weight_matmul_dgrad(g, q, scale, reduce)
+  side = torch.cuda.Stream()
+  side.wait_stream(torch.cuda.current_stream())
+  with torch.cuda.stream(side):
+    int8_matmul.int8_weight_matmul_dgrad(g, q, scale, reduce)
+  torch.cuda.current_stream().wait_stream(side)
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    out = int8_matmul.int8_weight_matmul_dgrad(g, q, scale, reduce)
+  for _ in range(3):
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, first)
+
+
+@requires_cuda
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_int8_weight_matmul_backward_matches_plain_autograd(layout):
   """``int8_weight_matmul(a, ...).backward(g)`` launches the forward and
-  the input-gradient kernels once each, and ``a.grad`` is autograd's of
-  the plain expression; the weight and scale get none. The fused
-  up-projection's shared activation is one [1, M, K] tensor."""
+  the input-gradient kernels once each (at 257 rows the wgmma pair), and
+  ``a.grad`` is autograd's of the plain expression; the weight and scale
+  get none. The fused up-projection's shared activation is one [1, M, K]
+  tensor."""
   m = 257
   a, q, scale = operands(layout, m, seed=3)
   if layout == "ffw_up":
@@ -211,9 +296,9 @@ def test_int8_weight_matmul_backward_matches_plain_autograd(layout):
   ref = a.detach().clone().requires_grad_()
   g = torch.randn(q.shape[0], m, q.shape[1], device="cuda",
                   generator=torch.Generator("cuda").manual_seed(4)).bfloat16()
-  before = (int8_matmul.launches, int8_matmul.dgrad_launches)
+  before = (int8_matmul.wgmma_launches, int8_matmul.dgrad_wgmma_launches)
   int8_matmul.int8_weight_matmul(a, q, scale).backward(g)
-  assert (int8_matmul.launches, int8_matmul.dgrad_launches) == (
+  assert (int8_matmul.wgmma_launches, int8_matmul.dgrad_wgmma_launches) == (
       before[0] + 1, before[1] + 1)
   y = int8_matmul.int8_weight_matmul_plain(ref, q, scale)
   y.float().backward(g.float())  # cuBLAS' bf16 products, as in the forward

@@ -231,11 +231,63 @@ def test_int8_weight_matmul_cpu_is_the_plain_version():
       atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("m,n,k,batches,splits", [
-    (2, 2560, 2560, 1, 7), (2, 256, 2560, 1, 40), (8, 256, 256, 10, 4),
-    (2, 7680, 2560, 2, 1), (2, 256000, 2560, 1, 1), (3000, 2560, 2560, 1, 1)])
-def test_split_k_rule(m, n, k, batches, splits):
+# Rows and the 2B's int8 weights [batches, n, k] (the vision-language
+# connector's two included): decode (2 rows), the eight-slot tick (8) and a
+# 16-row batch keep the mma.sync kernel and today's split-K; the crossover
+# and above -- the text prefill (2 x 3000 rows), a QLoRA step (2 x 2777
+# spliced tokens, the logits' loss chunks of 4096 rows, the connector's
+# 2 x 729 visual tokens) -- go to the wgmma forward. The input gradient
+# takes the wgmma kernel at every shape. Ids name the shape and the split.
+SPLIT_CASES = [
+    (2, 2560, 2560, 1, 7, False), (2, 256, 2560, 1, 40, False),
+    (8, 256, 256, 10, 4, False), (2, 7680, 2560, 2, 1, False),
+    (2, 256000, 2560, 1, 1, False), (3000, 2560, 2560, 1, 1, True),
+    (2, 2560, 7680, 1, 7, False), (2, 4000, 2176, 1, 5, False),
+    (2, 2560, 4000, 1, 7, False), (8, 2560, 2560, 1, 7, False),
+    (16, 256000, 2560, 1, 1, False), (16, 256, 256, 10, 4, False),
+    (255, 2560, 2560, 1, 1, False), (256, 2560, 2560, 1, 1, True),
+    (6000, 2560, 2560, 1, 1, True), (5554, 7680, 2560, 2, 1, True),
+    (5554, 256, 256, 10, 1, True), (4096, 256000, 2560, 1, 1, True),
+    (1458, 4000, 2176, 1, 1, True)]
+
+
+@pytest.mark.parametrize("m,n,k,batches,splits,wgmma", SPLIT_CASES,
+                         ids=["-".join(map(str, c[:5])) for c in SPLIT_CASES])
+def test_split_k_rule(m, n, k, batches, splits, wgmma):
   assert int8_matmul.split_k(batches, m, n, k) == splits
+  assert int8_matmul.uses_wgmma(m) == wgmma
+
+
+def _meta(*shape):
+  return torch.empty(*shape, device="meta", dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("layout", ("dense", "ffw_up", "ffw_up_expanded",
+                                    "block_diagonal", "embed", "batched"))
+def test_int8_wgmma_a_layout(layout):
+  """The tensor map through which the wgmma forward reads the activation,
+  as the layers hand it over (``layers.py``): one [M, K] for a batch-1 or
+  shared activation, the gates' heads in place as [M, H, I], a batched
+  [B, M, K] otherwise; strides in bytes, multiples of 16 as TMA needs."""
+  m = 6000
+  x = _meta(m, 2560)
+  batches, a, want = {
+      "dense": (1, x.reshape(1, -1, 2560),
+                (False, True, (2560, m, 1), (5120, 5120 * m))),
+      "ffw_up": (2, x.reshape(1, -1, 2560),
+                 (False, True, (2560, m, 1), (5120, 5120 * m))),
+      "ffw_up_expanded": (2, x[None].expand(2, -1, -1),
+                          (False, True, (2560, m, 1), (5120, 5120 * m))),
+      "block_diagonal": (10, x.reshape(-1, 10, 256).transpose(0, 1),
+                         (True, False, (256, 10, m), (512, 5120))),
+      "embed": (1, _meta(1, 4096, 2560),
+                (False, True, (2560, 4096, 1), (5120, 5120 * 4096))),
+      "batched": (3, _meta(3, m, 2560),
+                  (False, False, (2560, m, 3), (5120, 5120 * m))),
+  }[layout]
+  got = int8_matmul.a_layout(a, batches)
+  assert (got.heads, got.shared, got.dims, got.strides) == want
+  assert all(stride % 16 == 0 for stride in got.strides)
 
 
 # -- the int8 layers against JAX's modules, bfloat16 -----------------------
