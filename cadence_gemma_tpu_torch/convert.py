@@ -167,6 +167,7 @@ def griffin_from_flax_params(
     act_quant: bool = False,
     lora_rank: int = 0,
     lora_alpha: float | None = None,
+    lora_rows: int = 0,
 ) -> griffin.Griffin:
   """Builds a ``Griffin`` holding a flax tree's weights.
 
@@ -177,9 +178,10 @@ def griffin_from_flax_params(
   quantized model when the tree holds int8 (``_q``) leaves. A quantized
   tree has no ``input_embedding`` to read the config from, so it needs
   ``config`` (JAX's ``examples/serve.py`` reads it from the bfloat16 tree
-  before quantizing). ``lora_rank`` / ``lora_alpha`` build the adapters of
-  JAX's ``Griffin(lora_rank=...)``; the tree must then carry them (a bf16
-  or a quantized base with its ``lora_a`` / ``lora_b`` leaves).
+  before quantizing). ``lora_rank`` / ``lora_alpha`` / ``lora_rows`` build
+  the adapters of JAX's ``Griffin(lora_rank=..., lora_rows=...)``; the tree
+  must then carry them (a bf16 or a quantized base with its ``lora_a`` /
+  ``lora_b`` leaves, stacked with ``lora_rows``).
   """
   device = griffin.resolve_device(device)
   if quantized is None:
@@ -197,6 +199,7 @@ def griffin_from_flax_params(
       use_flash_attention=use_flash_attention, fused_epilogue=fused_epilogue,
       scan_sharding_spec=scan_sharding_spec, quantized=quantized,
       act_quant=act_quant, lora_rank=lora_rank, lora_alpha=lora_alpha,
+      lora_rows=lora_rows,
   )
   model.to_empty(device=device)
   load_flax_params(model, params)

@@ -16,7 +16,7 @@ Endpoints (JSON over stdlib ``http.server``; no third-party deps):
 
   POST /v1/generate   {"prompt": str, "max_tokens": int?, "stream": bool?,
                        "seed": int?, "image_path": str?, "image_b64": str?,
-                       "session": str?}
+                       "session": str?, "adapter": any?}
       stream=false -> one body: {"id", "tokens", "text"}
       stream=true  -> chunked NDJSON: {"id", "tokens": [...]} lines as the
                      request emits tokens, then {"id", "done": true,
@@ -24,7 +24,9 @@ Endpoints (JSON over stdlib ``http.server``; no third-party deps):
       "session" names a conversation: turns chain through per-request
       PrefixStates (batcher built with preserve_states=True), so each turn
       prefills only the new message. One turn in flight per session (409
-      otherwise).
+      otherwise). "adapter" is an opaque reference the frontend's
+      adapter_resolver maps to a LoRA tree (a multi_lora batcher); without
+      a resolver, or for a reference it cannot resolve, the answer is 400.
   POST /v1/cancel     {"id": int} -> {"cancelled": bool}
   POST /v1/reset      {"session": str} -> {"reset": bool} (drop context;
                       epoch-fenced against a turn finishing mid-reset)
@@ -71,8 +73,7 @@ Grammar-constrained surfaces -- ``constraint=`` on ``/v1/generate``,
 ``response_format`` ``json_object`` / ``json_schema``, ``tool_choice:
 "required"`` or a named function, and ``ServingFrontend(constraint_names=)``
 -- are not ported yet (ROADMAP queue 1 item 11): the routes answer 400 with
-an OpenAI error saying so. Per-request LoRA adapters (``adapter=``) wait for
-item 5b (multi-LoRA serving).
+an OpenAI error saying so.
 
 ``ServingFrontend`` is usable without HTTP (library callers submit and
 wait); ``ServingHTTPServer`` wraps it for the wire.
@@ -694,7 +695,11 @@ class ServingFrontend:
       from ``Sampler.prefill_prefix``) applied to every request that has no
       session history and no image; a session's first turn starts from it,
       later turns from their own stored state.
-    adapter_resolver: Per-request LoRA adapters; not ported (None).
+    adapter_resolver: Optional ``f(adapter_ref) -> adapter leaves`` mapping
+      the opaque ``adapter=`` field of a submission (the HTTP body's
+      ``"adapter"``) to a LoRA tree for a ``multi_lora`` batcher (e.g. a
+      name of preloaded adapters). A reference it cannot resolve fails the
+      submission (HTTP 400).
     max_sessions: Stored session contexts are cache copies on the device,
       so they are LRU-capped: storing the ``max_sessions + 1``-th context
       evicts the least recently used one, whose session restarts from
@@ -720,10 +725,6 @@ class ServingFrontend:
     if constraint_names:
       raise NotImplementedError(
           f"constraint_names: {GRAMMAR_NOT_PORTED}")
-    if adapter_resolver is not None:
-      raise NotImplementedError(
-          "adapter_resolver: per-request LoRA adapters are multi-LoRA "
-          "serving, not ported yet (ROADMAP queue 1 item 5b)")
     self.device = serving_lib._check_device(
         griffin.resolve_device(device), batcher.device, "frontend",
         "batcher")
@@ -738,6 +739,7 @@ class ServingFrontend:
     self.step_size_idle = step_size_idle
     self.idle_wait_s = idle_wait_s
     self.default_prefix_state = default_prefix_state
+    self.adapter_resolver = adapter_resolver
     self.max_sessions = max_sessions
     self.max_queue = max_queue
     self._inbox: queue.Queue[Submission] = queue.Queue()
@@ -791,21 +793,24 @@ class ServingFrontend:
     ``logit_bias`` (token id -> additive offset in [-100, 100]) override the
     sampler per request (a ``per_request_sampling`` batcher). ``seed``
     seeds the request's ``torch.Generator`` on a categorical batcher (one is
-    drawn from ``secrets`` when absent). ``adapter`` and ``constraint``
-    raise ``NotImplementedError`` (not ported)."""
+    drawn from ``secrets`` when absent). ``adapter`` is resolved by the
+    frontend's ``adapter_resolver`` into the request's LoRA tree (a
+    ``multi_lora`` batcher); without a resolver it raises ``ValueError``.
+    ``constraint`` raises ``NotImplementedError`` (not ported)."""
     if self._error is not None:
       raise FrontendDead(f"serving driver died: {self._error}")
     if constraint is not None:
       raise NotImplementedError(f"constraint={constraint!r}: "
                                 f"{GRAMMAR_NOT_PORTED}")
-    if adapter is not None:
-      raise NotImplementedError(
-          "adapter=: per-request LoRA adapters are multi-LoRA serving, not "
-          "ported yet (ROADMAP queue 1 item 5b)")
     if self.max_queue is not None and self._inbox.qsize() >= self.max_queue:
       raise QueueFull(
           f"submission queue is full ({self.max_queue} waiting); retry "
           "later"
+      )
+    if adapter is not None and self.adapter_resolver is None:
+      raise ValueError(
+          "adapter= needs ServingFrontend(adapter_resolver=...) to map "
+          "it to a LoRA tree."
       )
     epoch = 0
     if session is not None:
@@ -831,7 +836,7 @@ class ServingFrontend:
         prompt,
         self.batcher.max_steps_default if max_tokens is None
         else max_tokens,
-        seed, image_path, image_b64, session=session,
+        seed, image_path, image_b64, session=session, adapter=adapter,
         session_epoch=epoch, sampling=sampling,
     )
     with self._open_lock:
@@ -972,6 +977,8 @@ class ServingFrontend:
         kwargs["return_state"] = True
       elif self.default_prefix_state is not None and not has_image:
         kwargs["prefix_state"] = self.default_prefix_state
+      if sub.adapter is not None:
+        kwargs["adapters"] = self.adapter_resolver(sub.adapter)
       kwargs.update(sub.sampling)
       if sub.seed is None and not self.batcher.sampler.deterministic_sampling:
         # Categorical serving without a client seed: draw one here (and
@@ -1642,7 +1649,7 @@ def _make_handler(frontend: ServingFrontend, model_name: str):
                 if req.get("logit_bias") else None
             ),
         )
-      except NotImplementedError as e:  # constraint=, adapter=
+      except NotImplementedError as e:  # constraint=
         return self._json(400, _openai_error(str(e)))
       except SessionBusy as e:
         return self._json(409, {"error": str(e)})

@@ -34,15 +34,27 @@ cache are O(1)):
     and whenever it joined, and they are the tokens of a batch-1
     ``Sampler`` call with a generator seeded alike; ``pop_finished`` leaves
     the request's generator where that call would leave it.
+  * ``multi_lora=True`` serves a different LoRA fine-tune per request over
+    the sampler's one base (JAX ``serving.py:176-187``). A request's
+    ``adapters`` run its admission prefill at batch 1 on a twin of the
+    sampler's model that holds them (``Griffin.adapter_twin``), and are
+    written into its slot's row of a ``[num_slots, ...]`` stack at insertion;
+    the tick runs a ``lora_rows=num_slots`` twin, whose base products stay
+    one product over every slot and whose rank-r hop is batched. Twins share
+    every base tensor with the sampler's model. A captured tick owns its own
+    stacks, as it owns its state: an insertion writes the batcher's stack in
+    place and :meth:`_TickGraph.run` copies the stacks in after a change
+    (read-only in the step, they are never copied back).
 
-Speculative decoding (``draft_len``), multi-LoRA serving, grammar
-constraints and serving over a mesh are not ported; each raises
-``NotImplementedError`` naming its ROADMAP item.
+Speculative decoding (``draft_len``), grammar constraints and serving over a
+mesh are not ported; each raises ``NotImplementedError`` naming its ROADMAP
+item.
 """
 
 from __future__ import annotations
 
 import collections
+import copy
 import dataclasses
 import threading
 from typing import Any, NamedTuple
@@ -53,6 +65,7 @@ import torch
 
 from cadence_gemma_tpu_torch.inference import sampler as sampler_lib
 from cadence_gemma_tpu_torch.models import griffin
+from cadence_gemma_tpu_torch.training import lora as lora_lib
 
 _cache_leaves = sampler_lib._cache_leaves
 _map_cache = sampler_lib._map_cache
@@ -116,6 +129,7 @@ class _Pending:
   start: torch.Tensor | None  # start positions of the last chunk
   img_embed: torch.Tensor | None = None
   sampling: tuple | None = None  # per-request sampling row (host values)
+  adapters: dict | None = None   # the request's LoRA leaves (multi_lora)
 
 
 class _TickFlags(NamedTuple):
@@ -124,24 +138,26 @@ class _TickFlags(NamedTuple):
   preserve_states: bool
   per_request_sampling: bool
   record_logprobs: int
+  multi_lora: bool
 
 
 def _tick_step(sampler, flags: _TickFlags, state: dict, cache,
-               generators: list) -> None:
+               generators: list, model=None) -> None:
   """One decode step of every slot, in place (``_step_n``'s body in JAX).
 
   Reads nothing back to the host, so a CUDA graph can capture it. Rows that
   are not live (empty, finished, cancelled) compute too; their token,
   position, buffers and flags do not change, and with ``preserve_states``
-  neither does their cache.
+  neither does their cache. ``model`` (multi-LoRA: a ``lora_rows`` twin)
+  replaces the sampler's.
   """
   s = state
   out = s["out"]
   slots, length = out.shape
   rows = torch.arange(slots, device=out.device)
   live = s["active"] & ~s["done"]
-  logits, new_cache = sampler.model(s["last_token"][:, None], s["positions"],
-                                    cache)
+  model = sampler.model if model is None else model
+  logits, new_cache = model(s["last_token"][:, None], s["positions"], cache)
   for name, block in cache.items():
     for dst, src in zip(block, new_cache[name]):
       if flags.preserve_states:
@@ -237,6 +253,11 @@ class _TickGraph:
   configuration can share a graph (a lock keeps their runs apart when they
   tick on different threads). The graph keeps no reference to the sampler
   (a shared cache keyed by the sampler holds it).
+
+  With ``flags.multi_lora`` the step runs a ``lora_rows`` twin of the
+  sampler's model whose ``[num_slots, ...]`` adapter stacks the graph owns;
+  :meth:`run` copies a batcher's stacks into them when they differ from the
+  last ones copied (another batcher's, or an older version) and never back.
   """
 
   def __init__(self, sampler, flags: _TickFlags, state: dict, cache,
@@ -244,6 +265,12 @@ class _TickGraph:
     device = sampler.device
     self.state = {k: v.clone() for k, v in state.items()}
     self.cache = _map_cache(torch.clone, cache)
+    self.model = self.adapters = None
+    self._adapters_from = None  # (owner token, version) last copied in
+    if flags.multi_lora:
+      self.model = sampler.model.adapter_twin(state["out"].shape[0])
+      self.adapters = lora_lib.split_lora(
+          dict(self.model.named_parameters()))[0]
     self.generators = []
     if generators:
       if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
@@ -262,13 +289,15 @@ class _TickGraph:
     with torch.cuda.stream(side):
       for _ in range(_GRAPH_WARMUP_STEPS):
         self._copy(state, cache, self.state, self.cache)
-        _tick_step(sampler, flags, self.state, self.cache, self.generators)
+        _tick_step(sampler, flags, self.state, self.cache, self.generators,
+                   self.model)
     torch.cuda.current_stream(device).wait_stream(side)
     self.graph = torch.cuda.CUDAGraph()
     for generator in self.generators:
       self.graph.register_generator_state(generator)
     with torch.cuda.graph(self.graph):
-      _tick_step(sampler, flags, self.state, self.cache, self.generators)
+      _tick_step(sampler, flags, self.state, self.cache, self.generators,
+                 self.model)
 
   @staticmethod
   def _copy(src_state, src_cache, dst_state, dst_cache) -> None:
@@ -277,10 +306,19 @@ class _TickGraph:
     for dst, src in zip(_cache_leaves(dst_cache), _cache_leaves(src_cache)):
       dst.copy_(src)
 
-  def run(self, state: dict, cache, generators: list, n: int) -> None:
-    """``n`` steps of a batcher's state, written back into its tensors."""
+  def run(self, state: dict, cache, generators: list, n: int,
+          adapters: dict | None = None, adapters_from=None) -> None:
+    """``n`` steps of a batcher's state, written back into its tensors.
+
+    ``adapters`` are the batcher's stacks and ``adapters_from`` names them
+    (an owner token and a version the batcher bumps at each write): they
+    are copied in only when they are not the ones the graph holds."""
     with self._lock:
       self._copy(state, cache, self.state, self.cache)
+      if adapters is not None and self._adapters_from != adapters_from:
+        torch._foreach_copy_(list(self.adapters.values()),  # pylint: disable=protected-access
+                             [adapters[n] for n in self.adapters])
+        self._adapters_from = adapters_from
       for mine, theirs in zip(self.generators, generators):
         mine.set_state(theirs.get_state())
       for _ in range(n):
@@ -317,7 +355,13 @@ class ContinuousBatcher:
       ``(request_id, [], True)`` from ``cancel``).
     admission_chunks_per_tick: Bound on the prefill calls (chunks) one
       ``step`` runs before decoding (None = every pending admission).
-    multi_lora: Multi-LoRA serving; only False is ported.
+    multi_lora: Serve a different LoRA fine-tune per request over the
+      sampler's one base. The sampler's model must be built with
+      ``lora_rank > 0``; a request may pass ``adapters=`` to
+      :meth:`add_request`, and one without runs the sampler's own adapters.
+      Costs ``num_slots`` adapter trees of device memory (twice on the card:
+      the batcher's stacks and the captured tick's) and a batched rank-r hop
+      in every projection of each step.
     preserve_states: Freeze each finished slot's cache at its own stop, so a
       request added with ``return_state=True`` can hand back its
       :class:`~sampler.PrefixState` (:meth:`take_state`). Costs a select
@@ -366,8 +410,6 @@ class ContinuousBatcher:
   ):
     if draft_len:
       raise _not_ported("Speculative decoding (draft_len > 0)", "item 10")
-    if multi_lora:
-      raise _not_ported("Multi-LoRA serving (multi_lora)", "item 5b")
     if (constraints is not None and len(constraints)) or (
         dynamic_grammar_slots or dynamic_grammar_budget is not None):
       raise _not_ported("Grammar constraints (constraints, "
@@ -396,7 +438,7 @@ class ContinuousBatcher:
     self._states: dict[int, sampler_lib.PrefixState] = {}
     self._logprob_records: dict[int, dict] = {}
     self._flags = _TickFlags(preserve_states, per_request_sampling,
-                             self.record_logprobs)
+                             self.record_logprobs, bool(multi_lora))
     self._captures = sampler._captures_decode
     self._fetched = None  # host copy of (done, write_idx, out) or None
 
@@ -441,7 +483,57 @@ class ContinuousBatcher:
         [] if sampler.deterministic_sampling
         else [torch.Generator(dev) for _ in range(num_slots)]
     )
+    self.multi_lora = bool(multi_lora)
+    if multi_lora:
+      self._init_multi_lora()
     self._programs = self._shared_programs() if reuse_programs else {}
+
+  def _init_multi_lora(self) -> None:
+    """The twins of multi-LoRA serving (JAX ``serving.py:405-430``)."""
+    model = self.sampler.model
+    if not getattr(model, "lora_rank", 0):
+      raise ValueError(
+          "multi_lora requires the sampler's model to be built with "
+          "lora_rank > 0 so its params carry adapter leaves (use "
+          "training.lora.init_adapters for a fresh zero tree)."
+      )
+    # The default row of adapter-less requests: the sampler's own leaves.
+    self._sampler_adapters = {
+        n: p.detach() for n, p in model.named_parameters()
+        if lora_lib.is_lora_path(n)}
+    if not self._sampler_adapters:
+      raise ValueError(
+          "multi_lora: the sampler's model has no lora_a/lora_b leaves; "
+          "build it with lora_rank > 0 before building the batcher.")
+    # The tick's twin and its [num_slots, ...] stacks, written in place.
+    self._model_ml = model.adapter_twin(self.num_slots)
+    self._adapter_rows = lora_lib.split_lora(
+        dict(self._model_ml.named_parameters()))[0]
+    self._adapter_token = object()
+    self._adapter_version = 0
+    # Admissions with adapters prefill at batch 1 on a twin that holds them
+    # (the sampler's own model never sees them).
+    twin = model.adapter_twin()
+    self._prefill_adapters = lora_lib.split_lora(
+        dict(twin.named_parameters()))[0]
+    self._prefill_sampler = copy.copy(self.sampler)
+    self._prefill_sampler.model = twin
+    self._prefill_sampler._prefill_model = (  # pylint: disable=protected-access
+        twin.act_quant_view() if self.sampler.prefill_act_quant else twin)
+    self._prefill_loaded = None  # the request whose adapters the twin holds
+
+  def _admission_sampler(self, p: _Pending):
+    """The sampler whose prefill calls run a pending request: the batcher's
+    own, or with adapters the prefill twin holding them (JAX's
+    ``_admission_params``)."""
+    if p.adapters is None:
+      return self.sampler
+    if self._prefill_loaded != p.request.request_id:
+      torch._foreach_copy_(  # pylint: disable=protected-access
+          list(self._prefill_adapters.values()),
+          [p.adapters[n] for n in self._prefill_adapters])
+      self._prefill_loaded = p.request.request_id
+    return self._prefill_sampler
 
   def _shared_programs(self) -> dict:
     """The tick graphs of this configuration over this sampler (LRU)."""
@@ -500,6 +592,13 @@ class ContinuousBatcher:
     st["budget"][slot] = req.max_steps
     st["out"][slot] = 0
     st["out"][slot, 0] = first
+    if self.multi_lora:
+      # Always rewritten: a freed slot still holds its last occupant's
+      # adapters (JAX ``serving.py:1449-1457``).
+      lora_lib.scatter_adapters(
+          self._adapter_rows,
+          self._sampler_adapters if p.adapters is None else p.adapters, slot)
+      self._adapter_version += 1
     if self.record_logprobs:
       # The first token's record from the prefill's [1, 1, vocab] logits.
       lp0 = torch.log_softmax(prefill.logits_buffer[0, 0].float(), dim=-1)
@@ -587,13 +686,20 @@ class ContinuousBatcher:
     ``img_embed`` ([1, vision_tokens, vision_width] fused features) splices
     an image in after the prompt's BOS during the admission prefill;
     ``pixels`` / ``img_path`` encode on the spot (a ``ModalSampler`` with a
-    vision encoder). Not with ``prefix_state``. ``adapters`` and
-    ``constraint`` are not ported (``NotImplementedError``).
+    vision encoder). Not with ``prefix_state``.
+
+    ``adapters`` (``multi_lora`` batchers) is this request's LoRA leaves,
+    ``{name: tensor}`` as ``training.lora.split_lora`` gives them: the
+    request decodes as the sampler's model would with them merged
+    (``merge_params``), whatever its neighbors run. Omitted, the sampler's
+    own adapters apply. With ``prefix_state`` the shared prefix stays as it
+    was prefilled; the continuation and decode run under the adapters.
+    ``constraint`` is not ported (``NotImplementedError``).
     """
     if constraint is not None:
       raise _not_ported("Grammar constraints (constraint=)", "item 11")
     if adapters is not None:
-      raise _not_ported("Per-request LoRA adapters (adapters=)", "item 5b")
+      adapters = self._check_adapters(adapters)
     sampling = None
     overridden = [
         a is not None
@@ -695,8 +801,27 @@ class ContinuousBatcher:
     self._pending.append(_Pending(
         request=req, chunks=chunks, input_length=input_length, cache=cache,
         start=start, img_embed=img_embed, sampling=sampling,
+        adapters=adapters,
     ))
     return request_id
+
+  def _check_adapters(self, adapters) -> dict:
+    """A request's adapter leaves, checked against the sampler's (JAX
+    ``serving.py:1280-1291``)."""
+    if not self.multi_lora:
+      raise ValueError(
+          "Per-request adapters require ContinuousBatcher(multi_lora=True).")
+    adapters = dict(adapters)
+    expect = {n: tuple(t.shape) for n, t in self._sampler_adapters.items()}
+    got = {n: tuple(torch.as_tensor(t).shape) for n, t in adapters.items()}
+    if got != expect:
+      raise ValueError(
+          "adapters tree does not match the sampler's adapter leaves "
+          f"(training.lora.split_lora layout): {len(got)} leaves, "
+          f"{sorted(set(got) ^ set(expect))[:4]} differ in name, "
+          f"{[n for n in got if n in expect and got[n] != expect[n]][:4]} "
+          "in shape.")
+    return adapters
 
   def _sampling_row(self, temperature, top_k, top_p, min_tokens,
                     stop_token_ids, repetition_penalty, logit_bias) -> tuple:
@@ -762,7 +887,7 @@ class ContinuousBatcher:
 
   def _finish_admission(self, p: _Pending) -> None:
     """Runs a pending request's last prefill call and fills its slot."""
-    s = self.sampler
+    s = self._admission_sampler(p)
     final_tokens, _ = p.chunks.pop(0)
     overrides = None
     if p.sampling is not None:
@@ -794,12 +919,12 @@ class ContinuousBatcher:
   def _drain_admissions(self) -> None:
     """Runs up to ``admission_chunks_per_tick`` prefill calls (FIFO)."""
     budget = self.admission_chunks_per_tick
-    s = self.sampler
     while self._pending and (budget is None or budget > 0):
       p = self._pending[0]
       while len(p.chunks) > 1 and (budget is None or budget > 0):
         tokens_c, pos_c = p.chunks.pop(0)
-        _, p.cache = s._prefill_chunk_step(tokens_c, pos_c, p.cache)
+        _, p.cache = self._admission_sampler(p)._prefill_chunk_step(
+            tokens_c, pos_c, p.cache)
         if budget is not None:
           budget -= 1
       if len(p.chunks) == 1 and (budget is None or budget > 0):
@@ -813,17 +938,21 @@ class ContinuousBatcher:
   def _tick(self, n: int) -> None:
     """``n`` decode steps of every slot: replays of the captured step, or
     eager steps on the CPU and with ``jit_compile=False``."""
+    adapters = self._adapter_rows if self.multi_lora else None
     if not self._captures:
+      model = self._model_ml if self.multi_lora else None
       for _ in range(n):
         _tick_step(self.sampler, self._flags, self._state, self._cache,
-                   self._generators)
+                   self._generators, model)
     else:
       graph = self._programs.get(self._buffer_len)
       if graph is None:
         graph = _TickGraph(self.sampler, self._flags, self._state,
                            self._cache, self._generators)
         self._programs[self._buffer_len] = graph
-      graph.run(self._state, self._cache, self._generators, n)
+      graph.run(self._state, self._cache, self._generators, n, adapters,
+                (self._adapter_token, self._adapter_version)
+                if self.multi_lora else None)
     self._fetched = None
 
   def _host(self) -> tuple[list, list, list]:

@@ -94,6 +94,10 @@ class Griffin(nn.Module):
       ``training.lora`` trains the adapters alone.
     lora_alpha: The adapters' scale is ``lora_alpha / lora_rank``
       (``None``: 1).
+    lora_rows: Stack the adapters per batch row (``griffin.py:58-61`` in
+      JAX): ``[lora_rows, ...]`` leaves, batch row i against adapter row i,
+      the decode side of multi-LoRA serving. :meth:`adapter_twin` builds
+      such a model over an existing model's base weights.
   """
 
   def __init__(
@@ -110,6 +114,7 @@ class Griffin(nn.Module):
       act_quant: bool = False,
       lora_rank: int = 0,
       lora_alpha: float | None = None,
+      lora_rows: int = 0,
   ):
     super().__init__()
     if act_quant and not quantized:
@@ -122,9 +127,10 @@ class Griffin(nn.Module):
     self.act_quant = act_quant
     self.lora_rank = lora_rank
     self.lora_alpha = lora_alpha
+    self.lora_rows = lora_rows
     kw = dict(device=device, dtype=dtype)
     qkw = dict(kw, quantized=quantized, act_quant=act_quant,
-               lora_rank=lora_rank, lora_alpha=lora_alpha)
+               lora_rank=lora_rank, lora_alpha=lora_alpha, lora_rows=lora_rows)
     self.embedder = modules.Embedder(
         config.vocab_size, config.width,
         config.embeddings_scale_by_sqrt_dim, quantized=quantized, **kw,
@@ -216,6 +222,31 @@ class Griffin(nn.Module):
       if getattr(module, "quantized", False) and hasattr(module, "act_quant"):
         module.act_quant = True
     return view
+
+  def adapter_twin(self, lora_rows: int = 0) -> "Griffin":
+    """A model over this one's base tensors with adapters of its own: the
+    counterpart of flax's ``model.clone(lora_rows=...)``.
+
+    Every parameter but the adapters is this model's own tensor (the same
+    storage, nothing copied); each ``lora_a`` / ``lora_b`` is a new zero
+    tensor, stacked ``[lora_rows, ...]`` when ``lora_rows > 0`` (one pair a
+    batch row) and shaped as this model's otherwise. Writing a twin's
+    adapters in place leaves this model's alone.
+    """
+    if not self.lora_rank or self.lora_rows:
+      raise ValueError("adapter_twin needs a lora_rank > 0 model with one "
+                       "adapter pair a layer (lora_rows=0).")
+    twin = _share_parameters(self)
+    twin.lora_rows = lora_rows
+    rows = (lora_rows,) if lora_rows else ()
+    for module in twin.modules():
+      if isinstance(module, (layers.Dense, layers.Einsum)) and module.lora_rank:
+        module.lora_rows = lora_rows
+        for name in layers.LORA_LEAF_NAMES:
+          leaf = getattr(module, name)
+          module._parameters[name] = nn.Parameter(  # pylint: disable=protected-access
+              leaf.new_zeros(*rows, *leaf.shape), requires_grad=False)
+    return twin
 
   def _splice_image(
       self, x: torch.Tensor, segment_pos: torch.Tensor, image: torch.Tensor

@@ -32,8 +32,12 @@ bf16 base or a ``quantized`` one (JAX's ``lora_term``,
 ``layers.py:108-140``). The adapters keep flax's layouts: ``Dense``
 ``lora_a`` ``[in, r]`` and ``lora_b`` ``[r, out]`` (not transposed as
 ``kernel`` is), ``Einsum`` ``[c, d, r]`` and ``[c, r, D]``, one pair per
-leading index. ``lora_rows`` (one adapter per batch row, multi-LoRA
-serving) is not ported.
+leading index. ``lora_rows = R`` (multi-LoRA serving, JAX
+``layers.py:61-68,127-140``) stacks the pair per batch row, ``lora_a``
+``[R, ...]`` and ``lora_b`` ``[R, ...]``: batch row i contracts against
+adapter row i. The base product stays one product over every row; only the
+rank-r hop is batched, and an all-zero row gives the base model's output
+exactly, so empty serving slots need no mask.
 
 Numerics follow the JAX layers: RMSNorm's ``(scale + 1)`` gain, the RG-LRU's
 ``log_a = -8 * sigmoid(W_a x) * softplus(a_param)`` with a float32 carry and
@@ -65,15 +69,6 @@ def _check_quant_flags(quantized: bool, act_quant: bool) -> None:
                      "against the int8 weights).")
 
 
-def refuse_lora_rows(lora_rows: int = 0) -> None:
-  """Per-row adapters are multi-LoRA serving, ROADMAP queue 1 item 5b."""
-  if lora_rows:
-    raise NotImplementedError(
-        "Per-row LoRA adapters (lora_rows) are multi-LoRA serving, which is "
-        "not ported (ROADMAP queue 1 item 5b)."
-    )
-
-
 def _refuse_act_quant_gradient(*tensors) -> None:
   if torch.is_grad_enabled() and any(
       t is not None and t.requires_grad for t in tensors):
@@ -101,15 +96,22 @@ class _LoRA:
   """The adapter pair of ``Dense`` and ``Einsum`` (JAX's ``lora_term``)."""
 
   def _init_lora(self, lora_rank: int, lora_alpha: float | None,
-                 a_shape, b_shape, device, dtype) -> None:
+                 a_shape, b_shape, device, dtype, lora_rows: int = 0) -> None:
     self.lora_rank = lora_rank
     self.lora_alpha = lora_alpha
+    self.lora_rows = lora_rows
     if not lora_rank:
       self.lora_a = self.lora_b = None
       return
     kw = dict(device=device, dtype=dtype)
-    self.lora_a = nn.Parameter(torch.empty(*a_shape, **kw))
-    self.lora_b = nn.Parameter(torch.empty(*b_shape, **kw))
+    rows = (lora_rows,) if lora_rows else ()
+    self.lora_a = nn.Parameter(torch.empty(*rows, *a_shape, **kw))
+    self.lora_b = nn.Parameter(torch.empty(*rows, *b_shape, **kw))
+
+  def _check_rows(self, x: torch.Tensor) -> None:
+    if x.shape[0] != self.lora_rows:
+      raise ValueError(f"lora_rows={self.lora_rows} adapters take a batch of "
+                       f"that many rows; got {tuple(x.shape)}.")
 
   @property
   def lora_scaling(self) -> float:
@@ -130,7 +132,9 @@ class Dense(nn.Module, _LoRA):
   ``kernel_scale`` (float32 ``[out]``) instead of ``kernel``, the
   ``QuantizableDense`` of JAX; ``act_quant=True`` also quantizes the input
   per row (see the module docstring for both). ``lora_rank > 0`` adds
-  ``lora_a`` ``[in, r]`` and ``lora_b`` ``[r, out]`` (flax's layouts).
+  ``lora_a`` ``[in, r]`` and ``lora_b`` ``[r, out]`` (flax's layouts);
+  ``lora_rows = R`` stacks them ``[R, in, r]`` and ``[R, r, out]``, one
+  pair a batch row.
   """
 
   def __init__(self, in_features: int, out_features: int,
@@ -140,7 +144,6 @@ class Dense(nn.Module, _LoRA):
                lora_alpha: float | None = None):
     super().__init__()
     _check_quant_flags(quantized, act_quant)
-    refuse_lora_rows(lora_rows)
     self.quantized = quantized
     self.act_quant = act_quant
     kw = dict(device=device, dtype=dtype)
@@ -157,11 +160,16 @@ class Dense(nn.Module, _LoRA):
         nn.Parameter(torch.empty(out_features, **kw)) if use_bias else None
     )
     self._init_lora(lora_rank, lora_alpha, (in_features, lora_rank),
-                    (lora_rank, out_features), device, dtype)
+                    (lora_rank, out_features), device, dtype, lora_rows)
 
   def _lora_term(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    return ((x.to(dtype) @ self.lora_a.to(dtype)) @ self.lora_b.to(dtype)
-            ) * self.lora_scaling
+    a, b = self.lora_a.to(dtype), self.lora_b.to(dtype)
+    if not self.lora_rows:
+      return ((x.to(dtype) @ a) @ b) * self.lora_scaling
+    # Batch row i against adapter row i (JAX's vmap): [R, tokens, in].
+    self._check_rows(x)
+    rows = x.to(dtype).reshape(self.lora_rows, -1, x.shape[-1])
+    return ((rows @ a) @ b).view(*x.shape[:-1], -1) * self.lora_scaling
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     bias = None if self.bias is None else self.bias.to(x.dtype)
@@ -438,7 +446,9 @@ class Einsum(nn.Module, _LoRA):
 
   ``lora_rank > 0`` (the 3-D layout only) adds one adapter pair per leading
   index, ``lora_a`` ``[c, d, r]`` and ``lora_b`` ``[c, r, D]`` (flax's
-  layouts): the low-rank hop reuses ``eqn`` with ``D -> r``.
+  layouts): the low-rank hop reuses ``eqn`` with ``D -> r``. ``lora_rows =
+  R`` stacks them ``[R, c, d, r]`` and ``[R, c, r, D]``, batch row i
+  against adapter row i (the output's batch axis is its second).
   """
 
   def __init__(self, w_shape, b_shape, eqn: str, device=None, dtype=None,
@@ -447,7 +457,6 @@ class Einsum(nn.Module, _LoRA):
                lora_alpha: float | None = None):
     super().__init__()
     _check_quant_flags(quantized, act_quant)
-    refuse_lora_rows(lora_rows)
     if lora_rank and len(w_shape) != 3:
       raise ValueError(f"Einsum LoRA supports the fused (c, d, D) layout "
                        f"only; got {tuple(w_shape)}.")
@@ -472,14 +481,21 @@ class Einsum(nn.Module, _LoRA):
     if lora_rank:
       c, d, out = w_shape
       self._init_lora(lora_rank, lora_alpha, (c, d, lora_rank),
-                      (c, lora_rank, out), device, dtype)
+                      (c, lora_rank, out), device, dtype, lora_rows)
     else:
       self._init_lora(0, lora_alpha, None, None, device, dtype)
 
   def _lora_term(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    xa = torch.einsum(self.eqn, x.to(dtype), self.lora_a.to(dtype))
-    return torch.einsum("g...r,grD->g...D", xa,
-                        self.lora_b.to(dtype)) * self.lora_scaling
+    a, b = self.lora_a.to(dtype), self.lora_b.to(dtype)
+    if not self.lora_rows:
+      xa = torch.einsum(self.eqn, x.to(dtype), a)
+      return torch.einsum("g...r,grD->g...D", xa, b) * self.lora_scaling
+    # Both of the model's equations contract x's last axis with the
+    # weight's second and put the projection index first: row by row that
+    # is ``eqn``, and the output keeps the batch as its second axis.
+    self._check_rows(x)
+    xa = torch.einsum("n...d,ngdr->gn...r", x.to(dtype), a)
+    return torch.einsum("gn...r,ngrD->gn...D", xa, b) * self.lora_scaling
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     if not self.quantized:

@@ -22,7 +22,8 @@ with the same parameter names and cache semantics:
 Every block takes ``quantized`` (int8 weights in each projection, the gates'
 block-diagonal and the embedding table) and ``act_quant`` (int8 activations
 in each ``Dense`` and ``Einsum``; see ``layers.py``), as the JAX blocks do,
-and ``lora_rank`` / ``lora_alpha``: an adapter pair on every ``Dense`` and
+and ``lora_rank`` / ``lora_alpha`` / ``lora_rows``: an adapter pair (or a
+stack of pairs, one a batch row) on every ``Dense`` and
 ``Einsum`` (``modules.py:358-387, 514-562, 643-675, 702-734, 759-821`` in
 JAX); the gates' block-diagonals, the conv, the norms and the embedder get
 none.
@@ -271,6 +272,7 @@ class LocalAttentionBlock(nn.Module):
       act_quant: bool = False,
       lora_rank: int = 0,
       lora_alpha: float | None = None,
+      lora_rows: int = 0,
   ):
     super().__init__()
     self.num_heads = num_heads
@@ -280,7 +282,7 @@ class LocalAttentionBlock(nn.Module):
     self.head_dim = width // num_heads
     kw = dict(device=device, dtype=dtype, quantized=quantized,
               act_quant=act_quant, lora_rank=lora_rank,
-              lora_alpha=lora_alpha)
+              lora_alpha=lora_alpha, lora_rows=lora_rows)
     self.proj_q = layers.Dense(width, width, use_bias=False, **kw)
     self.proj_k = layers.Dense(width, self.head_dim, use_bias=False, **kw)
     self.proj_v = layers.Dense(width, self.head_dim, use_bias=False, **kw)
@@ -378,12 +380,14 @@ class RecurrentBlock(nn.Module):
       act_quant: bool = False,
       lora_rank: int = 0,
       lora_alpha: float | None = None,
+      lora_rows: int = 0,
   ):
     super().__init__()
     lru_width = lru_width or width
     kw = dict(device=device, dtype=dtype)
     qkw = dict(kw, quantized=quantized, act_quant=act_quant,
-               lora_rank=lora_rank, lora_alpha=lora_alpha)
+               lora_rank=lora_rank, lora_alpha=lora_alpha,
+               lora_rows=lora_rows)
     self.linear_y = layers.Dense(width, lru_width, **qkw)
     self.linear_x = layers.Dense(width, lru_width, **qkw)
     self.linear_out = layers.Dense(lru_width, width, **qkw)
@@ -430,10 +434,12 @@ class MLPBlock(nn.Module):
 
   def __init__(self, width: int, expanded_width: int, device=None,
                dtype=None, quantized: bool = False, act_quant: bool = False,
-               lora_rank: int = 0, lora_alpha: float | None = None):
+               lora_rank: int = 0, lora_alpha: float | None = None,
+               lora_rows: int = 0):
     super().__init__()
     kw = dict(device=device, dtype=dtype, quantized=quantized,
-              act_quant=act_quant, lora_rank=lora_rank, lora_alpha=lora_alpha)
+              act_quant=act_quant, lora_rank=lora_rank, lora_alpha=lora_alpha,
+              lora_rows=lora_rows)
     self.ffw_up = layers.Einsum(
         w_shape=(2, width, expanded_width),
         b_shape=(2, 1, 1, expanded_width),
@@ -454,10 +460,11 @@ class VisionLanguageConnector(nn.Module):
   def __init__(self, width: int, expanded_width: int, vision_width: int,
                device=None, dtype=None, quantized: bool = False,
                act_quant: bool = False, lora_rank: int = 0,
-               lora_alpha: float | None = None):
+               lora_alpha: float | None = None, lora_rows: int = 0):
     super().__init__()
     kw = dict(device=device, dtype=dtype, quantized=quantized,
-              act_quant=act_quant, lora_rank=lora_rank, lora_alpha=lora_alpha)
+              act_quant=act_quant, lora_rank=lora_rank, lora_alpha=lora_alpha,
+              lora_rows=lora_rows)
     self.ffw_up = layers.Einsum(
         w_shape=(1, vision_width, expanded_width),
         b_shape=(1, 1, 1, expanded_width),
@@ -498,11 +505,13 @@ class ResidualBlock(nn.Module):
       act_quant: bool = False,
       lora_rank: int = 0,
       lora_alpha: float | None = None,
+      lora_rows: int = 0,
   ):
     super().__init__()
     kw = dict(device=device, dtype=dtype)
     qkw = dict(kw, quantized=quantized, act_quant=act_quant,
-               lora_rank=lora_rank, lora_alpha=lora_alpha)
+               lora_rank=lora_rank, lora_alpha=lora_alpha,
+               lora_rows=lora_rows)
     self.temporal_block_type = temporal_block_type
     self.fused_epilogue = fused_epilogue
     self.temporal_pre_norm = layers.RMSNorm(width, **kw)

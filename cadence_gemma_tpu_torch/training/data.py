@@ -15,18 +15,23 @@ name an image carries their paths (under ``image_root``), and with
 ``load_pixels`` their pixels, decoded on the host by
 :mod:`cadence_gemma_tpu_torch.utils.image_cpp`; the vision towers encode
 them on the card inside the training loop. Pure Python and numpy (the
-decoder is native C++, or PIL).
+decoder is native C++, or PIL), but for :func:`prefetch_to_device`, which
+moves batches to the device on a thread of its own.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Iterator
+import queue as queue_lib
+import threading
+from typing import Any, Iterable, Iterator
 
 import numpy as np
+import torch
 
 from cadence_gemma_tpu_torch import common
+from cadence_gemma_tpu_torch.models import griffin
 
 
 @dataclasses.dataclass
@@ -124,6 +129,97 @@ class DatasetBuilder:
           image_paths=paths if all(paths) else None,
           pixels=pixels,
       )
+
+
+def prefetch_to_device(iterator: Iterable[Any], buffer_size: int = 2,
+                       device=None) -> Iterator[Any]:
+  """Overlaps host batch preparation and the host-to-device copy with the
+  device's compute (JAX ``data.py:137``).
+
+  A producer thread pulls batches from ``iterator`` and moves every numpy
+  field of a dataclass batch (or a dict's values) to ``device`` (``None``
+  means CUDA, and raises without a card): on the card through pinned host
+  memory with ``non_blocking`` copies on a stream of its own, whose event
+  the consumer's stream waits on before the batch is used; on the CPU as
+  tensors over the arrays. Up to ``buffer_size`` batches are in flight.
+
+  Order is kept and an exception of the producer re-raises at the consumer.
+  Closing the generator (``contextlib.closing``, or a ``for`` left early and
+  collected) stops the producer. The producer runs ahead of training, so
+  keep this off for iterators whose side effects must stay in step with it.
+  """
+  device = griffin.resolve_device(device)
+  q: queue_lib.Queue = queue_lib.Queue(maxsize=buffer_size)
+  sentinel = object()
+  stop = threading.Event()
+  copies = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+  def to_device(batch):
+    """The batch with its arrays on the device, the copies' event, and the
+    tensors the copies made."""
+    moved = []
+
+    def put(x):
+      if not isinstance(x, np.ndarray):
+        return x
+      t = torch.from_numpy(np.ascontiguousarray(x))
+      if copies is not None:
+        with torch.cuda.stream(copies):
+          t = t.pin_memory().to(device, non_blocking=True)
+      moved.append(t)
+      return t
+
+    if dataclasses.is_dataclass(batch) and not isinstance(batch, type):
+      batch = dataclasses.replace(batch, **{
+          f.name: put(getattr(batch, f.name))
+          for f in dataclasses.fields(batch)})
+    elif isinstance(batch, dict):
+      batch = {k: put(v) for k, v in batch.items()}
+    else:
+      batch = put(batch)
+    return batch, None if copies is None else copies.record_event(), moved
+
+  def offer(item) -> bool:
+    """Enqueues unless the consumer has gone; False tells the producer to
+    stop."""
+    while not stop.is_set():
+      try:
+        q.put(item, timeout=0.1)
+        return True
+      except queue_lib.Full:
+        continue
+    return False
+
+  def producer():
+    try:
+      if copies is not None:
+        torch.cuda.set_device(device)
+      for item in iterator:
+        if not offer(to_device(item)):
+          return
+      offer(sentinel)
+    except BaseException as e:  # noqa: BLE001 -- re-raised at the consumer
+      offer(e)
+
+  thread = threading.Thread(target=producer, daemon=True,
+                            name="cadence-data-prefetch")
+  thread.start()
+  try:
+    while True:
+      item = q.get()
+      if item is sentinel:
+        return
+      if isinstance(item, BaseException):
+        raise item
+      batch, event, moved = item
+      if event is not None:
+        stream = torch.cuda.current_stream(device)
+        stream.wait_event(event)
+        for t in moved:  # allocated on the copy stream, used on this one
+          t.record_stream(stream)
+      yield batch
+  finally:
+    stop.set()
 
 
 def apply_it_template(prompt: str) -> str:

@@ -11,7 +11,10 @@ product back-propagates to its input through a CUDA kernel on the card
 (``ops/int8_matmul.py``), so no bf16 copy of an int8 weight is made.
 
   * :func:`split_lora` / :func:`merge_params` move between a combined state
-    dict and its (adapters, base) halves;
+    dict and its (adapters, base) halves, stacked trees
+    (``Griffin(lora_rows=...)``, multi-LoRA serving) included;
+    :func:`scatter_adapters` writes one request's adapters into a stack's
+    row in place;
   * :func:`lora_train_step` differentiates the adapters alone: only they
     require a gradient in its forward and backward, so gradients and Adam's
     moments exist at adapter size only;
@@ -55,6 +58,17 @@ def merge_params(base: Mapping[str, torch.Tensor],
                  lora: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
   """Recombines the halves of :func:`split_lora` (``lora`` wins a clash)."""
   return {**base, **lora}
+
+
+@torch.no_grad()
+def scatter_adapters(stacked: Mapping[str, torch.Tensor],
+                     adapters: Mapping[str, torch.Tensor], row: int) -> None:
+  """Writes ``adapters`` into row ``row`` of each ``[rows, ...]`` leaf of
+  ``stacked`` in place, cast to the stack's dtype (JAX's
+  ``_scatter_adapters``, ``serving.py:656-663``): a captured CUDA graph
+  that reads the stacks sees the new row."""
+  torch._foreach_copy_([leaf[row] for leaf in stacked.values()],  # pylint: disable=protected-access
+                       [adapters[name] for name in stacked])
 
 
 def lora_mask(params: Mapping[str, torch.Tensor]) -> dict[str, bool]:

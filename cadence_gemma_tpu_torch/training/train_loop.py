@@ -17,12 +17,24 @@ that carries images when no ``encode_image`` is given raises, where JAX
 trains its text alone: a multimodal SFT that silently dropped its images
 would be a different run.
 
-Not ported, and refused with ``NotImplementedError`` rather than ignored: a
-device mesh (the pjit DP/TP regime, ROADMAP queue 1 item 14c), checkpoints
-and resume, prefetching and asynchronous saves (item 13). Preemption
-handling is not a parameter yet. Sequence-parallel training needs no mesh
-here: as in JAX it is a model built with ``scan_sharding_spec``, which this
-loop trains like any other.
+Checkpoints (JAX ``train_loop.py:56-113``, ``:219-345``), in the port's own
+format (``checkpoint/io.py``): ``checkpoint_every_n`` with
+``checkpoint_dir`` writes ``step_{k}`` (on a thread with
+``async_checkpoints``), a ``preemption`` handler that has fired makes the
+loop write ``preempted_step_{k}`` and return, and ``resume_from`` restores a
+fresh model and optimizer to a saved step: the parameters (a LoRA run's
+combined tree), the optimizer's state, the gradients accumulated so far in
+an accumulation window, and the count of consecutive non-finite steps, so a
+resumed run equals the uninterrupted one bit for bit. A resumed run skips
+the first ``step`` batches of the stream once; JAX skips them again in
+every epoch, so its later epochs train nothing (ROADMAP queue 3).
+``prefetch_batches`` moves batches to the device ahead of the step
+(``data.prefetch_to_device``).
+
+A device mesh (the pjit DP/TP regime, ROADMAP queue 1 item 14c) is refused
+with ``NotImplementedError``. Sequence-parallel training needs no mesh here:
+as in JAX it is a model built with ``scan_sharding_spec``, which this loop
+trains like any other.
 
 The model trains where its parameters live, on the card unless the caller
 passes ``device="cpu"``; ``device=None`` without a card raises.
@@ -30,7 +42,10 @@ passes ``device="cpu"``; ``device=None`` without a card raises.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import itertools
+import os
 import time
 from typing import Any, Callable, Iterable
 import warnings
@@ -38,9 +53,12 @@ import warnings
 import numpy as np
 import torch
 
+from cadence_gemma_tpu_torch.checkpoint import io as checkpoint_io
 from cadence_gemma_tpu_torch.models import griffin
+from cadence_gemma_tpu_torch.training import data as data_lib
 from cadence_gemma_tpu_torch.training import lora as lora_lib
 from cadence_gemma_tpu_torch.training import trainer
+from cadence_gemma_tpu_torch.utils import resilience
 
 # optax.apply_if_finite's max_consecutive_errors in the JAX loop.
 _MAX_CONSECUTIVE_NONFINITE = 3
@@ -74,18 +92,6 @@ def _refuse_unported(config: TrainingConfig, mesh) -> None:
         "to the PyTorch trainer yet (ROADMAP queue 1 item 14c). For sequence "
         "parallelism build the model with scan_sharding_spec and pass no "
         "mesh."
-    )
-  unported = {
-      "resume_from": config.resume_from,
-      "checkpoint_dir": config.checkpoint_dir,
-      "prefetch_batches": config.prefetch_batches,
-      "async_checkpoints": config.async_checkpoints,
-  }
-  asked = sorted(name for name, value in unported.items() if value)
-  if asked:
-    raise NotImplementedError(
-        f"Not ported to the PyTorch trainer yet: {', '.join(asked)} (ROADMAP "
-        f"queue 1 item 13)."
     )
   if config.gradient_accumulation_steps < 1:
     raise ValueError("gradient_accumulation_steps must be at least 1.")
@@ -125,11 +131,18 @@ def _make_optimizer(model, config: TrainingConfig):
                                 weight_decay=config.weight_decay)
 
 
+def _tensor(x, device: torch.device) -> torch.Tensor:
+  """A batch field (numpy, or a tensor ``prefetch_to_device`` moved) on
+  ``device``."""
+  if isinstance(x, torch.Tensor):
+    return x.to(device)
+  return torch.as_tensor(np.asarray(x), device=device)
+
+
 def _to_device(batch, device: torch.device, encode_image):
   """Token ids, loss mask and image features of a batch on ``device``."""
-  tokens = torch.as_tensor(np.asarray(batch.input_tokens),
-                           device=device).long()
-  mask = torch.as_tensor(np.asarray(batch.target_mask), device=device)
+  tokens = _tensor(batch.input_tokens, device).long()
+  mask = _tensor(batch.target_mask, device)
   return tokens, mask, _features_for(batch, encode_image, device)
 
 
@@ -146,8 +159,43 @@ def _features_for(batch, encode_image, device):
         "pass encode_image= (e.g. a DinoSigLIPEncoder) to train on them.")
   with torch.no_grad():
     if pixels is not None:
-      return encode_image(torch.as_tensor(np.asarray(pixels), device=device))
+      return encode_image(_tensor(pixels, device))
     return encode_image(paths)
+
+
+def _train_state(model, optimizer, step: int, accumulate: int,
+                 nonfinite: int) -> dict:
+  """What a resume needs besides the parameters: the optimizer's state,
+  the gradients of an accumulation window in progress (by parameter name),
+  the micro-step and the count of consecutive non-finite steps."""
+  names = {id(p): n for n, p in model.named_parameters()}
+  return {
+      "optimizer": optimizer.state_dict(),
+      "grads": {names[id(p)]: p.grad
+                for p in trainer.optimizer_parameters(optimizer)
+                if p.grad is not None},
+      "micro_step": step % accumulate,
+      "nonfinite": nonfinite,
+  }
+
+
+@torch.no_grad()
+def _resume(model, optimizer, config: TrainingConfig) -> tuple[int, int]:
+  """Restores ``config.resume_from`` into the fresh ``model`` and
+  ``optimizer`` in place; returns ``(step, nonfinite)``."""
+  params, state, step = checkpoint_io.load_train_state(config.resume_from,
+                                                       device="cpu")
+  if state["micro_step"] != step % config.gradient_accumulation_steps:
+    raise ValueError(
+        f"{config.resume_from} was saved {state['micro_step']} microbatches "
+        f"into an accumulation window at step {step}; resume it with the "
+        "gradient_accumulation_steps it was saved with.")
+  model.load_state_dict(params)
+  optimizer.load_state_dict(state["optimizer"])
+  named = dict(model.named_parameters())
+  for name, grad in state["grads"].items():
+    named[name].grad = grad.to(named[name].device, copy=True)
+  return step, state["nonfinite"]
 
 
 def train_loop(
@@ -160,6 +208,7 @@ def train_loop(
     pad_id: int = 0,
     device=None,
     mesh: Any | None = None,
+    preemption: resilience.PreemptionHandler | None = None,
 ) -> griffin.Griffin:
   """Runs one SFT stage; returns the model, trained in place.
 
@@ -181,6 +230,11 @@ def train_loop(
     mesh: A device mesh for the pjit-sharded (DP/TP) steps; not ported,
       must be ``None``. A model with ``scan_sharding_spec`` trains
       sequence-parallel without it.
+    preemption: Optional :class:`resilience.PreemptionHandler`; once it has
+      fired, the loop finishes the step in flight, saves a resumable state
+      as ``preempted_step_{k}`` under ``config.checkpoint_dir`` (when set;
+      synchronously, since it must be on disk before the process exits)
+      and returns (restart with ``resume_from`` pointing at it).
   """
   _refuse_unported(config, mesh)
   optimizer = _make_optimizer(model, config)
@@ -189,48 +243,95 @@ def train_loop(
     raise ValueError(f"The model's parameters must live on {device}.")
 
   model.train()
-  params = trainer.optimizer_parameters(optimizer)
   model.zero_grad(set_to_none=True)
+  step = nonfinite = 0
+  if config.resume_from:
+    step, nonfinite = _resume(model, optimizer, config)
+  saver = (checkpoint_io.AsyncTrainStateSaver() if config.async_checkpoints
+           else contextlib.nullcontext(None))
+  with saver as saver:
+    _run(model, optimizer, train_data, config, step, nonfinite, saver,
+         validation_data, encode_image, log_metrics, pad_id, device,
+         preemption)
+  return model
+
+
+def _run(model, optimizer, train_data, config: TrainingConfig, step: int,
+         nonfinite: int, saver, validation_data, encode_image, log_metrics,
+         pad_id: int, device, preemption) -> None:
+  """Every epoch of one stage, from a restored ``step`` (its batches
+  skipped once, at the start of the stream)."""
+  params = trainer.optimizer_parameters(optimizer)
   accumulate = config.gradient_accumulation_steps
-  step = 0
-  nonfinite = 0
+  to_skip = step
   t_start = time.perf_counter()
   for _ in range(config.num_epochs):
-    for batch in train_data:
-      tokens, mask, img = _to_device(batch, device, encode_image)
-      with trainer.trainable_only(model, params):
-        loss = trainer.accumulate_gradients(
-            model, pad_id, tokens, mask, scale=1.0 / accumulate,
-            img_embed=img,
-        )
-      step += 1
-      if step % accumulate == 0:
-        finite = (not config.skip_nonfinite_updates
-                  or trainer.grads_finite(model))
-        nonfinite = 0 if finite else nonfinite + 1
-        if finite or nonfinite > _MAX_CONSECUTIVE_NONFINITE:
-          trainer.apply_update(model, optimizer)
-        else:
-          model.zero_grad(set_to_none=True)
+    source = iter(train_data)
+    # Fast-forward over the batches the restored steps consumed.
+    to_skip -= sum(1 for _ in itertools.islice(source, to_skip))
+    if config.prefetch_batches:
+      batches = contextlib.closing(data_lib.prefetch_to_device(
+          source, config.prefetch_batches, device))
+    else:
+      batches = contextlib.nullcontext(source)
+    # ``closing`` stops the prefetch producer on every way out.
+    with batches as batches:
+      for batch in batches:
+        tokens, mask, img = _to_device(batch, device, encode_image)
+        with trainer.trainable_only(model, params):
+          loss = trainer.accumulate_gradients(
+              model, pad_id, tokens, mask, scale=1.0 / accumulate,
+              img_embed=img,
+          )
+        step += 1
+        if step % accumulate == 0:
+          finite = (not config.skip_nonfinite_updates
+                    or trainer.grads_finite(model))
+          nonfinite = 0 if finite else nonfinite + 1
+          if finite or nonfinite > _MAX_CONSECUTIVE_NONFINITE:
+            trainer.apply_update(model, optimizer)
+          else:
+            model.zero_grad(set_to_none=True)
 
-      if step % config.eval_every_n == 0:
-        metrics = {
-            "train_loss": float(loss),
-            "steps_per_sec": step / (time.perf_counter() - t_start),
-        }
-        if nonfinite:
-          metrics["consecutive_nonfinite_steps"] = float(nonfinite)
-        if validation_data is not None:
-          metrics["val_loss"] = _validate(model, validation_data, pad_id,
-                                          device, encode_image)
-        if log_metrics is not None:
-          log_metrics(metrics, step)
-        else:
-          print(f"step {step}: {metrics}")
+        if preemption is not None and preemption.triggered:
+          if config.checkpoint_dir:
+            path = os.path.join(config.checkpoint_dir,
+                                f"preempted_step_{step}")
+            checkpoint_io.save_train_state(
+                path, model.state_dict(),
+                _train_state(model, optimizer, step, accumulate, nonfinite),
+                step)
+            if log_metrics is not None:
+              log_metrics({"preempted_at": float(step)}, step)
+            print(f"preemption: saved resumable state at {path}")
+          return
 
-      if config.max_steps is not None and step >= config.max_steps:
-        return model
-  return model
+        if step % config.eval_every_n == 0:
+          metrics = {
+              "train_loss": float(loss),
+              "steps_per_sec": step / (time.perf_counter() - t_start),
+          }
+          if nonfinite:
+            metrics["consecutive_nonfinite_steps"] = float(nonfinite)
+          if validation_data is not None:
+            metrics["val_loss"] = _validate(model, validation_data, pad_id,
+                                            device, encode_image)
+          if log_metrics is not None:
+            log_metrics(metrics, step)
+          else:
+            print(f"step {step}: {metrics}")
+
+        if (config.checkpoint_every_n and config.checkpoint_dir
+            and step % config.checkpoint_every_n == 0):
+          path = os.path.join(config.checkpoint_dir, f"step_{step}")
+          save = (checkpoint_io.save_train_state if saver is None
+                  else saver.save)
+          save(path, model.state_dict(),
+               _train_state(model, optimizer, step, accumulate, nonfinite),
+               step)
+
+        if config.max_steps is not None and step >= config.max_steps:
+          return
 
 
 def _validate(model, validation_data, pad_id, device, encode_image) -> float:

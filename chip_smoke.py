@@ -237,7 +237,10 @@ Phases, each of which raises on failure (so the script exits non-zero):
      just before, must show per step 36 LRU, 18 LRU backward, 16 window
      attention, 8 dq, 8 dk/dv and 46 MHA launches and no int8 one, for
      each stage. (b) 3 ``train_loop(lora=True)`` steps of rank-8 adapters
-     on the bf16 base (the base bit for bit, every ``lora_b`` moved), and
+     on the bf16 base (the base bit for bit, every ``lora_b`` moved),
+     prefetching 2 batches and saving ``step_2`` asynchronously (the save's
+     host seconds, the device time its snapshot holds the stream, the
+     write's bytes and seconds), and
      ``merge_lora``'s plain model against the LoRA model (last prefill
      logits, rel. RMS within 5e-2 and within half the base's without
      adapters). (c) 3 QLoRA steps on the base's ``quantize_params`` copy
@@ -254,6 +257,33 @@ Phases, each of which raises on failure (so the script exits non-zero):
      (every int8 product plain; rel. RMS 0.1, cosine 0.99 a leaf); 16
      greedy steps of the QLoRA model through the ``Sampler``, captured and
      eager identical. Each stage's step ms, real tokens/s and peak memory.
+ 20. adapters end to end, after 19 on its models: (a) ``load_parameters``
+     of 19(b)'s ``step_2`` onto the card (bytes, seconds); a fresh model of
+     its base with re-drawn adapters runs ``train_loop`` with a
+     ``PreemptionHandler`` triggered after step 1, which must write
+     ``preempted_step_2`` synchronously and return, then resumes from
+     ``step_2`` for step 3, whose adapters must equal the uninterrupted
+     run's bit for bit (or within 1e-3 rel. RMS a leaf); (b) an 8-slot
+     ``multi_lora`` batcher on that base (its own adapters zero) takes 16
+     greedy requests of 32 tokens with a repetition penalty (one of 3000
+     tokens, on the window kernel, the rest of 300-1500), their adapters
+     cycling through the step-2 ones, the final ones and none, in two join
+     orders on the captured tick and once on the eager tick: identical
+     tokens; the counters, reset before each, must show the admissions' LRU
+     and window launches and none in the ticks; the tick's twin shares
+     every base tensor with the sampler's model; each request's first-token
+     logits within 5e-2 rel. RMS of a solo batch-1 ``Sampler`` on the
+     merged weights (token agreement printed); the multi-LoRA tick against
+     the plain tick of the same model in turns, and one admission's stall
+     with and without adapters; (c) a 4-slot ``multi_lora`` batcher on
+     19(c)'s QLoRA model (its trained adapters, fresh ones, zeros and none):
+     a tick step launches the mma.sync int8 kernel 175 times and nothing
+     else, the kernel held against its plain version on the first tick's
+     inputs, captured and eager tokens identical; (d) ``ServingHTTPServer``
+     with an ``adapter_resolver`` over the loaded adapters: ``/v1/generate``
+     with ``"adapter"`` gives the direct batcher's tokens, an unknown name
+     and a server without a resolver answer 400. The checkpoints live in a
+     temporary directory removed at the end.
 
   python3 chip_smoke.py --profile
 
@@ -273,12 +303,19 @@ object ``{"kernels": [...]}``; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import inspect
+import itertools
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -290,6 +327,7 @@ from cadence_gemma_tpu_torch import complex_lib
 from cadence_gemma_tpu_torch.benchmarks import kernel_lab
 from cadence_gemma_tpu_torch.benchmarks.kernel_lab import cuda_ms
 from cadence_gemma_tpu_torch.benchmarks.kernel_lab import device_ms
+from cadence_gemma_tpu_torch.checkpoint import io as checkpoint_io
 from cadence_gemma_tpu_torch.checkpoint import synthetic
 from cadence_gemma_tpu_torch.inference import modal_sampler
 from cadence_gemma_tpu_torch.inference import sampler as sampler_lib
@@ -310,6 +348,7 @@ from cadence_gemma_tpu_torch.training import data as data_lib
 from cadence_gemma_tpu_torch.training import lora as sft_lora
 from cadence_gemma_tpu_torch.training import train_loop as train_loop_lib
 from cadence_gemma_tpu_torch.training import trainer
+from cadence_gemma_tpu_torch.utils import resilience
 
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
@@ -624,6 +663,26 @@ SFT_MERGE_OF_BASE = 0.5
 INT8_DGRAD_REPLACES = ("none (no pl.pallas_call): XLA's transposed int8 dot, "
                        "cadence_gemma_tpu/models/layers.py:171")
 INT8_DGRAD_REPS = 12
+# Adapters end to end (phase 20). 19(b)'s LoRA run saves step_2 (async,
+# prefetching two batches); a fresh model resumes from it for the third
+# step, whose adapters must equal the uninterrupted run's bit for bit, or
+# within RESUME_REL_RMS a leaf where a kernel's sum order varies. The
+# multi-LoRA batcher: ML_SLOTS slots take ML_REQUESTS greedy requests of
+# ML_STEPS tokens (one of BATCH_LONG_TOKENS, the rest of ML_PROMPT_RANGE;
+# BATCH_PENALTY), their adapters cycling through the step-2 ones, the final
+# ones and none; the QLoRA base takes ML_Q_REQUESTS at ML_Q_SLOTS slots.
+RESUME_REL_RMS = 1e-3
+ML_SLOTS = 8
+ML_REQUESTS = 16
+ML_STEPS = 32
+ML_PROMPT_RANGE = (300, 1500)
+ML_Q_SLOTS = 4
+ML_Q_REQUESTS = 6
+ML_STALL_REPEATS = 5
+# The multi-LoRA tick (True) against the plain tick of the same model
+# (False), in turns: the first turn has read several times the later ones.
+ML_TICK_TURNS = (False, True, True, False, False, True, True, False)
+ML_STALL_TOKENS = 1000
 
 
 def log(*args) -> None:
@@ -4605,11 +4664,16 @@ class StageClock:
     self.steps.clear()
     self.start = time.perf_counter()
 
-  def summary(self, label: str, real_tokens: int, peak_gb: float) -> dict:
+  def summary(self, label: str, real_tokens: int, peak_gb: float,
+              steady_steps: int | None = None) -> dict:
+    """``steady_steps`` limits the steady mean to that many steps after the
+    first (a later step that waited on a checkpoint's snapshot is left
+    out)."""
     losses = [loss for _, loss, _ in self.steps]
     times = [self.start] + [t for _, _, t in self.steps]
     step_ms = [(b - a) * 1e3 for a, b in zip(times, times[1:])]
-    steady = float(np.mean(step_ms[1:])) if len(step_ms) > 1 else step_ms[0]
+    steady = (float(np.mean(step_ms[1:][:steady_steps])) if len(step_ms) > 1
+              else step_ms[0])
     log(f"  {label}: losses {losses}; ms per step "
         f"{[round(ms, 1) for ms in step_ms]} (the first includes warm-up); "
         f"steady {steady:.1f} ms ({real_tokens / steady * 1e3:.0f} real "
@@ -4654,11 +4718,15 @@ def _lora_gradients(model, tokens, mask, img, plain: bool):
   return loss.item(), grads
 
 
-def phase_multimodal_sft(dev, kernels: list[dict], profile: bool) -> None:
+def phase_multimodal_sft(dev, kernels: list[dict], profile: bool,
+                         ckpt_dir: str) -> dict:
   """Multimodal fine-tuning on the 2B at full width and depth: the two-stage
-  recipe, LoRA on the bf16 base, QLoRA on its int8 copy (the new input
+  recipe, LoRA on the bf16 base (saving ``step_2`` under ``ckpt_dir``,
+  asynchronously, with prefetching), QLoRA on its int8 copy (the input
   gradient kernel), each stage's step time and peak memory; with
-  ``profile`` the kernel time by name of one QLoRA step."""
+  ``profile`` the kernel time by name of one QLoRA step. Returns what
+  phase 20 continues from: the towers, the batch, the LoRA run's config,
+  final adapters and checkpoint clock, and the QLoRA model."""
   phase_start = time.perf_counter()
   config = common.GriffinConfig.from_preset(
       common.Preset.RECURRENT_GEMMA_2B_V1)
@@ -4777,14 +4845,30 @@ def phase_multimodal_sft(dev, kernels: list[dict], profile: bool) -> None:
   torch.cuda.reset_peak_memory_stats()
   _reset_sft_counts()
   clock = StageClock()
-  train_loop_lib.train_loop(lmodel, [batch] * SFT_LORA_STEPS, lora_cfg,
-                            encode_image=encoder, log_metrics=clock,
-                            device=dev)
+  # Phase 20 resumes from this run's step_2, saved on the saver's thread.
+  ckpt_clock = CheckpointClock()
+  log(f"  the LoRA run saves step_2 under {ckpt_dir} asynchronously, "
+      f"prefetching 2 batches; {shutil.disk_usage(ckpt_dir).free / 1e9:.1f} "
+      f"GB free there")
+  try:
+    train_loop_lib.train_loop(
+        lmodel, [batch] * SFT_LORA_STEPS,
+        dataclasses.replace(lora_cfg, checkpoint_dir=ckpt_dir,
+                            checkpoint_every_n=2, async_checkpoints=True,
+                            prefetch_batches=2),
+        encode_image=encoder, log_metrics=clock, device=dev)
+  finally:
+    ckpt_clock.restore()
   torch.cuda.synchronize()
   stats["lora"] = clock.summary(
       f"LoRA rank {SFT_LORA_RANK} on the bf16 base ({n_adapter / 1e6:.2f} M "
-      f"adapter parameters), {SFT_LORA_STEPS} steps", real_tokens,
-      torch.cuda.max_memory_allocated() / 1e9)
+      f"adapter parameters), {SFT_LORA_STEPS} steps (steady: step 2; step 3 "
+      f"follows step 2's asynchronous save)", real_tokens,
+      torch.cuda.max_memory_allocated() / 1e9, steady_steps=1)
+  step_ms = stats["lora"]["step_ms"]
+  log(f"  step 3 took {step_ms[2] - step_ms[1]:+.1f} ms against step 2: the "
+      f"asynchronous save's cost to the run")
+  ckpt_clock.report()
   log(f"  LoRA launches {_sft_counts()}")
   if _unchanged(lmodel, base_before):
     raise AssertionError("LoRA moved base weights.")
@@ -4823,6 +4907,8 @@ def phase_multimodal_sft(dev, kernels: list[dict], profile: bool) -> None:
   del merged, got, want
 
   # (c) QLoRA: quantize_params of the base, fresh bf16 adapters.
+  final_adapters = {n: v.clone() for n, v in
+                    sft_lora.split_lora(lmodel.state_dict())[0].items()}
   base_state = sft_lora.split_lora(lmodel.state_dict())[1]
   qmodel = griffin.Griffin(config, device="meta", quantized=True,
                            lora_rank=SFT_LORA_RANK)
@@ -5015,8 +5101,583 @@ def phase_multimodal_sft(dev, kernels: list[dict], profile: bool) -> None:
       "; ".join(f"{k} {v['steady_ms']:.1f} ms, "
                 f"{real_tokens / v['steady_ms'] * 1e3:.0f}/s, "
                 f"{v['peak_gb']:.2f} GB" for k, v in stats.items()))
-  del qmodel, encoder, img
+  del img
   log(f"  phase 19 took {time.perf_counter() - phase_start:.1f} s")
+  return dict(config=config, encoder=encoder, batch=batch, lora_cfg=lora_cfg,
+              final_adapters=final_adapters, qmodel=qmodel, vocab=vocab)
+
+
+class CheckpointClock:
+  """Times the port's checkpoint I/O while installed: each train-state
+  write (a synchronous save, or the async saver's thread) with its bytes,
+  each ``AsyncTrainStateSaver.save`` call on the host with the device time
+  its snapshot holds the stream (CUDA events around the call), each
+  train-state load."""
+
+  def __init__(self):
+    self.writes, self.saves, self.loads = [], [], []
+    self._saved = (checkpoint_io.save_train_state,
+                   checkpoint_io.AsyncTrainStateSaver.save,
+                   checkpoint_io.load_train_state)
+    write, save, load = self._saved
+    clock = self
+
+    def timed_write(path, *args, **kwargs):
+      start = time.perf_counter()
+      write(path, *args, **kwargs)
+      clock.writes.append(dict(
+          name=os.path.basename(path), s=time.perf_counter() - start,
+          thread=threading.current_thread().name,
+          bytes=os.path.getsize(path)))
+
+    def timed_save(saver, path, *args, **kwargs):
+      events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+      events[0].record()
+      start = time.perf_counter()
+      save(saver, path, *args, **kwargs)
+      host_s = time.perf_counter() - start
+      events[1].record()
+      clock.saves.append(dict(name=os.path.basename(path), host_s=host_s,
+                              events=events))
+
+    def timed_load(path, *args, **kwargs):
+      start = time.perf_counter()
+      out = load(path, *args, **kwargs)
+      clock.loads.append(dict(name=os.path.basename(path),
+                              s=time.perf_counter() - start))
+      return out
+
+    checkpoint_io.save_train_state = timed_write
+    checkpoint_io.AsyncTrainStateSaver.save = timed_save
+    checkpoint_io.load_train_state = timed_load
+
+  def restore(self) -> None:
+    (checkpoint_io.save_train_state, checkpoint_io.AsyncTrainStateSaver.save,
+     checkpoint_io.load_train_state) = self._saved
+
+  def report(self) -> None:
+    for save in self.saves:
+      save["events"][1].synchronize()
+      log(f"  async save of {save['name']}: save() returned after "
+          f"{save['host_s'] * 1e3:.1f} ms on the host (clones enqueued); "
+          f"the stream spent "
+          f"{save['events'][0].elapsed_time(save['events'][1]):.1f} ms "
+          f"across the call")
+    for w in self.writes:
+      how = "on the saver's thread" if "writer" in w["thread"] else "in line"
+      log(f"  wrote {w['name']} {how}: {w['bytes'] / 1e9:.3f} GB in "
+          f"{w['s']:.2f} s ({w['bytes'] / 1e9 / w['s']:.2f} GB/s)")
+    for load in self.loads:
+      log(f"  loaded {load['name']} (train state, host, mapped): "
+          f"{load['s']:.2f} s")
+
+
+def _tick_counts() -> dict[str, int]:
+  return {"lru_scan": lru_scan.launches, "window_attention": wa.launches,
+          "int8_weight_matmul": int8_matmul.launches,
+          "int8_weight_matmul_wgmma": int8_matmul.wgmma_launches}
+
+
+class TickProbe:
+  """Counts the kernel launches of each ``serving._tick_step`` call (the
+  eager steps, and a captured tick's warm-up and capture: one step's
+  launches) and of each batcher's ``_tick`` (the counters miss a captured
+  tick's replays); ``replays`` are the captured steps replayed."""
+
+  def __init__(self):
+    self.step_launches = None
+    self.tick_launches = {k: 0 for k in _tick_counts()}
+    self._step = serving._tick_step  # pylint: disable=protected-access
+    probe = self
+
+    def counted_step(*args, **kwargs):
+      before = _tick_counts()
+      probe._step(*args, **kwargs)
+      after = _tick_counts()
+      probe.step_launches = {k: after[k] - before[k] for k in after}
+
+    serving._tick_step = counted_step  # pylint: disable=protected-access
+
+  def watch(self, batcher) -> None:
+    tick = batcher._tick  # pylint: disable=protected-access
+
+    def counted_tick(n):
+      before = _tick_counts()
+      tick(n)
+      after = _tick_counts()
+      for k in after:
+        self.tick_launches[k] += after[k] - before[k]
+
+    batcher._tick = counted_tick  # pylint: disable=protected-access
+
+  def close(self) -> None:
+    serving._tick_step = self._step  # pylint: disable=protected-access
+
+
+def _capture_first_logits(batcher, store: list):
+  """Appends each admission's first-token logits (the prefill's, float32)
+  to ``store``, for the batcher's sampler and its adapter twin's; returns
+  the function that takes the wrappers off (before another batcher copies
+  the sampler)."""
+  samplers = (batcher.sampler, batcher._prefill_sampler)  # pylint: disable=protected-access
+  for s in samplers:
+    prefill = s._prefill  # pylint: disable=protected-access
+
+    def wrapped(*args, _prefill=prefill, **kwargs):
+      state = _prefill(*args, **kwargs)
+      store.append(state.logits_buffer[0, 0].float().clone())
+      return state
+
+    s._prefill = wrapped  # pylint: disable=protected-access
+
+  def restore():
+    for s in samplers:
+      del s._prefill  # pylint: disable=protected-access
+
+  return restore
+
+
+def _drive_batcher(batcher, specs, adapters_of) -> dict:
+  """One request joins a tick while a slot is free; every tick decodes
+  BATCH_TICK steps. Returns {name: tokens}."""
+  queue, names, tokens = list(specs), {}, {}
+  while queue or batcher.active_count:
+    if queue and batcher.has_capacity:
+      spec = queue.pop(0)
+      names[batcher.add_request(
+          spec["prompt"], adapters=adapters_of(spec["kind"]))] = spec["name"]
+    batcher.step(BATCH_TICK)
+    for rid, got, _ in batcher.pop_finished():
+      tokens[names[rid]] = got
+  return tokens
+
+
+def _adapter_specs(config, seed: int, n: int, kinds, lengths) -> list[dict]:
+  rng = np.random.default_rng(seed)
+  return [dict(name=f"{kinds[i % len(kinds)]}_{i}", kind=kinds[i % len(kinds)],
+               tokens=int(length),
+               prompt=" ".join(f"w{j}" for j in rng.integers(
+                   0, config.vocab_size - 4, int(length) - 1)))
+          for i, length in zip(range(n), lengths)]
+
+
+def _http_error(port: int, body: dict) -> tuple[int, str]:
+  try:
+    _http(port, "/v1/generate", body)
+  except urllib.error.HTTPError as e:
+    return e.code, json.loads(e.read()).get("error", "")
+  raise AssertionError(f"/v1/generate accepted {body}.")
+
+
+def phase_adapters(dev, kernels: list[dict], handoff: dict,
+                   ckpt_dir: str) -> None:
+  """Adapters end to end on phase 19's models: resume and preemption from
+  the LoRA run's checkpoints, multi-LoRA serving on the bf16 and the QLoRA
+  base (captured against eager ticks, two join orders, solo calls), and
+  per-request adapters over HTTP."""
+  phase_start = time.perf_counter()
+  config, encoder, batch = (handoff[k] for k in ("config", "encoder",
+                                                  "batch"))
+  final_adapters, vocab = handoff["final_adapters"], handoff["vocab"]
+  by_name = {kernel["name"]: kernel for kernel in kernels}
+  n_recurrent = sum(bt is common.TemporalBlockType.RECURRENT
+                    for bt in config.block_types)
+  n_attention = config.num_layers - n_recurrent
+  launched = {k: 0 for k in _sft_counts()}
+
+  def add_launches():
+    for k, v in _sft_counts().items():
+      launched[k] += v
+    _reset_sft_counts()
+
+  log(f"== adapters end to end (after 19, on its models): resume and "
+      f"preemption, multi-LoRA serving on the bf16 and the QLoRA base, "
+      f"per-request adapters over HTTP; "
+      f"{shutil.disk_usage(ckpt_dir).free / 1e9:.1f} GB free under the "
+      f"checkpoints' directory")
+
+  # (a) Checkpoints. The serving model is step_2's combined tree with its
+  # adapters re-drawn; a preempted run, then a resume from step_2.
+  step2 = os.path.join(ckpt_dir, "step_2")
+  start = time.perf_counter()
+  state = checkpoint_io.load_parameters(step2, device=dev)
+  torch.cuda.synchronize()
+  load_s = time.perf_counter() - start
+  step2_adapters, base = sft_lora.split_lora(state)
+  model = griffin.Griffin(config, device="meta",
+                          dtype=base["final_norm.scale"].dtype,
+                          lora_rank=SFT_LORA_RANK)
+  model.to_empty(device=dev)
+  model.load_state_dict(sft_lora.merge_params(base, sft_lora.init_adapters(
+      model, torch.Generator(dev).manual_seed(SEED + 100))))
+  log(f"  (a) load_parameters(step_2) onto the card: "
+      f"{sum(v.numel() * v.element_size() for v in state.values()) / 1e9:.3f}"
+      f" GB in {load_s:.2f} s; a fresh model of its base with adapters "
+      f"re-drawn")
+  del state, base
+  clock = CheckpointClock()
+  handler = resilience.PreemptionHandler()
+  logged = []
+
+  def notice(metrics, step):
+    logged.append((step, sorted(metrics)))
+    if step == 1:
+      handler.trigger()  # the notice arrives while step 2 runs
+
+  lora_cfg = handoff["lora_cfg"]
+  _reset_sft_counts()
+  try:
+    train_loop_lib.train_loop(
+        model, [batch] * SFT_LORA_STEPS,
+        dataclasses.replace(lora_cfg, checkpoint_dir=ckpt_dir,
+                            checkpoint_every_n=None),
+        encode_image=encoder, log_metrics=notice, device=dev,
+        preemption=handler)
+    preempted = os.path.join(ckpt_dir, "preempted_step_2")
+    _, _, saved_step = checkpoint_io.load_train_state(preempted, device="cpu")
+    log(f"  preemption triggered after step 1: the loop logged {logged}, "
+        f"saved {sorted(os.listdir(ckpt_dir))}, preempted_step_2 holds step "
+        f"{saved_step}")
+    if logged[-1] != (2, ["preempted_at"]) or saved_step != 2:
+      raise AssertionError("The preempted run did not save step 2.")
+    os.remove(preempted)
+    step_clock = StageClock()
+    clock.loads.clear()
+    train_loop_lib.train_loop(
+        model, [batch] * SFT_LORA_STEPS,
+        dataclasses.replace(lora_cfg, resume_from=step2),
+        encode_image=encoder, log_metrics=step_clock, device=dev)
+  finally:
+    clock.restore()
+  add_launches()
+  clock.report()
+  if [s for s, _, _ in step_clock.steps] != [SFT_LORA_STEPS]:
+    raise AssertionError(f"The resumed run logged {step_clock.steps}.")
+  named = dict(model.named_parameters())
+  exact, worst = 0, (0.0, "")
+  for name, want in final_adapters.items():
+    got = named[name].detach()
+    if torch.equal(got, want):
+      exact += 1
+    else:
+      worst = max(worst, (_rel_rms(got, want), name))
+  log(f"  resumed from step_2, step 3 against the uninterrupted run's: "
+      f"{exact} of {len(final_adapters)} adapter leaves bit for bit; the "
+      f"worst other leaf rel_rms {worst[0]:.3e} {worst[1]} (tolerance "
+      f"{RESUME_REL_RMS}); step {step_clock.steps[0][1]:.6f} loss")
+  if worst[0] > RESUME_REL_RMS:
+    raise AssertionError("The resumed step disagrees with the uninterrupted "
+                         "run.")
+  with torch.no_grad():
+    for name, p in named.items():
+      if name.endswith("lora_b"):
+        p.zero_()  # the serving model's own adapters: none (the base)
+  del encoder, batch, handoff["encoder"], handoff["batch"]
+  torch.cuda.empty_cache()
+
+  # (b) Multi-LoRA serving on the bf16 base.
+  kinds = {"step_2": step2_adapters, "final": final_adapters, "none": None}
+  rng = np.random.default_rng(SEED + 101)
+  lengths = [BATCH_LONG_TOKENS] + list(rng.integers(
+      *ML_PROMPT_RANGE, size=ML_REQUESTS - 1))
+  specs = _adapter_specs(config, SEED + 102, ML_REQUESTS, list(kinds),
+                         lengths)
+  want = {"lru_scan": n_recurrent * ML_REQUESTS,
+          "window_attention": n_attention * sum(
+              s["tokens"] > ATTN_WINDOW for s in specs),
+          "int8_weight_matmul": 0, "int8_weight_matmul_wgmma": 0}
+  samplers = {captured: sampler_lib.Sampler(
+      model, vocab, device=dev, repetition_penalty=BATCH_PENALTY,
+      jit_compile=captured) for captured in (True, False)}
+  orders = {"A captured": (specs, True),
+            "B captured": (specs[::-1][1::2] + specs[::-1][0::2], True),
+            "A eager": (specs, False)}
+  runs, first_logits = {}, {}
+  for label, (order, captured) in orders.items():
+    b = serving.ContinuousBatcher(samplers[captured], num_slots=ML_SLOTS,
+                                  max_steps_default=ML_STEPS,
+                                  multi_lora=True, record_logprobs=1)
+    firsts = []
+    uncapture = _capture_first_logits(b, firsts)
+    probe = TickProbe()
+    probe.watch(b)
+    lru_scan.launches = wa.launches = 0
+    int8_matmul.launches = int8_matmul.wgmma_launches = 0
+    reset_scan_routes()
+    start = time.perf_counter()
+    try:
+      runs[label] = _drive_batcher(b, order, kinds.__getitem__)
+      torch.cuda.synchronize()
+    finally:
+      probe.close()
+      uncapture()
+    got = _tick_counts()
+    check_scan_routes(got["lru_scan"])
+    add_launches()
+    first_logits[label] = dict(zip((s["name"] for s in order), firsts))
+    log(f"  (b) {ML_SLOTS}-slot multi-LoRA batcher, order {label}: "
+        f"{time.perf_counter() - start:.2f} s; launches {got} (want {want}),"
+        f" in the ticks {probe.tick_launches}; a tick step "
+        f"{probe.step_launches}")
+    if got != want or any(probe.tick_launches.values()):
+      raise AssertionError(f"Order {label} launched {got} (ticks "
+                           f"{probe.tick_launches}), want {want}, none in "
+                           f"the ticks.")
+    if label == "A captured":
+      twin = b._model_ml  # pylint: disable=protected-access
+      shared = [p.data_ptr() == named[n].data_ptr()
+                for n, p in twin.named_parameters()
+                if not sft_lora.is_lora_path(n)]
+      stacks = sum(p.numel() * p.element_size()
+                   for n, p in twin.named_parameters()
+                   if sft_lora.is_lora_path(n))
+      log(f"  the tick's twin: {sum(shared)} of {len(shared)} base tensors "
+          f"share the sampler model's storage; its stacks "
+          f"{stacks / 1e6:.1f} MB ({stacks / ML_SLOTS / 1e6:.1f} MB a slot)")
+      if not all(shared):
+        raise AssertionError("The twin copied base tensors.")
+      del twin
+    del b
+  same = {s["name"]: len({tuple(r[s["name"]]) for r in runs.values()}) == 1
+          for s in specs}
+  distinct = [len(set(t)) for t in runs["A captured"].values()]
+  log(f"  tokens identical across the two join orders and the eager tick: "
+      f"{sum(same.values())} of {len(same)}; distinct tokens a request min "
+      f"{min(distinct)}, max {max(distinct)} of {ML_STEPS}")
+  if not all(same.values()):
+    raise AssertionError(f"Runs disagree: "
+                         f"{[n for n, v in same.items() if not v]}.")
+
+  # Each request against a solo batch-1 Sampler on merge_params(base, its
+  # adapters): the first token's logits, and the tokens (printed).
+  rels, agree, total = [], 0, 0
+  for kind, adapters in kinds.items():
+    with torch.no_grad():
+      for name, p in named.items():
+        if sft_lora.is_lora_path(name):
+          p.copy_(adapters[name] if adapters is not None
+                  else torch.zeros_like(p))
+    solo = sampler_lib.Sampler(model, vocab, device=dev,
+                               repetition_penalty=BATCH_PENALTY)
+    for s in specs:
+      if s["kind"] != kind:
+        continue
+      out = solo([s["prompt"]], total_generation_steps=ML_STEPS,
+                 return_logits=True)
+      rels.append(_rel_rms(first_logits["A captured"][s["name"]],
+                           out.logits[0][0].float()))
+      got = runs["A captured"][s["name"]]
+      agree += sum(a == b for a, b in zip(got, out.tokens[0].tolist()))
+      total += len(got)
+    del solo
+  with torch.no_grad():
+    for name, p in named.items():
+      if name.endswith("lora_b"):
+        p.zero_()
+  log(f"  first-token logits against solo batch-1 Samplers on the merged "
+      f"weights: rel_rms max {max(rels):.3e}, median "
+      f"{float(np.median(rels)):.3e} (tolerance {MODEL_LOGITS_REL_RMS}); "
+      f"token agreement {agree} of {total}")
+  if not max(rels) <= MODEL_LOGITS_REL_RMS:
+    raise AssertionError("A request's first logits disagree with its solo "
+                         "Sampler's.")
+
+  # The multi-LoRA tick against the plain tick of the same model, in turns,
+  # and one admission's stall.
+  steady = {}
+  for multi in (False, True):
+    b = serving.ContinuousBatcher(samplers[True], num_slots=ML_SLOTS,
+                                  max_steps_default=4096, multi_lora=multi)
+    for i, kind in zip(range(ML_SLOTS), itertools.cycle(list(kinds))):
+      b.add_request(" ".join(f"w{j}" for j in rng.integers(
+          0, config.vocab_size - 4, 300)),
+                    adapters=kinds[kind] if multi else None)
+    b.step(BATCH_TICK)  # admits all eight and captures the tick
+    steady[multi] = b
+  with torch.inference_mode():
+    for b in steady.values():
+      b._tick(BATCH_TICK)  # pylint: disable=protected-access
+  tick_ms = {False: [], True: []}
+  for multi in ML_TICK_TURNS:
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    events[0].record()
+    with torch.inference_mode():
+      for _ in range(TICK_REPEATS):
+        steady[multi]._tick(BATCH_TICK)  # pylint: disable=protected-access
+    events[1].record()
+    events[1].synchronize()
+    tick_ms[multi].append(events[0].elapsed_time(events[1]) / TICK_REPEATS
+                          / BATCH_TICK)
+  med = {k: float(np.median(v)) for k, v in tick_ms.items()}
+  log(f"  decode ms a step in turns {ML_TICK_TURNS} (True: the multi-LoRA "
+      f"{ML_SLOTS}-slot tick, False: the plain {ML_SLOTS}-slot tick of the "
+      f"same model, {BATCH_TICK} steps a tick, CUDA events around "
+      f"{TICK_REPEATS} ticks): multi-LoRA "
+      f"{[round(t, 3) for t in tick_ms[True]]}, plain "
+      f"{[round(t, 3) for t in tick_ms[False]]}; ratio of medians "
+      f"{med[True] / med[False]:.3f}; {ML_SLOTS * 1e3 / med[True]:.1f} "
+      f"against {ML_SLOTS * 1e3 / med[False]:.1f} tokens/s")
+  b = steady[True]
+  rid = next(iter(b._requests.values())).request_id  # pylint: disable=protected-access
+  b.cancel(rid)
+  stall = {"no admission": [], "an admission with adapters": [],
+           "an admission without": []}
+  writes = {key: [] for key in stall}  # host ms writing adapters
+  admission_sampler = b._admission_sampler  # pylint: disable=protected-access
+  scatter = sft_lora.scatter_adapters
+  spent = [0.0]
+
+  def timed(fn):
+    def call(*args, **kwargs):
+      start = time.perf_counter()
+      out = fn(*args, **kwargs)
+      spent[0] += (time.perf_counter() - start) * 1e3
+      return out
+    return call
+
+  b._admission_sampler = timed(admission_sampler)  # pylint: disable=protected-access
+  sft_lora.scatter_adapters = timed(scatter)
+  prompt = " ".join(f"w{j}" for j in rng.integers(0, config.vocab_size - 4,
+                                                    ML_STALL_TOKENS - 1))
+  for _ in range(ML_STALL_REPEATS):
+    for key in stall:
+      new = None
+      if key != "no admission":
+        new = b.add_request(prompt, adapters=final_adapters
+                            if key.endswith("adapters") else None)
+      spent[0] = 0.0
+      start = time.perf_counter()
+      b.step(BATCH_TICK)
+      stall[key].append((time.perf_counter() - start) * 1e3)
+      writes[key].append(spent[0])
+      if new is not None:
+        b.cancel(new)
+  del b._admission_sampler  # pylint: disable=protected-access
+  sft_lora.scatter_adapters = scatter
+  base_ms = float(np.median(stall["no admission"]))
+  for key, values in stall.items():
+    log(f"    tick ({BATCH_TICK} steps, {ML_SLOTS - 1} rows live) with "
+        f"{key} ({ML_STALL_TOKENS} tokens): "
+        f"{[round(v, 2) for v in values]} ms, median "
+        f"{float(np.median(values)):.2f} (stall "
+        f"{float(np.median(values)) - base_ms:+.2f}); host ms choosing the "
+        f"admission's sampler and writing its adapters "
+        f"{[round(v, 2) for v in writes[key]]}")
+  del steady, b
+
+  # (c) Multi-LoRA on the QLoRA base: 19(c)'s trained adapters (the
+  # sampler's own), fresh ones, explicit zeros and none.
+  qmodel = handoff.pop("qmodel")
+  trained = {n: p.detach().clone() for n, p in qmodel.named_parameters()
+             if sft_lora.is_lora_path(n)}
+  gen = torch.Generator(dev).manual_seed(SEED + 103)
+  fresh = sft_lora.init_adapters(qmodel, gen)
+  for name, leaf in fresh.items():
+    if name.endswith("lora_b"):
+      leaf.normal_(0.0, 1e-2, generator=gen)
+  qkinds = {"trained": trained, "fresh": fresh,
+            "zero": {n: torch.zeros_like(v) for n, v in trained.items()},
+            "none": None}
+  qspecs = _adapter_specs(config, SEED + 104, ML_Q_REQUESTS, list(qkinds),
+                          rng.integers(*ML_PROMPT_RANGE, size=ML_Q_REQUESTS))
+  qtokens = {}
+  per_step = _weight_only_launches(qmodel)
+  for captured in (True, False):
+    qsampler = sampler_lib.Sampler(qmodel, vocab, device=dev,
+                                   repetition_penalty=BATCH_PENALTY,
+                                   jit_compile=captured)
+    b = serving.ContinuousBatcher(qsampler, num_slots=ML_Q_SLOTS,
+                                  max_steps_default=ML_STEPS,
+                                  multi_lora=True)
+    probe = TickProbe()
+    probe.watch(b)
+    capture = CaptureInt8Calls() if captured else None
+    try:
+      qtokens[captured] = _drive_batcher(b, qspecs, qkinds.__getitem__)
+    finally:
+      probe.close()
+      if capture is not None:
+        capture.restore()
+    add_launches()
+    step = probe.step_launches
+    replays = sum(g.replays for g in b._programs.values())  # pylint: disable=protected-access
+    log(f"  (c) QLoRA base, {ML_Q_SLOTS}-slot multi-LoRA batcher "
+        f"({'captured' if captured else 'eager'} tick): a tick step "
+        f"launches {step}; {replays} captured steps replayed")
+    if step != {"lru_scan": 0, "window_attention": 0,
+                "int8_weight_matmul": per_step,
+                "int8_weight_matmul_wgmma": 0}:
+      raise AssertionError(f"The QLoRA tick step launched {step}; want "
+                           f"{per_step} mma.sync launches and nothing else.")
+    if captured:
+      by_name["int8_weight_matmul"]["launches"] += per_step * replays
+      for key, args in capture.inputs():
+        if key[3] != ML_Q_SLOTS:
+          continue  # an admission's prefill
+        err = check_int8(*args)
+        by_name["int8_weight_matmul"]["max_abs_err"] = max(
+            by_name["int8_weight_matmul"]["max_abs_err"], err)
+        log(f"    int8_weight_matmul on the first tick's inputs a "
+            f"{tuple(args[0].shape)} x q {tuple(args[1].shape)}: "
+            f"max_abs_err {err:.3e}")
+    del b, qsampler
+  same = sum(qtokens[True][s["name"]] == qtokens[False][s["name"]]
+             for s in qspecs)
+  log(f"  QLoRA multi-LoRA tokens, captured == eager: {same} of "
+      f"{len(qspecs)}")
+  if same != len(qspecs):
+    raise AssertionError("The QLoRA multi-LoRA captured and eager ticks "
+                         "disagree.")
+  del qmodel, trained, fresh, qkinds
+  torch.cuda.empty_cache()
+
+  # (d) HTTP: the resolver maps names to the loaded adapters.
+  http_rng = np.random.default_rng(SEED + 105)
+  http_prompt = " ".join(f"w{i}" for i in http_rng.integers(
+      0, config.vocab_size - 4, HTTP_PROMPT_TOKENS))
+  direct = serving.ContinuousBatcher(samplers[True], num_slots=HTTP_SLOTS,
+                                     max_steps_default=HTTP_STEPS,
+                                     multi_lora=True)
+  direct.add_request(http_prompt, adapters=step2_adapters)
+  ((_, direct_tokens, _),) = direct.run_until_drained(BATCH_TICK)
+  del direct
+  frontend = server_lib.ServingFrontend(
+      serving.ContinuousBatcher(samplers[True], num_slots=HTTP_SLOTS,
+                                max_steps_default=HTTP_STEPS,
+                                multi_lora=True, reuse_programs=False),
+      step_size=BATCH_TICK,
+      adapter_resolver={"step_2": step2_adapters,
+                        "final": final_adapters}.__getitem__)
+  srv = server_lib.ServingHTTPServer(frontend, host="127.0.0.1", port=0)
+  bare = server_lib.ServingHTTPServer(server_lib.ServingFrontend(
+      serving.ContinuousBatcher(samplers[True], num_slots=1,
+                                max_steps_default=HTTP_STEPS),
+      step_size=BATCH_TICK), host="127.0.0.1", port=0)
+  try:
+    status, _, out = _http(srv.port, "/v1/generate", {
+        "prompt": http_prompt, "max_tokens": HTTP_STEPS, "adapter": "step_2"})
+    unknown = _http_error(srv.port, {"prompt": http_prompt,
+                                     "adapter": "unknown"})
+    no_resolver = _http_error(bare.port, {"prompt": http_prompt,
+                                          "adapter": "step_2"})
+  finally:
+    srv.close()
+    bare.close()
+  add_launches()
+  log(f"  (d) /v1/generate with adapter step_2: status {status}, tokens "
+      f"identical to the direct batcher's {out['tokens'] == direct_tokens}; "
+      f"an unknown adapter {unknown}; a server without a resolver "
+      f"{no_resolver}")
+  if (status != 200 or out["tokens"] != direct_tokens or unknown[0] != 400
+      or no_resolver[0] != 400 or frontend._error is not None):  # pylint: disable=protected-access
+    raise AssertionError("The HTTP adapter checks failed.")
+
+  for name, count in launched.items():
+    by_name[name]["launches"] += count
+  log(f"  launches of phase 20's runs: {launched} (added to their rows)")
+  del samplers, model, kinds, step2_adapters
+  handoff.clear()
+  log(f"  phase 20 took {time.perf_counter() - phase_start:.1f} s")
 
 
 def main() -> int:
@@ -5068,7 +5729,13 @@ def main() -> int:
   torch.cuda.empty_cache()
   phase_int8(dev, kernels, profile)
   torch.cuda.empty_cache()
-  phase_multimodal_sft(dev, kernels, profile)
+  ckpt_dir = tempfile.mkdtemp(prefix="chip-smoke-checkpoints-")
+  try:
+    handoff = phase_multimodal_sft(dev, kernels, profile, ckpt_dir)
+    torch.cuda.empty_cache()
+    phase_adapters(dev, kernels, handoff, ckpt_dir)
+  finally:
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
   log(f"== total {time.perf_counter() - start:.1f} s")
   print(json.dumps({"kernels": kernels}))
   print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -164,9 +164,10 @@ def test_config_from_numpy_params_equals_jax():
 
 def test_port_hygiene(monkeypatch):
   """The port, its training (LoRA and the image loader too), vision,
-  serving, parallel, complex, kernel-lab, tokenizer and int8 modules
-  included, imports no JAX and nothing of the JAX package, and its entry points refuse to fall
-  back to the CPU without being asked."""
+  serving, parallel, complex, kernel-lab, tokenizer, int8, checkpoint
+  (I/O, timm import) and resilience modules included, imports no JAX, flax,
+  optax or orbax and nothing of the JAX package, and its entry points
+  refuse to fall back to the CPU without being asked."""
   probe = (
       "import sys; before = set(sys.modules); "
       "import cadence_gemma_tpu_torch; "
@@ -187,9 +188,12 @@ def test_port_hygiene(monkeypatch):
       "import cadence_gemma_tpu_torch.ops.int8_matmul; "
       "import cadence_gemma_tpu_torch.training.lora; "
       "import cadence_gemma_tpu_torch.utils.image_cpp; "
+      "import cadence_gemma_tpu_torch.checkpoint.io; "
+      "import cadence_gemma_tpu_torch.checkpoint.timm_import; "
+      "import cadence_gemma_tpu_torch.utils.resilience; "
       "new = set(sys.modules) - before; "
       "print(sorted(m for m in new if m.split('.')[0] in "
-      "('jax', 'jaxlib', 'flax', 'cadence_gemma_tpu')))"
+      "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'cadence_gemma_tpu')))"
   )
   env = dict(os.environ, PYTHONPATH=str(REPO))
   result = subprocess.run(
@@ -202,8 +206,8 @@ def test_port_hygiene(monkeypatch):
   assert REPO / "cadence_gemma_tpu_torch/training/train_loop.py" in sources
   sources.append(REPO / "chip_smoke.py")
   bad = re.compile(
-      r"^\s*(import\s+(jax|flax|cadence_gemma_tpu)\b|"
-      r"from\s+(jax|flax|cadence_gemma_tpu)[\s.])", re.M
+      r"^\s*(import\s+(jax|flax|optax|orbax|cadence_gemma_tpu)\b|"
+      r"from\s+(jax|flax|optax|orbax|cadence_gemma_tpu)[\s.])", re.M
   )
   for path in sources:
     assert not bad.search(path.read_text()), path

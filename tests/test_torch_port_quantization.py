@@ -690,14 +690,17 @@ def test_quantized_init_draws_zeros_and_ones(tiny):
 
 
 def test_lora_is_refused():
-  """Per-row adapters (multi-LoRA serving) stay refused, naming their
-  item; a rank-r pair over an int8 base builds, and int8 activations
-  refuse a gradient (``torch._int_mm`` has none)."""
-  with pytest.raises(NotImplementedError, match="queue 1 item 5b"):
-    layers.Dense(8, 8, device="meta", quantized=True, lora_rows=2)
-  with pytest.raises(NotImplementedError, match="queue 1 item 5b"):
-    layers.Einsum((2, 8, 8), (2, 1, 1, 8), "...td,cdD->c...tD",
-                  device="meta", lora_rows=2)
+  """Per-row adapters (multi-LoRA serving) build over an int8 base, stacked
+  one pair a batch row; a rank-r pair over an int8 base builds, and int8
+  activations refuse a gradient (``torch._int_mm`` has none)."""
+  dense = layers.Dense(8, 8, device="meta", quantized=True, lora_rank=4,
+                       lora_rows=2)
+  assert (dense.lora_a.shape, dense.lora_b.shape) == ((2, 8, 4), (2, 4, 8))
+  einsum = layers.Einsum((2, 8, 8), (2, 1, 1, 8), "...td,cdD->c...tD",
+                         device="meta", quantized=True, lora_rank=4,
+                         lora_rows=2)
+  assert einsum.lora_a.shape == (2, 2, 8, 4)
+  assert einsum.lora_b.shape == (2, 2, 4, 8)
   layer = layers.Dense(16, 16, device="cpu", dtype=torch.float32,
                        quantized=True, act_quant=True, lora_rank=4)
   with torch.no_grad():

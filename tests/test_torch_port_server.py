@@ -7,7 +7,8 @@ request's tokens match a solo ``Sampler`` run whatever path it takes
 (queue, HTTP, streaming, neighbors joining or cancelling). The host helpers
 (chat rendering, the tool preamble, tool-call parsing, the stop-string and
 tool-stream gates) take the same inputs as the JAX package's and must give
-equal outputs. The grammar-constrained surfaces answer 400. One card test
+equal outputs. The grammar-constrained surfaces answer 400 (per-request
+adapters are ``test_torch_port_multi_lora.py``'s). One card test
 holds the captured tick against the eager tick at the same width.
 """
 
@@ -581,14 +582,10 @@ class TestConstrainedSurfacesAnswer400:
   def test_library_surfaces_refuse(self, setup):
     with pytest.raises(NotImplementedError, match="item 11"):
       _frontend(_batcher(setup[0]), constraint_names={"json_object": 0})
-    with pytest.raises(NotImplementedError, match="item 5"):
-      _frontend(_batcher(setup[0]), adapter_resolver=lambda ref: ref)
     fe = _frontend(_batcher(setup[0]))
     try:
       with pytest.raises(NotImplementedError, match="item 11"):
         fe.submit("alpha", constraint={"type": "integer"})
-      with pytest.raises(NotImplementedError, match="item 5"):
-        fe.submit("alpha", adapter=0)
     finally:
       fe.close()
 

@@ -676,13 +676,11 @@ class TestProgramReuse:
 
 REFUSED = {
     "draft_len": (dict(draft_len=2), None, "item 10"),
-    "multi_lora": (dict(multi_lora=True), None, "item 5"),
     "constraints": (dict(constraints=[object()]), None, "item 11"),
     "dynamic_grammar_slots": (dict(dynamic_grammar_slots=2), None,
                               "item 11"),
     "mesh": (dict(), "mesh", "item 14c"),
     "constraint=": (dict(), dict(constraint=0), "item 11"),
-    "adapters=": (dict(), dict(adapters={}), "item 5"),
     "register_grammar": (dict(), "register_grammar", "item 11"),
 }
 
