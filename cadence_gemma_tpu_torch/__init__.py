@@ -1,7 +1,10 @@
 """PyTorch / CUDA port of CadenceGemma-TPU for NVIDIA Hopper (H100).
 
 Text generation (chunked prefill, prefix caching and conversational state,
-per-row sampling, the decode loop captured as a CUDA graph),
+per-row sampling, the decode loop captured as a CUDA graph), speculative
+decoding from prompt-lookup drafts (``SpeculativeSampler``, and
+``ContinuousBatcher(draft_len=...)``, each verify step one captured CUDA
+graph),
 image-conditioned generation (DINOv2-L || SigLIP-so400m towers, the
 vision-language connector), fine-tuning (full SFT, image SFT and the
 two-stage recipe of ``two_stage_sft``, LoRA adapters over a bf16 or an int8
@@ -42,6 +45,7 @@ from cadence_gemma_tpu_torch.inference.sampler import SamplerOutput
 from cadence_gemma_tpu_torch.inference.server import ServingFrontend
 from cadence_gemma_tpu_torch.inference.server import ServingHTTPServer
 from cadence_gemma_tpu_torch.inference.serving import ContinuousBatcher
+from cadence_gemma_tpu_torch.inference.speculative import SpeculativeSampler
 from cadence_gemma_tpu_torch.models.griffin import Griffin
 from cadence_gemma_tpu_torch.models.vit import DINOV2_LARGE_REG4_384
 from cadence_gemma_tpu_torch.models.vit import SIGLIP_SO400M_384
@@ -75,6 +79,7 @@ __all__ = [
     "ServingHTTPServer",
     "ShardingSpec",
     "SimpleVocab",
+    "SpeculativeSampler",
     "TemporalBlockType",
     "TrainingConfig",
     "ViTConfig",

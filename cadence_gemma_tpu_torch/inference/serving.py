@@ -46,9 +46,20 @@ cache are O(1)):
     place and :meth:`_TickGraph.run` copies the stacks in after a change
     (read-only in the step, they are never copied back).
 
-Speculative decoding (``draft_len``), grammar constraints and serving over a
-mesh are not ported; each raises ``NotImplementedError`` naming its ROADMAP
-item.
+  * ``draft_len > 0`` runs speculative decoding in the batch (JAX
+    ``serving.py:127-136``): a tick's step is one ``draft_len + 1``-token
+    verify pass of every slot through
+    :func:`speculative.prompt_lookup_spec_step`, drafting from the slot's
+    own history (its prompt and generated tokens, seeded at admission), so
+    a slot emits one to ``draft_len + 1`` tokens a step. Greedy tokens are
+    a solo ``Sampler``'s up to the rounding of near ties (see
+    ``speculative``); categorical slots accept stochastically, from their
+    own generators, and their tokens are a batch-1 ``SpeculativeSampler``
+    call's. The verify step is captured like the plain one and composes
+    with ``multi_lora`` and ``preserve_states``.
+
+Grammar constraints and serving over a mesh are not ported; each raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -64,6 +75,7 @@ import weakref
 import torch
 
 from cadence_gemma_tpu_torch.inference import sampler as sampler_lib
+from cadence_gemma_tpu_torch.inference import speculative
 from cadence_gemma_tpu_torch.models import griffin
 from cadence_gemma_tpu_torch.training import lora as lora_lib
 
@@ -130,6 +142,7 @@ class _Pending:
   img_embed: torch.Tensor | None = None
   sampling: tuple | None = None  # per-request sampling row (host values)
   adapters: dict | None = None   # the request's LoRA leaves (multi_lora)
+  prompt_tokens: torch.Tensor | None = None  # [1, P] history seed (draft_len)
 
 
 class _TickFlags(NamedTuple):
@@ -139,6 +152,8 @@ class _TickFlags(NamedTuple):
   per_request_sampling: bool
   record_logprobs: int
   multi_lora: bool
+  draft_len: int
+  ngram: int
 
 
 def _tick_step(sampler, flags: _TickFlags, state: dict, cache,
@@ -157,6 +172,9 @@ def _tick_step(sampler, flags: _TickFlags, state: dict, cache,
   rows = torch.arange(slots, device=out.device)
   live = s["active"] & ~s["done"]
   model = sampler.model if model is None else model
+  if flags.draft_len:
+    _spec_tick_step(sampler, flags, s, cache, generators, model, live)
+    return
   logits, new_cache = model(s["last_token"][:, None], s["positions"], cache)
   for name, block in cache.items():
     for dst, src in zip(block, new_cache[name]):
@@ -241,6 +259,31 @@ def _tick_step(sampler, flags: _TickFlags, state: dict, cache,
   s["last_token"].copy_(next_token)
   s["positions"].add_(live[:, None])
   s["write_idx"].copy_(write_idx)
+
+
+def _spec_tick_step(sampler, flags: _TickFlags, s: dict, cache,
+                    generators: list, model, live: torch.Tensor) -> None:
+  """One verify step of every slot, in place (``serving.py:809-867`` in
+  JAX): rows that are not live keep their cache, history and buffers."""
+  st = speculative.prompt_lookup_spec_step(
+      model,
+      dict(hist=s["hist"], valid_from=s["valid_from"], cur_len=s["cur_len"],
+           cache=cache, positions=s["positions"], live=live, out=s["out"],
+           write_idx=s["write_idx"], budget=s["budget"]),
+      draft_len=flags.draft_len, ngram=flags.ngram,
+      stop_ids=sampler._stop_ids,
+      logits_filter=speculative.sampler_filter(sampler),
+      generators=generators or None,
+  )
+  for name, block in cache.items():
+    for dst, src in zip(block, st["cache"][name]):
+      dst.copy_(src)
+  for key in ("hist", "cur_len", "positions", "out", "write_idx"):
+    s[key].copy_(st[key])
+  s["done"].copy_(s["done"] | st["eos_hit"]
+                  | (live & (st["write_idx"] >= s["budget"])))
+  # The verify steps each request took (its generator's draws).
+  s["verify_steps"].add_(live)
 
 
 class _TickGraph:
@@ -346,9 +389,12 @@ class ContinuousBatcher:
     max_steps_default: Per-request decode budget when a request names none.
       The output buffers hold the largest budget seen, rounded up to a power
       of two; a larger budget grows them (and captures a new tick graph).
-    draft_len: Speculative decoding; only 0 is ported.
-    ngram: Speculative drafting's lookup window (unused while ``draft_len``
-      is 0).
+    draft_len: > 0 turns on speculative decoding in the batch: each step is
+      one ``draft_len + 1``-token verify pass a slot (see the module
+      docstring). Not with a repetition penalty, ``record_logprobs`` or
+      ``per_request_sampling`` (JAX's ``ValueError``s).
+    ngram: The longest backward match speculative drafting ranks candidates
+      by.
     stream_callback: Optional ``f(request_id, new_token_ids, done)`` called
       after every tick with the tokens each live request emitted since the
       last call, and once more with ``done=True`` from ``pop_finished`` (or
@@ -408,8 +454,6 @@ class ContinuousBatcher:
       reuse_programs: bool = True,
       device=None,
   ):
-    if draft_len:
-      raise _not_ported("Speculative decoding (draft_len > 0)", "item 10")
     if (constraints is not None and len(constraints)) or (
         dynamic_grammar_slots or dynamic_grammar_budget is not None):
       raise _not_ported("Grammar constraints (constraints, "
@@ -424,9 +468,24 @@ class ContinuousBatcher:
           f"admission_chunks_per_tick must be >= 1 or None (got "
           f"{admission_chunks_per_tick})."
       )
+    if draft_len:
+      speculative.check_speculation(sampler, draft_len, ngram)
+      if record_logprobs:
+        raise ValueError(
+            "record_logprobs is incompatible with draft_len > 0 (verify "
+            "steps commit several tokens per program)."
+        )
+      if per_request_sampling:
+        raise ValueError(
+            "per_request_sampling is incompatible with draft_len > 0 "
+            "(the speculative verify pass uses the sampler's shared "
+            "filters)."
+        )
     self.sampler = sampler
     self.num_slots = num_slots
     self.max_steps_default = max_steps_default
+    self.draft_len = draft_len
+    self.ngram = ngram
     self.stream_callback = stream_callback
     self.admission_chunks_per_tick = admission_chunks_per_tick
     self.preserve_states = preserve_states
@@ -438,7 +497,8 @@ class ContinuousBatcher:
     self._states: dict[int, sampler_lib.PrefixState] = {}
     self._logprob_records: dict[int, dict] = {}
     self._flags = _TickFlags(preserve_states, per_request_sampling,
-                             self.record_logprobs, bool(multi_lora))
+                             self.record_logprobs, bool(multi_lora),
+                             draft_len, ngram if draft_len else 0)
     self._captures = sampler._captures_decode
     self._fetched = None  # host copy of (done, write_idx, out) or None
 
@@ -455,6 +515,15 @@ class ContinuousBatcher:
         "budget": torch.zeros(num_slots, **long),
         "out": torch.zeros(num_slots, buffer_len, **long),
     }
+    if draft_len:
+      # Each slot's token history for prompt-lookup drafting.
+      self._state.update(
+          hist=torch.zeros(num_slots,
+                           sampler_lib._next_bucket(buffer_len + 64), **long),
+          cur_len=torch.zeros(num_slots, **long),
+          valid_from=torch.zeros(num_slots, **long),
+          verify_steps=torch.zeros(num_slots, **long),
+      )
     if self.record_logprobs:
       k = self.record_logprobs
       f32 = dict(dtype=torch.float32, device=dev)
@@ -549,14 +618,22 @@ class ContinuousBatcher:
   def _buffer_len(self) -> int:
     return self._state["out"].shape[1]
 
+  @property
+  def _hist_len(self) -> int:
+    """The drafting history's length (0 without ``draft_len``)."""
+    hist = self._state.get("hist")
+    return 0 if hist is None else hist.shape[1]
+
   # -- slots ------------------------------------------------------------------
 
-  def _grow(self, length: int) -> None:
-    """Pads the per-token buffers to ``length`` (a power of two)."""
-    grow_by = length - self._buffer_len
-    for key in ("out", "chosen_lp", "top_lp_ids", "top_lp_vals"):
+  def _grow(self, length: int, keys=("out", "chosen_lp", "top_lp_ids",
+                                       "top_lp_vals")) -> None:
+    """Pads the per-token buffers ``keys`` (the output buffers, or the
+    drafting history) to ``length`` (a power of two)."""
+    for key in keys:
       if key in self._state:
         buf = self._state[key]
+        grow_by = length - buf.shape[1]
         pad = (0, 0, 0, grow_by) if buf.dim() == 3 else (0, grow_by)
         self._state[key] = torch.nn.functional.pad(buf, pad)
 
@@ -592,6 +669,15 @@ class ContinuousBatcher:
     st["budget"][slot] = req.max_steps
     st["out"][slot] = 0
     st["out"][slot, 0] = first
+    if self.draft_len:
+      # The (padded) prompt and the first token seed the slot's history.
+      padded_len = p.prompt_tokens.shape[1]
+      st["hist"][slot] = 0
+      st["hist"][slot, :padded_len] = p.prompt_tokens[0]
+      st["hist"][slot, padded_len] = first
+      st["cur_len"][slot] = padded_len + 1
+      st["valid_from"][slot] = padded_len - p.input_length
+      st["verify_steps"][slot] = 0
     if self.multi_lora:
       # Always rewritten: a freed slot still holds its last occupant's
       # adapters (JAX ``serving.py:1449-1457``).
@@ -619,10 +705,17 @@ class ContinuousBatcher:
     solo sampler's ``return_state`` builds it: ``last_token`` is the token
     sampled last and never fed, ``positions`` where it would be fed."""
     st = self._state
+    if self.draft_len:
+      # A speculative slot's last emitted token (never fed) is its history
+      # at cur_len - 1; ``last_token`` is stale.
+      pending = st["hist"][slot:slot + 1].gather(
+          1, st["cur_len"][slot:slot + 1, None] - 1)
+    else:
+      pending = st["last_token"][slot:slot + 1, None].clone()
     return sampler_lib.PrefixState(
         cache=_map_cache(lambda x: x[slot:slot + 1].clone(), self._cache),
         length=st["positions"][slot:slot + 1, 0].clone(),
-        pending_token=st["last_token"][slot:slot + 1, None].clone(),
+        pending_token=pending,
     )
 
   # -- host API ---------------------------------------------------------------
@@ -786,7 +879,7 @@ class ContinuousBatcher:
         )
         chunk = None
       if chunk is not None and input_length > chunk:
-        mid, cache, final_tokens, start, _ = s.plan_prompt_chunks(
+        mid, cache, final_tokens, start, tokens = s.plan_prompt_chunks(
             tokens, torch.tensor([input_length], device=self.device))
         chunks = list(mid) + [(final_tokens, None)]
       else:
@@ -802,6 +895,7 @@ class ContinuousBatcher:
         request=req, chunks=chunks, input_length=input_length, cache=cache,
         start=start, img_embed=img_embed, sampling=sampling,
         adapters=adapters,
+        prompt_tokens=tokens if self.draft_len else None,
     ))
     return request_id
 
@@ -911,6 +1005,12 @@ class ContinuousBatcher:
         p.img_embed, p.cache, p.start, overrides,
     )
     need = sampler_lib._next_bucket(p.request.max_steps)
+    if self.draft_len:
+      # JAX's hist_need: the prompt and the largest budget, then a token.
+      hist_need = sampler_lib._next_bucket(
+          p.prompt_tokens.shape[1] + max(need, self._buffer_len) + 1)
+      if hist_need > self._hist_len:
+        self._grow(hist_need, ("hist",))
     if need > self._buffer_len:
       self._grow(need)
     self._insert(p, prefill)
@@ -945,11 +1045,12 @@ class ContinuousBatcher:
         _tick_step(self.sampler, self._flags, self._state, self._cache,
                    self._generators, model)
     else:
-      graph = self._programs.get(self._buffer_len)
+      key = (self._buffer_len, self._hist_len)
+      graph = self._programs.get(key)
       if graph is None:
         graph = _TickGraph(self.sampler, self._flags, self._state,
                            self._cache, self._generators)
-        self._programs[self._buffer_len] = graph
+        self._programs[key] = graph
       graph.run(self._state, self._cache, self._generators, n, adapters,
                 (self._adapter_token, self._adapter_version)
                 if self.multi_lora else None)
@@ -992,23 +1093,29 @@ class ContinuousBatcher:
       self._host()
     self._stream()
 
-  def _hand_back(self, req: _Request, draws: int) -> None:
+  def _hand_back(self, req: _Request, steps: int) -> None:
     """Leaves a finished request's generator where a batch-1 ``Sampler``
-    call would: its state after the prefill, advanced by one row draw for
-    each decode step the request took (its slot's generator drew on every
-    step of the tick, live or not)."""
+    call (``SpeculativeSampler`` with ``draft_len``) would: its state after
+    the prefill, advanced by one step's draws for each decode (verify) step
+    the request took (its slot's generator drew on every step of the tick,
+    live or not)."""
     req.generator.set_state(req.generator_state)
-    row = torch.empty(self.sampler.vocab_size, dtype=torch.float32,
-                      device=self.device)
-    for _ in range(draws):
-      row.exponential_(1.0, generator=req.generator)
+    vocab, k = self.sampler.vocab_size, self.draft_len
+    f32 = dict(dtype=torch.float32, device=self.device)
+    for _ in range(steps):
+      if k:
+        torch.empty(k, **f32).uniform_(generator=req.generator)
+        torch.empty(k + 1, vocab, **f32).exponential_(
+            1.0, generator=req.generator)
+      else:
+        torch.empty(vocab, **f32).exponential_(1.0, generator=req.generator)
 
   @torch.inference_mode()
   def pop_finished(self) -> list[tuple[int, list[int], str]]:
     """Returns ``(request_id, token_ids, text)`` for each completed request
     and frees their slots."""
     done, write_idx, out = self._host()
-    records = None
+    records = verify_steps = None
     finished = []
     for slot, req in list(self._requests.items()):
       # A freshly reserved slot may still carry its previous occupant's done
@@ -1033,7 +1140,12 @@ class ContinuousBatcher:
             "top_logprobs": top_vals[:upto],
         }
       if self._generators:
-        self._hand_back(req, upto - 1)
+        steps = upto - 1
+        if self.draft_len:
+          if verify_steps is None:
+            verify_steps = self._state["verify_steps"].tolist()
+          steps = verify_steps[slot]
+        self._hand_back(req, steps)
       if self.stream_callback is not None:
         self.stream_callback(req.request_id, tokens[req.emitted:], True)
       finished.append(

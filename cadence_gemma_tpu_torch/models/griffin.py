@@ -277,6 +277,7 @@ class Griffin(nn.Module):
       last_logits_only: bool = False,
       return_hidden: bool = False,
       image: torch.Tensor | None = None,
+      pending_cache: bool = False,
   ) -> tuple[torch.Tensor | None, Cache | None]:
     """Runs the model over ``tokens``.
 
@@ -294,6 +295,12 @@ class Griffin(nn.Module):
         chunks through :meth:`decode_hidden`.
       image: Fused vision features [b, vision_tokens, vision_width],
         projected by the connector and spliced in after BOS.
+      pending_cache: Return each layer's pending material instead of its
+        updated cache (``griffin.py:149-214`` in JAX): the speculative
+        verify runs a draft chunk once and then commits the accepted prefix
+        with :func:`modules.commit_pending_cache` (the RG-LRU's per-step
+        fp32 carries, the conv's inputs, the chunk's rotated keys and
+        values). Needs ``cache`` and contiguous positions per row.
 
     Returns:
       ``(logits | None, cache | None)``; with an image the logits include
@@ -301,6 +308,8 @@ class Griffin(nn.Module):
     """
     if not return_logits and not return_cache:
       return None, None
+    if pending_cache and cache is None:
+      raise ValueError("pending_cache needs a cache (decode mode).")
 
     x = self.embedder.encode(tokens)
     if image is not None:
@@ -310,7 +319,7 @@ class Griffin(nn.Module):
     for i, block in enumerate(self.blocks):
       name = f"blocks.{i}"
       args = (x, segment_pos, None if cache is None else cache[name],
-              return_cache)
+              return_cache, pending_cache)
       if remat:
         x, new_cache[name] = checkpoint_lib.checkpoint(
             block, *args, use_reentrant=False

@@ -53,6 +53,7 @@ from torch.nn import functional as F
 from cadence_gemma_tpu_torch import common
 from cadence_gemma_tpu_torch.ops import fused_epilogue
 from cadence_gemma_tpu_torch.ops import int8_matmul
+from cadence_gemma_tpu_torch.ops import lru_scan
 from cadence_gemma_tpu_torch.ops import quantization
 from cadence_gemma_tpu_torch.ops import scan
 from cadence_gemma_tpu_torch.parallel import sharding
@@ -330,8 +331,18 @@ class RGLRU(nn.Module):
       segment_pos: torch.Tensor,
       cache: torch.Tensor | None = None,
       return_cache: bool = True,
+      pending_cache: bool = False,
   ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """Runs the RG-LRU over ``x``; returns outputs and the final fp32 state."""
+    """Runs the RG-LRU over ``x``; returns outputs and the final fp32 state.
+
+    ``pending_cache`` returns the per-step fp32 states ``[b, t, d]`` instead
+    of the final one (``layers.py:390-444`` in JAX): the speculative verify
+    commits the state at the accepted draft index
+    (``modules.commit_pending_cache``). The scan is then
+    :func:`lru_scan.lru_scan_carries` whatever ``scan_type`` says, the
+    forward kernel with float32 outputs on the card, so the states are the
+    carries plain decode would have produced.
+    """
     reset = (segment_pos == 0)[..., None]
 
     gate_x = torch.sigmoid(self.input_gate(x))
@@ -346,10 +357,14 @@ class RGLRU(nn.Module):
     multiplier = sqrt_bound_derivative(1 - a_squared, 1000)
     multiplier = torch.where(reset, torch.ones_like(multiplier), multiplier)
     normed_x = gated_x * multiplier
+    a = torch.where(reset, torch.zeros_like(a), a)
 
+    if pending_cache:
+      y_acc, _ = lru_scan.lru_scan_carries(normed_x, a, cache)
+      return y_acc.to(x.dtype), (y_acc if return_cache else None)
     y, h_last = scan.linear_scan(
         x=normed_x,
-        a=torch.where(reset, torch.zeros_like(a), a),
+        a=a,
         h0=cache,
         scan_type=self.scan_type,
         sharding_spec=self.scan_sharding_spec,
@@ -384,7 +399,18 @@ class Conv1D(nn.Module):
       segment_pos: torch.Tensor,
       cache: torch.Tensor | None = None,
       return_cache: bool = True,
+      pending_cache: bool = False,
   ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The convolution over ``x`` and the new tail of inputs.
+
+    ``pending_cache`` (speculative verify, needs ``cache``) returns the whole
+    ``[old tail | chunk inputs]`` in the state dtype instead of the tail:
+    ``modules.commit_pending_cache`` slices the ``temporal_width - 1``
+    inputs that end at the accepted index, which may reach back into the
+    old tail (``layers.py:538-545`` in JAX).
+    """
+    if pending_cache and cache is None:
+      raise ValueError("pending_cache needs a cache (decode mode).")
     output_len = x.shape[1]
     if cache is not None:
       # Decode / chunked prefill: the previous temporal_width - 1 inputs.
@@ -421,6 +447,8 @@ class Conv1D(nn.Module):
 
     if not return_cache:
       return out, None
+    if pending_cache:
+      return out, x.to(state_dtype)
     new_cache = x[:, 1 - self.temporal_width:].to(state_dtype)
     missing = self.temporal_width - 1 - new_cache.shape[1]
     if missing > 0:

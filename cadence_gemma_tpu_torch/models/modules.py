@@ -232,6 +232,74 @@ def update_attention_cache(
   )
 
 
+def commit_attention_cache(
+    keys: torch.Tensor,
+    values: torch.Tensor,
+    cache: AttentionBlockCache,
+    commit_idx: torch.Tensor,
+) -> AttentionBlockCache:
+  """Masked ring write of a speculative verify chunk (``modules.py:245-284``
+  in JAX).
+
+  The chunk's ``t`` tokens take the slots ``(num_tokens + i) % window``,
+  distinct while ``t <= window``; a row writes only its tokens up to
+  ``commit_idx`` (the accepted prefix), the other slots keep their keys and
+  values, and the counter advances by ``commit_idx + 1``: the ring plain
+  decode of the accepted tokens leaves. Written as a select over the whole
+  ring (slot ``s`` holds chunk token ``(s - num_tokens) % window``), so no
+  index depends on the data.
+  """
+  t = keys.shape[1]
+  window = cache.keys.shape[1]
+  if t > window:
+    raise ValueError(f"A verify chunk of {t} tokens exceeds the window "
+                     f"{window}: its ring slots would collide.")
+  slots = torch.arange(window, device=keys.device)[None]
+  offset = (slots - cache.num_tokens[:, None].long()) % window  # [b, w]
+  write = ((offset < t) & (offset <= commit_idx[:, None]))[..., None, None]
+  idx = offset.clamp(max=t - 1)[..., None, None].expand(
+      -1, -1, *keys.shape[2:])
+  return AttentionBlockCache(
+      keys=torch.where(write, keys.gather(1, idx), cache.keys),
+      values=torch.where(write, values.gather(1, idx), cache.values),
+      num_tokens=(cache.num_tokens + commit_idx + 1).to(
+          cache.num_tokens.dtype),
+  )
+
+
+def commit_pending_cache(old_cache, pending_cache, commit_idx: torch.Tensor):
+  """Turns a ``pending_cache=True`` forward into a decode cache holding the
+  first ``commit_idx + 1`` chunk tokens of each row (``modules.py:287-329``
+  in JAX):
+
+    * RG-LRU: the per-step fp32 carries ``[b, t, d]``; row by row, step
+      ``commit_idx``.
+    * Conv1D: the ``[old tail | chunk inputs]``; the ``temporal_width - 1``
+      inputs that end at ``commit_idx`` (gathered, so the window may reach
+      back into the old tail).
+    * Attention: the chunk's rotated keys and values; a masked ring write
+      (:func:`commit_attention_cache`).
+
+  The result is the cache plain decode of the accepted tokens would leave.
+  """
+  idx = commit_idx.long()
+
+  def commit_block(old, pending):
+    if isinstance(old, RecurrentBlockCache):
+      states = pending.rg_lru_state
+      h = states.gather(1, idx[:, None, None].expand(-1, 1, states.shape[2]))
+      xcat = pending.conv1d_state
+      tail = old.conv1d_state.shape[1]
+      rows = idx[:, None] + 1 + torch.arange(tail, device=idx.device)[None]
+      conv = xcat.gather(1, rows[..., None].expand(-1, -1, xcat.shape[2]))
+      return RecurrentBlockCache(rg_lru_state=h[:, 0],
+                                 conv1d_state=conv.to(old.conv1d_state.dtype))
+    return commit_attention_cache(pending.keys, pending.values, old, idx)
+
+  return {name: commit_block(old_cache[name], pending_cache[name])
+          for name in old_cache}
+
+
 def _should_use_flash_attention(
     seq_len: int, window_size: int, override: bool | None,
     device: torch.device,
@@ -294,7 +362,12 @@ class LocalAttentionBlock(nn.Module):
       segment_pos: torch.Tensor,
       cache: AttentionBlockCache | None = None,
       return_cache: bool = True,
+      pending_cache: bool = False,
   ) -> tuple[torch.Tensor, AttentionBlockCache | None]:
+    """Attention over ``x`` (against the ring with a cache) and the new
+    cache; with ``pending_cache`` (speculative verify) the chunk's rotated
+    keys and values with the old ``num_tokens``, for
+    :func:`commit_attention_cache` (``modules.py:418-431`` in JAX)."""
     b, t, _ = x.shape
     queries = self.proj_q(x).unflatten(-1, (self.num_heads, self.head_dim))
     keys = self.proj_k(x)[:, :, None, :]  # single KV head
@@ -304,11 +377,12 @@ class LocalAttentionBlock(nn.Module):
     keys = apply_rope(keys, segment_pos)
 
     if cache is not None:
-      new_cache = (
-          update_attention_cache(keys, values, segment_pos, cache)
-          if return_cache
-          else None
-      )
+      if not return_cache:
+        new_cache = None
+      elif pending_cache:
+        new_cache = AttentionBlockCache(keys, values, cache.num_tokens)
+      else:
+        new_cache = update_attention_cache(keys, values, segment_pos, cache)
       keys = torch.cat([cache.keys, keys], dim=1)
       values = torch.cat([cache.values, values], dim=1)
       attn_mask = compute_cache_mask(
@@ -401,16 +475,20 @@ class RecurrentBlock(nn.Module):
       segment_pos: torch.Tensor,
       cache: RecurrentBlockCache | None = None,
       return_cache: bool = True,
+      pending_cache: bool = False,
   ) -> tuple[torch.Tensor, RecurrentBlockCache | None]:
+    """With ``pending_cache`` the cache holds the per-step RG-LRU carries
+    and the conv's ``[old tail | chunk inputs]`` (see
+    :func:`commit_pending_cache`)."""
     y = layers.gelu(self.linear_y(x))
     x = self.linear_x(x)
     x, conv1d_state = self.conv_1d(
         x, segment_pos, None if cache is None else cache.conv1d_state,
-        return_cache,
+        return_cache, pending_cache,
     )
     x, rg_lru_state = self.rg_lru(
         x, segment_pos, None if cache is None else cache.rg_lru_state,
-        return_cache,
+        return_cache, pending_cache,
     )
     x = self.linear_out(x * y)
     if not return_cache:
@@ -540,10 +618,12 @@ class ResidualBlock(nn.Module):
       segment_pos: torch.Tensor,
       cache: ResidualBlockCache | None = None,
       return_cache: bool = True,
+      pending_cache: bool = False,
   ) -> tuple[torch.Tensor, ResidualBlockCache | None]:
     residual = x
     x = self.temporal_pre_norm(x)
-    x, cache = self.temporal_block(x, segment_pos, cache, return_cache)
+    x, cache = self.temporal_block(x, segment_pos, cache, return_cache,
+                                   pending_cache)
     if self.fused_epilogue:
       x, residual = self.channel_pre_norm(x, residual=residual)
     else:

@@ -58,6 +58,8 @@ complex_backward_a_prod_launches = 0
 # The route each complex launch took in csrc/lru_scan_complex.cu.
 complex_ring_launches = 0
 complex_thread_walk_launches = 0
+# Forward launches of :func:`lru_scan_carries` (also counted in `launches`).
+carry_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -68,6 +70,7 @@ def lru_scan_plain(
     h0: torch.Tensor | Complex | None = None,
     reverse: bool = False,
     return_a_prod: bool = False,
+    y_in_acc_dtype: bool = False,
 ):
   """Sequential scan, one step at a time with a float32 carry.
 
@@ -82,9 +85,11 @@ def lru_scan_plain(
   ``cadence_gemma_tpu/ops/scan.py:49-93``): the running product of ``a`` in
   the walk's order from a float32 carry that starts at 1, each step a
   separately rounded float32 multiply, in ``x.dtype``, and its last value in
-  float32 (``pallas_lru.py:142-160``).
+  float32 (``pallas_lru.py:142-160``). ``y_in_acc_dtype`` keeps ``y`` in
+  float32: the carries themselves, which a speculative verify commits from.
   """
   f32 = torch.float32
+  y_dtype = f32 if y_in_acc_dtype else x.dtype
   seq_len = x.shape[1]
   h = complex_lib.zeros_like(x[:, 0], f32) if h0 is None else h0.to(f32)
   p = complex_lib.ones_like(x[:, 0], f32)
@@ -93,7 +98,7 @@ def lru_scan_plain(
   for t in steps:
     a_t = a[:, t].to(f32)
     h = a_t * h + x[:, t].to(f32)
-    ys.append(h.to(x.dtype))
+    ys.append(h.to(y_dtype))
     if return_a_prod:
       p = p * a_t
       ps.append(p.to(x.dtype))
@@ -274,6 +279,35 @@ def lru_scan_forward(
     a_prod_launches += 1
   else:
     launches += 1
+  return out
+
+
+def lru_scan_carries(
+    x: torch.Tensor,
+    a: torch.Tensor,
+    h0: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+  """The forward walk with every step's float32 carry as its output: the
+  speculative verify's scan (``y_in_acc_dtype=True`` of JAX's
+  ``lru_linear_scan``, ``cadence_gemma_tpu/ops/scan.py:57-68``).
+
+  On the card ``x`` and ``a`` are widened to float32 and the forward
+  kernel's float32 instantiation walks them: widening is exact and the walk
+  rounds each multiply and add in float32 whatever the input type, so ``y``
+  holds the carries of the ``x.dtype`` walk bit for bit (and ``y.to(x.dtype)``
+  is that walk's ``y``). Counted in ``launches`` and ``carry_launches``.
+  On a CPU tensor, :func:`lru_scan_plain` with ``y_in_acc_dtype``.
+
+  Returns ``(y in float32, h_last in float32)``.
+  """
+  global carry_launches
+  _check(x, a, h0)
+  if isinstance(x, Complex):
+    raise ValueError("lru_scan_carries takes real operands.")
+  if x.device.type == "cpu":
+    return lru_scan_plain(x, a, h0, y_in_acc_dtype=True)
+  out = lru_scan_forward(x.float(), a.float(), h0)
+  carry_launches += 1
   return out
 
 

@@ -40,7 +40,9 @@ from cadence_gemma_tpu_torch.parallel import sharding
 ShardingSpec = sharding.ShardingSpec
 
 # The sequential scan with a float32 carry (the JAX ``lax.scan`` path); with
-# ``return_a_prod`` it also returns the running product of ``a``.
+# ``return_a_prod`` it also returns the running product of ``a``, with
+# ``y_in_acc_dtype`` its outputs are the float32 carries (the speculative
+# verify's, whose card route is ``lru_scan.lru_scan_carries``).
 lru_linear_scan = lru_scan.lru_scan_plain
 
 

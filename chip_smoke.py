@@ -201,7 +201,7 @@ Phases, each of which raises on failure (so the script exits non-zero):
      session, ``/v1/chat/completions`` streaming, ``/v1/completions`` with
      ``n=2``, ``/v1/cancel``, ``/v1/health`` and ``/metrics``, every body
      well-formed.
- 18. int8 serving, last: a full-width, full-depth RecurrentGemma-2B drawn by
+ 18. int8 serving: a full-width, full-depth RecurrentGemma-2B drawn by
      ``checkpoint.synthetic.realistic_params`` (bf16) and its
      ``quantize_params`` copy (``Griffin(quantized=True)``), and the two
      towers in float32 and int8 with ``act_quant``. The int8 text run (the
@@ -227,7 +227,7 @@ Phases, each of which raises on failure (so the script exits non-zero):
      to the first token through the int8 towers (their encode: 46 MHA and
      184 ``_int_mm`` launches, no weight-only one) and the eight-slot
      captured tick.
- 19. multimodal fine-tuning, after 18: a full-width, full-depth
+ 19. multimodal fine-tuning, after 21: a full-width, full-depth
      RecurrentGemma-2B (seeded bf16) and the two towers as in 8 (384 px,
      blocks 0-22, frozen), one batch of seeded [2, 3, 384, 384] pixels and
      2 x 2048 text tokens (row 1 right-padded after 1500), 2777 spliced
@@ -284,6 +284,37 @@ Phases, each of which raises on failure (so the script exits non-zero):
      with ``"adapter"`` gives the direct batcher's tokens, an unknown name
      and a server without a resolver answer 400. The checkpoints live in a
      temporary directory removed at the end.
+ 21. speculative decoding, right after 18 on its ``realistic_params`` 2B,
+     its int8 copy and its bf16 towers (draft_len 7, ngram 2): (a) the
+     verify's fp32-carry walk (``lru_scan.lru_scan_carries``: the forward
+     kernel on float32 copies of x and a) at [2, 8, 2560] and [8, 8, 2560]
+     with h0, bit for bit against its plain loop, its bf16 cast equal to
+     the bf16 walk's y, timed (a row of the kernels line); (b) a
+     ``SpeculativeSampler`` over the bf16 Sampler on JAX's speculative
+     workload (batch 1, a 128-token prompt cycling through 8 words, 256
+     steps), a seeded non-repeating 128-token prompt (128 steps) and
+     phase 4's prompts (32 steps): a captured verify step must launch the
+     fp32-carry walk once for each recurrent block (18) and no other
+     kernel of the table; greedy tokens against the captured plain
+     Sampler's, identical or first differing where the plain run's two
+     largest logits lie within 1 % of the larger (each first difference
+     printed with that gap); ``tokens_per_verify_step``; captured against
+     eager speculation, greedy and categorical from one generator seed,
+     identical; verify ms a step against decode ms a step and speculative
+     against plain tokens/s, in turns; (c) the same on the int8 copy,
+     whose verify step launches the ``mma.sync`` int8 kernel once for each
+     int8 layer and the logits (175); (d) one image encoded by the towers
+     (46 MHA launches) through the fused-epilogue view of the 2B (26
+     add_rmsnorm launches a verify step), against the plain Sampler; (e)
+     an 8-slot batcher with ``draft_len`` taking phase 17's sixteen
+     requests (greedy, no penalty) in two join orders (identical tokens;
+     each request against a solo plain Sampler by the rule above), the
+     speculative tick against the plain tick in turns (ms a step, emitted
+     tokens/s), a 4-slot ``multi_lora`` speculative batcher on a rank-8
+     model of the same base against solo Samplers on the merged weights,
+     and ``ServingHTTPServer`` at 4 slots over a speculative batcher
+     (``/v1/generate`` plain, streamed, cut by ``max_tokens`` and in a
+     two-turn session, each as the direct batcher's tokens).
 
   python3 chip_smoke.py --profile
 
@@ -333,6 +364,7 @@ from cadence_gemma_tpu_torch.inference import modal_sampler
 from cadence_gemma_tpu_torch.inference import sampler as sampler_lib
 from cadence_gemma_tpu_torch.inference import server as server_lib
 from cadence_gemma_tpu_torch.inference import serving
+from cadence_gemma_tpu_torch.inference import speculative
 from cadence_gemma_tpu_torch.models import griffin
 from cadence_gemma_tpu_torch.models import vit
 from cadence_gemma_tpu_torch.ops import fused_epilogue
@@ -4256,9 +4288,11 @@ class ForwardTimes:
       hook.remove()
 
 
-def phase_int8(dev, kernels: list[dict], profile: bool) -> None:
+def phase_int8(dev, kernels: list[dict], profile: bool) -> dict:
   """Int8 serving on the 2B and both towers: the weight-only kernel and the
-  act_quant prefill against bf16 in turns."""
+  act_quant prefill against bf16 in turns. Returns phase 21's models: the
+  bf16 2B, its int8 copy and the bf16 towers, with the vocabulary and the
+  text prompts."""
   phase_start = time.perf_counter()
   config = common.GriffinConfig.from_preset(
       common.Preset.RECURRENT_GEMMA_2B_V1)
@@ -4497,7 +4531,7 @@ def phase_int8(dev, kernels: list[dict], profile: bool) -> None:
       f"tokens, in turns {INT8_TURNS}: (encode ms, ttft ms) bf16 "
       f"{[(round(e, 2), round(t, 2)) for e, t in ttft['bf16']]}, int8 "
       f"{[(round(e, 2), round(t, 2)) for e, t in ttft['int8']]}")
-  del modal, encoder, qencoder, features
+  del modal, qencoder, features
 
   # (f) The eight-slot batcher's captured tick, int8 against bf16.
   steady = {}
@@ -4527,8 +4561,10 @@ def phase_int8(dev, kernels: list[dict], profile: bool) -> None:
       profile_call(lambda: steady["int8"]._tick(BATCH_TICK),
                    float(np.median(tick_ms["int8"])) * BATCH_TICK,
                    f"int8 {BATCH_SLOTS}-slot tick of {BATCH_TICK} steps")
-  del steady, samplers, model, qmodel, state
+  del steady, samplers, state
   log(f"  phase 18 took {time.perf_counter() - phase_start:.1f} s")
+  return dict(model=model, qmodel=qmodel, encoder=encoder, vocab=vocab,
+              prompts=prompts)
 
 
 class CaptureDgradCalls:
@@ -5184,16 +5220,17 @@ class TickProbe:
   launches) and of each batcher's ``_tick`` (the counters miss a captured
   tick's replays); ``replays`` are the captured steps replayed."""
 
-  def __init__(self):
+  def __init__(self, counts=_tick_counts):
+    self.counts = counts
     self.step_launches = None
-    self.tick_launches = {k: 0 for k in _tick_counts()}
+    self.tick_launches = {k: 0 for k in counts()}
     self._step = serving._tick_step  # pylint: disable=protected-access
     probe = self
 
     def counted_step(*args, **kwargs):
-      before = _tick_counts()
+      before = counts()
       probe._step(*args, **kwargs)
-      after = _tick_counts()
+      after = counts()
       probe.step_launches = {k: after[k] - before[k] for k in after}
 
     serving._tick_step = counted_step  # pylint: disable=protected-access
@@ -5202,9 +5239,9 @@ class TickProbe:
     tick = batcher._tick  # pylint: disable=protected-access
 
     def counted_tick(n):
-      before = _tick_counts()
+      before = self.counts()
       tick(n)
-      after = _tick_counts()
+      after = self.counts()
       for k in after:
         self.tick_launches[k] += after[k] - before[k]
 
@@ -5680,6 +5717,634 @@ def phase_adapters(dev, kernels: list[dict], handoff: dict,
   log(f"  phase 20 took {time.perf_counter() - phase_start:.1f} s")
 
 
+# Speculative decoding (phase 21): JAX's speculative workload
+# (``benchmarks/multimodal_bench.py:1337-1440``: batch 1, a 128-token
+# prompt cycling through 8 words, 256 steps, draft 7, ngram 2), a seeded
+# non-repeating prompt of the same length, and the smoke's 2 x 3000/2300
+# prompts (the window kernel in the prefill), on phase 18's models.
+SPEC_DRAFT = 7
+SPEC_NGRAM = 2
+SPEC_PROMPT_TOKENS = 128
+SPEC_CYCLE_STEPS = 256
+SPEC_FREE_STEPS = 128
+# The fp32-carry walk at a verify step's shapes: batch 2 and an 8-slot tick
+# of draft_len + 1 tokens.
+CARRY_SHAPES = ((2, SPEC_DRAFT + 1, 2560), (8, SPEC_DRAFT + 1, 2560))
+CARRY_MAX_ABS_ERR = 0.0
+CARRY_REPLACES = ("cadence_gemma_tpu/ops/scan.py:57 (lru_linear_scan with "
+                  "y_in_acc_dtype; the verify's lax.scan, "
+                  "cadence_gemma_tpu/models/layers.py:428)")
+# Tokens of speculative and plain greedy runs agree, or first differ where
+# the plain run's two largest logits lie within this share of the larger
+# one's magnitude (the verify's products run at b * (k + 1) rows, decode's
+# at b: the library may round them differently).
+SPEC_TIE_REL = 0.01
+SPEC_TURNS = ("plain", "spec", "spec", "plain")
+SPEC_MM_TOKENS = 200
+SPEC_LORA_RANK = 8
+SPEC_LORA_SLOTS = 4
+SPEC_LORA_STEPS = 32
+SPEC_LORA_TOKENS = (600, 300, 900, 450)
+SPEC_LORA_B_STD = 0.02
+SPEC_HTTP_CUT = 5
+
+
+def _spec_counts() -> dict[str, int]:
+  return {"lru_scan_carries": lru_scan.carry_launches,
+          "lru_scan": lru_scan.launches, "window_attention": wa.launches,
+          "int8_weight_matmul": int8_matmul.launches,
+          "int8_weight_matmul_wgmma": int8_matmul.wgmma_launches,
+          "add_rmsnorm": fused_epilogue.launches,
+          "mha_attention": mha_attention.launches}
+
+
+class SpecProbe:
+  """Sees the speculative loops, captured or eager: CUDA events around each
+  ``SpeculativeSampler._loop`` give verify ms a step, and the counters read
+  around a verify step's Python (a graph's warm-up and capture) give one
+  step's launches; a run's launches are the counters' plus those times the
+  replays (:meth:`run_launches`)."""
+
+  def __init__(self, counts):
+    self.counts = counts
+    self.step_launches = None
+    self.loops = []  # [start event, end event, steps]
+    self.replays = 0
+    self._saved = (speculative.SpeculativeSampler._loop,  # pylint: disable=protected-access
+                   speculative._SpecGraph._step,  # pylint: disable=protected-access
+                   speculative._SpecGraph.replay)  # pylint: disable=protected-access
+    loop, step, replay = self._saved
+    probe = self
+
+    def timed_loop(spec, state, generator):
+      start = torch.cuda.Event(enable_timing=True)
+      start.record()
+      out, steps = loop(spec, state, generator)
+      end = torch.cuda.Event(enable_timing=True)
+      end.record()
+      probe.loops.append([start, end, steps])
+      return out, steps
+
+    def counted_step(graph, fn):
+      before = probe.counts()
+      step(graph, fn)
+      after = probe.counts()
+      probe.step_launches = {k: after[k] - before[k] for k in after}
+
+    def counted_replay(graph):
+      probe.replays += 1
+      return replay(graph)
+
+    speculative.SpeculativeSampler._loop = timed_loop  # pylint: disable=protected-access
+    speculative._SpecGraph._step = counted_step  # pylint: disable=protected-access
+    speculative._SpecGraph.replay = counted_replay  # pylint: disable=protected-access
+
+  def reset(self) -> None:
+    self.loops.clear()
+    self.replays = 0
+
+  def verify_ms(self) -> float:
+    start, end, steps = self.loops[-1]
+    end.synchronize()
+    return start.elapsed_time(end) / max(steps, 1)
+
+  def run_launches(self, counted: dict[str, int]) -> dict[str, int]:
+    if not self.replays:
+      return dict(counted)
+    return {k: counted[k] + self.step_launches[k] * self.replays
+            for k in counted}
+
+  def close(self) -> None:
+    (speculative.SpeculativeSampler._loop, speculative._SpecGraph._step,  # pylint: disable=protected-access
+     speculative._SpecGraph.replay) = self._saved  # pylint: disable=protected-access
+
+
+def _trim_at_stop(tokens, stops) -> list[int]:
+  tokens = [int(t) for t in tokens]
+  for i, t in enumerate(tokens):
+    if t in stops:
+      return tokens[:i + 1]
+  return tokens
+
+
+def token_agreement(label: str, got, want, logits, stops) -> dict:
+  """Speculative ``got`` against plain ``want`` (one row each, cut at the
+  first stop token): identical, or the first difference where the plain
+  run's two largest ``logits`` (its [steps, vocab] row) lie within
+  SPEC_TIE_REL of the larger's magnitude; raises otherwise."""
+  got, want = _trim_at_stop(got, stops), _trim_at_stop(want, stops)
+  n = min(len(got), len(want))
+  first = next((i for i in range(n) if got[i] != want[i]),
+               None if len(got) == len(want) else n)
+  if first is None:
+    return dict(identical=True, tokens=n)
+  top = logits[first].float().topk(2).values
+  gap = ((top[0] - top[1]) / top[0].abs()).item()
+  log(f"    {label}: first difference at token {first} of {n} (speculative "
+      f"{got[first:first + 1]}, plain {want[first:first + 1]}); the plain "
+      f"run's two largest logits there {top.tolist()}, gap "
+      f"{gap:.3e} of the larger (rule: within {SPEC_TIE_REL})")
+  if gap > SPEC_TIE_REL:
+    raise AssertionError(f"{label}: speculative and plain tokens differ at "
+                         f"{first} outside a near tie (gap {gap:.3e}).")
+  return dict(identical=False, tokens=n, first=first, gap=gap)
+
+
+def phase_carry_walk(dev) -> dict:
+  """The fp32-carry walk (``lru_scan.lru_scan_carries``) at the verify's
+  shapes against its plain loop, bit for bit; its bf16 cast against the
+  bf16 walk's y; timed at batch 2 (the widening copies included)."""
+  rng = np.random.default_rng(SEED + 90)
+  log(f"== lru_scan_carries (the verify's fp32-carry walk) vs plain at "
+      f"{[list(s) for s in CARRY_SHAPES]} bf16 with h0 (tolerance "
+      f"{CARRY_MAX_ABS_ERR}; its y cast to bf16 against the bf16 walk)")
+  worst = 0.0
+  for shape in CARRY_SHAPES:
+    b, t, d = shape
+    x = torch.tensor(rng.standard_normal(shape, dtype=np.float32),
+                     device=dev).bfloat16()
+    a = torch.sigmoid(torch.tensor(rng.standard_normal(
+        shape, dtype=np.float32), device=dev)).bfloat16()
+    h0 = torch.tensor(rng.standard_normal((b, d), dtype=np.float32),
+                      device=dev)
+    y, h = lru_scan.lru_scan_carries(x, a, h0)
+    want_y, want_h = lru_scan.lru_scan_plain(x, a, h0, y_in_acc_dtype=True)
+    err = max(max_err(y, want_y), max_err(h, want_h))
+    same_bf16 = torch.equal(y.bfloat16(),
+                            lru_scan.lru_scan_forward(x, a, h0)[0])
+    log(f"  {list(shape)}: y {y.dtype}, max_abs_err {err}; y.to(bf16) equals "
+        f"the bf16 walk's y {same_bf16}")
+    if err > CARRY_MAX_ABS_ERR or not same_bf16 or y.dtype != torch.float32:
+      raise AssertionError(f"The fp32-carry walk disagrees at {shape}.")
+    worst = max(worst, err)
+    if shape == CARRY_SHAPES[0]:
+      inputs = (x, a, h0)
+  # Read x and a (bf16) and h0, write y and h_last (fp32); 2 fp32 flops a
+  # step.
+  b, t, d = CARRY_SHAPES[0]
+  n_bytes = 2 * b * t * d * 2 + b * d * 4 + b * t * d * 4 + b * d * 4
+  figures = time_scan(lru_scan.lru_scan_carries, inputs, n_bytes, 2 * b * t * d)
+  plain_ms = cuda_ms(lambda: lru_scan.lru_scan_plain(
+      *inputs, y_in_acc_dtype=True), reps=5)
+  log_scan(figures, plain_ms, n_bytes)
+  return dict(name="lru_scan_carries", route="cuda",
+              source="cadence_gemma_tpu_torch/csrc/lru_scan.cu",
+              replaces=CARRY_REPLACES, max_abs_err=worst, plain_ms=plain_ms,
+              library_ms=None, launches=0, **figures)
+
+
+def _spec_text_runs(side: str, sampler, workloads: dict, probe: SpecProbe,
+                    stops, served: dict, want_step: dict):
+  """Each workload through a SpeculativeSampler over ``sampler`` and through
+  ``sampler`` itself: launches a verify step, the token rule, acceptance.
+  Returns the SpeculativeSampler (its graphs captured) and {workload: its
+  output}."""
+  spec = speculative.SpeculativeSampler(sampler, SPEC_DRAFT, SPEC_NGRAM)
+  outs = {}
+  for name, (prompts, steps) in workloads.items():
+    probe.reset()
+    before = _spec_counts()
+    reset_scan_routes()
+    out = spec(prompts, steps)
+    torch.cuda.synchronize()
+    counted = {k: v - before[k] for k, v in _spec_counts().items()}
+    check_scan_routes(counted["lru_scan"])
+    run = probe.run_launches(counted)
+    for k, v in run.items():
+      served[k] += v
+    step = {k: probe.step_launches[k] for k in want_step}
+    stats = spec.last_stats
+    log(f"  {side} {name} ({len(prompts)} x {len(sampler.tokenize(prompts[0]))}"
+        f" tokens, {steps} steps): {stats['verify_steps']} verify steps "
+        f"({probe.replays} replays of one captured step), tokens_emitted "
+        f"{stats['tokens_emitted']}, tokens_per_verify_step "
+        f"{stats['tokens_per_verify_step']:.3f}; a verify step launched "
+        f"{step}; the run {run}")
+    if step != want_step or probe.replays != stats["verify_steps"]:
+      raise AssertionError(f"{side} {name}: a verify step launched {step}, "
+                           f"want {want_step}; {probe.replays} replays for "
+                           f"{stats['verify_steps']} steps.")
+    plain = sampler(prompts, steps, return_logits=True)
+    for row, (g, w, lg) in enumerate(zip(out.tokens, plain.tokens,
+                                         plain.logits)):
+      agree = token_agreement(f"{side} {name} row {row}", g.tolist(),
+                              w.tolist(), lg, stops)
+      log(f"    row {row} against the captured plain Sampler: {agree}")
+    outs[name] = out
+  return spec, outs
+
+
+def _spec_turns(sampler, spec, prompts, steps, decode_probe: DecodeProbe,
+                probe: SpecProbe, stops) -> dict:
+  """Plain and speculative calls in SPEC_TURNS: wall ms, tokens/s (host
+  clock around the call, synchronized), captured decode / verify ms a
+  step."""
+  out = {"plain": [], "spec": []}
+  for side in SPEC_TURNS:
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    if side == "plain":
+      res = sampler(prompts, steps)
+      torch.cuda.synchronize()
+      wall = time.perf_counter() - start
+      emitted = sum(len(_trim_at_stop(t.tolist(), stops))
+                    for t in res.tokens)
+      step_ms = decode_probe.decode_ms()
+    else:
+      res = spec(prompts, steps)
+      torch.cuda.synchronize()
+      wall = time.perf_counter() - start
+      emitted = spec.last_stats["tokens_emitted"]
+      step_ms = probe.verify_ms()
+    out[side].append((wall * 1e3, emitted / wall, step_ms))
+  return out
+
+
+def _log_turns(label: str, turns: dict) -> None:
+  med = {side: [float(np.median([r[i] for r in rows])) for i in range(3)]
+         for side, rows in turns.items()}
+  log(f"  {label} in turns {SPEC_TURNS}: plain (wall ms, tokens/s, captured "
+      f"decode ms a step) {[tuple(round(v, 3) for v in r) for r in turns['plain']]}"
+      f"; speculative (wall ms, tokens/s, captured verify ms a step) "
+      f"{[tuple(round(v, 3) for v in r) for r in turns['spec']]}; verify / "
+      f"decode step {med['spec'][2] / med['plain'][2]:.3f}, speculative / "
+      f"plain tokens/s {med['spec'][1] / med['plain'][1]:.3f}")
+
+
+def _spec_batch_specs(vocab, config, seed: int) -> list[dict]:
+  """Phase 17's sixteen requests, greedy and without a penalty (a
+  speculative batcher takes neither): a 3000-token single shot, the same
+  length in chunks of 1024, two 200-token continuations of one 2048-token
+  prefix, twelve of 300-1500 tokens."""
+  rng = np.random.default_rng(seed)
+
+  def words(n):
+    return " ".join(f"w{i}" for i in rng.integers(0, config.vocab_size - 4, n))
+
+  specs = [dict(name="single_3000", prompt=words(BATCH_LONG_TOKENS - 1),
+                chunk=None, prefix=False),
+           dict(name="chunked_3000", prompt=words(BATCH_LONG_TOKENS - 1),
+                chunk=CHUNK_TOKENS, prefix=False)]
+  specs += [dict(name=f"prefix_{i}", prompt=words(BATCH_CONTINUATION_TOKENS),
+                 chunk=None, prefix=True) for i in range(2)]
+  for i, n in enumerate(rng.integers(*BATCH_PROMPT_RANGE,
+                                     size=BATCH_REQUESTS - len(specs))):
+    specs.append(dict(name=f"greedy_{i}", prompt=words(int(n) - 1),
+                      chunk=None, prefix=False))
+  return specs
+
+
+def _drive_spec_batcher(batcher, sampler, specs, prefix_state) -> dict:
+  """One request joins a tick while a slot is free (its chunk plan made with
+  its chunk size); every tick decodes BATCH_TICK steps. Returns
+  {name: tokens}."""
+  queue, names, tokens = list(specs), {}, {}
+  while queue or batcher.active_count:
+    if queue and batcher.has_capacity:
+      spec = queue.pop(0)
+      sampler.prefill_chunk_size = spec["chunk"]
+      try:
+        kw = {"prefix_state": prefix_state} if spec["prefix"] else {}
+        names[batcher.add_request(spec["prompt"], **kw)] = spec["name"]
+      finally:
+        sampler.prefill_chunk_size = None
+    batcher.step(BATCH_TICK)
+    for rid, got, _ in batcher.pop_finished():
+      tokens[names[rid]] = got
+  return tokens
+
+
+def _graph_replays(batcher) -> int:
+  return sum(g.replays for g in batcher._programs.values())  # pylint: disable=protected-access
+
+
+def phase_speculative(dev, kernels: list[dict], handoff: dict) -> None:
+  """Speculative decoding end to end on phase 18's realistic_params 2B, its
+  int8 copy and its towers: the fp32-carry walk, SpeculativeSampler (bf16,
+  int8, an image prompt with the fused epilogue), speculation in the
+  batcher (two join orders, multi-LoRA) and the HTTP front end over it."""
+  phase_start = time.perf_counter()
+  model, qmodel, encoder, vocab, prompts = (
+      handoff[k] for k in ("model", "qmodel", "encoder", "vocab", "prompts"))
+  config = model.config
+  by_name = {kernel["name"]: kernel for kernel in kernels}
+  n_recurrent = sum(bt is common.TemporalBlockType.RECURRENT
+                    for bt in config.block_types)
+  stops = {vocab.eos_id()}
+  served = {k: 0 for k in _spec_counts()}
+  carry_row = phase_carry_walk(dev)
+  kernels.append(carry_row)
+  log(f"== speculative decoding on phase 18's models (draft_len "
+      f"{SPEC_DRAFT}, ngram {SPEC_NGRAM}): SpeculativeSampler bf16 and int8, "
+      f"an image prompt, the batcher and the HTTP front end")
+
+  # (b), (c) Text: the cycling prompt (JAX's workload), a non-repeating
+  # one, and the smoke's two long prompts.
+  rng = np.random.default_rng(SEED + 91)
+  cycle = [f"w{i}" for i in range(8)]
+  cycling = " ".join(cycle[i % 8] for i in range(SPEC_PROMPT_TOKENS - 1))
+  free = " ".join(f"w{i}" for i in rng.integers(0, config.vocab_size - 4,
+                                                SPEC_PROMPT_TOKENS))
+  workloads = {"cycling": ([cycling + " w1"], SPEC_CYCLE_STEPS),
+               "non-repeating": ([free], SPEC_FREE_STEPS),
+               "long prompts": (prompts, DECODE_STEPS)}
+  n_int8 = _weight_only_launches(qmodel)
+  zero = {k: 0 for k in _spec_counts()}
+  want = {"bf16": dict(zero, lru_scan_carries=n_recurrent,
+                       lru_scan=n_recurrent),
+          "int8": dict(zero, lru_scan_carries=n_recurrent,
+                       lru_scan=n_recurrent, int8_weight_matmul=n_int8)}
+  samplers = {"bf16": sampler_lib.Sampler(model, vocab, device=dev),
+              "int8": sampler_lib.Sampler(qmodel, vocab, device=dev,
+                                          prefill_act_quant=True)}
+  probe = SpecProbe(_spec_counts)
+  decode_probe = DecodeProbe(_spec_counts)
+  try:
+    specs, outs = {}, {}
+    for side in samplers:
+      specs[side], outs[side] = _spec_text_runs(
+          side, samplers[side], workloads, probe, stops, served, want[side])
+    # Captured against eager speculation: greedy, and categorical from one
+    # generator seed; identical tokens (and generator state).
+    eager = sampler_lib.Sampler(model, vocab, device=dev, jit_compile=False)
+    got = speculative.SpeculativeSampler(eager, SPEC_DRAFT, SPEC_NGRAM)(
+        prompts, DECODE_STEPS)
+    same = [a.tolist() == b.tolist() for a, b in
+            zip(got.tokens, outs["bf16"]["long prompts"].tokens)]
+    cats, gens = [], []
+    for jit in (True, False):
+      cat = sampler_lib.Sampler(model, vocab, device=dev, jit_compile=jit,
+                                deterministic_sampling=False, **CATEGORICAL)
+      gens.append(torch.Generator(dev).manual_seed(SEED + 92))
+      cats.append(speculative.SpeculativeSampler(cat, SPEC_DRAFT, SPEC_NGRAM)(
+          prompts, DECODE_STEPS, generator=gens[-1]))
+    cat_same = [a.tolist() == b.tolist()
+                for a, b in zip(cats[0].tokens, cats[1].tokens)]
+    gen_same = torch.equal(gens[0].get_state(), gens[1].get_state())
+    log(f"  captured against eager speculation on the long prompts: greedy "
+        f"rows identical {same}; categorical ({CATEGORICAL}) rows identical "
+        f"{cat_same}, generators at the same state {gen_same}")
+    if not (all(same) and all(cat_same) and gen_same):
+      raise AssertionError("Captured and eager speculation disagree.")
+    del eager, cats
+    # Verify step against decode step, speculative against plain tokens/s,
+    # on the graphs the runs above captured.
+    for side, name in (("bf16", "cycling"), ("bf16", "non-repeating"),
+                       ("bf16", "long prompts"), ("int8", "cycling"),
+                       ("int8", "non-repeating")):
+      ps, steps = workloads[name]
+      _log_turns(f"{side} {name} (batch {len(ps)})", _spec_turns(
+          samplers[side], specs[side], ps, steps, decode_probe, probe,
+          stops))
+
+    # (d) An image prompt: the towers encode one image (the MHA kernel),
+    # the fused-epilogue view of the 2B prefills it and verifies (the
+    # add_rmsnorm kernel in every block of every verify step).
+    fused = griffin._share_parameters(model)  # pylint: disable=protected-access
+    for block in fused.blocks:
+      block.fused_epilogue = True
+    modal = modal_sampler.ModalSampler(fused, vocab, encoder, device=dev)
+    pixels = torch.rand((1, *MM_PIXELS[1:]), device=dev,
+                        generator=torch.Generator(dev).manual_seed(SEED + 93))
+    mm_prompt = [" ".join(f"w{i}" for i in rng.integers(
+        0, config.vocab_size - 4, SPEC_MM_TOKENS - 1))]
+    before = _spec_counts()
+    features = modal.encode(pixels)
+    torch.cuda.synchronize()
+    encoded = {k: v - before[k] for k, v in _spec_counts().items()}
+    probe.reset()
+    before = _spec_counts()
+    spec = speculative.SpeculativeSampler(modal, SPEC_DRAFT, SPEC_NGRAM)
+    out = spec(mm_prompt, DECODE_STEPS, img_embed=features)
+    torch.cuda.synchronize()
+    counted = {k: v - before[k] for k, v in _spec_counts().items()}
+    run = probe.run_launches(counted)
+    for k in served:
+      served[k] += run[k] + encoded[k]
+    step = probe.step_launches
+    log(f"  (d) an image ({list(pixels.shape)} pixels, {features.shape[1]} "
+        f"visual tokens) and {SPEC_MM_TOKENS} tokens through the "
+        f"fused-epilogue 2B: the encode launched {encoded['mha_attention']} "
+        f"MHA; a verify step {step}; {spec.last_stats}")
+    n_towers = len(encoder.dino.blocks) + len(encoder.siglip.blocks)
+    if (encoded["mha_attention"] != n_towers
+        or step["add_rmsnorm"] != config.num_layers
+        or step["lru_scan_carries"] != n_recurrent):
+      raise AssertionError(f"The image run launched {encoded} in the encode "
+                           f"and {step} a verify step.")
+    plain = modal(mm_prompt, DECODE_STEPS, img_embed=features,
+                  return_logits=True)
+    # The plain run's logits include no visual positions after the prefill.
+    agree = token_agreement("image", out.tokens[0].tolist(),
+                            plain.tokens[0].tolist(), plain.logits[0], stops)
+    log(f"    against the plain fused-epilogue Sampler: {agree}")
+    del modal, fused, features
+  finally:
+    probe.close()
+    decode_probe.close()
+  handoff.pop("encoder")
+  del encoder
+  torch.cuda.empty_cache()
+
+  # (e) Speculation in the batcher: phase 17's sixteen requests (greedy,
+  # no penalty) in two join orders at 8 slots, against solo plain Samplers.
+  sampler = samplers["bf16"]
+  prefix_text = " ".join(f"w{i}" for i in rng.integers(
+      0, config.vocab_size - 4, PREFIX_TOKENS - 1))
+  prefix_state = sampler.prefill_prefix(prefix_text)
+  specs = _spec_batch_specs(vocab, config, SEED + 94)
+  tick_probe = TickProbe(_spec_counts)
+  runs = {}
+  try:
+    for label, order in (("A", specs),
+                         ("B", specs[::-1][1::2] + specs[::-1][0::2])):
+      batcher = serving.ContinuousBatcher(
+          sampler, num_slots=BATCH_SLOTS, max_steps_default=BATCH_STEPS,
+          admission_chunks_per_tick=1, draft_len=SPEC_DRAFT,
+          ngram=SPEC_NGRAM, reuse_programs=False)
+      tick_probe.watch(batcher)
+      before = _spec_counts()
+      start = time.perf_counter()
+      runs[label] = _drive_spec_batcher(batcher, sampler, order, prefix_state)
+      torch.cuda.synchronize()
+      wall = time.perf_counter() - start
+      counted = {k: v - before[k] for k, v in _spec_counts().items()}
+      replays = _graph_replays(batcher)
+      for k in served:
+        served[k] += counted[k] + tick_probe.step_launches[k] * replays
+      log(f"  (e) 8-slot speculative batcher, order {label}: {wall:.2f} s, "
+          f"{replays} replays of the captured verify step, which launched "
+          f"{tick_probe.step_launches}")
+      if tick_probe.step_launches["lru_scan_carries"] != n_recurrent:
+        raise AssertionError("The batcher's verify step launched "
+                             f"{tick_probe.step_launches}.")
+      del batcher
+  finally:
+    tick_probe.close()
+  same = {n: runs["A"][n] == runs["B"][n] for n in runs["A"]}
+  log(f"  tokens identical between the join orders: {sum(same.values())} of "
+      f"{len(same)}")
+  if len(same) != BATCH_REQUESTS or not all(same.values()):
+    raise AssertionError(f"Join orders disagree: "
+                         f"{[n for n, v in same.items() if not v]}.")
+  identical = 0
+  for s in specs:
+    sampler.prefill_chunk_size = s["chunk"]
+    try:
+      kw = {"prefix_state": prefix_state} if s["prefix"] else {}
+      solo = sampler([s["prompt"]], BATCH_STEPS, return_logits=True, **kw)
+    finally:
+      sampler.prefill_chunk_size = None
+    agree = token_agreement(f"batcher {s['name']}", runs["A"][s["name"]],
+                            solo.tokens[0].tolist(), solo.logits[0], stops)
+    identical += agree["identical"]
+  log(f"  against solo plain Samplers: {identical} of {len(specs)} requests "
+      f"identical, the rest first differ at a near tie")
+  del runs, prefix_state
+
+  # The speculative tick against the plain tick, 8 slots of 300-token
+  # prompts, in turns: ms a step and emitted tokens/s.
+  steady = {}
+  for draft in (0, SPEC_DRAFT):
+    steady[draft] = serving.ContinuousBatcher(
+        sampler, num_slots=BATCH_SLOTS, max_steps_default=4096,
+        draft_len=draft, ngram=SPEC_NGRAM)
+    for _ in range(BATCH_SLOTS):
+      steady[draft].add_request(" ".join(f"w{j}" for j in rng.integers(
+          0, config.vocab_size - 4, 300)))
+    steady[draft].step(BATCH_TICK)  # admits all eight, captures the tick
+  ticks = {0: [], SPEC_DRAFT: []}
+  for draft in (0, SPEC_DRAFT, SPEC_DRAFT, 0):
+    b = steady[draft]
+    emitted = b._state["write_idx"].sum().item()  # pylint: disable=protected-access
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    with torch.inference_mode():
+      for _ in range(TICK_REPEATS):
+        b._tick(BATCH_TICK)  # pylint: disable=protected-access
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end)
+    emitted = b._state["write_idx"].sum().item() - emitted  # pylint: disable=protected-access
+    ticks[draft].append((ms / TICK_REPEATS / BATCH_TICK, emitted / ms * 1e3))
+  med = {d: [float(np.median([t[i] for t in v])) for i in range(2)]
+         for d, v in ticks.items()}
+  log(f"  {BATCH_SLOTS}-slot captured tick in turns (plain, speculative, "
+      f"speculative, plain), (ms a step, emitted tokens/s): plain "
+      f"{[tuple(round(x, 3) for x in t) for t in ticks[0]]}, speculative "
+      f"{[tuple(round(x, 3) for x in t) for t in ticks[SPEC_DRAFT]]}; "
+      f"speculative / plain step {med[SPEC_DRAFT][0] / med[0][0]:.3f}, "
+      f"tokens/s {med[SPEC_DRAFT][1] / med[0][1]:.3f}")
+  del steady
+
+  # multi-LoRA x speculation: a rank-8 model over the same base weights,
+  # its own adapters zero, requests with seeded adapters or none.
+  lmodel = griffin.Griffin(config, device="meta", dtype=torch.bfloat16,
+                           lora_rank=SPEC_LORA_RANK)
+  lmodel.to_empty(device=dev)
+  gen = torch.Generator(dev).manual_seed(SEED + 95)
+  lmodel.load_state_dict(sft_lora.merge_params(
+      model.state_dict(), sft_lora.init_adapters(lmodel, gen)))
+  own = {n: p.detach().clone() for n, p in lmodel.named_parameters()
+         if sft_lora.is_lora_path(n)}
+
+  def drawn():
+    out = sft_lora.init_adapters(lmodel, gen)
+    for n, v in out.items():
+      if n.endswith("lora_b"):
+        v.normal_(0.0, SPEC_LORA_B_STD, generator=gen)
+    return out
+
+  adapters = {"a": drawn(), "b": drawn(), "none": None}
+  kinds = ("a", "b", "none", "a")
+  lora_specs = _adapter_specs(config, SEED + 96, SPEC_LORA_SLOTS, kinds,
+                              SPEC_LORA_TOKENS)
+  lsampler = sampler_lib.Sampler(lmodel, vocab, device=dev)
+  batcher = serving.ContinuousBatcher(
+      lsampler, num_slots=SPEC_LORA_SLOTS, max_steps_default=SPEC_LORA_STEPS,
+      multi_lora=True, draft_len=SPEC_DRAFT, ngram=SPEC_NGRAM)
+  before = _spec_counts()
+  got = _drive_batcher(batcher, lora_specs, lambda kind: adapters[kind])
+  counted = {k: v - before[k] for k, v in _spec_counts().items()}
+  for k in served:  # the admissions' launches; the ticks are captured
+    served[k] += counted[k]
+  del batcher
+  identical = 0
+  for s in lora_specs:
+    with torch.no_grad():
+      for n, p in lmodel.named_parameters():
+        if sft_lora.is_lora_path(n):
+          src = adapters[s["kind"]]
+          p.copy_(own[n] if src is None else src[n])
+    solo = lsampler([s["prompt"]], SPEC_LORA_STEPS, return_logits=True)
+    agree = token_agreement(f"multi-LoRA {s['name']}", got[s["name"]],
+                            solo.tokens[0].tolist(), solo.logits[0], stops)
+    identical += agree["identical"]
+  log(f"  multi-LoRA speculative batcher ({SPEC_LORA_SLOTS} slots, rank "
+      f"{SPEC_LORA_RANK}, adapters {kinds}) against solo Samplers on the "
+      f"merged weights: {identical} of {len(lora_specs)} identical, the rest "
+      f"first differ at a near tie")
+  del lmodel, lsampler, own, adapters
+  torch.cuda.empty_cache()
+
+  # The HTTP front end at 4 slots over a speculative batcher.
+  http_rng = np.random.default_rng(SEED + 97)
+  http_prompt = " ".join(f"w{i}" for i in http_rng.integers(
+      0, config.vocab_size - 4, HTTP_PROMPT_TOKENS))
+  kw = dict(num_slots=HTTP_SLOTS, max_steps_default=HTTP_STEPS,
+            preserve_states=True, draft_len=SPEC_DRAFT, ngram=SPEC_NGRAM)
+  direct = serving.ContinuousBatcher(sampler, **kw)
+  direct.add_request(http_prompt)
+  ((_, direct_tokens, _),) = direct.run_until_drained(BATCH_TICK)
+  del direct
+  frontend = server_lib.ServingFrontend(
+      serving.ContinuousBatcher(sampler, reuse_programs=False, **kw),
+      step_size=BATCH_TICK)
+  srv = server_lib.ServingHTTPServer(frontend, host="127.0.0.1", port=0,
+                                     model_name="recurrentgemma-2b")
+  try:
+    _, _, out = _http(srv.port, "/v1/generate", {"prompt": http_prompt})
+    with _http(srv.port, "/v1/generate", {"prompt": http_prompt,
+                                          "stream": True},
+               stream=True) as resp:
+      lines = [json.loads(line) for line in resp]
+    _, _, cut = _http(srv.port, "/v1/generate",
+                      {"prompt": http_prompt, "max_tokens": SPEC_HTTP_CUT})
+    turns = [_http(srv.port, "/v1/generate",
+                   {"prompt": text, "session": "s1"})[2]["tokens"]
+             for text in (http_prompt, "w1 w2 w3")]
+    _, _, health = _http(srv.port, "/v1/health")
+  finally:
+    srv.close()
+  streamed = [t for line in lines for t in line.get("tokens", [])]
+  widest = max(len(line.get("tokens", [])) for line in lines)
+  log(f"  HTTP over a {HTTP_SLOTS}-slot speculative batcher: /v1/generate "
+      f"identical to a direct batcher run {out['tokens'] == direct_tokens} "
+      f"({len(direct_tokens)} tokens); streaming {len(lines)} lines, up to "
+      f"{widest} tokens a line, equal {streamed == direct_tokens}; "
+      f"max_tokens {SPEC_HTTP_CUT} gives the first {SPEC_HTTP_CUT} "
+      f"{cut['tokens'] == direct_tokens[:SPEC_HTTP_CUT]}; a two-turn "
+      f"session {[len(t) for t in turns]} tokens; health {health}")
+  if (out["tokens"] != direct_tokens or streamed != direct_tokens
+      or cut["tokens"] != direct_tokens[:SPEC_HTTP_CUT]
+      or turns[0] != direct_tokens or not turns[1] or not health["ok"]
+      or frontend._error is not None):  # pylint: disable=protected-access
+    raise AssertionError("The front end over a speculative batcher "
+                         "disagrees with the direct batcher.")
+
+  carry_row["launches"] = served["lru_scan_carries"]
+  for name, n in (("lru_scan", served["lru_scan"] - served["lru_scan_carries"]),
+                  ("window_attention", served["window_attention"]),
+                  ("int8_weight_matmul", served["int8_weight_matmul"]),
+                  ("int8_weight_matmul_wgmma",
+                   served["int8_weight_matmul_wgmma"]),
+                  ("add_rmsnorm", served["add_rmsnorm"]),
+                  ("mha_attention", served["mha_attention"])):
+    by_name[name]["launches"] += n
+  log(f"  launches of phase 21's runs {served} (added to their rows)")
+  log(f"  phase 21 took {time.perf_counter() - phase_start:.1f} s")
+
+
 def main() -> int:
   profile = "--profile" in sys.argv[1:]
   if not torch.cuda.is_available():
@@ -5727,7 +6392,10 @@ def main() -> int:
   log(f"== the complex scan and lab phases {time.perf_counter() - phase_start:.1f}"
       f" s; total {time.perf_counter() - start:.1f} s")
   torch.cuda.empty_cache()
-  phase_int8(dev, kernels, profile)
+  handoff = phase_int8(dev, kernels, profile)
+  torch.cuda.empty_cache()
+  phase_speculative(dev, kernels, handoff)
+  del handoff
   torch.cuda.empty_cache()
   ckpt_dir = tempfile.mkdtemp(prefix="chip-smoke-checkpoints-")
   try:

@@ -164,10 +164,11 @@ def test_config_from_numpy_params_equals_jax():
 
 def test_port_hygiene(monkeypatch):
   """The port, its training (LoRA and the image loader too), vision,
-  serving, parallel, complex, kernel-lab, tokenizer, int8, checkpoint
-  (I/O, timm import) and resilience modules included, imports no JAX, flax,
-  optax or orbax and nothing of the JAX package, and its entry points
-  refuse to fall back to the CPU without being asked."""
+  serving (speculative decoding too), parallel, complex, kernel-lab,
+  tokenizer, int8, checkpoint (I/O, timm import) and resilience modules
+  included, imports no JAX, flax, optax or orbax and nothing of the JAX
+  package, and its entry points refuse to fall back to the CPU without
+  being asked."""
   probe = (
       "import sys; before = set(sys.modules); "
       "import cadence_gemma_tpu_torch; "
@@ -178,6 +179,7 @@ def test_port_hygiene(monkeypatch):
       "import cadence_gemma_tpu_torch.inference.modal_sampler; "
       "import cadence_gemma_tpu_torch.inference.serving; "
       "import cadence_gemma_tpu_torch.inference.server; "
+      "import cadence_gemma_tpu_torch.inference.speculative; "
       "import cadence_gemma_tpu_torch.parallel.sharding; "
       "import cadence_gemma_tpu_torch.parallel.sp_attention; "
       "import cadence_gemma_tpu_torch.complex_lib; "

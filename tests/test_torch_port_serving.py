@@ -675,7 +675,8 @@ class TestProgramReuse:
 
 
 REFUSED = {
-    "draft_len": (dict(draft_len=2), None, "item 10"),
+    # Speculation is ported; its grammar-aware verify is not.
+    "draft_len": (dict(draft_len=2), dict(constraint=0), "item 11"),
     "constraints": (dict(constraints=[object()]), None, "item 11"),
     "dynamic_grammar_slots": (dict(dynamic_grammar_slots=2), None,
                               "item 11"),
