@@ -4,7 +4,9 @@ Text generation (chunked prefill, prefix caching and conversational state,
 per-row sampling, the decode loop captured as a CUDA graph), speculative
 decoding from prompt-lookup drafts (``SpeculativeSampler``, and
 ``ContinuousBatcher(draft_len=...)``, each verify step one captured CUDA
-graph),
+graph), grammar-constrained decoding (``TokenDFA``, ``json_mode_dfa``,
+``schema_dfa``: ``constraint=`` on every sampler, grammar registries in the
+batcher, JSON mode, JSON schemas and forced tool calls over HTTP),
 image-conditioned generation (DINOv2-L || SigLIP-so400m towers, the
 vision-language connector), fine-tuning (full SFT, image SFT and the
 two-stage recipe of ``two_stage_sft``, LoRA adapters over a bf16 or an int8
@@ -38,6 +40,14 @@ from cadence_gemma_tpu_torch.common import apply_it_formatter
 from cadence_gemma_tpu_torch.convert import encoder_from_flax_params
 from cadence_gemma_tpu_torch.convert import griffin_from_flax_params
 from cadence_gemma_tpu_torch.convert import read_npz_params
+from cadence_gemma_tpu_torch.inference.constrain import TokenDFA
+from cadence_gemma_tpu_torch.inference.constrain import choice_regex
+from cadence_gemma_tpu_torch.inference.constrain import json_mode_dfa
+from cadence_gemma_tpu_torch.inference.constrain import json_regex
+from cadence_gemma_tpu_torch.inference.constrain import schema_dfa
+from cadence_gemma_tpu_torch.inference.constrain import schema_regex
+from cadence_gemma_tpu_torch.inference.constrain import token_strings_from_vocab
+from cadence_gemma_tpu_torch.inference.constrain import tool_call_schema
 from cadence_gemma_tpu_torch.inference.modal_sampler import ModalSampler
 from cadence_gemma_tpu_torch.inference.sampler import PrefixState
 from cadence_gemma_tpu_torch.inference.sampler import Sampler
@@ -69,8 +79,8 @@ __all__ = [
     "Griffin",
     "GriffinConfig",
     "ModalSampler",
-    "Preset",
     "PrefixState",
+    "Preset",
     "SIGLIP_SO400M_384",
     "Sampler",
     "SamplerOutput",
@@ -81,17 +91,25 @@ __all__ = [
     "SimpleVocab",
     "SpeculativeSampler",
     "TemporalBlockType",
+    "TokenDFA",
     "TrainingConfig",
     "ViTConfig",
     "Vocabulary",
     "apply_it_formatter",
+    "choice_regex",
     "encoder_from_flax_params",
     "griffin_from_flax_params",
+    "json_mode_dfa",
+    "json_regex",
     "load_sentencepiece",
     "lora",
     "make_mesh",
     "quantize_params",
     "read_npz_params",
+    "schema_dfa",
+    "schema_regex",
+    "token_strings_from_vocab",
+    "tool_call_schema",
     "train_loop",
     "two_stage_sft",
 ]

@@ -11,7 +11,9 @@ pixels to the first sampled token nothing returns to the host.
 ``return_state`` and ``prefix_state`` follow the :class:`Sampler`: an
 image-grounded first turn with ``return_state=True`` encodes and prefills
 the image once, and follow-up turns continue text-only from its state.
-Grammar constraints are not ported.
+``constraint=`` masks the generation with a grammar on the image path (path,
+pixels or features) as on the text path, as the :class:`Sampler` does (JAX
+``modal_sampler.py:116-132, 159-241``).
 """
 
 from __future__ import annotations
@@ -88,11 +90,9 @@ class ModalSampler(sampler_lib.Sampler):
 
     At most one of ``img_path``, ``pixels`` and ``img_embed`` may be given;
     an empty ``img_path`` means text only. ``prefix_state`` continues a
-    cached context and takes no image argument. The other arguments are the
-    :class:`Sampler`'s.
+    cached context and takes no image argument. The other arguments,
+    ``constraint`` included, are the :class:`Sampler`'s.
     """
-    if constraint is not None:
-      raise NotImplementedError("Grammar constraints are not ported.")
     given = [img_path != "", pixels is not None, img_embed is not None]
     if sum(given) > 1:
       raise ValueError("Pass at most one of img_path, pixels, or img_embed.")
@@ -105,6 +105,7 @@ class ModalSampler(sampler_lib.Sampler):
     # Validate before the encoder runs, as the Sampler does before any
     # device work.
     self._validate_sampling_args(total_generation_steps, generator)
+    self._resolve_constraint(constraint)
     if return_state and total_generation_steps < 1:
       raise ValueError("return_state requires total_generation_steps >= 1.")
     if img_path:
@@ -116,5 +117,5 @@ class ModalSampler(sampler_lib.Sampler):
         return_logits=return_logits,
         end_sampling_at_eos_token=end_sampling_at_eos_token,
         img_embed=img_embed, prefix_state=prefix_state,
-        return_state=return_state,
+        return_state=return_state, constraint=constraint,
     )

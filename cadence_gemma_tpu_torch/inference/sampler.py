@@ -47,8 +47,14 @@ continuous batcher's admissions, which go through the same methods -- with
 int8 activations as well (:meth:`Griffin.act_quant_view`, over the same
 weights), while every decode step, the captured ones included, stays
 weight-only.
-Grammar constraints and tensor-parallel serving (``mesh``) are not ported
-yet.
+
+``constraint=`` (an :class:`~constrain.TokenDFA` compiled for the sampler's
+vocabulary) masks every generated token to keep the output inside a
+grammar, as JAX's: the mask comes last, after the repetition penalty, and the
+sampled token advances each row's DFA state; the first token is masked
+before the per-row overrides of the continuous batcher. The captured decode
+step masks and advances inside its graph, on tables it owns. The returned
+logits stay unmasked. Tensor-parallel serving (``mesh``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -114,6 +120,9 @@ class _SamplingState:
   # int64 scalar: first buffer index of a generated token (the repetition
   # penalty's scope, whatever ``echo`` puts before it).
   gen_start: torch.Tensor
+  # [b] int32 grammar-DFA state of each row, when the call carries a
+  # ``constraint`` (``inference/constrain.py``); None otherwise.
+  constraint_state: torch.Tensor | None = None
 
 
 def filter_logits(
@@ -222,10 +231,15 @@ class _DecodeGraph:
   :meth:`load` gives it the caller's generator's seed and offset, and
   :meth:`store` hands the advanced offset back, so the replays draw what
   eager steps would have drawn from the caller's generator.
+
+  A constrained step (``tables``, a ``constrain.ConstraintTables``) masks
+  and advances on the graph's own copy of the tables and of the rows' DFA
+  states; :meth:`load` copies a call's tables in, so one graph serves every
+  grammar of the same table shapes.
   """
 
   def __init__(self, sampler: "Sampler", state: _SamplingState, eos: bool,
-               categorical: bool):
+               categorical: bool, tables=None):
     # The sampler is not kept: it holds this graph, and a reference back
     # would keep both (and the graph's memory pool) alive until a garbage
     # collection. Replays run no Python.
@@ -237,6 +251,10 @@ class _DecodeGraph:
     self.done = state.done.clone()
     self.gen_start = state.gen_start.clone()
     self.cache = _map_cache(torch.clone, state.cache)
+    self.tables = self.constraint_state = None
+    if tables is not None:
+      self.tables = tables.clone()
+      self.constraint_state = state.constraint_state.clone()
     self.generator = None
     if categorical:
       if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
@@ -254,7 +272,7 @@ class _DecodeGraph:
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
       for _ in range(_GRAPH_WARMUP_STEPS):
-        self.load(state, None)
+        self.load(state, None, tables)
         self._step(sampler)
     torch.cuda.current_stream(device).wait_stream(side)
     self.graph = torch.cuda.CUDAGraph()
@@ -267,14 +285,16 @@ class _DecodeGraph:
     logits, cache = sampler._decode_step(
         self.tokens_buffer, self.step, self.positions, self.done,
         self.gen_start, self.cache, self.generator, self._eos,
+        self.constraint_state, self.tables,
     )
     for dst, src in zip(_cache_leaves(self.cache), _cache_leaves(cache)):
       dst.copy_(src)
     return logits
 
   def load(self, state: _SamplingState,
-           generator: torch.Generator | None) -> None:
-    """Copies a call's state (and generator position) into the buffers."""
+           generator: torch.Generator | None, tables=None) -> None:
+    """Copies a call's state (generator position and constraint tables
+    included) into the buffers."""
     for dst, src in zip(
         [self.tokens_buffer, self.step, self.positions, self.done,
          self.gen_start, *_cache_leaves(self.cache)],
@@ -282,6 +302,9 @@ class _DecodeGraph:
          state.gen_start, *_cache_leaves(state.cache)],
     ):
       dst.copy_(src)
+    if self.tables is not None:
+      self.tables.copy_(tables)
+      self.constraint_state.copy_(state.constraint_state)
     if self.generator is not None and generator is not None:
       self.generator.set_state(generator.get_state())
 
@@ -298,6 +321,8 @@ class _DecodeGraph:
     state.step = self.step.clone()
     state.positions = self.positions.clone()
     state.done = self.done.clone()
+    if self.constraint_state is not None:
+      state.constraint_state = self.constraint_state.clone()
     state.cache = (_map_cache(torch.clone, self.cache) if keep_cache
                    else None)
     if self.generator is not None and generator is not None:
@@ -466,6 +491,7 @@ class Sampler:
       initial_cache=None,
       start_positions: torch.Tensor | None = None,
       sampling_overrides=None,
+      constraint_tables=None,
   ) -> _SamplingState:
     """Builds the cache, samples the first token, allocates the buffers.
 
@@ -476,7 +502,9 @@ class Sampler:
     suppress_stops[b], extra_stop_cols[b, k], bias_ids[b, m],
     bias_vals[b, m])`` tuple, samples the first token with per-row filters:
     the logit bias is added (id -1 = unused entry), and the stop tokens of
-    ``suppress_stops`` rows are masked to -inf.
+    ``suppress_stops`` rows are masked to -inf. ``constraint_tables`` masks
+    the first token with the grammar, before the overrides, and the state
+    carries each row's DFA state after it (``constraint_state``).
     """
     batch_size, prompt_length = tokens.shape
     steps = torch.arange(prompt_length, device=self.device)[None]
@@ -524,14 +552,22 @@ class Sampler:
         (batch_size, total_generation_steps), self.vocab.pad_id(),
         dtype=torch.long, device=self.device,
     )
+    constraint_state = None
+    if constraint_tables is not None:
+      constraint_state = constraint_tables.start.expand(batch_size).clone()
     if logits is not None:
       seed_logits, row_overrides = logits[:, 0], None
+      if constraint_tables is not None:
+        seed_logits = constraint_tables.mask(constraint_state, seed_logits)
       if sampling_overrides is not None:
         seed_logits, row_overrides = self._override_seed_logits(
             seed_logits, sampling_overrides
         )
       tokens_buffer[:, 0] = self._sample(seed_logits, generator,
                                          row_overrides)
+      if constraint_tables is not None:
+        constraint_state = constraint_tables.advance(constraint_state,
+                                                     tokens_buffer[:, 0])
 
     logits_buffer = None
     if return_logits:
@@ -568,6 +604,7 @@ class Sampler:
         done=torch.zeros(batch_size, dtype=torch.bool, device=self.device),
         logits_buffer=logits_buffer,
         gen_start=step.clone(),
+        constraint_state=constraint_state,
     )
 
   def _override_seed_logits(self, seed_logits, sampling_overrides):
@@ -607,11 +644,16 @@ class Sampler:
       cache,
       generator: torch.Generator | None,
       end_sampling_at_eos_token: bool,
+      constraint_state: torch.Tensor | None = None,
+      constraint_tables=None,
   ):
     """One decode step: feeds the token at ``step``, writes the next at
     ``step + 1``. Advances ``tokens_buffer``, ``step``, ``positions`` and
     ``done`` in place and reads nothing back to the host, so a CUDA graph
-    can capture it; returns the step's logits [b, vocab] and the new cache.
+    can capture it; returns the step's logits [b, vocab] (unmasked) and the
+    new cache. With ``constraint_tables`` the grammar mask comes last,
+    after the penalty, and the sampled token advances ``constraint_state``
+    in place.
     """
     rows = tokens_buffer.shape[0]
     last_token = tokens_buffer.gather(1, step.expand(rows, 1))
@@ -626,7 +668,12 @@ class Sampler:
       step_logits = self._apply_repetition_penalty(
           logits, tokens_buffer, written.expand_as(tokens_buffer)
       )
+    if constraint_tables is not None:
+      step_logits = constraint_tables.mask(constraint_state, step_logits)
     next_token = self._sample(step_logits, generator)
+    if constraint_tables is not None:
+      constraint_state.copy_(constraint_tables.advance(constraint_state,
+                                                       next_token))
     step.add_(1)
     tokens_buffer.scatter_(1, step.expand(rows, 1), next_token[:, None])
     positions.add_(1)
@@ -639,12 +686,16 @@ class Sampler:
     """Decode replays a captured step (graphs are a CUDA facility)."""
     return self.jit_compile and self.device.type == "cuda"
 
-  def _graph_for(self, state: _SamplingState, eos: bool) -> _DecodeGraph:
+  def _graph_for(self, state: _SamplingState, eos: bool,
+                 constraint_tables=None) -> _DecodeGraph:
     key = (*state.tokens_buffer.shape, eos, self.repetition_penalty != 1.0,
-           self.deterministic_sampling)
+           self.deterministic_sampling,
+           constraint_tables.shapes if constraint_tables is not None
+           else None)
     graph = self._graphs.get(key)
     if graph is None:
-      graph = _DecodeGraph(self, state, eos, not self.deterministic_sampling)
+      graph = _DecodeGraph(self, state, eos, not self.deterministic_sampling,
+                           constraint_tables)
       self._graphs[key] = graph
     return graph
 
@@ -654,6 +705,7 @@ class Sampler:
       end_sampling_at_eos_token: bool,
       generator: torch.Generator | None,
       keep_cache: bool = False,
+      constraint_tables=None,
   ) -> _SamplingState:
     """Runs steps until the budget is spent or every row is done.
 
@@ -671,8 +723,9 @@ class Sampler:
     step = int(state.step)
     graph = None
     if self._captures_decode:
-      graph = self._graph_for(state, end_sampling_at_eos_token)
-      graph.load(state, generator)
+      graph = self._graph_for(state, end_sampling_at_eos_token,
+                              constraint_tables)
+      graph.load(state, generator, constraint_tables)
     done = graph.done if graph else state.done
     # total_steps - 1: the first token was sampled from the prompt.
     while step < state.total_steps - 1:
@@ -684,7 +737,8 @@ class Sampler:
         logits, state.cache = self._decode_step(
             state.tokens_buffer, state.step, state.positions, state.done,
             state.gen_start, state.cache, generator,
-            end_sampling_at_eos_token,
+            end_sampling_at_eos_token, state.constraint_state,
+            constraint_tables,
         )
       step += 1
       if state.logits_buffer is not None:
@@ -879,6 +933,23 @@ class Sampler:
     if total_generation_steps < 0:
       raise ValueError("total_generation_steps must be at least 0.")
 
+  def _resolve_constraint(self, constraint):
+    """``constraint`` (a ``TokenDFA`` or its tables) -> tables on the
+    sampler's device, checked against the model's vocabulary."""
+    if constraint is None:
+      return None
+    tables = constraint
+    if callable(getattr(constraint, "tables", None)):
+      tables = constraint.tables(device=self.device)
+    table_vocab = tables.token_lengths.shape[0]
+    if table_vocab != self.vocab_size:
+      raise ValueError(
+          f"Constraint was compiled for a {table_vocab}-token vocabulary; "
+          f"this sampler's model has {self.vocab_size}. Rebuild the "
+          "TokenDFA with token_strings_from_vocab(vocab, vocab_size)."
+      )
+    return tables
+
   @torch.inference_mode()
   def __call__(
       self,
@@ -891,6 +962,7 @@ class Sampler:
       img_embed: torch.Tensor | None = None,
       prefix_state: PrefixState | None = None,
       return_state: bool = False,
+      constraint: Any | None = None,
   ) -> SamplerOutput:
     """Generates completions for a batch of prompts.
 
@@ -915,11 +987,22 @@ class Sampler:
         continue from. Exact for batch 1; in a larger batch rows that
         stopped early keep decoding until all have. Needs
         ``total_generation_steps >= 1``.
+      constraint: A grammar: a :class:`~constrain.TokenDFA` (or its
+        ``tables(device=...)``) compiled for this sampler's vocabulary.
+        Every generated token is masked to keep the output inside the
+        grammar, and stop tokens are allowed only once the output matches
+        it (a generation that spends its budget may end on an incomplete
+        prefix). The batch shares one grammar; each row has its own DFA
+        state, which restarts at the grammar's start each call (with
+        ``prefix_state`` it scopes the new generation, not the history).
+        Returned ``logits`` are the model's, before the mask; ``echo``
+        does not constrain the prompt.
 
     Returns:
       A :class:`SamplerOutput`.
     """
     self._validate_sampling_args(total_generation_steps, generator)
+    tables = self._resolve_constraint(constraint)
     if return_state and total_generation_steps < 1:
       raise ValueError(
           "return_state requires total_generation_steps >= 1 (a prefill-"
@@ -929,7 +1012,7 @@ class Sampler:
       return self._call_with_prefix(
           prefix_state, input_strings, total_generation_steps, generator,
           echo, return_logits, end_sampling_at_eos_token, img_embed,
-          return_state,
+          return_state, tables,
       )
 
     all_ids = [self.tokenize(s) for s in input_strings]
@@ -973,6 +1056,7 @@ class Sampler:
       state = self._prefill(
           final_tokens, input_lengths, total_generation_steps,
           return_logits, echo, generator, None, cache, start,
+          constraint_tables=tables,
       )
       if echo:
         # The final prefill echoed its own chunk only: prepend the earlier
@@ -990,12 +1074,12 @@ class Sampler:
     else:
       state = self._prefill(
           padded, input_lengths, total_generation_steps, return_logits,
-          echo, generator, img_embed,
+          echo, generator, img_embed, constraint_tables=tables,
       )
     pad_lengths = [padded.shape[1] - n for n in lengths]
     return self._finish_sampling(
         state, pad_lengths, total_generation_steps, echo, return_logits,
-        end_sampling_at_eos_token, return_state, generator,
+        end_sampling_at_eos_token, return_state, generator, tables,
     )
 
   def _call_with_prefix(
@@ -1009,8 +1093,11 @@ class Sampler:
       end_sampling_at_eos_token: bool,
       img_embed,
       return_state: bool,
+      constraint_tables=None,
   ) -> SamplerOutput:
-    """Continues prompts from cached context (a prefix or a last turn)."""
+    """Continues prompts from cached context (a prefix or a last turn). A
+    constraint restarts at the grammar's start state: it scopes the new
+    generation, not the cached history."""
     if img_embed is not None:
       raise ValueError(
           "prefix_state cannot be combined with img_embed: the image "
@@ -1021,14 +1108,14 @@ class Sampler:
     batch = tokens.shape[0]
     state = self._prefill(
         tokens, None, total_generation_steps, return_logits, echo,
-        generator, None, cache, start,
+        generator, None, cache, start, constraint_tables=constraint_tables,
     )
     # A pending token belongs to the previous turn (already returned):
     # echoed buffers drop it, so echo covers the continuation only.
     lead = 1 if prefix_state.pending_token is not None else 0
     return self._finish_sampling(
         state, [lead] * batch, total_generation_steps, echo, return_logits,
-        end_sampling_at_eos_token, return_state, generator,
+        end_sampling_at_eos_token, return_state, generator, constraint_tables,
     )
 
   def _finish_sampling(
@@ -1041,11 +1128,13 @@ class Sampler:
       end_sampling_at_eos_token: bool,
       return_state: bool,
       generator,
+      constraint_tables=None,
   ) -> SamplerOutput:
     """Runs the decode loop and slices the buffers into a SamplerOutput."""
     if total_generation_steps > 1:
       state = self._decode(state, end_sampling_at_eos_token, generator,
-                           keep_cache=return_state)
+                           keep_cache=return_state,
+                           constraint_tables=constraint_tables)
 
     next_state = None
     if return_state:

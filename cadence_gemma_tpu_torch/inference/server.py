@@ -62,18 +62,27 @@ OpenAI-compatible surface (same frontend):
       ``stream_options: {"include_usage": true}`` appends the usage chunk.
       ``echo`` is refused (400).
 
-      Tool calling with ``tool_choice: "auto"`` (or ``"none"``): declared
-      functions render as an in-prompt preamble (``render_tool_preamble``),
-      generation stays free, and envelope output is recognized after the
-      fact (``parse_tool_call``; streaming through :class:`ToolStreamGate`)
-      and returned as OpenAI ``message.tool_calls`` with ``finish_reason:
-      "tool_calls"``.
+      ``response_format: {"type": "json_object"}`` masks the generation
+      with the grammar the frontend names ``"json_object"``
+      (``constrain.json_mode_dfa`` registered on the batcher and named in
+      ``constraint_names``); ``{"type": "json_schema", "json_schema":
+      {"schema": ...}}`` compiles the schema (the strict structured-outputs
+      subset) on the handler thread into a dynamic grammar slot.
 
-Grammar-constrained surfaces -- ``constraint=`` on ``/v1/generate``,
-``response_format`` ``json_object`` / ``json_schema``, ``tool_choice:
-"required"`` or a named function, and ``ServingFrontend(constraint_names=)``
--- are not ported yet (ROADMAP queue 1 item 11): the routes answer 400 with
-an OpenAI error saying so.
+      Tool calling (``tools`` + ``tool_choice``): declared functions render
+      as an in-prompt preamble (``render_tool_preamble``). ``tool_choice:
+      "required"`` or a named function constrains the completion to
+      ``constrain.tool_call_schema(tools)`` through the dynamic grammar
+      slots, so the arguments match the tool's ``parameters`` schema;
+      ``"auto"`` (or ``"none"``) leaves generation free and recognizes
+      envelope output after the fact (``parse_tool_call``). Tool calls come
+      back as OpenAI ``message.tool_calls`` with ``finish_reason:
+      "tool_calls"``. Streaming composes: a forced call streams
+      ``delta.tool_calls`` chunks (name header, then argument fragments);
+      auto mode streams through :class:`ToolStreamGate`.
+
+``/v1/generate`` takes ``constraint``: a name from ``constraint_names`` or a
+JSON schema.
 
 ``ServingFrontend`` is usable without HTTP (library callers submit and
 wait); ``ServingHTTPServer`` wraps it for the wire.
@@ -96,50 +105,9 @@ from typing import Any
 import torch
 
 from cadence_gemma_tpu_torch import common
+from cadence_gemma_tpu_torch.inference import constrain
 from cadence_gemma_tpu_torch.inference import serving as serving_lib
 from cadence_gemma_tpu_torch.models import griffin
-
-GRAMMAR_NOT_PORTED = (
-    "grammar constraints are not ported yet (ROADMAP queue 1 item 11)"
-)
-
-
-def _tool_call_schema(tools: list, tool_name: str | None = None) -> dict:
-  """Validates OpenAI ``tools`` and returns the tool-call envelope's
-  JSON-Schema (a copy of the JAX package's ``constrain.tool_call_schema``,
-  whose module the port does not have).
-
-  Raises:
-    ValueError: malformed tools, duplicate or unknown names.
-  """
-  branches = []
-  seen: set[str] = set()
-  for i, tool in enumerate(tools):
-    if not isinstance(tool, dict) or tool.get("type") != "function":
-      raise ValueError(f"tools[{i}] must be {{'type': 'function', ...}}")
-    fn = tool.get("function")
-    if not isinstance(fn, dict) or not isinstance(fn.get("name"), str):
-      raise ValueError(f"tools[{i}].function needs a string 'name'")
-    name = fn["name"]
-    if name in seen:
-      raise ValueError(f"duplicate tool name {name!r}")
-    seen.add(name)
-    if tool_name is not None and name != tool_name:
-      continue
-    params = fn.get("parameters")
-    if params is None:
-      params = {"type": "object", "properties": {}, "required": []}
-    branches.append({
-        "type": "object",
-        "properties": {"name": {"const": name}, "arguments": params},
-        "required": ["name", "arguments"],
-    })
-  if not branches:
-    raise ValueError(
-        f"tool_choice names {tool_name!r}, which is not in tools"
-        if tool_name is not None else "tools must be non-empty"
-    )
-  return branches[0] if len(branches) == 1 else {"anyOf": branches}
 
 
 def _message_parts(content: Any) -> tuple[str, str | None]:
@@ -181,7 +149,8 @@ def render_tool_preamble(tools: list) -> str:
 
   Declares the available functions and the calling convention — reply
   with ONLY the envelope JSON ``{"name": ..., "arguments": {...}}`` —
-  matching :func:`_tool_call_schema`'s envelope.
+  matching :func:`constrain.tool_call_schema`, so a forced ``tool_choice``
+  constrains generation to exactly what the preamble asks for.
   """
   decls = []
   for tool in tools:
@@ -217,7 +186,7 @@ def render_chat_messages(
   template (and like the equivalent chained-session conversation).
 
   Tool use (Gemma has no tool tokens; the convention is in-band JSON,
-  shared with :func:`_tool_call_schema`):
+  shared with :func:`constrain.tool_call_schema`):
 
   * ``tools``, when given, render as a declaration preamble ahead of the
     first user turn (after any system text).
@@ -707,7 +676,11 @@ class ServingFrontend:
     max_queue: Admission backpressure: ``submit`` raises :class:`QueueFull`
       (HTTP 429) once this many submissions wait for a slot. ``None`` =
       unbounded (library use).
-    constraint_names: Named grammars; not ported (None).
+    constraint_names: Maps public grammar names to the batcher's registered
+      constraint indices (``ContinuousBatcher(constraints=[...])``), e.g.
+      ``{"json_object": 0}``. ``submit(..., constraint="json_object")``
+      then masks that request with it; the OpenAI routes map
+      ``response_format: {"type": "json_object"}`` to that name.
     device: Where the driver thread runs torch: the batcher's device.
       ``None`` means CUDA and raises without a card; pass ``device="cpu"``
       for a CPU batcher.
@@ -722,9 +695,6 @@ class ServingFrontend:
                max_queue: int | None = None,
                constraint_names: dict[str, int] | None = None,
                device=None):
-    if constraint_names:
-      raise NotImplementedError(
-          f"constraint_names: {GRAMMAR_NOT_PORTED}")
     self.device = serving_lib._check_device(
         griffin.resolve_device(device), batcher.device, "frontend",
         "batcher")
@@ -742,6 +712,22 @@ class ServingFrontend:
     self.adapter_resolver = adapter_resolver
     self.max_sessions = max_sessions
     self.max_queue = max_queue
+    self.constraint_names = dict(constraint_names or {})
+    if self.constraint_names and batcher._constraints is None:
+      raise ValueError(
+          "constraint_names given but the batcher registered no grammars "
+          "(build it with ContinuousBatcher(constraints=[...]))."
+      )
+    # Per-request JSON-schema grammars (response_format json_schema):
+    # compiled on the handler thread (host numpy and C++, never in the
+    # driver's ticks), LRU-cached by canonical schema JSON, installed into
+    # the batcher's dynamic slots at admission.
+    self._schema_cache: collections.OrderedDict[str, Any] = (
+        collections.OrderedDict()
+    )
+    self._schema_cache_size = 32
+    self._schema_lock = threading.Lock()
+    self._token_strings: list[str] | None = None
     self._inbox: queue.Queue[Submission] = queue.Queue()
     # Accepted-but-unfinished submissions; close(drain=True) waits on this
     # (the inbox and _by_id are briefly both empty while an admission is in
@@ -796,12 +782,23 @@ class ServingFrontend:
     drawn from ``secrets`` when absent). ``adapter`` is resolved by the
     frontend's ``adapter_resolver`` into the request's LoRA tree (a
     ``multi_lora`` batcher); without a resolver it raises ``ValueError``.
-    ``constraint`` raises ``NotImplementedError`` (not ported)."""
+    ``constraint`` names a grammar of ``constraint_names``, or is a
+    JSON-Schema dict (the strict subset), compiled here on the handler
+    thread and installed into a dynamic grammar slot at admission."""
     if self._error is not None:
       raise FrontendDead(f"serving driver died: {self._error}")
-    if constraint is not None:
-      raise NotImplementedError(f"constraint={constraint!r}: "
-                                f"{GRAMMAR_NOT_PORTED}")
+    constraint_index = None
+    if isinstance(constraint, dict):
+      # A JSON schema: compile (cached) to a grammar for a dynamic slot.
+      constraint_index = self._compile_schema(constraint)
+    elif constraint is not None:
+      try:
+        constraint_index = self.constraint_names[constraint]
+      except KeyError:
+        raise ValueError(
+            f"unknown constraint {constraint!r}; this server offers "
+            f"{sorted(self.constraint_names) or 'none'}"
+        ) from None
     if self.max_queue is not None and self._inbox.qsize() >= self.max_queue:
       raise QueueFull(
           f"submission queue is full ({self.max_queue} waiting); retry "
@@ -837,13 +834,50 @@ class ServingFrontend:
         self.batcher.max_steps_default if max_tokens is None
         else max_tokens,
         seed, image_path, image_b64, session=session, adapter=adapter,
-        session_epoch=epoch, sampling=sampling,
+        session_epoch=epoch, constraint=constraint_index,
+        sampling=sampling,
     )
     with self._open_lock:
       self._open += 1
     self._inbox.put(sub)
     self._wake.set()
     return sub
+
+  def _compile_schema(self, schema: dict):
+    """JSON schema -> ``TokenDFA`` (the strict subset), LRU-cached.
+
+    Raises ValueError for a schema outside the strict subset, or when the
+    batcher has no dynamic grammar slots. Host work only, so it is safe on
+    handler threads.
+    """
+    if not self.batcher.dynamic_grammar_slots:
+      raise ValueError(
+          "per-request JSON schemas need ContinuousBatcher("
+          "dynamic_grammar_slots=k); this server has none"
+      )
+    key = json.dumps(schema, sort_keys=True)
+    sampler = self.batcher.sampler
+    with self._schema_lock:
+      dfa = self._schema_cache.get(key)
+      if dfa is not None:
+        self._schema_cache.move_to_end(key)
+        return dfa
+      if self._token_strings is None:
+        self._token_strings = constrain.token_strings_from_vocab(
+            sampler.vocab, sampler.vocab_size
+        )
+    eos = int(sampler.vocab.eos_id())
+    dfa = constrain.TokenDFA(
+        constrain.schema_regex(schema),
+        self._token_strings,
+        eos_id=eos,
+        extra_stop_ids=[i for i in sampler._stop_ids_host if i != eos],
+    )
+    with self._schema_lock:
+      self._schema_cache[key] = dfa
+      while len(self._schema_cache) > self._schema_cache_size:
+        self._schema_cache.popitem(last=False)
+    return dfa
 
   def reset_session(self, session: str) -> bool:
     """Drops a session's stored context; its next turn starts fresh.
@@ -979,6 +1013,8 @@ class ServingFrontend:
         kwargs["prefix_state"] = self.default_prefix_state
       if sub.adapter is not None:
         kwargs["adapters"] = self.adapter_resolver(sub.adapter)
+      if sub.constraint is not None:
+        kwargs["constraint"] = sub.constraint
       kwargs.update(sub.sampling)
       if sub.seed is None and not self.batcher.sampler.deterministic_sampling:
         # Categorical serving without a client seed: draw one here (and
@@ -1224,29 +1260,48 @@ def _make_handler(frontend: ServingFrontend, model_name: str):
           return True
       return False
 
-    def _openai_reject_response_format(self, req: dict) -> bool:
-      """400s a ``response_format`` other than text; True if rejected.
+    def _openai_constraint(self, req: dict):
+      """Maps ``response_format`` to a constraint.
 
-      ``json_object`` and ``json_schema`` need grammar constraints, which
-      are not ported yet.
+      Returns (constraint, rejected): the named grammar ``"json_object"``
+      for ``json_object`` (registered with ``constrain.json_mode_dfa`` and
+      ``constraint_names``), or the schema dict for ``json_schema`` (a
+      batcher with ``dynamic_grammar_slots``; the strict structured-outputs
+      subset).
       """
       rf = req.get("response_format")
       kind = rf.get("type") if isinstance(rf, dict) else rf
       if kind in (None, "text"):
-        return False
-      if kind in ("json_object", "json_schema"):
-        self._json(400, _openai_error(
-            f"response_format {kind!r}: {GRAMMAR_NOT_PORTED}"))
-        return True
+        return None, False
+      if kind == "json_object":
+        if "json_object" not in frontend.constraint_names:
+          self._json(400, _openai_error(
+              "this server has no JSON grammar registered; build the "
+              "batcher with constrain.json_mode_dfa and pass "
+              "constraint_names={'json_object': index}"
+          ))
+          return None, True
+        return "json_object", False
+      if kind == "json_schema":
+        spec = rf.get("json_schema")
+        schema = spec.get("schema") if isinstance(spec, dict) else None
+        if not isinstance(schema, dict):
+          self._json(400, _openai_error(
+              "response_format json_schema needs "
+              "{'json_schema': {'schema': {...}}}"
+          ))
+          return None, True
+        return schema, False
       self._json(400, _openai_error(
           f"response_format type {kind!r} is not supported "
           "(use 'text', 'json_object', or 'json_schema')"
       ))
-      return True
+      return None, True
 
     def _openai_generate(self, req: dict, prompt: str,
                          image_b64: str | None, chat: bool,
-                         tool_names: set[str] | None = None) -> None:
+                         tool_names: set[str] | None = None,
+                         tool_constraint: dict | None = None) -> None:
       """Shared tail of /v1/completions and /v1/chat/completions."""
       max_tokens = req.get("max_tokens")
       if max_tokens is None:
@@ -1256,14 +1311,22 @@ def _make_handler(frontend: ServingFrontend, model_name: str):
       # per_request_sampling batchers); EVERY stop is matched host-side by
       # a StopStringGate, so multi-token sequences work on any batcher and
       # the matched text never reaches the client. Tool requests skip the
-      # host-side match, as in the JAX package.
+      # host-side match (a stop inside a constrained envelope would break
+      # the guaranteed-parseable contract).
       stop_req = req.get("stop")
       stop_strings = (
           [stop_req] if isinstance(stop_req, str)
           else [str(s) for s in stop_req] if stop_req else []
       )
-      if self._openai_reject_response_format(req):
+      constraint, rejected = self._openai_constraint(req)
+      if rejected:
         return
+      if tool_constraint is not None:
+        if constraint is not None:
+          return self._json(400, _openai_error(
+              "response_format cannot combine with a forced tool_choice"
+          ))
+        constraint = tool_constraint
       sampling: dict[str, Any] = {}
       if getattr(frontend.batcher, "per_request_sampling", False):
         # Honor the standard knobs (a per_request_sampling batcher
@@ -1313,7 +1376,7 @@ def _make_handler(frontend: ServingFrontend, model_name: str):
           seed_i = base_seed + i if base_seed is not None else None
           subs.append(frontend.submit(
               prompt, max_tokens=max_tokens, seed=seed_i,
-              image_b64=image_b64, **sampling,
+              image_b64=image_b64, constraint=constraint, **sampling,
           ))
       except QueueFull as e:
         return self._json(429, _openai_error(str(e), "overloaded_error"))
@@ -1467,10 +1530,12 @@ def _make_handler(frontend: ServingFrontend, model_name: str):
           return _format_logprobs(
               sub_i.logprobs, tokens, vocab, chat, top_k_lp)
 
-        # Tool requests (auto) route deltas through a ToolStreamGate: it
-        # streams content from the first envelope-implausible character
-        # and classifies envelope-plausible text only at finish.
-        gate = (ToolStreamGate(tool_names, False)
+        # Tool requests route deltas through a ToolStreamGate: a forced
+        # tool_choice streams the call as it comes (name header, then raw
+        # argument fragments: the grammar guarantees the envelope); auto
+        # mode streams content from the first envelope-implausible
+        # character and classifies envelope-plausible text at finish.
+        gate = (ToolStreamGate(tool_names, tool_constraint is not None)
                 if chat and tool_names else None)
         sgate = (StopStringGate(stop_strings)
                  if stop_strings and gate is None else None)
@@ -1570,19 +1635,22 @@ def _make_handler(frontend: ServingFrontend, model_name: str):
       tools = req.get("tools")
       tool_choice = req.get("tool_choice")
       tool_names: set[str] | None = None
+      tool_constraint: dict | None = None
       if tools is not None and tool_choice != "none":
         try:
-          _tool_call_schema(tools)  # validates the declarations
-          if isinstance(tool_choice, dict):
-            _tool_call_schema(
-                tools, (tool_choice.get("function") or {}).get("name"))
+          envelope = constrain.tool_call_schema(tools)  # also validates
         except ValueError as e:
           return self._json(400, _openai_error(str(e)))
-        if isinstance(tool_choice, dict) or tool_choice == "required":
+        if isinstance(tool_choice, dict):
+          name = (tool_choice.get("function") or {}).get("name")
+          try:
+            tool_constraint = constrain.tool_call_schema(tools, name)
+          except ValueError as e:
+            return self._json(400, _openai_error(str(e)))
+        elif tool_choice == "required":
           # A forced call constrains generation to the envelope grammar.
-          return self._json(400, _openai_error(
-              f"tool_choice {tool_choice!r}: {GRAMMAR_NOT_PORTED}"))
-        if tool_choice not in (None, "auto"):
+          tool_constraint = envelope
+        elif tool_choice not in (None, "auto"):
           return self._json(400, _openai_error(
               f"tool_choice {tool_choice!r} is not supported (use "
               "'auto', 'none', 'required', or a named function)"
@@ -1601,7 +1669,8 @@ def _make_handler(frontend: ServingFrontend, model_name: str):
       if not prompt:
         return self._json(400, _openai_error("empty conversation"))
       self._openai_generate(req, prompt, image_b64, chat=True,
-                            tool_names=tool_names)
+                            tool_names=tool_names,
+                            tool_constraint=tool_constraint)
 
     def do_POST(self):
       try:
@@ -1649,8 +1718,6 @@ def _make_handler(frontend: ServingFrontend, model_name: str):
                 if req.get("logit_bias") else None
             ),
         )
-      except NotImplementedError as e:  # constraint=
-        return self._json(400, _openai_error(str(e)))
       except SessionBusy as e:
         return self._json(409, {"error": str(e)})
       except QueueFull as e:

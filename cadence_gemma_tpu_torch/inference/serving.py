@@ -57,9 +57,21 @@ cache are O(1)):
     own generators, and their tokens are a batch-1 ``SpeculativeSampler``
     call's. The verify step is captured like the plain one and composes
     with ``multi_lora`` and ``preserve_states``.
+  * ``constraints=`` / ``dynamic_grammar_slots=`` keep a grammar registry
+    on the device (``constrain.stack_constraints``, JAX
+    ``serving.py:153-222, 362-401``): each slot carries a grammar id (0 is
+    allow-all, for free requests) and a DFA state, and the one decode step
+    masks and advances every slot by its own row, so constrained and free
+    requests share a tick. A request's admission prefill masks its first
+    token with its grammar's tables; the speculative verify masks every
+    position through the draft chain. ``register_grammar`` (and
+    ``add_request(constraint=<TokenDFA>)``) writes a grammar into a
+    reserved slot in place, on the driver thread's stream, so the tick
+    queued after it reads the new tables; a captured tick owns a copy of the
+    registry, refreshed as the adapter stacks are.
 
-Grammar constraints and serving over a mesh are not ported; each raises
-``NotImplementedError`` naming its ROADMAP item.
+Serving over a mesh is not ported and raises ``NotImplementedError`` naming
+its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -74,6 +86,7 @@ import weakref
 
 import torch
 
+from cadence_gemma_tpu_torch.inference import constrain
 from cadence_gemma_tpu_torch.inference import sampler as sampler_lib
 from cadence_gemma_tpu_torch.inference import speculative
 from cadence_gemma_tpu_torch.models import griffin
@@ -123,6 +136,7 @@ class _Request:
   want_state: bool = False  # extract a PrefixState when finished
   generator: torch.Generator | None = None  # the caller's (categorical)
   generator_state: torch.Tensor | None = None  # its state after the prefill
+  gid: int = 0            # grammar id (0 = unconstrained)
 
 
 @dataclasses.dataclass
@@ -143,6 +157,7 @@ class _Pending:
   sampling: tuple | None = None  # per-request sampling row (host values)
   adapters: dict | None = None   # the request's LoRA leaves (multi_lora)
   prompt_tokens: torch.Tensor | None = None  # [1, P] history seed (draft_len)
+  gid: int = 0        # grammar id (0 = unconstrained)
 
 
 class _TickFlags(NamedTuple):
@@ -154,17 +169,21 @@ class _TickFlags(NamedTuple):
   multi_lora: bool
   draft_len: int
   ngram: int
+  grammars: tuple | None  # the grammar registry's table shapes, if any
 
 
 def _tick_step(sampler, flags: _TickFlags, state: dict, cache,
-               generators: list, model=None) -> None:
+               generators: list, model=None, grammars=None) -> None:
   """One decode step of every slot, in place (``_step_n``'s body in JAX).
 
   Reads nothing back to the host, so a CUDA graph can capture it. Rows that
   are not live (empty, finished, cancelled) compute too; their token,
-  position, buffers and flags do not change, and with ``preserve_states``
-  neither does their cache. ``model`` (multi-LoRA: a ``lora_rows`` twin)
-  replaces the sampler's.
+  position, buffers, flags and DFA state do not change, and with
+  ``preserve_states`` neither does their cache. ``model`` (multi-LoRA: a
+  ``lora_rows`` twin) replaces the sampler's. ``grammars`` (a
+  ``constrain.StackedConstraintTables``) masks each slot's logits with its
+  own grammar row after the penalty and the logit bias, before
+  ``min_tokens`` holds the stops off.
   """
   s = state
   out = s["out"]
@@ -173,7 +192,8 @@ def _tick_step(sampler, flags: _TickFlags, state: dict, cache,
   live = s["active"] & ~s["done"]
   model = sampler.model if model is None else model
   if flags.draft_len:
-    _spec_tick_step(sampler, flags, s, cache, generators, model, live)
+    _spec_tick_step(sampler, flags, s, cache, generators, model, live,
+                    grammars)
     return
   logits, new_cache = model(s["last_token"][:, None], s["positions"], cache)
   for name, block in cache.items():
@@ -209,8 +229,17 @@ def _tick_step(sampler, flags: _TickFlags, state: dict, cache,
     bias_vals = torch.where(s["bias_ids"] >= 0, s["bias_vals"], 0.0)
     step_logits = step_logits.scatter_add(1, bias_cols,
                                           bias_vals.to(step_logits.dtype))
+  elif sampler.repetition_penalty != 1.0:
+    # The solo sampler's scope: the tokens this request emitted.
+    step_logits = sampler._apply_repetition_penalty(step_logits, out, written)
+  if grammars is not None:
+    # Each slot's own grammar row; the allow-all grammar (gid 0) masks
+    # nothing. After the bias, so a bias cannot bring back a banned token.
+    step_logits = grammars.mask(s["gid"], s["cstate"], step_logits)
+  if flags.per_request_sampling:
     # min_tokens: every stop token is illegal until the request has emitted
-    # that many tokens.
+    # that many tokens (after the grammar: a forced-long generation
+    # overrides the grammar's permission to stop).
     suppress = (s["write_idx"] < s["min_tokens"])[:, None]
     stop_cols = sampler._stop_ids[None].expand(slots, -1)
     vals = step_logits.gather(1, stop_cols).masked_fill(suppress,
@@ -221,9 +250,6 @@ def _tick_step(sampler, flags: _TickFlags, state: dict, cache,
     vals = step_logits.gather(1, extra_cols).masked_fill(
         (extra >= 0) & suppress, float("-inf"))
     step_logits = step_logits.scatter(1, extra_cols, vals)
-  elif sampler.repetition_penalty != 1.0:
-    # The solo sampler's scope: the tokens this request emitted.
-    step_logits = sampler._apply_repetition_penalty(step_logits, out, written)
   if sampler.deterministic_sampling:
     sampled = torch.argmax(step_logits, dim=-1)
   else:
@@ -240,6 +266,10 @@ def _tick_step(sampler, flags: _TickFlags, state: dict, cache,
       q[row].exponential_(1.0, generator=generator)
     sampled = (probs / q).argmax(dim=-1)
   next_token = torch.where(live, sampled, s["last_token"])
+  if grammars is not None:
+    s["cstate"].copy_(torch.where(
+        live, grammars.advance(s["gid"], s["cstate"], next_token),
+        s["cstate"]))
   idx = s["write_idx"].clamp(max=length - 1)
   out[rows, idx] = torch.where(live, next_token, out[rows, idx])
   if raw_lp is not None:
@@ -262,23 +292,35 @@ def _tick_step(sampler, flags: _TickFlags, state: dict, cache,
 
 
 def _spec_tick_step(sampler, flags: _TickFlags, s: dict, cache,
-                    generators: list, model, live: torch.Tensor) -> None:
+                    generators: list, model, live: torch.Tensor,
+                    grammars=None) -> None:
   """One verify step of every slot, in place (``serving.py:809-867`` in
-  JAX): rows that are not live keep their cache, history and buffers."""
+  JAX): rows that are not live keep their cache, history, buffers and DFA
+  state. With ``grammars`` each slot's registry row binds into the
+  grammar-agnostic verify (gid 0 = allow-all)."""
+  loop_state = dict(
+      hist=s["hist"], valid_from=s["valid_from"], cur_len=s["cur_len"],
+      cache=cache, positions=s["positions"], live=live, out=s["out"],
+      write_idx=s["write_idx"], budget=s["budget"])
+  bound = None
+  if grammars is not None:
+    bound = constrain.BoundConstraint(tables=grammars, gid=s["gid"])
+    loop_state["cstate"] = s["cstate"]
   st = speculative.prompt_lookup_spec_step(
-      model,
-      dict(hist=s["hist"], valid_from=s["valid_from"], cur_len=s["cur_len"],
-           cache=cache, positions=s["positions"], live=live, out=s["out"],
-           write_idx=s["write_idx"], budget=s["budget"]),
+      model, loop_state,
       draft_len=flags.draft_len, ngram=flags.ngram,
       stop_ids=sampler._stop_ids,
       logits_filter=speculative.sampler_filter(sampler),
       generators=generators or None,
+      constraint=bound,
   )
   for name, block in cache.items():
     for dst, src in zip(block, st["cache"][name]):
       dst.copy_(src)
-  for key in ("hist", "cur_len", "positions", "out", "write_idx"):
+  keys = ("hist", "cur_len", "positions", "out", "write_idx")
+  if grammars is not None:
+    keys += ("cstate",)
+  for key in keys:
     s[key].copy_(st[key])
   s["done"].copy_(s["done"] | st["eos_hit"]
                   | (live & (st["write_idx"] >= s["budget"])))
@@ -301,19 +343,24 @@ class _TickGraph:
   sampler's model whose ``[num_slots, ...]`` adapter stacks the graph owns;
   :meth:`run` copies a batcher's stacks into them when they differ from the
   last ones copied (another batcher's, or an older version) and never back.
+  A batcher's grammar registry (``flags.grammars``) is copied in the same
+  way, after a ``register_grammar`` wrote it.
   """
 
   def __init__(self, sampler, flags: _TickFlags, state: dict, cache,
-               generators: list):
+               generators: list, grammars=None):
     device = sampler.device
     self.state = {k: v.clone() for k, v in state.items()}
     self.cache = _map_cache(torch.clone, cache)
-    self.model = self.adapters = None
+    self.model = self.adapters = self.grammars = None
     self._adapters_from = None  # (owner token, version) last copied in
+    self._grammars_from = None
     if flags.multi_lora:
       self.model = sampler.model.adapter_twin(state["out"].shape[0])
       self.adapters = lora_lib.split_lora(
           dict(self.model.named_parameters()))[0]
+    if flags.grammars:
+      self.grammars = grammars.clone()
     self.generators = []
     if generators:
       if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
@@ -333,14 +380,14 @@ class _TickGraph:
       for _ in range(_GRAPH_WARMUP_STEPS):
         self._copy(state, cache, self.state, self.cache)
         _tick_step(sampler, flags, self.state, self.cache, self.generators,
-                   self.model)
+                   self.model, self.grammars)
     torch.cuda.current_stream(device).wait_stream(side)
     self.graph = torch.cuda.CUDAGraph()
     for generator in self.generators:
       self.graph.register_generator_state(generator)
     with torch.cuda.graph(self.graph):
       _tick_step(sampler, flags, self.state, self.cache, self.generators,
-                 self.model)
+                 self.model, self.grammars)
 
   @staticmethod
   def _copy(src_state, src_cache, dst_state, dst_cache) -> None:
@@ -350,18 +397,23 @@ class _TickGraph:
       dst.copy_(src)
 
   def run(self, state: dict, cache, generators: list, n: int,
-          adapters: dict | None = None, adapters_from=None) -> None:
+          adapters: dict | None = None, adapters_from=None,
+          grammars=None, grammars_from=None) -> None:
     """``n`` steps of a batcher's state, written back into its tensors.
 
     ``adapters`` are the batcher's stacks and ``adapters_from`` names them
     (an owner token and a version the batcher bumps at each write): they
-    are copied in only when they are not the ones the graph holds."""
+    are copied in only when they are not the ones the graph holds; likewise
+    the grammar registry ``grammars`` and ``grammars_from``."""
     with self._lock:
       self._copy(state, cache, self.state, self.cache)
       if adapters is not None and self._adapters_from != adapters_from:
         torch._foreach_copy_(list(self.adapters.values()),  # pylint: disable=protected-access
                              [adapters[n] for n in self.adapters])
         self._adapters_from = adapters_from
+      if grammars is not None and self._grammars_from != grammars_from:
+        self.grammars.copy_(grammars)
+        self._grammars_from = grammars_from
       for mine, theirs in zip(self.generators, generators):
         mine.set_state(theirs.get_state())
       for _ in range(n):
@@ -412,8 +464,23 @@ class ContinuousBatcher:
       request added with ``return_state=True`` can hand back its
       :class:`~sampler.PrefixState` (:meth:`take_state`). Costs a select
       over the cache each step.
-    constraints, dynamic_grammar_slots, dynamic_grammar_budget: Grammar
-      constraints; not ported (none, 0 and None).
+    constraints: ``constrain.TokenDFA`` grammars available to requests
+      (``add_request(..., constraint=k)`` selects ``constraints[k]``;
+      omitted = free generation), stacked into one registry on the device:
+      every decode step gathers each slot's own grammar row, so constrained
+      and free requests mix in one batch. Composes with ``draft_len`` (the
+      verify masks every position through the draft chain) and
+      ``per_request_sampling`` (the grammar masks after the logit bias,
+      ``min_tokens`` after the grammar).
+    dynamic_grammar_slots: Registry slots reserved for grammars registered
+      at run time (:meth:`register_grammar`, or ``add_request(constraint=
+      <TokenDFA>)``: per-request JSON schemas). Slots are overwritten in
+      place, so the table shapes, and the captured tick, never change;
+      slots no live request holds are evicted least recently used first.
+    dynamic_grammar_budget: ``(max_states, max_atoms, max_token_len)`` of
+      the reserved slots. Defaults to the largest of ``constraints``;
+      required with ``dynamic_grammar_slots`` and no ``constraints``. A
+      registration beyond it raises.
     per_request_sampling: Let each request carry its own ``temperature``,
       ``top_k``, ``top_p`` (categorical samplers), ``repetition_penalty``,
       ``min_tokens``, extra ``stop_token_ids`` and ``logit_bias``, applied
@@ -454,10 +521,6 @@ class ContinuousBatcher:
       reuse_programs: bool = True,
       device=None,
   ):
-    if (constraints is not None and len(constraints)) or (
-        dynamic_grammar_slots or dynamic_grammar_budget is not None):
-      raise _not_ported("Grammar constraints (constraints, "
-                        "dynamic_grammar_slots)", "item 11")
     if getattr(sampler, "mesh", None) is not None:
       raise _not_ported("Serving over a mesh (tensor parallelism)",
                         "item 14c")
@@ -496,9 +559,12 @@ class ContinuousBatcher:
     self._next_id = 0
     self._states: dict[int, sampler_lib.PrefixState] = {}
     self._logprob_records: dict[int, dict] = {}
-    self._flags = _TickFlags(preserve_states, per_request_sampling,
-                             self.record_logprobs, bool(multi_lora),
-                             draft_len, ngram if draft_len else 0)
+    self._init_grammars(constraints, dynamic_grammar_slots,
+                        dynamic_grammar_budget)
+    self._flags = _TickFlags(
+        preserve_states, per_request_sampling, self.record_logprobs,
+        bool(multi_lora), draft_len, ngram if draft_len else 0,
+        None if self._constraints is None else self._constraints.shapes)
     self._captures = sampler._captures_decode
     self._fetched = None  # host copy of (done, write_idx, out) or None
 
@@ -523,6 +589,12 @@ class ContinuousBatcher:
           cur_len=torch.zeros(num_slots, **long),
           valid_from=torch.zeros(num_slots, **long),
           verify_steps=torch.zeros(num_slots, **long),
+      )
+    if self._constraints is not None:
+      # Each slot's grammar id and DFA state (int32, as JAX's).
+      self._state.update(
+          gid=torch.zeros(num_slots, dtype=torch.int32, device=dev),
+          cstate=torch.zeros(num_slots, dtype=torch.int32, device=dev),
       )
     if self.record_logprobs:
       k = self.record_logprobs
@@ -556,6 +628,34 @@ class ContinuousBatcher:
     if multi_lora:
       self._init_multi_lora()
     self._programs = self._shared_programs() if reuse_programs else {}
+
+  def _init_grammars(self, constraints, slots: int, budget) -> None:
+    """The grammar registry (JAX ``serving.py:362-401``): id 0 allow-all,
+    ``constraints`` at 1.., then ``slots`` reserved allow-all slots."""
+    self._constraints = None
+    self.dynamic_grammar_slots = int(slots)
+    constraints = list(constraints or [])
+    if not constraints and not self.dynamic_grammar_slots:
+      return
+    if self.dynamic_grammar_slots and budget is None:
+      if not constraints:
+        raise ValueError(
+            "dynamic_grammar_slots with no constraints needs an explicit "
+            "dynamic_grammar_budget=(max_states, max_atoms, max_token_len): "
+            "the slot shapes are fixed in the captured tick."
+        )
+      budget = (1, 1, 1)  # a floor; the constraints' dims dominate
+    self._n_static_grammars = len(constraints) + 1
+    self._constraints = constrain.stack_constraints(
+        constraints, self.sampler.vocab_size,
+        extra_slots=self.dynamic_grammar_slots,
+        min_dims=budget or (1, 1, 1), device=self.device)
+    # Dynamic slots: key -> gid (LRU order), gid -> live requests holding it
+    # (a slot is evictable at 0).
+    self._dynamic_by_key: collections.OrderedDict = collections.OrderedDict()
+    self._gid_refs: dict[int, int] = {}
+    self._grammar_token = object()
+    self._grammar_version = 0
 
   def _init_multi_lora(self) -> None:
     """The twins of multi-LoRA serving (JAX ``serving.py:405-430``)."""
@@ -669,6 +769,9 @@ class ContinuousBatcher:
     st["budget"][slot] = req.max_steps
     st["out"][slot] = 0
     st["out"][slot, 0] = first
+    if self._constraints is not None:
+      st["gid"][slot] = p.gid
+      st["cstate"][slot] = prefill.constraint_state[0]
     if self.draft_len:
       # The (padded) prompt and the first token seed the slot's history.
       padded_len = p.prompt_tokens.shape[1]
@@ -728,8 +831,60 @@ class ContinuousBatcher:
   def has_capacity(self) -> bool:
     return len(self._requests) < self.num_slots
 
+  @torch.inference_mode()
   def register_grammar(self, dfa: Any) -> int:
-    raise _not_ported("Grammar constraints (register_grammar)", "item 11")
+    """Installs a grammar into a reserved dynamic slot (JAX
+    ``serving.py:589-650``); returns its internal grammar id.
+
+    Callers normally pass the :class:`~constrain.TokenDFA` itself to
+    ``add_request(constraint=...)``, which registers (or reuses) it and
+    counts the slot's live requests. The same (pattern, stop ids) grammar
+    reuses its slot; when every slot is taken, the least recently used slot
+    no live request holds is overwritten. Raises when every dynamic slot is
+    held. The write runs on the calling thread's current stream (the
+    frontend's driver thread, which ticks), so it lands between ticks.
+    """
+    if self._constraints is None or not self.dynamic_grammar_slots:
+      raise ValueError(
+          "register_grammar needs ContinuousBatcher(dynamic_grammar_slots=k)."
+      )
+    if dfa.vocab_size != self.sampler.vocab_size:
+      raise ValueError(
+          f"grammar compiled for a {dfa.vocab_size}-token vocabulary; "
+          f"this sampler serves {self.sampler.vocab_size}."
+      )
+    key = (dfa.pattern, tuple(dfa.stop_ids))
+    gid = self._dynamic_by_key.get(key)
+    if gid is not None:
+      self._dynamic_by_key.move_to_end(key)
+      return gid
+    used = set(self._dynamic_by_key.values())
+    free = [g for g in range(self._n_static_grammars,
+                             self._constraints.num_grammars)
+            if g not in used]
+    if free:
+      gid = free[0]
+    else:
+      for old_key, old_gid in self._dynamic_by_key.items():
+        if self._gid_refs.get(old_gid, 0) == 0:
+          del self._dynamic_by_key[old_key]
+          gid = old_gid
+          break
+      else:
+        raise RuntimeError(
+            f"all {self.dynamic_grammar_slots} dynamic grammar slots are "
+            "referenced by live requests; raise dynamic_grammar_slots or "
+            "retry after pop_finished()."
+        )
+    self._constraints.write(gid, dfa)
+    self._grammar_version += 1
+    self._dynamic_by_key[key] = gid
+    self._gid_refs.setdefault(gid, 0)
+    return gid
+
+  def _release_gid(self, gid: int) -> None:
+    if self._constraints is not None and gid >= self._n_static_grammars:
+      self._gid_refs[gid] = max(0, self._gid_refs.get(gid, 0) - 1)
 
   @torch.inference_mode()
   def add_request(
@@ -787,10 +942,15 @@ class ContinuousBatcher:
     (``merge_params``), whatever its neighbors run. Omitted, the sampler's
     own adapters apply. With ``prefix_state`` the shared prefix stays as it
     was prefilled; the continuation and decode run under the adapters.
-    ``constraint`` is not ported (``NotImplementedError``).
+
+    ``constraint=k`` masks this request's generation with the registered
+    grammar ``constraints[k]``; a :class:`~constrain.TokenDFA` installs it
+    into a dynamic slot (:meth:`register_grammar`). Its tokens always form
+    a live prefix of the grammar, and stop tokens come only where the
+    output matches it. The grammar masks after the penalty and the bias;
+    ``min_tokens`` holds stops off after it.
     """
-    if constraint is not None:
-      raise _not_ported("Grammar constraints (constraint=)", "item 11")
+    gid = self._grammar_id(constraint)
     if adapters is not None:
       adapters = self._check_adapters(adapters)
     sampling = None
@@ -889,15 +1049,38 @@ class ContinuousBatcher:
     self._next_id += 1
     req = _Request(request_id=request_id, slot=slot, max_steps=max_steps,
                    prompt=prompt, want_state=return_state,
-                   generator=generator)
+                   generator=generator, gid=gid)
+    if self._constraints is not None and gid >= self._n_static_grammars:
+      self._gid_refs[gid] = self._gid_refs.get(gid, 0) + 1
     self._requests[slot] = req
     self._pending.append(_Pending(
         request=req, chunks=chunks, input_length=input_length, cache=cache,
         start=start, img_embed=img_embed, sampling=sampling,
         adapters=adapters,
-        prompt_tokens=tokens if self.draft_len else None,
+        prompt_tokens=tokens if self.draft_len else None, gid=gid,
     ))
     return request_id
+
+  def _grammar_id(self, constraint) -> int:
+    """A request's grammar id: 0 free, ``k + 1`` for ``constraints[k]``, a
+    dynamic slot for a ``TokenDFA`` (JAX ``serving.py:1133-1150``)."""
+    if constraint is None:
+      return 0
+    if self._constraints is None:
+      raise ValueError(
+          "constraint= requires ContinuousBatcher(constraints=[...] and/or "
+          "dynamic_grammar_slots=k)."
+      )
+    if hasattr(constraint, "pattern"):  # a TokenDFA: a dynamic slot
+      return self.register_grammar(constraint)
+    n_registered = self._n_static_grammars - 1
+    if not 0 <= constraint < n_registered:
+      raise ValueError(
+          f"constraint must index the registered grammars [0, "
+          f"{n_registered}) (got {constraint}), or be a TokenDFA for a "
+          "dynamic slot."
+      )
+    return constraint + 1
 
   def _check_adapters(self, adapters) -> dict:
     """A request's adapter leaves, checked against the sampler's (JAX
@@ -999,10 +1182,14 @@ class ContinuousBatcher:
           torch.tensor([bias_ids], device=dev),
           torch.tensor([bias_vals], dtype=torch.float32, device=dev),
       )
+    # Every admission of a registry batcher, free ones included (grammar 0,
+    # the identity), masks its first token with its grammar's tables.
+    tables = (None if self._constraints is None
+              else self._constraints.single(p.gid))
     prefill = s._prefill(
         final_tokens, torch.tensor([p.input_length], device=self.device),
         1, bool(self.record_logprobs), False, p.request.generator,
-        p.img_embed, p.cache, p.start, overrides,
+        p.img_embed, p.cache, p.start, overrides, constraint_tables=tables,
     )
     need = sampler_lib._next_bucket(p.request.max_steps)
     if self.draft_len:
@@ -1039,21 +1226,24 @@ class ContinuousBatcher:
     """``n`` decode steps of every slot: replays of the captured step, or
     eager steps on the CPU and with ``jit_compile=False``."""
     adapters = self._adapter_rows if self.multi_lora else None
+    grammars = self._constraints
     if not self._captures:
       model = self._model_ml if self.multi_lora else None
       for _ in range(n):
         _tick_step(self.sampler, self._flags, self._state, self._cache,
-                   self._generators, model)
+                   self._generators, model, grammars)
     else:
       key = (self._buffer_len, self._hist_len)
       graph = self._programs.get(key)
       if graph is None:
         graph = _TickGraph(self.sampler, self._flags, self._state,
-                           self._cache, self._generators)
+                           self._cache, self._generators, grammars)
         self._programs[key] = graph
       graph.run(self._state, self._cache, self._generators, n, adapters,
                 (self._adapter_token, self._adapter_version)
-                if self.multi_lora else None)
+                if self.multi_lora else None, grammars,
+                (self._grammar_token, self._grammar_version)
+                if grammars is not None else None)
     self._fetched = None
 
   def _host(self) -> tuple[list, list, list]:
@@ -1151,6 +1341,7 @@ class ContinuousBatcher:
       finished.append(
           (req.request_id, tokens, self.sampler.vocab.DecodeIds(tokens))
       )
+      self._release_gid(req.gid)
       del self._requests[slot]
       self._state["active"][slot] = False
     finished.sort(key=lambda t: t[0])
@@ -1203,6 +1394,7 @@ class ContinuousBatcher:
     for i, p in enumerate(self._pending):
       if p.request.request_id == request_id:
         del self._pending[i]
+        self._release_gid(p.request.gid)
         del self._requests[p.request.slot]
         if self.stream_callback is not None:
           self.stream_callback(request_id, [], True)
@@ -1210,6 +1402,7 @@ class ContinuousBatcher:
     for slot, req in list(self._requests.items()):
       if req.request_id == request_id:
         self._state["active"][slot] = False
+        self._release_gid(req.gid)
         del self._requests[slot]
         if self.stream_callback is not None:
           self.stream_callback(request_id, [], True)

@@ -25,8 +25,12 @@ as a CUDA graph and replayed, the counterpart of JAX's single
 ``while_loop`` program; the host reads one flag a step (whether any row is
 still live). ``jit_compile=False`` and the CPU run the same step eagerly.
 
-Grammar constraints (ROADMAP queue 1 item 11) and a sampler over a mesh
-(item 14c) are not ported and raise ``NotImplementedError``.
+A grammar (``constraint=``) makes the verify grammar-aware, as JAX's: each
+verify position is masked with the DFA state reached through the drafts
+before it, so a draft that leaves the grammar disagrees with the masked
+choice and is rejected, and greedy output equals constrained plain greedy
+decode. A sampler over a mesh (ROADMAP queue 1 item 14c) is not ported and
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -85,6 +89,7 @@ def prompt_lookup_spec_step(
     stop_ids: torch.Tensor,
     logits_filter=None,
     generators=None,
+    constraint=None,
 ) -> dict[str, Any]:
   """One draft, verify, accept and commit step over a batch of rows
   (``speculative.py:51-277`` in JAX).
@@ -106,6 +111,16 @@ def prompt_lookup_spec_step(
 
   Returns the new state (new tensors; the caller's are not written) and
   ``eos_hit`` [b]: whether a row emitted a stop token in ``stop_ids``.
+
+  ``constraint`` (the single-grammar ``mask(state, logits)`` /
+  ``advance(state, token)`` interface: a ``constrain.ConstraintTables``, or
+  a registry bound to each row's grammar, ``constrain.BoundConstraint``)
+  needs ``state["cstate"]`` [b], the rows' DFA states after the pending
+  token. Position ``i`` is masked with the state reached through ``cstate``
+  and drafts ``0..i-1``; the result carries ``cstate`` advanced over the
+  emitted tokens of live rows. The emitted tokens before a row's last are
+  accepted drafts, so their states are the chain's, and one advance over
+  the last emitted token ends the row where JAX's token-by-token fold does.
   """
   k, n = draft_len, ngram
   hist = state["hist"]
@@ -145,6 +160,12 @@ def prompt_lookup_spec_step(
   chunk = torch.cat([pending, draft], dim=1)  # [b, k + 1]
   logits, pending_cache = model(chunk, state["positions"] + offs,
                                 state["cache"], pending_cache=True)
+  if constraint is not None:
+    chain = [state["cstate"]]
+    for i in range(1, k + 1):
+      chain.append(constraint.advance(chain[-1], chunk[:, i]))
+    chain = torch.stack(chain, dim=1)  # [b, k + 1]
+    logits = constraint.mask(chain, logits)
   if generators is not None:
     filtered = logits if logits_filter is None else logits_filter(logits)
     probs = torch.softmax(filtered.float(), dim=-1)
@@ -187,7 +208,7 @@ def prompt_lookup_spec_step(
   new_cache = {name: type(block)(*(_where_rows(live, new, old) for new, old
                                    in zip(committed[name], block)))
                for name, block in state["cache"].items()}
-  return dict(
+  result = dict(
       hist=_write_from(hist, cur_len, emit_n, emit_tok),
       valid_from=state["valid_from"],
       cur_len=cur_len + emit_n,
@@ -199,6 +220,12 @@ def prompt_lookup_spec_step(
       budget=state["budget"],
       eos_hit=(is_eos & (offs < emit_n[:, None])).any(dim=1),
   )
+  if constraint is not None:
+    last = commit_idx[:, None]
+    advanced = constraint.advance(chain.gather(1, last)[:, 0],
+                                  emit_tok.gather(1, last)[:, 0])
+    result["cstate"] = torch.where(emit_n > 0, advanced, state["cstate"])
+  return result
 
 
 def check_speculation(sampler, draft_len: int, ngram: int) -> None:
@@ -238,12 +265,13 @@ _LOOP_KEYS = ("hist", "valid_from", "cur_len", "positions", "live", "out",
 
 
 def _loop_step(model, state: dict, draft_len: int, ngram: int, stop_ids,
-               logits_filter, generator) -> dict:
+               logits_filter, generator, constraint=None) -> dict:
   """One iteration of the generation loop: a verify step, then a row stays
   live while it has not stopped and has budget left."""
   st = prompt_lookup_spec_step(
       model, state, draft_len=draft_len, ngram=ngram, stop_ids=stop_ids,
-      logits_filter=logits_filter, generators=generator)
+      logits_filter=logits_filter, generators=generator,
+      constraint=constraint)
   eos_hit = st.pop("eos_hit")
   st["live"] = st["live"] & ~eos_hit & (st["write_idx"] < st["budget"])
   return st
@@ -259,13 +287,17 @@ class _SpecGraph:
   the graph; :meth:`load` gives it the caller's generator's state and
   :meth:`store` hands the advanced state back, so the replays draw what
   eager steps would have drawn. The graph keeps no reference to its sampler
-  (the sampler holds the graph).
+  (the sampler holds the graph). A constrained loop (``tables``) carries the
+  rows' DFA states (``cstate``) among the buffers and masks on the graph's
+  own copy of the tables, which :meth:`load` refreshes.
   """
 
-  def __init__(self, step, state: dict, categorical: bool):
+  def __init__(self, step, state: dict, categorical: bool, tables=None):
     device = state["hist"].device
-    self.state = {key: state[key].clone() for key in _LOOP_KEYS}
+    self.keys = _LOOP_KEYS + (("cstate",) if tables is not None else ())
+    self.state = {key: state[key].clone() for key in self.keys}
     self.state["cache"] = _map_cache(torch.clone, state["cache"])
+    self.tables = None if tables is None else tables.clone()
     self.generator = None
     if categorical:
       if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
@@ -280,7 +312,7 @@ class _SpecGraph:
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
       for _ in range(_GRAPH_WARMUP_STEPS):
-        self.load(state, None)
+        self.load(state, None, tables)
         self._step(step)
     torch.cuda.current_stream(device).wait_stream(side)
     self.graph = torch.cuda.CUDAGraph()
@@ -290,10 +322,10 @@ class _SpecGraph:
       self._step(step)
 
   def _buffers(self, state: dict) -> list[torch.Tensor]:
-    return [state[key] for key in _LOOP_KEYS] + _cache_leaves(state["cache"])
+    return [state[key] for key in self.keys] + _cache_leaves(state["cache"])
 
   def _step(self, step) -> None:
-    new = step(self.state, self.generator)
+    new = step(self.state, self.generator, self.tables)
     for dst, src in zip(self._buffers(self.state), self._buffers(new)):
       dst.copy_(src)
 
@@ -301,10 +333,14 @@ class _SpecGraph:
   def live(self) -> torch.Tensor:
     return self.state["live"]
 
-  def load(self, state: dict, generator: torch.Generator | None) -> None:
-    """Copies a call's loop state (and generator position) in."""
+  def load(self, state: dict, generator: torch.Generator | None,
+           tables=None) -> None:
+    """Copies a call's loop state (generator position and constraint tables
+    included) in."""
     for dst, src in zip(self._buffers(self.state), self._buffers(state)):
       dst.copy_(src)
+    if self.tables is not None:
+      self.tables.copy_(tables)
     if self.generator is not None and generator is not None:
       self.generator.set_state(generator.get_state())
 
@@ -316,7 +352,7 @@ class _SpecGraph:
     """The loop state after the replays (copies), and the generator's."""
     if self.generator is not None and generator is not None:
       generator.set_state(self.generator.get_state())
-    out = {key: self.state[key].clone() for key in _LOOP_KEYS}
+    out = {key: self.state[key].clone() for key in self.keys}
     out["cache"] = _map_cache(torch.clone, self.state["cache"])
     return out
 
@@ -360,35 +396,37 @@ class SpeculativeSampler:
     model, stop_ids = s.model, s._stop_ids
     k, n = self.draft_len, self.ngram
     logits_filter = sampler_filter(s)
-    return lambda state, generator: _loop_step(
-        model, state, k, n, stop_ids, logits_filter, generator)
+    return lambda state, generator, constraint=None: _loop_step(
+        model, state, k, n, stop_ids, logits_filter, generator, constraint)
 
-  def _graph_for(self, state: dict) -> _SpecGraph:
+  def _graph_for(self, state: dict, tables=None) -> _SpecGraph:
     s = self.sampler
     key = (*state["hist"].shape, state["out"].shape[1], self.draft_len,
-           self.ngram, s._stop_ids_host, not s.deterministic_sampling)
+           self.ngram, s._stop_ids_host, not s.deterministic_sampling,
+           None if tables is None else tables.shapes)
     graph = self._graphs.get(key)
     if graph is None:
       graph = _SpecGraph(self._step_fn(), state,
-                         not s.deterministic_sampling)
+                         not s.deterministic_sampling, tables)
       self._graphs[key] = graph
     return graph
 
-  def _loop(self, state: dict, generator) -> tuple[dict, int]:
+  def _loop(self, state: dict, generator,
+            tables=None) -> tuple[dict, int]:
     """Verify steps until no row is live; the host reads ``live.any()``
     once a step. Returns the final state and the steps run."""
     s = self.sampler
     steps = 0
     if s._captures_decode:
-      graph = self._graph_for(state)
-      graph.load(state, generator)
+      graph = self._graph_for(state, tables)
+      graph.load(state, generator, tables)
       while bool(graph.live.any()):
         graph.replay()
         steps += 1
       return graph.store(generator), steps
     step = self._step_fn()
     while bool(state["live"].any()):
-      state = step(state, generator)
+      state = step(state, generator, tables)
       steps += 1
     return state, steps
 
@@ -415,13 +453,11 @@ class SpeculativeSampler:
     pending token is that token). ``img_embed`` splices fused vision
     features in as the plain sampler does (equal-length prompts; not with
     ``prefix_state``); the visual tokens live in the cache, not in the
-    lookup history. ``constraint`` is not ported (ROADMAP queue 1 item 11).
+    lookup history. ``constraint`` (a :class:`~constrain.TokenDFA` or its
+    tables) masks every verify position with the grammar, so greedy output
+    equals constrained plain greedy decode (JAX ``speculative.py:343-382``).
     """
     s = self.sampler
-    if constraint is not None:
-      raise NotImplementedError(
-          "Grammar-constrained speculation (constraint=) is not ported to "
-          "the PyTorch package yet (ROADMAP queue 1 item 11).")
     if total_generation_steps < 1:
       raise ValueError("total_generation_steps must be >= 1.")
     if img_embed is not None and prefix_state is not None:
@@ -433,6 +469,7 @@ class SpeculativeSampler:
       raise ValueError(
           "A torch.Generator must be given for non-deterministic sampling."
       )
+    tables = s._resolve_constraint(constraint)
     dev = s.device
     chunk = s.prefill_chunk_size
     if prefix_state is None:
@@ -469,7 +506,7 @@ class SpeculativeSampler:
       valid_from = torch.zeros(tokens.shape[0], dtype=torch.long, device=dev)
 
     prefill = s._prefill(final_tokens, lengths, 1, False, False, generator,
-                         img_embed, cache, start)
+                         img_embed, cache, start, constraint_tables=tables)
     first = prefill.tokens_buffer[:, 0]
     b = first.shape[0]
     pad_id = s.vocab.pad_id()
@@ -492,7 +529,10 @@ class SpeculativeSampler:
         budget=torch.full((b,), total_generation_steps, dtype=torch.long,
                           device=dev),
     )
-    state, steps = self._loop(state, generator)
+    if tables is not None:
+      # The rows' DFA states after the (masked) first token.
+      state["cstate"] = prefill.constraint_state
+    state, steps = self._loop(state, generator, tables)
 
     next_state = None
     if return_state:

@@ -314,7 +314,33 @@ Phases, each of which raises on failure (so the script exits non-zero):
      model of the same base against solo Samplers on the merged weights,
      and ``ServingHTTPServer`` at 4 slots over a speculative batcher
      (``/v1/generate`` plain, streamed, cut by ``max_tokens`` and in a
-     two-turn session, each as the direct batcher's tokens).
+     two-turn session, each as the direct batcher's tokens);
+ 22. grammar-constrained decoding (right after 21, on phase 18's models
+     and towers) over a seeded 256000-piece vocabulary (the printable
+     ASCII characters, JSON pieces, digit runs, words of 2-16 letters):
+     (a) a choice of three words, JSON mode (``json_regex``, depth 3) and
+     a JSON schema with enum-bounded strings, each compiled by the native
+     walker (``native/constrain.cc``; a missing build fails), with its
+     host seconds, states, atoms, unique token rows and table MB; (b) each
+     grammar's device tables against the host mirrors on 4096 seeded
+     (state, token) pairs and 16 whole rows; (c) the constrained Sampler
+     on two 3000-token prompts, bf16 and int8 (a captured int8 step
+     launches 175 ``mma.sync``), every output a live prefix of its grammar
+     and every stopped one a full match (the choice must stop on an
+     option), greedy and categorical captured against eager in turns
+     (identical tokens and generator states); (d) the captured constrained
+     decode step against the plain one in turns, kernels a step by the
+     profiler; (e) the constrained ``ModalSampler`` on one image through
+     the fused-epilogue view (46 MHA, 26 ``add_rmsnorm`` a step); (f)
+     ``SpeculativeSampler`` with a grammar against constrained plain
+     greedy (identical, or a near tie among the allowed logits), the
+     constrained verify step against the plain one in turns; (g) the
+     8-slot batcher with three static grammars, free slots and a grammar
+     registered while it runs, plain and speculative, its free slots'
+     tokens equal to an unconstrained batcher's, and the constrained tick
+     against the plain tick in turns; (h) HTTP: ``response_format``
+     ``json_object`` and ``json_schema``, a forced ``tool_choice`` and its
+     stream, each answer inside its grammar.
 
   python3 chip_smoke.py --profile
 
@@ -360,6 +386,7 @@ from cadence_gemma_tpu_torch.benchmarks.kernel_lab import cuda_ms
 from cadence_gemma_tpu_torch.benchmarks.kernel_lab import device_ms
 from cadence_gemma_tpu_torch.checkpoint import io as checkpoint_io
 from cadence_gemma_tpu_torch.checkpoint import synthetic
+from cadence_gemma_tpu_torch.inference import constrain
 from cadence_gemma_tpu_torch.inference import modal_sampler
 from cadence_gemma_tpu_torch.inference import sampler as sampler_lib
 from cadence_gemma_tpu_torch.inference import server as server_lib
@@ -380,6 +407,7 @@ from cadence_gemma_tpu_torch.training import data as data_lib
 from cadence_gemma_tpu_torch.training import lora as sft_lora
 from cadence_gemma_tpu_torch.training import train_loop as train_loop_lib
 from cadence_gemma_tpu_torch.training import trainer
+from cadence_gemma_tpu_torch.utils import constrain_cpp
 from cadence_gemma_tpu_torch.utils import resilience
 
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet).
@@ -5776,10 +5804,10 @@ class SpecProbe:
     loop, step, replay = self._saved
     probe = self
 
-    def timed_loop(spec, state, generator):
+    def timed_loop(spec, state, generator, *args):
       start = torch.cuda.Event(enable_timing=True)
       start.record()
-      out, steps = loop(spec, state, generator)
+      out, steps = loop(spec, state, generator, *args)
       end = torch.cuda.Event(enable_timing=True)
       end.record()
       probe.loops.append([start, end, steps])
@@ -6142,8 +6170,7 @@ def phase_speculative(dev, kernels: list[dict], handoff: dict) -> None:
   finally:
     probe.close()
     decode_probe.close()
-  handoff.pop("encoder")
-  del encoder
+  del encoder  # phase 22 runs the towers again
   torch.cuda.empty_cache()
 
   # (e) Speculation in the batcher: phase 17's sixteen requests (greedy,
@@ -6345,6 +6372,687 @@ def phase_speculative(dev, kernels: list[dict], handoff: dict) -> None:
   log(f"  phase 21 took {time.perf_counter() - phase_start:.1f} s")
 
 
+# -- phase 22: grammar-constrained decoding ------------------------------------
+
+CONSTRAIN_CHOICES = ("positive", "negative", "neutral")
+CONSTRAIN_SCHEMA = {
+    "type": "object",
+    "properties": {
+        "label": {"enum": list(CONSTRAIN_CHOICES)},
+        "score": {"type": "integer"},
+        "ok": {"type": "boolean"},
+        "tags": {"type": "array", "items": {"enum": ["red", "green", "blue"]},
+                 "maxItems": 2},
+    },
+    "required": ["label", "score", "ok", "tags"],
+}
+# The grammar registered while the batcher runs, and the forced tool call's
+# parameters.
+CONSTRAIN_DYNAMIC_SCHEMA = {
+    "type": "object",
+    "properties": {"city": {"enum": ["Paris", "Oslo", "Lima"]},
+                   "days": {"type": "integer"}},
+    "required": ["city", "days"],
+}
+CONSTRAIN_TOOLS = [
+    {"type": "function", "function": {"name": "get_weather",
+                                      "parameters": CONSTRAIN_DYNAMIC_SCHEMA}},
+    {"type": "function", "function": {"name": "get_time"}},
+]
+# Multi-character pieces of JSON text (beside every printable ASCII
+# character and the digit runs 10-999) in the synthetic vocabulary.
+CONSTRAIN_JSON_PIECES = (
+    '{"', '":', '",', '"}', '":"', '":[', '":{', '],', '},', '[{', '}]',
+    '"]', '["', 'true', 'false', 'null', ', ', ': ', '{ "', '" }', '\\"',
+    '\\n', '"label":"', '"score":', '"ok":', '"tags":[', '"name":"',
+    '"arguments":', '"city":"', '"days":')
+CONSTRAIN_PROMPT_TOKENS = 3000
+CONSTRAIN_MM_TOKENS = 200
+CONSTRAIN_TICK_TOKENS = 300
+CONSTRAIN_STEPS = 32
+# Decode steps a kernel count covers (a verify count covers a whole run:
+# each call's copies into the graph divide over its steps).
+CONSTRAIN_PROFILE_STEPS = 8
+CONSTRAIN_PAIRS = 4096
+CONSTRAIN_ROWS = 16
+CONSTRAIN_MASK_CHUNK = 256
+CONSTRAIN_TURNS = ("plain", "constrained", "constrained", "plain")
+CONSTRAIN_CAPTURE_TURNS = ("captured", "eager", "eager", "captured")
+CONSTRAIN_BATCH_KINDS = ("choice", "json", "free", "schema", "free", "json",
+                         "free", "dynamic")
+CONSTRAIN_HTTP_STEPS = 48
+
+
+class PieceVocab:
+  """A synthetic SentencePiece-style vocabulary of ``size`` pieces made from
+  a seed: pad, bos, eos, unk (control pieces), the printable ASCII
+  characters one piece each, multi-character JSON pieces and the digit runs
+  10-999, and the rest words of 2-16 lowercase letters, half of them with
+  SentencePiece's leading word marker, so that a JSON string state allows
+  most of the vocabulary, as a real one does. ``EncodeAsIds`` splits text
+  before each space and looks each word up (characters one by one when it is
+  not a piece), so a prompt made of marked words encodes to those words."""
+
+  def __init__(self, size: int, seed: int):
+    rng = np.random.default_rng(seed)
+    pieces = ["<pad>", "<bos>", "<eos>", "<unk>"]
+    pieces += [chr(c) for c in range(0x20, 0x7F)]
+    for p in CONSTRAIN_JSON_PIECES + tuple(str(i) for i in range(10, 1000)):
+      if p not in pieces:
+        pieces.append(p)
+    seen, words = set(pieces), []
+    while len(pieces) + len(words) < size:
+      m = 2 * (size - len(pieces) - len(words))
+      lengths = rng.integers(2, 17, m)
+      codes = rng.integers(ord("a"), ord("z") + 1, (m, 16)).astype(np.uint8)
+      codes[np.arange(16)[None] >= lengths[:, None]] = 0
+      drawn = codes.view("S16").ravel().astype("U16")
+      drawn = np.where(rng.random(m) < 0.5, np.char.add("▁", drawn), drawn)
+      for w in drawn.tolist():
+        if w not in seen:
+          seen.add(w)
+          words.append(w)
+    self.pieces = pieces + words[:size - len(pieces)]
+    self._ids = {p: i for i, p in enumerate(self.pieces)}
+    self.marked_words = np.array([i for i, p in enumerate(self.pieces)
+                                  if p.startswith("▁")])
+
+  def pad_id(self) -> int:
+    return 0
+
+  def bos_id(self) -> int:
+    return 1
+
+  def eos_id(self) -> int:
+    return 2
+
+  def GetPieceSize(self) -> int:  # noqa: N802
+    return len(self.pieces)
+
+  def IdToPiece(self, i: int) -> str:  # noqa: N802
+    return self.pieces[i]
+
+  def IsControl(self, i: int) -> bool:  # noqa: N802
+    return i < 4
+
+  def EncodeAsIds(self, text: str) -> list[int]:  # noqa: N802
+    ids = []
+    for word in re.split("(?= )", text):
+      piece = word.replace(" ", "▁")
+      if piece in self._ids:
+        ids.append(self._ids[piece])
+      elif word:
+        ids.extend(self._ids.get(ch, 3) for ch in word)
+    return ids
+
+  def DecodeIds(self, ids) -> str:  # noqa: N802
+    return "".join(self.pieces[i] for i in ids if i >= 4).replace("▁", " ")
+
+  def prompt(self, rng, n: int) -> str:
+    """``n`` marked words drawn by ``rng``, as text."""
+    return self.DecodeIds(rng.choice(self.marked_words, n).tolist())
+
+
+def _generated(vocab, tokens, stops) -> tuple[str, bool]:
+  """The text of a row's tokens before its first stop, and whether one came."""
+  ids = []
+  for t in (int(t) for t in tokens):
+    if t in stops:
+      return vocab.DecodeIds(ids), True
+    ids.append(t)
+  return vocab.DecodeIds(ids), False
+
+
+def _check_grammar(label: str, dfa, vocab, tokens, stops,
+                   must_stop=False) -> tuple[str, bool]:
+  """A row's output is a live prefix of the grammar; a stopped one matches
+  it whole."""
+  text, stopped = _generated(vocab, tokens, stops)
+  ok = dfa.allows_text(text) if stopped else dfa.is_live_prefix(text)
+  if not ok or (must_stop and not stopped):
+    raise AssertionError(f"{label}: {text!r} (stopped {stopped}) is not in "
+                         f"the grammar.")
+  return text, stopped
+
+
+def _host_row(dfa, state: int) -> np.ndarray:
+  """The host's allowed bits of one state, unpacked to [vocab] bool."""
+  row = np.ascontiguousarray(dfa._allowed_bits[state]).view(np.uint8)  # pylint: disable=protected-access
+  return np.unpackbits(row, bitorder="little")[:dfa.vocab_size].astype(bool)
+
+
+def check_constraint_tables(name: str, dfa, dev, rng) -> dict:
+  """The device tables' mask and advance against the host mirrors
+  (``token_allowed`` / ``token_advance``) on CONSTRAIN_PAIRS seeded (state,
+  token) pairs, half of them drawn among the tokens CONSTRAIN_ROWS seeded
+  states allow, and those states' whole rows against the host's bits."""
+  tables = dfa.tables(device=dev)
+  vocab_size, n_states = dfa.vocab_size, dfa.n_states
+  rows = rng.choice(n_states, min(CONSTRAIN_ROWS, n_states), replace=False)
+  host_rows = {int(s): _host_row(dfa, int(s)) for s in rows}
+  half = CONSTRAIN_PAIRS // 2
+  states = rng.integers(0, n_states, CONSTRAIN_PAIRS)
+  tokens = rng.integers(0, vocab_size, CONSTRAIN_PAIRS)
+  for i in range(half):
+    s = int(rows[i % len(rows)])
+    allowed = np.flatnonzero(host_rows[s])
+    states[i], tokens[i] = s, allowed[rng.integers(0, len(allowed))]
+  st = torch.as_tensor(states, dtype=torch.int32, device=dev)
+  tok = torch.as_tensor(tokens, dtype=torch.int32, device=dev)
+  allowed_dev = []
+  for i in range(0, CONSTRAIN_PAIRS, CONSTRAIN_MASK_CHUNK):
+    s = st[i:i + CONSTRAIN_MASK_CHUNK]
+    masked = tables.mask(s, torch.zeros(len(s), vocab_size, device=dev))
+    allowed_dev.append(masked.gather(1, tok[i:i + len(s), None].long())[:, 0]
+                       .isfinite())
+  allowed_dev = torch.cat(allowed_dev).cpu().numpy()
+  advanced = tables.advance(st, tok).cpu().numpy()
+  want_allowed = np.array([dfa.token_allowed(int(s), int(t))
+                           for s, t in zip(states, tokens)])
+  want_adv = np.array([dfa.token_advance(int(s), int(t))
+                       for s, t in zip(states, tokens)])
+  rows_t = torch.as_tensor(rows, dtype=torch.int32, device=dev)
+  full = tables.mask(rows_t, torch.zeros(len(rows), vocab_size, device=dev))
+  full = full.isfinite().cpu().numpy()
+  rows_same = all(np.array_equal(full[i], host_rows[int(s)])
+                  for i, s in enumerate(rows))
+  bad_mask = int((allowed_dev != want_allowed).sum())
+  bad_adv = int((advanced != want_adv).sum())
+  log(f"  {name}: {CONSTRAIN_PAIRS} (state, token) pairs ({int(want_allowed.sum())}"
+      f" allowed): mask disagreements {bad_mask}, advance disagreements "
+      f"{bad_adv}; {len(rows)} whole rows equal to the host's bits "
+      f"{rows_same}")
+  if bad_mask or bad_adv or not rows_same:
+    raise AssertionError(f"{name}: the device tables disagree with the host "
+                         "mirrors.")
+  return dict(pairs=CONSTRAIN_PAIRS, allowed=int(want_allowed.sum()))
+
+
+def _first_masked_gap(dfa, tokens, logits, first: int) -> float:
+  """The gap of the two largest grammar-allowed logits at ``first`` (the
+  DFA state walked on the host over ``tokens[:first]``), relative to the
+  larger's magnitude."""
+  state = dfa.char_dfa.start
+  for t in tokens[:first]:
+    state = dfa.token_advance(state, int(t))
+  row = logits[first].float().cpu().numpy()
+  allowed = row[_host_row(dfa, state)]
+  top = np.sort(allowed)[-2:] if len(allowed) > 1 else np.array([0.0, 1.0])
+  return float((top[1] - top[0]) / abs(top[1]))
+
+
+def constrained_agreement(label, got, want, logits, dfa, stops) -> dict:
+  """Constrained speculative ``got`` against constrained plain ``want``:
+  identical, or the first difference where the plain run's two largest
+  allowed logits lie within SPEC_TIE_REL of the larger's magnitude."""
+  got, want = _trim_at_stop(got, stops), _trim_at_stop(want, stops)
+  n = min(len(got), len(want))
+  first = next((i for i in range(n) if got[i] != want[i]),
+               None if len(got) == len(want) else n)
+  if first is None:
+    return dict(identical=True, tokens=n)
+  gap = _first_masked_gap(dfa, want, logits, first)
+  log(f"    {label}: first difference at token {first} of {n}; the two "
+      f"largest allowed logits there {gap:.3e} apart (rule: within "
+      f"{SPEC_TIE_REL})")
+  if gap > SPEC_TIE_REL:
+    raise AssertionError(f"{label}: constrained speculative and plain tokens "
+                         f"differ at {first} outside a near tie.")
+  return dict(identical=False, tokens=n, first=first, gap=gap)
+
+
+def _step_kernels(long_call, short_call, steps: int) -> tuple[float, float]:
+  """(kernels a step, busy ms a step): the profiler's difference between a
+  call and a shorter one, over the steps between them. Each call runs once
+  before its trace, so a graph it captures is not in the trace."""
+  long_call()
+  short_call()
+  long_k, short_k = kernel_times(long_call), kernel_times(short_call)
+  count = (sum(n for _, n in long_k.values())
+           - sum(n for _, n in short_k.values()))
+  busy = (sum(ms for ms, _ in long_k.values())
+          - sum(ms for ms, _ in short_k.values()))
+  return count / steps, busy / steps
+
+
+def _sse_data(port: int, path: str, body: dict) -> list[dict]:
+  with _http(port, path, body, stream=True) as resp:
+    events = []
+    for line in resp:
+      line = line.decode().strip()
+      if line.startswith("data: ") and line != "data: [DONE]":
+        events.append(json.loads(line[len("data: "):]))
+  return events
+
+
+def _constrained_http(port: int, grammars: dict, prompt: str) -> dict:
+  """JSON mode, a JSON schema, a forced tool call and its stream over HTTP;
+  raises where an answer leaves its grammar."""
+  def chat(content, **kw):
+    return _http(port, "/v1/chat/completions", dict(
+        messages=[{"role": "user", "content": content}],
+        max_tokens=CONSTRAIN_HTTP_STEPS, **kw))[2]["choices"][0]
+
+  results = {}
+  out = _http(port, "/v1/completions", {
+      "prompt": prompt, "max_tokens": CONSTRAIN_HTTP_STEPS,
+      "response_format": {"type": "json_object"}})[2]["choices"][0]
+  text, finish = out["text"], out["finish_reason"]
+  if not (grammars["json"].allows_text(text) if finish == "stop"
+          else grammars["json"].is_live_prefix(text)):
+    raise AssertionError(f"json_object answered {text!r} ({finish}).")
+  if finish == "stop":
+    json.loads(text)
+  results["json_object"] = (finish, len(text))
+  out = chat(prompt, response_format={"type": "json_schema", "json_schema": {
+      "name": "row", "schema": CONSTRAIN_SCHEMA}})
+  text, finish = out["message"]["content"], out["finish_reason"]
+  if not (grammars["schema"].allows_text(text) if finish == "stop"
+          else grammars["schema"].is_live_prefix(text)):
+    raise AssertionError(f"json_schema answered {text!r} ({finish}).")
+  if finish == "stop":
+    doc = json.loads(text)
+    if doc["label"] not in CONSTRAIN_CHOICES:
+      raise AssertionError(f"json_schema answered {doc}.")
+  results["json_schema"] = (finish, len(text))
+  out = chat(prompt, tools=CONSTRAIN_TOOLS, tool_choice="required")
+  if out["finish_reason"] == "tool_calls":
+    (call,) = out["message"]["tool_calls"]
+    args = json.loads(call["function"]["arguments"])
+    if not ((call["function"]["name"] == "get_time" and args == {})
+            or (call["function"]["name"] == "get_weather"
+                and args["city"] in ("Paris", "Oslo", "Lima")
+                and isinstance(args["days"], int))):
+      raise AssertionError(f"The forced tool call was {call}.")
+    results["tool_choice required"] = (call["function"]["name"], args)
+  elif not out["message"]["content"].startswith('{"name":"'):
+    raise AssertionError(f"The forced tool call answered {out}.")
+  else:
+    results["tool_choice required"] = ("length", out["message"]["content"])
+  events = _sse_data(port, "/v1/chat/completions", dict(
+      messages=[{"role": "user", "content": prompt}],
+      max_tokens=CONSTRAIN_HTTP_STEPS, stream=True, tools=CONSTRAIN_TOOLS,
+      tool_choice={"type": "function", "function": {"name": "get_weather"}}))
+  finish = events[-1]["choices"][0]["finish_reason"]
+  calls = [tc for e in events
+           for tc in e["choices"][0]["delta"].get("tool_calls", [])]
+  headers = [tc for tc in calls if "id" in tc]
+  if finish == "tool_calls":
+    args = json.loads("".join(tc["function"].get("arguments", "")
+                              for tc in calls))
+    if (len(headers) != 1 or headers[0]["function"]["name"] != "get_weather"
+        or args["city"] not in ("Paris", "Oslo", "Lima")
+        or not isinstance(args["days"], int)):
+      raise AssertionError(f"The streamed tool call was {calls}.")
+    results["stream"] = (len(events), args)
+  elif finish != "length" or len(headers) > 1:
+    raise AssertionError(f"The streamed tool call ended {finish}: {calls}.")
+  else:
+    results["stream"] = (len(events), "length")
+  return results
+
+
+def phase_constrained(dev, kernels: list[dict], handoff: dict) -> None:
+  """Grammar-constrained decoding end to end on phase 18's realistic_params
+  2B, its int8 copy and its towers, over a synthetic 256000-piece
+  vocabulary: three grammars compiled by the native walker, the device
+  tables against the host mirrors, the constrained Sampler (bf16, int8,
+  captured against eager), the ModalSampler, SpeculativeSampler, the 8-slot
+  batcher with static and dynamic grammars (plain and speculative) and the
+  HTTP front end; the constrained decode step, verify step and tick timed
+  against the plain ones in turns."""
+  phase_start = time.perf_counter()
+  model, qmodel, encoder = (handoff[k] for k in ("model", "qmodel",
+                                                 "encoder"))
+  config = model.config
+  by_name = {kernel["name"]: kernel for kernel in kernels}
+  n_recurrent = sum(bt is common.TemporalBlockType.RECURRENT
+                    for bt in config.block_types)
+  rng = np.random.default_rng(SEED + 100)
+  start = time.perf_counter()
+  vocab = PieceVocab(config.vocab_size, SEED + 100)
+  strings = constrain.token_strings_from_vocab(vocab, config.vocab_size)
+  stops = {vocab.eos_id()}
+  log(f"== grammar-constrained decoding on phase 18's models over a seeded "
+      f"{config.vocab_size}-piece vocabulary (built in "
+      f"{time.perf_counter() - start:.2f} s; the native walker "
+      f"{'available' if constrain_cpp.available() else 'MISSING'})")
+  if not constrain_cpp.available():
+    raise RuntimeError("native/libconstrain.so did not build (make, g++).")
+
+  # (a) Three grammars, each compiled with the native walker.
+  patterns = {"choice": constrain.choice_regex(CONSTRAIN_CHOICES),
+              "json": constrain.json_regex(),
+              "schema": constrain.schema_regex(CONSTRAIN_SCHEMA),
+              "dynamic": constrain.schema_regex(CONSTRAIN_DYNAMIC_SCHEMA)}
+  grammars, compiled = {}, {}
+  for name, pattern in patterns.items():
+    start = time.perf_counter()
+    grammars[name] = constrain.TokenDFA(pattern, strings,
+                                        eos_id=vocab.eos_id(),
+                                        _use_native=True)
+    dfa = grammars[name]
+    compiled[name] = dict(
+        seconds=round(time.perf_counter() - start, 3), states=dfa.n_states,
+        atoms=int(dfa.char_dfa.trans.shape[1]),
+        unique_rows=dfa.n_unique_tokens, token_len=int(
+            dfa._token_atoms.shape[1]),  # pylint: disable=protected-access
+        table_mb=round(sum(t.numel() * t.element_size() for t in
+                           dfa.tables(device=dev).tensors()) / 1e6, 3))
+  log(f"  compiled (host seconds, states, atoms, unique token rows, longest "
+      f"token in atoms, device table MB): {compiled}")
+
+  # (b) The device tables against the host mirrors.
+  for name in ("choice", "json", "schema"):
+    check_constraint_tables(name, grammars[name], dev, rng)
+
+  served = {k: 0 for k in _spec_counts()}
+  dprobe, sprobe = DecodeProbe(_spec_counts), SpecProbe(_spec_counts)
+  tick_probe = TickProbe(_spec_counts)
+
+  def tally(fn):
+    dprobe.reset()
+    sprobe.reset()
+    before = _spec_counts()
+    result = fn()
+    torch.cuda.synchronize()
+    for k, v in _spec_counts().items():
+      served[k] += v - before[k]
+      for probe in (dprobe, sprobe):
+        if probe.replays:
+          served[k] += probe.step_launches[k] * probe.replays
+    return result
+
+  prompts = [vocab.prompt(rng, CONSTRAIN_PROMPT_TOKENS - 1) for _ in range(2)]
+  try:
+    # (c) The constrained Sampler, bf16 and int8: each grammar captured;
+    # greedy and categorical captured against eager in turns on JSON.
+    samplers = {}
+    for side, m, kw in (("bf16", model, {}),
+                        ("int8", qmodel, dict(prefill_act_quant=True))):
+      s = samplers[side] = sampler_lib.Sampler(m, vocab, device=dev, **kw)
+      texts = {}
+      for name in ("choice", "json", "schema"):
+        out = tally(lambda: s(prompts, CONSTRAIN_STEPS,
+                              constraint=grammars[name]))
+        texts[name] = [_check_grammar(f"{side} {name} row {r}",
+                                      grammars[name], vocab, t.tolist(),
+                                      stops, must_stop=name == "choice")
+                       for r, t in enumerate(out.tokens)]
+        step = dprobe.step_launches
+        if side == "int8" and step["int8_weight_matmul"] != _weight_only_launches(qmodel):
+          raise AssertionError(f"An int8 constrained step launched {step}.")
+      log(f"  {side} constrained Sampler, 2 x {CONSTRAIN_PROMPT_TOKENS} "
+          f"tokens, {CONSTRAIN_STEPS} steps: "
+          f"{ {n: [(t[:48], st) for t, st in v] for n, v in texts.items()} }")
+      same = {}
+      for mode, skw in (("greedy", {}),
+                        ("categorical", dict(deterministic_sampling=False,
+                                             **CATEGORICAL))):
+        runs = []
+        by_turn = {turn: sampler_lib.Sampler(
+            m, vocab, device=dev, jit_compile=turn == "captured", **kw, **skw)
+                   for turn in set(CONSTRAIN_CAPTURE_TURNS)}
+        for turn in CONSTRAIN_CAPTURE_TURNS:
+          t_s = by_turn[turn]
+          gen = (torch.Generator(dev).manual_seed(SEED + 101)
+                 if mode == "categorical" else None)
+          out = tally(lambda: t_s(prompts, CONSTRAIN_STEPS, generator=gen,
+                                  constraint=grammars["json"]))
+          for r, t in enumerate(out.tokens):
+            _check_grammar(f"{side} {mode} {turn} row {r}", grammars["json"],
+                           vocab, t.tolist(), stops)
+          runs.append(([t.tolist() for t in out.tokens],
+                       None if gen is None else gen.get_state()))
+        same[mode] = all(r[0] == runs[0][0] for r in runs) and (
+            mode == "greedy"
+            or all(torch.equal(r[1], runs[0][1]) for r in runs))
+      log(f"  {side} JSON-constrained decode, captured and eager in turns "
+          f"{CONSTRAIN_CAPTURE_TURNS}: tokens (and generators) identical "
+          f"{same}")
+      if not all(same.values()):
+        raise AssertionError(f"{side}: captured and eager constrained decode "
+                             "disagree.")
+
+    # (d) The captured constrained decode step against the plain one, in
+    # turns (bf16, JSON), and kernels a step.
+    s = samplers["bf16"]
+    step_ms = {"plain": [], "constrained": []}
+    for turn in ("plain", "constrained"):  # captures both steps first
+      s(prompts, CONSTRAIN_STEPS, end_sampling_at_eos_token=False,
+        constraint=grammars["json"] if turn == "constrained" else None)
+    for turn in CONSTRAIN_TURNS:
+      c = grammars["json"] if turn == "constrained" else None
+      tally(lambda: s(prompts, CONSTRAIN_STEPS, constraint=c,
+                      end_sampling_at_eos_token=False))
+      step_ms[turn].append(dprobe.decode_ms())
+    step_kernels = {}
+    for turn in ("plain", "constrained"):
+      c = grammars["json"] if turn == "constrained" else None
+      step_kernels[turn] = _step_kernels(
+          lambda: s(prompts, 1 + CONSTRAIN_PROFILE_STEPS, constraint=c,
+                    end_sampling_at_eos_token=False),
+          lambda: s(prompts, 1, constraint=c), CONSTRAIN_PROFILE_STEPS)
+    med = {k: float(np.median(v)) for k, v in step_ms.items()}
+    log(f"  captured decode step in turns {CONSTRAIN_TURNS} (ms a step): "
+        f"plain {[round(x, 4) for x in step_ms['plain']]}, JSON-constrained "
+        f"{[round(x, 4) for x in step_ms['constrained']]}; constrained / plain "
+        f"{med['constrained'] / med['plain']:.4f}, mask-and-advance share "
+        f"{1 - med['plain'] / med['constrained']:.4f}; (kernels, busy ms) a "
+        f"step {step_kernels}")
+
+    # (e) The constrained ModalSampler: one image through the towers and
+    # the fused-epilogue 2B, the choice grammar.
+    fused = griffin._share_parameters(model)  # pylint: disable=protected-access
+    for block in fused.blocks:
+      block.fused_epilogue = True
+    modal = modal_sampler.ModalSampler(fused, vocab, encoder, device=dev)
+    pixels = torch.rand((1, *MM_PIXELS[1:]), device=dev,
+                        generator=torch.Generator(dev).manual_seed(SEED + 102))
+    mm_prompt = [vocab.prompt(rng, CONSTRAIN_MM_TOKENS - 1)]
+    before = _spec_counts()
+    out = tally(lambda: modal(mm_prompt, CONSTRAIN_STEPS, pixels=pixels,
+                              constraint=grammars["choice"]))
+    mm_counts = {k: v - before[k] for k, v in _spec_counts().items()}
+    text, _ = _check_grammar("image", grammars["choice"], vocab,
+                             out.tokens[0].tolist(), stops, must_stop=True)
+    log(f"  the constrained ModalSampler ({list(pixels.shape)} pixels, "
+        f"{CONSTRAIN_MM_TOKENS} tokens): {text!r}; the encode and prefill "
+        f"launched {mm_counts}, a decode step {dprobe.step_launches}")
+    n_towers = len(encoder.dino.blocks) + len(encoder.siglip.blocks)
+    if (mm_counts["mha_attention"] != n_towers
+        or dprobe.step_launches["add_rmsnorm"] != config.num_layers):
+      raise AssertionError("The constrained image run launched "
+                           f"{mm_counts}, a step {dprobe.step_launches}.")
+    del modal, fused
+
+    # (f) SpeculativeSampler with a grammar: greedy equals constrained plain
+    # greedy (near ties aside); the constrained verify against the plain.
+    spec = speculative.SpeculativeSampler(s, SPEC_DRAFT, SPEC_NGRAM)
+    for name in ("json", "choice"):
+      got = tally(lambda: spec(prompts, CONSTRAIN_STEPS,
+                               constraint=grammars[name]))
+      if sprobe.step_launches["lru_scan_carries"] != n_recurrent:
+        raise AssertionError(f"A constrained verify step launched "
+                             f"{sprobe.step_launches}.")
+      want = s(prompts, CONSTRAIN_STEPS, constraint=grammars[name],
+               return_logits=True)
+      for r in range(len(prompts)):
+        _check_grammar(f"speculative {name} row {r}", grammars[name], vocab,
+                       got.tokens[r].tolist(), stops,
+                       must_stop=name == "choice")
+        agree = constrained_agreement(
+            f"speculative {name} row {r}", got.tokens[r].tolist(),
+            want.tokens[r].tolist(), want.logits[r], grammars[name], stops)
+        log(f"  constrained SpeculativeSampler ({name}) row {r} against "
+            f"constrained plain greedy: {agree}; {spec.last_stats}")
+    verify_ms = {"plain": [], "constrained": []}
+    spec(prompts, CONSTRAIN_STEPS)  # captures the plain verify step first
+    for turn in CONSTRAIN_TURNS:
+      c = grammars["json"] if turn == "constrained" else None
+      tally(lambda: spec(prompts, CONSTRAIN_STEPS, constraint=c))
+      verify_ms[turn].append(sprobe.verify_ms())
+    verify_kernels = {}
+    for turn in ("plain", "constrained"):
+      c = grammars["json"] if turn == "constrained" else None
+      spec(prompts, CONSTRAIN_STEPS, constraint=c)
+      steps = spec.last_stats["verify_steps"]
+      verify_kernels[turn] = _step_kernels(
+          lambda: spec(prompts, CONSTRAIN_STEPS, constraint=c),
+          lambda: spec(prompts, 1, constraint=c), steps)
+    vmed = {k: float(np.median(v)) for k, v in verify_ms.items()}
+    log(f"  captured verify step (draft_len {SPEC_DRAFT}) in turns "
+        f"{CONSTRAIN_TURNS} (ms a step): plain "
+        f"{[round(x, 4) for x in verify_ms['plain']]}, JSON-constrained "
+        f"{[round(x, 4) for x in verify_ms['constrained']]}; constrained / "
+        f"plain {vmed['constrained'] / vmed['plain']:.4f}; (kernels, busy ms) "
+        f"a verify step {verify_kernels}")
+    del spec
+  finally:
+    dprobe.close()
+    sprobe.close()
+  handoff.pop("encoder")
+  del encoder
+  torch.cuda.empty_cache()
+
+  # (g) The 8-slot batcher: static grammars, free slots and a grammar
+  # registered while it runs, plain and speculative; the free slots' tokens
+  # equal an unconstrained batcher's.
+  s = samplers["bf16"]
+  lengths = rng.integers(*BATCH_PROMPT_RANGE, size=len(CONSTRAIN_BATCH_KINDS))
+  batch_prompts = [vocab.prompt(rng, int(n) - 1) for n in lengths]
+  static = ("choice", "json", "schema")
+  try:
+    runs = {}
+    for draft in (0, SPEC_DRAFT):
+      for constrained in (True, False):
+        kw = dict(num_slots=BATCH_SLOTS, max_steps_default=CONSTRAIN_STEPS,
+                  draft_len=draft, ngram=SPEC_NGRAM)
+        if constrained:
+          kw.update(constraints=[grammars[n] for n in static],
+                    dynamic_grammar_slots=1)
+        b = serving.ContinuousBatcher(s, **kw)
+        tick_probe.watch(b)
+        before = _spec_counts()
+        names = {}
+        for i, (kind, p) in enumerate(zip(CONSTRAIN_BATCH_KINDS,
+                                          batch_prompts)):
+          if kind == "dynamic":
+            b.step(BATCH_TICK)  # the others decode; then the new grammar
+          c = None
+          if constrained and kind in static:
+            c = static.index(kind)
+          elif constrained and kind == "dynamic":
+            c = grammars["dynamic"]
+          names[b.add_request(p, constraint=c)] = i
+        got = {names[r]: t for r, t, _ in b.run_until_drained(BATCH_TICK)}
+        torch.cuda.synchronize()
+        replays = _graph_replays(b)
+        for k, v in _spec_counts().items():
+          served[k] += v - before[k] + tick_probe.step_launches[k] * replays
+        runs[(draft, constrained)] = got
+        if constrained:
+          for i, kind in enumerate(CONSTRAIN_BATCH_KINDS):
+            if kind != "free":
+              _check_grammar(f"batcher draft {draft} slot {i} ({kind})",
+                             grammars[kind], vocab, got[i], stops,
+                             must_stop=kind == "choice")
+          registered = dict(b._dynamic_by_key)  # pylint: disable=protected-access
+          if len(registered) != 1:
+            raise AssertionError(f"Dynamic grammars {registered}.")
+        log(f"  8-slot batcher, draft_len {draft}, "
+            f"{'grammars' if constrained else 'no grammars'}: {replays} "
+            f"replays of the captured step, which launched "
+            f"{tick_probe.step_launches}")
+        del b
+      free_same = [runs[(draft, True)][i] == runs[(draft, False)][i]
+                   for i, k in enumerate(CONSTRAIN_BATCH_KINDS)
+                   if k == "free"]
+      texts = [_generated(vocab, runs[(draft, True)][i], stops)
+               for i in range(len(CONSTRAIN_BATCH_KINDS))]
+      log(f"  draft_len {draft}: constrained slots "
+          f"{[(k, t[:40], st) for k, (t, st) in zip(CONSTRAIN_BATCH_KINDS, texts) if k != 'free']}"
+          f"; free slots equal to the unconstrained batcher's {free_same}")
+      if not all(free_same):
+        raise AssertionError(f"draft_len {draft}: a free slot's tokens "
+                             "changed beside the grammars.")
+
+    # The constrained tick against the plain tick (every slot on the JSON
+    # grammar), in turns.
+    steady = {}
+    for turn in ("plain", "constrained"):
+      kw = {} if turn == "plain" else dict(constraints=[grammars["json"]])
+      steady[turn] = serving.ContinuousBatcher(
+          s, num_slots=BATCH_SLOTS, max_steps_default=4096, **kw)
+      for _ in range(BATCH_SLOTS):
+        steady[turn].add_request(
+            vocab.prompt(rng, CONSTRAIN_TICK_TOKENS - 1),
+            constraint=None if turn == "plain" else 0)
+      steady[turn].step(BATCH_TICK)  # admits all eight, captures the tick
+    tick_ms = {"plain": [], "constrained": []}
+    for turn in CONSTRAIN_TURNS:
+      start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+      start.record()
+      with torch.inference_mode():
+        for _ in range(TICK_REPEATS):
+          steady[turn]._tick(BATCH_TICK)  # pylint: disable=protected-access
+      end.record()
+      end.synchronize()
+      tick_ms[turn].append(start.elapsed_time(end) / TICK_REPEATS
+                           / BATCH_TICK)
+    tick_kernels = {}
+    for turn, b in steady.items():
+      with torch.inference_mode():
+        times = kernel_times(lambda: b._tick(BATCH_TICK))  # pylint: disable=protected-access
+      tick_kernels[turn] = (sum(n for _, n in times.values()) / BATCH_TICK,
+                            sum(ms for ms, _ in times.values()) / BATCH_TICK)
+    tmed = {k: float(np.median(v)) for k, v in tick_ms.items()}
+    log(f"  {BATCH_SLOTS}-slot captured tick in turns {CONSTRAIN_TURNS} (ms a "
+        f"step): plain {[round(x, 4) for x in tick_ms['plain']]}, "
+        f"JSON-constrained {[round(x, 4) for x in tick_ms['constrained']]}; "
+        f"constrained / plain {tmed['constrained'] / tmed['plain']:.4f}; "
+        f"(kernels, busy ms) a step {tick_kernels}")
+    del steady
+  finally:
+    tick_probe.close()
+
+  # (h) HTTP: JSON mode, a JSON schema, a forced tool call and its stream.
+  budget = (max(1024, grammars["json"].n_states), 96,
+            int(grammars["json"]._token_atoms.shape[1]))  # pylint: disable=protected-access
+  frontend = server_lib.ServingFrontend(
+      serving.ContinuousBatcher(
+          s, num_slots=HTTP_SLOTS, max_steps_default=CONSTRAIN_HTTP_STEPS,
+          constraints=[grammars["json"]], dynamic_grammar_slots=2,
+          dynamic_grammar_budget=budget),
+      step_size=BATCH_TICK, constraint_names={"json_object": 0})
+  srv = server_lib.ServingHTTPServer(frontend, host="127.0.0.1", port=0,
+                                     model_name="recurrentgemma-2b")
+  try:
+    before = _spec_counts()
+    http = _constrained_http(srv.port, grammars,
+                             vocab.prompt(rng, HTTP_PROMPT_TOKENS))
+    for k, v in _spec_counts().items():  # the admissions; ticks are captured
+      served[k] += v - before[k]
+  finally:
+    srv.close()
+  log(f"  HTTP over a {HTTP_SLOTS}-slot batcher with a JSON grammar and 2 "
+      f"dynamic slots: {http}")
+  if frontend._error is not None:  # pylint: disable=protected-access
+    raise AssertionError(f"The front end died: {frontend._error}.")  # pylint: disable=protected-access
+
+  by_name["lru_scan_carries"]["launches"] += served["lru_scan_carries"]
+  for name, n in (("lru_scan", served["lru_scan"] - served["lru_scan_carries"]),
+                  ("window_attention", served["window_attention"]),
+                  ("int8_weight_matmul", served["int8_weight_matmul"]),
+                  ("int8_weight_matmul_wgmma",
+                   served["int8_weight_matmul_wgmma"]),
+                  ("add_rmsnorm", served["add_rmsnorm"]),
+                  ("mha_attention", served["mha_attention"])):
+    by_name[name]["launches"] += n
+  log(f"  launches of phase 22's runs {served} (added to their rows)")
+  log(f"  phase 22 took {time.perf_counter() - phase_start:.1f} s")
+
+
 def main() -> int:
   profile = "--profile" in sys.argv[1:]
   if not torch.cuda.is_available():
@@ -6395,6 +7103,8 @@ def main() -> int:
   handoff = phase_int8(dev, kernels, profile)
   torch.cuda.empty_cache()
   phase_speculative(dev, kernels, handoff)
+  torch.cuda.empty_cache()
+  phase_constrained(dev, kernels, handoff)
   del handoff
   torch.cuda.empty_cache()
   ckpt_dir = tempfile.mkdtemp(prefix="chip-smoke-checkpoints-")

@@ -164,11 +164,12 @@ def test_config_from_numpy_params_equals_jax():
 
 def test_port_hygiene(monkeypatch):
   """The port, its training (LoRA and the image loader too), vision,
-  serving (speculative decoding too), parallel, complex, kernel-lab,
-  tokenizer, int8, checkpoint (I/O, timm import) and resilience modules
-  included, imports no JAX, flax, optax or orbax and nothing of the JAX
-  package, and its entry points refuse to fall back to the CPU without
-  being asked."""
+  serving (speculative decoding and grammar constraints too: constrain and
+  the native walker's bindings), parallel, complex, kernel-lab, tokenizer,
+  int8, checkpoint (I/O, timm import) and resilience modules included,
+  imports no JAX, flax, optax or orbax and nothing of the JAX package, and
+  its entry points (a grammar's device tables among them) refuse to fall
+  back to the CPU without being asked."""
   probe = (
       "import sys; before = set(sys.modules); "
       "import cadence_gemma_tpu_torch; "
@@ -193,6 +194,8 @@ def test_port_hygiene(monkeypatch):
       "import cadence_gemma_tpu_torch.checkpoint.io; "
       "import cadence_gemma_tpu_torch.checkpoint.timm_import; "
       "import cadence_gemma_tpu_torch.utils.resilience; "
+      "import cadence_gemma_tpu_torch.inference.constrain; "
+      "import cadence_gemma_tpu_torch.utils.constrain_cpp; "
       "new = set(sys.modules) - before; "
       "print(sorted(m for m in new if m.split('.')[0] in "
       "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'cadence_gemma_tpu')))"
@@ -205,7 +208,9 @@ def test_port_hygiene(monkeypatch):
   assert result.stdout.strip() == "[]", result.stdout + result.stderr
 
   sources = sorted((REPO / "cadence_gemma_tpu_torch").rglob("*.py"))
-  assert REPO / "cadence_gemma_tpu_torch/training/train_loop.py" in sources
+  for name in ("training/train_loop.py", "inference/constrain.py",
+               "utils/constrain_cpp.py"):
+    assert REPO / "cadence_gemma_tpu_torch" / name in sources
   sources.append(REPO / "chip_smoke.py")
   bad = re.compile(
       r"^\s*(import\s+(jax|flax|optax|orbax|cadence_gemma_tpu)\b|"
@@ -227,6 +232,9 @@ def test_port_hygiene(monkeypatch):
     port.Sampler(tmodel, port.SimpleVocab(["a"]))
   with pytest.raises(RuntimeError, match="devices=\\['cpu'\\]"):
     port.make_mesh((1, 4), ("data", "sequence"))
+  dfa = port.TokenDFA("a+", ["", "", "", "a"], eos_id=2)
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    dfa.tables()
 
 
 def test_vision_entry_points_need_a_card_unless_asked(monkeypatch):

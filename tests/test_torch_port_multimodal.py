@@ -262,10 +262,12 @@ def test_modal_sampler_image_arguments(golden):
     s([gold.MM_PROMPT], img_path=DOG, pixels=pixels, **kw)
   with pytest.raises(ValueError, match="equal-length"):
     s(["a photo", "the red car"], img_embed=features.expand(2, -1, -1), **kw)
-  # Grammar constraints stay refused; the prefix and state arguments are
-  # checked as JAX checks them, before the encoder runs.
-  with pytest.raises(NotImplementedError):
-    s([gold.MM_PROMPT], constraint=object(), **kw)
+  # A grammar of another vocabulary, the prefix and the state arguments
+  # are checked as JAX checks them, before the encoder runs (a grammar of
+  # this vocabulary is test_torch_port_constrain.py's).
+  other = port.TokenDFA("a+", ["", "", "", "a"], eos_id=2)
+  with pytest.raises(ValueError, match="vocabulary"):
+    s([gold.MM_PROMPT], pixels=pixels, constraint=other, **kw)
   with pytest.raises(ValueError, match="prefix_state"):
     s([gold.MM_PROMPT], prefix_state=object(), pixels=pixels, **kw)
   with pytest.raises(ValueError, match="return_state"):

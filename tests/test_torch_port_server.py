@@ -7,9 +7,13 @@ request's tokens match a solo ``Sampler`` run whatever path it takes
 (queue, HTTP, streaming, neighbors joining or cancelling). The host helpers
 (chat rendering, the tool preamble, tool-call parsing, the stop-string and
 tool-stream gates) take the same inputs as the JAX package's and must give
-equal outputs. The grammar-constrained surfaces answer 400 (per-request
-adapters are ``test_torch_port_multi_lora.py``'s). One card test
-holds the captured tick against the eager tick at the same width.
+equal outputs. The grammar-constrained surfaces are JAX's
+``TestConstrainedServing`` and the forced cases of ``TestToolCalling``:
+named grammars, ``response_format`` ``json_object`` / ``json_schema`` and a
+forced ``tool_choice`` (streamed too) answer with output that stays in the
+grammar, and answer 400 naming what a server without grammars lacks
+(per-request adapters are ``test_torch_port_multi_lora.py``'s). One card
+test holds the captured tick against the eager tick at the same width.
 """
 
 import json
@@ -24,6 +28,7 @@ import pytest
 import torch
 
 from cadence_gemma_tpu_torch import common
+from cadence_gemma_tpu_torch.inference import constrain
 from cadence_gemma_tpu_torch.inference import sampler as sampler_lib
 from cadence_gemma_tpu_torch.inference import server as server_lib
 from cadence_gemma_tpu_torch.inference import serving
@@ -548,8 +553,9 @@ class TestOpenAICompat:
 
 
 class TestConstrainedSurfacesAnswer400:
-  """Grammar constraints are not ported: every surface that needs one
-  answers 400 with an OpenAI error naming ROADMAP queue 1 item 11."""
+  """On a server whose batcher has no grammar registry, every constrained
+  surface answers 400 naming what it needs (a named grammar, the
+  ``json_object`` grammar, dynamic grammar slots), as JAX's does."""
 
   @pytest.fixture(scope="class")
   def httpd(self, setup):
@@ -576,18 +582,141 @@ class TestConstrainedSurfacesAnswer400:
   ])
   def test_constrained_request_is_400(self, httpd, path, body):
     err = _post_error(httpd.port, path, body)
+    if path == "/v1/generate":  # the native route's plain error
+      assert "unknown constraint 'json_object'" in err, err
+      return
     assert err["type"] == "invalid_request_error"
-    assert "item 11" in err["message"], err
+    rf = body.get("response_format", {}).get("type")
+    want = ("JSON grammar" if rf == "json_object"
+            else "dynamic_grammar_slots")
+    assert want in err["message"], err
 
   def test_library_surfaces_refuse(self, setup):
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="registered no grammars"):
       _frontend(_batcher(setup[0]), constraint_names={"json_object": 0})
     fe = _frontend(_batcher(setup[0]))
     try:
-      with pytest.raises(NotImplementedError, match="item 11"):
+      with pytest.raises(ValueError, match="dynamic_grammar_slots"):
         fe.submit("alpha", constraint={"type": "integer"})
+      with pytest.raises(ValueError, match="unknown constraint"):
+        fe.submit("alpha", constraint="json_object")
     finally:
       fe.close()
+
+
+def _char_sampler(pieces, seed):
+  """A port Sampler over a character vocabulary that can spell JSON
+  (``tests/test_constrain.py``'s ``CharVocab``), random weights."""
+  from tests.test_torch_port_constrain import CharVocab
+
+  vocab = CharVocab(pieces)
+  config = common.GriffinConfig(
+      vocab_size=vocab.GetPieceSize(), width=16, mlp_expanded_width=32,
+      num_heads=2, block_types=(common.TemporalBlockType.RECURRENT,),
+      embeddings_scale_by_sqrt_dim=True, attention_window_size=8,
+      logits_soft_cap=30.0, lru_width=16,
+      scan_type=common.ScanType.LINEAR_NATIVE)
+  torch.manual_seed(seed)
+  model = griffin.Griffin(config, device="cpu", dtype=torch.float32)
+  return sampler_lib.Sampler(model, vocab, device="cpu"), vocab
+
+
+class TestConstrainedServing:
+  """JAX's ``TestConstrainedServing``: named grammars through the frontend
+  and the OpenAI ``response_format``."""
+
+  @pytest.fixture(scope="class")
+  def httpd(self, setup):
+    sampler, vocab = setup
+    dfa = constrain.TokenDFA(
+        constrain.choice_regex(["alpha", "beta"]),
+        constrain.token_strings_from_vocab(vocab, vocab.GetPieceSize()),
+        eos_id=vocab.eos_id())
+    # "json_object" maps to the same grammar: these tests exercise the
+    # response_format routing; the grammars are test_torch_port_constrain's.
+    srv = _server(sampler, steps=8, constraints=[dfa],
+                  frontend_kw=dict(constraint_names={"choice": 0,
+                                                     "json_object": 0}))
+    yield srv, sampler, vocab
+    srv.close()
+
+  def test_generate_with_named_constraint(self, httpd):
+    srv, sampler, vocab = httpd
+    status, out = _post(srv.port, "/v1/generate",
+                        {"prompt": "gamma delta", "constraint": "choice"})
+    assert status == 200
+    assert out["text"] in ("alpha", "beta"), out
+    dfa = srv.frontend.batcher._constraints  # the registry's grammar 1
+    solo = sampler(["gamma delta"], 8, constraint=dfa.single(1))
+    assert out["tokens"] == [t for t in solo.tokens[0].tolist()
+                             if t != vocab.pad_id()][:len(out["tokens"])]
+
+  def test_unknown_constraint_is_400(self, httpd):
+    err = _post_error(httpd[0].port, "/v1/generate",
+                      {"prompt": "gamma", "constraint": "nope"})
+    assert "unknown constraint" in err
+
+  def test_response_format_json_object_routes_to_grammar(self, httpd):
+    status, out = _post(httpd[0].port, "/v1/chat/completions", {
+        "messages": [{"role": "user", "content": "gamma delta"}],
+        "response_format": {"type": "json_object"}})
+    assert status == 200
+    assert out["choices"][0]["message"]["content"] in ("alpha", "beta")
+
+  def test_response_format_text_is_free(self, httpd):
+    srv, sampler, vocab = httpd
+    _, out = _post(srv.port, "/v1/completions", {
+        "prompt": "gamma delta", "max_tokens": 8,
+        "response_format": {"type": "text"}})
+    assert out["choices"][0]["text"] == vocab.DecodeIds(
+        _solo(sampler, "gamma delta", 8))
+
+  def test_unsupported_and_bad_formats_rejected(self, httpd):
+    for rf in ({"type": "json_schema"}, {"type": "yaml"}):
+      _post_error(httpd[0].port, "/v1/completions",
+                  {"prompt": "gamma", "response_format": rf})
+
+  @pytest.fixture(scope="class")
+  def schema_httpd(self):
+    pieces = list('{}[]:,"0123456789') + ["name", "a", "b", "-", "true",
+                                          "false", "null"]
+    sampler, vocab = _char_sampler(pieces, seed=2)
+    srv = _server(sampler, steps=48, dynamic_grammar_slots=2,
+                  dynamic_grammar_budget=(128, 24, 6),
+                  frontend_kw=dict(step_size=4))
+    yield srv, vocab
+    srv.close()
+
+  def test_response_format_json_schema_end_to_end(self, schema_httpd):
+    srv, _ = schema_httpd
+    schema = {"type": "object",
+              "properties": {"name": {"enum": ["a", "b"]},
+                             "b": {"type": "integer"}},
+              "required": ["name", "b"]}
+    status, out = _post(srv.port, "/v1/chat/completions", {
+        "messages": [{"role": "user", "content": "a b"}], "max_tokens": 48,
+        "response_format": {"type": "json_schema",
+                            "json_schema": {"name": "row",
+                                            "schema": schema}}})
+    assert status == 200
+    content = out["choices"][0]["message"]["content"]
+    if out["choices"][0]["finish_reason"] == "stop":
+      doc = json.loads(content)
+      assert doc["name"] in ("a", "b") and isinstance(doc["b"], int)
+    else:  # the budget cut it: a live prefix of the grammar
+      assert out["choices"][0]["finish_reason"] == "length"
+      assert re.match(r'\{"name":"[ab]"', content), content
+    # The schema compiled once, on the handler thread, and is cached.
+    assert len(srv.frontend._schema_cache) == 1
+
+  def test_bad_json_schema_rejected(self, schema_httpd):
+    srv, _ = schema_httpd
+    for rf in ({"type": "json_schema"},
+               {"type": "json_schema", "json_schema": {"schema": {
+                   "type": "object", "properties": {"a": {"type": "null"}},
+                   "required": []}}}):  # not strict
+      _post_error(srv.port, "/v1/completions",
+                  {"prompt": "a", "response_format": rf})
 
 
 class TestStopSequences:
@@ -958,6 +1087,85 @@ class TestToolCalling:
     finally:
       srv.close()
 
+  # JAX's forced cases: the completion is constrained to
+  # constrain.tool_call_schema(tools), so it is a well-formed call whose
+  # arguments match the declared parameters.
+
+  @pytest.fixture(scope="class")
+  def tool_httpd(self):
+    pieces = list('{}:,"0123456789-') + ["name", "argu", "ment", "s", "f",
+                                         "g", "x"]
+    sampler, vocab = _char_sampler(pieces, seed=5)
+    srv = _server(sampler, steps=64, dynamic_grammar_slots=2,
+                  dynamic_grammar_budget=(320, 48, 8),
+                  frontend_kw=dict(step_size=4))
+    yield srv
+    srv.close()
+
+  def test_tool_choice_required_yields_valid_call(self, tool_httpd):
+    status, out = _post(tool_httpd.port, "/v1/chat/completions", {
+        "messages": [{"role": "user", "content": "x"}], "tools": TOOLS,
+        "tool_choice": "required", "max_tokens": 64})
+    assert status == 200
+    choice = out["choices"][0]
+    if choice["finish_reason"] == "tool_calls":
+      assert choice["message"]["content"] is None
+      (call,) = choice["message"]["tool_calls"]
+      fn = call["function"]
+      args = json.loads(fn["arguments"])
+      assert (isinstance(args["x"], int) if fn["name"] == "f"
+              else fn["name"] == "g" and args == {})
+    else:  # the budget cut it: a live prefix of the envelope
+      assert choice["finish_reason"] == "length"
+      assert choice["message"]["content"].startswith('{"name":"')
+
+  def test_named_tool_choice_forces_that_tool(self, tool_httpd):
+    status, out = _post(tool_httpd.port, "/v1/chat/completions", {
+        "messages": [{"role": "user", "content": "x"}], "tools": TOOLS,
+        "tool_choice": {"type": "function", "function": {"name": "g"}},
+        "max_tokens": 64})
+    assert status == 200
+    choice = out["choices"][0]
+    if choice["finish_reason"] == "tool_calls":
+      (call,) = choice["message"]["tool_calls"]
+      assert call["function"]["name"] == "g"
+      assert json.loads(call["function"]["arguments"]) == {}
+    else:
+      assert choice["message"]["content"].startswith('{"name":"g"')
+
+  def test_forced_tool_choice_conflicts_with_response_format(self,
+                                                             tool_httpd):
+    err = _post_error(tool_httpd.port, "/v1/chat/completions", {
+        "messages": [{"role": "user", "content": "x"}], "tools": TOOLS,
+        "tool_choice": "required", "response_format": {
+            "type": "json_schema",
+            "json_schema": {"schema": {"type": "integer"}}}})
+    assert "response_format" in err["message"]
+
+  def test_streaming_forced_tool_call(self, tool_httpd):
+    events = _sse_events(tool_httpd.port, "/v1/chat/completions", {
+        "messages": [{"role": "user", "content": "x"}], "tools": TOOLS,
+        "tool_choice": {"type": "function", "function": {"name": "f"}},
+        "max_tokens": 64, "stream": True})
+    finish = events[-1]["choices"][0]["finish_reason"]
+    headers = [e for e in events
+               if e["choices"][0]["delta"].get("tool_calls")
+               and "id" in e["choices"][0]["delta"]["tool_calls"][0]]
+    if finish == "tool_calls":
+      # One header naming the forced tool, then argument fragments that
+      # join into arguments valid under f's schema; no content deltas.
+      (header,) = headers
+      call = header["choices"][0]["delta"]["tool_calls"][0]
+      assert call["function"] == {"name": "f", "arguments": ""}
+      assert call["id"].startswith("call_")
+      args = "".join(tc["function"].get("arguments", "")
+                     for e in events
+                     for tc in e["choices"][0]["delta"].get("tool_calls", []))
+      assert isinstance(json.loads(args)["x"], int)
+      assert not any(e["choices"][0]["delta"].get("content") for e in events)
+    else:
+      assert finish == "length" and len(headers) <= 1
+
   def test_streaming_auto_free_text_matches_nonstreaming(self, setup):
     # A word-vocab model cannot spell the envelope: auto + stream delivers
     # as content exactly what the non-streaming request returns, which is
@@ -1146,17 +1354,17 @@ def test_tool_stream_gate_matches_jax(jserver, text, chunk, forced):
 
 
 def test_tool_call_schema_matches_jax():
-  from cadence_gemma_tpu.inference import constrain
+  from cadence_gemma_tpu.inference import constrain as jconstrain
 
   for tools, name in ((TOOLS, None), (TOOLS, "g"), (TOOLS[:1], None)):
-    assert (server_lib._tool_call_schema(tools, name)
-            == constrain.tool_call_schema(tools, name))
+    assert (constrain.tool_call_schema(tools, name)
+            == jconstrain.tool_call_schema(tools, name))
   for tools, name in (([], None), (TOOLS, "zzz"), ([{"type": "x"}], None),
                       ([TOOLS[0], TOOLS[0]], None)):
     with pytest.raises(ValueError) as want:
-      constrain.tool_call_schema(tools, name)
+      jconstrain.tool_call_schema(tools, name)
     with pytest.raises(ValueError, match=re.escape(str(want.value))):
-      server_lib._tool_call_schema(tools, name)
+      constrain.tool_call_schema(tools, name)
 
 
 def test_small_helpers_match_jax(jserver):

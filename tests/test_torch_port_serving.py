@@ -12,8 +12,9 @@ orders). Against the port's own solo ``Sampler``, the JAX file's invariants:
 a request's tokens do not depend on when it joined, on its neighbors or on
 the step size; categorical requests, drawn from their own
 ``torch.Generator``, match a batch-1 solo call seeded alike and leave the
-generator where that call does. Features left out raise
-``NotImplementedError`` naming their ROADMAP item.
+generator where that call does. Serving over a mesh raises
+``NotImplementedError`` naming its ROADMAP item; the grammar registry runs
+(held to JAX's batcher in ``test_torch_port_constrain.py``).
 """
 
 import jax
@@ -671,39 +672,79 @@ class TestProgramReuse:
             is not _batcher(pair.port_sampler())._programs)
 
 
-# -- what is not ported ----------------------------------------------------
+# -- what is not ported, and the grammars that are ------------------------
 
 
+def _grammar(pair, pattern="(alpha|beta)+"):
+  vocab = pair.vocab
+  return port.TokenDFA(
+      pattern, port.token_strings_from_vocab(vocab, vocab.GetPieceSize()),
+      eos_id=vocab.eos_id())
+
+
+def _budget(dfa):
+  return (*dfa.char_dfa.trans.shape, dfa._token_atoms.shape[1])
+
+
+# The features this test once held to a NotImplementedError: serving over a
+# mesh still raises; the grammar ones (ROADMAP item 11) run now, and each case
+# runs one with the batcher keywords given here.
 REFUSED = {
-    # Speculation is ported; its grammar-aware verify is not.
-    "draft_len": (dict(draft_len=2), dict(constraint=0), "item 11"),
-    "constraints": (dict(constraints=[object()]), None, "item 11"),
-    "dynamic_grammar_slots": (dict(dynamic_grammar_slots=2), None,
-                              "item 11"),
-    "mesh": (dict(), "mesh", "item 14c"),
-    "constraint=": (dict(), dict(constraint=0), "item 11"),
-    "register_grammar": (dict(), "register_grammar", "item 11"),
+    "draft_len": dict(draft_len=2),
+    "constraints": dict(),
+    "dynamic_grammar_slots": dict(dynamic_grammar_slots=2),
+    "mesh": None,
+    "constraint=": dict(),
+    "register_grammar": dict(),
 }
 
 
 @pytest.mark.parametrize("feature", list(REFUSED))
 def test_left_out_features_raise_naming_their_item(pair, feature):
-  batcher_kw, call, item = REFUSED[feature]
+  """Serving over a mesh raises ``NotImplementedError`` naming its ROADMAP
+  item; a grammar feature runs: a constrained request stays in its grammar
+  and matches a solo constrained ``Sampler`` (a free neighbor the solo
+  unconstrained one), and its misuse raises JAX's ``ValueError``
+  (test_torch_port_constrain.py holds them to JAX's tokens)."""
   s = pair.port_sampler()
-  match = f"ROADMAP queue 1 {item}"
-  if call == "mesh":
+  if feature == "mesh":
     s.mesh = object()  # what a tensor-parallel sampler would carry
-    call = None
-  if call is None:
-    with pytest.raises(NotImplementedError, match=match):
-      _batcher(s, **batcher_kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 14c"):
+      _batcher(s)
     return
-  b = _batcher(s)
-  with pytest.raises(NotImplementedError, match=match):
-    if call == "register_grammar":
-      b.register_grammar(object())
-    else:
-      b.add_request("alpha", **call)
+  dfa = _grammar(pair)
+  kw = dict(REFUSED[feature])
+  constraint = 0
+  if feature in ("constraints", "draft_len"):
+    kw["constraints"] = [dfa]
+  elif feature == "dynamic_grammar_slots":
+    with pytest.raises(ValueError, match="dynamic_grammar_budget"):
+      _batcher(s, **kw)
+    kw["dynamic_grammar_budget"] = _budget(dfa)
+    constraint = dfa
+  elif feature == "register_grammar":
+    with pytest.raises(ValueError, match="dynamic_grammar_slots"):
+      _batcher(s).register_grammar(dfa)
+    kw.update(dynamic_grammar_slots=1, dynamic_grammar_budget=_budget(dfa))
+    constraint = dfa
+  else:  # constraint=
+    with pytest.raises(ValueError, match="constraints"):
+      _batcher(s).add_request("alpha", constraint=0)
+    kw["constraints"] = [dfa]
+    with pytest.raises(ValueError, match="registered grammars"):
+      _batcher(s, **kw).add_request("alpha", constraint=1)
+  b = _batcher(s, steps=6, **kw)
+  if feature == "register_grammar":
+    assert b.register_grammar(dfa) == b.register_grammar(_grammar(pair)) == 1
+  rid = b.add_request("gamma delta", constraint=constraint)
+  free = b.add_request("gamma delta")
+  res = {r: t for r, t, _ in b.run_until_drained(3)}
+  text = "".join(pair.vocab.DecodeIds([t]) for t in res[rid]
+                 if t != pair.vocab.eos_id())
+  assert dfa.is_live_prefix(text), res[rid]
+  for r, c in ((rid, dfa), (free, None)):
+    solo = _solo(s, "gamma delta", 6, constraint=c)
+    assert res[r] == solo[:len(res[r])], (feature, res[r], solo)
 
 
 def test_batcher_needs_a_card_unless_asked(pair, monkeypatch):

@@ -44,6 +44,7 @@ import torch
 
 from cadence_gemma_tpu_torch import convert
 from cadence_gemma_tpu_torch.inference import sampler as sampler_lib
+from cadence_gemma_tpu_torch.inference import constrain as port_constrain
 from cadence_gemma_tpu_torch.inference import server as server_lib
 from cadence_gemma_tpu_torch.inference import serving
 from cadence_gemma_tpu_torch.inference import speculative
@@ -483,8 +484,18 @@ def test_sampler_refusals(pair):
   with pytest.raises(ValueError, match="Generator"):
     speculative.SpeculativeSampler(pair.port_sampler(
         deterministic_sampling=False))(["alpha"], 4)
-  with pytest.raises(NotImplementedError, match="item 11"):
-    spec(["alpha"], 4, constraint=object())
+  # A grammar is ported (test_torch_port_constrain.py holds it to JAX's):
+  # one of another vocabulary is refused, one of this vocabulary gives
+  # constrained plain greedy decode's tokens.
+  strings = port_constrain.token_strings_from_vocab(
+      pair.vocab, pair.vocab.GetPieceSize())
+  with pytest.raises(ValueError, match="vocabulary"):
+    spec(["alpha"], 4, constraint=port_constrain.TokenDFA(
+        "(alpha)+", strings[:-1], eos_id=2))
+  dfa = port_constrain.TokenDFA("(alpha|beta|gamma)+", strings, eos_id=2)
+  got = spec(["alpha beta"], 6, constraint=dfa).tokens[0].tolist()
+  want = plain(["alpha beta"], 6, constraint=dfa).tokens[0].tolist()
+  assert _trim(got, 2) == _trim(want, 2)
   meshed = pair.port_sampler()
   meshed.mesh = object()
   with pytest.raises(NotImplementedError, match="item 14c"):
@@ -630,10 +641,14 @@ def test_batcher_refusals(pair):
     _batcher(s, draft_len=2, per_request_sampling=True)
   with pytest.raises(ValueError, match="attention window"):
     _batcher(s, draft_len=8)
-  with pytest.raises(NotImplementedError, match="item 11"):
-    _batcher(s, draft_len=2, constraints=[object()])
-  with pytest.raises(NotImplementedError, match="item 11"):
-    _batcher(s, draft_len=2).add_request("alpha", constraint=object())
+  # Grammars compose with draft_len now; misuse raises JAX's ValueErrors.
+  strings = port_constrain.token_strings_from_vocab(
+      pair.vocab, pair.vocab.GetPieceSize())
+  with pytest.raises(ValueError, match="vocabulary"):
+    _batcher(s, draft_len=2, constraints=[port_constrain.TokenDFA(
+        "(alpha)+", strings[:-1], eos_id=2)])
+  with pytest.raises(ValueError, match="constraints"):
+    _batcher(s, draft_len=2).add_request("alpha", constraint=0)
 
 
 # -- the HTTP front end ----------------------------------------------------------
