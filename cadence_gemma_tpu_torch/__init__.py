@@ -24,8 +24,13 @@ CUDA C++ (``csrc/``), built by
 ``nvcc`` at first use. The scan also takes
 complex-valued operands (``complex_lib.Complex`` pairs of real tensors, the
 complex kernels of ``csrc/lru_scan_complex.cu``), and
-``benchmarks.kernel_lab`` times the scan's two tuning variants. Entry
-points run on the card unless the caller passes ``device="cpu"``
+``benchmarks.kernel_lab`` times the scan's two tuning variants. The text
+path's kernels launch through ``torch.library`` operators
+(``ops/library.py``: CUDA, CPU and fake implementations), so
+``export_serving`` / ``save_serving_export`` / ``load_serving_export``
+(``checkpoint/export.py``) export the prefill and one decode step with
+``torch.export`` and run them elsewhere with the weights kept outside.
+Entry points run on the card unless the caller passes ``device="cpu"``
 (``devices=["cpu"] * n`` for a mesh).
 
 This package imports torch, numpy and the standard library only; the JAX
@@ -36,6 +41,9 @@ from cadence_gemma_tpu_torch.common import GriffinConfig
 from cadence_gemma_tpu_torch.common import Preset
 from cadence_gemma_tpu_torch.common import ScanType
 from cadence_gemma_tpu_torch.common import TemporalBlockType
+from cadence_gemma_tpu_torch.checkpoint.export import export_serving
+from cadence_gemma_tpu_torch.checkpoint.export import load_serving_export
+from cadence_gemma_tpu_torch.checkpoint.export import save_serving_export
 from cadence_gemma_tpu_torch.common import apply_it_formatter
 from cadence_gemma_tpu_torch.convert import encoder_from_flax_params
 from cadence_gemma_tpu_torch.convert import griffin_from_flax_params
@@ -98,14 +106,17 @@ __all__ = [
     "apply_it_formatter",
     "choice_regex",
     "encoder_from_flax_params",
+    "export_serving",
     "griffin_from_flax_params",
     "json_mode_dfa",
     "json_regex",
     "load_sentencepiece",
+    "load_serving_export",
     "lora",
     "make_mesh",
     "quantize_params",
     "read_npz_params",
+    "save_serving_export",
     "schema_dfa",
     "schema_regex",
     "token_strings_from_vocab",

@@ -12,9 +12,10 @@ in the input dtype.
 
 :func:`fused_add_rmsnorm` is differentiable: its backward recomputes
 through :func:`reference_add_rmsnorm` as ``_bwd`` does. Its forward
-:func:`add_rmsnorm_forward` launches ``csrc/add_rmsnorm.cu`` for CUDA
-tensors and takes the plain version only for CPU tensors. A kernel that
-fails to build or launch raises; nothing falls back.
+:func:`add_rmsnorm_forward` calls the ``cadence_gemma_tpu_torch::add_rmsnorm``
+operator (:mod:`ops.library`), whose CUDA implementation launches
+``csrc/add_rmsnorm.cu`` and whose CPU implementation is the plain version.
+A kernel that fails to build or launch raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from cadence_gemma_tpu_torch import _build
+from cadence_gemma_tpu_torch.ops import library
 
 # Kernel launches in this process; callers reset it to count one run.
 launches = 0
@@ -41,27 +43,24 @@ def reference_add_rmsnorm(
   return y, normed.to(x.dtype)
 
 
-def add_rmsnorm_forward(
-    x: torch.Tensor, residual: torch.Tensor, scale: torch.Tensor,
-    eps: float = 1e-6,
-) -> tuple[torch.Tensor, torch.Tensor]:
-  """The forward: its CUDA kernel on the card, the plain version on CPU.
-
-  ``x`` and ``residual`` are ``[..., width]`` of one dtype; ``scale`` is
-  ``[width]``. Returns ``(y, normed)`` in ``x.dtype``.
-  """
-  global launches
+def _check(x: torch.Tensor, residual: torch.Tensor,
+           scale: torch.Tensor) -> None:
   width = x.shape[-1]
   if residual.shape != x.shape or residual.dtype != x.dtype:
     raise ValueError(f"`residual` must match `x`: {tuple(residual.shape)} "
                      f"{residual.dtype} vs {tuple(x.shape)} {x.dtype}.")
   if scale.shape != (width,):
     raise ValueError(f"`scale` must be [{width}], got {tuple(scale.shape)}.")
-  if x.device.type == "cpu":
-    return reference_add_rmsnorm(x, residual, scale, eps)
-  if x.device.type != "cuda":
-    raise ValueError(f"add_rmsnorm runs on CUDA or CPU tensors, not "
-                     f"{x.device}.")
+
+
+def _cpu(x, residual, scale, eps):
+  y, normed = reference_add_rmsnorm(x, residual, scale, eps)
+  return y.contiguous(), normed.contiguous()
+
+
+def _cuda(x, residual, scale, eps):
+  global launches
+  width = x.shape[-1]
   if x.dtype not in _DTYPE_CODES:
     raise ValueError(f"The CUDA add_rmsnorm kernel takes float32 or bfloat16, "
                      f"got {x.dtype}.")
@@ -86,6 +85,30 @@ def add_rmsnorm_forward(
   if err:
     raise RuntimeError(f"add_rmsnorm CUDA kernel failed: cudaError_t {err}.")
   return y, normed
+
+
+def _fake(x, residual, scale, eps):
+  del residual, scale, eps
+  return x.new_empty(x.shape), x.new_empty(x.shape)
+
+
+_ADD_RMSNORM = library.define(
+    "add_rmsnorm(Tensor x, Tensor residual, Tensor scale, float eps) "
+    "-> (Tensor, Tensor)", cpu=_cpu, cuda=_cuda, fake=_fake)
+
+
+def add_rmsnorm_forward(
+    x: torch.Tensor, residual: torch.Tensor, scale: torch.Tensor,
+    eps: float = 1e-6,
+) -> tuple[torch.Tensor, torch.Tensor]:
+  """The forward through the ``add_rmsnorm`` operator: its CUDA kernel for
+  CUDA tensors, the plain version for CPU tensors.
+
+  ``x`` and ``residual`` are ``[..., width]`` of one dtype; ``scale`` is
+  ``[width]``. Returns ``(y, normed)`` in ``x.dtype``, contiguous.
+  """
+  _check(x, residual, scale)
+  return _ADD_RMSNORM(x, residual, scale, float(eps))
 
 
 class _FusedAddRMSNorm(torch.autograd.Function):

@@ -35,11 +35,12 @@ rows, where the tensor cores set the pace, the Hopper kernel of
 ``csrc/int8_wgmma.cu`` (a TMA ring, the int8 tile widened once a block in
 shared memory, ``wgmma``). Each kernel has its launch counter.
 
-:func:`int8_weight_matmul` launches the kernels for CUDA tensors (the
-forward, and the input gradient when autograd asks for it) and takes
-:func:`int8_weight_matmul_plain` and :func:`int8_weight_matmul_dgrad_plain`
-only for CPU tensors. A kernel that fails to build or launch raises; nothing
-falls back. They launch on the current stream and allocate only through
+:func:`int8_weight_matmul` calls the ``int8_weight_matmul`` operator (the
+forward, both routes; :mod:`ops.library`) and, when autograd asks for the
+input gradient, the ``int8_weight_matmul_dgrad`` operator. Their CUDA
+implementations launch the kernels, and their CPU implementations are
+:func:`int8_weight_matmul_plain` and :func:`int8_weight_matmul_dgrad_plain`.
+A kernel that fails to build or launch raises; nothing falls back. They launch on the current stream and allocate only through
 torch, so CUDA graphs capture them.
 """
 
@@ -50,6 +51,7 @@ from typing import NamedTuple
 import torch
 
 from cadence_gemma_tpu_torch import _build
+from cadence_gemma_tpu_torch.ops import library
 
 # Kernel launches in this process (a split-K call's two kernels count once):
 # the mma.sync forward's, the wgmma forward's and the wgmma input
@@ -177,14 +179,15 @@ def _check(a: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> None:
     raise ValueError(f"`q` must be int8, got {q.dtype}.")
 
 
-def _forward(a: torch.Tensor, q: torch.Tensor,
-             scale: torch.Tensor) -> torch.Tensor:
+def _forward_cpu(a, q, scale):
+  return int8_weight_matmul_plain(a, q, scale).contiguous()
+
+
+def _forward_cuda(a, q, scale):
+  """Both routes of the forward; :func:`uses_wgmma` picks one from the
+  rows, and the wgmma route's :class:`ALayout` of ``a`` is worked out
+  here, from its strides."""
   global launches, wgmma_launches
-  if a.device.type == "cpu":
-    return int8_weight_matmul_plain(a, q, scale)
-  if a.device.type != "cuda":
-    raise ValueError(f"int8_weight_matmul runs on CUDA or CPU tensors, not "
-                     f"{a.device}.")
   if a.dtype != torch.bfloat16:
     raise ValueError(f"The CUDA int8 kernel takes bfloat16 activations, got "
                      f"{a.dtype}.")
@@ -235,37 +238,29 @@ def _forward(a: torch.Tensor, q: torch.Tensor,
   return y
 
 
+def _forward_fake(a, q, scale):
+  del scale
+  return a.new_empty((q.shape[0], a.shape[1], q.shape[1]))
+
+
+_FORWARD = library.define(
+    "int8_weight_matmul(Tensor a, Tensor q, Tensor scale) -> Tensor",
+    cpu=_forward_cpu, cuda=_forward_cuda, fake=_forward_fake)
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
   """``t`` contiguous and 16-byte aligned (a view may start anywhere)."""
   t = t.contiguous()
   return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def int8_weight_matmul_dgrad(g: torch.Tensor, q: torch.Tensor,
-                             scale: torch.Tensor,
-                             reduce_batches: bool = False) -> torch.Tensor:
-  """The input gradient: the wgmma kernel on the card, the plain version on
-  CPU tensors.
+def _dgrad_cpu(g, q, scale, reduce_batches):
+  return int8_weight_matmul_dgrad_plain(g, q, scale,
+                                        reduce_batches).contiguous()
 
-  Args:
-    g: The cotangent of the product, ``[B, M, N]`` (bfloat16 on the card).
-    q: int8 weights ``[B, N, K]``, as the forward took them.
-    scale: float32 per-output-channel scales ``[B, N]``.
-    reduce_batches: Sum over the batches too (a shared activation).
 
-  Returns:
-    ``[B, M, K]`` in ``g.dtype``, contiguous; ``[1, M, K]`` with
-    ``reduce_batches``.
-  """
+def _dgrad_cuda(g, q, scale, reduce_batches):
   global dgrad_wgmma_launches
-  if g.ndim != 3 or tuple(g.shape[::2]) != (q.shape[0], q.shape[1]):
-    raise ValueError(f"`g` must be [B, M, N] for q {tuple(q.shape)}, got "
-                     f"{tuple(g.shape)}.")
-  if g.device.type == "cpu":
-    return int8_weight_matmul_dgrad_plain(g, q, scale, reduce_batches)
-  if g.device.type != "cuda":
-    raise ValueError(f"int8_weight_matmul_dgrad runs on CUDA or CPU tensors, "
-                     f"not {g.device}.")
   if g.dtype != torch.bfloat16:
     raise ValueError(f"The CUDA int8 input-gradient kernel takes a bfloat16 "
                      f"cotangent, got {g.dtype}.")
@@ -289,6 +284,40 @@ def int8_weight_matmul_dgrad(g: torch.Tensor, q: torch.Tensor,
   return out
 
 
+def _dgrad_fake(g, q, scale, reduce_batches):
+  del scale
+  batches, m, _ = g.shape
+  return g.new_empty((1 if reduce_batches else batches, m, q.shape[2]))
+
+
+_DGRAD = library.define(
+    "int8_weight_matmul_dgrad(Tensor g, Tensor q, Tensor scale, "
+    "bool reduce_batches) -> Tensor",
+    cpu=_dgrad_cpu, cuda=_dgrad_cuda, fake=_dgrad_fake)
+
+
+def int8_weight_matmul_dgrad(g: torch.Tensor, q: torch.Tensor,
+                             scale: torch.Tensor,
+                             reduce_batches: bool = False) -> torch.Tensor:
+  """The input gradient through its operator: the wgmma kernel for CUDA
+  tensors, the plain version for CPU tensors.
+
+  Args:
+    g: The cotangent of the product, ``[B, M, N]`` (bfloat16 on the card).
+    q: int8 weights ``[B, N, K]``, as the forward took them.
+    scale: float32 per-output-channel scales ``[B, N]``.
+    reduce_batches: Sum over the batches too (a shared activation).
+
+  Returns:
+    ``[B, M, K]`` in ``g.dtype``, contiguous; ``[1, M, K]`` with
+    ``reduce_batches``.
+  """
+  if g.ndim != 3 or tuple(g.shape[::2]) != (q.shape[0], q.shape[1]):
+    raise ValueError(f"`g` must be [B, M, N] for q {tuple(q.shape)}, got "
+                     f"{tuple(g.shape)}.")
+  return _DGRAD(g, q, scale, bool(reduce_batches))
+
+
 class _Int8WeightMatmul(torch.autograd.Function):
   """The product with a gradient for ``a`` only: the weight and its scale
   are frozen (``requires_grad=False`` parameters)."""
@@ -297,7 +326,7 @@ class _Int8WeightMatmul(torch.autograd.Function):
   def forward(ctx, a, q, scale):  # pylint: disable=arguments-differ
     ctx.save_for_backward(q, scale)
     ctx.reduce_batches = a.shape[0] == 1 and q.shape[0] > 1
-    return _forward(a, q, scale)
+    return _FORWARD(a, q, scale)
 
   @staticmethod
   def backward(ctx, g):  # pylint: disable=arguments-differ
@@ -326,4 +355,4 @@ def int8_weight_matmul(a: torch.Tensor, q: torch.Tensor,
   _check(a, q, scale)
   if torch.is_grad_enabled() and a.requires_grad:
     return _Int8WeightMatmul.apply(a, q, scale)
-  return _forward(a, q, scale)
+  return _FORWARD(a, q, scale)

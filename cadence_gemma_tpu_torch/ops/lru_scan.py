@@ -9,10 +9,12 @@ state ``h_last`` in float32. Counterpart of the JAX package's
 
 :func:`lru_scan` and :func:`sharded_scan` are differentiable. Their forwards
 run :func:`lru_scan_forward` and their backwards :func:`lru_scan_backward`,
-the cotangent scan of ``_lru_bwd``; each launches its kernel of
-``csrc/lru_scan.cu`` for a CUDA tensor and takes its plain version
-(:func:`lru_scan_plain`, :func:`lru_scan_backward_plain`) only for a CPU
-tensor. With ``return_a_prod=True`` either also returns the running product
+the cotangent scan of ``_lru_bwd``; each calls its ``torch.library``
+operator (:mod:`ops.library`; one a walk, kind of operand and running
+product, and one for :func:`lru_scan_carries`), whose CUDA implementation
+launches its kernel of ``csrc/lru_scan.cu`` and whose CPU implementation is
+the plain version (:func:`lru_scan_plain`, :func:`lru_scan_backward_plain`).
+With ``return_a_prod=True`` either also returns the running product
 of ``a`` along its walk (``compute_a_prod``), which :func:`sharded_scan`
 needs to stitch the shards of a sequence-parallel scan together, in both
 walks. A kernel that fails to build or launch raises; nothing falls back.
@@ -36,6 +38,7 @@ import torch
 
 from cadence_gemma_tpu_torch import _build
 from cadence_gemma_tpu_torch import complex_lib
+from cadence_gemma_tpu_torch.ops import library
 from cadence_gemma_tpu_torch.parallel import sharding
 
 Complex = complex_lib.Complex
@@ -205,13 +208,11 @@ def _launch(symbol: str, x, a, h0, reverse, return_a_prod=False):
   a_prod_last)) with ``return_a_prod``."""
   global ring_launches, thread_walk_launches
   global complex_ring_launches, complex_thread_walk_launches
-  if x.device.type != "cuda":
-    raise ValueError(f"lru_scan runs on CUDA or CPU tensors, not {x.device}.")
   is_complex = isinstance(x, Complex)
   n = 2 if is_complex else 1
-  library = "lru_scan_complex" if is_complex else "lru_scan"
+  source = "lru_scan_complex" if is_complex else "lru_scan"
   streams = 7 if return_a_prod else 5
-  fn = _build.function(library, symbol + ("_a_prod" if return_a_prod else ""),
+  fn = _build.function(source, symbol + ("_a_prod" if return_a_prod else ""),
                        "p" * (n * streams) + "iiiiip")
   batch, _, dim = x.shape
   x, a = x.contiguous(), a.contiguous()
@@ -246,6 +247,81 @@ def _launch(symbol: str, x, a, h0, reverse, return_a_prod=False):
   return ((out, carry), products) if return_a_prod else (out, carry)
 
 
+def _out_shapes(x, a_prod: bool):
+  """(shape, dtype) of each output of a walk over ``x`` (one component):
+  the outputs in ``x.dtype``, the float32 carry and, with ``a_prod``, the
+  running product and its float32 last value."""
+  batch, _, dim = x.shape
+  outs = [(x.shape, x.dtype), ((batch, dim), torch.float32)]
+  return outs * 2 if a_prod else outs
+
+
+def _register_walk(walk: str, is_complex: bool, a_prod: bool):
+  """Defines the operator of one walk (``forward`` or ``backward``) of one
+  kind of operand, with or without the running product of ``a``.
+
+  Its arguments are the components of ``(x, a, h0)`` (each ``Complex`` as
+  its real and imaginary tensors; ``h0`` optional) and ``reverse``; its
+  outputs the components of ``(y, h_last)`` or of ``(y, h_last, a_prod,
+  a_prod_last)``. The CUDA implementation counts the launch in the counter
+  of the walk (``launches``, ``backward_a_prod_launches``,
+  ``complex_launches``, ...) and its route in ``ring_launches`` /
+  ``thread_walk_launches`` (``complex_*`` for Complex operands)."""
+  kind = "complex_" if is_complex else ""
+  product = "_a_prod" if a_prod else ""
+  name = f"lru_scan_{kind}{walk}{product}"
+  counter = (kind + ("" if walk == "forward" else "backward_")
+             + ("a_prod_" if a_prod else "") + "launches")
+  symbol = f"cg_lru_scan_{kind}{walk}"
+  parts = ("_real", "_imag") if is_complex else ("",)
+  args = ", ".join(
+      [f"Tensor {v}{z}" for v in ("x", "a") for z in parts]
+      + [f"Tensor? h0{z}" for z in parts] + ["bool reverse"])
+  outs = ", ".join(["Tensor"] * (len(parts) * (4 if a_prod else 2)))
+
+  def flat(out):
+    values = [*out[0], *out[1]] if a_prod else list(out)
+    return tuple(_flatten(values, is_complex))
+
+  def cpu(*operands):
+    x, a, h0 = _unflatten(operands[:-1], is_complex)
+    plain = lru_scan_plain if walk == "forward" else lru_scan_backward_plain
+    out = flat(plain(x, a, h0, operands[-1], a_prod))
+    return tuple(z.contiguous() for z in out)
+
+  def cuda(*operands):
+    x, a, h0 = _unflatten(operands[:-1], is_complex)
+    out = _launch(symbol, x, a, h0, operands[-1], a_prod)
+    globals()[counter] += 1
+    return flat(out)
+
+  def fake(*operands):
+    x = operands[0]
+    return tuple(x.new_empty(shape, dtype=dtype)
+                 for shape, dtype in _out_shapes(x, a_prod)
+                 for _ in parts)
+
+  return library.define(f"{name}({args}) -> ({outs})", cpu=cpu, cuda=cuda,
+                        fake=fake)
+
+
+# The operators of the walks, by (walk, is_complex, a_prod).
+_WALKS = {(walk, is_complex, a_prod): _register_walk(walk, is_complex, a_prod)
+          for walk in ("forward", "backward") for is_complex in (False, True)
+          for a_prod in (False, True)}
+
+
+def _walk(walk: str, x, a, h0, reverse: bool, return_a_prod: bool):
+  """Calls the operator of a walk and regroups its outputs as the plain
+  versions return them."""
+  is_complex = isinstance(x, Complex)
+  out = _unflatten(
+      _WALKS[walk, is_complex, return_a_prod](
+          *_flatten((x, a, h0), is_complex), bool(reverse)),
+      is_complex)
+  return (tuple(out[:2]), tuple(out[2:])) if return_a_prod else tuple(out)
+
+
 def lru_scan_forward(
     x: torch.Tensor | Complex,
     a: torch.Tensor | Complex,
@@ -253,7 +329,8 @@ def lru_scan_forward(
     reverse: bool = False,
     return_a_prod: bool = False,
 ):
-  """The forward scan: its CUDA kernel on the card, the plain loop on CPU.
+  """The forward scan through its operator: the CUDA kernel for CUDA
+  tensors, the plain loop for CPU tensors.
 
   Returns ``(y, h_last)``: outputs in ``x.dtype``, final state in float32;
   with ``return_a_prod``, ``((y, h_last), (a_prod, a_prod_last))`` (see
@@ -261,25 +338,32 @@ def lru_scan_forward(
   run ``cg_lru_scan_complex_forward`` and count in the ``complex_*``
   counters.
   """
-  global launches, a_prod_launches
-  global complex_launches, complex_a_prod_launches
   _check(x, a, h0)
-  if x.device.type == "cpu":
-    return lru_scan_plain(x, a, h0, reverse, return_a_prod)
-  if isinstance(x, Complex):
-    out = _launch("cg_lru_scan_complex_forward", x, a, h0, reverse,
-                  return_a_prod)
-    if return_a_prod:
-      complex_a_prod_launches += 1
-    else:
-      complex_launches += 1
-    return out
-  out = _launch("cg_lru_scan_forward", x, a, h0, reverse, return_a_prod)
-  if return_a_prod:
-    a_prod_launches += 1
-  else:
-    launches += 1
+  return _walk("forward", x, a, h0, reverse, return_a_prod)
+
+
+def _carries_cpu(x, a, h0):
+  y, h = lru_scan_plain(x, a, h0, y_in_acc_dtype=True)
+  return y.contiguous(), h.contiguous()
+
+
+def _carries_cuda(x, a, h0):
+  global launches, carry_launches
+  out = _launch("cg_lru_scan_forward", x.float(), a.float(), h0, False)
+  launches += 1
+  carry_launches += 1
   return out
+
+
+def _carries_fake(x, a, h0):
+  del a, h0
+  return (x.new_empty(x.shape, dtype=torch.float32),
+          x.new_empty((x.shape[0], x.shape[2]), dtype=torch.float32))
+
+
+_CARRIES = library.define(
+    "lru_scan_carries(Tensor x, Tensor a, Tensor? h0) -> (Tensor, Tensor)",
+    cpu=_carries_cpu, cuda=_carries_cuda, fake=_carries_fake)
 
 
 def lru_scan_carries(
@@ -289,7 +373,8 @@ def lru_scan_carries(
 ) -> tuple[torch.Tensor, torch.Tensor]:
   """The forward walk with every step's float32 carry as its output: the
   speculative verify's scan (``y_in_acc_dtype=True`` of JAX's
-  ``lru_linear_scan``, ``cadence_gemma_tpu/ops/scan.py:57-68``).
+  ``lru_linear_scan``, ``cadence_gemma_tpu/ops/scan.py:57-68``), through its
+  operator.
 
   On the card ``x`` and ``a`` are widened to float32 and the forward
   kernel's float32 instantiation walks them: widening is exact and the walk
@@ -300,15 +385,10 @@ def lru_scan_carries(
 
   Returns ``(y in float32, h_last in float32)``.
   """
-  global carry_launches
   _check(x, a, h0)
   if isinstance(x, Complex):
     raise ValueError("lru_scan_carries takes real operands.")
-  if x.device.type == "cpu":
-    return lru_scan_plain(x, a, h0, y_in_acc_dtype=True)
-  out = lru_scan_forward(x.float(), a.float(), h0)
-  carry_launches += 1
-  return out
+  return _CARRIES(x, a, h0)
 
 
 def lru_scan_backward(
@@ -318,7 +398,8 @@ def lru_scan_backward(
     reverse: bool = False,
     return_a_prod: bool = False,
 ):
-  """The cotangent scan: its CUDA kernel on the card, the plain loop on CPU.
+  """The cotangent scan through its operator: the CUDA kernel for CUDA
+  tensors, the plain loop for CPU tensors.
 
   Returns ``(dx, dh0)``, or with ``return_a_prod`` also the running product
   of the multipliers along this walk, counted in
@@ -327,25 +408,8 @@ def lru_scan_backward(
   ``a.imag`` as it loads it, so no conjugated copy is made; counted in the
   ``complex_*`` counters.
   """
-  global backward_launches, backward_a_prod_launches
-  global complex_backward_launches, complex_backward_a_prod_launches
   _check(g, a, dh_last)
-  if g.device.type == "cpu":
-    return lru_scan_backward_plain(g, a, dh_last, reverse, return_a_prod)
-  if isinstance(g, Complex):
-    out = _launch("cg_lru_scan_complex_backward", g, a, dh_last, reverse,
-                  return_a_prod)
-    if return_a_prod:
-      complex_backward_a_prod_launches += 1
-    else:
-      complex_backward_launches += 1
-    return out
-  out = _launch("cg_lru_scan_backward", g, a, dh_last, reverse, return_a_prod)
-  if return_a_prod:
-    backward_a_prod_launches += 1
-  else:
-    backward_launches += 1
-  return out
+  return _walk("backward", g, a, dh_last, reverse, return_a_prod)
 
 
 def _flatten(values, is_complex: bool) -> list:

@@ -22,9 +22,11 @@ forward runs :func:`window_attention_forward` (``csrc/window_attention.cu``)
 and its backward :func:`window_attention_dq` and :func:`window_attention_dkv`
 (``csrc/window_attention_backward.cu``); with ``kv_prefix > 0`` ``dk`` and
 ``dv`` cover the halo's rows too, which carries their gradient back to the
-shard that sent them. Each wrapper launches its kernel for CUDA tensors and
-takes its plain version only for CPU tensors. A kernel that fails to build or
-launch raises; nothing falls back.
+shard that sent them. Each wrapper calls its ``torch.library`` operator
+(:mod:`ops.library`), whose CUDA implementation launches the kernel and whose
+CPU implementation is the plain version; the halo length ``kv_prefix`` is an
+int argument of each. A kernel that fails to build or launch raises;
+nothing falls back.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from cadence_gemma_tpu_torch import _build
+from cadence_gemma_tpu_torch.ops import library
 
 # Kernel launches in this process (forward, dq, dk/dv, and each of them with
 # a key halo); callers reset them to count one run.
@@ -205,12 +208,21 @@ def _check(q, k, v, segment_pos, kv_prefix=0):
     )
 
 
+def _check_backward(q, k, v, segment_pos, lse, delta, d_out, kv_prefix):
+  _check(q, k, v, segment_pos, kv_prefix)
+  batch, seq_len, num_heads, _ = q.shape
+  if d_out.shape != q.shape or d_out.dtype != q.dtype:
+    raise ValueError("`d_out` must match `q` in shape and dtype.")
+  for name, t in (("lse", lse), ("delta", delta)):
+    if t.shape != (batch, num_heads, seq_len) or t.dtype != torch.float32:
+      raise ValueError(
+          f"`{name}` must be float32 [b, n, t] = "
+          f"{(batch, num_heads, seq_len)}, got {t.dtype} {tuple(t.shape)}."
+      )
+
+
 def _check_cuda(q: torch.Tensor) -> None:
-  """Raises unless the CUDA kernels take ``q``'s device, dtype and width."""
-  if q.device.type != "cuda":
-    raise ValueError(
-        f"window_attention runs on CUDA or CPU tensors, not {q.device}."
-    )
+  """Raises unless the CUDA kernels take ``q``'s dtype and width."""
   if q.dtype != torch.bfloat16:
     raise ValueError(
         f"The CUDA window-attention kernels take bfloat16, got {q.dtype}; "
@@ -235,25 +247,13 @@ def _stream(t: torch.Tensor) -> int:
   return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def window_attention_forward(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    segment_pos: torch.Tensor,
-    window: int,
-    kv_prefix: int = 0,
-) -> tuple[torch.Tensor, torch.Tensor]:
-  """The forward: its CUDA kernel on the card, the plain version on CPU.
+def _forward_cpu(q, k, v, segment_pos, window, kv_prefix):
+  out, lse = window_attention_plain(q, k, v, segment_pos, window, kv_prefix)
+  return out.contiguous(), lse.contiguous()
 
-  ``k`` and ``v`` are ``[b, kv_prefix + t, 1, h]``; a launch with
-  ``kv_prefix > 0`` counts in ``kv_prefix_launches``, one without in
-  ``launches``. Returns ``(out, lse)``: [b, t, n, h] outputs in ``q.dtype``
-  and the [b, n, t] float32 logsumexp of each query row.
-  """
+
+def _forward_cuda(q, k, v, segment_pos, window, kv_prefix):
   global launches, kv_prefix_launches
-  _check(q, k, v, segment_pos, kv_prefix)
-  if q.device.type == "cpu":
-    return window_attention_plain(q, k, v, segment_pos, window, kv_prefix)
   _check_cuda(q)
   batch, seq_len, num_heads, head_dim = q.shape
   fn = _build.function(
@@ -282,50 +282,55 @@ def window_attention_forward(
   return out, lse
 
 
-def _backward_operands(q, k, v, segment_pos, lse, delta, d_out, kv_prefix):
-  """Checks the backward's operands; returns them contiguous for a kernel."""
-  _check(q, k, v, segment_pos, kv_prefix)
+def _forward_fake(q, k, v, segment_pos, window, kv_prefix):
+  del k, v, segment_pos, window, kv_prefix
   batch, seq_len, num_heads, _ = q.shape
-  if d_out.shape != q.shape or d_out.dtype != q.dtype:
-    raise ValueError("`d_out` must match `q` in shape and dtype.")
-  for name, t in (("lse", lse), ("delta", delta)):
-    if t.shape != (batch, num_heads, seq_len) or t.dtype != torch.float32:
-      raise ValueError(
-          f"`{name}` must be float32 [b, n, t] = "
-          f"{(batch, num_heads, seq_len)}, got {t.dtype} {tuple(t.shape)}."
-      )
+  return (q.new_empty(q.shape),
+          q.new_empty((batch, num_heads, seq_len), dtype=torch.float32))
+
+
+_FORWARD = library.define(
+    "window_attention_forward(Tensor q, Tensor k, Tensor v, "
+    "Tensor segment_pos, int window, int kv_prefix) -> (Tensor, Tensor)",
+    cpu=_forward_cpu, cuda=_forward_cuda, fake=_forward_fake)
+
+
+def window_attention_forward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    segment_pos: torch.Tensor,
+    window: int,
+    kv_prefix: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+  """The forward through its operator: the CUDA kernel for CUDA tensors,
+  the plain version for CPU tensors.
+
+  ``k`` and ``v`` are ``[b, kv_prefix + t, 1, h]``; a launch with
+  ``kv_prefix > 0`` counts in ``kv_prefix_launches``, one without in
+  ``launches``. Returns ``(out, lse)``: [b, t, n, h] outputs in ``q.dtype``
+  and the [b, n, t] float32 logsumexp of each query row.
+  """
+  _check(q, k, v, segment_pos, kv_prefix)
+  return _FORWARD(q, k, v, segment_pos, int(window), int(kv_prefix))
+
+
+def _backward_operands(q, k, v, segment_pos, lse, delta, d_out):
+  """The backward's operands contiguous and aligned for a kernel."""
   _check_cuda(q)
   q, k, v, d_out = _contiguous_aligned(q, k, v, d_out)
   seg = segment_pos.to(torch.int32).contiguous()
   return q, k, v, seg, lse.contiguous(), delta.contiguous(), d_out
 
 
-def window_attention_dq(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    segment_pos: torch.Tensor,
-    lse: torch.Tensor,
-    delta: torch.Tensor,
-    d_out: torch.Tensor,
-    window: int,
-    kv_prefix: int = 0,
-) -> torch.Tensor:
-  """dq: its CUDA kernel on the card, the plain version on CPU.
+def _dq_cpu(*args):
+  return window_attention_dq_plain(*args).contiguous()
 
-  ``lse`` is the forward's, ``delta`` is :func:`attention_delta` and
-  ``d_out`` the output cotangent; ``k`` and ``v`` are
-  ``[b, kv_prefix + t, 1, h]``. Returns dq [b, t, n, h] in ``q.dtype``; a
-  launch with ``kv_prefix > 0`` counts in ``dq_kv_prefix_launches``, one
-  without in ``dq_launches``.
-  """
+
+def _dq_cuda(q, k, v, segment_pos, lse, delta, d_out, window, kv_prefix):
   global dq_launches, dq_kv_prefix_launches
-  if q.device.type == "cpu":
-    _check(q, k, v, segment_pos, kv_prefix)
-    return window_attention_dq_plain(q, k, v, segment_pos, lse, delta, d_out,
-                                     window, kv_prefix)
   q, k, v, seg, lse, delta, d_out = _backward_operands(
-      q, k, v, segment_pos, lse, delta, d_out, kv_prefix
+      q, k, v, segment_pos, lse, delta, d_out
   )
   batch, seq_len, num_heads, head_dim = q.shape
   fn = _build.function(
@@ -351,31 +356,19 @@ def window_attention_dq(
   return dq
 
 
-def window_attention_dkv(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    segment_pos: torch.Tensor,
-    lse: torch.Tensor,
-    delta: torch.Tensor,
-    d_out: torch.Tensor,
-    window: int,
-    kv_prefix: int = 0,
-) -> tuple[torch.Tensor, torch.Tensor]:
-  """(dk, dv): their CUDA kernel on the card, the plain version on CPU.
+def _dq_fake(q, *_):
+  return q.new_empty(q.shape)
 
-  The gradients of the one key/value head over all ``kv_prefix + t`` keys,
-  summed over the query heads that share it, in ``k.dtype``; a halo key no
-  query sees gets zeros. A launch with ``kv_prefix > 0`` counts in
-  ``dkv_kv_prefix_launches``, one without in ``dkv_launches``.
-  """
+
+def _dkv_cpu(*args):
+  dk, dv = window_attention_dkv_plain(*args)
+  return dk.contiguous(), dv.contiguous()
+
+
+def _dkv_cuda(q, k, v, segment_pos, lse, delta, d_out, window, kv_prefix):
   global dkv_launches, dkv_kv_prefix_launches
-  if q.device.type == "cpu":
-    _check(q, k, v, segment_pos, kv_prefix)
-    return window_attention_dkv_plain(q, k, v, segment_pos, lse, delta,
-                                      d_out, window, kv_prefix)
   q, k, v, seg, lse, delta, d_out = _backward_operands(
-      q, k, v, segment_pos, lse, delta, d_out, kv_prefix
+      q, k, v, segment_pos, lse, delta, d_out
   )
   batch, seq_len, num_heads, head_dim = q.shape
   fn = _build.function(
@@ -400,6 +393,69 @@ def window_attention_dkv(
         f"window_attention dk/dv CUDA kernel failed: cudaError_t {err}."
     )
   return dk, dv
+
+
+def _dkv_fake(q, k, v, *_):
+  return k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+_BACKWARD_ARGS = ("(Tensor q, Tensor k, Tensor v, Tensor segment_pos, "
+                  "Tensor lse, Tensor delta, Tensor d_out, int window, "
+                  "int kv_prefix)")
+_DQ = library.define(f"window_attention_dq{_BACKWARD_ARGS} -> Tensor",
+                     cpu=_dq_cpu, cuda=_dq_cuda, fake=_dq_fake)
+_DKV = library.define(
+    f"window_attention_dkv{_BACKWARD_ARGS} -> (Tensor, Tensor)",
+    cpu=_dkv_cpu, cuda=_dkv_cuda, fake=_dkv_fake)
+
+
+def window_attention_dq(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    segment_pos: torch.Tensor,
+    lse: torch.Tensor,
+    delta: torch.Tensor,
+    d_out: torch.Tensor,
+    window: int,
+    kv_prefix: int = 0,
+) -> torch.Tensor:
+  """dq through its operator: the CUDA kernel for CUDA tensors, the plain
+  version for CPU tensors.
+
+  ``lse`` is the forward's, ``delta`` is :func:`attention_delta` and
+  ``d_out`` the output cotangent; ``k`` and ``v`` are
+  ``[b, kv_prefix + t, 1, h]``. Returns dq [b, t, n, h] in ``q.dtype``; a
+  launch with ``kv_prefix > 0`` counts in ``dq_kv_prefix_launches``, one
+  without in ``dq_launches``.
+  """
+  _check_backward(q, k, v, segment_pos, lse, delta, d_out, kv_prefix)
+  return _DQ(q, k, v, segment_pos, lse, delta, d_out, int(window),
+             int(kv_prefix))
+
+
+def window_attention_dkv(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    segment_pos: torch.Tensor,
+    lse: torch.Tensor,
+    delta: torch.Tensor,
+    d_out: torch.Tensor,
+    window: int,
+    kv_prefix: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+  """(dk, dv) through their operator: the CUDA kernel for CUDA tensors, the
+  plain version for CPU tensors.
+
+  The gradients of the one key/value head over all ``kv_prefix + t`` keys,
+  summed over the query heads that share it, in ``k.dtype``; a halo key no
+  query sees gets zeros. A launch with ``kv_prefix > 0`` counts in
+  ``dkv_kv_prefix_launches``, one without in ``dkv_launches``.
+  """
+  _check_backward(q, k, v, segment_pos, lse, delta, d_out, kv_prefix)
+  return _DKV(q, k, v, segment_pos, lse, delta, d_out, int(window),
+              int(kv_prefix))
 
 
 class _WindowAttention(torch.autograd.Function):

@@ -341,6 +341,26 @@ Phases, each of which raises on failure (so the script exits non-zero):
      against the plain tick in turns; (h) HTTP: ``response_format``
      ``json_object`` and ``json_schema``, a forced ``tool_choice`` and its
      stream, each answer inside its grammar.
+ 23. the serving export (right after 22, on phase 18's models): the bf16
+     2B, its fused-epilogue view and its weight-only int8 copy exported by
+     ``checkpoint.export.export_serving`` at phase 4's bucket (2 x 3000,
+     row 2 left-padded from 2300), each artifact's bytes and host seconds
+     to export; saved, loaded here and in a fresh ``python3`` process that
+     builds no ``Griffin`` and reads the weights from ``checkpoint/io``
+     checkpoints. Each loaded prefill's logits and cache against the live
+     ``Griffin.forward`` (bit for bit, or rel. RMS 5e-2), the greedy
+     tokens of each loaded chain (eager steps, the loaded step captured in
+     a CUDA graph, and the fresh process's) against the Sampler's captured
+     decode, token for token, and the fresh process's prefill logits bit
+     for bit. The counters of a loaded prefill and decode step must show
+     18 LRU and 8 window launches (bf16), 26 add_rmsnorm a forward more
+     with the fused epilogue, 174 ``wgmma`` + 1 ``mma.sync`` (int8
+     prefill) and 175 ``mma.sync`` (int8 step). ``torch.library.opcheck``
+     (schema, fake tensor) of every operator on the card: at the loaded
+     path's first inputs and, for the operators no loaded program calls,
+     at small shapes. The loaded prefill, eager decode step and captured
+     step against the live path in turns (bf16, int8), and the host us a
+     call through an operator against the direct launch.
 
   python3 chip_smoke.py --profile
 
@@ -361,6 +381,7 @@ object ``{"kernels": [...]}``; the last line is
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import inspect
 import itertools
 import json
@@ -384,6 +405,7 @@ from cadence_gemma_tpu_torch import complex_lib
 from cadence_gemma_tpu_torch.benchmarks import kernel_lab
 from cadence_gemma_tpu_torch.benchmarks.kernel_lab import cuda_ms
 from cadence_gemma_tpu_torch.benchmarks.kernel_lab import device_ms
+from cadence_gemma_tpu_torch.checkpoint import export as export_lib
 from cadence_gemma_tpu_torch.checkpoint import io as checkpoint_io
 from cadence_gemma_tpu_torch.checkpoint import synthetic
 from cadence_gemma_tpu_torch.inference import constrain
@@ -396,6 +418,7 @@ from cadence_gemma_tpu_torch.models import griffin
 from cadence_gemma_tpu_torch.models import vit
 from cadence_gemma_tpu_torch.ops import fused_epilogue
 from cadence_gemma_tpu_torch.ops import int8_matmul
+from cadence_gemma_tpu_torch.ops import library as op_library
 from cadence_gemma_tpu_torch.ops import lru_scan
 from cadence_gemma_tpu_torch.ops import mha_attention
 from cadence_gemma_tpu_torch.ops import quantization
@@ -743,6 +766,17 @@ ML_STALL_REPEATS = 5
 # (False), in turns: the first turn has read several times the later ones.
 ML_TICK_TURNS = (False, True, True, False, False, True, True, False)
 ML_STALL_TOKENS = 1000
+
+# Phase 23, the serving export: phase 4's prompts (2 x 3000 tokens, the
+# second left-padded from 2300) as one bucket; the loaded programs against
+# the live path in turns (True: the loaded program); an artifact must stay
+# under this share of its model's weight bytes (graph, not weights); host
+# us a call through an operator against the direct launch, over this many
+# calls a turn.
+EXPORT_BUCKET = (2, PREFILL_TOKENS)
+EXPORT_TURNS = (False, True, True, False)
+EXPORT_MAX_WEIGHT_SHARE = 0.01
+HOST_CALLS = 200
 
 
 def log(*args) -> None:
@@ -7053,6 +7087,602 @@ def phase_constrained(dev, kernels: list[dict], handoff: dict) -> None:
   log(f"  phase 22 took {time.perf_counter() - phase_start:.1f} s")
 
 
+# The fresh process of phase 23: loads serving artifacts and checkpoints
+# written by checkpoint/io and runs each artifact's prefill and greedy decode
+# chain, with no Griffin built (its constructor raises there). Prints one
+# JSON line a run: the tokens and a digest of the prefill's logits.
+_EXPORT_FRESH = r"""
+import hashlib, json, sys, time
+import torch
+from cadence_gemma_tpu_torch.checkpoint import export as export_lib
+from cadence_gemma_tpu_torch.checkpoint import io as checkpoint_io
+from cadence_gemma_tpu_torch.models import griffin
+
+def refuse(*args, **kwargs):
+  raise AssertionError("the fresh process built a Griffin")
+
+griffin.Griffin.__init__ = refuse
+spec = json.loads(sys.argv[1])
+data = torch.load(spec["inputs"], weights_only=True)
+tokens, positions = data["tokens"].cuda(), data["positions"].cuda()
+weights = {}
+for name, artifact, path in spec["runs"]:
+  start = time.perf_counter()
+  if path not in weights:
+    weights[path] = checkpoint_io.load_parameters(path, device="cuda")
+  loaded = export_lib.load_serving_export(artifact)
+  logits, cache = loaded.prefill(weights[path], tokens, positions)
+  digest = hashlib.sha256(logits.float().cpu().numpy().tobytes()).hexdigest()
+  tok = logits[:, -1].argmax(-1, keepdim=True).int()
+  chain, pos = [tok], positions[:, -1:] + 1
+  for step in range(spec["steps"] - 1):
+    logits, cache = loaded.decode_step(weights[path], cache, tok, pos + step)
+    tok = logits[:, -1].argmax(-1, keepdim=True).int()
+    chain.append(tok)
+  print(json.dumps({"name": name, "digest": digest,
+                    "tokens": torch.cat(chain, 1).tolist(),
+                    "seconds": time.perf_counter() - start}), flush=True)
+"""
+
+
+def _export_inputs(sampler, prompts, dev):
+  """The bucket's int32 ids and positions as the Sampler pads a batch: left
+  padding with the pad id at position -1, the real tokens' positions
+  ending at each prompt's length - 1."""
+  ids = [sampler.tokenize(p) for p in prompts]
+  length = max(len(i) for i in ids)
+  pad = sampler.vocab.pad_id()
+  tokens = torch.tensor([[pad] * (length - len(i)) + i for i in ids],
+                        dtype=torch.int32, device=dev)
+  lengths = torch.tensor([len(i) for i in ids], device=dev)
+  positions = (torch.arange(length, device=dev)[None] - length
+               + lengths[:, None]).clamp(min=-1).to(torch.int32)
+  return tokens, positions
+
+
+def _greedy(logits) -> torch.Tensor:
+  return logits[:, -1].argmax(-1, keepdim=True).int()
+
+
+def _digest(logits: torch.Tensor) -> str:
+  """The digest the fresh process prints of a prefill's logits."""
+  return hashlib.sha256(logits.float().cpu().numpy().tobytes()).hexdigest()
+
+
+def _loaded_chain(loaded, params, tokens, positions, steps: int):
+  """Greedy tokens [b, steps] of a loaded prefill and ``steps - 1`` eager
+  loaded decode steps, and the prefill's logits."""
+  logits, cache = loaded.prefill(params, tokens, positions)
+  first = logits
+  tok = _greedy(logits)
+  chain, pos = [tok], positions[:, -1:] + 1
+  for step in range(steps - 1):
+    logits, cache = loaded.decode_step(params, cache, tok, pos + step)
+    tok = _greedy(logits)
+    chain.append(tok)
+  return torch.cat(chain, 1), first
+
+
+class CapturedLoadedStep:
+  """A loaded decode step captured in a CUDA graph, greedy: each replay
+  feeds ``tok`` at ``pos``, writes the new cache over the static one, the
+  argmax over ``tok`` and advances ``pos``. ``reset`` puts back the state
+  after the prefill."""
+
+  def __init__(self, loaded, params, cache, tok, pos):
+    self.loaded, self.params = loaded, params
+    self.initial = [t.clone() for t in
+                    (*torch.utils._pytree.tree_leaves(cache), tok, pos)]  # pylint: disable=protected-access
+    self.cache = torch.utils._pytree.tree_map(torch.clone, cache)  # pylint: disable=protected-access
+    self.tok, self.pos = tok.clone(), pos.clone()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+      self._step()
+    torch.cuda.current_stream().wait_stream(stream)
+    self.reset()
+    self.graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(self.graph):
+      self.logits = self._step()
+    self.reset()
+
+  def _state(self) -> list[torch.Tensor]:
+    return [*torch.utils._pytree.tree_leaves(self.cache), self.tok, self.pos]  # pylint: disable=protected-access
+
+  def _step(self):
+    logits, cache = self.loaded.decode_step(self.params, self.cache, self.tok,
+                                            self.pos)
+    for static, new in zip(torch.utils._pytree.tree_leaves(self.cache),  # pylint: disable=protected-access
+                           torch.utils._pytree.tree_leaves(cache)):  # pylint: disable=protected-access
+      static.copy_(new)
+    self.tok.copy_(_greedy(logits))
+    self.pos.add_(1)
+    return logits
+
+  def reset(self) -> None:
+    for static, initial in zip(self._state(), self.initial):
+      static.copy_(initial)
+
+  def chain(self, steps: int) -> torch.Tensor:
+    """The greedy tokens of ``steps`` replays after the prefill's token."""
+    self.reset()
+    out = [self.tok.clone()]
+    for _ in range(steps):
+      self.graph.replay()
+      out.append(self.tok.clone())
+    return torch.cat(out, 1)
+
+  def step_ms(self, steps: int) -> float:
+    self.reset()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(steps):
+      self.graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / steps
+
+
+class FirstOpInputs(torch.utils._python_dispatch.TorchDispatchMode):  # pylint: disable=protected-access
+  """Keeps the arguments of the first call of each of the port's operators
+  under the mode, the int8 product's once a route (references: the
+  operators do not write their inputs)."""
+
+  def __init__(self):
+    super().__init__()
+    self.first = {}
+
+  def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+    name = func.name()
+    if name.startswith(op_library.NAMESPACE + "::"):
+      key = name.split("::")[1]
+      if key == "int8_weight_matmul":
+        key += (" (wgmma)" if int8_matmul.uses_wgmma(args[0].shape[1])
+                else " (mma.sync)")
+      self.first.setdefault(key, (func, args))
+    return func(*args, **(kwargs or {}))
+
+  def items(self):
+    return self.first.items()
+
+
+def _opcheck(label: str, op, args) -> None:
+  """``torch.library.opcheck``'s schema and fake-tensor checks of a CUDA
+  call: the fake implementation's outputs against the kernel's shapes,
+  dtypes and strides, and no output aliasing an input."""
+  result = torch.library.opcheck(op, args,
+                                 test_utils=("test_schema", "test_faketensor"))
+  if set(result.values()) != {"SUCCESS"}:
+    raise AssertionError(f"opcheck {label}: {result}")
+
+
+def _small_op_cases(dev):
+  """The operators no loaded program calls, at small shapes on the card."""
+  gen = torch.Generator(dev).manual_seed(SEED + 110)
+  bf16 = lambda *shape: torch.randn(  # noqa: E731
+      *shape, generator=gen, device=dev).bfloat16()
+  decay = lambda *shape: torch.rand(  # noqa: E731
+      *shape, generator=gen, device=dev).bfloat16()
+  f32 = lambda *shape: torch.randn(*shape, generator=gen, device=dev)  # noqa: E731
+  ops = getattr(torch.ops, op_library.NAMESPACE)
+  b, t, d = 2, 64, 256
+  cases = []
+  for kind in ("", "complex_"):
+    parts = 2 if kind else 1
+    for walk in ("forward", "backward"):
+      for product in ("", "_a_prod"):
+        name = f"lru_scan_{kind}{walk}{product}"
+        args = ([bf16(b, t, d) for _ in range(parts)]
+                + [decay(b, t, d) for _ in range(parts)]
+                + [f32(b, d) for _ in range(parts)] + [walk == "backward"])
+        cases.append((name, getattr(ops, name).default, args))
+  cases.append(("lru_scan_carries", ops.lru_scan_carries.default,
+                [bf16(b, 8, 2560), decay(b, 8, 2560), f32(b, 2560)]))
+  q, k, v = bf16(1, 128, 2, 256), bf16(1, 192, 1, 256), bf16(1, 192, 1, 256)
+  seg = torch.arange(64, 192, device=dev, dtype=torch.int32)[None]
+  out, lse = wa.window_attention_forward(q, k, v, seg, 96, 64)
+  d_out = bf16(*q.shape)
+  delta = wa.attention_delta(out, d_out)
+  for name in ("window_attention_dq", "window_attention_dkv"):
+    cases.append((name, getattr(ops, name).default,
+                  [q, k, v, seg, lse, delta, d_out, 96, 64]))
+  qw = torch.randint(-127, 128, (2, 256, 128), generator=gen, device=dev,
+                     dtype=torch.int8)
+  scale = torch.rand(2, 256, generator=gen, device=dev) * 1e-2
+  for reduce in (False, True):
+    cases.append((f"int8_weight_matmul_dgrad (reduce_batches={reduce})",
+                  ops.int8_weight_matmul_dgrad.default,
+                  [bf16(2, 64, 256), qw, scale, reduce]))
+  return cases
+
+
+def _host_us_turns(calls: dict) -> dict[str, list[float]]:
+  """Host us a call of each side of ``calls`` ({label: fn}), in turns
+  (first, second, second, first), ``HOST_CALLS`` calls a turn enqueued
+  back to back after a warm-up; the card runs them after the clock
+  stops."""
+  (a, fa), (b, fb) = calls.items()
+  times = {a: [], b: []}
+  for fn in (fa, fb):
+    fn()
+  torch.cuda.synchronize()
+  for label, fn in ((a, fa), (b, fb), (b, fb), (a, fa)):
+    start = time.perf_counter()
+    for _ in range(HOST_CALLS):
+      fn()
+    times[label].append((time.perf_counter() - start) / HOST_CALLS * 1e6)
+    torch.cuda.synchronize()
+  return times
+
+
+def phase_export(dev, kernels: list[dict], handoff: dict,
+                 profile: bool) -> None:
+  """The serving export end to end on phase 18's realistic_params 2B (bf16,
+  bf16 with the fused epilogue, its weight-only int8 copy) at phase 4's
+  bucket: export, save and load; the loaded programs against the live
+  forward, the Sampler's captured decode and a fresh process; their
+  operator launches; the loaded prefill and decode step (eager and
+  captured) against the live path in turns; opcheck of every operator on
+  the card; host us a call through an operator against the direct
+  launch. With ``profile`` the kernel time of a loaded and a live
+  prefill against their times: the device's idle share."""
+  phase_start = time.perf_counter()
+  model, qmodel, vocab, prompts = (handoff[k] for k in ("model", "qmodel",
+                                                        "vocab", "prompts"))
+  config = model.config
+  by_name = {kernel["name"]: kernel for kernel in kernels}
+  n_recurrent = sum(bt is common.TemporalBlockType.RECURRENT
+                    for bt in config.block_types)
+  n_attention = config.num_layers - n_recurrent
+  int8_step = _weight_only_launches(qmodel)
+  fused = griffin._share_parameters(model)  # pylint: disable=protected-access
+  for block in fused.blocks:
+    block.fused_epilogue = True
+  params = {"bf16": dict(model.named_parameters()),
+            "int8": dict(qmodel.named_parameters())}
+  runs = {  # name: (model, parameters)
+      "bf16": (model, "bf16"), "bf16 fused": (fused, "bf16"),
+      "int8": (qmodel, "int8")}
+  zero = {k: 0 for k in _spec_counts()}
+  want = {  # name: (prefill launches, decode-step launches)
+      "bf16": (dict(zero, lru_scan=n_recurrent,
+                    window_attention=n_attention), zero),
+      "bf16 fused": (dict(zero, lru_scan=n_recurrent,
+                          window_attention=n_attention,
+                          add_rmsnorm=config.num_layers),
+                     dict(zero, add_rmsnorm=config.num_layers)),
+      "int8": (dict(zero, lru_scan=n_recurrent, window_attention=n_attention,
+                    int8_weight_matmul=1,
+                    int8_weight_matmul_wgmma=int8_step - 1),
+               dict(zero, int8_weight_matmul=int8_step)),
+  }
+  samplers = {name: sampler_lib.Sampler(m, vocab, device=dev)
+              for name, (m, _) in runs.items()}
+  tokens, positions = _export_inputs(samplers["bf16"], prompts, dev)
+  if tuple(tokens.shape) != EXPORT_BUCKET:
+    raise AssertionError(f"The prompts make {tuple(tokens.shape)}, not the "
+                         f"bucket {EXPORT_BUCKET}.")
+  log(f"== the serving export: phase 18's realistic_params 2B (bf16, bf16 "
+      f"with the fused epilogue, weight-only int8) at the bucket "
+      f"{EXPORT_BUCKET} (row 2 left-padded from {min(PROMPT_TOKENS)}); "
+      f"torch {torch.__version__}")
+  root = tempfile.mkdtemp(prefix="chip-smoke-export-")
+  served = dict(zero)
+  fresh_proc = None
+  try:
+    # (a) Export and save; the artifacts' bytes.
+    loaded, paths = {}, {}
+    for name, (m, side) in runs.items():
+      start = time.perf_counter()
+      exp = export_lib.export_serving(m, params[side], *EXPORT_BUCKET)
+      seconds = time.perf_counter() - start
+      paths[name] = os.path.join(root, name.replace(" ", "-"))
+      export_lib.save_serving_export(exp, paths[name])
+      size = sum(os.path.getsize(os.path.join(paths[name], f))
+                 for f in os.listdir(paths[name]))
+      weight_bytes = quantization.quantized_bytes(params[side])
+      log(f"  {name}: exported in {seconds:.2f} s (host); artifact "
+          f"{size} bytes (prefill {len(exp.prefill)}, decode step "
+          f"{len(exp.decode_step)}), {size / weight_bytes:.2e} of the "
+          f"{weight_bytes / 1e9:.3f} GB of weights; meta {exp.meta}")
+      if size > EXPORT_MAX_WEIGHT_SHARE * weight_bytes:
+        raise AssertionError(f"The {name} artifact holds {size} bytes: "
+                             "weights, not graph.")
+
+    # (b) A fresh process: the artifacts and checkpoint/io weights, no
+    # Griffin. It runs beside (c)-(e) here, which time nothing; its tokens
+    # and prefill digests are held against this process's before the
+    # timed turns.
+    start = time.perf_counter()
+    weights = {}
+    for side, m in (("bf16", model), ("int8", qmodel)):
+      weights[side] = os.path.join(root, f"{side}.pt")
+      checkpoint_io.save_parameters(weights[side], m.state_dict())
+    inputs = os.path.join(root, "inputs.pt")
+    torch.save({"tokens": tokens.cpu(), "positions": positions.cpu()}, inputs)
+    write_s = time.perf_counter() - start
+    spec = {"inputs": inputs, "steps": DECODE_STEPS,
+            "runs": [[name, paths[name], weights[side]]
+                     for name, (_, side) in runs.items()]}
+    fresh_start = time.perf_counter()
+    with open(os.path.join(root, "fresh.out"), "w") as out, open(
+        os.path.join(root, "fresh.err"), "w") as err:
+      fresh_proc = subprocess.Popen(
+          [sys.executable, "-c", _EXPORT_FRESH, json.dumps(spec)],
+          stdout=out, stderr=err, text=True,
+          env=dict(os.environ, PYTHONPATH=os.path.dirname(
+              os.path.abspath(__file__))))
+
+    for name in runs:
+      start = time.perf_counter()
+      loaded[name] = export_lib.load_serving_export(paths[name])
+      log(f"  {name}: loaded in {time.perf_counter() - start:.2f} s (host)")
+
+    # (c) Load; each loaded prefill against the live forward, its launches
+    # and those of one loaded decode step; the operators' first inputs.
+    firsts = {}
+    for name, (m, side) in runs.items():
+      p = params[side]
+      with torch.no_grad():
+        want_logits, want_cache = m(tokens, positions, return_cache=True,
+                                    last_logits_only=True)
+      torch.cuda.synchronize()
+      before = _spec_counts()
+      logits, cache = loaded[name].prefill(p, tokens, positions)
+      torch.cuda.synchronize()
+      prefill_counts = {k: v - before[k] for k, v in _spec_counts().items()}
+      before = _spec_counts()
+      step_logits, _ = loaded[name].decode_step(
+          p, cache, _greedy(logits), positions[:, -1:] + 1)
+      torch.cuda.synchronize()
+      step_counts = {k: v - before[k] for k, v in _spec_counts().items()}
+      for k in served:
+        served[k] += prefill_counts[k] + step_counts[k]
+      log(f"  {name}: a loaded prefill launched {prefill_counts}, a loaded "
+          f"decode step {step_counts}")
+      if (prefill_counts, step_counts) != want[name]:
+        raise AssertionError(f"{name}: want {want[name]}.")
+      same = torch.equal(logits, want_logits)
+      leaves = list(zip(torch.utils._pytree.tree_leaves(cache),  # pylint: disable=protected-access
+                        torch.utils._pytree.tree_leaves(want_cache)))  # pylint: disable=protected-access
+      same_cache = all(torch.equal(a, b) for a, b in leaves)
+      rel = _rel_rms(logits, want_logits)
+      cache_rel = max(_rel_rms(a, b) for a, b in leaves
+                      if b.is_floating_point())
+      log(f"    loaded prefill against the live forward: logits "
+          f"{'bit for bit' if same else f'rel. RMS {rel:.3e}'}, cache "
+          f"{'bit for bit' if same_cache else f'rel. RMS {cache_rel:.3e}'}; "
+          f"decode step logits finite {bool(torch.isfinite(step_logits).all())}")
+      counters_equal = all(torch.equal(a, b) for a, b in leaves
+                           if not b.is_floating_point())
+      if not (same or rel <= MODEL_LOGITS_REL_RMS) or not (
+          same_cache or cache_rel <= MODEL_LOGITS_REL_RMS) or not (
+              counters_equal):
+        raise AssertionError(f"{name}: the loaded prefill disagrees with the "
+                             "live forward.")
+      mode = FirstOpInputs()
+      with mode:
+        out = loaded[name].prefill(p, tokens, positions)
+        loaded[name].decode_step(p, out[1], _greedy(out[0]),
+                                 positions[:, -1:] + 1)
+      torch.cuda.synchronize()
+      for op, (func, args) in mode.items():
+        firsts.setdefault(op, (name, func, args))
+      del mode, out, want_logits, want_cache, cache, logits
+
+    # (d) opcheck of every operator on the card: the path's own first
+    # inputs, then the rest at small shapes.
+    for op, (name, func, args) in firsts.items():
+      shapes = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
+      _opcheck(f"{op} ({name})", func, args)
+      log(f"  opcheck {op} at the {name} path's first inputs {shapes}: "
+          "schema and fake tensor pass")
+    del firsts
+    small = _small_op_cases(dev)
+    for label, func, args in small:
+      _opcheck(label, func, args)
+    log(f"  opcheck of {len(small)} calls of the operators no loaded program "
+        "launches, at small shapes: schema and fake tensor pass")
+    del small
+
+    # (e) The greedy tokens of each loaded chain (eager, and its step
+    # captured) and of the fresh process against the Sampler's captured
+    # decode; then the prefill and the decode step, eager and captured,
+    # in turns with the live path.
+    probe = DecodeProbe(_spec_counts)
+    captured, reference = {}, {}
+    try:
+      for name, (m, side) in runs.items():
+        p = params[side]
+        samplers[name](prompts, total_generation_steps=DECODE_STEPS,
+                       end_sampling_at_eos_token=False)  # captures its step
+        out = samplers[name](prompts, total_generation_steps=DECODE_STEPS,
+                             end_sampling_at_eos_token=False)
+        want_tokens = torch.stack([t[:DECODE_STEPS] for t in out.tokens])
+        got, first = _loaded_chain(loaded[name], p, tokens, positions,
+                                   DECODE_STEPS)
+        logits, cache = loaded[name].prefill(p, tokens, positions)
+        captured[name] = CapturedLoadedStep(
+            loaded[name], p, cache, _greedy(logits), positions[:, -1:] + 1)
+        got_captured = captured[name].chain(DECODE_STEPS - 1)
+        agree = (got.cpu() == want_tokens.cpu()).all().item()
+        agree_captured = (got_captured.cpu() == want_tokens.cpu()).all().item()
+        log(f"  {name}: greedy tokens of the loaded chain (eager steps) "
+            f"{'identical to' if agree else 'DIFFER from'} the Sampler's "
+            f"captured decode over {DECODE_STEPS} tokens, the loaded step "
+            f"captured {'identical' if agree_captured else 'DIFFERENT'}")
+        if not (agree and agree_captured):
+          raise AssertionError(f"{name}: loaded {got.tolist()} / captured "
+                               f"{got_captured.tolist()} against the "
+                               f"Sampler's {want_tokens.tolist()}.")
+        reference[name] = (want_tokens.cpu().tolist(), _digest(first))
+        del logits, cache, first
+
+      try:
+        fresh_proc.wait(timeout=600)
+      finally:
+        if fresh_proc.poll() is None:
+          fresh_proc.kill()
+      fresh_s = time.perf_counter() - fresh_start
+      with open(os.path.join(root, "fresh.out")) as out:
+        lines = out.read().splitlines()
+      if fresh_proc.returncode:
+        with open(os.path.join(root, "fresh.err")) as err:
+          raise AssertionError(f"The fresh process failed:\n"
+                               f"{chr(10).join(lines)[-3000:]}\n"
+                               f"{err.read()[-6000:]}")
+      fresh = [json.loads(line) for line in lines if line.startswith("{")]
+      each = ", ".join(f"{r['name']} {r['seconds']:.1f} s" for r in fresh)
+      log(f"  a fresh python3 process (no Griffin built), run beside the "
+          f"checks above: checkpoints written in {write_s:.1f} s, the "
+          f"process {fresh_s:.1f} s ({each})")
+      if [r["name"] for r in fresh] != list(runs):
+        raise AssertionError(f"The fresh process ran {fresh}.")
+      for r in fresh:
+        want_tokens, digest = reference[r["name"]]
+        log(f"    {r['name']}: greedy tokens "
+            f"{'identical to' if r['tokens'] == want_tokens else 'DIFFER from'}"
+            f" the Sampler's captured decode; prefill logits "
+            f"{'bit for bit' if r['digest'] == digest else 'DIFFERENT'}")
+        if r["tokens"] != want_tokens or r["digest"] != digest:
+          raise AssertionError(f"The fresh process's {r['name']} run "
+                               "disagrees.")
+
+      for name, (m, side) in runs.items():
+        if name == "bf16 fused":
+          continue
+        p = params[side]
+        times = {figure: {"loaded": [], "live": []}
+                 for figure in ("prefill", "prefill host enqueue",
+                                "eager step", "captured step")}
+        for loaded_turn in EXPORT_TURNS:
+          key = "loaded" if loaded_turn else "live"
+          # The prefill.
+          start, end = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+          start.record()
+          host = time.perf_counter()
+          if loaded_turn:
+            logits, cache = loaded[name].prefill(p, tokens, positions)
+          else:
+            with torch.no_grad():
+              logits, cache = m(tokens, positions, return_cache=True,
+                                last_logits_only=True)
+          host = (time.perf_counter() - host) * 1e3
+          end.record()
+          end.synchronize()
+          times["prefill"][key].append(start.elapsed_time(end))
+          times["prefill host enqueue"][key].append(host)
+          # The eager decode step, 31 steps.
+          tok, pos = _greedy(logits), positions[:, -1:] + 1
+          start.record()
+          for step in range(DECODE_STEPS - 1):
+            if loaded_turn:
+              logits, cache = loaded[name].decode_step(p, cache, tok,
+                                                       pos + step)
+            else:
+              with torch.no_grad():
+                logits, cache = m(tok, pos + step, cache)
+            tok = _greedy(logits)
+          end.record()
+          end.synchronize()
+          times["eager step"][key].append(
+              start.elapsed_time(end) / (DECODE_STEPS - 1))
+          # The captured step: the loaded one's replays, the Sampler's
+          # decode loop.
+          if loaded_turn:
+            ms = captured[name].step_ms(DECODE_STEPS - 1)
+          else:
+            samplers[name](prompts, total_generation_steps=DECODE_STEPS,
+                           end_sampling_at_eos_token=False)
+            ms = probe.decode_ms()
+          times["captured step"][key].append(ms)
+          del logits, cache
+        if profile:
+          for key, fn in (
+              ("loaded", lambda: loaded[name].prefill(p, tokens, positions)),
+              ("live", lambda: m(tokens, positions, return_cache=True,
+                                 last_logits_only=True))):
+            with torch.no_grad():
+              profile_call(fn, float(np.median(times["prefill"][key])),
+                           f"{name} {key} prefill")
+        for figure, values in times.items():
+          ratio = (float(np.median(values["loaded"]))
+                   / float(np.median(values["live"])))
+          log(f"  {name} {figure} ms in turns {EXPORT_TURNS} (True: the "
+              f"loaded program): loaded "
+              f"{[round(v, 4) for v in values['loaded']]}, live "
+              f"{[round(v, 4) for v in values['live']]}"
+              f"{' (the Sampler captured)' if figure == 'captured step' else ''}"
+              f"; loaded / live {ratio:.4f}")
+    finally:
+      probe.close()
+    del captured
+
+  finally:
+    if fresh_proc is not None and fresh_proc.poll() is None:
+      fresh_proc.kill()
+      fresh_proc.wait()
+    shutil.rmtree(root, ignore_errors=True)
+
+  # (f) Host us a call through an operator against the direct launch (the
+  # CUDA implementation called as the ctypes launch was before the
+  # operators), at decode and prefill shapes.
+  gen = torch.Generator(dev).manual_seed(SEED + 111)
+  x = torch.randn(2, 1, config.width, generator=gen, device=dev).bfloat16()
+  scale = torch.zeros(config.width, device=dev, dtype=torch.bfloat16)
+  layer = qmodel.blocks[0].mlp_block.ffw_down
+  a = torch.randn(1, 2, layer.kernel_q.shape[1], generator=gen,
+                  device=dev).bfloat16()
+  q, s = layer.kernel_q[None], layer.kernel_scale[None]
+  lx = torch.randn(2, 16, config.lru_width or config.width, generator=gen,
+                   device=dev).bfloat16()
+  la = torch.rand(*lx.shape, generator=gen, device=dev).bfloat16()
+
+  def lru_direct():
+    lru_scan._check(lx, la, None)  # pylint: disable=protected-access
+    out = lru_scan._launch("cg_lru_scan_forward", lx, la, None, False)  # pylint: disable=protected-access
+    lru_scan.launches += 1
+    return out
+
+  def rmsnorm_direct():
+    fused_epilogue._check(x, x, scale)  # pylint: disable=protected-access
+    return fused_epilogue._cuda(x, x, scale, 1e-6)  # pylint: disable=protected-access
+
+  pairs = {
+      "add_rmsnorm [2,1,2560]": {
+          "direct": rmsnorm_direct,
+          "operator": lambda: fused_epilogue.add_rmsnorm_forward(x, x,
+                                                                 scale)},
+      "int8_weight_matmul [2,7680] x [2560,7680]": {
+          "direct": lambda: (int8_matmul._check(a, q, s),  # pylint: disable=protected-access
+                             int8_matmul._forward_cuda(a, q, s)),  # pylint: disable=protected-access
+          "operator": lambda: int8_matmul.int8_weight_matmul(a, q, s)},
+      "lru_scan_forward [2,16,2560]": {
+          "direct": lru_direct,
+          "operator": lambda: lru_scan.lru_scan_forward(lx, la)},
+  }
+  for label, calls in pairs.items():
+    times = _host_us_turns(calls)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    log(f"  host us a call, {label}, {HOST_CALLS} calls a turn in turns "
+        f"(direct, operator, operator, direct): operator "
+        f"{[round(v, 2) for v in times['operator']]}, direct "
+        f"{[round(v, 2) for v in times['direct']]}; the operator adds "
+        f"{med['operator'] - med['direct']:+.2f} us")
+
+  for name, n in (("lru_scan", served["lru_scan"]),
+                  ("window_attention", served["window_attention"]),
+                  ("int8_weight_matmul", served["int8_weight_matmul"]),
+                  ("int8_weight_matmul_wgmma",
+                   served["int8_weight_matmul_wgmma"]),
+                  ("add_rmsnorm", served["add_rmsnorm"])):
+    by_name[name]["launches"] += n
+  log(f"  launches of phase 23's counted loaded runs {served} (added to their "
+      f"rows)")
+  log(f"  phase 23 took {time.perf_counter() - phase_start:.1f} s")
+
+
 def main() -> int:
   profile = "--profile" in sys.argv[1:]
   if not torch.cuda.is_available():
@@ -7105,6 +7735,8 @@ def main() -> int:
   phase_speculative(dev, kernels, handoff)
   torch.cuda.empty_cache()
   phase_constrained(dev, kernels, handoff)
+  torch.cuda.empty_cache()
+  phase_export(dev, kernels, handoff, profile)
   del handoff
   torch.cuda.empty_cache()
   ckpt_dir = tempfile.mkdtemp(prefix="chip-smoke-checkpoints-")

@@ -166,7 +166,8 @@ def test_port_hygiene(monkeypatch):
   """The port, its training (LoRA and the image loader too), vision,
   serving (speculative decoding and grammar constraints too: constrain and
   the native walker's bindings), parallel, complex, kernel-lab, tokenizer,
-  int8, checkpoint (I/O, timm import) and resilience modules included,
+  int8, checkpoint (I/O, timm import, the serving export) and resilience
+  modules and the kernels' operator library included,
   imports no JAX, flax, optax or orbax and nothing of the JAX package, and
   its entry points (a grammar's device tables among them) refuse to fall
   back to the CPU without being asked."""
@@ -196,6 +197,8 @@ def test_port_hygiene(monkeypatch):
       "import cadence_gemma_tpu_torch.utils.resilience; "
       "import cadence_gemma_tpu_torch.inference.constrain; "
       "import cadence_gemma_tpu_torch.utils.constrain_cpp; "
+      "import cadence_gemma_tpu_torch.ops.library; "
+      "import cadence_gemma_tpu_torch.checkpoint.export; "
       "new = set(sys.modules) - before; "
       "print(sorted(m for m in new if m.split('.')[0] in "
       "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'cadence_gemma_tpu')))"
@@ -209,7 +212,7 @@ def test_port_hygiene(monkeypatch):
 
   sources = sorted((REPO / "cadence_gemma_tpu_torch").rglob("*.py"))
   for name in ("training/train_loop.py", "inference/constrain.py",
-               "utils/constrain_cpp.py"):
+               "utils/constrain_cpp.py", "checkpoint/export.py"):
     assert REPO / "cadence_gemma_tpu_torch" / name in sources
   sources.append(REPO / "chip_smoke.py")
   bad = re.compile(
