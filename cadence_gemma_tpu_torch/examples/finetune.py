@@ -76,8 +76,9 @@ FLAGS.integer(
 FLAGS.string(
     "mesh", "",
     "Device mesh for the full/LoRA stage as 'axis:size,...' (e.g. "
-    "'data:2,model:4'): the DP/TP regime, not ported (ROADMAP item 14e; "
-    "train_loop refuses it). Empty = single device.")
+    "'data:2,model:4'), every position on --device: DP over 'data', the "
+    "Megatron TP layouts over 'model' (train_loop(mesh=)). Empty = single "
+    "device.")
 
 
 def _parse_mesh(spec: str, device):

@@ -26,8 +26,8 @@ entries swap against ``w``'s. Every other leaf keeps JAX's layout and spec.
 
 JAX hands the shardings to GSPMD; the port's tensor-parallel model
 (``parallel/tensor_parallel.py``) places the leaves by them and runs the
-sharded forward itself. ``opt_state_shardings`` raises: it belongs to
-tensor-parallel training (ROADMAP queue 1 item 14e).
+sharded forward itself, forward and backward; ``opt_state_shardings`` gives
+the layouts of the optimizer state, keyed by leaf name and state key.
 """
 
 from __future__ import annotations
@@ -237,13 +237,57 @@ def griffin_cache_shardings(mesh: sharding_lib.Mesh, cache: Mapping[str, Any],
   }
 
 
-def opt_state_shardings(*args, **kwargs):
-  """The optimizer state's layouts (JAX ``partitioning.py:262``): they
-  belong to tensor-parallel training, not ported yet."""
-  del args, kwargs
-  raise NotImplementedError(
-      f"opt_state_shardings is not ported yet "
-      f"({sharding_lib.TP_TRAINING_ITEM}).")
+class _StandIn:
+  """Parameters of one element under a state dict's names: what an
+  optimizer factory builds over to show its state's keys and shapes."""
+
+  def __init__(self, names):
+    self.params = {name: torch.zeros(1, requires_grad=True) for name in names}
+
+  def named_parameters(self):
+    return iter(self.params.items())
+
+  def parameters(self):
+    return iter(self.params.values())
+
+
+def opt_state_shardings(mesh: sharding_lib.Mesh, optimizer,
+                        example_params: Mapping[str, torch.Tensor],
+                        model_axis: str = MODEL_AXIS
+                        ) -> dict[str, dict[str, NamedSharding]]:
+  """The layouts of the optimizer state over ``example_params``: ``{leaf
+  name: {state key: NamedSharding}}`` (JAX ``partitioning.py:280-313``).
+
+  torch keeps an optimizer's state per parameter, so the tree is keyed by
+  the parameter's name and the state's key, where optax nests the
+  parameter tree under each of its states. ``optimizer`` builds the
+  optimizer over a model-like object (``optimizer(params)``, as
+  ``trainer.make_optimizer`` does; the counterpart of optax's
+  ``optimizer.init``): it is run for one step over one-element stand-ins
+  of the leaves, to read which state each leaf takes. A state the shape of
+  its parameter (Adam's ``exp_avg`` and ``exp_avg_sq``) takes the leaf's
+  spec by the parameters' rules and ``_drop_indivisible``; any other (the
+  ``step`` counter) replicates, as every leaf does when ``model_axis``
+  names no axis of ``mesh``. Leaves the optimizer does not hold (a LoRA
+  optimizer's base) have no entry.
+  """
+  stand_in = _StandIn(example_params)
+  opt = optimizer(stand_in)
+  for p in stand_in.parameters():
+    p.grad = torch.zeros_like(p)
+  opt.step()
+  tp = model_axis in mesh.axis_names
+  out = {}
+  for name, p in stand_in.named_parameters():
+    if not opt.state.get(p):
+      continue
+    value = example_params[name]
+    spec = (_drop_indivisible(_spec_for(_parts(name), value, model_axis),
+                              tuple(value.shape), mesh) if tp else P())
+    out[name] = {key: NamedSharding(mesh, spec if torch.is_tensor(v)
+                                    and v.shape == p.shape else P())
+                 for key, v in opt.state[p].items()}
+  return out
 
 
 def data_sharding(mesh: sharding_lib.Mesh, batch_axis: str = BATCH_AXIS,

@@ -56,7 +56,6 @@ SEQUENCE_AXIS = "sequence"
 MODEL_AXIS = "model"
 
 # The ROADMAP items that lift what tensor parallelism still refuses.
-TP_TRAINING_ITEM = "ROADMAP queue 1 item 14e (DP/TP training)"
 TP_EXTRAS_ITEM = ("ROADMAP queue 1 item 14f (the sharded towers, TP "
                   "multi-LoRA and the TP export)")
 PROCESS_PER_CARD_ITEM = ("ROADMAP queue 1 item 14g (the process-per-card "

@@ -37,14 +37,21 @@ unsharded, on the first device. The decode cache follows
 conv tail are one cache entry a shard (``blocks.{i}.shard{j}``, the shard's
 lru features, on its device), the attention ring one replicated entry
 (``blocks.{i}``), so the samplers and the batcher handle it as any cache.
+
+The model trains too (``parallel/data_parallel.py`` builds one a data
+position): it recomputes each residual block in the backward as ``Griffin``
+does, and records one trained tensor a logical leaf (a split leaf's pieces;
+a replicated leaf's copy on the first device, into which the shards' other
+views of it sum their gradients), so no element has two sets of moments.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping, Sequence
+from typing import Any, Mapping, NamedTuple, Sequence
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as checkpoint_lib
 
 from cadence_gemma_tpu_torch import common
 from cadence_gemma_tpu_torch.models import griffin as griffin_lib
@@ -115,28 +122,88 @@ class _Shards(nn.Module):
     return _global_absmax(inputs, self.devices)
 
 
-class _Loader:
-  """Fills meta-built shard modules with pieces of the placed parameters."""
+class Piece(NamedTuple):
+  """One trained tensor of a logical leaf: the whole leaf (``dim`` None)
+  or its slice from ``offset`` along ``dim``."""
 
-  def __init__(self, placed: Mapping[str, Sequence[torch.Tensor]]):
+  tensor: torch.Tensor
+  dim: int | None
+  offset: int
+
+
+class Alias(NamedTuple):
+  """A shard's view of a replicated leaf (``Piece``'s region of the leaf
+  ``name``), whose gradient is summed into the leaf's one trained tensor."""
+
+  tensor: torch.Tensor
+  name: str
+  dim: int | None
+  offset: int
+
+
+class _Loader:
+  """Fills meta-built shard modules with pieces of the placed parameters,
+  and records which tensor trains each logical leaf.
+
+  A leaf the placement splits trains as its pieces, one a shard. A
+  replicated leaf trains once, as one tensor over its first device's copy
+  (``owners``); a shard that holds a slice of it, or the whole of it on
+  another shard, holds an :class:`Alias`. int8 twins (``_q``, ``_scale``)
+  are frozen contiguous copies, shared through ``kernel_copies`` by the
+  models built over the same tensors.
+  """
+
+  def __init__(self, placed: Mapping[str, Sequence[torch.Tensor]],
+               full_shapes: Mapping[str, tuple],
+               kernel_copies: dict | None = None):
     self.placed = placed
+    self.full_shapes = full_shapes
+    self.kernel_copies = {} if kernel_copies is None else kernel_copies
+    self.owners: dict[str, nn.Parameter] = {}
+    self.leaves: dict[str, list[Piece]] = {}
+    self.aliases: list[Alias] = []
 
   def piece(self, name: str, j: int, shape, start: int | None = None
-            ) -> torch.Tensor:
+            ) -> tuple[torch.Tensor, int | None, int]:
     """Shard ``j``'s piece of ``name`` at the local ``shape``: the placed
     piece, or a view of the local slice of a replicated leaf (the ``j``-th
-    slice of that size, or the one from row ``start`` of dimension 0)."""
+    slice of that size, or the one from row ``start`` of dimension 0), with
+    the dimension and offset of that slice (``None``: the placed piece)."""
     t = self.placed[name][j]
     shape = tuple(shape)
     if tuple(t.shape) == shape:
-      return t
+      return t, None, 0
     dims = [d for d, (a, b) in enumerate(zip(t.shape, shape)) if a != b]
     if len(dims) != 1 or len(t.shape) != len(shape):
       raise ValueError(f"{name}: a {tuple(t.shape)} piece for a {shape} "
                        "shard.")
     d = dims[0]
     offset = j * shape[d] if start is None else start
-    return t.narrow(d, offset, shape[d])
+    return t.narrow(d, offset, shape[d]), d, offset
+
+  def _kernel_ready(self, t: torch.Tensor) -> torch.Tensor:
+    """:func:`_kernel_ready` of ``t``, one copy a region of memory."""
+    if t.device.type == "meta":
+      return _kernel_ready(t)
+    key = (t.device, t.dtype, t.data_ptr(), tuple(t.shape), t.stride())
+    if key not in self.kernel_copies:
+      self.kernel_copies[key] = _kernel_ready(t)
+    return self.kernel_copies[key]
+
+  def _split_dim(self, name: str, j: int) -> int:
+    """The dimension along which the placement split ``name``."""
+    placed = tuple(self.placed[name][j].shape)
+    return next(d for d, (a, b) in enumerate(zip(placed,
+                                                 self.full_shapes[name]))
+                if a != b)
+
+  def owner(self, name: str) -> nn.Parameter:
+    """The one trained tensor of the replicated leaf ``name``."""
+    if name not in self.owners:
+      self.owners[name] = nn.Parameter(self.placed[name][0],
+                                       requires_grad=False)
+      self.leaves[name] = [Piece(self.owners[name], None, 0)]
+    return self.owners[name]
 
   def fill(self, module: nn.Module, prefix: str, j: int,
            starts: Mapping[str, int] | None = None) -> None:
@@ -145,16 +212,29 @@ class _Loader:
     the first row of a submodule's slice of a replicated leaf."""
     starts = starts or {}
     for name, p in list(module.named_parameters()):
-      owner = module.get_submodule(name.rpartition(".")[0])
-      leaf = name.rpartition(".")[2]
-      piece = self.piece(f"{prefix}.{name}", j, p.shape,
-                         starts.get(name.rpartition(".")[0]))
+      path, _, leaf = name.rpartition(".")
+      owner = module.get_submodule(path)
+      full = f"{prefix}.{name}"
+      t, dim, offset = self.piece(full, j, p.shape, starts.get(path))
       if leaf.endswith(("_q", "_scale")):
-        piece = _kernel_ready(piece)
-      owner._parameters[leaf] = nn.Parameter(piece, requires_grad=False)  # pylint: disable=protected-access
+        param = nn.Parameter(self._kernel_ready(t), requires_grad=False)
+      elif tuple(self.placed[full][j].shape) != self.full_shapes[full]:
+        if dim is not None:
+          raise ValueError(f"{full}: shard {j} takes a slice of its piece.")
+        param = nn.Parameter(t, requires_grad=False)
+        split = self._split_dim(full, j)
+        self.leaves.setdefault(full, []).append(
+            Piece(param, split, j * t.shape[split]))
+      elif dim is None and j == 0:
+        param = self.owner(full)
+      else:
+        self.owner(full)
+        param = nn.Parameter(t, requires_grad=False)
+        self.aliases.append(Alias(param, full, dim, offset))
+      owner._parameters[leaf] = param  # pylint: disable=protected-access
 
   def replicated(self, name: str) -> nn.Parameter:
-    return nn.Parameter(self.placed[name][0], requires_grad=False)
+    return self.owner(name)
 
 
 class _TPEmbedder(nn.Module):
@@ -428,11 +508,23 @@ class TensorParallelGriffin(nn.Module):
       repeat). Every device must exist: a CUDA mesh without a card raises.
     model_axis: The mesh axis the weights split over.
     dtype, use_flash_attention, fused_epilogue, quantized, act_quant,
-      lora_rank, lora_alpha: As :class:`~griffin.Griffin`'s.
+      lora_rank, lora_alpha, gradient_checkpointing: As
+      :class:`~griffin.Griffin`'s.
+    kernel_copies: A dict that the models built over the same tensors share,
+      so they share their contiguous int8 pieces too.
 
   :func:`tensor_parallel` builds one from a ``Griffin``. ``forward`` has
   ``Griffin.forward``'s signature and returns the replicated logits (or
   hidden states) and the cache on the first model-axis device.
+
+  Training: every piece is an ``nn.Parameter`` that requires no gradient
+  until a trainer turns it on. ``leaves`` maps each logical leaf to the
+  tensors that train it (:class:`Piece`: a split leaf's pieces, or one
+  tensor for a replicated leaf, on the first device); ``aliases`` are the
+  shards' other views of replicated leaves, whose gradients
+  :meth:`sum_replicated_grads` adds into those tensors. The collectives'
+  gradients are autograd's: a ``psum``'s is a broadcast, a gather's a slice,
+  and a replicated activation's is summed over the shards that read it.
   """
 
   def __init__(self, config: common.GriffinConfig,
@@ -443,7 +535,9 @@ class TensorParallelGriffin(nn.Module):
                use_flash_attention: bool | None = None,
                fused_epilogue: bool = False, quantized: bool = False,
                act_quant: bool = False, lora_rank: int = 0,
-               lora_alpha: float | None = None):
+               lora_alpha: float | None = None,
+               gradient_checkpointing: bool = True,
+               kernel_copies: dict | None = None):
     super().__init__()
     devices = _mesh_devices(mesh, model_axis)
     self.config = config
@@ -454,9 +548,14 @@ class TensorParallelGriffin(nn.Module):
     self.quantized = quantized
     self.act_quant = act_quant
     self.lora_rank = lora_rank
+    self.gradient_checkpointing = gradient_checkpointing
     kw = dict(dtype=dtype, quantized=quantized, act_quant=act_quant,
               lora_rank=lora_rank, lora_alpha=lora_alpha)
-    loader = _Loader(params)
+    full_shapes = {
+        name: tuple(t.shape) for name, t in griffin_lib.Griffin(
+            config, device="meta", dtype=dtype, quantized=quantized,
+            lora_rank=lora_rank, lora_alpha=lora_alpha).state_dict().items()}
+    loader = _Loader(params, full_shapes, kernel_copies)
     self.embedder = _TPEmbedder(config, loader, devices, kw)
     self.blocks = nn.ModuleList([
         _TPResidualBlock(config, loader, devices, i, block_type, kw,
@@ -469,6 +568,36 @@ class TensorParallelGriffin(nn.Module):
         lambda d: modules.VisionLanguageConnector(
             config.width, d, config.vision_width, device="meta", **kw),
         gated=False)
+    self.leaves = {name: loader.leaves[name] for name in full_shapes
+                   if name in loader.leaves}
+    self.aliases = loader.aliases
+
+  def train_tensors(self) -> list[torch.Tensor]:
+    """Every tensor that may hold a gradient: the trained pieces and the
+    aliases."""
+    return ([p.tensor for pieces in self.leaves.values() for p in pieces]
+            + [a.tensor for a in self.aliases])
+
+  @torch.no_grad()
+  def sum_replicated_grads(self) -> None:
+    """Adds each alias's gradient into its leaf's trained tensor (through
+    :func:`sharding.psum` onto that tensor's device), once; the aliases'
+    gradients are cleared."""
+    by_leaf: dict[str, list[torch.Tensor]] = {}
+    for alias in self.aliases:
+      g = alias.tensor.grad
+      if g is None:
+        continue
+      alias.tensor.grad = None
+      owner = self.leaves[alias.name][0].tensor
+      if alias.dim is not None:  # a slice: its place in the whole leaf
+        whole = g.new_zeros(owner.shape)
+        whole.narrow(alias.dim, alias.offset, g.shape[alias.dim]).copy_(g)
+        g = whole
+      by_leaf.setdefault(alias.name, []).append(g)
+    for name, grads in by_leaf.items():
+      owner = self.leaves[name][0].tensor
+      owner.grad = sharding.psum([owner.grad, *grads], [owner.device])[0]
 
   def act_quant_view(self) -> "TensorParallelGriffin":
     """This quantized model with int8 activations too, over the same
@@ -500,9 +629,15 @@ class TensorParallelGriffin(nn.Module):
       visual = self.vl_connector(_broadcast(image.to(x.dtype), self.devices))
       x, segment_pos = griffin_lib.splice_visual(x, segment_pos, visual)
     segs = _broadcast(segment_pos, self.devices)
+    remat = self.gradient_checkpointing and torch.is_grad_enabled()
     new_cache = {}
     for block in self.blocks:
-      x, entries = block(x, segs, cache, return_cache, pending_cache)
+      args = (x, segs, cache, return_cache, pending_cache)
+      if remat:  # ``Griffin.forward``'s recompute of each block
+        x, entries = checkpoint_lib.checkpoint(block, *args,
+                                               use_reentrant=False)
+      else:
+        x, entries = block(*args)
       new_cache.update(entries)
     if not return_logits:
       return None, new_cache
@@ -556,12 +691,8 @@ class TensorParallelGriffin(nn.Module):
         griffin_lib.Griffin.init_cache(self, batch_size, dtype))
 
 
-def tensor_parallel(model: griffin_lib.Griffin, mesh: sharding.Mesh,
-                    model_axis: str = partitioning.MODEL_AXIS
-                    ) -> TensorParallelGriffin:
-  """``model``'s weights placed by ``griffin_param_shardings`` over
-  ``mesh``'s ``model_axis`` (JAX's ``Sampler(mesh=)`` placement), and the
-  sharded model over them. The model's flags carry over."""
+def check_shardable(model: griffin_lib.Griffin) -> None:
+  """Raises for a model whose features tensor parallelism does not run."""
   if model.scan_sharding_spec is not None:
     raise NotImplementedError(
         "Tensor parallelism over a sequence-parallel model (scan_sharding_"
@@ -570,18 +701,34 @@ def tensor_parallel(model: griffin_lib.Griffin, mesh: sharding.Mesh,
     raise NotImplementedError(
         "A tensor-parallel model with stacked adapters (lora_rows, multi-"
         f"LoRA serving) is not ported ({sharding.TP_EXTRAS_ITEM}).")
-  _mesh_devices(mesh, model_axis)
-  state = model.state_dict()
-  placed = sharding.place_state_dict(
-      state, partitioning.griffin_param_shardings(mesh, state, model_axis),
-      model_axis)
+
+
+def model_flags(model: griffin_lib.Griffin) -> dict[str, Any]:
+  """The :class:`TensorParallelGriffin` arguments that carry ``model``'s
+  flags over."""
   attention = [b.attention_block for b in model.blocks
                if b.temporal_block_type is common.TemporalBlockType.ATTENTION]
-  return TensorParallelGriffin(
-      model.config, placed, mesh, model_axis,
+  return dict(
       dtype=model.final_norm.scale.dtype,
       use_flash_attention=(attention[0].use_flash_attention if attention
                            else None),
       fused_epilogue=model.blocks[0].fused_epilogue if model.blocks else False,
       quantized=model.quantized, act_quant=model.act_quant,
-      lora_rank=model.lora_rank, lora_alpha=model.lora_alpha)
+      lora_rank=model.lora_rank, lora_alpha=model.lora_alpha,
+      gradient_checkpointing=model.gradient_checkpointing)
+
+
+def tensor_parallel(model: griffin_lib.Griffin, mesh: sharding.Mesh,
+                    model_axis: str = partitioning.MODEL_AXIS
+                    ) -> TensorParallelGriffin:
+  """``model``'s weights placed by ``griffin_param_shardings`` over
+  ``mesh``'s ``model_axis`` (JAX's ``Sampler(mesh=)`` placement), and the
+  sharded model over them. The model's flags carry over."""
+  check_shardable(model)
+  _mesh_devices(mesh, model_axis)
+  state = model.state_dict()
+  placed = sharding.place_state_dict(
+      state, partitioning.griffin_param_shardings(mesh, state, model_axis),
+      model_axis)
+  return TensorParallelGriffin(model.config, placed, mesh, model_axis,
+                               **model_flags(model))

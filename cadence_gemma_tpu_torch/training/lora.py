@@ -21,7 +21,8 @@ product back-propagates to its input through a CUDA kernel on the card
   * :func:`merge_lora` folds trained adapters into the bf16 weights for
     adapter-free serving;
   * :func:`init_adapters` draws fresh adapters for a model from a
-    ``torch.Generator`` without building any model weight.
+    ``torch.Generator`` without building any model weight;
+  * :func:`make_sharded_lora_step` trains the adapters over a DP x TP mesh.
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ from typing import Iterable, Mapping
 import torch
 
 from cadence_gemma_tpu_torch.models import layers
-from cadence_gemma_tpu_torch.parallel import sharding
+from cadence_gemma_tpu_torch.parallel import data_parallel
+from cadence_gemma_tpu_torch.parallel import partitioning
 from cadence_gemma_tpu_torch.training import trainer
 
 LORA_LEAF_NAMES = layers.LORA_LEAF_NAMES
@@ -177,10 +179,61 @@ def lora_parameter_count(lora_params: Mapping[str, torch.Tensor]) -> int:
   return sum(leaf.numel() for leaf in lora_params.values())
 
 
-def make_sharded_lora_step(*args, **kwargs):
-  """JAX's pjit-ted adapter-only DP/TP step (``lora.py:167``): not
-  ported."""
-  del args, kwargs
-  raise NotImplementedError(
-      "make_sharded_lora_step (DP/TP LoRA training over a mesh) is not "
-      f"ported yet ({sharding.TP_TRAINING_ITEM}).")
+def make_sharded_lora_step(
+    model: torch.nn.Module,
+    optimizer,
+    mesh,
+    pad_id: int,
+    example_adapters: Mapping[str, torch.Tensor],
+    example_base: Mapping[str, torch.Tensor],
+    batch_axis: str | None = None,
+    model_axis: str | None = None,
+):
+  """The adapter-only step over a mesh, DP x TP (JAX ``lora.py:167-243``).
+
+  The frozen base (bf16, or int8 for QLoRA: its pieces contiguous copies
+  for the kernels) takes the Megatron layouts and the adapters JAX's LoRA
+  layouts (a column parent shards ``lora_b``'s output, a row parent
+  ``lora_a``'s input); the batch splits over ``batch_axis``, and only the
+  adapters' gradients exist and are all-reduced over it.
+
+  Returns ``(step_fn, shard_fn)``. ``shard_fn(adapters, base)`` places the
+  two halves of ``model``'s state dict (:func:`split_lora` of its
+  ``state_dict()``, whose tensors are views of the model's, so the model
+  holds the trained adapters) as one
+  :class:`~cadence_gemma_tpu_torch.parallel.data_parallel.ShardedGriffin`,
+  since torch's optimizer keeps references to the adapters' pieces; and
+  ``step_fn(params, opt_state, input_tokens, input_mask, img_embed=None)``
+  takes that object where JAX takes ``(adapters, base)``, and returns
+  ``(loss, params, opt_state)``. ``optimizer`` builds the optimizer over it
+  (e.g. ``lambda p: make_optimizer(lora_parameters(p), 1e-4)``), as
+  :func:`trainer.make_sharded_train_step`'s does.
+  """
+  batch_axis = batch_axis or partitioning.BATCH_AXIS
+  model_axis = model_axis or partitioning.MODEL_AXIS
+  shardings = {
+      **partitioning.param_shardings_or_replicated(mesh, example_base,
+                                                   model_axis),
+      **partitioning.param_shardings_or_replicated(mesh, example_adapters,
+                                                   model_axis)}
+  if not callable(optimizer):
+    raise TypeError("optimizer must build the optimizer over the sharded "
+                    "parameters: optimizer(shard_fn(adapters, base)).")
+
+  def shard_fn(adapters, base):
+    return data_parallel.ShardedGriffin(
+        model, merge_params(base, adapters), mesh, shardings, batch_axis,
+        model_axis, trains=is_lora_path)
+
+  def step_fn(params, opt_state, input_tokens, input_mask, img_embed=None):
+    adapters = {id(t) for name, t in params.named_parameters()
+                if is_lora_path(name)}
+    if not all(id(p) in adapters
+               for p in trainer.optimizer_parameters(opt_state)):
+      raise ValueError("The sharded LoRA step trains the adapters alone: "
+                       "build its optimizer over lora_parameters(params).")
+    loss = trainer.sharded_train_step(params, opt_state, pad_id, input_tokens,
+                                      input_mask, img_embed)
+    return loss, params, opt_state
+
+  return step_fn, shard_fn

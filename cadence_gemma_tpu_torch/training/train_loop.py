@@ -31,10 +31,17 @@ every epoch, so its later epochs train nothing (ROADMAP queue 3).
 ``prefetch_batches`` moves batches to the device ahead of the step
 (``data.prefetch_to_device``).
 
-A device mesh (the pjit DP/TP regime, ROADMAP queue 1 item 14e) is refused
-with ``NotImplementedError``. Sequence-parallel training needs no mesh here:
-as in JAX it is a model built with ``scan_sharding_spec``, which this loop
-trains like any other.
+With ``mesh`` (JAX ``train_loop.py:152-206``) the full and LoRA stages run
+the DP x TP steps (``trainer.make_sharded_train_step``,
+``lora.make_sharded_lora_step``): the weights placed over the mesh's
+``model`` axis, each batch split over its ``data`` axis, the gradients
+reduced at each update, so accumulation, validation, checkpoints and
+preemption work unchanged. The train state is saved as the logical tree by
+leaf name, whole leaves (the optimizer's state under ``optimizer_leaves``),
+and a resume on the mesh places it again (JAX ``:223-248``). The frozen
+stage refuses a mesh, as JAX's does. Sequence-parallel training needs no
+mesh here: as in JAX it is a model built with ``scan_sharding_spec``, which
+this loop trains like any other.
 
 The model trains where its parameters live, on the card unless the caller
 passes ``device="cpu"``; ``device=None`` without a card raises.
@@ -55,7 +62,7 @@ import torch
 
 from cadence_gemma_tpu_torch.checkpoint import io as checkpoint_io
 from cadence_gemma_tpu_torch.models import griffin
-from cadence_gemma_tpu_torch.parallel import sharding
+from cadence_gemma_tpu_torch.parallel import partitioning
 from cadence_gemma_tpu_torch.training import data as data_lib
 from cadence_gemma_tpu_torch.training import lora as lora_lib
 from cadence_gemma_tpu_torch.training import trainer
@@ -86,22 +93,22 @@ class TrainingConfig:
   async_checkpoints: bool = False
 
 
-def _refuse_unported(config: TrainingConfig, mesh) -> None:
-  if mesh is not None:
-    raise NotImplementedError(
-        "train_loop(mesh=...) is the pjit DP/TP regime, which is not ported "
-        f"to the PyTorch trainer yet ({sharding.TP_TRAINING_ITEM}). For "
-        "sequence parallelism build the model with scan_sharding_spec and "
-        "pass no mesh."
-    )
+def _check_config(config: TrainingConfig, mesh) -> None:
   if config.gradient_accumulation_steps < 1:
     raise ValueError("gradient_accumulation_steps must be at least 1.")
+  if mesh is not None and config.freeze_llm:
+    raise ValueError(
+        "mesh is not supported with freeze_llm=True: the frozen stage "
+        "trains only the (tiny) vision-language connector -- run it "
+        "single-device and pass the mesh to the full stage.")
 
 
-def _make_optimizer(model, config: TrainingConfig):
-  """The stage's optimizer (JAX ``train_loop.py:116-206``): Adam over the
-  adapters with ``lora``, AdamW over the connector with ``freeze_llm``,
-  AdamW over every parameter otherwise."""
+def _optimizer_factory(model, config: TrainingConfig
+                       ) -> Callable[[Any], torch.optim.Optimizer]:
+  """What builds the stage's optimizer over a model or its sharded pieces
+  (JAX ``train_loop.py:116-206``): Adam over the adapters with ``lora``,
+  AdamW over the connector with ``freeze_llm``, AdamW over every parameter
+  otherwise. The stage's configuration is checked here."""
   if config.lora:
     if config.freeze_llm:
       raise ValueError(
@@ -117,19 +124,20 @@ def _make_optimizer(model, config: TrainingConfig):
           "standard no-decay setup for low-rank adapters.",
           stacklevel=3,
       )
-    adapters = lora_lib.lora_parameters(model)
-    if not adapters:
+    if not lora_lib.lora_parameters(model):
       raise ValueError(
           "config.lora=True but the parameter tree has no lora_a/lora_b "
           "leaves — build the model with lora_rank > 0 and initialize "
           "adapters (training.lora.init_adapters)."
       )
-    return lora_lib.make_optimizer(adapters, config.learning_rate)
+    return lambda params: lora_lib.make_optimizer(
+        lora_lib.lora_parameters(params), config.learning_rate)
   if config.freeze_llm:
-    return trainer.make_optimizer(model.vl_connector, config.learning_rate,
-                                  weight_decay=config.weight_decay)
-  return trainer.make_optimizer(model, config.learning_rate,
-                                weight_decay=config.weight_decay)
+    return lambda params: trainer.make_optimizer(
+        params.vl_connector, config.learning_rate,
+        weight_decay=config.weight_decay)
+  return lambda params: trainer.make_optimizer(
+      params, config.learning_rate, weight_decay=config.weight_decay)
 
 
 def _tensor(x, device: torch.device) -> torch.Tensor:
@@ -164,26 +172,128 @@ def _features_for(batch, encode_image, device):
     return encode_image(paths)
 
 
-def _train_state(model, optimizer, step: int, accumulate: int,
-                 nonfinite: int) -> dict:
-  """What a resume needs besides the parameters: the optimizer's state,
-  the gradients of an accumulation window in progress (by parameter name),
-  the micro-step and the count of consecutive non-finite steps."""
-  names = {id(p): n for n, p in model.named_parameters()}
-  return {
-      "optimizer": optimizer.state_dict(),
-      "grads": {names[id(p)]: p.grad
-                for p in trainer.optimizer_parameters(optimizer)
-                if p.grad is not None},
-      "micro_step": step % accumulate,
-      "nonfinite": nonfinite,
-  }
+class _Local:
+  """One device: the model's own parameters, the optimizer over them."""
+
+  def __init__(self, model, optimizer):
+    self.model = model
+    self.optimizer = optimizer
+    self.params = trainer.optimizer_parameters(optimizer)
+
+  def accumulate(self, pad_id, tokens, mask, scale, img) -> torch.Tensor:
+    with trainer.trainable_only(self.model, self.params):
+      return trainer.accumulate_gradients(self.model, pad_id, tokens, mask,
+                                          scale=scale, img_embed=img)
+
+  def finish_window(self, skip_nonfinite: bool) -> bool:
+    """Ends a window's accumulation; returns whether its update applies:
+    ``skip_nonfinite`` is off, or every gradient is finite."""
+    return not skip_nonfinite or trainer.grads_finite(self.model)
+
+  def apply(self) -> None:
+    trainer.apply_update(self.model, self.optimizer)
+
+  def clear(self) -> None:
+    self.model.zero_grad(set_to_none=True)
+
+  def validation_loss(self, pad_id, tokens, mask, img) -> torch.Tensor:
+    return trainer.validation_step(self.model, pad_id, tokens, mask, img)
+
+  def train_state(self, step: int, accumulate: int, nonfinite: int) -> dict:
+    """What a resume needs besides the parameters: the optimizer's state,
+    the gradients of an accumulation window in progress (by parameter
+    name), the micro-step and the count of consecutive non-finite steps."""
+    names = {id(p): n for n, p in self.model.named_parameters()}
+    return {
+        "optimizer": self.optimizer.state_dict(),
+        "grads": {names[id(p)]: p.grad for p in self.params
+                  if p.grad is not None},
+        "micro_step": step % accumulate,
+        "nonfinite": nonfinite,
+    }
+
+  @torch.no_grad()
+  def resume(self, state: dict) -> None:
+    """Restores the optimizer's state and a window's gradients in place."""
+    self.optimizer.load_state_dict(state["optimizer"])
+    named = dict(self.model.named_parameters())
+    for name, grad in state["grads"].items():
+      named[name].grad = grad.to(named[name].device, copy=True)
 
 
-@torch.no_grad()
-def _resume(model, optimizer, config: TrainingConfig) -> tuple[int, int]:
-  """Restores ``config.resume_from`` into the fresh ``model`` and
-  ``optimizer`` in place; returns ``(step, nonfinite)``."""
+class _Mesh(_Local):
+  """DP x TP over a mesh: the sharded pieces, the optimizer over them; the
+  rows' gradients are reduced at the end of each window."""
+
+  def __init__(self, model, sharded, optimizer, opt_shardings):
+    super().__init__(model, optimizer)
+    self.sharded = sharded
+    self.opt_shardings = opt_shardings
+
+  def accumulate(self, pad_id, tokens, mask, scale, img) -> torch.Tensor:
+    return trainer.sharded_accumulate_gradients(self.sharded, pad_id, tokens,
+                                                mask, scale, img)
+
+  def finish_window(self, skip_nonfinite: bool) -> bool:
+    self.sharded.reduce_gradients()
+    return not skip_nonfinite or trainer.grads_finite(self.sharded)
+
+  def apply(self) -> None:
+    trainer.sharded_apply_update(self.sharded, self.optimizer)
+
+  def clear(self) -> None:
+    self.sharded.zero_grad()
+
+  def validation_loss(self, pad_id, tokens, mask, img) -> torch.Tensor:
+    return trainer.sharded_validation_step(self.sharded, pad_id, tokens, mask,
+                                           img)
+
+  def train_state(self, step: int, accumulate: int, nonfinite: int) -> dict:
+    """The logical tree: the optimizer's state and a window's gradients as
+    whole leaves by name."""
+    self.sharded.reduce_gradients()
+    return {
+        "optimizer_leaves": self.sharded.optimizer_state(self.optimizer),
+        "grads": self.sharded.gradients(),
+        "micro_step": step % accumulate,
+        "nonfinite": nonfinite,
+    }
+
+  @torch.no_grad()
+  def resume(self, state: dict) -> None:
+    """Places the saved whole leaves on the pieces again
+    (``partitioning.opt_state_shardings``)."""
+    if "optimizer_leaves" not in state:
+      raise ValueError("The checkpoint holds a single-device run's optimizer "
+                       "state; resume it without a mesh.")
+    self.sharded.load_optimizer_state(self.optimizer,
+                                      state["optimizer_leaves"],
+                                      self.opt_shardings)
+    self.sharded.load_gradients(state["grads"])
+
+
+def _sharded(model, config: TrainingConfig, mesh, pad_id: int,
+             make_optimizer) -> _Mesh:
+  """The stage's sharded steps' placement of ``model`` over ``mesh`` (JAX
+  ``train_loop.py:152-206``) and its optimizer."""
+  example = model.state_dict()
+  if config.lora:
+    adapters, base = lora_lib.split_lora(example)
+    _, shard_fn = lora_lib.make_sharded_lora_step(model, make_optimizer, mesh,
+                                                  pad_id, adapters, base)
+    sharded = shard_fn(adapters, base)
+  else:
+    _, shard_params = trainer.make_sharded_train_step(
+        model, make_optimizer, mesh, pad_id, example_params=example)
+    sharded = shard_params(example)
+  return _Mesh(model, sharded, make_optimizer(sharded),
+               partitioning.opt_state_shardings(mesh, make_optimizer,
+                                                example))
+
+
+def _load_resume(model, config: TrainingConfig) -> tuple[int, dict]:
+  """Loads ``config.resume_from``'s parameters into ``model`` in place;
+  returns its step and train state."""
   params, state, step = checkpoint_io.load_train_state(config.resume_from,
                                                        device="cpu")
   if state["micro_step"] != step % config.gradient_accumulation_steps:
@@ -191,12 +301,9 @@ def _resume(model, optimizer, config: TrainingConfig) -> tuple[int, int]:
         f"{config.resume_from} was saved {state['micro_step']} microbatches "
         f"into an accumulation window at step {step}; resume it with the "
         "gradient_accumulation_steps it was saved with.")
-  model.load_state_dict(params)
-  optimizer.load_state_dict(state["optimizer"])
-  named = dict(model.named_parameters())
-  for name, grad in state["grads"].items():
-    named[name].grad = grad.to(named[name].device, copy=True)
-  return step, state["nonfinite"]
+  with torch.no_grad():
+    model.load_state_dict(params)
+  return step, state
 
 
 def train_loop(
@@ -228,8 +335,11 @@ def train_loop(
       when it is absent.
     pad_id: Tokenizer pad id.
     device: Where to train; ``None`` means CUDA and raises without a card.
-    mesh: A device mesh for the pjit-sharded (DP/TP) steps; not ported,
-      must be ``None``. A model with ``scan_sharding_spec`` trains
+    mesh: A device mesh for the DP x TP steps of the full and LoRA stages
+      (JAX's ``train_loop(mesh=)``): the weights take the Megatron layouts
+      over its ``model`` axis, every batch splits over its ``data`` axis
+      (the batch must divide into it), and the model returned holds the
+      trained weights. A model with ``scan_sharding_spec`` trains
       sequence-parallel without it.
     preemption: Optional :class:`resilience.PreemptionHandler`; once it has
       fired, the loop finishes the step in flight, saves a resumable state
@@ -237,32 +347,38 @@ def train_loop(
       synchronously, since it must be on disk before the process exits)
       and returns (restart with ``resume_from`` pointing at it).
   """
-  _refuse_unported(config, mesh)
-  optimizer = _make_optimizer(model, config)
+  _check_config(config, mesh)
+  make_optimizer = _optimizer_factory(model, config)
   device = griffin.resolve_device(device)
   if any(p.device.type != device.type for p in model.parameters()):
     raise ValueError(f"The model's parameters must live on {device}.")
 
   model.train()
   model.zero_grad(set_to_none=True)
-  step = nonfinite = 0
+  step, state = 0, None
   if config.resume_from:
-    step, nonfinite = _resume(model, optimizer, config)
+    step, state = _load_resume(model, config)
+  if mesh is None:
+    trainee = _Local(model, make_optimizer(model))
+  else:
+    trainee = _sharded(model, config, mesh, pad_id, make_optimizer)
+  if state is not None:
+    trainee.resume(state)
+  nonfinite = 0 if state is None else state["nonfinite"]
   saver = (checkpoint_io.AsyncTrainStateSaver() if config.async_checkpoints
            else contextlib.nullcontext(None))
   with saver as saver:
-    _run(model, optimizer, train_data, config, step, nonfinite, saver,
+    _run(model, trainee, train_data, config, step, nonfinite, saver,
          validation_data, encode_image, log_metrics, pad_id, device,
          preemption)
   return model
 
 
-def _run(model, optimizer, train_data, config: TrainingConfig, step: int,
+def _run(model, trainee, train_data, config: TrainingConfig, step: int,
          nonfinite: int, saver, validation_data, encode_image, log_metrics,
          pad_id: int, device, preemption) -> None:
   """Every epoch of one stage, from a restored ``step`` (its batches
   skipped once, at the start of the stream)."""
-  params = trainer.optimizer_parameters(optimizer)
   accumulate = config.gradient_accumulation_steps
   to_skip = step
   t_start = time.perf_counter()
@@ -279,20 +395,15 @@ def _run(model, optimizer, train_data, config: TrainingConfig, step: int,
     with batches as batches:
       for batch in batches:
         tokens, mask, img = _to_device(batch, device, encode_image)
-        with trainer.trainable_only(model, params):
-          loss = trainer.accumulate_gradients(
-              model, pad_id, tokens, mask, scale=1.0 / accumulate,
-              img_embed=img,
-          )
+        loss = trainee.accumulate(pad_id, tokens, mask, 1.0 / accumulate, img)
         step += 1
         if step % accumulate == 0:
-          finite = (not config.skip_nonfinite_updates
-                    or trainer.grads_finite(model))
+          finite = trainee.finish_window(config.skip_nonfinite_updates)
           nonfinite = 0 if finite else nonfinite + 1
           if finite or nonfinite > _MAX_CONSECUTIVE_NONFINITE:
-            trainer.apply_update(model, optimizer)
+            trainee.apply()
           else:
-            model.zero_grad(set_to_none=True)
+            trainee.clear()
 
         if preemption is not None and preemption.triggered:
           if config.checkpoint_dir:
@@ -300,8 +411,7 @@ def _run(model, optimizer, train_data, config: TrainingConfig, step: int,
                                 f"preempted_step_{step}")
             checkpoint_io.save_train_state(
                 path, model.state_dict(),
-                _train_state(model, optimizer, step, accumulate, nonfinite),
-                step)
+                trainee.train_state(step, accumulate, nonfinite), step)
             if log_metrics is not None:
               log_metrics({"preempted_at": float(step)}, step)
             print(f"preemption: saved resumable state at {path}")
@@ -315,7 +425,7 @@ def _run(model, optimizer, train_data, config: TrainingConfig, step: int,
           if nonfinite:
             metrics["consecutive_nonfinite_steps"] = float(nonfinite)
           if validation_data is not None:
-            metrics["val_loss"] = _validate(model, validation_data, pad_id,
+            metrics["val_loss"] = _validate(trainee, validation_data, pad_id,
                                             device, encode_image)
           if log_metrics is not None:
             log_metrics(metrics, step)
@@ -328,16 +438,16 @@ def _run(model, optimizer, train_data, config: TrainingConfig, step: int,
           save = (checkpoint_io.save_train_state if saver is None
                   else saver.save)
           save(path, model.state_dict(),
-               _train_state(model, optimizer, step, accumulate, nonfinite),
-               step)
+               trainee.train_state(step, accumulate, nonfinite), step)
 
         if config.max_steps is not None and step >= config.max_steps:
           return
 
 
-def _validate(model, validation_data, pad_id, device, encode_image) -> float:
+def _validate(trainee, validation_data, pad_id, device, encode_image
+              ) -> float:
   losses = [
-      float(trainer.validation_step(model, pad_id,
+      float(trainee.validation_loss(pad_id,
                                     *_to_device(batch, device, encode_image)))
       for batch in validation_data
   ]
@@ -354,14 +464,12 @@ def two_stage_sft(
   """The reference's two-stage schedule (JAX ``train_loop.py:376-399``):
   the connector alone with the LM frozen, then ``stage2`` (a full fine-tune,
   or LoRA with ``stage2.lora``). ``train_data_factory`` makes each stage's
-  data afresh; ``kwargs`` go to both :func:`train_loop` calls. JAX routes
-  ``mesh`` to stage 2 alone; a mesh is refused here until DP/TP training
-  is ported."""
-  if kwargs.get("mesh") is not None:
-    raise NotImplementedError(
-        f"two_stage_sft(mesh=...) routes the mesh to stage 2, the DP/TP "
-        f"regime, not ported yet ({sharding.TP_TRAINING_ITEM}).")
+  data afresh; ``kwargs`` go to both :func:`train_loop` calls, but a
+  ``mesh`` to stage 2 alone (JAX ``train_loop.py:386-399``): the frozen
+  stage trains the connector alone, on one device."""
+  mesh = kwargs.pop("mesh", None)
   train_loop(model, train_data_factory(),
              dataclasses.replace(stage1, freeze_llm=True), **kwargs)
   return train_loop(model, train_data_factory(),
-                    dataclasses.replace(stage2, freeze_llm=False), **kwargs)
+                    dataclasses.replace(stage2, freeze_llm=False), mesh=mesh,
+                    **kwargs)

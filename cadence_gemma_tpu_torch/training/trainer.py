@@ -27,8 +27,14 @@ windowed attention through their autograd Functions. A model built with
 ``scan_sharding_spec`` trains sequence-parallel behind the same steps, as in
 JAX: its scans and attention split the time axis over the spec's mesh, and
 their backwards run the sharded cotangent scan and the halo attention's
-gradient. LoRA's step is ``training.lora.lora_train_step``; the pjit-sharded
-(DP/TP) step is not ported.
+gradient. LoRA's step is ``training.lora.lora_train_step``.
+
+DP x TP over a mesh (JAX's pjit-ted step): :func:`make_sharded_train_step`
+places the weights on a ``parallel.data_parallel.ShardedGriffin`` (one
+tensor-parallel model a data position, the batch split over the data axis)
+and its step takes JAX's global token-weighted mean: every row's loss is
+normalized by the whole batch's target count, never a mean of per-row
+means.
 """
 
 from __future__ import annotations
@@ -39,6 +45,8 @@ import torch
 from torch.nn import functional as F
 from torch.utils import checkpoint as checkpoint_lib
 
+from cadence_gemma_tpu_torch.parallel import data_parallel
+from cadence_gemma_tpu_torch.parallel import partitioning
 from cadence_gemma_tpu_torch.parallel import sharding
 
 # Sequences longer than this compute the loss in time chunks of this size;
@@ -77,15 +85,20 @@ def chunked_masked_nll(
     target_mask: torch.Tensor,
     decode_fn,
     vocab_chunk_size: int | None = None,
+    target_count: torch.Tensor | None = None,
 ) -> torch.Tensor:
   """Masked mean NLL with the vocabulary projection run per time chunk.
 
   ``decode_fn`` maps [b, c, width] hidden states to [b, c, vocab] logits.
   Each chunk runs under ``torch.utils.checkpoint``, so the backward
   recomputes its logits instead of keeping them: loss memory is
-  O(b * chunk * vocab).
+  O(b * chunk * vocab). ``target_count`` (default: this mask's) is the
+  number of targets the mean divides by: a data-parallel row passes the
+  whole batch's.
   """
-  norm = 1.0 / (target_mask.sum() + 1e-8)
+  if target_count is None:
+    target_count = target_mask.sum()
+  norm = 1.0 / (target_count + 1e-8)
   t = hidden.shape[1]
   chunk = min(vocab_chunk_size or _VOCAB_CHUNK, t)
   pad = -t % chunk
@@ -115,9 +128,10 @@ def forward_and_loss_fn(
     positions: torch.Tensor,
     image: torch.Tensor | None = None,
     vocab_chunk_size: int | None = None,
+    target_count: torch.Tensor | None = None,
 ) -> torch.Tensor:
   """Masked next-token NLL of a batch, with zero loss on spliced visual
-  positions.
+  positions (divided by ``target_count`` targets where it is given).
 
   The model returns final hidden states; the last step has no target and
   the first token is never predicted. ``image`` ([b, vision_tokens,
@@ -139,7 +153,7 @@ def forward_and_loss_fn(
     target_mask = F.pad(target_mask, (n_img, 0))
   return chunked_masked_nll(
       hidden, targets, target_mask, model.decode_hidden,
-      vocab_chunk_size=vocab_chunk_size,
+      vocab_chunk_size=vocab_chunk_size, target_count=target_count,
   )
 
 
@@ -330,9 +344,117 @@ def validation_step(
   )
 
 
-def make_sharded_train_step(*args, **kwargs):
-  """JAX's pjit-ted DP/TP train step (``trainer.py:265``): not ported."""
-  del args, kwargs
-  raise NotImplementedError(
-      "make_sharded_train_step (DP/TP training over a mesh) is not ported "
-      f"yet ({sharding.TP_TRAINING_ITEM}).")
+def _sharded_loss(params: data_parallel.ShardedGriffin, pad_id: int,
+                  input_tokens: torch.Tensor, input_mask: torch.Tensor,
+                  img_embed: torch.Tensor | None, scale: float | None):
+  """The batch's loss over the data rows, each row's divided by the whole
+  batch's target count; with ``scale``, each row's ``scale`` times loss is
+  back-propagated as the row's loss is computed."""
+  rows = zip(params.rows, params.split(input_tokens), params.split(input_mask),
+             params.split(img_embed))
+  count = input_mask[:, 1:].sum()
+  losses = []
+  for tp, tokens, mask, img in rows:
+    loss = forward_and_loss_fn(tp, tokens, mask, get_positions(tokens, pad_id),
+                               image=img, target_count=count.to(tp.device))
+    if scale is not None and loss.requires_grad:
+      (loss * scale).backward()
+    losses.append(loss.detach())
+  return sharding.psum(losses, [params.device])[0]
+
+
+def sharded_accumulate_gradients(
+    params: data_parallel.ShardedGriffin, pad_id: int,
+    input_tokens: torch.Tensor, input_mask: torch.Tensor, scale: float = 1.0,
+    img_embed: torch.Tensor | None = None) -> torch.Tensor:
+  """:func:`accumulate_gradients` over a mesh: each data row's model runs
+  its slice of the batch and adds ``scale`` times its gradient to its own
+  pieces' ``.grad`` (``params.reduce_gradients`` sums them); returns the
+  batch's loss (detached, on ``params.device``)."""
+  return _sharded_loss(params, pad_id, input_tokens, input_mask, img_embed,
+                       scale)
+
+
+@torch.no_grad()
+def sharded_validation_step(
+    params: data_parallel.ShardedGriffin, pad_id: int,
+    input_tokens: torch.Tensor, input_mask: torch.Tensor,
+    img_embed: torch.Tensor | None = None) -> torch.Tensor:
+  """The loss only, over the mesh."""
+  return _sharded_loss(params, pad_id, input_tokens, input_mask, img_embed,
+                       None)
+
+
+def sharded_apply_update(params: data_parallel.ShardedGriffin,
+                         optimizer: torch.optim.Optimizer) -> None:
+  """:func:`apply_update` of the reduced gradients (call
+  ``params.reduce_gradients()`` first), then the updated pieces copied
+  wherever they are not views (``params.refresh()``)."""
+  apply_update(params, optimizer)
+  params.refresh()
+
+
+def sharded_train_step(
+    params: data_parallel.ShardedGriffin, optimizer: torch.optim.Optimizer,
+    pad_id: int, input_tokens: torch.Tensor, input_mask: torch.Tensor,
+    img_embed: torch.Tensor | None = None) -> torch.Tensor:
+  """One step over a mesh; returns the batch's loss (detached)."""
+  params.zero_grad()
+  loss = sharded_accumulate_gradients(params, pad_id, input_tokens,
+                                      input_mask, img_embed=img_embed)
+  params.reduce_gradients()
+  sharded_apply_update(params, optimizer)
+  return loss
+
+
+def make_sharded_train_step(
+    model,
+    optimizer,
+    mesh,
+    pad_id: int,
+    batch_axis: str = partitioning.BATCH_AXIS,
+    model_axis: str | None = partitioning.MODEL_AXIS,
+    example_params=None,
+):
+  """The train step over ``mesh`` (JAX ``trainer.py:265-347``): DP over
+  ``batch_axis``, the Megatron TP layouts over ``model_axis`` where it names
+  a mesh axis (derived from ``example_params``, a state dict, which that
+  case needs), every leaf replicated otherwise.
+
+  Returns ``(step_fn, shard_params)``, as JAX does.
+  ``shard_params(params)`` places a state dict of ``model`` (its
+  ``state_dict()``: the pieces are views of the model's parameters, so the
+  model holds the trained weights) and returns a
+  :class:`~data_parallel.ShardedGriffin`. ``step_fn(params, opt_state,
+  input_tokens, input_mask, img_embed=None)`` runs one step on it and
+  returns ``(loss, params, opt_state)``.
+
+  torch's optimizer holds references to the tensors it updates, so
+  ``optimizer`` is not a transformation to ``init`` but a factory:
+  ``optimizer(params)`` builds it over the sharded pieces (``params.
+  named_parameters()``, by their leaves' names), e.g.
+  ``functools.partial(make_optimizer, learning_rate=1e-3)``, and the
+  caller builds it (``opt_state = optimizer(shard_params(params))``, where
+  JAX calls ``optimizer.init``); its state is the optimizer itself, updated
+  in place.
+  """
+  if (model_axis is not None and model_axis in mesh.axis_names
+      and example_params is None):
+    raise ValueError("example_params needed to build TP layouts.")
+  shardings = None if example_params is None else (
+      partitioning.param_shardings_or_replicated(mesh, example_params,
+                                                 model_axis or ""))
+
+  def shard_params(params):
+    return data_parallel.ShardedGriffin(model, params, mesh, shardings,
+                                        batch_axis, model_axis)
+
+  def step_fn(params, opt_state, input_tokens, input_mask, img_embed=None):
+    loss = sharded_train_step(params, opt_state, pad_id, input_tokens,
+                              input_mask, img_embed)
+    return loss, params, opt_state
+
+  if not callable(optimizer):
+    raise TypeError("optimizer must build the optimizer over the sharded "
+                    "parameters: optimizer(shard_params(params)).")
+  return step_fn, shard_params

@@ -384,6 +384,28 @@ Phases, each of which raises on failure (so the script exits non-zero):
      name the LRU scan's kernel) and ``device_memory_stats`` (a peak above
      0 and at most the card's memory). Each run's host seconds and launches
      are printed, and its launches added to the kernels line.
+ 25. tensor-parallel serving (right after 22, on phase 18's models) over a
+     (1, 2) mesh that repeats the card: the TP Sampler, its kernels'
+     first shard calls against their plain versions and timed, the
+     unsharded model in turns, TP-4, the fused epilogue, int8, an 8-slot
+     TP batcher and TP speculation.
+ 26. tensor-parallel training (right after 25): a copy of phase 18's 2B
+     at the training batch (2 x 4096, row 1 padded after 3000, remat on).
+     One step's loss and every leaf's gradient on TP-2 (1, 2), DP x TP
+     (2, 2) and TP-4 (1, 4) against the unsharded model's (loss within
+     1e-2, rel. RMS 0.1 and cosine 0.99 a leaf); the counters must show a
+     step's 2 x 18 LRU, 18 LRU backward, 2 x 8 window, 8 dq and 8 dk/dv
+     launches a shard (72, 36, 32, 16, 16 on TP-2). Each kernel held
+     against its plain version on the first inputs the run gave it (the
+     scans bit for bit, dq / dk / dv within 2e-2 of the largest gradient)
+     and timed at those shard shapes. ``train_loop(mesh=)`` on TP-2 for 3
+     steps in turns with the unsharded loop (step ms, peak GB). QLoRA on
+     the int8 copy's own tensors with rank-8 adapters: one TP-2 step's
+     adapter gradients against the unsharded QLoRA step's, on the wgmma
+     forward and input-gradient kernels alone, both held against their
+     plain versions at every shard shape and timed at the row- and
+     column-parallel pieces and the vocabulary shard's logits. The phase's
+     launches, errors and shard-shape figures join the kernels line's rows.
 
   python3 chip_smoke.py --profile
 
@@ -8740,6 +8762,466 @@ def phase_tensor_parallel(dev, kernels: list[dict],
   return total
 
 
+# -- phase 26: tensor-parallel training -----------------------------------------
+
+# The meshes of phase 26, each repeating the card: TP-2 (gradients, then
+# train_loop in turns with the unsharded loop), DP x TP (2, 2) (row 1 of
+# the batch is padded after 3000 tokens, so the two data rows hold
+# different target counts: the check of the global token-weighted mean) and
+# TP-4 (the 10 gate heads replicate; 3 covering query heads a shard).
+TPT_MESHES = (("TP-2", (1, 2)), ("DP x TP (2, 2)", (2, 2)), ("TP-4", (1, 4)))
+TPT_STEPS = 3
+TPT_TURNS = ("one", "tp", "tp", "one")
+TPT_LORA_RANK = 8
+# lora_b's std in the QLoRA check: nonzero, so lora_a takes a gradient.
+# (Phase 24 needed 2.0 to move a greedy text; a gradient needs none of that,
+# and small adapters keep the bf16 activations where the base has them.)
+TPT_LORA_B_STD = 0.02
+# The loss's vocabulary chunks at 4096 tokens (4095 targets a row).
+TPT_LOSS_CHUNKS = 2
+TPT_NAMES = ("lru_scan", "lru_scan_backward", "window_attention",
+             "window_attention_dq", "window_attention_dkv",
+             "int8_weight_matmul", "int8_weight_matmul_wgmma",
+             "int8_weight_matmul_dgrad_wgmma")
+
+
+def _tpt_counts() -> dict[str, int]:
+  return {**_launch_counts(),
+          "int8_weight_matmul": int8_matmul.launches,
+          "int8_weight_matmul_wgmma": int8_matmul.wgmma_launches,
+          "int8_weight_matmul_dgrad_wgmma": int8_matmul.dgrad_wgmma_launches}
+
+
+def _tpt_delta(before: dict[str, int]) -> dict[str, int]:
+  return {k: v - before[k] for k, v in _tpt_counts().items()}
+
+
+def _tpt_per_step(shards: int, n_rec: int, n_att: int) -> dict[str, int]:
+  """One training step's scan and attention launches over ``shards``
+  model-axis shards in all (the rows times the model axis): each block's
+  forward twice (remat), its backward once."""
+  return {"lru_scan": 2 * shards * n_rec,
+          "lru_scan_backward": shards * n_rec,
+          "window_attention": 2 * shards * n_att,
+          "window_attention_dq": shards * n_att,
+          "window_attention_dkv": shards * n_att}
+
+
+def _int8_layers(blocks) -> int:
+  return sum(hasattr(m, "kernel_q") or hasattr(m, "w_q")
+             for m in blocks.modules())
+
+
+class _TrainingCaptures:
+  """The first call's inputs of each training kernel of a run."""
+
+  NAMES = ((lru_scan, "lru_scan_forward"), (lru_scan, "lru_scan_backward"),
+           (wa, "window_attention_forward"), (wa, "window_attention_dq"),
+           (wa, "window_attention_dkv"))
+
+  def __init__(self):
+    self.captures = {name: CaptureFirstCall(module, name)
+                     for module, name in self.NAMES}
+
+  def restore(self):
+    for capture in self.captures.values():
+      capture.restore()
+
+  def __getitem__(self, name):
+    capture = self.captures[name]
+    if capture.args is None:
+      raise AssertionError(f"The TP training path never called {name}.")
+    return capture.args
+
+
+def _unsharded_gradients(model, tokens, mask, lora: bool = False):
+  """One batch's loss and gradients (by name) on the unsharded model."""
+  params = (sft_lora.lora_parameters(model) if lora
+            else list(model.parameters()))
+  model.zero_grad(set_to_none=True)
+  with trainer.trainable_only(model, params):
+    loss = trainer.accumulate_gradients(model, 0, tokens, mask)
+  grads = {n: p.grad for n, p in model.named_parameters()
+           if p.grad is not None}
+  model.zero_grad(set_to_none=True)
+  return loss.item(), grads
+
+
+def _sharded(model, mesh, lora: bool = False):
+  """``model`` placed over ``mesh`` by the sharded steps' own placement."""
+  state = model.state_dict()
+  if lora:
+    factory = lambda p: sft_lora.make_optimizer(  # pylint: disable=g-long-lambda
+        sft_lora.lora_parameters(p), SFT_LEARNING_RATE)
+    adapters, base = sft_lora.split_lora(state)
+    _, shard_fn = sft_lora.make_sharded_lora_step(model, factory, mesh, 0,
+                                                  adapters, base)
+    return shard_fn(adapters, base)
+  factory = lambda p: trainer.make_optimizer(p, TRAIN_LEARNING_RATE)
+  _, shard_params = trainer.make_sharded_train_step(model, factory, mesh, 0,
+                                                    example_params=state)
+  return shard_params(state)
+
+
+def _sharded_gradients(sharded, tokens, mask):
+  """One batch's loss, reduced gradients (whole leaves by name), launches,
+  ms of the forward and backward (the first call: it includes allocating
+  the gradients) and peak GB over the sharded model."""
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  before = _tpt_counts()
+  reset_scan_routes()
+  start = time.perf_counter()
+  loss = trainer.sharded_accumulate_gradients(sharded, 0, tokens, mask)
+  sharded.reduce_gradients()
+  torch.cuda.synchronize()
+  ms = (time.perf_counter() - start) * 1e3
+  launches = _tpt_delta(before)
+  check_scan_routes(launches["lru_scan"] + launches["lru_scan_backward"])
+  peak_gb = torch.cuda.max_memory_allocated() / 1e9
+  grads = sharded.gradients()
+  sharded.zero_grad()
+  return loss.item(), grads, launches, ms, peak_gb
+
+
+def _hold_gradients(label: str, loss: float, grads: dict, want_loss: float,
+                    want: dict) -> None:
+  """The sharded step's loss and every leaf's gradient against the
+  unsharded one's: the smoke's gradient rule."""
+  rel_loss = abs(loss - want_loss) / abs(want_loss)
+  if set(grads) != set(want):
+    raise AssertionError(f"{label}: gradients of {sorted(set(grads) ^ set(want))[:4]} "
+                         f"on one side only.")
+  stats = _leaf_stats(grads, want)
+  log(f"  {label}: loss {loss:.6f} vs unsharded {want_loss:.6f} (rel "
+      f"{rel_loss:.2e}, tolerance {MODEL_LOSS_REL_ERR}); {len(stats)} "
+      f"leaves, limits rel_rms <= {GRAD_LEAF_REL_RMS}, cosine >= "
+      f"{GRAD_LEAF_MIN_COSINE}")
+  _log_leaf_stats(f"{label} vs unsharded", stats)
+  bad = [s for s in stats
+         if not (s[0] <= GRAD_LEAF_REL_RMS and s[1] >= GRAD_LEAF_MIN_COSINE)]
+  if not (np.isfinite(loss) and rel_loss <= MODEL_LOSS_REL_ERR) or bad:
+    raise AssertionError(f"{label} and unsharded gradients disagree: "
+                         f"{bad[:5]}.")
+
+
+def _hold_kernels(label: str, captures: _TrainingCaptures, rows: dict,
+                  time_them: bool) -> None:
+  """Each training kernel against its plain version on the first inputs
+  the run gave it: the scans bit for bit, dq / dk / dv within
+  ATTN_BWD_REL_ERR of the largest gradient; with ``time_them``, each timed
+  at those shapes beside its plain version and its bound."""
+  x, a, h0, reverse = captures["lru_scan_forward"][:4]
+  g, ga, dh_last, g_reverse = captures["lru_scan_backward"][:4]
+  q, k, v, seg, window, kv_prefix = captures["window_attention_forward"][:6]
+  dq_args = captures["window_attention_dq"]
+  errs = {"lru_scan": check_lru(x, a, h0, reverse),
+          "lru_scan_backward": check_lru_backward(g, ga, dh_last, g_reverse),
+          "window_attention": max(check_attention(q, k, v, seg, window,
+                                                  kv_prefix)),
+          "window_attention_dq": check_dq(*dq_args),
+          "window_attention_dkv": check_dkv(*captures["window_attention_dkv"])}
+  log(f"  {label} kernels vs plain at lru {list(x.shape)}, attention q "
+      f"{list(q.shape)} (dq/dkv q {list(dq_args[0].shape)}): {errs}")
+  for name, err in errs.items():
+    rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+  if not time_them:
+    return
+  b, t, d = x.shape
+  n_bytes = 3 * b * t * d * 2 + b * d * 4
+  f = time_scan(lru_scan.lru_scan_forward, (x, a), n_bytes, 2 * b * t * d)
+  f["plain_ms"] = cuda_ms(lambda: lru_scan.lru_scan_plain(x, a), reps=1)
+  log(f"  lru_scan at {label}'s shard shape {[b, t, d]}:")
+  log_scan(f, f["plain_ms"], n_bytes)
+  rows["lru_scan"]["tp_training_shapes"].append(dict(
+      mesh=label, shape=[b, t, d], **{key: f[key] for key in (
+          "ms", "plain_ms", "bound_ms", "bound_by", "bound_share")}))
+  n_bytes = 3 * b * t * d * 2 + 2 * b * d * 4
+  f = time_scan(lambda g_, a_: lru_scan.lru_scan_backward(  # pylint: disable=g-long-lambda
+      g_, a_, dh_last, g_reverse), (g, ga), n_bytes, 2 * b * t * d)
+  f["plain_ms"] = cuda_ms(lambda: lru_scan.lru_scan_backward_plain(
+      g, ga, dh_last, g_reverse), reps=2)
+  log(f"  lru_scan_backward at {label}'s shard shape {[b, t, d]}:")
+  log_scan(f, f["plain_ms"], n_bytes)
+  rows["lru_scan_backward"]["tp_training_shapes"].append(dict(
+      mesh=label, shape=[b, t, d], **{key: f[key] for key in (
+          "ms", "plain_ms", "bound_ms", "bound_by", "bound_share")}))
+  f = window_forward_figures(q, k, v, seg, kv_prefix)
+  log_figures(f"window_attention at {label}'s shard shape {list(q.shape)}", f)
+  rows["window_attention"]["tp_training_shapes"].append(dict(
+      mesh=label, shape=list(q.shape), **{key: f[key] for key in (
+          "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+          "bound_share")}))
+  for row in backward_rows(dq_args, errs["window_attention_dq"],
+                           errs["window_attention_dkv"], f" ({label})"):
+    name = row["name"].split(" ")[0]
+    rows[name]["tp_training_shapes"].append(dict(
+        mesh=label, shape=list(dq_args[0].shape), **{key: row[key] for key in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "bound_share")}))
+
+
+def _hold_int8(forward_capture, dgrad_capture, config, rows: dict) -> None:
+  """Both int8 kernels against their plain versions on the first inputs of
+  each shape the QLoRA TP-2 step gave them, and timed at the shard shapes:
+  the row-parallel pieces (K = lru / 2 and mlp / 2), a column-parallel one
+  (N = lru / 2), the fused up-projection's shared activation and the
+  vocabulary shard's logits."""
+  half = TP_SHARDS
+  timed = {(1, config.width, config.lru_width // half),
+           (1, config.width, config.mlp_expanded_width // half),
+           (1, config.lru_width // half, config.width),
+           (2, config.mlp_expanded_width // half, config.width),
+           (1, config.vocab_size // half, config.width)}
+  row = rows["int8_weight_matmul_wgmma"]
+  for key, args in forward_capture.inputs():
+    row["max_abs_err"] = max(row["max_abs_err"], check_int8(*args))
+    if key[:3] not in timed:
+      continue
+    f = int8_figures(*args)
+    log(f"  int8_weight_matmul_wgmma at the shard shape a "
+        f"{tuple(args[0].shape)}{' (shared)' if key[-1] else ''} x q "
+        f"{tuple(args[1].shape)}: ms {f['ms']:.4f}  plain {f['plain_ms']:.4f}"
+        f"  dequant {f['dequant_ms']:.4f}  bf16 {f['bf16_ms']:.4f}  bound "
+        f"{f['bound_ms']:.4f} ({f['bound_by']}): "
+        f"{100 * f['bound_ms'] / f['ms']:.1f}% of the bound")
+    row["tp_training_shapes"].append(dict(
+        mesh="QLoRA TP-2", shape=[key[3], key[2], key[1]], batches=key[0],
+        **{k: f[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms", "dequant_ms")}))
+  log(f"  int8_weight_matmul_wgmma on the QLoRA TP-2 step's "
+      f"{len(forward_capture.calls)} shapes: max_abs_err {row['max_abs_err']:.3e}")
+  row = rows["int8_weight_matmul_dgrad_wgmma"]
+  for key, args in dgrad_capture.inputs():
+    row["max_abs_err"] = max(row["max_abs_err"], check_int8_dgrad(*args))
+    if key[:3] not in timed:
+      continue
+    f = int8_dgrad_figures(*args)
+    log(f"  int8_weight_matmul_dgrad_wgmma at the shard shape g "
+        f"{tuple(args[0].shape)} x q {tuple(args[1].shape)}: ms "
+        f"{f['ms']:.4f} ({f['tflops']:.1f} TFLOP/s)  plain "
+        f"{f['plain_ms']:.4f}  library {f['library_ms']:.4f}  bound "
+        f"{f['bound_ms']:.4f} ({f['bound_by']}): "
+        f"{100 * f['bound_ms'] / f['ms']:.1f}% of the bound")
+    row["tp_training_shapes"].append(dict(
+        mesh="QLoRA TP-2", shape=[key[3], key[1], key[2]], batches=key[0],
+        **{k: f[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms")}))
+  log(f"  int8_weight_matmul_dgrad_wgmma on the step's "
+      f"{len(dgrad_capture.calls)} shapes: max_abs_err {row['max_abs_err']:.3e}")
+  forward_capture.calls.clear()
+  dgrad_capture.calls.clear()
+
+
+def phase_tp_training(dev, handoff: dict) -> dict[str, dict]:
+  """Tensor-parallel training on a copy of phase 18's 2B and on its int8
+  copy with rank-8 adapters, over meshes that repeat the card, at the
+  training cell's batch (2 x 4096, row 1 padded after 3000, remat on):
+  one step's loss and gradients against the unsharded model's on TP-2,
+  DP x TP (2, 2) and TP-4; train_loop(mesh=) on TP-2 in turns with the
+  unsharded loop; one QLoRA TP-2 step's adapter gradients against the
+  unsharded QLoRA step's. Each kernel held against its plain version on the
+  inputs the path gave it and timed at the new shard shapes. Returns the
+  phase's rows: {name: launches, max_abs_err, tp_training_shapes}."""
+  phase_start = time.perf_counter()
+  base, qbase = handoff["model"], handoff["qmodel"]
+  config = base.config
+  n_rec = sum(bt is common.TemporalBlockType.RECURRENT
+              for bt in config.block_types)
+  n_att = config.num_layers - n_rec
+  rows = {name: dict(launches=0, max_abs_err=0.0, tp_training_shapes=[])
+          for name in TPT_NAMES}
+  batch = training_batch(config.vocab_size)
+  tokens = torch.as_tensor(batch.input_tokens, device=dev).long()
+  mask = torch.as_tensor(batch.target_mask, device=dev)
+  real_tokens = sum(TRAIN_REAL_TOKENS)
+  model = griffin.Griffin(config, device="meta", dtype=torch.bfloat16)
+  model.to_empty(device=dev)
+  model.load_state_dict(base.state_dict())
+  log(f"== phase 26: tensor-parallel training of a copy of phase 18's 2B, "
+      f"batch 2 x {TRAIN_TOKENS} (row 1 padded after "
+      f"{TRAIN_REAL_TOKENS[1]}), remat on; the meshes repeat the card, so "
+      f"no speed-up is possible")
+
+  # (a-c) One step's loss and gradients on each mesh against the unsharded
+  # model's on the same batch.
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  start = time.perf_counter()
+  want_loss, want = _unsharded_gradients(model, tokens, mask)
+  torch.cuda.synchronize()
+  log(f"  unsharded: loss {want_loss:.6f}, {len(want)} gradient leaves, "
+      f"{(time.perf_counter() - start) * 1e3:.1f} ms (the process's first "
+      f"training step of this model: warm-up), peak "
+      f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB (the sharded runs' "
+      f"peaks below hold these gradients too: "
+      f"{sum(g.numel() * g.element_size() for g in want.values()) / 1e9:.2f}"
+      f" GB)")
+  for label, shape in TPT_MESHES:
+    mesh = sharding.make_mesh(shape, ("data", "model"),
+                              devices=[dev] * (shape[0] * shape[1]))
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    sharded = _sharded(model, mesh)
+    tp = sharded.rows[0]
+    att = next(b.temporal for b in tp.blocks if not b.recurrent)
+    log(f"  {label} {mesh}: placed, +"
+        f"{torch.cuda.memory_allocated() / 1e9 - base_gb:.3f} GB (bf16 "
+        f"pieces are views of the model's weights); gates split "
+        f"{tp.blocks[0].temporal.gates_split}; query heads a shard "
+        f"{(att.cover[0][1] - att.cover[0][0]) // att.head_dim}")
+    del tp, att
+    captures = _TrainingCaptures()
+    try:
+      loss, grads, launches, ms, peak_gb = _sharded_gradients(sharded, tokens,
+                                                              mask)
+    finally:
+      captures.restore()
+    shards = shape[0] * shape[1]
+    want_launches = _tpt_per_step(shards, n_rec, n_att)
+    log(f"  {label} step (forward and backward, reduced): {ms:.1f} ms, peak "
+        f"{peak_gb:.2f} GB; launched {launches}")
+    if any(launches[k] != v for k, v in want_launches.items()):
+      raise AssertionError(f"{label} launched {launches}, want "
+                           f"{want_launches}.")
+    add_launches(rows, launches)
+    _hold_gradients(label, loss, grads, want_loss, want)
+    del grads, sharded
+    _hold_kernels(label, captures, rows, time_them=True)
+    del captures
+    torch.cuda.empty_cache()
+  del want
+
+  # (a) train_loop(mesh=) on TP-2, in turns with the unsharded loop, each
+  # turn from the copy's first weights (a fresh AdamW restarted on trained
+  # weights moves them by ~lr each and the loss jumps).
+  mesh = _tp_mesh(dev, TP_SHARDS)
+  cfg = train_loop_lib.TrainingConfig(
+      learning_rate=TRAIN_LEARNING_RATE, eval_every_n=1, max_steps=TPT_STEPS,
+      checkpoint_every_n=None)
+  turns = {"one": [], "tp": []}
+  for side in TPT_TURNS:
+    model.load_state_dict(base.state_dict())
+    clock = StageClock()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = _tpt_counts()
+    train_loop_lib.train_loop(model, [batch] * TPT_STEPS, cfg,
+                              log_metrics=clock, device=dev,
+                              mesh=mesh if side == "tp" else None)
+    torch.cuda.synchronize()
+    launches = _tpt_delta(before)
+    turns[side].append(clock.summary(
+        f"train_loop {'TP-2' if side == 'tp' else 'unsharded'}, "
+        f"{TPT_STEPS} steps", real_tokens,
+        torch.cuda.max_memory_allocated() / 1e9))
+    if side == "tp":
+      want_launches = {k: TPT_STEPS * v for k, v in
+                       _tpt_per_step(TP_SHARDS, n_rec, n_att).items()}
+      if any(launches[k] != v for k, v in want_launches.items()):
+        raise AssertionError(f"train_loop(mesh=) launched {launches}, want "
+                             f"{want_launches}.")
+      add_launches(rows, launches)
+    torch.cuda.empty_cache()
+  first = [s["losses"][0] for stats in turns.values() for s in stats]
+  if not max(first) - min(first) <= MODEL_LOSS_REL_ERR * abs(first[0]):
+    raise AssertionError(f"The turns' first losses differ: {first}.")
+  steady = {side: float(np.mean([s["steady_ms"] for s in stats]))
+            for side, stats in turns.items()}
+  log(f"  train_loop steady ms a step in turns {TPT_TURNS}: unsharded "
+      f"{[round(s['steady_ms'], 1) for s in turns['one']]}, TP-2 "
+      f"{[round(s['steady_ms'], 1) for s in turns['tp']]}: TP-2 / unsharded "
+      f"{steady['tp'] / steady['one']:.3f}; peak GB unsharded "
+      f"{[round(s['peak_gb'], 2) for s in turns['one']]}, TP-2 "
+      f"{[round(s['peak_gb'], 2) for s in turns['tp']]}")
+  del model
+  torch.cuda.empty_cache()
+
+  # (d) QLoRA TP-2 over the int8 copy's own tensors (frozen; phases 23-24
+  # see them unchanged), fresh rank-8 adapters with lora_b nonzero.
+  qmodel = griffin.Griffin(config, device="meta", quantized=True,
+                           lora_rank=TPT_LORA_RANK)
+  gen = torch.Generator(dev).manual_seed(SEED + 130)
+  adapters = sft_lora.init_adapters(qmodel, gen)
+  for name, leaf in adapters.items():
+    if name.endswith("lora_b"):
+      leaf.normal_(0.0, TPT_LORA_B_STD, generator=gen)
+  qmodel.load_state_dict(sft_lora.merge_params(qbase.state_dict(), adapters),
+                         assign=True)
+  del adapters
+  before = _tpt_counts()
+  torch.cuda.synchronize()
+  start = time.perf_counter()
+  want_loss, want = _unsharded_gradients(qmodel, tokens, mask, lora=True)
+  torch.cuda.synchronize()
+  one_launches = _tpt_delta(before)
+  log(f"  QLoRA unsharded: loss {want_loss:.6f}, "
+      f"{(time.perf_counter() - start) * 1e3:.1f} ms; launched "
+      f"{one_launches}")
+  torch.cuda.synchronize()
+  base_gb = torch.cuda.memory_allocated() / 1e9
+  sharded = _sharded(qmodel, mesh, lora=True)
+  torch.cuda.synchronize()
+  log(f"  QLoRA TP-2 placed: +"
+      f"{torch.cuda.memory_allocated() / 1e9 - base_gb:.3f} GB (int8 pieces "
+      f"made contiguous once, for the kernels' TMA)")
+  forward_capture = CaptureInt8Calls(host=True)
+  dgrad_capture = CaptureDgradCalls()
+  captures = _TrainingCaptures()
+  try:
+    loss, grads, launches, ms, peak_gb = _sharded_gradients(sharded, tokens,
+                                                            mask)
+  finally:
+    captures.restore()
+    dgrad_capture.restore()
+    forward_capture.restore()
+  tp = sharded.rows[0]
+  want_wgmma = (2 * _int8_layers(tp.blocks)
+                + 2 * TPT_LOSS_CHUNKS * len(tp.embedder.s.shards))
+  want_one = 2 * _int8_layers(qmodel.blocks) + 2 * TPT_LOSS_CHUNKS
+  log(f"  QLoRA TP-2 step: {ms:.1f} ms, peak {peak_gb:.2f} GB; launched "
+      f"{launches} (int8 forward want {want_wgmma}: each shard's int8 layers "
+      f"twice (remat), the {TPT_LOSS_CHUNKS} loss chunks' logits twice a "
+      f"shard; unsharded {one_launches['int8_weight_matmul_wgmma']}, want "
+      f"{want_one})")
+  want_launches = _tpt_per_step(TP_SHARDS, n_rec, n_att)
+  if (any(launches[k] != v for k, v in want_launches.items())
+      or launches["int8_weight_matmul_wgmma"] != want_wgmma
+      or one_launches["int8_weight_matmul_wgmma"] != want_one
+      or launches["int8_weight_matmul"]
+      or not launches["int8_weight_matmul_dgrad_wgmma"]):
+    raise AssertionError(f"QLoRA TP-2 launched {launches}; want "
+                         f"{want_launches}, {want_wgmma} int8 wgmma, the "
+                         f"input gradient's > 0 and no mma.sync.")
+  add_launches(rows, launches)
+  _hold_gradients("QLoRA TP-2 adapters", loss, grads, want_loss, want)
+  del grads, want, sharded, tp
+  _hold_kernels("QLoRA TP-2", captures, rows, time_them=False)
+  _hold_int8(forward_capture, dgrad_capture, config, rows)
+  del captures, qmodel
+  torch.cuda.empty_cache()
+  log(f"== phase 26 {time.perf_counter() - phase_start:.1f} s; its launches "
+      f"{ {k: r['launches'] for k, r in rows.items()} }")
+  return rows
+
+
+def add_launches(rows: dict[str, dict], launches: dict[str, int]) -> None:
+  for name, n in launches.items():
+    rows[name]["launches"] += n
+
+
+def add_phase_rows(kernels: list[dict], rows: dict[str, dict]) -> None:
+  """Adds a phase's launches, errors and shard-shape figures to the
+  kernels line's rows by name."""
+  by_name = {kernel["name"]: kernel for kernel in kernels}
+  for name, row in rows.items():
+    kernel = by_name[name]
+    kernel["launches"] += row["launches"]
+    kernel["max_abs_err"] = max(kernel["max_abs_err"], row["max_abs_err"])
+    if row["tp_training_shapes"]:
+      kernel["tp_training_shapes"] = row["tp_training_shapes"]
+
+
 def add_row_launches(kernels: list[dict], launches: dict[str, int]) -> None:
   """Adds ``launches`` to the kernels line's rows by name."""
   by_name = {kernel["name"]: kernel for kernel in kernels}
@@ -8802,6 +9284,8 @@ def main() -> int:
   torch.cuda.empty_cache()
   tp_launches = phase_tensor_parallel(dev, kernels, handoff)
   torch.cuda.empty_cache()
+  tp_training_rows = phase_tp_training(dev, handoff)
+  torch.cuda.empty_cache()
   # Phase 23 writes its checkpoints into ``root``; phase 24 reads the bf16
   # one.
   root = tempfile.mkdtemp(prefix="chip-smoke-export-")
@@ -8822,6 +9306,7 @@ def main() -> int:
     shutil.rmtree(ckpt_dir, ignore_errors=True)
   add_row_launches(kernels, cli_launches)
   add_row_launches(kernels, tp_launches)
+  add_phase_rows(kernels, tp_training_rows)
   log(f"== total {time.perf_counter() - start:.1f} s")
   print(json.dumps({"kernels": kernels}))
   print(json.dumps({"ok": True, "device": device}), flush=True)

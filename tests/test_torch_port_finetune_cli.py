@@ -8,8 +8,9 @@ records): the two-stage path, the LoRA path (the port starting from the
 adapters JAX's ``init_adapters`` drew) and the QLoRA path must log JAX's
 losses within 1e-4 relative and save JAX's final weights within the
 tolerance ``test_torch_port_image_sft.py`` holds ``two_stage_sft`` to. JAX's
-three runs start together in subprocesses. The usage error and the mesh
-refusal are pinned.
+three runs start together in subprocesses. The usage error is pinned, and
+``--mesh data:2,model:2`` runs to its end with JAX's two-stage losses and
+weights.
 """
 
 from __future__ import annotations
@@ -150,5 +151,27 @@ def test_finetune_refusals(world, tmp_path, train_patches):
   with pytest.raises(SystemExit) as exit_info:
     finetune.main([*argv, "--lora_int8_base", "--device", "cpu"])
   assert exit_info.value.code != 0
-  with pytest.raises(NotImplementedError, match="item 14e"):
-    finetune.main([*argv, "--mesh", "data:2", "--device", "cpu"])
+
+
+def test_finetune_mesh_runs_to_its_end(world, jax_finetune, train_patches,
+                                      tmp_path):
+  """``--mesh data:2,model:2`` (the CPU repeated): stage 1 on one device,
+  stage 2 DP x TP; JAX's single-device losses and final weights, by the
+  two-stage rule (JAX's own mesh run equals its single-device one,
+  ``test_train_loop.py:303-336``)."""
+  del train_patches
+  proc, jax_dir, _ = jax_finetune["two_stage"]
+  if proc.returncode is None:  # the JAX run's output not read yet
+    cli_tests.jax_outputs(proc)
+  assert proc.returncode == 0
+  cli_tests.run_port(finetune.main, [
+      f"--checkpoint_path={world['lm']}",
+      f"--vision_checkpoint={world['train_towers']}",
+      *_finetune_argv(world, tmp_path, "--mesh", "data:2,model:2")])
+  losses, want_losses = _losses(tmp_path), _losses(jax_dir)
+  assert len(losses) == len(want_losses) == 4
+  np.testing.assert_allclose(losses, want_losses, rtol=1e-4)
+  want = convert.state_dict_from_flax(
+      cli_tests.jax_checkpoint_to_port.restore_tree(str(jax_dir / "final")))
+  got = checkpoint_io.load_parameters(str(tmp_path / "final"), "cpu")
+  _assert_final_close(got, want, 1e-2, 2)

@@ -186,6 +186,7 @@ def test_port_hygiene(monkeypatch):
       "import cadence_gemma_tpu_torch.inference.speculative; "
       "import cadence_gemma_tpu_torch.parallel.sharding; "
       "import cadence_gemma_tpu_torch.parallel.sp_attention; "
+      "import cadence_gemma_tpu_torch.parallel.data_parallel; "
       "import cadence_gemma_tpu_torch.complex_lib; "
       "import cadence_gemma_tpu_torch.benchmarks.kernel_lab; "
       "import cadence_gemma_tpu_torch.sp_native; "
@@ -222,7 +223,8 @@ def test_port_hygiene(monkeypatch):
   assert result.stdout.strip() == "[]", result.stdout + result.stderr
 
   sources = sorted((REPO / "cadence_gemma_tpu_torch").rglob("*.py"))
-  for name in ("training/train_loop.py", "inference/constrain.py",
+  for name in ("training/train_loop.py", "parallel/data_parallel.py",
+               "inference/constrain.py",
                "utils/constrain_cpp.py", "checkpoint/export.py",
                "utils/profiling.py", "utils/logging.py",
                "examples/serve.py", "examples/finetune.py"):

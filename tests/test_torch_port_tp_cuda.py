@@ -1,12 +1,20 @@
-"""Tensor-parallel serving on the card (skips without one).
+"""Tensor-parallel serving and training on the card (skips without one).
 
 A TP-2 ``Sampler`` over a mesh that repeats the card launches each shard's
 RG-LRU scan and window attention at the shard's width (twice the unsharded
 count), none in its captured decode, and gives the unsharded model's
-tokens. This file imports no JAX: run it on the card with
+tokens. The backward kernels at the shard shapes of the 2B's training step
+(the cotangent scan at half and quarter width and on one data row, bit for
+bit its plain loop; dq and dk/dv at TP-2's 5 query heads and TP-4's 3
+covering heads, within 2e-2 of the largest gradient) against their plain
+versions; one DP x TP step's gradients against the unsharded model's. This
+file imports no JAX: run it on the card with
 ``python -m pytest --noconftest tests/test_torch_port_tp_cuda.py -q``.
 """
 
+import functools
+
+import numpy as np
 import pytest
 import torch
 
@@ -16,6 +24,7 @@ from cadence_gemma_tpu_torch.inference import sampler as sampler_lib
 from cadence_gemma_tpu_torch.ops import lru_scan
 from cadence_gemma_tpu_torch.ops import window_attention
 from cadence_gemma_tpu_torch.parallel import sharding
+from cadence_gemma_tpu_torch.training import trainer
 
 
 def test_tp_sampler_on_the_card_launches_the_kernels():
@@ -39,3 +48,83 @@ def test_tp_sampler_on_the_card_launches_the_kernels():
   assert window_attention.launches - before[1] == 2
   want = sampler_lib.Sampler(model, vocab)(prompt, total_generation_steps=8)
   assert got.tokens[0].tolist() == want.tokens[0].tolist()
+
+
+@pytest.mark.parametrize("shape", [(2, 4096, 1280), (1, 4096, 1280),
+                                   (2, 4096, 640)])
+def test_lru_backward_at_the_shard_shapes(shape):
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card")
+  gen = torch.Generator("cuda").manual_seed(0)
+  g = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+  a = torch.rand(shape, generator=gen, device="cuda").bfloat16()
+  dh_last = torch.randn(shape[0], shape[2], generator=gen, device="cuda")
+  before = lru_scan.backward_launches
+  dx, dh0 = lru_scan.lru_scan_backward(g, a, dh_last)
+  assert lru_scan.backward_launches == before + 1
+  want_dx, want_dh0 = lru_scan.lru_scan_backward_plain(g, a, dh_last)
+  assert torch.equal(dx, want_dx) and torch.equal(dh0, want_dh0)
+
+
+@pytest.mark.parametrize("heads", [5, 3])
+def test_attention_backward_at_the_shard_heads(heads):
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card")
+  b, t, h, window = 2, 4096, 256, 2048
+  gen = torch.Generator("cuda").manual_seed(1)
+  q, k, v, d_out = (torch.randn(s, generator=gen, device="cuda").bfloat16()
+                    for s in ((b, t, heads, h), (b, t, 1, h), (b, t, 1, h),
+                              (b, t, heads, h)))
+  tokens = torch.ones(b, t, dtype=torch.long, device="cuda")
+  tokens[1, 3000:] = 0  # the training batch's padded row
+  seg = trainer.get_positions(tokens, 0)
+  out, lse = window_attention.window_attention(q, k, v, seg, window)
+  args = (q, k, v, seg, lse, window_attention.attention_delta(out, d_out),
+          d_out, window)
+  got = (window_attention.window_attention_dq(*args),
+         *window_attention.window_attention_dkv(*args))
+  want = (window_attention.window_attention_dq_plain(*args),
+          *window_attention.window_attention_dkv_plain(*args))
+  for x, y in zip(got, want):
+    err = (x.float() - y.float()).abs().max().item()
+    assert err <= 2e-2 * y.float().abs().max().item()
+
+
+def test_dp_tp_step_gradients_match_unsharded_on_the_card():
+  """One (2, 2) step over the card repeated: the reduced gradients of
+  every leaf against the unsharded model's (rel. RMS 0.1, cosine 0.99)."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card")
+  config = common.GriffinConfig(
+      vocab_size=512, width=512, mlp_expanded_width=1024, num_heads=2,
+      block_types=(common.TemporalBlockType.RECURRENT,
+                   common.TemporalBlockType.ATTENTION),
+      embeddings_scale_by_sqrt_dim=True, attention_window_size=128,
+      logits_soft_cap=30.0, lru_width=512)
+  model = port.Griffin(config, dtype=torch.bfloat16)
+  rng = np.random.default_rng(0)
+  tokens = torch.tensor(rng.integers(3, 512, (4, 300)), device="cuda")
+  tokens[:, 0] = 1
+  tokens[1, 200:] = 0
+  mask = tokens != 0
+  trainer.accumulate_gradients(model, 0, tokens, mask)
+  want = {n: p.grad for n, p in model.named_parameters()
+          if p.grad is not None}
+  model.zero_grad(set_to_none=True)
+  mesh = sharding.make_mesh((2, 2), ("data", "model"), devices=["cuda:0"] * 4)
+  _, shard_params = trainer.make_sharded_train_step(
+      model, functools.partial(trainer.make_optimizer, learning_rate=1e-3),
+      mesh, 0, example_params=model.state_dict())
+  sharded = shard_params(model.state_dict())
+  before = (lru_scan.backward_launches, window_attention.dq_launches)
+  trainer.sharded_accumulate_gradients(sharded, 0, tokens, mask)
+  assert lru_scan.backward_launches - before[0] == 4
+  assert window_attention.dq_launches - before[1] == 4
+  sharded.reduce_gradients()
+  got = sharded.gradients()
+  assert set(got) == set(want)
+  for name, g in got.items():
+    x, y = g.float().flatten(), want[name].float().flatten()
+    rel = ((x - y).square().mean().sqrt() / y.square().mean().sqrt()).item()
+    cos = torch.nn.functional.cosine_similarity(x, y, dim=0).item()
+    assert rel <= 0.1 and cos >= 0.99, (name, rel, cos)

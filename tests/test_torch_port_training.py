@@ -28,6 +28,7 @@ from cadence_gemma_tpu_torch import convert
 from cadence_gemma_tpu_torch import tokenizers
 from cadence_gemma_tpu_torch.ops import lru_scan
 from cadence_gemma_tpu_torch.ops import window_attention as wa
+from cadence_gemma_tpu_torch.parallel import sharding
 from cadence_gemma_tpu_torch.training import data
 from cadence_gemma_tpu_torch.training import train_loop as tl
 from cadence_gemma_tpu_torch.training import trainer
@@ -374,18 +375,23 @@ def test_skip_nonfinite_updates_leaves_the_weights(jax_pair):
     torch.testing.assert_close(p, before[name], equal_nan=True, msg=name)
 
 
+# The mesh path's own errors (JAX's): a LoRA stage without adapters, a
+# frozen stage on a mesh, a mesh without the batch axis.
 _UNPORTED = [
-    ({"lora": True}, {"mesh": object()}),
-    ({"freeze_llm": True, "checkpoint_dir": "ckpts"}, {"mesh": object()}),
-    ({}, {"mesh": object()}),
+    ({"lora": True}, ("data", "model"), "no lora_a/lora_b"),
+    ({"freeze_llm": True, "checkpoint_dir": "ckpts"}, ("data", "model"),
+     "freeze_llm"),
+    ({}, ("sequence", "model"), "no batch axis"),
 ]
 
 
-@pytest.mark.parametrize("fields,options", _UNPORTED)
-def test_train_loop_refuses_what_is_not_ported(fields, options):
+@pytest.mark.parametrize("fields,axes,match", _UNPORTED)
+def test_train_loop_refuses_what_is_not_ported(fields, axes, match):
   config = tl.TrainingConfig(**fields)
-  with pytest.raises(NotImplementedError):
-    tl.train_loop(torch.nn.Linear(1, 1), [], config, device="cpu", **options)
+  mesh = sharding.make_mesh((1, 2), axes, devices=["cpu"] * 2)
+  with pytest.raises(ValueError, match=match):
+    tl.train_loop(torch.nn.Linear(1, 1), [], config, device="cpu",
+                  mesh=mesh)
 
 
 def test_train_loop_refuses_image_batches_and_the_missing_card(monkeypatch,
