@@ -13,8 +13,9 @@ two-stage recipe of ``two_stage_sft``, LoRA adapters over a bf16 or an int8
 base: ``Griffin(lora_rank=...)``, ``lora``) and the
 sequence-parallel long-context prefill (``Griffin(scan_sharding_spec=...)``
 over a ``make_mesh`` mesh) and tensor-parallel serving (``Sampler(mesh=...)``
-with JAX's Megatron layouts, ``partitioning``, through the batcher and
-speculation) on the Griffin / RecurrentGemma backbone. Plain
+and ``ModalSampler(mesh=...)`` with JAX's Megatron layouts, ``partitioning``,
+through the batcher, multi-LoRA, speculation and the export) on the
+Griffin / RecurrentGemma backbone. Plain
 tensor code is PyTorch; the kernels -- the RG-LRU scan (with the running
 product of ``a`` for sequence parallelism) and its cotangent scan, the
 windowed multi-query flash attention (with a sequence shard's key halo) and

@@ -29,8 +29,24 @@ Typical flow::
   logits, cache = srv.prefill(params, tokens, positions)
   logits, cache = srv.decode_step(params, cache, tok, pos)
 
-Tensor-parallel export (JAX's ``mesh=``) is not ported yet (ROADMAP queue 1
-item 14f).
+With ``mesh=`` (JAX's tensor-parallel export) the programs trace the
+:class:`~cadence_gemma_tpu_torch.parallel.tensor_parallel.TensorParallelGriffin`
+forward over the Megatron pieces: their weights argument is the placed tree
+``{name: [piece per model-axis device]}`` that
+``sharding.place_state_dict(params, partitioning.griffin_param_shardings(
+mesh, params))`` gives, the kernels' operators appear at the shard shapes,
+and the tokens, positions and cache stay replicated (the unsharded cache,
+on the first model-axis device). The meta records ``num_devices`` and
+``mesh_axes``, and the artifact loads only under a mesh of that shape::
+
+  exp = export_serving(model, params, 2, 3000, mesh=mesh)
+  srv = load_serving_export("/artifacts/2b-tp2", mesh=mesh)
+  placed = sharding.place_state_dict(params, shardings)
+  logits, cache = srv.prefill(placed, tokens, positions)
+
+The mesh's devices are the program's: a mesh that repeats one card runs on
+that card. A mesh of several distinct cards is refused, as the captured
+decode over one is.
 """
 
 from __future__ import annotations
@@ -50,7 +66,9 @@ from cadence_gemma_tpu_torch.ops import fused_epilogue  # noqa: F401
 from cadence_gemma_tpu_torch.ops import int8_matmul  # noqa: F401
 from cadence_gemma_tpu_torch.ops import lru_scan  # noqa: F401
 from cadence_gemma_tpu_torch.ops import window_attention  # noqa: F401
+from cadence_gemma_tpu_torch.parallel import partitioning
 from cadence_gemma_tpu_torch.parallel import sharding
+from cadence_gemma_tpu_torch.parallel import tensor_parallel
 
 FORMAT = "cadence_gemma_tpu_torch.serving_export.v1"
 _META_NAME = "meta.json"
@@ -137,6 +155,21 @@ def _fake_params(params: Mapping[str, torch.Tensor]):
   return mode, fakes
 
 
+def _fake_placed(fakes: Mapping[str, torch.Tensor], mesh,
+                 model_axis: str) -> dict[str, list[torch.Tensor]]:
+  """The placed tree of fake ``params`` (call under their mode): each piece
+  a fake tensor of its own, with the shape and strides that
+  ``sharding.place_state_dict`` gives it (a view where it stays on the
+  leaf's device), on its model-axis device. Distinct tensors, so the traced
+  program takes one input a position even where a mesh repeats a device."""
+  placed = sharding.place_state_dict(
+      fakes, partitioning.griffin_param_shardings(mesh, fakes, model_axis),
+      model_axis)
+  return {name: [torch.empty_strided(p.shape, p.stride(), dtype=p.dtype,
+                                     device=p.device) for p in pieces]
+          for name, pieces in placed.items()}
+
+
 def _export(fn, args) -> torch.export.ExportedProgram:
   """``torch.export`` of ``fn`` on ``args``, lean for serving: the
   training IR's metadata checks beside each ``.to()`` are erased (they
@@ -181,20 +214,32 @@ def export_serving(
     batch_size / prompt_len: The serving bucket to export for (one artifact
       per bucket).
     cache_dtype: KV/conv cache dtype (the RG-LRU state stays float32).
-    mesh: Tensor-parallel layouts over a mesh: not ported (raises).
+    mesh: A device mesh: the parameters take the Megatron layouts over its
+      ``model_axis`` (``partitioning.griffin_param_shardings``) and the
+      programs take them placed, ``{name: [piece per model-axis device]}``;
+      the data stays replicated. The artifact must be loaded under a mesh of
+      the same shape.
     model_axis: The mesh axis of the TP layouts (with ``mesh``).
 
   Returns:
     A :class:`ServingExport`; persist with :func:`save_serving_export`.
   """
-  if mesh is not None:
-    raise NotImplementedError(
-        f"export_serving(mesh=..., model_axis={model_axis!r}): the TP export "
-        f"is not ported yet ({sharding.TP_EXTRAS_ITEM}).")
-  prefill, decode_step = make_serving_functions(model)
   mode, fakes = _fake_params(params)
   device = next(iter(fakes.values())).device
+  if mesh is None:
+    prefill, decode_step = make_serving_functions(model)
+  elif len({str(d) for d in mesh.devices.flat if d.type == "cuda"}) > 1:
+    raise NotImplementedError(
+        f"export_serving over a mesh of several cards ({mesh}) needs "
+        f"{sharding.PROCESS_PER_CARD_ITEM}; export over a mesh that repeats "
+        "one card.")
   with mode:
+    if mesh is not None:
+      fakes = _fake_placed(fakes, mesh, model_axis)
+      tp = tensor_parallel.TensorParallelGriffin(
+          model.config, fakes, mesh, model_axis,
+          **tensor_parallel.model_flags(model))
+      prefill, decode_step = _tp_serving_functions(tp)
     ids = lambda length: torch.zeros(  # noqa: E731
         batch_size, length, dtype=torch.int32, device=device)
     cache = pytree.tree_map(
@@ -210,8 +255,8 @@ def export_serving(
       "batch_size": batch_size,
       "prompt_len": prompt_len,
       "cache_dtype": str(cache_dtype).removeprefix("torch."),
-      "num_devices": 1,
-      "mesh_axes": None,
+      "num_devices": 1 if mesh is None else int(mesh.devices.size),
+      "mesh_axes": None if mesh is None else dict(mesh.shape),
       "config": {
           "vocab_size": config.vocab_size,
           "width": config.width,
@@ -224,6 +269,26 @@ def export_serving(
   }
   return ServingExport(prefill=_serialize(prefill_program),
                        decode_step=_serialize(decode_program), meta=meta)
+
+
+def _tp_serving_functions(tp) -> tuple[Callable[..., Any], Callable[..., Any]]:
+  """:func:`make_serving_functions` of a tensor-parallel model, over the
+  placed tree: the cache goes in and comes out unsharded, on the first
+  model-axis device (JAX's replicated cache)."""
+
+  def prefill(placed, tokens, positions):
+    logits, cache = torch.func.functional_call(
+        tp, tp.bind(placed), (tokens, positions),
+        dict(return_cache=True, last_logits_only=True))
+    return logits, tp.unshard_cache(cache)
+
+  def decode_step(placed, cache, token, position):
+    logits, cache = torch.func.functional_call(
+        tp, tp.bind(placed), (token, position),
+        dict(cache=tp.shard_cache(cache)))
+    return logits, tp.unshard_cache(cache)
+
+  return prefill, decode_step
 
 
 def save_serving_export(exp: ServingExport, path: str) -> None:
@@ -249,11 +314,22 @@ class LoadedServing:
   ``prefill(params, tokens, positions)`` and ``decode_step(params, cache,
   token, position)`` take the exported calling convention (int32 ids and
   positions of the bucket's shapes) under ``torch.no_grad()``; ``params``
-  may hold its names in any order, and inputs on another device type than
-  the artifact's are refused.
+  may hold its names in any order (a tensor-parallel artifact's are the
+  placed pieces, ``{name: [piece per model-axis device]}``), and inputs on
+  another device type than the artifact's are refused. ``mesh`` is the mesh
+  a tensor-parallel artifact is loaded under; one of another shape than the
+  artifact's is refused.
   """
 
-  def __init__(self, prefill_bytes: bytes, decode_bytes: bytes, meta: dict):
+  def __init__(self, prefill_bytes: bytes, decode_bytes: bytes, meta: dict,
+               mesh=None):
+    want = meta.get("mesh_axes")
+    got = None if mesh is None else dict(mesh.shape)
+    if (None if want is None else list(want.items())) != (
+        None if got is None else list(got.items())):
+      raise ValueError(
+          f"This serving export was made for a mesh of shape {want}; it "
+          f"cannot be loaded under {got}.")
     self.meta = meta
     self._prefill = torch.export.load(io.BytesIO(bytes(prefill_bytes)))
     self._decode = torch.export.load(io.BytesIO(bytes(decode_bytes)))
@@ -261,7 +337,7 @@ class LoadedServing:
     self._prefill_fn = self._prefill.module()
     self._decode_fn = self._decode.module()
 
-  def _params(self, params: Mapping[str, torch.Tensor], data: torch.Tensor):
+  def _params(self, params: Mapping[str, Any], data: torch.Tensor):
     if data.device.type != self.meta["device_type"]:
       raise ValueError(
           f"This serving export runs on {self.meta['device_type']!r} "
@@ -280,9 +356,11 @@ class LoadedServing:
                              position)
 
 
-def load_serving_export(path: str) -> LoadedServing:
+def load_serving_export(path: str, mesh=None) -> LoadedServing:
   """Loads an artifact directory written by :func:`save_serving_export`;
-  refuses one of another format (a JAX artifact among them)."""
+  refuses one of another format (a JAX artifact among them), and a mesh of
+  another shape than the artifact's (``mesh`` is required for a
+  tensor-parallel artifact, and refused for another)."""
   src = pathlib.Path(path)
   meta = json.loads((src / _META_NAME).read_text())
   if meta.get("format") != FORMAT:
@@ -291,4 +369,5 @@ def load_serving_export(path: str) -> LoadedServing:
       (src / _PREFILL_NAME).read_bytes(),
       (src / _DECODE_NAME).read_bytes(),
       meta,
+      mesh,
   )

@@ -802,25 +802,30 @@ cudaError_t map_3d(CUtensorMap* map, const void* base, CUtensorMapDataType type,
 // a_dim2), byte strides (a_stride1, a_stride2); a_heads = 1 when dim 1 is
 // the batch (the block-diagonal heads: coordinates (k, b, m)), else dim 1
 // is m and dim 2 the batch (coordinates (k, m, b), b = 0 with a_shared).
-// q: int8 [batches, n, k] contiguous; scale: fp32 [batches, n]; y: bf16
-// [batches, m, n] contiguous. k must be a multiple of 16, pointers and
-// strides 16-byte aligned. Returns the cudaError_t of the launch.
+// q: int8 [batches, n, k] with byte strides (q_stride1, q_stride2) of its
+// rows and batches, k innermost; scale: fp32 [batches, n]; y: bf16
+// [batches, m, n] contiguous. Pointers and strides 16-byte aligned; any k
+// (the maps fill the last tile's columns past k with zeros). Returns the
+// cudaError_t of the launch.
 extern "C" int cg_int8_wgmma_forward(const void* a, const void* q,
                                      const void* scale, void* y, int batches,
                                      int m, int n, int k, long long a_dim1,
                                      long long a_dim2, long long a_stride1,
-                                     long long a_stride2, int a_heads,
+                                     long long a_stride2, long long q_stride1,
+                                     long long q_stride2, int a_heads,
                                      int a_shared, void* stream) {
   if (batches <= 0 || m <= 0 || n <= 0) return cudaSuccess;
-  if (k <= 0 || k % 16) return static_cast<int>(cudaErrorInvalidValue);
+  if (k <= 0 || q_stride1 < k || q_stride1 % 16 || q_stride2 % 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   CUtensorMap tm_a, tm_q;
   cudaError_t err =
       map_3d(&tm_a, a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, k, a_dim1, a_dim2,
              a_stride1, a_stride2, kBK, a_heads ? 1 : Fwd::kBM,
              a_heads ? Fwd::kBM : 1, CU_TENSOR_MAP_SWIZZLE_128B);
   if (err == cudaSuccess) {
-    err = map_3d(&tm_q, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, k, n, batches, k,
-                 static_cast<cuuint64_t>(n) * k, kBK, Fwd::kBN, 1,
+    err = map_3d(&tm_q, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, k, n, batches,
+                 q_stride1, q_stride2, kBK, Fwd::kBN, 1,
                  CU_TENSOR_MAP_SWIZZLE_NONE);
   }
   // The output by TMA when its rows are whole 16-byte units, else by the

@@ -14,6 +14,12 @@ the image once, and follow-up turns continue text-only from its state.
 ``constraint=`` masks the generation with a grammar on the image path (path,
 pixels or features) as on the text path, as the :class:`Sampler` does (JAX
 ``modal_sampler.py:116-132, 159-241``).
+
+With ``mesh=`` the model is tensor-parallel (:class:`Sampler`'s placement)
+and so are the towers: ``tensor_parallel.tensor_parallel_encoder`` places
+them by ``partitioning.param_shardings_or_replicated`` over the same mesh
+(JAX ``modal_sampler.py:67-85``), so ``encode``, ``encode_image``,
+``pixels=`` and ``img_path=`` run sharded.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ from typing import Any, Sequence
 import torch
 
 from cadence_gemma_tpu_torch.inference import sampler as sampler_lib
-from cadence_gemma_tpu_torch.parallel import sharding
+from cadence_gemma_tpu_torch.parallel import tensor_parallel
 
 SamplerOutput = sampler_lib.SamplerOutput
 
@@ -37,21 +43,23 @@ class ModalSampler(sampler_lib.Sampler):
     vision_encoder: A module mapping ``[b, 3, h, w]`` pixels in [0, 1] to
       ``[b, vision_tokens, vision_width]`` features, with a
       ``preprocess_path(img_path)`` helper (a ``DinoSigLIPEncoder``); needed
-      only for ``img_path`` and ``pixels``.
+      only for ``img_path`` and ``pixels``. With ``mesh=`` a
+      ``DinoSigLIPEncoder`` is placed over the mesh's ``model_axis`` as a
+      ``tensor_parallel.TensorParallelEncoder``.
     device: Where sampling runs; ``None`` means CUDA and raises when there is
-      none. Must be the model's and the encoder's device.
-    **kwargs: The :class:`Sampler`'s options.
+      none. Must be the model's and the encoder's device (with ``mesh=``,
+      the first device of the model axis).
+    **kwargs: The :class:`Sampler`'s options, ``mesh`` and ``model_axis``
+      among them.
   """
 
   def __init__(self, model: torch.nn.Module, vocab: Any,
                vision_encoder: torch.nn.Module | None = None, device=None,
                **kwargs):
-    if kwargs.get("mesh") is not None:
-      raise NotImplementedError(
-          "ModalSampler(mesh=...): the towers' tensor-parallel layouts are "
-          f"not ported yet ({sharding.TP_EXTRAS_ITEM}); a text Sampler "
-          "takes a mesh.")
     super().__init__(model, vocab, device=device, **kwargs)
+    if vision_encoder is not None and self.mesh is not None:
+      vision_encoder = tensor_parallel.tensor_parallel_encoder(
+          vision_encoder, self.mesh, self.model_axis)
     if vision_encoder is not None:
       param = next(vision_encoder.parameters())
       if param.device.type != self.device.type:

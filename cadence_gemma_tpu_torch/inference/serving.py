@@ -75,9 +75,12 @@ model's cache, which the batcher owns, is placed by
 ``partitioning.griffin_cache_shardings`` (each recurrent block's state split
 over the model axis, one entry a shard; the attention ring replicated), and
 every other per-slot buffer stays on the sampler's device, replicated (JAX
-``serving.py:435-455``); the captured tick runs the sharded step.
-``multi_lora`` over such a sampler is not ported and raises
-``NotImplementedError`` naming its ROADMAP item.
+``serving.py:435-455``); the captured tick runs the sharded step. With
+``multi_lora`` the twins are ``TensorParallelGriffin.adapter_twin``'s, whose
+stacks are replicated and read by each shard through views on a mesh that
+repeats one device (copies refreshed after each write on other devices).
+A tensor-parallel ``ModalSampler``'s requests encode ``pixels=`` through its
+sharded towers.
 """
 
 from __future__ import annotations
@@ -96,7 +99,6 @@ from cadence_gemma_tpu_torch.inference import constrain
 from cadence_gemma_tpu_torch.inference import sampler as sampler_lib
 from cadence_gemma_tpu_torch.inference import speculative
 from cadence_gemma_tpu_torch.models import griffin
-from cadence_gemma_tpu_torch.parallel import sharding
 from cadence_gemma_tpu_torch.training import lora as lora_lib
 
 _cache_leaves = sampler_lib._cache_leaves
@@ -121,12 +123,6 @@ def _check_device(asked: torch.device, actual: torch.device, what: str,
       and asked.index != actual.index):
     raise ValueError(f"The {what} runs on {asked}, its {other} on {actual}.")
   return actual
-
-
-def _not_ported(feature: str, item: str) -> NotImplementedError:
-  return NotImplementedError(
-      f"{feature} is not ported to the PyTorch batcher yet ({item})."
-  )
 
 
 @dataclasses.dataclass
@@ -363,8 +359,7 @@ class _TickGraph:
     self._grammars_from = None
     if flags.multi_lora:
       self.model = sampler.model.adapter_twin(state["out"].shape[0])
-      self.adapters = lora_lib.split_lora(
-          dict(self.model.named_parameters()))[0]
+      self.adapters = self.model.adapter_leaves()
     if flags.grammars:
       self.grammars = grammars.clone()
     self.generators = []
@@ -416,6 +411,7 @@ class _TickGraph:
       if adapters is not None and self._adapters_from != adapters_from:
         torch._foreach_copy_(list(self.adapters.values()),  # pylint: disable=protected-access
                              [adapters[n] for n in self.adapters])
+        self.model.refresh_adapters()
         self._adapters_from = adapters_from
       if grammars is not None and self._grammars_from != grammars_from:
         self.grammars.copy_(grammars)
@@ -527,9 +523,6 @@ class ContinuousBatcher:
       reuse_programs: bool = True,
       device=None,
   ):
-    if multi_lora and getattr(sampler, "mesh", None) is not None:
-      raise _not_ported("multi_lora over a tensor-parallel sampler",
-                        sharding.TP_EXTRAS_ITEM)
     self.device = _check_device(griffin.resolve_device(device),
                                 sampler.device, "batcher", "sampler")
     if admission_chunks_per_tick is not None and admission_chunks_per_tick < 1:
@@ -672,25 +665,25 @@ class ContinuousBatcher:
           "lora_rank > 0 so its params carry adapter leaves (use "
           "training.lora.init_adapters for a fresh zero tree)."
       )
-    # The default row of adapter-less requests: the sampler's own leaves.
-    self._sampler_adapters = {
-        n: p.detach() for n, p in model.named_parameters()
-        if lora_lib.is_lora_path(n)}
+    # The default row of adapter-less requests: the sampler's own leaves as
+    # they are now (JAX's batcher reads the sampler's params once; a
+    # tensor-parallel model's split leaves are joined copies anyway).
+    self._sampler_adapters = {name: leaf.clone() for name, leaf
+                              in model.adapter_leaves().items()}
     if not self._sampler_adapters:
       raise ValueError(
           "multi_lora: the sampler's model has no lora_a/lora_b leaves; "
           "build it with lora_rank > 0 before building the batcher.")
     # The tick's twin and its [num_slots, ...] stacks, written in place.
     self._model_ml = model.adapter_twin(self.num_slots)
-    self._adapter_rows = lora_lib.split_lora(
-        dict(self._model_ml.named_parameters()))[0]
+    self._adapter_rows = self._model_ml.adapter_leaves()
     self._adapter_token = object()
     self._adapter_version = 0
     # Admissions with adapters prefill at batch 1 on a twin that holds them
     # (the sampler's own model never sees them).
     twin = model.adapter_twin()
-    self._prefill_adapters = lora_lib.split_lora(
-        dict(twin.named_parameters()))[0]
+    self._prefill_adapters = twin.adapter_leaves()
+    self._prefill_twin = twin
     self._prefill_sampler = copy.copy(self.sampler)
     self._prefill_sampler.model = twin
     self._prefill_sampler._prefill_model = (  # pylint: disable=protected-access
@@ -707,6 +700,7 @@ class ContinuousBatcher:
       torch._foreach_copy_(  # pylint: disable=protected-access
           list(self._prefill_adapters.values()),
           [p.adapters[n] for n in self._prefill_adapters])
+      self._prefill_twin.refresh_adapters()
       self._prefill_loaded = p.request.request_id
     return self._prefill_sampler
 
@@ -793,6 +787,7 @@ class ContinuousBatcher:
       lora_lib.scatter_adapters(
           self._adapter_rows,
           self._sampler_adapters if p.adapters is None else p.adapters, slot)
+      self._model_ml.refresh_adapters()
       self._adapter_version += 1
     if self.record_logprobs:
       # The first token's record from the prefill's [1, 1, vocab] logits.

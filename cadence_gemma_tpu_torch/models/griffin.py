@@ -262,6 +262,16 @@ class Griffin(nn.Module):
               leaf.new_zeros(*rows, *leaf.shape), requires_grad=False)
     return twin
 
+  def adapter_leaves(self) -> dict[str, torch.Tensor]:
+    """The ``lora_a`` / ``lora_b`` tensors by name (a twin's are written in
+    place)."""
+    return {name: p.detach() for name, p in self.named_parameters()
+            if name.rsplit(".", 1)[-1] in layers.LORA_LEAF_NAMES}
+
+  def refresh_adapters(self) -> None:
+    """Nothing to do: one device holds every adapter (a tensor-parallel
+    model copies them to its shards' devices here)."""
+
   def _splice_image(
       self, x: torch.Tensor, segment_pos: torch.Tensor, image: torch.Tensor
   ) -> tuple[torch.Tensor, torch.Tensor]:

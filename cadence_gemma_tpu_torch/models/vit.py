@@ -188,28 +188,38 @@ class ViTBlock(nn.Module):
     # Views into qkv: the kernel reads the three thirds in place.
     q, k, v = (z.unflatten(-1, (cfg.num_heads, head_dim))
                for z in qkv.split(cfg.embed_dim, dim=-1))
-    if _use_flash(self.use_flash_attention, x.device) and key_bias is None:
-      out = mha_attention.flash_mha_attention(q, k, v)
-    else:
-      logits = torch.einsum("bqnh,bknh->bnqk", q.float(), k.float())
-      logits = logits * (head_dim**-0.5)
-      if key_bias is not None:
-        logits = logits + key_bias
-      if self.softmax_bf16:
-        # bfloat16-resident logits, float32 exponentials and sum; the -inf
-        # key bias survives the cast.
-        logits = logits.to(torch.bfloat16)
-        e = torch.exp((logits - logits.amax(dim=-1, keepdim=True)).float())
-        probs = (e / e.sum(dim=-1, keepdim=True)).to(x.dtype)
-      else:
-        probs = torch.softmax(logits, dim=-1).to(x.dtype)
-      out = torch.einsum("bnqk,bknh->bqnh", probs, v)
+    out = attend(q, k, v, key_bias, self.use_flash_attention,
+                 self.softmax_bf16)
     out = self.attn_proj(out.reshape(b, t, cfg.embed_dim))
     x = x + self._layer_scale("ls1", out)
 
     h = self.mlp_fc1(self.norm2(x))
     h = F.gelu(h, approximate="tanh" if cfg.gelu_approximate else "none")
     return x + self._layer_scale("ls2", self.mlp_fc2(h))
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           key_bias: torch.Tensor | None, use_flash_attention: bool | None,
+           softmax_bf16: bool) -> torch.Tensor:
+  """A block's attention over ``[b, t, n, h]`` heads: the MHA kernel (on
+  the card, unpadded), or the einsum with the padded keys masked by
+  ``key_bias`` (see :class:`ViTBlock`)."""
+  if _use_flash(use_flash_attention, q.device) and key_bias is None:
+    return mha_attention.flash_mha_attention(q, k, v)
+  head_dim = q.shape[-1]
+  logits = torch.einsum("bqnh,bknh->bnqk", q.float(), k.float())
+  logits = logits * (head_dim**-0.5)
+  if key_bias is not None:
+    logits = logits + key_bias
+  if softmax_bf16:
+    # bfloat16-resident logits, float32 exponentials and sum; the -inf key
+    # bias survives the cast.
+    logits = logits.to(torch.bfloat16)
+    e = torch.exp((logits - logits.amax(dim=-1, keepdim=True)).float())
+    probs = (e / e.sum(dim=-1, keepdim=True)).to(q.dtype)
+  else:
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+  return torch.einsum("bnqk,bknh->bqnh", probs, v)
 
 
 class VisionTransformer(nn.Module):
@@ -261,8 +271,10 @@ class VisionTransformer(nn.Module):
       self.add_module(f"block{i}", block)
       self.blocks.append(block)
 
-  def forward(self, pixels: torch.Tensor) -> torch.Tensor:
-    """[b, 3, H, W] normalized pixels -> [b, patches, embed_dim]."""
+  def embed(self, pixels: torch.Tensor
+            ) -> tuple[torch.Tensor, torch.Tensor | None, int]:
+    """The blocks' input: ``(tokens, key_bias, real token count)``, the
+    tokens padded on the einsum path and ``key_bias`` masking the pads."""
     cfg = self.config
     x = self.patch_embed(pixels.to(self.dtype))
     x = x + self.pos_embed.to(x.dtype)
@@ -280,10 +292,15 @@ class VisionTransformer(nn.Module):
       key_bias = torch.where(
           torch.arange(t_pad, device=x.device) < t_real, 0.0, float("-inf")
       )[None, None, None, :]
+    return x, key_bias, t_real
+
+  def forward(self, pixels: torch.Tensor) -> torch.Tensor:
+    """[b, 3, H, W] normalized pixels -> [b, patches, embed_dim]."""
+    x, key_bias, t_real = self.embed(pixels)
     for block in self.blocks:
       x = block(x, key_bias)
     # Un-normed, prefix tokens (and padding) dropped.
-    return x[:, cfg.num_prefix_tokens:t_real]
+    return x[:, self.config.num_prefix_tokens:t_real]
 
 
 def preprocess(images: torch.Tensor, mean: Sequence[float],

@@ -179,6 +179,15 @@ def _check(a: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> None:
     raise ValueError(f"`q` must be int8, got {q.dtype}.")
 
 
+def padded_rows(t: torch.Tensor, unit: int) -> torch.Tensor:
+  """``t`` [..., k] as a view of zeroed [..., k rounded up to ``unit``]
+  storage: its rows' stride a multiple of ``unit`` elements, for the wgmma
+  forward's tensor maps."""
+  k = t.shape[-1]
+  storage = t.new_zeros(*t.shape[:-1], k + -k % unit)
+  return storage[..., :k].copy_(t)
+
+
 def _forward_cpu(a, q, scale):
   return int8_weight_matmul_plain(a, q, scale).contiguous()
 
@@ -193,12 +202,23 @@ def _forward_cuda(a, q, scale):
                      f"{a.dtype}.")
   m, k = a.shape[1:]
   batches, n = q.shape[:2]
-  if k % 16:
-    raise ValueError(f"The CUDA int8 kernel needs a depth that is a multiple "
-                     f"of 16, got {k}.")
+  wgmma = uses_wgmma(m)
+  if not wgmma and k % 16:
+    # The mma.sync kernel reads whole 16-byte units of a row: zero columns
+    # in both operands add nothing to the sums.
+    a = torch.nn.functional.pad(a, (0, -k % 16))
+    q = torch.nn.functional.pad(q, (0, -k % 16))
+    k += -k % 16
   if a.stride(2) != 1 or a.stride(1) % 8 or a.stride(0) % 8:
-    a = a.contiguous()
-  q = q.contiguous()
+    a = a.contiguous() if k % 8 == 0 else padded_rows(a, 8)
+  if not wgmma:
+    q = q.contiguous()
+  elif q.stride(2) != 1 or q.stride(1) % 16 or (batches > 1
+                                                and q.stride(0) % 16):
+    # The tensor map steps through q's rows in place where their stride
+    # allows (a depth off 16 stored by padded_rows, as the tensor-parallel
+    # towers' int8 pieces are); else a copy that does, made every call.
+    q = padded_rows(q, 16)
   scale = scale.float().contiguous()
   for name, t in (("a", a), ("q", q), ("scale", scale)):
     if t.data_ptr() % 16:
@@ -206,14 +226,16 @@ def _forward_cuda(a, q, scale):
                        "aligned.")
   y = torch.empty(batches, m, n, dtype=torch.bfloat16, device=a.device)
   stream = torch.cuda.current_stream(a.device).cuda_stream
-  if uses_wgmma(m):
+  if wgmma:
     layout = a_layout(a, batches)
+    q_batch = q.stride(0) if batches > 1 else n * q.stride(1)
     fn = _build.function("int8_wgmma", "cg_int8_wgmma_forward",
-                         "ppppiiiilllliip")
+                         "ppppiiiilllllliip")
     with torch.cuda.device(a.device):
       err = fn(a.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
                batches, m, n, k, *layout.dims[1:], *layout.strides,
-               int(layout.heads), int(layout.shared), stream)
+               q.stride(1), q_batch, int(layout.heads), int(layout.shared),
+               stream)
     wgmma_launches += 1
     if err:
       raise RuntimeError(f"int8_weight_matmul wgmma CUDA kernel failed: "

@@ -29,6 +29,8 @@ from cadence_gemma_tpu_torch import _build
 
 # Kernel launches in this process; callers reset it to count one run.
 launches = 0
+# Inputs the kernel could not read in place and took as contiguous copies.
+strided_copies = 0
 
 KERNEL_HEAD_DIMS = (64, 72)  # DINOv2-L/14 and SigLIP-so400m/14
 
@@ -76,11 +78,13 @@ def _strided_heads(t: torch.Tensor) -> torch.Tensor:
   """``t`` itself if its heads are dense rows the kernel can read with
   16-byte loads (as the views of a fused qkv projection are), else a
   contiguous copy."""
+  global strided_copies
   head_dim, elem = t.shape[-1], t.element_size()
   if not (t.stride(3) == 1 and t.stride(2) == head_dim
           and (t.stride(1) * elem) % 16 == 0
           and (t.stride(0) * elem) % 16 == 0 and t.data_ptr() % 16 == 0):
     t = t.contiguous()
+    strided_copies += 1
   if t.data_ptr() % 16:
     raise ValueError("The MHA kernel needs 16-byte aligned tensors.")
   if max(t.stride(0), t.stride(1)) >= 2**31:

@@ -42,24 +42,6 @@ from cadence_gemma_tpu_torch.parallel import sharding
 from cadence_gemma_tpu_torch.parallel import tensor_parallel
 
 
-def _same_memory(a: torch.Tensor, b: torch.Tensor) -> bool:
-  return (a.device == b.device and a.data_ptr() == b.data_ptr()
-          and a.shape == b.shape and a.stride() == b.stride())
-
-
-def _copy_unless_same(dst: torch.Tensor, src: torch.Tensor) -> None:
-  if not _same_memory(dst, src):
-    dst.copy_(src)
-
-
-def _region(whole: torch.Tensor, piece) -> torch.Tensor:
-  """The part of ``whole`` a :class:`tensor_parallel.Piece` or
-  :class:`tensor_parallel.Alias` covers."""
-  if piece.dim is None:
-    return whole
-  return whole.narrow(piece.dim, piece.offset, piece.tensor.shape[piece.dim])
-
-
 def _row_devices(mesh: sharding.Mesh, batch_axis: str, row: int,
                 model_axis: str | None) -> list[torch.device]:
   """The devices of data position ``row``: its ``model_axis`` positions
@@ -199,15 +181,17 @@ class ShardedGriffin:
       if not self.trains[name]:
         continue
       for piece in pieces:
-        _copy_unless_same(_region(self.state[name], piece), piece.tensor)
+        tensor_parallel.copy_unless_same(
+            tensor_parallel.region(self.state[name], piece), piece.tensor)
       for tp in self.rows[1:]:
         for mine, piece in zip(tp.leaves[name], pieces):
-          _copy_unless_same(mine.tensor, piece.tensor)
+          tensor_parallel.copy_unless_same(mine.tensor, piece.tensor)
     for tp in self.rows:
       for alias in tp.aliases:
         if self.trains[alias.name]:
-          _copy_unless_same(alias.tensor, _region(
-              tp.leaves[alias.name][0].tensor, alias))
+          tensor_parallel.copy_unless_same(
+              alias.tensor,
+              tensor_parallel.region(tp.leaves[alias.name][0].tensor, alias))
 
   def _whole(self, name: str, values: list[torch.Tensor]) -> torch.Tensor:
     """A leaf's whole value from one value a trained tensor of row 0."""
@@ -231,8 +215,8 @@ class ShardedGriffin:
     """Places whole-leaf gradients on row 0's trained tensors."""
     for name, whole in grads.items():
       for piece in self.rows[0].leaves[name]:
-        piece.tensor.grad = _region(whole, piece).to(piece.tensor.device,
-                                                     copy=True)
+        piece.tensor.grad = tensor_parallel.region(whole, piece).to(
+            piece.tensor.device, copy=True)
 
   def optimizer_state(self, optimizer: torch.optim.Optimizer
                       ) -> dict[str, dict]:

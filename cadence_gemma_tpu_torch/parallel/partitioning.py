@@ -23,6 +23,8 @@ entries swap against ``w``'s. Every other leaf keeps JAX's layout and spec.
   * Attention: ``proj_q`` shards the query heads (column); the single-head
     ``proj_k`` / ``proj_v`` replicate; ``proj_final`` shards its input (row).
   * Embedder: the vocabulary.
+  * Vision towers: ``attn_qkv`` / ``mlp_fc1`` column (their biases shard
+    with the output), ``attn_proj`` / ``mlp_fc2`` row.
 
 JAX hands the shardings to GSPMD; the port's tensor-parallel model
 (``parallel/tensor_parallel.py``) places the leaves by them and runs the
@@ -130,8 +132,9 @@ def _spec_for(path: tuple[str, ...], value: Any, model_axis: str) -> P:
   if parent in ("proj_k", "proj_v"):
     return P(*([None] * value.ndim))
 
-  # The vision towers' column -> row pairs (specs only: the port's towers
-  # run unsharded, ROADMAP queue 1).
+  # The vision towers' column -> row pairs (``tensor_parallel.
+  # TensorParallelEncoder`` runs them); patch_embed, pos_embed,
+  # prefix_tokens, the norms and the layer scales replicate.
   if parent in ("attn_qkv", "mlp_fc1") and name == "kernel":
     return P(m, None)
   if parent in ("attn_proj", "mlp_fc2") and name == "kernel":

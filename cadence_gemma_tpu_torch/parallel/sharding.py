@@ -55,9 +55,7 @@ BATCH_AXIS = "data"
 SEQUENCE_AXIS = "sequence"
 MODEL_AXIS = "model"
 
-# The ROADMAP items that lift what tensor parallelism still refuses.
-TP_EXTRAS_ITEM = ("ROADMAP queue 1 item 14f (the sharded towers, TP "
-                  "multi-LoRA and the TP export)")
+# The ROADMAP item that lifts what tensor parallelism still refuses.
 PROCESS_PER_CARD_ITEM = ("ROADMAP queue 1 item 14g (the process-per-card "
                          "backend)")
 

@@ -38,6 +38,25 @@ conv tail are one cache entry a shard (``blocks.{i}.shard{j}``, the shard's
 lru features, on its device), the attention ring one replicated entry
 (``blocks.{i}``), so the samplers and the batcher handle it as any cache.
 
+:meth:`TensorParallelGriffin.adapter_twin` builds the multi-LoRA twin over
+the same pieces: its adapters (one pair, or ``[lora_rows, ...]`` stacks) are
+whole tensors on the first device, replicated as JAX replicates the stacks
+(``serving.py:459-463``), and each shard reads its slice of them (a column
+layer's ``lora_b`` output slice, a row layer's ``lora_a`` input slice, whose
+partial sum joins the base's ``psum``). :meth:`TensorParallelGriffin.bind`
+maps a placed tree onto the model's parameters, which the serving export
+traces over.
+
+:class:`TensorParallelEncoder` runs the vision towers over the ViT rules'
+pieces (JAX ``partitioning.py:133-147``): ``attn_qkv`` / ``mlp_fc1``
+column-parallel with their bias pieces, ``attn_proj`` / ``mlp_fc2``
+row-parallel, a ``psum`` and the bias once. JAX's contiguous split of the
+fused ``3d`` qkv axis crosses the q / k / v and head boundaries, so the qkv
+pieces are gathered and each shard attends over its own head group, whose
+output features are exactly its ``attn_proj`` row piece; where the heads do
+not divide into the axis the attention runs once and each shard takes its
+slice of the output.
+
 The model trains too (``parallel/data_parallel.py`` builds one a data
 position): it recomputes each residual block in the backward as ``Griffin``
 does, and records one trained tensor a logical leaf (a split leaf's pieces;
@@ -51,12 +70,16 @@ from typing import Any, Mapping, NamedTuple, Sequence
 
 import torch
 from torch import nn
+from torch._subclasses import fake_tensor
+from torch.nn import functional as F
 from torch.utils import checkpoint as checkpoint_lib
 
 from cadence_gemma_tpu_torch import common
 from cadence_gemma_tpu_torch.models import griffin as griffin_lib
 from cadence_gemma_tpu_torch.models import layers
 from cadence_gemma_tpu_torch.models import modules
+from cadence_gemma_tpu_torch.models import vit
+from cadence_gemma_tpu_torch.ops import int8_matmul
 from cadence_gemma_tpu_torch.ops import quantization
 from cadence_gemma_tpu_torch.parallel import partitioning
 from cadence_gemma_tpu_torch.parallel import sharding
@@ -75,11 +98,40 @@ def _global_absmax(parts: Sequence[torch.Tensor],
   return [torch.stack(g).amax(0) for g in sharding.all_gather(local, devices)]
 
 
+def _shapes_only(t: torch.Tensor) -> bool:
+  """Whether ``t`` holds no memory (``meta``, or a ``FakeTensorMode``'s)."""
+  return t.device.type == "meta" or fake_tensor.is_fake(t)
+
+
 def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
-  """``t`` if contiguous and 16-byte aligned, else a copy that is."""
-  if t.is_contiguous() and (t.device.type == "meta" or t.data_ptr() % 16 == 0):
+  """``t`` if contiguous and 16-byte aligned, else a copy that is. An int8
+  matrix whose depth is off 16 (SigLIP's ``mlp_fc2`` row piece, 4304 / 2)
+  is copied into rows padded to 16 (``int8_matmul.padded_rows``), which the
+  wgmma forward's tensor map reads in place."""
+  if (t.dtype == torch.int8 and t.ndim == 2 and t.shape[-1] % 16
+      and not _shapes_only(t)):
+    return int8_matmul.padded_rows(t, 16)
+  if t.is_contiguous() and (_shapes_only(t) or t.data_ptr() % 16 == 0):
     return t
   return torch.empty(t.shape, dtype=t.dtype, device=t.device).copy_(t)
+
+
+def _is_adapter(name: str) -> bool:
+  return name.rsplit(".", 1)[-1] in layers.LORA_LEAF_NAMES
+
+
+def region(whole: torch.Tensor, piece) -> torch.Tensor:
+  """The part of ``whole`` a :class:`Piece` or :class:`Alias` covers."""
+  if piece.dim is None:
+    return whole
+  return whole.narrow(piece.dim, piece.offset, piece.tensor.shape[piece.dim])
+
+
+def copy_unless_same(dst: torch.Tensor, src: torch.Tensor) -> None:
+  """``dst.copy_(src)`` unless the two are views of the same memory."""
+  if not (dst.device == src.device and dst.data_ptr() == src.data_ptr()
+          and dst.shape == src.shape and dst.stride() == src.stride()):
+    dst.copy_(src)
 
 
 def _mesh_devices(mesh: sharding.Mesh, axis: str) -> list[torch.device]:
@@ -162,6 +214,8 @@ class _Loader:
     self.owners: dict[str, nn.Parameter] = {}
     self.leaves: dict[str, list[Piece]] = {}
     self.aliases: list[Alias] = []
+    # id(parameter) -> (leaf, shard, dim, offset, length, kernel copy).
+    self.sources: dict[int, tuple] = {}
 
   def piece(self, name: str, j: int, shape, start: int | None = None
             ) -> tuple[torch.Tensor, int | None, int]:
@@ -183,7 +237,7 @@ class _Loader:
 
   def _kernel_ready(self, t: torch.Tensor) -> torch.Tensor:
     """:func:`_kernel_ready` of ``t``, one copy a region of memory."""
-    if t.device.type == "meta":
+    if _shapes_only(t):
       return _kernel_ready(t)
     key = (t.device, t.dtype, t.data_ptr(), tuple(t.shape), t.stride())
     if key not in self.kernel_copies:
@@ -203,6 +257,7 @@ class _Loader:
       self.owners[name] = nn.Parameter(self.placed[name][0],
                                        requires_grad=False)
       self.leaves[name] = [Piece(self.owners[name], None, 0)]
+      self.sources[id(self.owners[name])] = (name, 0, None, 0, 0, False)
     return self.owners[name]
 
   def fill(self, module: nn.Module, prefix: str, j: int,
@@ -216,7 +271,8 @@ class _Loader:
       owner = module.get_submodule(path)
       full = f"{prefix}.{name}"
       t, dim, offset = self.piece(full, j, p.shape, starts.get(path))
-      if leaf.endswith(("_q", "_scale")):
+      kernel = leaf.endswith(("_q", "_scale"))
+      if kernel:
         param = nn.Parameter(self._kernel_ready(t), requires_grad=False)
       elif tuple(self.placed[full][j].shape) != self.full_shapes[full]:
         if dim is not None:
@@ -231,6 +287,9 @@ class _Loader:
         self.owner(full)
         param = nn.Parameter(t, requires_grad=False)
         self.aliases.append(Alias(param, full, dim, offset))
+      if id(param) not in self.sources:
+        self.sources[id(param)] = (full, j, dim, offset,
+                                   0 if dim is None else t.shape[dim], kernel)
       owner._parameters[leaf] = param  # pylint: disable=protected-access
 
   def replicated(self, name: str) -> nn.Parameter:
@@ -371,7 +430,8 @@ class _TPAttention(nn.Module):
           device="meta", head_dim=head_dim, **kw)
       dense = dict(device="meta", dtype=kw["dtype"],
                    quantized=kw["quantized"], act_quant=kw["act_quant"],
-                   lora_rank=kw["lora_rank"], lora_alpha=kw["lora_alpha"])
+                   lora_rank=kw["lora_rank"], lora_alpha=kw["lora_alpha"],
+                   lora_rows=kw["lora_rows"])
       att.proj_q = layers.Dense(config.width, self.local, use_bias=False,
                                 **dense)
       att.proj_final = layers.Dense(self.local, config.width, use_bias=False,
@@ -508,8 +568,9 @@ class TensorParallelGriffin(nn.Module):
       repeat). Every device must exist: a CUDA mesh without a card raises.
     model_axis: The mesh axis the weights split over.
     dtype, use_flash_attention, fused_epilogue, quantized, act_quant,
-      lora_rank, lora_alpha, gradient_checkpointing: As
-      :class:`~griffin.Griffin`'s.
+      lora_rank, lora_alpha, lora_rows, gradient_checkpointing: As
+      :class:`~griffin.Griffin`'s; stacked (``lora_rows``) adapters are
+      placed replicated.
     kernel_copies: A dict that the models built over the same tensors share,
       so they share their contiguous int8 pieces too.
 
@@ -535,7 +596,7 @@ class TensorParallelGriffin(nn.Module):
                use_flash_attention: bool | None = None,
                fused_epilogue: bool = False, quantized: bool = False,
                act_quant: bool = False, lora_rank: int = 0,
-               lora_alpha: float | None = None,
+               lora_alpha: float | None = None, lora_rows: int = 0,
                gradient_checkpointing: bool = True,
                kernel_copies: dict | None = None):
     super().__init__()
@@ -548,14 +609,25 @@ class TensorParallelGriffin(nn.Module):
     self.quantized = quantized
     self.act_quant = act_quant
     self.lora_rank = lora_rank
+    self.lora_rows = lora_rows
     self.gradient_checkpointing = gradient_checkpointing
+    # What adapter_twin builds another model over.
+    self._flags = dict(dtype=dtype, use_flash_attention=use_flash_attention,
+                       fused_epilogue=fused_epilogue, quantized=quantized,
+                       act_quant=act_quant, lora_rank=lora_rank,
+                       lora_alpha=lora_alpha,
+                       gradient_checkpointing=gradient_checkpointing)
     kw = dict(dtype=dtype, quantized=quantized, act_quant=act_quant,
-              lora_rank=lora_rank, lora_alpha=lora_alpha)
+              lora_rank=lora_rank, lora_alpha=lora_alpha, lora_rows=lora_rows)
     full_shapes = {
         name: tuple(t.shape) for name, t in griffin_lib.Griffin(
             config, device="meta", dtype=dtype, quantized=quantized,
-            lora_rank=lora_rank, lora_alpha=lora_alpha).state_dict().items()}
+            lora_rank=lora_rank, lora_alpha=lora_alpha,
+            lora_rows=lora_rows).state_dict().items()}
+    self._placed = params
+    self._full_shapes = full_shapes
     loader = _Loader(params, full_shapes, kernel_copies)
+    self._kernel_copies = loader.kernel_copies
     self.embedder = _TPEmbedder(config, loader, devices, kw)
     self.blocks = nn.ModuleList([
         _TPResidualBlock(config, loader, devices, i, block_type, kw,
@@ -571,6 +643,68 @@ class TensorParallelGriffin(nn.Module):
     self.leaves = {name: loader.leaves[name] for name in full_shapes
                    if name in loader.leaves}
     self.aliases = loader.aliases
+    self._sources = {name: loader.sources[id(p)] for name, p in
+                     self.named_parameters(remove_duplicate=False)}
+
+  def bind(self, placed: Mapping[str, Sequence[torch.Tensor]]
+           ) -> dict[str, torch.Tensor]:
+    """This model's parameters, by their names here, taken from ``placed``
+    (a tree of the layout it was built over): the pieces, the slices of
+    replicated leaves, contiguous int8 pieces. ``torch.func.functional_call``
+    of the model over them is the forward over ``placed``, which the
+    tensor-parallel serving export traces."""
+    out = {}
+    for name, (leaf, j, dim, offset, length, kernel) in self._sources.items():
+      t = placed[leaf][j]
+      if dim is not None:
+        t = t.narrow(dim, offset, length)
+      out[name] = t.contiguous() if kernel else t
+    return out
+
+  def adapter_twin(self, lora_rows: int = 0) -> "TensorParallelGriffin":
+    """``Griffin.adapter_twin`` over the mesh: a model over this one's base
+    pieces (the same tensors, nothing copied) with adapters of its own,
+    zeros, stacked ``[lora_rows, ...]`` when ``lora_rows > 0``. Each adapter
+    is one whole tensor on the first device (:meth:`adapter_leaves`), and
+    each shard reads its slice of it; after writing them, call
+    :meth:`refresh_adapters`."""
+    if not self.lora_rank or self.lora_rows:
+      raise ValueError("adapter_twin needs a lora_rank > 0 model with one "
+                       "adapter pair a layer (lora_rows=0).")
+    rows = (lora_rows,) if lora_rows else ()
+    params = dict(self._placed)
+    for name, shape in self._full_shapes.items():
+      if _is_adapter(name):
+        stack = torch.zeros(*rows, *shape, dtype=params[name][0].dtype,
+                            device=self.device)
+        params[name] = [stack.to(dev) for dev in self.devices]
+    return TensorParallelGriffin(self.config, params, self.mesh,
+                                 self.model_axis, lora_rows=lora_rows,
+                                 kernel_copies=self._kernel_copies,
+                                 **self._flags)
+
+  def adapter_leaves(self) -> dict[str, torch.Tensor]:
+    """The adapters as whole leaves by name, on the first device: a twin's
+    own tensors (write them in place, then :meth:`refresh_adapters`); a
+    split leaf's pieces joined into a copy, which a write does not reach
+    the shards through."""
+    out = {}
+    for name, pieces in self.leaves.items():
+      if _is_adapter(name):
+        out[name] = (pieces[0].tensor.detach() if pieces[0].dim is None
+                     else torch.cat([p.tensor.detach().to(self.device)
+                                     for p in pieces], dim=pieces[0].dim))
+    return out
+
+  @torch.no_grad()
+  def refresh_adapters(self) -> None:
+    """Copies the adapters into the shards' copies of them on other devices
+    (on a mesh that repeats one device every shard reads a view, and
+    nothing is copied)."""
+    for alias in self.aliases:
+      if _is_adapter(alias.name):
+        copy_unless_same(alias.tensor, region(
+            self.leaves[alias.name][0].tensor, alias))
 
   def train_tensors(self) -> list[torch.Tensor]:
     """Every tensor that may hold a gradient: the trained pieces and the
@@ -697,10 +831,6 @@ def check_shardable(model: griffin_lib.Griffin) -> None:
     raise NotImplementedError(
         "Tensor parallelism over a sequence-parallel model (scan_sharding_"
         f"spec) is not ported ({sharding.PROCESS_PER_CARD_ITEM}).")
-  if model.lora_rows:
-    raise NotImplementedError(
-        "A tensor-parallel model with stacked adapters (lora_rows, multi-"
-        f"LoRA serving) is not ported ({sharding.TP_EXTRAS_ITEM}).")
 
 
 def model_flags(model: griffin_lib.Griffin) -> dict[str, Any]:
@@ -715,6 +845,7 @@ def model_flags(model: griffin_lib.Griffin) -> dict[str, Any]:
       fused_epilogue=model.blocks[0].fused_epilogue if model.blocks else False,
       quantized=model.quantized, act_quant=model.act_quant,
       lora_rank=model.lora_rank, lora_alpha=model.lora_alpha,
+      lora_rows=model.lora_rows,
       gradient_checkpointing=model.gradient_checkpointing)
 
 
@@ -722,13 +853,245 @@ def tensor_parallel(model: griffin_lib.Griffin, mesh: sharding.Mesh,
                     model_axis: str = partitioning.MODEL_AXIS
                     ) -> TensorParallelGriffin:
   """``model``'s weights placed by ``griffin_param_shardings`` over
-  ``mesh``'s ``model_axis`` (JAX's ``Sampler(mesh=)`` placement), and the
+  ``mesh``'s ``model_axis`` (JAX's ``Sampler(mesh=)`` placement; stacked
+  ``lora_rows`` adapters replicated, as JAX's batcher places them), and the
   sharded model over them. The model's flags carry over."""
   check_shardable(model)
   _mesh_devices(mesh, model_axis)
   state = model.state_dict()
-  placed = sharding.place_state_dict(
-      state, partitioning.griffin_param_shardings(mesh, state, model_axis),
-      model_axis)
+  shardings = partitioning.griffin_param_shardings(mesh, state, model_axis)
+  if model.lora_rows:
+    for name in shardings:
+      if _is_adapter(name):
+        shardings[name] = sharding.NamedSharding(mesh, sharding.PartitionSpec())
+  placed = sharding.place_state_dict(state, shardings, model_axis)
   return TensorParallelGriffin(model.config, placed, mesh, model_axis,
                                **model_flags(model))
+
+
+# -- the vision towers ---------------------------------------------------------
+
+
+def _column(loader, devices, prefix: str, fan_in: int, fan_out: int,
+            dense: dict) -> _Shards:
+  """A column-parallel ``Dense``: each shard's output columns and bias
+  piece (the whole layer on the first device where they do not divide)."""
+  kernel = loader.placed[_leaf(loader.placed, f"{prefix}.kernel")][0]
+  s = _Shards(devices, kernel.shape[0] < fan_out)
+  for j in s.parts:
+    layer = layers.Dense(fan_in, fan_out // len(s.parts), **dense)
+    loader.fill(layer, prefix, j)
+    s.shards.append(layer)
+  return s
+
+
+def _row(loader, devices, prefix: str, fan_in: int, fan_out: int,
+         dense: dict) -> _Shards:
+  """A row-parallel ``Dense``: each shard's input columns, the bias once
+  after the ``psum``."""
+  kernel = loader.placed[_leaf(loader.placed, f"{prefix}.kernel")][0]
+  s = _Shards(devices, kernel.shape[-1] < fan_in)
+  for j in s.parts:
+    layer = layers.Dense(fan_in // len(s.parts), fan_out, use_bias=False,
+                         **dense)
+    loader.fill(layer, prefix, j)
+    s.shards.append(layer)
+  s.bias = loader.replicated(f"{prefix}.bias")
+  return s
+
+
+def _row_forward(s: _Shards, inputs: Sequence[torch.Tensor]) -> torch.Tensor:
+  absmax = s.row_absmax(s.shards[0], inputs)
+  return s.reduce([layer(z, act_absmax=m)
+                   for layer, z, m in zip(s.shards, inputs, absmax)])
+
+
+class _TPViTBlock(nn.Module):
+  """``vit.ViTBlock.forward`` over column ``attn_qkv`` / ``mlp_fc1`` and
+  row ``attn_proj`` / ``mlp_fc2`` pieces; the norms, the layer scales and
+  the residual run on the replicated activation on the first device."""
+
+  def __init__(self, config: vit.ViTConfig, loader, devices, prefix: str,
+               kw: dict):
+    super().__init__()
+    d, hidden = config.embed_dim, config.mlp_hidden_dim
+    self.config = config
+    self.use_flash_attention = kw["use_flash_attention"]
+    self.softmax_bf16 = kw["softmax_bf16"]
+    for name in ("norm1", "norm2"):
+      norm = vit.LayerNorm(d, device="meta")
+      norm.scale = loader.replicated(f"{prefix}.{name}.scale")
+      norm.bias = loader.replicated(f"{prefix}.{name}.bias")
+      setattr(self, name, norm)
+    if config.use_layer_scale:
+      self.ls1 = loader.replicated(f"{prefix}.ls1")
+      self.ls2 = loader.replicated(f"{prefix}.ls2")
+    dense = dict(device="meta", dtype=kw["param_dtype"],
+                 quantized=kw["quantized"], act_quant=kw["act_quant"])
+    self.attn_qkv = _column(loader, devices, f"{prefix}.attn_qkv", d, 3 * d,
+                            dense)
+    self.attn_proj = _row(loader, devices, f"{prefix}.attn_proj", d, d, dense)
+    self.mlp_fc1 = _column(loader, devices, f"{prefix}.mlp_fc1", d, hidden,
+                           dense)
+    self.mlp_fc2 = _row(loader, devices, f"{prefix}.mlp_fc2", hidden, d,
+                        dense)
+    # Each attn_proj shard's input features are whole heads: it attends
+    # over its own head group.
+    self.head_groups = config.num_heads % len(self.attn_proj.parts) == 0
+
+  _layer_scale = vit.ViTBlock._layer_scale  # pylint: disable=protected-access
+
+  def _attention(self, x, key_bias) -> list[torch.Tensor]:
+    """The attention's output features as ``attn_proj``'s shards take
+    them."""
+    cfg = self.config
+    d = cfg.embed_dim
+    head_dim = d // cfg.num_heads
+    qkv_s, proj = self.attn_qkv, self.attn_proj
+    parts = [layer(h) for layer, h in
+             zip(qkv_s.shards, _broadcast(self.norm1(x), qkv_s.devices))]
+    qkvs = sharding.all_gather_features(parts, proj.devices)
+    local = d // len(proj.parts)
+    attend = lambda q, k, v: vit.attend(  # noqa: E731
+        q, k, v, None if key_bias is None else key_bias.to(q.device),
+        self.use_flash_attention, self.softmax_bf16)
+    if not self.head_groups:
+      q, k, v = (z.unflatten(-1, (cfg.num_heads, head_dim))
+                 for z in qkvs[0].split(d, dim=-1))
+      whole = attend(q, k, v).flatten(-2)
+      return [w[..., j * local:(j + 1) * local]
+              for j, w in enumerate(_broadcast(whole, proj.devices))]
+    outs = []
+    for j, qkv in enumerate(qkvs):
+      # Views of the gathered qkv: the kernel reads them in place.
+      q, k, v = (qkv[..., i * d + j * local:i * d + (j + 1) * local]
+                 .unflatten(-1, (-1, head_dim)) for i in range(3))
+      outs.append(attend(q, k, v).flatten(-2))
+    return outs
+
+  def forward(self, x: torch.Tensor,
+              key_bias: torch.Tensor | None = None) -> torch.Tensor:
+    cfg = self.config
+    out = _row_forward(self.attn_proj, self._attention(x, key_bias))
+    x = x + self._layer_scale("ls1", out)
+    fc1 = self.mlp_fc1
+    hs = [F.gelu(layer(h), approximate="tanh" if cfg.gelu_approximate
+                 else "none")
+          for layer, h in zip(fc1.shards, _broadcast(self.norm2(x),
+                                                     fc1.devices))]
+    # fc1's output and fc2's input are one dimension: they split alike.
+    out = _row_forward(self.mlp_fc2, hs)
+    return x + self._layer_scale("ls2", out)
+
+
+class _TPTower(nn.Module):
+  """``vit.VisionTransformer`` over sharded blocks; the patch embedding,
+  the position embedding and the prefix tokens replicate."""
+
+  def __init__(self, config: vit.ViTConfig, loader, devices, prefix: str,
+               kw: dict, dtype: torch.dtype, pad_tokens_to: int):
+    super().__init__()
+    self.config = config
+    self.dtype = dtype
+    self.use_flash_attention = kw["use_flash_attention"]
+    self.pad_tokens_to = pad_tokens_to
+    self.patch_embed = vit.PatchEmbed(config.patch_size, config.embed_dim,
+                                      device="meta")
+    loader.fill(self.patch_embed, f"{prefix}.patch_embed", 0)
+    self.pos_embed = loader.replicated(f"{prefix}.pos_embed")
+    if config.num_prefix_tokens:
+      self.prefix_tokens = loader.replicated(f"{prefix}.prefix_tokens")
+    self.blocks = []
+    for i in range(config.last_block + 1):
+      block = _TPViTBlock(config, loader, devices, f"{prefix}.block{i}", kw)
+      self.add_module(f"block{i}", block)
+      self.blocks.append(block)
+
+  embed = vit.VisionTransformer.embed
+  forward = vit.VisionTransformer.forward
+
+
+class TensorParallelEncoder(nn.Module):
+  """The ``DinoSigLIPEncoder`` forward with its towers split over a mesh's
+  model axis (JAX's ``ModalSampler(mesh=)`` placement of the towers).
+
+  Args:
+    params: The placed state dict, ``{name: [piece per model-axis
+      device]}``: :func:`sharding.place_state_dict` of an encoder's state
+      dict by :func:`partitioning.param_shardings_or_replicated`.
+    mesh: The mesh; its ``model_axis`` devices hold the shards (a device may
+      repeat). A mesh without that axis replicates every leaf, and the
+      towers run on its first device.
+    model_axis: The mesh axis the weights split over.
+    dino_config, siglip_config, dtype, param_dtype, use_flash_attention,
+      pad_tokens_to, quantized, act_quant, softmax_bf16: As
+      :class:`vit.DinoSigLIPEncoder`'s.
+    kernel_copies: As :class:`TensorParallelGriffin`'s.
+
+  :func:`tensor_parallel_encoder` builds one from an encoder. Pixels come
+  in, and features go out, on the first model-axis device. float32 and
+  bf16 pieces on the parameters' device are views; int8 pieces are
+  contiguous copies, as the LM's are.
+  """
+
+  def __init__(self, params: Mapping[str, Sequence[torch.Tensor]],
+               mesh: sharding.Mesh,
+               model_axis: str = partitioning.MODEL_AXIS,
+               dino_config: vit.ViTConfig = vit.DINOV2_LARGE_REG4_384,
+               siglip_config: vit.ViTConfig = vit.SIGLIP_SO400M_384,
+               dtype: torch.dtype = torch.bfloat16,
+               param_dtype: torch.dtype = torch.float32,
+               use_flash_attention: bool | None = None,
+               pad_tokens_to: int = 128, quantized: bool = False,
+               act_quant: bool = False, softmax_bf16: bool = False,
+               kernel_copies: dict | None = None):
+    super().__init__()
+    if model_axis in mesh.axis_names:
+      devices = _mesh_devices(mesh, model_axis)
+    else:
+      devices = [griffin_lib.resolve_device(mesh.devices.flat[0])]
+    self.dino_config = dino_config
+    self.siglip_config = siglip_config
+    full_shapes = {name: tuple(t.shape) for name, t in vit.DinoSigLIPEncoder(
+        dino_config, siglip_config, device="meta", param_dtype=param_dtype,
+        quantized=quantized, act_quant=act_quant).state_dict().items()}
+    loader = _Loader(params, full_shapes, kernel_copies)
+    kw = dict(param_dtype=param_dtype, use_flash_attention=use_flash_attention,
+              softmax_bf16=softmax_bf16, quantized=quantized,
+              act_quant=act_quant)
+    self.dino = _TPTower(dino_config, loader, devices, "dino", kw, dtype,
+                         pad_tokens_to)
+    self.siglip = _TPTower(siglip_config, loader, devices, "siglip", kw,
+                           dtype, pad_tokens_to)
+
+  feature_width = vit.DinoSigLIPEncoder.feature_width
+  device = vit.DinoSigLIPEncoder.device
+  forward = vit.DinoSigLIPEncoder.forward
+  preprocess_path = vit.DinoSigLIPEncoder.preprocess_path
+
+
+def tensor_parallel_encoder(encoder: vit.DinoSigLIPEncoder,
+                            mesh: sharding.Mesh,
+                            model_axis: str = partitioning.MODEL_AXIS
+                            ) -> TensorParallelEncoder:
+  """``encoder``'s weights placed by
+  ``partitioning.param_shardings_or_replicated`` over ``mesh`` (JAX
+  ``modal_sampler.py:67-85``), and the sharded towers over them; the
+  encoder's flags carry over."""
+  state = encoder.state_dict()
+  if model_axis in mesh.axis_names:
+    _mesh_devices(mesh, model_axis)
+    placed = sharding.place_state_dict(
+        state, partitioning.param_shardings_or_replicated(mesh, state,
+                                                          model_axis),
+        model_axis)
+  else:
+    first = griffin_lib.resolve_device(mesh.devices.flat[0])
+    placed = {name: [t.to(first)] for name, t in state.items()}
+  tower, block = encoder.dino, encoder.dino.blocks[0]
+  return TensorParallelEncoder(
+      placed, mesh, model_axis, encoder.dino_config, encoder.siglip_config,
+      dtype=tower.dtype, param_dtype=tower.pos_embed.dtype,
+      use_flash_attention=tower.use_flash_attention,
+      pad_tokens_to=tower.pad_tokens_to, quantized=encoder.quantized,
+      act_quant=block.attn_qkv.act_quant, softmax_bf16=block.softmax_bf16)

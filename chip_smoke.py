@@ -406,6 +406,29 @@ Phases, each of which raises on failure (so the script exits non-zero):
      plain versions at every shard shape and timed at the row- and
      column-parallel pieces and the vocabulary shard's logits. The phase's
      launches, errors and shard-shape figures join the kernels line's rows.
+ 27. the sharded towers, TP multi-LoRA and the TP export (right after 26,
+     on phase 18's models, meshes repeating the card): (a) a TP-2
+     ``ModalSampler`` (towers placed by the ViT rules, float32 pieces
+     views) against the unsharded one on [2,3,480,640] pixels and two
+     1400-token prompts, 32 greedy steps, the 2B with the fused epilogue:
+     92 MHA launches an encode at 8 heads a shard (184 at TP-4, 4 heads),
+     no input copied, each shard shape's kernel within 2e-2 of its plain
+     version and timed; features and first-token logits rel. RMS <= 5e-2,
+     tokens identical or first differing at a 1 % tie; the image
+     prefill's first shard calls of the scan, window attention and fused
+     epilogue against their plain versions and timed; encode and pixels ->
+     first token ms in turns; the int8 towers (act_quant, then
+     weight-only: 368 wgmma launches at the shard shapes) against their
+     unsharded encodes. (b) 8-slot multi-LoRA batchers (rank 8, lora_b std
+     2.0) over TP-2 and unsharded samplers on 8 requests: TP captured =
+     eager = a second join order, each request against a solo TP Sampler
+     and the unsharded batcher (identical or a 1 % tie), float32 copies'
+     TP and unsharded logits along the unsharded tokens within 1e-3
+     (rel. RMS); the steady tick in turns. (c) the bf16 2B's first 6
+     blocks at full width exported at (2, 3000) over a (1, 2) mesh, saved
+     and loaded: the loaded prefill bit for bit the live TP forward, its
+     greedy chain token for token the TP Sampler's; a TP-4 mesh refused.
+     The phase's launches and shard-shape figures join the kernels line.
 
   python3 chip_smoke.py --profile
 
@@ -479,6 +502,7 @@ from cadence_gemma_tpu_torch.ops import mha_attention
 from cadence_gemma_tpu_torch.ops import quantization
 from cadence_gemma_tpu_torch.ops import scan as scan_lib
 from cadence_gemma_tpu_torch.ops import window_attention as wa
+from cadence_gemma_tpu_torch.parallel import partitioning
 from cadence_gemma_tpu_torch.parallel import sharding
 from cadence_gemma_tpu_torch.parallel import tensor_parallel
 from cadence_gemma_tpu_torch.tokenizers import SimpleVocab
@@ -4405,6 +4429,18 @@ class ForwardTimes:
   def close(self):
     for hook in self.hooks:
       hook.remove()
+
+
+def depth_cut(model: griffin.Griffin, blocks: int) -> griffin.Griffin:
+  """``model``'s first ``blocks`` blocks at its width and with its flags,
+  over its own tensors (nothing is copied)."""
+  config = model.config._replace(block_types=model.config.block_types[:blocks])
+  cut = griffin.Griffin(config, device="meta",
+                        **tensor_parallel.model_flags(model))
+  names = set(cut.state_dict())
+  cut.load_state_dict({n: t for n, t in model.state_dict().items()
+                       if n in names}, assign=True)
+  return cut
 
 
 def realistic_2b(dev) -> dict:
@@ -9205,21 +9241,640 @@ def phase_tp_training(dev, handoff: dict) -> dict[str, dict]:
   return rows
 
 
+# -- phase 27: the sharded towers, TP multi-LoRA and the TP export ------------
+
+# Phase 27 runs on phase 18's models (the realistic_params 2B, its towers)
+# over meshes that repeat the one H100: shard shapes, launches and
+# agreement with the unsharded path, never a speed-up.
+TPX_TURNS = ("one", "tp", "tp", "one")
+TPX_LORA_RANK = 8
+# lora_b's std: phase 24's, at which adapters change the random 2B's greedy
+# text (tools/adapter_std_sweep.py).
+TPX_LORA_B_STD = CLI_ADAPTER_B_STD
+TPX_ML_REQUESTS = 8
+TPX_ML_STEPS = 16
+TPX_ML_KINDS = ("a", "b", "none", "a")
+# Float32 copies of the LoRA model, TP-2 against unsharded along the same
+# tokens: the summation order alone (2.5e-6 on the CPU at lora_b std 2.0;
+# a zeroed adapter piece moves them by ~1: tools/tp_lora_noise.py).
+TPX_F32_LOGITS_REL_RMS = 1e-3
+TPX_TICK_REPEATS = 4
+# The TP export holds the 2B's first six blocks (R, R, A, R, R, A) at its
+# full width: tracing and loading take time in proportion to the depth, and
+# the whole smoke must stay inside its time limit.
+TPX_EXPORT_BLOCKS = 6
+# Each tower block's four products, DINOv2-L's 23 blocks and SigLIP's 23.
+TPX_TOWER_KERNELS = ("attn_qkv", "attn_proj", "mlp_fc1", "mlp_fc2")
+
+
+def _tpx_counts() -> dict[str, int]:
+  return {"mha_attention": mha_attention.launches,
+          "lru_scan": lru_scan.launches, "window_attention": wa.launches,
+          "add_rmsnorm": fused_epilogue.launches,
+          "int8_weight_matmul": int8_matmul.launches,
+          "int8_weight_matmul_wgmma": int8_matmul.wgmma_launches}
+
+
+def _tpx_delta(before: dict[str, int]) -> dict[str, int]:
+  return {k: v - before[k] for k, v in _tpx_counts().items()}
+
+
+class CaptureByShape:
+  """Stands in for ``mha_attention.flash_mha_attention`` and keeps a copy
+  of its inputs at the first call of each shape, with their strides (the
+  head groups' views of the gathered qkv)."""
+
+  def __init__(self):
+    self.wrapper = mha_attention.flash_mha_attention
+    self.inputs = {}
+    mha_attention.flash_mha_attention = self
+
+  def __call__(self, q, k, v):
+    if tuple(q.shape) not in self.inputs:
+      self.inputs[tuple(q.shape)] = tuple(
+          torch.empty_strided(z.shape, z.stride(), dtype=z.dtype,
+                              device=z.device).copy_(z) for z in (q, k, v))
+    return self.wrapper(q, k, v)
+
+  def restore(self):
+    mha_attention.flash_mha_attention = self.wrapper
+
+
+class ImageClock:
+  """CUDA events at an encoder's start and end and at the end of a model's
+  first forward after it: encode ms and pixels -> first-token logits ms."""
+
+  def __init__(self, encoder, model):
+    self.marks = {}
+    event = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+
+    def mark(name):
+      def hook(*_):
+        if name != "prefill" or "prefill" not in self.marks:
+          self.marks[name] = event()
+          self.marks[name].record()
+      return hook
+
+    self.hooks = [encoder.register_forward_pre_hook(mark("start")),
+                  encoder.register_forward_hook(mark("encoded")),
+                  model.register_forward_hook(mark("prefill"))]
+
+  def reset(self):
+    self.marks.clear()
+
+  def read(self) -> tuple[float, float]:
+    self.marks["prefill"].synchronize()
+    start = self.marks["start"]
+    return (start.elapsed_time(self.marks["encoded"]),
+            start.elapsed_time(self.marks["prefill"]))
+
+  def close(self):
+    for hook in self.hooks:
+      hook.remove()
+
+
+def _mha_figures(q, k, v) -> dict:
+  """The MHA kernel at a shard's head group, on inputs with the path's
+  strides: device ms (queue full), the plain version, one SDPA call, the
+  bound."""
+  b, t, n, h = q.shape
+  kernel = lambda: mha_attention.mha_attention_forward(q, k, v)  # noqa: E731
+  qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
+  ms = device_ms(kernel, 20)
+  plain_ms = device_ms(lambda: mha_attention.mha_attention_plain(q, k, v), 3)
+  library_ms = device_ms(
+      lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt),
+      20)
+  flops = 4 * b * n * t * t * h
+  bound_ms, bound_by = bound(4 * b * t * n * h * 2, flops, BF16_TENSOR_FLOPS)
+  return dict(shape=[b, t, n, h], ms=ms, plain_ms=plain_ms,
+              library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+              bound_share=bound_ms / ms)
+
+
+def _split_tower_kernels(tp_encoder, encoder) -> tuple[int, int]:
+  """(kernels whose shards each hold a piece smaller than the leaf, of
+  those the pieces that are views of the encoder's own weights)."""
+  full = dict(encoder.named_parameters())
+  split = views = 0
+  for tower in ("dino", "siglip"):
+    for i, block in enumerate(getattr(tp_encoder, tower).blocks):
+      for name in TPX_TOWER_KERNELS:
+        leaf = full[f"{tower}.block{i}.{name}.kernel"]
+        pieces = [s.kernel for s in getattr(block, name).shards]
+        split += len(pieces) > 1 and all(
+            p.numel() * len(pieces) == leaf.numel() for p in pieces)
+        views += all(p.untyped_storage().data_ptr()
+                     == leaf.untyped_storage().data_ptr() for p in pieces)
+  return split, views
+
+
+def _set_act_quant(encoder, flag: bool) -> None:
+  for module in encoder.modules():
+    if getattr(module, "quantized", False) and hasattr(module, "act_quant"):
+      module.act_quant = flag
+
+
+def _tpx_towers(dev, handoff, rows, total) -> None:
+  """(a) The sharded towers: TP-2 and TP-4 encodes against the unsharded
+  one, the MHA kernel at each shard's head group, a TP-2 ModalSampler from
+  pixels to 32 greedy tokens against the unsharded one (launches, first
+  shard calls against their plain versions, encode and pixels -> first
+  token ms in turns), the int8 towers."""
+  model, encoder, vocab = (handoff[k] for k in ("model", "encoder", "vocab"))
+  config = model.config
+  n_blocks = len(encoder.dino.blocks) + len(encoder.siglip.blocks)
+  n_rec = sum(bt is common.TemporalBlockType.RECURRENT
+              for bt in config.block_types)
+  stops = {vocab.eos_id()}
+  rng = np.random.default_rng(SEED + 270)
+  prompts = [" ".join(f"w{i}" for i in rng.integers(
+      0, config.vocab_size - 4, MM_PROMPT_TOKENS - 1)) for _ in range(2)]
+  pixels = torch.rand(MM_PIXELS, device=dev,
+                      generator=torch.Generator(dev).manual_seed(SEED + 271))
+  mesh = _tp_mesh(dev, TP_SHARDS)
+  one = modal_sampler.ModalSampler(model, vocab, encoder, device=dev)
+  torch.cuda.synchronize()
+  base_gb = torch.cuda.memory_allocated() / 1e9
+  start = time.perf_counter()
+  tp = modal_sampler.ModalSampler(model, vocab, encoder, mesh=mesh)
+  torch.cuda.synchronize()
+  split, views = _split_tower_kernels(tp.vision_encoder, encoder)
+  log(f"  TP-2 ModalSampler placed in {time.perf_counter() - start:.2f} s: +"
+      f"{torch.cuda.memory_allocated() / 1e9 - base_gb:.3f} GB (float32 "
+      f"tower pieces and bf16 LM pieces are views); {split} of "
+      f"{len(TPX_TOWER_KERNELS) * n_blocks} tower kernels split, {views} "
+      f"of them views of the encoder's weights")
+  if split != len(TPX_TOWER_KERNELS) * n_blocks or views != split:
+    raise AssertionError("The TP towers' kernels are not split as views.")
+
+  # Encodes: TP-2 (and its MHA calls by shape), TP-4, unsharded.
+  features = {}
+  with torch.inference_mode():
+    features["one"] = one.encode(pixels)
+    capture = CaptureByShape()
+    copies = mha_attention.strided_copies
+    try:
+      before = _tpx_counts()
+      features["tp"] = tp.encode(pixels)
+      torch.cuda.synchronize()
+      launches = _tpx_delta(before)
+    finally:
+      capture.restore()
+    copies = mha_attention.strided_copies - copies
+    _add(total, launches)
+    tp4 = tensor_parallel.tensor_parallel_encoder(encoder,
+                                                  _tp_mesh(dev, TP4_SHARDS))
+    capture4 = CaptureByShape()
+    try:
+      before = _tpx_counts()
+      features["tp4"] = tp4(pixels).to(torch.bfloat16)
+      torch.cuda.synchronize()
+      launches4 = _tpx_delta(before)
+    finally:
+      capture4.restore()
+    _add(total, launches4)
+  rel = {k: _rel_rms(features[k], features["one"]) for k in ("tp", "tp4")}
+  log(f"  encode [{', '.join(map(str, MM_PIXELS))}] pixels: TP-2 launched "
+      f"{launches['mha_attention']} MHA ({copies} inputs copied), TP-4 "
+      f"{launches4['mha_attention']}; features rel. RMS against unsharded "
+      f"TP-2 {rel['tp']:.3e}, TP-4 {rel['tp4']:.3e} (tolerance "
+      f"{MM_FEATURES_REL_RMS}); shapes {sorted(capture.inputs)}")
+  if (launches["mha_attention"] != TP_SHARDS * n_blocks
+      or launches4["mha_attention"] != TP4_SHARDS * n_blocks or copies
+      or not max(rel.values()) <= MM_FEATURES_REL_RMS):
+    raise AssertionError("The sharded encodes disagree.")
+  worst, figures = 0.0, []
+  for shape, (q, k, v) in sorted({**capture.inputs,
+                                  **capture4.inputs}.items()):
+    err = check_mha(q, k, v)
+    worst = max(worst, err)
+    f = _mha_figures(q, k, v)
+    figures.append(f)
+    log(f"  mha_attention at the shard's head group {list(shape)} (strides "
+        f"{q.stride()}): max_abs_err {err:.3e}; ms {f['ms']:.4f}, plain "
+        f"{f['plain_ms']:.3f}, SDPA {f['library_ms']:.4f}, bound "
+        f"{f['bound_ms']:.5f} ({f['bound_by']}, "
+        f"{100 * f['bound_share']:.1f}%)")
+  rows["mha_attention"]["max_abs_err"] = max(
+      rows["mha_attention"]["max_abs_err"], worst)
+  rows["mha_attention"]["tp_shapes"] = figures
+  del capture, capture4, tp4, features
+
+  # Pixels -> 32 greedy tokens, TP-2 against unsharded; the warm-up captures
+  # the decode step and keeps each text kernel's first shard call.
+  run_kw = dict(total_generation_steps=MM_DECODE_STEPS, pixels=pixels,
+                return_logits=True, end_sampling_at_eos_token=False)
+  # The probe sees the TP step's capture last: its launches a replay.
+  probe = DecodeProbe(_tpx_counts)
+  clocks = {"tp": ImageClock(tp.vision_encoder, tp.model),
+            "one": ImageClock(encoder, model)}
+  try:
+    one(prompts, **run_kw)
+    captures = [CaptureFirstCall(lru_scan, "lru_scan"),
+                CaptureFirstCall(wa, "window_attention"),
+                CaptureFirstCall(fused_epilogue, "fused_add_rmsnorm")]
+    try:
+      tp(prompts, **run_kw)
+    finally:
+      for capture in captures:
+        capture.restore()
+    probe.reset()
+    reset_scan_routes()
+    before = _tpx_counts()
+    out_tp = tp(prompts, **run_kw)
+    torch.cuda.synchronize()
+    run = probe.run_launches(_tpx_delta(before))
+    check_scan_routes(run["lru_scan"])
+    _add(total, run)
+    want = dict(mha_attention=TP_SHARDS * n_blocks,
+                lru_scan=TP_SHARDS * n_rec,
+                window_attention=TP_SHARDS * (config.num_layers - n_rec),
+                add_rmsnorm=config.num_layers * MM_DECODE_STEPS)
+    log(f"  TP-2 ModalSampler, 2 x {MM_PROMPT_TOKENS} tokens + pixels, "
+        f"{MM_DECODE_STEPS} greedy steps ({probe.replays} replays): launched "
+        f"{run}")
+    if any(run[k] != n for k, n in want.items()):
+      raise AssertionError(f"TP-2 image run launched {run}, want {want}.")
+    out_one = one(prompts, **run_kw)
+    first_rel = max(_rel_rms(a[0], b[0])
+                    for a, b in zip(out_tp.logits, out_one.logits))
+    agree = _agreement("TP-2 image run against unsharded", out_tp, out_one,
+                       stops)
+    log(f"  first-token logits rel. RMS {first_rel:.3e} (tolerance "
+        f"{MM_LOGITS_REL_RMS}); tokens {agree}")
+    if not first_rel <= MM_LOGITS_REL_RMS:
+      raise AssertionError("TP-2 and unsharded first-token logits disagree.")
+    samplers = {"tp": tp, "one": one}
+    turns = {side: [] for side in samplers}
+    for side in TPX_TURNS:
+      clocks[side].reset()
+      probe.reset()
+      samplers[side](prompts, **run_kw)
+      turns[side].append((*clocks[side].read(), probe.decode_ms()))
+    for side, got in turns.items():
+      log(f"  {side}: encode ms {[round(r[0], 2) for r in got]}, pixels -> "
+          f"first token ms {[round(r[1], 2) for r in got]}, captured decode "
+          f"ms a step {[round(r[2], 3) for r in got]}")
+  finally:
+    probe.close()
+    for clock in clocks.values():
+      clock.close()
+
+  # The text kernels' first shard calls of the image prefill, against their
+  # plain versions and timed at those shapes.
+  checks = (("lru_scan", check_lru), ("window_attention",
+                                      lambda *a: max(check_attention(*a))),
+            ("add_rmsnorm", check_add_rmsnorm))
+  for capture, (name, check) in zip(captures, checks):
+    err, shapes = _check_captured(capture, name, check)
+    rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+    if name == "lru_scan":
+      x, a = capture.args[:2]
+      b, t, d = x.shape
+      n_bytes = 3 * b * t * d * 2 + b * d * 4
+      f = time_scan(lru_scan.lru_scan_forward, (x, a), n_bytes, 2 * b * t * d)
+      f["plain_ms"] = cuda_ms(lambda: lru_scan.lru_scan_plain(x, a), reps=1)
+      log(f"  lru_scan at the image prefill's shard shape {[b, t, d]}:")
+      log_scan(f, f["plain_ms"], n_bytes)
+      rows[name]["tp_image_shape"] = dict(shape=[b, t, d], **{
+          key: f[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")})
+    elif name == "window_attention":
+      f = window_forward_figures(*capture.args[:4])
+      log_figures(f"window_attention at the image prefill's shard shape "
+                  f"{shapes[0]}", f)
+      rows[name]["tp_image_shape"] = dict(shape=list(shapes[0]), **{
+          key: f[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                   "bound_by")})
+  del captures, out_tp, out_one
+
+  # The int8 towers (phase 18's: quantize_params, act_quant) on TP-2, and
+  # the same towers weight-only (row 10's wgmma route at the shard shapes).
+  qencoder = vit.DinoSigLIPEncoder(encoder.dino_config, encoder.siglip_config,
+                                   device="meta", quantized=True,
+                                   act_quant=True)
+  qencoder.to_empty(device=dev)
+  qencoder.load_state_dict(quantization.quantize_params(encoder.state_dict()))
+  torch.cuda.synchronize()
+  base_gb = torch.cuda.memory_allocated() / 1e9
+  qtp = tensor_parallel.tensor_parallel_encoder(qencoder, mesh)
+  torch.cuda.synchronize()
+  placed_gb = torch.cuda.memory_allocated() / 1e9 - base_gb
+  int8_cap = CaptureInt8Calls()
+  try:
+    with torch.inference_mode():
+      want_q = qencoder(pixels)
+      got_q = qtp(pixels)
+      _set_act_quant(qencoder, False)
+      _set_act_quant(qtp, False)
+      want_w = qencoder(pixels)
+      int8_cap.calls.clear()
+      before = _tpx_counts()
+      got_w = qtp(pixels)
+      torch.cuda.synchronize()
+      launches = _tpx_delta(before)
+  finally:
+    int8_cap.restore()
+  _add(total, launches)
+  rel_q, rel_w = _rel_rms(got_q, want_q), _rel_rms(got_w, want_w)
+  worst = 0.0
+  for _, args in int8_cap.inputs():
+    worst = max(worst, check_int8(*args))
+  log(f"  int8 towers TP-2: placed +{placed_gb:.3f} GB (int8 pieces made "
+      f"contiguous); act_quant features rel. RMS {rel_q:.3e}, weight-only "
+      f"{rel_w:.3e} against their unsharded encodes; the weight-only encode "
+      f"launched {launches['int8_weight_matmul_wgmma']} wgmma + "
+      f"{launches['int8_weight_matmul']} mma.sync at "
+      f"{len(int8_cap.calls)} shard shapes, max_abs_err {worst:.3e} from "
+      "plain")
+  if (not max(rel_q, rel_w) <= MM_FEATURES_REL_RMS
+      or launches["int8_weight_matmul_wgmma"]
+      != TP_SHARDS * len(TPX_TOWER_KERNELS) * n_blocks):
+    raise AssertionError("The int8 TP towers disagree.")
+  for name in ("int8_weight_matmul", "int8_weight_matmul_wgmma"):
+    rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], worst)
+  key = next(k for k in int8_cap.calls if k[2] % 16)  # SigLIP's fc2 shard
+  f = int8_figures(*next(a for k, a in int8_cap.inputs() if k == key))
+  log(f"  int8 wgmma at the SigLIP mlp_fc2 shard {list(key[:4])} (depth "
+      f"{key[2]}, rows stored padded to 16): ms {f['ms']:.4f}, bound "
+      f"{f['bound_ms']:.4f} ({f['bound_by']}), plain {f['plain_ms']:.4f}, "
+      f"dequant + matmul "
+      f"{f['dequant_ms']:.4f}")
+  rows["int8_weight_matmul_wgmma"]["tp_tower_shape"] = dict(
+      shape=list(key[:4]), **{k: f[k] for k in (
+          "ms", "plain_ms", "bound_ms", "bound_by", "dequant_ms")})
+  del qencoder, qtp, int8_cap, tp, one
+  torch.cuda.empty_cache()
+
+
+def _forced_logits(model, ids, chain, dev) -> torch.Tensor:
+  """``model``'s float32 logits after the prompt ``ids`` and after each token
+  of ``chain`` fed back (teacher forced): [len(chain) + 1, vocab]."""
+  seq = ids + list(chain)
+  tokens = torch.tensor([seq], device=dev)
+  positions = torch.arange(len(seq), device=dev)[None]
+  with torch.no_grad():
+    logits, _ = model(tokens, positions, return_cache=False)
+  return logits[0, len(ids) - 1:].float()
+
+
+def _tpx_multi_lora(dev, handoff, total) -> None:
+  """(b) An 8-slot multi-LoRA batcher over a TP-2 sampler against the
+  unsharded one: the same TPX_ML_REQUESTS requests, adapters drawn with
+  lora_b std TPX_LORA_B_STD; captured and eager ticks identical; each TP
+  request against a solo TP Sampler on its merged weights and against the
+  unsharded batcher's tokens (identical or a 1 % tie of the unsharded
+  model's logits along them); the float32 copies' TP and unsharded logits
+  along those tokens within TPX_F32_LOGITS_REL_RMS (bf16's logged); the
+  steady tick in turns."""
+  model, vocab = handoff["model"], handoff["vocab"]
+  config = model.config
+  stops = {vocab.eos_id()}
+  lmodel = griffin.Griffin(config, device="meta", dtype=torch.bfloat16,
+                           lora_rank=TPX_LORA_RANK)
+  lmodel.to_empty(device=dev)
+  gen = torch.Generator(dev).manual_seed(SEED + 272)
+  lmodel.load_state_dict(sft_lora.merge_params(
+      model.state_dict(), sft_lora.init_adapters(lmodel, gen)))
+  own = {name: leaf.clone() for name, leaf in lmodel.adapter_leaves().items()}
+
+  def drawn():
+    out = sft_lora.init_adapters(lmodel, gen)
+    for name, leaf in out.items():
+      if name.endswith("lora_b"):
+        leaf.normal_(0.0, TPX_LORA_B_STD, generator=gen)
+    return out
+
+  adapters = {"a": drawn(), "b": drawn(), "none": None}
+  rng = np.random.default_rng(SEED + 273)
+  specs = _adapter_specs(config, SEED + 274, TPX_ML_REQUESTS, TPX_ML_KINDS,
+                         rng.integers(*TP_BATCH_PROMPT_RANGE,
+                                      size=TPX_ML_REQUESTS))
+  mesh = _tp_mesh(dev, TP_SHARDS)
+  samplers = {"one": sampler_lib.Sampler(lmodel, vocab, device=dev),
+              "tp": sampler_lib.Sampler(lmodel, vocab, mesh=mesh),
+              "tp eager": sampler_lib.Sampler(lmodel, vocab, mesh=mesh,
+                                              jit_compile=False)}
+  runs = {}
+  for label, side, order in (("tp", "tp", specs), ("one", "one", specs),
+                             ("tp eager", "tp eager", specs),
+                             ("tp order B", "tp",
+                              specs[::-1][1::2] + specs[::-1][0::2])):
+    batcher = serving.ContinuousBatcher(samplers[side], num_slots=BATCH_SLOTS,
+                                        max_steps_default=TPX_ML_STEPS,
+                                        multi_lora=True)
+    before = _tpx_counts()
+    runs[label] = _drive_batcher(batcher, order, adapters.__getitem__)
+    torch.cuda.synchronize()
+    if side != "one":
+      _add(total, _tpx_delta(before))
+    del batcher
+  if runs["tp"] != runs["tp eager"] or runs["tp"] != runs["tp order B"]:
+    raise AssertionError("TP multi-LoRA: captured, eager and the second "
+                         "join order disagree.")
+  # Float32 copies of the LoRA model, unsharded and TP-2 over its tensors:
+  # their logits differ by the summation order alone.
+  lmodel32 = griffin.Griffin(config, device="meta", dtype=torch.float32,
+                             lora_rank=TPX_LORA_RANK)
+  lmodel32.to_empty(device=dev)
+  lmodel32.load_state_dict(lmodel.state_dict())
+  identical, solo_identical, distinct = 0, 0, set()
+  worst = dict(f32=0.0, bf16=0.0, bf16_first=0.0)
+  for kind, source in adapters.items():
+    with torch.no_grad():
+      for m in (lmodel, lmodel32):
+        for name, leaf in m.adapter_leaves().items():
+          leaf.copy_(own[name] if source is None else source[name])
+    solo = sampler_lib.Sampler(lmodel, vocab, mesh=mesh)
+    tp32 = tensor_parallel.tensor_parallel(lmodel32, mesh)
+    for spec in specs:
+      if spec["kind"] != kind:
+        continue
+      out = solo([spec["prompt"]], TPX_ML_STEPS, return_logits=True)
+      got, ref = runs["tp"][spec["name"]], out.tokens[0].tolist()
+      solo_identical += token_agreement(
+          f"TP multi-LoRA {spec['name']} against its solo TP Sampler", got,
+          ref, out.logits[0], stops)["identical"]
+      # The unsharded batcher's tokens, and the models' logits along them.
+      want = _trim_at_stop(runs["one"][spec["name"]], stops)
+      ids = solo.tokenize(spec["prompt"])
+      want_logits, tp_logits = (_forced_logits(m, ids, want, dev)
+                                for m in (lmodel, solo.model))
+      worst["bf16"] = max(worst["bf16"], _rel_rms(tp_logits, want_logits))
+      worst["bf16_first"] = max(worst["bf16_first"],
+                                _rel_rms(tp_logits[0], want_logits[0]))
+      rel = _rel_rms(*(_forced_logits(m, ids, want, dev)
+                       for m in (tp32, lmodel32)))
+      worst["f32"] = max(worst["f32"], rel)
+      if not rel <= TPX_F32_LOGITS_REL_RMS:
+        raise AssertionError(
+            f"TP multi-LoRA {spec['name']}: the float32 TP logits along the "
+            f"unsharded batcher's tokens are {rel:.3e} (rel. RMS) from the "
+            f"unsharded model's (tolerance {TPX_F32_LOGITS_REL_RMS}).")
+      del tp_logits
+      identical += token_agreement(
+          f"TP multi-LoRA {spec['name']} against the unsharded batcher", got,
+          want, want_logits, stops)["identical"]
+      distinct.add(tuple(got[:4]))
+  with torch.no_grad():
+    for name, leaf in lmodel.adapter_leaves().items():
+      leaf.copy_(own[name])
+  log(f"  8-slot multi-LoRA batcher, {TPX_ML_REQUESTS} requests of "
+      f"{TP_BATCH_PROMPT_RANGE} tokens, adapters {TPX_ML_KINDS} (lora_b std "
+      f"{TPX_LORA_B_STD}): TP-2 captured = eager = the second join order; "
+      f"{identical} of {len(specs)} identical to the unsharded batcher's, "
+      f"{solo_identical} to solo TP Samplers on the merged weights (the rest "
+      f"first differ at a near tie of the unsharded model's logits); along "
+      f"the unsharded batcher's tokens the TP logits are at most "
+      f"{worst['f32']:.3e} (rel. RMS) from the unsharded model's in float32 "
+      f"(tolerance {TPX_F32_LOGITS_REL_RMS}), {worst['bf16']:.3e} in bf16 "
+      f"({worst['bf16_first']:.3e} at the first token; not bounded: the "
+      f"adapters amplify bf16 rounding); {len(distinct)} distinct openings")
+
+  # The steady 8-slot multi-LoRA tick, TP-2 against unsharded, in turns.
+  batchers = {side: serving.ContinuousBatcher(
+      samplers[side], num_slots=BATCH_SLOTS, max_steps_default=256,
+      multi_lora=True) for side in ("tp", "one")}
+  for b in batchers.values():
+    for i in range(BATCH_SLOTS):
+      b.add_request(specs[i]["prompt"], max_steps=200,
+                    adapters=adapters[specs[i]["kind"]])
+    b.step(BATCH_TICK)
+  ticks = {side: [] for side in batchers}
+  for side in TPX_TURNS * (TPX_TICK_REPEATS // 2):
+    ms, _ = _timed_call(lambda: batchers[side].step(BATCH_TICK))
+    ticks[side].append(ms / BATCH_TICK)
+  log(f"  the steady 8-slot multi-LoRA tick, ms a step in turns: "
+      f"{ {s: [round(v, 3) for v in vs] for s, vs in ticks.items()} }; "
+      f"tokens/s { {s: [round(BATCH_SLOTS * 1e3 / v, 1) for v in vs]
+                    for s, vs in ticks.items()} }")
+  del batchers, samplers, lmodel, lmodel32, tp32
+  torch.cuda.empty_cache()
+
+
+def _tpx_export(dev, handoff, total) -> None:
+  """(c) The bf16 2B's first TPX_EXPORT_BLOCKS blocks at full width, exported
+  over a (1, 2) mesh at the bucket (2, 3000), saved and loaded: the loaded
+  prefill bit for bit the live TP forward, the loaded greedy chain token
+  for token the TP Sampler's captured decode; artifact bytes, export and
+  load seconds."""
+  vocab, prompts = handoff["vocab"], handoff["prompts"]
+  model = depth_cut(handoff["model"], TPX_EXPORT_BLOCKS)
+  mesh = _tp_mesh(dev, TP_SHARDS)
+  params = dict(model.named_parameters())
+  start = time.perf_counter()
+  exp = export_lib.export_serving(model, params, *EXPORT_BUCKET, mesh=mesh)
+  export_s = time.perf_counter() - start
+  root = tempfile.mkdtemp(prefix="chip-smoke-tp-export-")
+  path = os.path.join(root, "tp-bf16")
+  export_lib.save_serving_export(exp, path)
+  size = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+  del exp
+  start = time.perf_counter()
+  loaded = export_lib.load_serving_export(path, mesh=mesh)
+  load_s = time.perf_counter() - start
+  try:
+    export_lib.load_serving_export(path, mesh=_tp_mesh(dev, TP4_SHARDS))
+    raise AssertionError("A TP-2 artifact loaded under a TP-4 mesh.")
+  except ValueError as e:
+    refused = str(e)
+  placed = sharding.place_state_dict(
+      params, partitioning.griffin_param_shardings(mesh, params))
+  tps = sampler_lib.Sampler(model, vocab, mesh=mesh)
+  tokens, positions = _export_inputs(tps, prompts, dev)
+  before = _tpx_counts()
+  got, _ = loaded.prefill(placed, tokens, positions)
+  torch.cuda.synchronize()
+  launches = _tpx_delta(before)
+  with torch.no_grad():
+    want, _ = tps.model(tokens, positions, last_logits_only=True)
+  _add(total, launches)
+  config = model.config
+  n_rec = sum(bt is common.TemporalBlockType.RECURRENT
+              for bt in config.block_types)
+  if (launches["lru_scan"], launches["window_attention"]) != (
+      TP_SHARDS * n_rec, TP_SHARDS * (config.num_layers - n_rec)):
+    raise AssertionError(f"The loaded TP prefill launched {launches}.")
+  tps(prompts, total_generation_steps=DECODE_STEPS,
+      end_sampling_at_eos_token=False)  # captures its step
+  out = tps(prompts, total_generation_steps=DECODE_STEPS,
+            end_sampling_at_eos_token=False)
+  want_tokens = torch.stack([t[:DECODE_STEPS] for t in out.tokens])
+  before = _tpx_counts()
+  chain, _ = _loaded_chain(loaded, placed, tokens, positions, DECODE_STEPS)
+  _add(total, _tpx_delta(before))
+  same = torch.equal(got, want)
+  agree = bool((chain.cpu() == want_tokens.cpu()).all())
+  log(f"  TP-2 export of the bf16 2B's first {TPX_EXPORT_BLOCKS} blocks at "
+      f"{EXPORT_BUCKET}: exported in "
+      f"{export_s:.2f} s, loaded in {load_s:.2f} s (host); artifact {size} "
+      f"bytes; meta mesh_axes {loaded.meta['mesh_axes']}, num_devices "
+      f"{loaded.meta['num_devices']}; a TP-4 mesh refused ({refused}); the "
+      f"loaded prefill launched {launches} and is "
+      f"{'bit for bit' if same else 'not'} the live TP forward; its greedy "
+      f"chain of {DECODE_STEPS} {'equals' if agree else 'differs from'} the "
+      "TP Sampler's captured decode")
+  shutil.rmtree(root, ignore_errors=True)
+  if not (same and agree):
+    raise AssertionError("The loaded TP export disagrees with the live TP "
+                         "path.")
+  del loaded, placed, tps
+
+
+def phase_tp_extras(dev, handoff: dict) -> dict[str, dict]:
+  """The sharded towers, multi-LoRA over a TP-2 sampler and the TP export on
+  phase 18's models, each over meshes that repeat the card. Returns the
+  kernels line's rows it adds to: launches, errors, shard-shape figures."""
+  phase_start = time.perf_counter()
+  log("== phase 27: the sharded towers, TP multi-LoRA and the TP export on "
+      "phase 18's models (meshes repeat the card: no speed-up is possible)")
+  model = handoff["model"]
+  if "encoder" not in handoff:  # phase 22 freed phase 18's towers: redrawn
+    handoff = dict(handoff, encoder=vit.DinoSigLIPEncoder(
+        device=dev, generator=torch.Generator(dev).manual_seed(SEED + 81)))
+  rows = {name: dict(max_abs_err=0.0) for name in _tpx_counts()}
+  total = {k: 0 for k in _tpx_counts()}
+  fused = [block.fused_epilogue for block in model.blocks]
+  for block in model.blocks:  # the image cell's 2B
+    block.fused_epilogue = True
+  seconds = {}
+  try:
+    start = time.perf_counter()
+    _tpx_towers(dev, handoff, rows, total)
+    seconds["towers"] = time.perf_counter() - start
+  finally:
+    for block, flag in zip(model.blocks, fused):
+      block.fused_epilogue = flag
+  torch.cuda.empty_cache()
+  for name, part in (("multi-LoRA", _tpx_multi_lora), ("export", _tpx_export)):
+    start = time.perf_counter()
+    part(dev, handoff, total)
+    seconds[name] = time.perf_counter() - start
+  torch.cuda.empty_cache()
+  log(f"  phase 27's parts (s): "
+      f"{ {k: round(v, 1) for k, v in seconds.items()} }")
+  log(f"== phase 27 {time.perf_counter() - phase_start:.1f} s; its launches "
+      f"{total}")
+  for name, n in total.items():
+    rows[name]["launches"] = n
+  return rows
+
+
 def add_launches(rows: dict[str, dict], launches: dict[str, int]) -> None:
   for name, n in launches.items():
     rows[name]["launches"] += n
 
 
 def add_phase_rows(kernels: list[dict], rows: dict[str, dict]) -> None:
-  """Adds a phase's launches, errors and shard-shape figures to the
-  kernels line's rows by name."""
+  """Adds a phase's launches, errors and shard-shape figures (every other
+  key a row holds) to the kernels line's rows by name."""
   by_name = {kernel["name"]: kernel for kernel in kernels}
   for name, row in rows.items():
     kernel = by_name[name]
     kernel["launches"] += row["launches"]
     kernel["max_abs_err"] = max(kernel["max_abs_err"], row["max_abs_err"])
-    if row["tp_training_shapes"]:
-      kernel["tp_training_shapes"] = row["tp_training_shapes"]
+    kernel.update({key: value for key, value in row.items()
+                   if value and key not in ("launches", "max_abs_err")})
 
 
 def add_row_launches(kernels: list[dict], launches: dict[str, int]) -> None:
@@ -9286,6 +9941,8 @@ def main() -> int:
   torch.cuda.empty_cache()
   tp_training_rows = phase_tp_training(dev, handoff)
   torch.cuda.empty_cache()
+  tp_extras_rows = phase_tp_extras(dev, handoff)
+  torch.cuda.empty_cache()
   # Phase 23 writes its checkpoints into ``root``; phase 24 reads the bf16
   # one.
   root = tempfile.mkdtemp(prefix="chip-smoke-export-")
@@ -9307,6 +9964,7 @@ def main() -> int:
   add_row_launches(kernels, cli_launches)
   add_row_launches(kernels, tp_launches)
   add_phase_rows(kernels, tp_training_rows)
+  add_phase_rows(kernels, tp_extras_rows)
   log(f"== total {time.perf_counter() - start:.1f} s")
   print(json.dumps({"kernels": kernels}))
   print(json.dumps({"ok": True, "device": device}), flush=True)

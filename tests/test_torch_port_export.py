@@ -253,14 +253,6 @@ def test_rejects_other_device_type(setup):
     setup["loaded"].prefill(setup["params"], tokens, tokens)
 
 
-def test_mesh_refused_naming_item_14c(setup):
-  """The TP export stays refused; since tensor-parallel serving (item 14c)
-  landed it names its own item, 14f."""
-  with pytest.raises(NotImplementedError, match="item 14f"):
-    export_lib.export_serving(setup["model"], setup["params"], 1, 4,
-                              mesh=object())
-
-
 def _op_counts(exp: export_lib.ServingExport) -> list[dict[str, int]]:
   """The nodes of each program (prefill, decode step) that call one of the
   port's operators, by operator name."""

@@ -192,8 +192,36 @@ def test_int8_weight_matmul_cuda_refuses_what_it_cannot_take():
   a, q, scale = operands("dense", 2)
   with pytest.raises(ValueError, match="bfloat16"):
     int8_matmul.int8_weight_matmul(a.float(), q, scale)
-  with pytest.raises(ValueError, match="multiple of 16"):
-    int8_matmul.int8_weight_matmul(a[..., :40], q[..., :40], scale)
+  # A depth off 16 (a tensor-parallel shard's, SigLIP's 4304 / 2) is taken
+  # with zero columns added, and matches the plain version.
+  got = int8_matmul.int8_weight_matmul(a[..., :40], q[..., :40], scale)
+  assert_matches_plain(got, int8_matmul.int8_weight_matmul_plain(
+      a[..., :40], q[..., :40], scale))
+
+
+@requires_cuda
+@pytest.mark.parametrize("m", [2, 1458])
+@pytest.mark.parametrize("stored", ["contiguous", "padded_rows"])
+def test_int8_weight_matmul_cuda_depth_off_16(m, stored):
+  """SigLIP's ``mlp_fc2`` row piece at TP-2 ([1152, 2152], its depth off
+  16) on both routes, its weight contiguous or in rows padded to 16 as the
+  tensor-parallel loader stores it, within 2^-6 of the plain version. The
+  wgmma route reads padded rows in place and leaves the caller's tensors
+  as they were."""
+  gen = torch.Generator("cuda").manual_seed(7)
+  a = torch.randn(1, m, 2152, generator=gen, device="cuda").bfloat16()
+  q = torch.randint(-127, 128, (1152, 2152), generator=gen, device="cuda",
+                    dtype=torch.int8)
+  if stored == "padded_rows":
+    q = int8_matmul.padded_rows(q, 16)
+    assert q.stride() == (2160, 1)
+  scale = torch.rand(1, 1152, generator=gen, device="cuda") * 1e-2
+  before = int8_matmul.wgmma_launches
+  got = int8_matmul.int8_weight_matmul(a, q[None], scale)
+  assert int8_matmul.wgmma_launches - before == int(
+      int8_matmul.uses_wgmma(m))
+  assert_matches_plain(got, int8_matmul.int8_weight_matmul_plain(
+      a, q[None], scale))
 
 
 DGRAD_ROWS = (1, 17, 255, 256, 257, 333, 4096, 5554)

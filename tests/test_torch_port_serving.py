@@ -35,6 +35,7 @@ from cadence_gemma_tpu_torch import convert
 from cadence_gemma_tpu_torch.inference import modal_sampler
 from cadence_gemma_tpu_torch.inference import sampler as sampler_lib
 from cadence_gemma_tpu_torch.inference import serving
+from cadence_gemma_tpu_torch.models import griffin
 from tests import make_golden_fixture as gold
 
 WORDS = ["alpha", "beta", "gamma", "delta", "eps", "zeta", "eta", "theta"]
@@ -703,9 +704,11 @@ REFUSED = {
 def test_left_out_features_raise_naming_their_item(pair, feature):
   """Serving over a mesh runs: a tensor-parallel sampler's batcher matches
   the solo ``Sampler`` (test_torch_port_tensor_parallel.py holds it to
-  JAX's), and ``multi_lora`` over it raises naming its ROADMAP item; a
-  grammar feature runs: a constrained request stays in its grammar and
-  matches a solo constrained ``Sampler`` (a free neighbor the solo
+  JAX's), and so does ``multi_lora`` over a tensor-parallel LoRA sampler,
+  each request the solo unsharded ``Sampler``'s on its merged weights
+  (test_torch_port_tp_extras.py holds it to JAX's); a grammar feature
+  runs: a constrained request stays in its grammar and matches a solo
+  constrained ``Sampler`` (a free neighbor the solo
   unconstrained one), and its misuse raises JAX's ``ValueError``
   (test_torch_port_constrain.py holds them to JAX's tokens)."""
   s = pair.port_sampler()
@@ -716,8 +719,31 @@ def test_left_out_features_raise_naming_their_item(pair, feature):
     rids = {batcher.add_request(p): p for p in ("alpha beta", LONG)}
     for rid, tokens, _ in batcher.run_until_drained(2):
       _check(tokens, _solo(s, rids[rid], 8), 8, pair.vocab.eos_id())
-    with pytest.raises(NotImplementedError, match="item 14f"):
-      _batcher(tp, multi_lora=True)
+    lmodel = griffin.Griffin(pair.model.config, device="meta",
+                             dtype=torch.float32, lora_rank=2)
+    lmodel.to_empty(device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    drawn = lambda: {n: 0.3 * torch.randn(p.shape, generator=gen)  # noqa: E731
+                     for n, p in lmodel.adapter_leaves().items()}
+    base = pair.model.state_dict()
+    lmodel.load_state_dict({**base, **drawn()})
+    ltp = sampler_lib.Sampler(lmodel, pair.vocab, device="cpu",
+                              mesh=tp.mesh)
+    batcher = _batcher(ltp, multi_lora=True)
+    adapters = drawn()
+    rids = {batcher.add_request("alpha beta", adapters=adapters): (
+        "alpha beta", adapters), batcher.add_request(LONG): (LONG, None)}
+    for rid, tokens, _ in batcher.run_until_drained(2):
+      prompt, own = rids[rid]
+      solo = lmodel
+      if own is not None:
+        solo = griffin.Griffin(pair.model.config, device="meta",
+                               dtype=torch.float32, lora_rank=2)
+        solo.to_empty(device="cpu")
+        solo.load_state_dict({**base, **own})
+      _check(tokens, _solo(sampler_lib.Sampler(solo, pair.vocab,
+                                               device="cpu"), prompt, 8),
+             8, pair.vocab.eos_id())
     return
   dfa = _grammar(pair)
   kw = dict(REFUSED[feature])

@@ -15,7 +15,8 @@ and each shard evaluates the heads covering its features). The TP batcher
 ``load_parameters(sharding=...)`` match their unsharded counterparts; the
 parameters and the batcher's recurrent cache really are split. What stays
 refused raises ``NotImplementedError`` naming its ROADMAP item (training
-over a mesh is ``test_torch_port_tp_training.py``'s).
+over a mesh is ``test_torch_port_tp_training.py``'s; the sharded towers, TP
+multi-LoRA and the TP export are ``test_torch_port_tp_extras.py``'s).
 """
 
 import jax
@@ -34,9 +35,7 @@ from cadence_gemma_tpu.tokenizers import SimpleVocab as JaxVocab
 import cadence_gemma_tpu_torch as port
 from cadence_gemma_tpu_torch import common
 from cadence_gemma_tpu_torch import convert
-from cadence_gemma_tpu_torch.checkpoint import export as export_lib
 from cadence_gemma_tpu_torch.checkpoint import io as checkpoint_io
-from cadence_gemma_tpu_torch.inference import modal_sampler
 from cadence_gemma_tpu_torch.inference import sampler as sampler_lib
 from cadence_gemma_tpu_torch.inference import server as server_lib
 from cadence_gemma_tpu_torch.inference import serving
@@ -334,12 +333,6 @@ def test_tp_model_forward_and_cache_layout(tiny):
 
 
 REFUSALS = {
-    "ModalSampler(mesh=)": ("14f", lambda t: modal_sampler.ModalSampler(
-        t.model, t.vocab, device="cpu", mesh=t.mesh(2))),
-    "export_serving(mesh=)": ("14f", lambda t: export_lib.export_serving(
-        t.model, t.model.state_dict(), 1, 4, mesh=t.mesh(2))),
-    "multi_lora": ("14f", lambda t: serving.ContinuousBatcher(
-        t.port(2), num_slots=2, multi_lora=True, device="cpu")),
     "SP and TP": ("14g", lambda t: tensor_parallel.tensor_parallel(
         port.Griffin(t.model.config, device="cpu", scan_sharding_spec=(
             sharding.ShardingSpec(mesh=t.mesh(2), sequence_axis_name="model"))),

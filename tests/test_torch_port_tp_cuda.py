@@ -7,8 +7,12 @@ tokens. The backward kernels at the shard shapes of the 2B's training step
 (the cotangent scan at half and quarter width and on one data row, bit for
 bit its plain loop; dq and dk/dv at TP-2's 5 query heads and TP-4's 3
 covering heads, within 2e-2 of the largest gradient) against their plain
-versions; one DP x TP step's gradients against the unsharded model's. This
-file imports no JAX: run it on the card with
+versions; one DP x TP step's gradients against the unsharded model's. The
+TP-2 towers launch the MHA kernel once a block a shard at half the heads,
+reading the gathered qkv in place, within 5e-2 (rel. RMS) of the unsharded
+features; a TP-2 multi-LoRA batcher's captured ticks give its eager ticks'
+tokens; a TP-2 export's loaded prefill is the live TP forward bit for bit.
+This file imports no JAX: run it on the card with
 ``python -m pytest --noconftest tests/test_torch_port_tp_cuda.py -q``.
 """
 
@@ -20,10 +24,16 @@ import torch
 
 import cadence_gemma_tpu_torch as port
 from cadence_gemma_tpu_torch import common
+from cadence_gemma_tpu_torch.checkpoint import export as export_lib
 from cadence_gemma_tpu_torch.inference import sampler as sampler_lib
+from cadence_gemma_tpu_torch.inference import serving
+from cadence_gemma_tpu_torch.models import vit
 from cadence_gemma_tpu_torch.ops import lru_scan
+from cadence_gemma_tpu_torch.ops import mha_attention
 from cadence_gemma_tpu_torch.ops import window_attention
+from cadence_gemma_tpu_torch.parallel import partitioning
 from cadence_gemma_tpu_torch.parallel import sharding
+from cadence_gemma_tpu_torch.parallel import tensor_parallel
 from cadence_gemma_tpu_torch.training import trainer
 
 
@@ -128,3 +138,91 @@ def test_dp_tp_step_gradients_match_unsharded_on_the_card():
     rel = ((x - y).square().mean().sqrt() / y.square().mean().sqrt()).item()
     cos = torch.nn.functional.cosine_similarity(x, y, dim=0).item()
     assert rel <= 0.1 and cos >= 0.99, (name, rel, cos)
+
+
+def _small_config(**kwargs):
+  return common.GriffinConfig(
+      vocab_size=512, width=512, mlp_expanded_width=1024, num_heads=2,
+      block_types=(common.TemporalBlockType.RECURRENT,
+                   common.TemporalBlockType.ATTENTION),
+      embeddings_scale_by_sqrt_dim=True, attention_window_size=128,
+      logits_soft_cap=30.0, lru_width=512, **kwargs)
+
+
+def test_tp_towers_on_the_card_launch_the_mha_kernel_per_head_group():
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card")
+  dino = vit.ViTConfig(embed_dim=256, depth=2, num_heads=4,
+                       mlp_hidden_dim=512, patch_size=14, image_size=112,
+                       output_layer=1, num_prefix_tokens=5,
+                       use_layer_scale=True)
+  siglip = vit.ViTConfig(embed_dim=288, depth=2, num_heads=4,
+                         mlp_hidden_dim=576, patch_size=14, image_size=112,
+                         output_layer=1, gelu_approximate=True)
+  encoder = vit.DinoSigLIPEncoder(dino, siglip)
+  mesh = sharding.make_mesh((1, 2), ("data", "model"), devices=["cuda:0"] * 2)
+  tp = tensor_parallel.tensor_parallel_encoder(encoder, mesh)
+  pixels = torch.rand(2, 3, 120, 160, device="cuda",
+                      generator=torch.Generator("cuda").manual_seed(0))
+  with torch.no_grad():
+    want = encoder(pixels)
+    before = (mha_attention.launches, mha_attention.strided_copies)
+    got = tp(pixels)
+  assert mha_attention.launches - before[0] == 2 * 4
+  assert mha_attention.strided_copies == before[1]
+  diff = got.float() - want.float()
+  rel = (diff.square().mean().sqrt() / want.float().square().mean().sqrt())
+  assert rel.item() <= 5e-2
+
+
+def test_tp_multi_lora_captured_ticks_match_eager_on_the_card():
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card")
+  model = port.Griffin(_small_config(), dtype=torch.bfloat16, lora_rank=4)
+  gen = torch.Generator("cuda").manual_seed(2)
+  with torch.no_grad():
+    for name, p in model.adapter_leaves().items():
+      p.normal_(0.0, 0.05, generator=gen)
+  vocab = port.SimpleVocab([f"w{i}" for i in range(508)])
+  mesh = sharding.make_mesh((1, 2), ("data", "model"), devices=["cuda:0"] * 2)
+  drawn = [{n: 0.05 * torch.randn(p.shape, device="cuda", generator=gen,
+                                  dtype=p.dtype)
+            for n, p in model.adapter_leaves().items()} for _ in range(2)]
+  prompts = [" ".join(f"w{(5 * i + k) % 500}" for i in range(200))
+             for k in range(3)]
+  got = []
+  for captured in (True, False):
+    s = sampler_lib.Sampler(model, vocab, mesh=mesh, jit_compile=captured)
+    b = serving.ContinuousBatcher(s, num_slots=4, max_steps_default=12,
+                                  multi_lora=True)
+    rids = [b.add_request(prompts[0], adapters=drawn[0]),
+            b.add_request(prompts[1])]
+    b.step(4)
+    rids.append(b.add_request(prompts[2], adapters=drawn[1]))
+    out = {r: list(t) for r, t, _ in b.run_until_drained(4)}
+    got.append([out[r] for r in rids])
+  assert got[0] == got[1]
+
+
+def test_tp_export_on_the_card_is_the_live_tp_forward(tmp_path):
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card")
+  model = port.Griffin(_small_config(), dtype=torch.bfloat16)
+  mesh = sharding.make_mesh((1, 2), ("data", "model"), devices=["cuda:0"] * 2)
+  params = dict(model.named_parameters())
+  exp = export_lib.export_serving(model, params, 2, 256, mesh=mesh)
+  export_lib.save_serving_export(exp, str(tmp_path))
+  loaded = export_lib.load_serving_export(str(tmp_path), mesh=mesh)
+  placed = sharding.place_state_dict(
+      params, partitioning.griffin_param_shardings(mesh, params))
+  tokens = torch.randint(3, 512, (2, 256), dtype=torch.int32, device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(3))
+  positions = torch.arange(256, dtype=torch.int32,
+                           device="cuda")[None].repeat(2, 1)
+  before = lru_scan.launches
+  got, _ = loaded.prefill(placed, tokens, positions)
+  assert lru_scan.launches - before == 2
+  tp = tensor_parallel.tensor_parallel(model, mesh)
+  with torch.no_grad():
+    want, _ = tp(tokens, positions, last_logits_only=True)
+  assert torch.equal(got, want)

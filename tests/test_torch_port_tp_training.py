@@ -43,9 +43,9 @@ from cadence_gemma_tpu_torch import common
 from cadence_gemma_tpu_torch import convert
 from cadence_gemma_tpu_torch.checkpoint import io as checkpoint_io
 from cadence_gemma_tpu_torch.models import griffin
-from cadence_gemma_tpu_torch.parallel import data_parallel
 from cadence_gemma_tpu_torch.parallel import partitioning
 from cadence_gemma_tpu_torch.parallel import sharding
+from cadence_gemma_tpu_torch.parallel import tensor_parallel
 from cadence_gemma_tpu_torch.training import data
 from cadence_gemma_tpu_torch.training import lora
 from cadence_gemma_tpu_torch.training import train_loop as tl
@@ -425,7 +425,7 @@ def test_refresh_copies_what_is_not_a_view():
         for name, pieces in tp.leaves.items():
           for piece in pieces:
             torch.testing.assert_close(
-                piece.tensor, data_parallel._region(  # pylint: disable=protected-access
+                piece.tensor, tensor_parallel.region(
                     model.state_dict()[name], piece), msg=name)
   for name, value in results[0].items():
     torch.testing.assert_close(results[1][name], value, msg=name)
