@@ -14,7 +14,9 @@ base: ``Griffin(lora_rank=...)``, ``lora``) and the
 sequence-parallel long-context prefill (``Griffin(scan_sharding_spec=...)``
 over a ``make_mesh`` mesh) and tensor-parallel serving (``Sampler(mesh=...)``
 and ``ModalSampler(mesh=...)`` with JAX's Megatron layouts, ``partitioning``,
-through the batcher, multi-LoRA, speculation and the export) on the
+through the batcher, multi-LoRA, speculation and the export) and pipeline
+parallelism (``parallel.pipeline.GriffinPipeline``: GPipe, interleaved,
+PP x DP, over ``parallel.multihost`` meshes) on the
 Griffin / RecurrentGemma backbone. Plain
 tensor code is PyTorch; the kernels -- the RG-LRU scan (with the running
 product of ``a`` for sequence parallelism) and its cotangent scan, the

@@ -111,6 +111,16 @@ class ShardingSpec(NamedTuple):
   sequence_axis_index_groups: list[list[int]] | None = None
 
 
+def cuda_devices() -> list[torch.device]:
+  """The CUDA devices of this process; raises when there is none."""
+  if not torch.cuda.is_available():
+    raise RuntimeError(
+        "No CUDA device is available. make_mesh uses the cards by "
+        "default; pass devices=['cpu'] * n to run on the CPU."
+    )
+  return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
 def make_mesh(
     axis_shapes: Sequence[int],
     axis_names: Sequence[str],
@@ -123,13 +133,7 @@ def make_mesh(
   raises when there is none: pass ``devices=["cpu"] * n`` for the CPU.
   """
   if devices is None:
-    if not torch.cuda.is_available():
-      raise RuntimeError(
-          "No CUDA device is available. make_mesh uses the cards by "
-          "default; pass devices=['cpu'] * n to run on the CPU."
-      )
-    devices = [torch.device("cuda", i)
-               for i in range(torch.cuda.device_count())]
+    devices = cuda_devices()
   flat = np.empty(len(devices), dtype=object)
   flat[:] = [torch.device(d) for d in devices]
   return Mesh(flat.reshape(tuple(axis_shapes)), axis_names)
@@ -495,14 +499,24 @@ def psum(values: Sequence[torch.Tensor | None],
   return _per_device(total_on, devices)
 
 
-def ppermute(values: Sequence[torch.Tensor], devices: Sequence[torch.device],
-             perm: Sequence[tuple[int, int]]) -> list[torch.Tensor]:
+def ppermute(values: Sequence[torch.Tensor | None],
+             devices: Sequence[torch.device],
+             perm: Sequence[tuple[int, int]]) -> list[torch.Tensor | None]:
   """Shard ``dst`` receives ``values[src]`` on ``devices[dst]`` for each
   ``(src, dst)`` of ``perm``, and zeros where no source sends
-  (``jax.lax.ppermute``)."""
-  out = [_zeros_on(v, dev) for v, dev in zip(values, devices)]
-  for src, dst in perm:
-    out[dst] = values[src].to(devices[dst])
+  (``jax.lax.ppermute``). ``None`` marks a position that holds nothing (a
+  pipeline's bubble): it sends ``None``, and receives ``None`` where no
+  source sends."""
+  source = {dst: src for src, dst in perm}
+  out = []
+  for dst, (v, dev) in enumerate(zip(values, devices)):
+    sent = values[source[dst]] if dst in source else None
+    if sent is not None:
+      out.append(sent.to(dev))
+    elif dst in source or v is None:
+      out.append(None)
+    else:
+      out.append(_zeros_on(v, dev))
   return out
 
 

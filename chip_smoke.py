@@ -341,8 +341,9 @@ Phases, each of which raises on failure (so the script exits non-zero):
      against the plain tick in turns; (h) HTTP: ``response_format``
      ``json_object`` and ``json_schema``, a forced ``tool_choice`` and its
      stream, each answer inside its grammar.
- 23. the serving export (right after 22, on phase 18's models): the bf16
-     2B, its fused-epilogue view and its weight-only int8 copy exported by
+ 23. the serving export (right after 22, on phase 18's models): the first
+     6 blocks of the bf16 2B at full width (two of them window attention),
+     their fused-epilogue view and their weight-only int8 copy exported by
      ``checkpoint.export.export_serving`` at phase 4's bucket (2 x 3000,
      row 2 left-padded from 2300), each artifact's bytes and host seconds
      to export; saved, loaded here and in a fresh ``python3`` process that
@@ -353,16 +354,16 @@ Phases, each of which raises on failure (so the script exits non-zero):
      a CUDA graph, and the fresh process's) against the Sampler's captured
      decode, token for token, and the fresh process's prefill logits bit
      for bit. The counters of a loaded prefill and decode step must show
-     18 LRU and 8 window launches (bf16), 26 add_rmsnorm a forward more
-     with the fused epilogue, 174 ``wgmma`` + 1 ``mma.sync`` (int8
-     prefill) and 175 ``mma.sync`` (int8 step). ``torch.library.opcheck``
+     4 LRU and 2 window launches (bf16), 6 add_rmsnorm a forward more
+     with the fused epilogue, 40 ``wgmma`` + 1 ``mma.sync`` (int8
+     prefill) and 41 ``mma.sync`` (int8 step). ``torch.library.opcheck``
      (schema, fake tensor) of every operator on the card: at the loaded
      path's first inputs and, for the operators no loaded program calls,
      at small shapes. The loaded prefill, eager decode step and captured
      step against the live path in turns (bf16, int8), and the host us a
      call through an operator against the direct launch.
- 24. the command-line programs (right after 23, on phase 18's 2B: phase
-     23's bf16 checkpoint, phase 22's vocabulary written as a SentencePiece
+ 24. the command-line programs (right after 23, on phase 18's 2B: its
+     bf16 checkpoint, phase 22's vocabulary written as a SentencePiece
      model, seeded towers and two rank-8 adapter trees as port
      checkpoints): (a) ``python3 -m cadence_gemma_tpu_torch.examples.
      sampling`` in a fresh process on a 2540- and a 340-token prompt, 32
@@ -429,6 +430,32 @@ Phases, each of which raises on failure (so the script exits non-zero):
      and loaded: the loaded prefill bit for bit the live TP forward, its
      greedy chain token for token the TP Sampler's; a TP-4 mesh refused.
      The phase's launches and shard-shape figures join the kernels line.
+ 28. pipeline parallelism (right after 27, on phase 18's models: the
+     whole 2B, 24 blocks pipelined and 2 in the tail) over stage meshes
+     from ``multihost.make_hybrid_mesh`` that repeat the card, at 4 x 4096
+     tokens (row 1 right-padded after 3000, the loss over the second half
+     of each row): (a) GPipe, S = 4, M = 4 (microbatches of 1 x 4096): a
+     forward with no gradient must launch 16 x 4 + 2 = 66 LRU and 8 x 4 =
+     32 window kernels, none in the schedule's 12 bubble slots, every scan
+     on the ring, its last logits within 5e-2 (rel. RMS) of the unsharded
+     forward; one training step (per-chunk remat) must launch 130 LRU, 66
+     LRU backward, 64 window, 32 dq and 32 dk/dv kernels, its loss within
+     1e-2 and every unstacked leaf's gradient within rel. RMS 0.1 and
+     cosine 0.99 of the unsharded model's; the kernels on the first
+     microbatch inputs the step gave them against their plain versions
+     (scans bit for bit, the rest within 2e-2) and timed there; (b)
+     interleaved v = 2 (eight chunks of 3 blocks) and (c) PP x DP on a
+     (stage 2, data 2) mesh with M = 2: the same launches, loss and
+     gradient checks, schedule steps and bubble fractions printed; (d) the
+     int8 copy's forward: its ``wgmma`` launches (each microbatch's int8
+     layers, the tail's on the whole batch) and one ``mma.sync`` (the last
+     logits), the kernel against its plain version at every shape and
+     timed at the microbatch's, its last logits within 5e-2 of the
+     unsharded int8 forward; (e) three ``make_train_step`` AdamW steps
+     (the loss must fall) in turns with three unsharded
+     ``trainer.train_step`` steps (step ms, peak GB; the ratio printed, not
+     bounded: one card runs every stage in turn). The phase's launches,
+     errors and microbatch shapes join the kernels line.
 
   python3 chip_smoke.py --profile
 
@@ -450,6 +477,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import hashlib
 import inspect
 import io
@@ -502,7 +530,9 @@ from cadence_gemma_tpu_torch.ops import mha_attention
 from cadence_gemma_tpu_torch.ops import quantization
 from cadence_gemma_tpu_torch.ops import scan as scan_lib
 from cadence_gemma_tpu_torch.ops import window_attention as wa
+from cadence_gemma_tpu_torch.parallel import multihost
 from cadence_gemma_tpu_torch.parallel import partitioning
+from cadence_gemma_tpu_torch.parallel import pipeline
 from cadence_gemma_tpu_torch.parallel import sharding
 from cadence_gemma_tpu_torch.parallel import tensor_parallel
 from cadence_gemma_tpu_torch.tokenizers import SimpleVocab
@@ -855,6 +885,11 @@ ML_STALL_TOKENS = 1000
 # us a call through an operator against the direct launch, over this many
 # calls a turn.
 EXPORT_BUCKET = (2, PREFILL_TOKENS)
+# The exported models are phase 18's first 6 blocks at full width (two
+# window-attention blocks, so the window kernel's operator is in the
+# graphs): the whole 2B took 209.9-226.1 s of the smoke's 1200 on a slow
+# host, 6 blocks 66.5 s.
+EXPORT_BLOCKS = 6
 EXPORT_TURNS = (False, True, True, False)
 EXPORT_MAX_WEIGHT_SHARE = 0.01
 HOST_CALLS = 200
@@ -7425,18 +7460,19 @@ def _host_us_turns(calls: dict) -> dict[str, list[float]]:
 
 def phase_export(dev, kernels: list[dict], handoff: dict,
                  profile: bool, root: str) -> None:
-  """The serving export end to end on phase 18's realistic_params 2B (bf16,
-  bf16 with the fused epilogue, its weight-only int8 copy) at phase 4's
-  bucket: export, save and load; the loaded programs against the live
-  forward, the Sampler's captured decode and a fresh process; their
-  operator launches; the loaded prefill and decode step (eager and
-  captured) against the live path in turns; opcheck of every operator on
-  the card; host us a call through an operator against the direct
-  launch. With ``profile`` the kernel time of a loaded and a live
-  prefill against their times: the device's idle share."""
+  """The serving export end to end on the first EXPORT_BLOCKS blocks of phase
+  18's realistic_params 2B at full width (bf16, bf16 with the fused epilogue,
+  its weight-only int8 copy) at phase 4's bucket: export, save and load; the
+  loaded programs against the live forward, the Sampler's captured decode and
+  a fresh process; their operator launches; the loaded prefill and decode step
+  (eager and captured) against the live path in turns; opcheck of every
+  operator on the card; host us a call through an operator against the direct
+  launch. With ``profile`` the kernel time of a loaded and a live prefill
+  against their times: the device's idle share."""
   phase_start = time.perf_counter()
-  model, qmodel, vocab, prompts = (handoff[k] for k in ("model", "qmodel",
-                                                        "vocab", "prompts"))
+  model, qmodel = (depth_cut(handoff[k], EXPORT_BLOCKS)
+                   for k in ("model", "qmodel"))
+  vocab, prompts = handoff["vocab"], handoff["prompts"]
   config = model.config
   by_name = {kernel["name"]: kernel for kernel in kernels}
   n_recurrent = sum(bt is common.TemporalBlockType.RECURRENT
@@ -7470,8 +7506,9 @@ def phase_export(dev, kernels: list[dict], handoff: dict,
   if tuple(tokens.shape) != EXPORT_BUCKET:
     raise AssertionError(f"The prompts make {tuple(tokens.shape)}, not the "
                          f"bucket {EXPORT_BUCKET}.")
-  log(f"== the serving export: phase 18's realistic_params 2B (bf16, bf16 "
-      f"with the fused epilogue, weight-only int8) at the bucket "
+  log(f"== the serving export: the first {EXPORT_BLOCKS} blocks of phase "
+      f"18's realistic_params 2B (bf16, bf16 with the fused epilogue, "
+      f"weight-only int8) at the bucket "
       f"{EXPORT_BUCKET} (row 2 left-padded from {min(PROMPT_TOKENS)}); "
       f"torch {torch.__version__}")
   served = dict(zero)
@@ -7503,7 +7540,8 @@ def phase_export(dev, kernels: list[dict], handoff: dict,
     start = time.perf_counter()
     weights = {}
     for side, m in (("bf16", model), ("int8", qmodel)):
-      weights[side] = os.path.join(root, f"{side}.pt")
+      # Not bf16.pt: phase 24 writes the whole 2B's under that name.
+      weights[side] = os.path.join(root, f"export-{side}.pt")
       checkpoint_io.save_parameters(weights[side], m.state_dict())
     inputs = os.path.join(root, "inputs.pt")
     torch.save({"tokens": tokens.cpu(), "positions": positions.cpu()}, inputs)
@@ -7990,17 +8028,15 @@ class _LogEveryStep(train_loop_lib.TrainingConfig):
 
 
 def _cli_world(root: str, dev, model, vocab: PieceVocab) -> dict:
-  """The programs' inputs under ``root``: phase 23's ``bf16.pt`` of the 2B,
-  the towers, two rank-8 adapter trees, the tokenizer model and a LLaVA-style
-  JSON over the test images. Returns their paths, the towers and the adapter
-  trees."""
+  """The programs' inputs under ``root``: the 2B's ``bf16.pt``, the towers,
+  two rank-8 adapter trees, the tokenizer model and a LLaVA-style JSON over
+  the test images. Returns their paths, the towers and the adapter trees."""
   paths = {"weights": os.path.join(root, "bf16.pt"),
            "tokenizer": os.path.join(root, "tokenizer.model"),
            "towers": os.path.join(root, "towers.pt"),
            "tune_json": os.path.join(root, "tune.json"),
            "tune_out": os.path.join(root, "tune")}
-  if not os.path.exists(paths["weights"]):
-    checkpoint_io.save_parameters(paths["weights"], model.state_dict())
+  checkpoint_io.save_parameters(paths["weights"], model.state_dict())
   with open(paths["tokenizer"], "wb") as f:
     f.write(sentencepiece_model(vocab))
   encoder = vit.DinoSigLIPEncoder(
@@ -8855,8 +8891,10 @@ class _TrainingCaptures:
            (wa, "window_attention_forward"), (wa, "window_attention_dq"),
            (wa, "window_attention_dkv"))
 
-  def __init__(self):
-    self.captures = {name: CaptureFirstCall(module, name)
+  def __init__(self, skip: dict[str, int] | None = None):
+    """``skip``: calls of a kernel to let pass before the one kept."""
+    skip = skip or {}
+    self.captures = {name: CaptureFirstCall(module, name, skip.get(name, 0))
                      for module, name in self.NAMES}
 
   def restore(self):
@@ -8942,11 +8980,13 @@ def _hold_gradients(label: str, loss: float, grads: dict, want_loss: float,
 
 
 def _hold_kernels(label: str, captures: _TrainingCaptures, rows: dict,
-                  time_them: bool) -> None:
+                  time_them: bool,
+                  shapes_key: str = "tp_training_shapes") -> None:
   """Each training kernel against its plain version on the first inputs
   the run gave it: the scans bit for bit, dq / dk / dv within
   ATTN_BWD_REL_ERR of the largest gradient; with ``time_them``, each timed
-  at those shapes beside its plain version and its bound."""
+  at those shapes beside its plain version and its bound (into each row's
+  ``shapes_key`` list)."""
   x, a, h0, reverse = captures["lru_scan_forward"][:4]
   g, ga, dh_last, g_reverse = captures["lru_scan_backward"][:4]
   q, k, v, seg, window, kv_prefix = captures["window_attention_forward"][:6]
@@ -8969,7 +9009,7 @@ def _hold_kernels(label: str, captures: _TrainingCaptures, rows: dict,
   f["plain_ms"] = cuda_ms(lambda: lru_scan.lru_scan_plain(x, a), reps=1)
   log(f"  lru_scan at {label}'s shard shape {[b, t, d]}:")
   log_scan(f, f["plain_ms"], n_bytes)
-  rows["lru_scan"]["tp_training_shapes"].append(dict(
+  rows["lru_scan"][shapes_key].append(dict(
       mesh=label, shape=[b, t, d], **{key: f[key] for key in (
           "ms", "plain_ms", "bound_ms", "bound_by", "bound_share")}))
   n_bytes = 3 * b * t * d * 2 + 2 * b * d * 4
@@ -8979,19 +9019,19 @@ def _hold_kernels(label: str, captures: _TrainingCaptures, rows: dict,
       g, ga, dh_last, g_reverse), reps=2)
   log(f"  lru_scan_backward at {label}'s shard shape {[b, t, d]}:")
   log_scan(f, f["plain_ms"], n_bytes)
-  rows["lru_scan_backward"]["tp_training_shapes"].append(dict(
+  rows["lru_scan_backward"][shapes_key].append(dict(
       mesh=label, shape=[b, t, d], **{key: f[key] for key in (
           "ms", "plain_ms", "bound_ms", "bound_by", "bound_share")}))
   f = window_forward_figures(q, k, v, seg, kv_prefix)
   log_figures(f"window_attention at {label}'s shard shape {list(q.shape)}", f)
-  rows["window_attention"]["tp_training_shapes"].append(dict(
+  rows["window_attention"][shapes_key].append(dict(
       mesh=label, shape=list(q.shape), **{key: f[key] for key in (
           "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
           "bound_share")}))
   for row in backward_rows(dq_args, errs["window_attention_dq"],
                            errs["window_attention_dkv"], f" ({label})"):
     name = row["name"].split(" ")[0]
-    rows[name]["tp_training_shapes"].append(dict(
+    rows[name][shapes_key].append(dict(
         mesh=label, shape=list(dq_args[0].shape), **{key: row[key] for key in (
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "bound_share")}))
@@ -9860,6 +9900,376 @@ def phase_tp_extras(dev, handoff: dict) -> dict[str, dict]:
   return rows
 
 
+# -- phase 28: pipeline parallelism --------------------------------------------
+
+# Phase 28 runs on phase 18's models over stage meshes that repeat the one
+# H100 (from multihost.make_hybrid_mesh, the dcn axis of size 1): launches,
+# agreement with the unsharded model and the microbatch's kernel shapes,
+# never a speed-up (every stage runs in turn on the one card).
+PP_STAGES = 4
+PP_MICROBATCHES = 4
+PP_INTERLEAVE = 2
+PP_DP_MESH = (2, 2)  # (stage, data)
+PP_DP_MICROBATCHES = 2
+# Four rows of 4096 tokens (one microbatch row each at M = 4); row 1 is
+# right-padded after 3000, as in the training cell.
+PP_REAL_TOKENS = (4096, 3000, 4096, 4096)
+PP_STEPS = 3
+PP_TURNS = ("one", "pp", "pp", "one")
+
+
+def pp_batch(vocab_size: int, dev) -> tuple[torch.Tensor, ...]:
+  """(tokens, mask, positions) of phase 28: random tokens after BOS, the
+  loss over the second half of each row's real tokens."""
+  rng = np.random.default_rng(SEED + 150)
+  tokens = rng.integers(4, vocab_size,
+                        (len(PP_REAL_TOKENS), TRAIN_TOKENS)).astype(np.int64)
+  tokens[:, 0] = 1
+  mask = np.zeros(tokens.shape, bool)
+  for row, real in enumerate(PP_REAL_TOKENS):
+    tokens[row, real:] = 0
+    mask[row, real // 2:real] = True
+  tokens = torch.as_tensor(tokens, device=dev)
+  return (tokens, torch.as_tensor(mask, device=dev),
+          trainer.get_positions(tokens, 0))
+
+
+def _pp_mesh(dev, shape, names) -> sharding.Mesh:
+  return multihost.make_hybrid_mesh(shape, names,
+                                    devices=[dev] * int(np.prod(shape)))
+
+
+def _pp_placed(pipe, model):
+  """``model``'s weights stacked and placed by ``pipe``, and the GB the
+  stacked copy took."""
+  torch.cuda.synchronize()
+  before = torch.cuda.memory_allocated()
+  stacked, shared = pipe.stack_params(model.state_dict())
+  placed = sharding.place_state_dict(stacked, pipe.stage_sharding(stacked))
+  torch.cuda.synchronize()
+  return placed, shared, (torch.cuda.memory_allocated() - before) / 1e9
+
+
+def _pp_forward_launches(pipe) -> dict[str, int]:
+  """One pipelined forward's scan and window launches: the pipelined blocks
+  once a microbatch of every data slice (nothing in a bubble slot), the
+  tail once on the whole batch."""
+  types = pipe.model.config.block_types
+  runs = pipe.num_microbatches * math.prod(
+      n for axis, n in pipe.mesh.shape.items() if axis != pipe.axis_name)
+  rec = lambda ids: sum(types[i] is common.TemporalBlockType.RECURRENT
+                        for i in ids)
+  prefix, tail = range(pipe.pipelined_layers), pipe.tail_layers
+  return {"lru_scan": runs * rec(prefix) + rec(tail),
+          "window_attention": (runs * (len(prefix) - rec(prefix))
+                               + len(tail) - rec(tail))}
+
+
+def _pp_step_launches(pipe) -> dict[str, int]:
+  """One pipelined training step's launches under per-chunk remat: each
+  chunk's forward twice (the pass and the recompute), its backward once;
+  the tail, not rematerialized, once each way."""
+  fwd = _pp_forward_launches(pipe)
+  tail_rec = sum(pipe.model.config.block_types[i]
+                 is common.TemporalBlockType.RECURRENT
+                 for i in pipe.tail_layers)
+  tail_att = len(pipe.tail_layers) - tail_rec
+  rec, att = fwd["lru_scan"] - tail_rec, fwd["window_attention"] - tail_att
+  return {"lru_scan": 2 * rec + tail_rec,
+          "lru_scan_backward": rec + tail_rec,
+          "window_attention": 2 * att + tail_att,
+          "window_attention_dq": att + tail_att,
+          "window_attention_dkv": att + tail_att}
+
+
+def _pp_gradients(pipe, placed, shared, tokens, mask, positions):
+  """One batch's loss and gradients (whole leaves by block name) through
+  the pipeline, its launches, ms (forward and backward) and peak GB."""
+  params = pipe.parameters(placed, shared)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  before = _tpt_counts()
+  reset_scan_routes()
+  start = time.perf_counter()
+  loss = pipe.loss_fn(placed, shared, tokens, mask, positions)
+  loss.backward()
+  torch.cuda.synchronize()
+  ms = (time.perf_counter() - start) * 1e3
+  launches = _tpt_delta(before)
+  check_scan_routes(launches["lru_scan"] + launches["lru_scan_backward"])
+  peak_gb = torch.cuda.max_memory_allocated() / 1e9
+  grads = pipe.unstack_params(*pipe.gradients(placed, shared))
+  for p in params:
+    p.grad = None
+  return loss.item(), grads, launches, ms, peak_gb
+
+
+def _hold_pp_int8(capture, rows: dict, config, microbatch_rows: int) -> None:
+  """The int8 kernel against its plain version on the first inputs of each
+  shape the int8 pipeline gave it, into its route's row; timed at a
+  projection's and the fused up-projection's microbatch shapes."""
+  timed = {(1, config.width, config.width, microbatch_rows),
+           (2, config.mlp_expanded_width, config.width, microbatch_rows)}
+  for key, args in capture.inputs():
+    route = ("int8_weight_matmul_wgmma"
+             if int8_matmul.uses_wgmma(args[0].shape[1])
+             else "int8_weight_matmul")
+    row = rows[route]
+    row["max_abs_err"] = max(row["max_abs_err"], check_int8(*args))
+    batches, n, k, m, shared_a = key
+    if key[:4] not in timed:
+      continue
+    f = int8_figures(*args)
+    log(f"  int8_weight_matmul_wgmma at the microbatch's a "
+        f"{tuple(args[0].shape)}{' (shared)' if shared_a else ''} x q "
+        f"{tuple(args[1].shape)}: ms {f['ms']:.4f}  plain {f['plain_ms']:.4f}"
+        f"  dequant {f['dequant_ms']:.4f}  bf16 {f['bf16_ms']:.4f}  bound "
+        f"{f['bound_ms']:.4f} ({f['bound_by']}): "
+        f"{100 * f['bound_ms'] / f['ms']:.1f}% of the bound")
+    row["pp_shapes"].append(dict(
+        mesh=f"PP-{PP_STAGES}", shape=[m, n, k], batches=batches,
+        **{x: f[x] for x in ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms", "dequant_ms")}))
+  log(f"  int8 kernels on the int8 pipeline's {len(capture.calls)} shapes: "
+      f"max_abs_err {rows['int8_weight_matmul_wgmma']['max_abs_err']:.3e} "
+      f"(wgmma), {rows['int8_weight_matmul']['max_abs_err']:.3e} (mma.sync)")
+
+
+def phase_pipeline(dev, handoff: dict) -> dict[str, dict]:
+  """Pipeline parallelism on phase 18's 2B (full width and depth: 24 blocks
+  pipelined, 2 in the tail) and its int8 copy, over meshes of
+  ``multihost.make_hybrid_mesh`` that repeat the card, at 4 x 4096 tokens
+  (row 1 right-padded after 3000): (a) GPipe S = 4, M = 4: a forward's
+  launches (66 LRU + 32 window, none in a bubble slot, every scan on the
+  ring) and last logits against the unsharded forward; one step's loss,
+  gradients and launches against the unsharded model's; the kernels on the
+  microbatch's first inputs against their plain versions, timed; (b)
+  interleaved v = 2 and (c) PP x DP on (stage 2, data 2), M = 2: the same
+  loss and gradient checks; (d) the int8 copy's forward, its int8 launches
+  by route, its last logits against the unsharded int8 forward; (e) three
+  ``make_train_step`` AdamW steps in turns with three unsharded
+  ``trainer.train_step`` steps. Returns the kernels line's rows it adds to:
+  launches, errors, the microbatch's shapes (``pp_shapes``)."""
+  phase_start = time.perf_counter()
+  base, qbase = handoff["model"], handoff["qmodel"]
+  config = base.config
+  rows = {name: dict(launches=0, max_abs_err=0.0, pp_shapes=[])
+          for name in TPT_NAMES}
+  tokens, mask, positions = pp_batch(config.vocab_size, dev)
+  b, t = tokens.shape
+  mesh = _pp_mesh(dev, (PP_STAGES,), ("stage",))
+  pipes = {
+      "(a) GPipe": pipeline.GriffinPipeline(base, mesh, PP_MICROBATCHES),
+      "(b) interleaved": pipeline.GriffinPipeline(
+          base, mesh, PP_MICROBATCHES, interleave=PP_INTERLEAVE),
+      "(c) PP x DP": pipeline.GriffinPipeline(
+          base, _pp_mesh(dev, PP_DP_MESH, ("stage", "data")),
+          PP_DP_MICROBATCHES)}
+  log(f"== phase 28: pipeline parallelism on phase 18's 2B, batch {b} x {t} "
+      f"(row 1 padded after {PP_REAL_TOKENS[1]}); meshes repeat the card "
+      f"(no speed-up is possible); {mesh}")
+  for label, pipe in pipes.items():
+    log(f"  {label}: {pipe.num_stages} stages x {pipe.interleave} chunks of "
+        f"{pipe.layers_per_chunk} blocks, {pipe.pipelined_layers} pipelined, "
+        f"tail {pipe.tail_layers}, M = {pipe.num_microbatches}, "
+        f"schedule_steps {pipe.schedule_steps}, bubble_fraction "
+        f"{pipe.bubble_fraction:.4f}; mesh axes {pipe.mesh.axis_names} "
+        f"{pipe.mesh.shape}")
+
+  # (a) The GPipe forward, no gradient: launches, none in a bubble slot.
+  pipe = pipes["(a) GPipe"]
+  placed, shared, stack_gb = _pp_placed(pipe, base)
+  with torch.no_grad():
+    want, _ = base(tokens, positions, return_cache=False,
+                   last_logits_only=True)
+    torch.cuda.synchronize()
+    before = _tpt_counts()
+    reset_scan_routes()
+    start = time.perf_counter()
+    hidden = pipe(placed, shared, tokens, positions, return_hidden=True)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - start) * 1e3
+    launches = _tpt_delta(before)
+    got = base.decode_hidden(hidden[:, -1:])
+  del hidden
+  check_scan_routes(launches["lru_scan"])
+  with torch.no_grad():  # the unsharded forward's time, uncounted
+    start = time.perf_counter()
+    base(tokens, positions, return_cache=False, last_logits_only=True)
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - start) * 1e3
+  want_launches = _pp_forward_launches(pipe)
+  bubbles = pipe.schedule_steps * pipe.num_stages - (
+      pipe.num_microbatches * pipe.num_chunks)
+  rel = _rel_rms(got, want)
+  log(f"  (a) stacked copy of {pipe.pipelined_layers} blocks +{stack_gb:.3f} "
+      f"GB; forward {ms:.1f} ms (host clock; the unsharded forward after it "
+      f"{one_ms:.1f} ms), launched {launches} (want "
+      f"{want_launches}: {bubbles} bubble slots of {pipe.schedule_steps} x "
+      f"{pipe.num_stages} launch nothing); last logits rel. RMS {rel:.3e} "
+      f"against the unsharded forward (limit {MODEL_LOGITS_REL_RMS})")
+  if any(launches[k] != v for k, v in want_launches.items()) or any(
+      launches[k] for k in ("lru_scan_backward", "window_attention_dq",
+                            "window_attention_dkv", "int8_weight_matmul",
+                            "int8_weight_matmul_wgmma")):
+    raise AssertionError(f"The GPipe forward launched {launches}, want "
+                         f"{want_launches}.")
+  if not (torch.isfinite(got).all() and rel <= MODEL_LOGITS_REL_RMS):
+    raise AssertionError("The pipelined logits disagree with unsharded.")
+  add_launches(rows, launches)
+  del got, want
+
+  # (a-c) One step's loss and gradients on each schedule against the
+  # unsharded model's on the same batch.
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  start = time.perf_counter()
+  want_loss, want = _unsharded_gradients(base, tokens, mask)
+  torch.cuda.synchronize()
+  log(f"  unsharded: loss {want_loss:.6f}, {len(want)} gradient leaves, "
+      f"{(time.perf_counter() - start) * 1e3:.1f} ms, peak "
+      f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+  tail_rec = sum(config.block_types[i] is common.TemporalBlockType.RECURRENT
+                 for i in pipe.tail_layers)
+  for label, pipe in pipes.items():
+    if label != "(a) GPipe":
+      placed, shared, stack_gb = _pp_placed(pipe, base)
+    # The first backward scans are the tail's, on the whole batch: keep the
+    # first microbatch's.
+    captures = _TrainingCaptures(skip={"lru_scan_backward": tail_rec})
+    try:
+      loss, grads, launches, ms, peak_gb = _pp_gradients(
+          pipe, placed, shared, tokens, mask, positions)
+    finally:
+      captures.restore()
+    want_launches = _pp_step_launches(pipe)
+    log(f"  {label} step (forward and backward): {ms:.1f} ms, peak "
+        f"{peak_gb:.2f} GB (the unsharded gradients held beside); launched "
+        f"{launches}, want {want_launches}")
+    if any(launches[k] != v for k, v in want_launches.items()):
+      raise AssertionError(f"{label} launched {launches}, want "
+                           f"{want_launches}.")
+    add_launches(rows, launches)
+    _hold_gradients(label, loss, grads, want_loss, want)
+    del grads, placed, shared
+    _hold_kernels(label, captures, rows, time_them=label == "(a) GPipe",
+                  shapes_key="pp_shapes")
+    del captures
+    torch.cuda.empty_cache()
+  del want
+
+  # (d) The int8 copy's forward: its int8 launches by route.
+  pipe = pipeline.GriffinPipeline(qbase, mesh, PP_MICROBATCHES)
+  placed, shared, stack_gb = _pp_placed(pipe, qbase)
+  with torch.no_grad():
+    want, _ = qbase(tokens, positions, return_cache=False,
+                    last_logits_only=True)
+    torch.cuda.synchronize()
+    before = _tpt_counts()
+    capture = CaptureInt8Calls(host=True)
+    try:
+      hidden = pipe(placed, shared, tokens, positions, return_hidden=True)
+      got = qbase.decode_hidden(hidden[:, -1:])
+    finally:
+      capture.restore()
+    torch.cuda.synchronize()
+    launches = _tpt_delta(before)
+  del hidden
+  layers = lambda ids: sum(_int8_layers(qbase.blocks[i]) for i in ids)
+  want_wgmma = (pipe.num_microbatches * layers(range(pipe.pipelined_layers))
+                + layers(pipe.tail_layers))
+  rel = _rel_rms(got, want)
+  log(f"  (d) int8 copy: stacked +{stack_gb:.3f} GB; forward launched "
+      f"{launches} (want {want_wgmma} wgmma: each microbatch's int8 layers "
+      f"of the pipelined blocks and the tail's on the whole batch; 1 "
+      f"mma.sync: the last position's logits at {b} rows); last logits rel. "
+      f"RMS {rel:.3e} against the unsharded int8 forward")
+  if (launches["int8_weight_matmul_wgmma"], launches["int8_weight_matmul"]) != (
+      want_wgmma, 1) or any(launches[k] != v for k, v in
+                            _pp_forward_launches(pipe).items()):
+    raise AssertionError(f"The int8 pipeline launched {launches}.")
+  if not (torch.isfinite(got).all() and rel <= MODEL_LOGITS_REL_RMS):
+    raise AssertionError("The int8 pipeline's logits disagree.")
+  add_launches(rows, launches)
+  del got, want, placed, shared
+  _hold_pp_int8(capture, rows, config, t)
+  del capture
+  torch.cuda.empty_cache()
+
+  # (e) Three make_train_step steps of (a)'s pipeline in turns with three
+  # unsharded trainer.train_step steps, each turn from phase 18's weights:
+  # the pipeline's stacked copy and a copy of its shared leaves, or a copy
+  # of the model (one at a time: each turn's optimizer holds ~11 GB).
+  pipe = pipes["(a) GPipe"]
+  adamw = functools.partial(torch.optim.AdamW, lr=TRAIN_LEARNING_RATE,
+                            betas=(0.9, 0.96), eps=1e-8, weight_decay=0.1)
+  step = pipe.make_train_step(adamw)
+  real = sum(PP_REAL_TOKENS)
+  turns = {"one": [], "pp": []}
+  # Each turn's backward asks for a 7.8-GiB loss chunk beside ~11 GB of
+  # optimizer state; in the whole smoke the earlier phases' holes left 20
+  # GiB reserved but unallocated and no block that large. Segments that
+  # grow (the allocator's own remedy) serve it; the setting is restored.
+  torch.cuda.memory._set_allocator_settings("expandable_segments:True")  # pylint: disable=protected-access
+  try:
+    for side in PP_TURNS:
+      torch.cuda.synchronize()
+      torch.cuda.reset_peak_memory_stats()
+      clock = StageClock()
+      before = _tpt_counts()
+      if side == "pp":
+        placed, shared, _ = _pp_placed(pipe, base)
+        shared = {k: v.clone() for k, v in shared.items()}
+        opt = adamw(pipe.parameters(placed, shared))
+        clock.restart()
+        for i in range(PP_STEPS):
+          loss, placed, shared, opt = step(placed, shared, opt, tokens, mask,
+                                           positions)
+          clock({"train_loss": loss.item()}, i)
+        del placed, shared, opt
+      else:
+        model = griffin.Griffin(config, device="meta", dtype=torch.bfloat16)
+        model.to_empty(device=dev)
+        model.load_state_dict(base.state_dict())
+        opt = trainer.make_optimizer(model, TRAIN_LEARNING_RATE)
+        clock.restart()
+        for i in range(PP_STEPS):
+          loss = trainer.train_step(model, opt, 0, tokens, mask)
+          clock({"train_loss": loss.item()}, i)
+        del opt, model
+      torch.cuda.synchronize()
+      launches = _tpt_delta(before)
+      turns[side].append(clock.summary(
+          f"(e) {'PP-4 make_train_step' if side == 'pp' else 'unsharded train_step'}"
+          f", {PP_STEPS} steps", real, torch.cuda.max_memory_allocated() / 1e9))
+      if side == "pp":
+        want_launches = {k: PP_STEPS * v
+                         for k, v in _pp_step_launches(pipe).items()}
+        if any(launches[k] != v for k, v in want_launches.items()):
+          raise AssertionError(f"make_train_step launched {launches}, want "
+                               f"{want_launches}.")
+        add_launches(rows, launches)
+        losses = turns[side][-1]["losses"]
+        if not losses[-1] < losses[0]:
+          raise AssertionError(f"The pipelined loss did not fall: {losses}.")
+      torch.cuda.empty_cache()
+  finally:
+    torch.cuda.memory._set_allocator_settings("expandable_segments:False")  # pylint: disable=protected-access
+  steady = {side: float(np.mean([s["steady_ms"] for s in stats]))
+            for side, stats in turns.items()}
+  log(f"  (e) steady ms a step in turns {PP_TURNS}: unsharded "
+      f"{[round(s['steady_ms'], 1) for s in turns['one']]}, PP-4 "
+      f"{[round(s['steady_ms'], 1) for s in turns['pp']]}: PP-4 / unsharded "
+      f"{steady['pp'] / steady['one']:.3f} (one card runs every stage in "
+      f"turn); peak GB unsharded "
+      f"{[round(s['peak_gb'], 2) for s in turns['one']]}, PP-4 "
+      f"{[round(s['peak_gb'], 2) for s in turns['pp']]}")
+  torch.cuda.empty_cache()
+  log(f"== phase 28 {time.perf_counter() - phase_start:.1f} s; its launches "
+      f"{ {k: r['launches'] for k, r in rows.items()} }")
+  return rows
+
+
 def add_launches(rows: dict[str, dict], launches: dict[str, int]) -> None:
   for name, n in launches.items():
     rows[name]["launches"] += n
@@ -9943,6 +10353,8 @@ def main() -> int:
   torch.cuda.empty_cache()
   tp_extras_rows = phase_tp_extras(dev, handoff)
   torch.cuda.empty_cache()
+  pp_rows = phase_pipeline(dev, handoff)
+  torch.cuda.empty_cache()
   # Phase 23 writes its checkpoints into ``root``; phase 24 reads the bf16
   # one.
   root = tempfile.mkdtemp(prefix="chip-smoke-export-")
@@ -9965,6 +10377,7 @@ def main() -> int:
   add_row_launches(kernels, tp_launches)
   add_phase_rows(kernels, tp_training_rows)
   add_phase_rows(kernels, tp_extras_rows)
+  add_phase_rows(kernels, pp_rows)
   log(f"== total {time.perf_counter() - start:.1f} s")
   print(json.dumps({"kernels": kernels}))
   print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -165,7 +165,8 @@ def test_config_from_numpy_params_equals_jax():
 def test_port_hygiene(monkeypatch):
   """The port, its training (LoRA and the image loader too), vision,
   serving (speculative decoding and grammar constraints too: constrain and
-  the native walker's bindings), parallel, complex, kernel-lab, tokenizer,
+  the native walker's bindings), parallel (the pipeline and the multi-host
+  meshes too), complex, kernel-lab, tokenizer,
   int8, checkpoint (I/O, timm import, the serving export), resilience,
   profiling and logging modules, the kernels' operator library and the
   command-line programs (``examples``) included,
@@ -187,6 +188,8 @@ def test_port_hygiene(monkeypatch):
       "import cadence_gemma_tpu_torch.parallel.sharding; "
       "import cadence_gemma_tpu_torch.parallel.sp_attention; "
       "import cadence_gemma_tpu_torch.parallel.data_parallel; "
+      "import cadence_gemma_tpu_torch.parallel.pipeline; "
+      "import cadence_gemma_tpu_torch.parallel.multihost; "
       "import cadence_gemma_tpu_torch.complex_lib; "
       "import cadence_gemma_tpu_torch.benchmarks.kernel_lab; "
       "import cadence_gemma_tpu_torch.sp_native; "

@@ -42,7 +42,6 @@ from cadence_gemma_tpu_torch.inference import serving
 from cadence_gemma_tpu_torch.inference import speculative
 from cadence_gemma_tpu_torch.parallel import multihost
 from cadence_gemma_tpu_torch.parallel import partitioning
-from cadence_gemma_tpu_torch.parallel import pipeline
 from cadence_gemma_tpu_torch.parallel import sharding
 from cadence_gemma_tpu_torch.parallel import tensor_parallel
 
@@ -332,21 +331,25 @@ def test_tp_model_forward_and_cache_layout(tiny):
         torch.testing.assert_close(a, b, atol=ATOL, rtol=0)
 
 
+def _two_processes(monkeypatch):
+  monkeypatch.setattr(multihost, "process_count", lambda: 2)
+  return multihost.make_hybrid_mesh((2,), ("model",), devices=["cpu"] * 2)
+
+
 REFUSALS = {
-    "SP and TP": ("14g", lambda t: tensor_parallel.tensor_parallel(
+    "SP and TP": ("14g", lambda t, mp: tensor_parallel.tensor_parallel(
         port.Griffin(t.model.config, device="cpu", scan_sharding_spec=(
             sharding.ShardingSpec(mesh=t.mesh(2), sequence_axis_name="model"))),
         t.mesh(2))),
-    "GriffinPipeline": ("14d", lambda t: pipeline.GriffinPipeline(t.model)),
-    "multihost": ("14d", lambda t: multihost.make_hybrid_mesh()),
+    "multihost": ("14g", lambda t, mp: _two_processes(mp)),
 }
 
 
 @pytest.mark.parametrize("feature", list(REFUSALS))
-def test_left_out_features_name_their_item(tiny, feature):
+def test_left_out_features_name_their_item(tiny, feature, monkeypatch):
   item, call = REFUSALS[feature]
   with pytest.raises(NotImplementedError, match=f"item {item}"):
-    call(tiny)
+    call(tiny, monkeypatch)
 
 
 def test_no_fallback_hides_the_card(tiny, monkeypatch):

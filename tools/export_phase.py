@@ -3,8 +3,9 @@
 Runs the smoke's phases 1 and 2 (the card; the kernels' build), builds
 phase 18's models with the smoke's own ``realistic_2b`` (the
 ``realistic_params`` 2B in bf16 and its weight-only int8 copy, with phase
-18's vocabulary and prompts) and runs ``phase_export`` on them, in about
-four minutes instead of the whole smoke's fourteen.
+18's vocabulary and prompts) and runs ``phase_export`` on them (the first
+``EXPORT_BLOCKS`` blocks of each), in a few minutes instead of the whole
+smoke's.
 
   python3 tools/export_phase.py [--profile]
 
