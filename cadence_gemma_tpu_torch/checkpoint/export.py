@@ -226,6 +226,7 @@ def export_serving(
   """
   mode, fakes = _fake_params(params)
   device = next(iter(fakes.values())).device
+  sharding.refuse_processes(mesh, "export_serving")
   if mesh is None:
     prefill, decode_step = make_serving_functions(model)
   elif len({str(d) for d in mesh.devices.flat if d.type == "cuda"}) > 1:

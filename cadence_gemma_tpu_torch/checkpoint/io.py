@@ -30,6 +30,15 @@ pinned buffer on a side stream of its own: a copy into pageable memory
 from another thread slows the training thread's kernel launches while it
 runs, and pinning the whole state would hold the step (``PERF.md``
 records both on an H100).
+
+One process a card (a ``torch.distributed`` group of several processes,
+the default group unless the caller names the training's own):
+:func:`save_train_state` and the async saver write from the group's
+process 0 alone, every process of the group then waiting at a barrier
+until the file has landed (for the async saver, when it next waits: the
+next save, :meth:`wait` or the end of its ``with`` block), so a later
+``resume_from`` on any process reads the whole file. :func:`load_parameters` and :func:`load_train_state` read on
+every process.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ import threading
 from typing import Any, Mapping
 
 import torch
+from torch import distributed as dist
 
 from cadence_gemma_tpu_torch.models import griffin
 from cadence_gemma_tpu_torch.parallel import sharding as sharding_lib
@@ -48,6 +58,18 @@ FORMAT = "cadence_gemma_tpu_torch/1"
 
 # The pinned buffer the async saver's thread copies device tensors through.
 _STAGE_BYTES = 16 << 20
+
+
+def _several(group) -> bool:
+  """Whether ``group`` (``None``: the default group) holds several
+  processes."""
+  return (dist.is_available() and dist.is_initialized()
+          and dist.get_world_size(group) > 1)
+
+
+def _writes(group) -> bool:
+  """Whether this process writes ``group``'s checkpoints: its process 0."""
+  return not _several(group) or dist.get_rank(group) == 0
 
 
 def _detached(tree):
@@ -156,13 +178,18 @@ def load_parameters(checkpoint_path: str, device=None,
 
 
 def save_train_state(checkpoint_path: str, params: Mapping[str, torch.Tensor],
-                     opt_state: Any, step: int) -> None:
+                     opt_state: Any, step: int, group: Any = None) -> None:
   """Saves a resumable training state: ``params`` (a state dict),
   ``opt_state`` (any tree of dicts, lists and tensors, e.g. an optimizer's
-  ``state_dict()``) and ``step`` (JAX ``io.py:112``)."""
-  _write({"format": FORMAT, "params": _detached(dict(params)),
-          "opt_state": _detached(opt_state), "step": int(step)},
-         checkpoint_path)
+  ``state_dict()``) and ``step`` (JAX ``io.py:112``). One process of
+  several (of ``group``, default the default group): its process 0
+  writes, then every process of it waits at a barrier."""
+  if _writes(group):
+    _write({"format": FORMAT, "params": _detached(dict(params)),
+            "opt_state": _detached(opt_state), "step": int(step)},
+           checkpoint_path)
+  if _several(group):
+    dist.barrier(group=group)
 
 
 def load_train_state(checkpoint_path: str, device=None
@@ -182,16 +209,22 @@ class AsyncTrainStateSaver:
   the module docstring) and returns; the thread copies the snapshot to the
   host and writes the file, renaming it into place. :meth:`wait`, or
   leaving the ``with`` block, waits for the last write and re-raises its
-  error, if any.
+  error, if any. One process of several (of ``group``, default the
+  default group): its process 0 alone snapshots and writes, and every
+  :meth:`wait` ends at a barrier of the group (every process calls
+  :meth:`save` at the same steps).
   """
 
-  def __init__(self):
+  def __init__(self, group: Any = None):
     self._thread: threading.Thread | None = None
     self._error: BaseException | None = None
+    self._group = group
 
   def save(self, checkpoint_path: str, params: Mapping[str, torch.Tensor],
            opt_state: Any, step: int) -> None:
     self.wait()
+    if not _writes(self._group):
+      return
     # Clones on the current stream: the next update cannot reach them.
     snapshot = [_map_tensors(torch.clone,
                              _detached((dict(params), opt_state)))]
@@ -210,7 +243,8 @@ class AsyncTrainStateSaver:
           host = _map_tensors(
               lambda t, d=device, s=side: (_to_host(t, stage, s)
                                            if t.device == d else t), host)
-        save_train_state(checkpoint_path, *host, step)
+        _write({"format": FORMAT, "params": host[0], "opt_state": host[1],
+                "step": int(step)}, checkpoint_path)
       except BaseException as e:  # noqa: BLE001 -- re-raised by wait()
         self._error = e
 
@@ -219,10 +253,13 @@ class AsyncTrainStateSaver:
     self._thread.start()
 
   def wait(self) -> None:
-    """Blocks until the last save is on disk; re-raises its error."""
+    """Blocks until the last save is on disk (on every process: a
+    barrier); re-raises its error."""
     if self._thread is not None:
       self._thread.join()
       self._thread = None
+    if _several(self._group):
+      dist.barrier(group=self._group)
     if self._error is not None:
       error, self._error = self._error, None
       raise error

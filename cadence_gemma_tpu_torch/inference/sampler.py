@@ -461,6 +461,7 @@ class Sampler:
   def _place_on_mesh(model, mesh, model_axis, device, jit_compile):
     """The tensor-parallel model over ``mesh`` and the sampler's device
     (the first device of the model axis, which must be ``device``'s)."""
+    sharding.refuse_processes(mesh, "A tensor-parallel Sampler")
     devices = sharding.axis_devices(mesh, model_axis)
     first = griffin.resolve_device(devices[0])
     if device is not None and griffin.resolve_device(device) not in (

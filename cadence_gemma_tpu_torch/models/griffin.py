@@ -134,6 +134,14 @@ class Griffin(nn.Module):
     if act_quant and not quantized:
       raise ValueError("act_quant=True requires quantized=True.")
     device = resolve_device(device)
+    if scan_sharding_spec is not None:
+      if scan_sharding_spec.mesh is None:
+        raise NotImplementedError(
+            "Sequence parallelism in the model under JAX's pmap regime (a "
+            "ShardingSpec without a mesh) holds only the local sequence shard "
+            f"from the embedder to the loss: {sharding.PROCESS_PER_CARD_ITEM}.")
+      sharding.refuse_processes(scan_sharding_spec.mesh,
+                                "Sequence parallelism in the model")
     self.config = config
     self.gradient_checkpointing = gradient_checkpointing
     self.scan_sharding_spec = scan_sharding_spec

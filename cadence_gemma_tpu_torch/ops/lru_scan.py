@@ -514,23 +514,26 @@ class _ShardedLRUScan(torch.autograd.Function):
   """``_lru``'s ``custom_vjp`` over the shards of one scan domain
   (``_lru_fwd``, ``_lru_bwd``; ``pallas_lru.py:489-554``).
 
-  ``apply(reverse, num_shards, is_complex, *xs, *as_, *h0s)`` takes every
-  shard's operands (their components for Complex), since one controller
-  holds the whole domain, and returns ``(*ys, *h_lasts)`` likewise.
+  ``apply(reverse, num_shards, is_complex, domain, *xs, *as_, *h0s)``
+  takes every shard's operands (their components for Complex), since one
+  controller holds the whole domain, and returns ``(*ys, *h_lasts)``
+  likewise; with a ``domain`` that spans processes, this process's
+  positions' (the pmap regime, or a mesh over processes).
   """
 
   @staticmethod
-  def forward(ctx, reverse, num_shards, is_complex, *operands):
+  def forward(ctx, reverse, num_shards, is_complex, domain, *operands):
     values = _unflatten(operands, is_complex)
     xs, as_, h0s = (values[i * num_shards:(i + 1) * num_shards]
                     for i in range(3))
     ys, h_lasts, h0s_corrected = sharding.scan_with_correction(
-        lru_scan_forward, xs, as_, h0s, reverse)
+        lru_scan_forward, xs, as_, h0s, reverse, domain=domain)
     # The residuals of _lru_fwd: y, a and the corrected h0 of every shard.
     ctx.save_for_backward(*_flatten((*ys, *as_, *h0s_corrected), is_complex))
     ctx.reverse = reverse
     ctx.num_shards = num_shards
     ctx.is_complex = is_complex
+    ctx.domain = domain
     ctx.has_h0 = [h0 is not None for h0 in h0s]
     ctx.set_materialize_grads(False)
     return tuple(_flatten((*ys, *h_lasts), is_complex))
@@ -546,19 +549,24 @@ class _ShardedLRUScan(torch.autograd.Function):
            for g, y in zip(grads[:n], ys)]
     # Every shard returns the global h_last and the caller reads one of
     # them, so the cotangent that starts the walk is their sum (the psum of
-    # _lru_bwd); shards with no cotangent add zero.
-    dh_lasts = sharding.psum(grads[n:], devices)
+    # _lru_bwd); shards with no cotangent add zero (across processes, as
+    # zeros: every position takes part in the all-reduce).
+    dh_lasts = grads[n:]
+    if ctx.domain is not None:
+      dh_lasts = [complex_lib.zeros_like(h0) if g is None else g
+                  for g, h0 in zip(dh_lasts, h0s)]
+    dh_lasts = sharding.psum(dh_lasts, ctx.domain or devices)
     # The cotangent scan walks the shards against the forward's order; each
     # step's incoming carry takes the product of `a` shifted one step, and
     # only the walk's last shard (the forward's first) returns dh0.
     dxs, dh0s, _ = sharding.scan_with_correction(
         _cotangent_walk, dys, as_, dh_lasts, not ctx.reverse,
-        shift_a_prod=True, sync_h_last=False)
+        shift_a_prod=True, sync_h_last=False, domain=ctx.domain)
     # The corrected h0 of each shard stands in at its boundary.
     das = [_decay_cotangent(dx, y, h0, ctx.reverse)
            for dx, y, h0 in zip(dxs, ys, h0s)]
     dh0s = [dh0 if has else None for dh0, has in zip(dh0s, ctx.has_h0)]
-    return (None, None, None,
+    return (None, None, None, None,
             *_flatten((*dxs, *das, *dh0s), ctx.is_complex))
 
 
@@ -567,6 +575,7 @@ def sharded_scan(
     as_: Sequence[torch.Tensor | Complex],
     h0s: Sequence[torch.Tensor | Complex | None],
     reverse: bool = False,
+    domain: sharding.Domain | None = None,
 ) -> tuple[list, list]:
   """The differentiable scan of one sequence-parallel domain: ``_lru`` over
   ``_sharded_scan`` (``cadence_gemma_tpu/ops/pallas_lru.py:453-554``).
@@ -583,16 +592,24 @@ def sharded_scan(
   the cotangent-scan kernel with the product on every shard and corrects it
   the same way, walking the shards in reverse.
 
+  ``domain``, a :class:`sharding.Domain` that spans processes, makes
+  ``xs``, ``as_`` and ``h0s`` this process's positions of it (JAX's pmap
+  regime holds one): the gather of the pairs and the backward's ``psum``
+  of the ``h_last`` cotangents (``pallas_lru.py:548-550``) go over its
+  process group.
+
   Returns ``(ys, h_lasts)``, one entry per shard on the shard's device.
   """
-  if len(xs) == 1:
+  if domain is not None and len(set(domain.ranks)) == 1:
+    domain = None
+  if len(xs) == 1 and domain is None:
     y, h_last = lru_scan(xs[0], as_[0], h0s[0], reverse)
     return [y], [h_last]
   for x, a, h0 in zip(xs, as_, h0s):
     _check(x, a, h0)
   is_complex = isinstance(xs[0], Complex)
   out = _ShardedLRUScan.apply(
-      reverse, len(xs), is_complex,
+      reverse, len(xs), is_complex, domain,
       *_flatten((*xs, *as_, *h0s), is_complex))
   out = _unflatten(out, is_complex)
   return list(out[:len(xs)]), list(out[len(xs):])

@@ -19,11 +19,18 @@ With a sharding spec whose mesh has a sequence axis, the time axis is split
 into shards that each scan their chunk on their own device, corrected
 across shards from an all-gather of ``(h_last, a_prod_last)`` pairs (JAX's
 ``shard_map`` regime): :func:`linear_scan` splits, runs
-:func:`single_shard_rnn_scan` and concatenates. Every path is
-differentiable across shards: the kernel path through
+:func:`single_shard_rnn_scan` and concatenates. An ``activations_axis_name``
+splits the channels as well: the recurrence is channel-wise, so each
+channel slice is its own set of scan domains. Over a mesh that spans
+processes, ``x`` is the global array on every process (as a multi-process
+``jit`` sees it); each process scans its positions' blocks and the result is
+gathered back into the global array. A spec without a mesh is JAX's pmap
+regime: ``x`` is this process's shard, and the correction gathers over the
+process group :func:`sharding.axis_env` bound the sequence axis to. Every
+path is differentiable across shards: the kernel path through
 :func:`lru_scan.sharded_scan`'s autograd Function (the sharded cotangent
-scan), the native paths through autograd. The pmap regime (a spec without a
-mesh) and channel sharding raise ``NotImplementedError``.
+scan), the native paths through autograd (across processes, through the
+collectives' autograd Functions).
 """
 
 from __future__ import annotations
@@ -93,60 +100,167 @@ def single_shard_rnn_scan(
     h0s: Sequence[torch.Tensor | None],
     reverse: bool = False,
     scan_type: common.ScanType = common.ScanType.AUTO,
+    domain: sharding.Domain | None = None,
 ) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
   """Scan of each shard's local chunk, corrected across the shards of one
   scan domain (``ops/scan.py:183-236``).
 
   JAX runs this function on every device of the sequence axis at once; the
   port runs it for the whole domain: ``xs[j]``, ``as_[j]`` and ``h0s[j]``
-  are shard ``j``'s operands on its device. Returns ``(ys, h_lasts)``, one
-  entry per shard.
+  are shard ``j``'s operands on its device. With ``domain``, a
+  :class:`sharding.Domain` that spans processes, they are this process's
+  positions' (one in the pmap regime) and the correction's collectives go
+  over its process group. Returns ``(ys, h_lasts)``, one entry per shard.
   """
+  if domain is not None and len(set(domain.ranks)) == 1:
+    domain = None
   if scan_type in (common.ScanType.AUTO, common.ScanType.LINEAR_PALLAS):
     # The correction happens inside the kernel path, as in JAX.
-    return lru_scan.sharded_scan(xs, as_, h0s, reverse)
+    return lru_scan.sharded_scan(xs, as_, h0s, reverse, domain=domain)
   if scan_type is common.ScanType.LINEAR_NATIVE:
     scan_fn = lru_linear_scan
   elif scan_type is common.ScanType.ASSOCIATIVE_NATIVE:
     scan_fn = lru_associative_scan
   else:
     raise ValueError(f"Unsupported scan type: {scan_type}.")
-  if len(xs) == 1:
+  if len(xs) == 1 and domain is None:
     y, h_last = scan_fn(xs[0], as_[0], h0s[0], reverse=reverse)
     return [y], [h_last]
   # _native_scan_with_correction (``ops/scan.py:150-180``), differentiable
   # by autograd.
   ys, h_lasts, _ = sharding.scan_with_correction(scan_fn, xs, as_, h0s,
-                                                reverse)
+                                                reverse, domain=domain)
   return ys, h_lasts
+
+
+def _channels(v, n: int, c: int):
+  """Channel slice ``c`` of ``n`` (the last dimension), contiguous when
+  split; Complex by its components."""
+  if n == 1:
+    return v
+  if isinstance(v, complex_lib.Complex):
+    return complex_lib.Complex(_channels(v.real, n, c), _channels(v.imag, n, c))
+  return v.chunk(n, -1)[c].contiguous()
+
+
+def _cat_channels(parts):
+  return parts[0] if len(parts) == 1 else complex_lib.concatenate(parts, -1)
 
 
 def _sequence_sharded_scan(x, a, h0, reverse, scan_type, spec):
   """The ``shard_map`` regime (``ops/scan.py:290-315``): split over the
-  batch and sequence axes, scan every domain, concatenate on ``x``'s
-  device. ``h_last`` is replicated along the sequence axis, so it is read
-  from sequence shard 0 of each batch shard."""
+  batch, sequence and channel axes, scan every domain, concatenate on
+  ``x``'s device. ``h_last`` is replicated along the sequence axis, so it is
+  read from sequence shard 0 of each batch shard."""
+  mesh = sharding.check_spec(spec)
   if h0 is None:
     h0 = complex_lib.zeros_like(x[:, 0], torch.float32)
-  x_sh, a_sh, h0_sh = (sharding.shard_activations(x, spec),
-                       sharding.shard_activations(a, spec),
-                       sharding.shard_state(h0, spec))
-  groups = sharding.seq_axis_groups(len(x_sh[0]),
-                                    spec.sequence_axis_index_groups)
-  ys = [[None] * len(row) for row in x_sh]
-  h_lasts = []
-  for i in range(len(x_sh)):
-    row_h = [None] * len(x_sh[i])
-    for group in groups:
-      got_y, got_h = single_shard_rnn_scan(
-          [x_sh[i][j] for j in group], [a_sh[i][j] for j in group],
-          [h0_sh[i][j] for j in group], reverse, scan_type,
-      )
-      for j, y_j, h_j in zip(group, got_y, got_h):
-        ys[i][j], row_h[j] = y_j, h_j
-    h_lasts.append([row_h[0]])
-  return (sharding.unshard(ys, x.device),
-          sharding.unshard(h_lasts, x.device))
+  if mesh.spans_processes:
+    return _process_mesh_scan(x, a, h0, reverse, scan_type, spec)
+  n_c = sharding._axis_size(mesh, spec.activations_axis_name)  # pylint: disable=protected-access
+  if x.shape[-1] % n_c:
+    raise ValueError(
+        f"Dimension 2 of {tuple(x.shape)} does not divide into the {n_c} "
+        f"shards of mesh axis {spec.activations_axis_name!r}.")
+  y_parts, h_parts = [], []
+  for c in range(n_c):
+    x_sh, a_sh, h0_sh = (
+        sharding.shard_activations(_channels(x, n_c, c), spec, c),
+        sharding.shard_activations(_channels(a, n_c, c), spec, c),
+        sharding.shard_state(_channels(h0, n_c, c), spec, c))
+    groups = sharding.seq_axis_groups(len(x_sh[0]),
+                                      spec.sequence_axis_index_groups)
+    ys = [[None] * len(row) for row in x_sh]
+    h_lasts = []
+    for i in range(len(x_sh)):
+      row_h = [None] * len(x_sh[i])
+      for group in groups:
+        got_y, got_h = single_shard_rnn_scan(
+            [x_sh[i][j] for j in group], [a_sh[i][j] for j in group],
+            [h0_sh[i][j] for j in group], reverse, scan_type,
+        )
+        for j, y_j, h_j in zip(group, got_y, got_h):
+          ys[i][j], row_h[j] = y_j, h_j
+      h_lasts.append([row_h[0]])
+    y_parts.append(sharding.unshard(ys, x.device))
+    h_parts.append(sharding.unshard(h_lasts, x.device))
+  return _cat_channels(y_parts), _cat_channels(h_parts)
+
+
+def _process_mesh_scan(x, a, h0, reverse, scan_type, spec):
+  """The ``shard_map`` regime over a mesh that spans processes: ``x``,
+  ``a`` and ``h0`` are the global arrays on every process; each process
+  scans its positions' blocks, each scan domain's correction gathering over
+  the process group of its sequence line, and every position's ``y`` and
+  ``h_last`` are gathered back into the global arrays (differentiable:
+  ``sharding.local_blocks`` / ``assemble_blocks``)."""
+  mesh = spec.mesh
+  for axis in mesh.axis_names:
+    if (axis not in (spec.batch_axis_name, spec.sequence_axis_name,
+                     spec.activations_axis_name)
+        and mesh.axis_spans_processes(axis)):
+      raise NotImplementedError(
+          f"Mesh axis {axis!r} replicates the scan across processes: "
+          f"{sharding.PROCESS_PER_CARD_ITEM}.")
+  sizes = tuple(sharding._axis_size(mesh, n) for n in (  # pylint: disable=protected-access
+      spec.batch_axis_name, spec.sequence_axis_name,
+      spec.activations_axis_name))
+  n_b, n_s, n_c = sizes
+  for dim, n in zip((0, 1, 2), sizes):
+    if x.shape[dim] % n:
+      raise ValueError(f"Dimension {dim} of {tuple(x.shape)} does not divide "
+                       f"into the {n} shards of its mesh axis.")
+  blocks = [(i, j, c) for i in range(n_b) for j in range(n_s)
+            for c in range(n_c)]
+  index = {}
+  for c in range(n_c):
+    for i, row in enumerate(sharding.shard_positions(spec, c)):
+      for j, pos in enumerate(row):
+        index[i, j, c] = pos
+  ranks = tuple(mesh.rank(index[blk]) for blk in blocks)
+  group = mesh.group(ranks)
+  act = sharding.BlockLayout(group, sizes, tuple(blocks), ranks)
+  state = sharding.BlockLayout(group, (n_b, n_c),
+                               tuple((i, c) for i, _, c in blocks), ranks)
+  mine = act.mine
+  x_b, a_b = sharding.local_blocks(x, act), sharding.local_blocks(a, act)
+  h0_b = sharding.local_blocks(h0, state)
+  held = {blocks[p]: k for k, p in enumerate(mine)}
+  y_out, h_out = [None] * len(mine), [None] * len(mine)
+  groups = sharding.seq_axis_groups(n_s, spec.sequence_axis_index_groups)
+  for c in range(n_c):
+    for i in range(n_b):
+      for group_js in groups:
+        members = [(i, j, c) for j in group_js if (i, j, c) in held]
+        if not members:
+          continue
+        line = [index[i, j, c] for j in group_js]
+        domain = mesh.domain(line, [index[i, j, c] for j in range(n_s)])
+        ks = [held[m] for m in members]
+        devices = [mesh.devices[index[m]] for m in members]
+        got_y, got_h = single_shard_rnn_scan(
+            *([v[k].to(d) for k, d in zip(ks, devices)]
+              for v in (x_b, a_b, h0_b)),
+            reverse, scan_type, domain=domain)
+        for k, y_k, h_k in zip(ks, got_y, got_h):
+          y_out[k], h_out[k] = y_k.to(x.device), h_k.to(x.device)
+  y = sharding.assemble_blocks(y_out, act, x.shape)
+  # h_last is replicated along the sequence axis: sequence shard 0's.
+  h_last = sharding.assemble_blocks(h_out, state._replace(
+      writes=tuple(j == 0 for _, j, _ in blocks)), h0.shape)
+  return y, h_last
+
+
+def _pmap_scan(x, a, h0, reverse, scan_type, spec):
+  """JAX's pmap regime (``ops/scan.py:276-288``): ``x`` is this process's
+  shard; the scan domain is the group bound to the sequence axis (or this
+  process's index group of it)."""
+  sharding.check_spec(spec)
+  domain = sharding.pmap_domain(spec.sequence_axis_name, x.device,
+                                spec.sequence_axis_index_groups)
+  ys, h_lasts = single_shard_rnn_scan([x], [a], [h0], reverse, scan_type,
+                                      domain=domain)
+  return ys[0], h_lasts[0]
 
 
 def linear_scan(
@@ -173,6 +287,8 @@ def linear_scan(
     y = a.to(acc_dtype) * h0[:, None] + x.to(acc_dtype)
     return y.to(x.dtype), y[:, -1]
 
+  if sharding_spec is not None and sharding_spec.mesh is None:
+    return _pmap_scan(x, a, h0, reverse, scan_type, sharding_spec)
   if sharding_spec is not None:
     return _sequence_sharded_scan(x, a, h0, reverse, scan_type,
                                   sharding_spec)

@@ -21,6 +21,18 @@ as tensor-parallel serving is (``parallel/tensor_parallel.py``):
     lives that is not a view: the state dict's tensors (so the model the
     state came from holds the trained weights), the other rows, the aliases.
 
+One process a card: over a mesh whose ``data`` axis spans processes
+(``multihost.make_hybrid_mesh(..., dcn_axis_names=("data",))``) each
+process builds and holds only the rows whose devices are its own and takes
+their slices of the global batch (every process reads the whole batch, as
+a multi-process JAX ``jit`` sees it); :meth:`all_reduce_gradients` then
+all-reduces each trained tensor's gradient over the data axis's process
+group, so every process holds the summed gradient and updates its own
+replica, and the replicas stay identical (as DDP's and JAX's replicated
+parameters do). :meth:`refresh` copies within a process only. A ``model``
+axis (or any other) that crosses processes is refused
+(``sharding.PROCESS_PER_CARD_ITEM``).
+
 The trained tensors of row 0 partition the logical tree: a split leaf's
 pieces once each, a replicated leaf once. So :meth:`named_parameters` under
 the leaves' own names is what an optimizer is built over, the clip's global
@@ -42,21 +54,17 @@ from cadence_gemma_tpu_torch.parallel import sharding
 from cadence_gemma_tpu_torch.parallel import tensor_parallel
 
 
-def _row_devices(mesh: sharding.Mesh, batch_axis: str, row: int,
-                model_axis: str | None) -> list[torch.device]:
-  """The devices of data position ``row``: its ``model_axis`` positions
-  (one device where the mesh has no such axis), at index 0 of every other
-  axis."""
+def _row_positions(mesh: sharding.Mesh, batch_axis: str, row: int,
+                   model_axis: str | None) -> list[tuple[int, ...]]:
+  """The mesh indices of data position ``row``: its ``model_axis``
+  positions (one where the mesh has no such axis), at index 0 of every
+  other axis."""
   names = mesh.axis_names
   index = [0] * len(names)
   index[names.index(batch_axis)] = row
   if model_axis not in names:
-    return [mesh.devices[tuple(index)]]
-  out = []
-  for j in range(mesh.shape[model_axis]):
-    index[names.index(model_axis)] = j
-    out.append(mesh.devices[tuple(index)])
-  return out
+    return [tuple(index)]
+  return mesh.line(model_axis, index)
 
 
 class ShardedGriffin:
@@ -87,8 +95,15 @@ class ShardedGriffin:
     tensor_parallel.check_shardable(model)
     if set(state) != set(model.state_dict()):
       raise ValueError("The state dict's names are not the model's.")
+    for name in mesh.axis_names:
+      if name != batch_axis and mesh.axis_spans_processes(name):
+        raise NotImplementedError(
+            f"Mesh axis {name!r} crosses processes: tensor parallelism (or "
+            f"any axis but the data axis) across processes needs "
+            f"{sharding.PROCESS_PER_CARD_ITEM}.")
     self.state = dict(state)
     self.batch_axis = batch_axis
+    self.num_rows = mesh.shape[batch_axis]
     axis = (model_axis if model_axis in mesh.axis_names
             else partitioning.MODEL_AXIS)
     self.axis = axis
@@ -96,8 +111,23 @@ class ShardedGriffin:
                     else shardings[name].spec) for name in self.state}
     copies: dict = {}
     self.rows: list[tensor_parallel.TensorParallelGriffin] = []
-    for row in range(mesh.shape[batch_axis]):
-      devices = _row_devices(mesh, batch_axis, row, model_axis)
+    # This process's data positions, and for each model position the data
+    # axis's line through it: the gradient all-reduce's domain.
+    self.row_ids: list[int] = []
+    self.data_domains: list[sharding.Domain] | None = None
+    # The group of every process of the mesh (checkpoints, preemption).
+    self.process_group = None
+    if mesh.ranks is not None:
+      self.process_group = mesh.group(mesh.ranks.flat)
+      self.data_domains = [
+          mesh.domain(mesh.line(batch_axis, pos))
+          for pos in _row_positions(mesh, batch_axis, 0, model_axis)]
+    for row in range(self.num_rows):
+      positions = _row_positions(mesh, batch_axis, row, model_axis)
+      if not mesh.is_local(positions[0]):
+        continue
+      self.row_ids.append(row)
+      devices = [mesh.devices[p] for p in positions]
       flat = np.empty(len(devices), dtype=object)
       flat[:] = devices
       row_mesh = sharding.Mesh(flat, (axis,))
@@ -144,21 +174,39 @@ class ShardedGriffin:
     """``x``'s batch split over the data axis, each slice on its row's first
     device (``partitioning.data_sharding``); raises ``ValueError`` where the
     batch does not divide, as JAX's sharded step does."""
-    n = len(self.rows)
+    n = self.num_rows
     if x is None:
-      return [None] * n
+      return [None] * len(self.rows)
     if x.shape[0] % n:
       raise ValueError(
           f"The batch of {x.shape[0]} rows does not divide into the {n} "
           f"positions of mesh axis {self.batch_axis!r}.")
-    return [chunk.to(tp.device)
-            for chunk, tp in zip(x.chunk(n, 0), self.rows)]
+    chunks = x.chunk(n, 0)
+    return [chunks[row].to(tp.device)
+            for row, tp in zip(self.row_ids, self.rows)]
+
+  @property
+  def spans_processes(self) -> bool:
+    """Whether the mesh is over a process group (its data axis all-reduces
+    through it)."""
+    return self.data_domains is not None
+
+  def sum_rows(self, values: list[torch.Tensor]) -> torch.Tensor:
+    """The sum of one value a data row (this process's rows' values, in
+    row order) over every row of the mesh, on :attr:`device`: summed here
+    and, where the data axis crosses processes, all-reduced over its group
+    (each row counted once, whatever rows a process holds)."""
+    if self.data_domains is None:
+      return sharding.psum(values, [self.device])[0]
+    return sharding.psum([v.to(self.device) for v in values],
+                         self.data_domains[0])[0]
 
   def reduce_gradients(self) -> None:
-    """Sums the gradients a step's rows accumulated: each row's aliases into
-    its trained tensors, then each trained tensor over the rows onto row 0
-    (``sharding.psum``, the data axis's all-reduce); the other rows'
-    gradients are cleared."""
+    """Sums the gradients this process's rows accumulated: each row's
+    aliases into its trained tensors, then each trained tensor over the
+    rows onto row 0 (``sharding.psum``, the data axis's all-reduce); the
+    other rows' gradients are cleared. Where the data axis crosses
+    processes, :meth:`all_reduce_gradients` then sums row 0's over them."""
     for tp in self.rows:
       tp.sum_replicated_grads()
     if len(self.rows) == 1:
@@ -171,6 +219,29 @@ class ShardedGriffin:
         for t in tensors[1:]:
           t.grad = None
         piece.tensor.grad = total
+
+  def all_reduce_gradients(self) -> None:
+    """Sums row 0's gradients (after :meth:`reduce_gradients`) in place over
+    the data axis's processes, so every process holds the whole batch's
+    gradient; nothing to do in one process."""
+    if self.data_domains is None:
+      return
+    for name, pieces in self.rows[0].leaves.items():
+      if not self.trains[name]:
+        continue
+      for domain, piece in zip(self.data_domains, pieces):
+        # A leaf the batch never reaches (the connector of a text batch)
+        # has no gradient on any process: every process skips it alike.
+        if piece.tensor.grad is not None:
+          sharding.psum_(piece.tensor.grad, domain)
+
+  def all_reduce(self, tensor: torch.Tensor) -> torch.Tensor:
+    """Sums ``tensor``, one value a process on :attr:`device` (a whole leaf
+    of :meth:`gradients`), in place over the data axis's processes; returns
+    it (unchanged in one process)."""
+    if self.data_domains is not None:
+      sharding.psum_(tensor, self.data_domains[0])
+    return tensor
 
   @torch.no_grad()
   def refresh(self) -> None:

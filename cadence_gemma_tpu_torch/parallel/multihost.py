@@ -11,10 +11,15 @@ with its names, signatures, axis order and errors:
   * :func:`dp_over_dcn_mesh` is the pod preset
     ``(dcn=processes) x (data, sequence, model)``.
 
-The port's meshes are single-controller (``parallel/sharding.py``): one
-program places and runs every piece, so a mesh cannot hold another
-process's card. Both mesh functions raise over several processes until the
-process-per-card backend lands (``sharding.PROCESS_PER_CARD_ITEM``).
+Over several processes (one a card, started by ``torchrun`` or by
+:func:`initialize` with explicit arguments) the mesh functions lay the
+processes out as JAX's ``create_hybrid_device_mesh(process_is_granule=True)``
+does: process ``p`` at the ``p``-th position of the DCN axes (row-major),
+its own devices over the ICI axes, so no ICI slice crosses a process. Each
+process passes its own devices; the mesh learns the others' through
+``dist.all_gather_object`` and builds its axes' process groups
+(:meth:`sharding.Mesh.build_groups`), so every process must build the same
+meshes in the same order.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import os
 from typing import Any, Sequence
 
 import numpy as np
+import torch
 from torch import distributed as dist
 
 from cadence_gemma_tpu_torch.parallel import sharding
@@ -61,8 +67,11 @@ def initialize(
       environment).
 
   ``backend`` is ``nccl`` unless the caller names another (``"gloo"`` on
-  the CPU). Returns the process count after initialization (1 for one
-  process).
+  the CPU, or for several processes on one card); nothing switches it. On
+  a machine with cards the process takes its own card
+  (``sharding.cuda_devices``) before the group starts, so no allocation
+  lands on another process's card. Returns the process count after
+  initialization (1 for one process).
   """
   if dist.is_available() and dist.is_initialized():
     return dist.get_world_size()
@@ -74,6 +83,11 @@ def initialize(
     init_method = coordinator_address
   else:
     init_method = f"tcp://{coordinator_address}"
+  if torch.cuda.is_available():
+    rank = (process_id if process_id is not None
+            else int(os.environ.get("RANK", "0")))
+    local = int(os.environ.get("LOCAL_RANK", rank))
+    torch.cuda.set_device(local % torch.cuda.device_count())
   dist.init_process_group(
       backend=backend or "nccl", init_method=init_method,
       world_size=-1 if num_processes is None else num_processes,
@@ -95,20 +109,18 @@ def make_hybrid_mesh(
     dcn_axis_shapes: Sizes of the cross-process axes (their product must
       equal the process count). None = ``(process_count,)``.
     dcn_axis_names: Names for the cross-process axes.
-    devices: The devices (``torch.device``s or names, a device may repeat);
-      None means this process's cards, and raises without one, as
-      :func:`sharding.make_mesh` does.
+    devices: This process's devices (``torch.device``s or names, a device
+      may repeat); None means its cards (its own card, one process of
+      several), and raises without one, as :func:`sharding.make_mesh` does.
 
   Returns:
     A :class:`sharding.Mesh` with axes ``(*dcn_axis_names,
-    *ici_axis_names)``; one process collapses the DCN axes to size 1.
+    *ici_axis_names)``; one process collapses the DCN axes to size 1. Over
+    several processes (or under a process group of one) the mesh holds
+    each position's process (``ranks``) and the process groups of its axes,
+    and data-parallel training reduces its gradients through them.
   """
   n_proc = process_count()
-  if n_proc > 1:
-    raise NotImplementedError(
-        f"A mesh over a process count of {n_proc} needs "
-        f"{sharding.PROCESS_PER_CARD_ITEM}: a single-controller mesh cannot "
-        "hold another process's card.")
   devices = list(sharding.cuda_devices() if devices is None else devices)
   if dcn_axis_shapes is None:
     dcn_axis_shapes = (n_proc,)
@@ -121,13 +133,27 @@ def make_hybrid_mesh(
     raise ValueError(
         f"DCN axes {tuple(dcn_axis_shapes)} must multiply to the process "
         f"count {n_proc}.")
-  if dcn_total * ici_total != len(devices):
+  shape = tuple(dcn_axis_shapes) + tuple(ici_axis_shapes)
+  names = tuple(dcn_axis_names) + tuple(ici_axis_names)
+  if n_proc == 1 and not (dist.is_available() and dist.is_initialized()):
+    if dcn_total * ici_total != len(devices):
+      raise ValueError(
+          f"Mesh {tuple(dcn_axis_shapes)} x {tuple(ici_axis_shapes)} needs "
+          f"{dcn_total * ici_total} devices, have {len(devices)}.")
+    return sharding.make_mesh(shape, names, devices)
+  every: list[Any] = [None] * n_proc
+  dist.all_gather_object(every, [str(torch.device(d)) for d in devices])
+  total = sum(len(names_p) for names_p in every)
+  if dcn_total * ici_total != total or any(
+      len(names_p) != ici_total for names_p in every):
     raise ValueError(
         f"Mesh {tuple(dcn_axis_shapes)} x {tuple(ici_axis_shapes)} needs "
-        f"{dcn_total * ici_total} devices, have {len(devices)}.")
-  return sharding.make_mesh(
-      tuple(dcn_axis_shapes) + tuple(ici_axis_shapes),
-      tuple(dcn_axis_names) + tuple(ici_axis_names), devices)
+        f"{dcn_total * ici_total} devices, have {total}.")
+  flat = np.empty(total, dtype=object)
+  flat[:] = [torch.device(d) for names_p in every for d in names_p]
+  ranks = np.repeat(np.arange(n_proc), ici_total)
+  return sharding.Mesh(flat.reshape(shape), names,
+                       ranks.reshape(shape)).build_groups()
 
 
 def dp_over_dcn_mesh(
@@ -140,6 +166,9 @@ def dp_over_dcn_mesh(
 
   ``data * sequence * model`` must equal the per-process device count; the
   cross-process axis is named ``dcn`` and carries only batch sharding.
+  ``train_loop(mesh=)`` splits the batch over one axis named ``data``: for
+  data parallelism across processes, name the DCN axis so
+  (``make_hybrid_mesh((1,), ("model",), dcn_axis_names=("data",))``).
   """
   return make_hybrid_mesh(
       (data, sequence, model), ("data", "sequence", "model"),

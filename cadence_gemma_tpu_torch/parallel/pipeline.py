@@ -215,6 +215,7 @@ class GriffinPipeline:
             f"GriffinPipeline builds its blocks as JAX's pipeline does "
             f"(pipeline.py:282-298), without {reason}; pipeline the base "
             f"model.")
+    sharding.refuse_processes(self.mesh, "Pipeline parallelism (its hops)")
     for dev in set(self.mesh.devices.flat):
       griffin_lib.resolve_device(dev)  # a CUDA mesh raises without a card
     pattern = stage_block_types(model.config.block_types, self.num_chunks)

@@ -856,6 +856,7 @@ def tensor_parallel(model: griffin_lib.Griffin, mesh: sharding.Mesh,
   ``mesh``'s ``model_axis`` (JAX's ``Sampler(mesh=)`` placement; stacked
   ``lora_rows`` adapters replicated, as JAX's batcher places them), and the
   sharded model over them. The model's flags carry over."""
+  sharding.refuse_processes(mesh, "Tensor parallelism")
   check_shardable(model)
   _mesh_devices(mesh, model_axis)
   state = model.state_dict()
@@ -1078,6 +1079,7 @@ def tensor_parallel_encoder(encoder: vit.DinoSigLIPEncoder,
   ``partitioning.param_shardings_or_replicated`` over ``mesh`` (JAX
   ``modal_sampler.py:67-85``), and the sharded towers over them; the
   encoder's flags carry over."""
+  sharding.refuse_processes(mesh, "Tensor parallelism of the towers")
   state = encoder.state_dict()
   if model_axis in mesh.axis_names:
     _mesh_devices(mesh, model_axis)

@@ -43,6 +43,16 @@ stage refuses a mesh, as JAX's does. Sequence-parallel training needs no
 mesh here: as in JAX it is a model built with ``scan_sharding_spec``, which
 this loop trains like any other.
 
+One process a card (JAX's multi-process ``train_loop(mesh=)``): with a mesh
+whose ``data`` axis spans processes (``multihost.make_hybrid_mesh(...,
+dcn_axis_names=("data",))``, after ``multihost.initialize()``), every
+process runs this loop on its own replica and feeds it the same global
+batches; each takes its rows, the gradients are all-reduced over the data
+axis, and the replicas stay identical. Process 0 alone writes checkpoints
+and the preemption state, the others waiting at a barrier
+(``checkpoint/io.py``); a preemption seen by any process stops every one
+at the same step; ``resume_from`` loads on every process.
+
 The model trains where its parameters live, on the card unless the caller
 passes ``device="cpu"``; ``device=None`` without a card raises.
 """
@@ -59,6 +69,7 @@ import warnings
 
 import numpy as np
 import torch
+from torch import distributed as dist
 
 from cadence_gemma_tpu_torch.checkpoint import io as checkpoint_io
 from cadence_gemma_tpu_torch.models import griffin
@@ -236,6 +247,7 @@ class _Mesh(_Local):
 
   def finish_window(self, skip_nonfinite: bool) -> bool:
     self.sharded.reduce_gradients()
+    self.sharded.all_reduce_gradients()
     return not skip_nonfinite or trainer.grads_finite(self.sharded)
 
   def apply(self) -> None:
@@ -250,11 +262,13 @@ class _Mesh(_Local):
 
   def train_state(self, step: int, accumulate: int, nonfinite: int) -> dict:
     """The logical tree: the optimizer's state and a window's gradients as
-    whole leaves by name."""
+    whole leaves by name (across processes, the sum of every process's
+    window so far; each process goes on accumulating its own)."""
     self.sharded.reduce_gradients()
     return {
         "optimizer_leaves": self.sharded.optimizer_state(self.optimizer),
-        "grads": self.sharded.gradients(),
+        "grads": {name: self.sharded.all_reduce(grad.clone())
+                  for name, grad in self.sharded.gradients().items()},
         "micro_step": step % accumulate,
         "nonfinite": nonfinite,
     }
@@ -269,7 +283,10 @@ class _Mesh(_Local):
     self.sharded.load_optimizer_state(self.optimizer,
                                       state["optimizer_leaves"],
                                       self.opt_shardings)
-    self.sharded.load_gradients(state["grads"])
+    # Across processes the saved window is the processes' sum: the process
+    # of data row 0 carries it on, so the window's all-reduce counts it once.
+    if not self.sharded.spans_processes or 0 in self.sharded.row_ids:
+      self.sharded.load_gradients(state["grads"])
 
 
 def _sharded(model, config: TrainingConfig, mesh, pad_id: int,
@@ -339,8 +356,9 @@ def train_loop(
       (JAX's ``train_loop(mesh=)``): the weights take the Megatron layouts
       over its ``model`` axis, every batch splits over its ``data`` axis
       (the batch must divide into it), and the model returned holds the
-      trained weights. A model with ``scan_sharding_spec`` trains
-      sequence-parallel without it.
+      trained weights. The ``data`` axis may span processes (one a card;
+      every process calls this with the same batches). A model with
+      ``scan_sharding_spec`` trains sequence-parallel without it.
     preemption: Optional :class:`resilience.PreemptionHandler`; once it has
       fired, the loop finishes the step in flight, saves a resumable state
       as ``preempted_step_{k}`` under ``config.checkpoint_dir`` (when set;
@@ -365,18 +383,19 @@ def train_loop(
   if state is not None:
     trainee.resume(state)
   nonfinite = 0 if state is None else state["nonfinite"]
-  saver = (checkpoint_io.AsyncTrainStateSaver() if config.async_checkpoints
-           else contextlib.nullcontext(None))
+  group = getattr(getattr(trainee, "sharded", None), "process_group", None)
+  saver = (checkpoint_io.AsyncTrainStateSaver(group)
+           if config.async_checkpoints else contextlib.nullcontext(None))
   with saver as saver:
     _run(model, trainee, train_data, config, step, nonfinite, saver,
          validation_data, encode_image, log_metrics, pad_id, device,
-         preemption)
+         preemption, group)
   return model
 
 
 def _run(model, trainee, train_data, config: TrainingConfig, step: int,
          nonfinite: int, saver, validation_data, encode_image, log_metrics,
-         pad_id: int, device, preemption) -> None:
+         pad_id: int, device, preemption, group=None) -> None:
   """Every epoch of one stage, from a restored ``step`` (its batches
   skipped once, at the start of the stream)."""
   accumulate = config.gradient_accumulation_steps
@@ -405,13 +424,13 @@ def _run(model, trainee, train_data, config: TrainingConfig, step: int,
           else:
             trainee.clear()
 
-        if preemption is not None and preemption.triggered:
+        if preemption is not None and _preempted(preemption, device, group):
           if config.checkpoint_dir:
             path = os.path.join(config.checkpoint_dir,
                                 f"preempted_step_{step}")
             checkpoint_io.save_train_state(
                 path, model.state_dict(),
-                trainee.train_state(step, accumulate, nonfinite), step)
+                trainee.train_state(step, accumulate, nonfinite), step, group)
             if log_metrics is not None:
               log_metrics({"preempted_at": float(step)}, step)
             print(f"preemption: saved resumable state at {path}")
@@ -435,13 +454,29 @@ def _run(model, trainee, train_data, config: TrainingConfig, step: int,
         if (config.checkpoint_every_n and config.checkpoint_dir
             and step % config.checkpoint_every_n == 0):
           path = os.path.join(config.checkpoint_dir, f"step_{step}")
-          save = (checkpoint_io.save_train_state if saver is None
-                  else saver.save)
-          save(path, model.state_dict(),
-               trainee.train_state(step, accumulate, nonfinite), step)
+          state = trainee.train_state(step, accumulate, nonfinite)
+          if saver is None:
+            checkpoint_io.save_train_state(path, model.state_dict(), state,
+                                           step, group)
+          else:
+            saver.save(path, model.state_dict(), state, step)
 
         if config.max_steps is not None and step >= config.max_steps:
           return
+
+
+def _preempted(preemption, device, group) -> bool:
+  """Whether the handler fired here or, one process a card, on any
+  process of the training's ``group``: all of them then stop at this
+  step."""
+  fired = preemption.triggered
+  if group is None:
+    return fired
+  flag = torch.tensor([float(fired)],
+                      device=device if dist.get_backend(group) == "nccl"
+                      else "cpu")
+  dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
+  return bool(flag.item())
 
 
 def _validate(trainee, validation_data, pad_id, device, encode_image

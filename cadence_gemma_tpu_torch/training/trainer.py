@@ -34,7 +34,11 @@ places the weights on a ``parallel.data_parallel.ShardedGriffin`` (one
 tensor-parallel model a data position, the batch split over the data axis)
 and its step takes JAX's global token-weighted mean: every row's loss is
 normalized by the whole batch's target count, never a mean of per-row
-means.
+means. With one process a card the data axis crosses processes: each
+process runs its rows of the global batch, the row losses and the
+gradients are summed over the processes (``ShardedGriffin.sum_rows``,
+``all_reduce_gradients``), and the clip sees the same reduced gradients on
+every process.
 """
 
 from __future__ import annotations
@@ -47,7 +51,6 @@ from torch.utils import checkpoint as checkpoint_lib
 
 from cadence_gemma_tpu_torch.parallel import data_parallel
 from cadence_gemma_tpu_torch.parallel import partitioning
-from cadence_gemma_tpu_torch.parallel import sharding
 
 # Sequences longer than this compute the loss in time chunks of this size;
 # below it, one chunk is the whole sequence (the same math either way).
@@ -349,7 +352,11 @@ def _sharded_loss(params: data_parallel.ShardedGriffin, pad_id: int,
                   img_embed: torch.Tensor | None, scale: float | None):
   """The batch's loss over the data rows, each row's divided by the whole
   batch's target count; with ``scale``, each row's ``scale`` times loss is
-  back-propagated as the row's loss is computed."""
+  back-propagated as the row's loss is computed. Every process reads the
+  whole global batch (its count is the global one) and computes its own
+  rows; the rows' losses are summed over the processes
+  (``params.sum_rows``), so a batch whose rows hold different target counts
+  gives the one-process loss."""
   rows = zip(params.rows, params.split(input_tokens), params.split(input_mask),
              params.split(img_embed))
   count = input_mask[:, 1:].sum()
@@ -360,7 +367,7 @@ def _sharded_loss(params: data_parallel.ShardedGriffin, pad_id: int,
     if scale is not None and loss.requires_grad:
       (loss * scale).backward()
     losses.append(loss.detach())
-  return sharding.psum(losses, [params.device])[0]
+  return params.sum_rows(losses)
 
 
 def sharded_accumulate_gradients(
@@ -403,6 +410,7 @@ def sharded_train_step(
   loss = sharded_accumulate_gradients(params, pad_id, input_tokens,
                                       input_mask, img_embed=img_embed)
   params.reduce_gradients()
+  params.all_reduce_gradients()
   sharded_apply_update(params, optimizer)
   return loss
 

@@ -342,7 +342,7 @@ Phases, each of which raises on failure (so the script exits non-zero):
      ``json_object`` and ``json_schema``, a forced ``tool_choice`` and its
      stream, each answer inside its grammar.
  23. the serving export (right after 22, on phase 18's models): the first
-     6 blocks of the bf16 2B at full width (two of them window attention),
+     3 blocks of the bf16 2B at full width (R, R, A: one window attention),
      their fused-epilogue view and their weight-only int8 copy exported by
      ``checkpoint.export.export_serving`` at phase 4's bucket (2 x 3000,
      row 2 left-padded from 2300), each artifact's bytes and host seconds
@@ -425,7 +425,7 @@ Phases, each of which raises on failure (so the script exits non-zero):
      eager = a second join order, each request against a solo TP Sampler
      and the unsharded batcher (identical or a 1 % tie), float32 copies'
      TP and unsharded logits along the unsharded tokens within 1e-3
-     (rel. RMS); the steady tick in turns. (c) the bf16 2B's first 6
+     (rel. RMS); the steady tick in turns. (c) the bf16 2B's first 3
      blocks at full width exported at (2, 3000) over a (1, 2) mesh, saved
      and loaded: the loaded prefill bit for bit the live TP forward, its
      greedy chain token for token the TP Sampler's; a TP-4 mesh refused.
@@ -456,6 +456,32 @@ Phases, each of which raises on failure (so the script exits non-zero):
      ``trainer.train_step`` steps (step ms, peak GB; the ratio printed, not
      bounded: one card runs every stage in turn). The phase's launches,
      errors and microbatch shapes join the kernels line.
+ 29. one process a card (after 24, where the parent holds no model):
+     ranks spawned as fresh interpreters of this script (torch and the
+     port alone). (a) Two gloo ranks on the card: the pmap-regime scan
+     (each rank half of [2, 8192, 2560] bf16, axis ``seq`` bound to the
+     group) and the channel-split scan over a (seq 2, model 2) process
+     mesh, forward and backward on the kernel path, bit for bit against
+     the single-controller meshes that repeat the card, and rank 0's
+     product scans (forward and backward, both regimes' shapes) bit for
+     bit against their plain versions; (b) the same ranks
+     train the 2B at width 2560 and 6 blocks (two replicas with AdamW fit
+     on one card) with three ``train_loop(mesh=)`` steps a turn over
+     ``make_hybrid_mesh((1,), ("model",), dcn_axis_names=("data",))``,
+     one row of phase 6's batch a rank: the replicas' bits equal after
+     every step, 8 LRU, 4 LRU backward, 4 window, 2 dq and 2 dk/dv
+     launches a rank and step, the losses within 1e-6 of the
+     single-controller loop over a (2,) data mesh, every step's loss
+     within 1e-2 nats of the unsharded loop's, step 1's gradients, the
+     final weights and the three steps' updates within phase 26's leaf
+     limits of the unsharded loop's, each training kernel on rank 0's first inputs against its plain version;
+     the DP turns in turns with rank 0's single-controller and unsharded
+     loops (steady step ms, the gradient all-reduce's ms and share, peak GB
+     a rank); on a machine with two cards, (b) again over NCCL, a card a
+     rank; (c) one process, NCCL in a group of one: a step over two data
+     rows whose gradient all-reduces go through the communicator, its loss
+     equal to (b)'s single-controller first step. The launches of every
+     rank join the kernels line.
 
   python3 chip_smoke.py --profile
 
@@ -488,6 +514,7 @@ import os
 import re
 import shutil
 import signal
+import socket
 import struct
 import subprocess
 import sys
@@ -530,6 +557,7 @@ from cadence_gemma_tpu_torch.ops import mha_attention
 from cadence_gemma_tpu_torch.ops import quantization
 from cadence_gemma_tpu_torch.ops import scan as scan_lib
 from cadence_gemma_tpu_torch.ops import window_attention as wa
+from cadence_gemma_tpu_torch.parallel import data_parallel as data_parallel_lib
 from cadence_gemma_tpu_torch.parallel import multihost
 from cadence_gemma_tpu_torch.parallel import partitioning
 from cadence_gemma_tpu_torch.parallel import pipeline
@@ -885,11 +913,11 @@ ML_STALL_TOKENS = 1000
 # us a call through an operator against the direct launch, over this many
 # calls a turn.
 EXPORT_BUCKET = (2, PREFILL_TOKENS)
-# The exported models are phase 18's first 6 blocks at full width (two
-# window-attention blocks, so the window kernel's operator is in the
-# graphs): the whole 2B took 209.9-226.1 s of the smoke's 1200 on a slow
-# host, 6 blocks 66.5 s.
-EXPORT_BLOCKS = 6
+# The exported models are phase 18's first 3 blocks at full width (R, R, A:
+# the window kernel's operator is in the graphs): the whole 2B took
+# 209.9-226.1 s of the smoke's 1200 on a slow host, 6 blocks 64.5-79.1 s;
+# 3 since phase 29 came.
+EXPORT_BLOCKS = 3
 EXPORT_TURNS = (False, True, True, False)
 EXPORT_MAX_WEIGHT_SHARE = 0.01
 HOST_CALLS = 200
@@ -9299,10 +9327,10 @@ TPX_ML_KINDS = ("a", "b", "none", "a")
 # a zeroed adapter piece moves them by ~1: tools/tp_lora_noise.py).
 TPX_F32_LOGITS_REL_RMS = 1e-3
 TPX_TICK_REPEATS = 4
-# The TP export holds the 2B's first six blocks (R, R, A, R, R, A) at its
-# full width: tracing and loading take time in proportion to the depth, and
-# the whole smoke must stay inside its time limit.
-TPX_EXPORT_BLOCKS = 6
+# The TP export holds the 2B's first three blocks (R, R, A) at its full
+# width: tracing and loading take time in proportion to the depth, and the
+# whole smoke must stay inside its time limit.
+TPX_EXPORT_BLOCKS = 3
 # Each tower block's four products, DINOv2-L's 23 blocks and SigLIP's 23.
 TPX_TOWER_KERNELS = ("attn_qkv", "attn_proj", "mlp_fc1", "mlp_fc2")
 
@@ -10270,6 +10298,605 @@ def phase_pipeline(dev, handoff: dict) -> dict[str, dict]:
   return rows
 
 
+# Phase 29: one process a card. The pmap-regime scan's operands, the
+# data-parallel model's depth (two (R, R, A) cycles: two replicas of the 2B
+# with AdamW fit beside each other on one 80-GB card; full depth does not)
+# and its steps; a rank's time limit.
+PPC_SCAN_SHAPE = (2, 8192, 2560)
+PPC_BLOCKS = 6
+PPC_STEPS = 3
+PPC_WORLD = 2
+PPC_LOSS_REL_ERR = 1e-6
+# Nats between the DP run's token-mean loss and the unsharded loop's, at
+# every step (their bf16 paths differ).
+PPC_LOSS_ABS_ERR = 1e-2
+PPC_TIMEOUT_S = 400
+PPC_RANK_FLAG = "--process-per-card-rank"
+PPC_NAMES = TPT_NAMES[:5] + ("lru_scan_a_prod", "lru_scan_backward_a_prod")
+
+
+def _ppc_counts() -> dict[str, int]:
+  return {**_launch_counts(), "lru_scan_a_prod": lru_scan.a_prod_launches,
+          "lru_scan_backward_a_prod": lru_scan.backward_a_prod_launches}
+
+
+def _ppc_delta(before: dict[str, int]) -> dict[str, int]:
+  return {k: v - before[k] for k, v in _ppc_counts().items()}
+
+
+def _ppc_digest(model) -> list[int]:
+  """Two 64-bit sums of every leaf's bit patterns (plain and weighted by
+  position), in chunks on the card: equal digests on two replicas mean
+  equal bits."""
+  out = []
+  for t in model.state_dict().values():
+    flat = t.detach().reshape(-1)
+    bits = flat.view(torch.int16 if flat.element_size() == 2 else torch.int32)
+    total = weighted = 0
+    for start in range(0, bits.numel(), 1 << 26):
+      chunk = bits[start:start + (1 << 26)].to(torch.int64)
+      weight = torch.arange(start, start + chunk.numel(), device=chunk.device)
+      total += int(chunk.sum())
+      weighted += int((chunk * (weight % 65521 + 1)).sum())
+    out += [total, weighted]
+  return out
+
+
+def _ppc_scan_inputs(dev) -> list[torch.Tensor]:
+  g = torch.Generator(dev).manual_seed(SEED + 290)
+  b, t, d = PPC_SCAN_SHAPE
+  x = torch.randn(b, t, d, generator=g, device=dev).to(torch.bfloat16)
+  a = (0.5 + 0.5 * torch.rand(b, t, d, generator=g, device=dev)).to(
+      torch.bfloat16)
+  h0 = torch.randn(b, d, generator=g, device=dev)
+  gy = torch.randn(b, t, d, generator=g, device=dev).to(torch.bfloat16)
+  gh = torch.randn(b, d, generator=g, device=dev)
+  return [x, a, h0, gy, gh]
+
+
+def _ppc_scan(x, a, h0, gy, gh, spec, take_h=True):
+  """``linear_scan`` (the kernel path) under ``spec`` and its gradients
+  for cotangents ``gy`` and (with ``take_h``) ``gh``."""
+  leaves = [v.clone().requires_grad_() for v in (x, a, h0)]
+  y, h = scan_lib.linear_scan(*leaves, sharding_spec=spec)
+  loss = (y * gy).sum() + ((h * gh).sum() if take_h else 0)
+  loss.backward()
+  torch.cuda.synchronize()
+  return [y.detach(), h.detach(), *(v.grad for v in leaves)]
+
+
+def _ppc_a_prod_captures(rank: int) -> list[CaptureFirstCall]:
+  """In rank 0, the first call of each product-scan wrapper (the sharded
+  scan calls both with ``return_a_prod``); none in the other ranks."""
+  if rank:
+    return []
+  return [CaptureFirstCall(lru_scan, "lru_scan_forward"),
+          CaptureFirstCall(lru_scan, "lru_scan_backward")]
+
+
+def _ppc_hold_a_prod(label: str, captures) -> dict[str, float]:
+  """The captured product scans against their plain versions, bit for bit
+  (``check_lru_a_prod`` raises above LRU_A_PROD_MAX_ABS_ERR); their errors
+  by row (0 where nothing was captured)."""
+  errs = {"lru_scan_a_prod": 0.0, "lru_scan_backward_a_prod": 0.0}
+  if not captures:
+    return errs
+  shapes = []
+  for capture, (name, backprop) in zip(captures, (
+      ("lru_scan_a_prod", False), ("lru_scan_backward_a_prod", True))):
+    if capture.args is None:
+      raise AssertionError(f"{label} never called {capture.name}.")
+    errs[name] = check_lru_a_prod(*capture.args, **capture.kwargs,
+                                  backprop=backprop)
+    shapes.append(list(capture.args[0].shape))
+  log(f"  (a) rank 0: {label}'s product scans vs plain at forward "
+      f"{shapes[0]}, backward {shapes[1]} bf16: {errs} (tolerance "
+      f"{LRU_A_PROD_MAX_ABS_ERR})")
+  return errs
+
+
+def _ppc_scans(dev, rank: int, world: int) -> dict:
+  """(a) In a rank: the pmap-regime scan of this rank's half of
+  PPC_SCAN_SHAPE (axis ``seq`` bound to the default group) and the
+  channel-split scan over a (seq world, model 2) process mesh, each
+  forward and backward on the kernel path, bit for bit against the
+  single-controller scan over a mesh that repeats the card."""
+  x, a, h0, gy, gh = _ppc_scan_inputs(dev)
+  t = x.shape[1] // world
+  mine = slice(rank * t, (rank + 1) * t)
+  spec = sharding.ShardingSpec(
+      mesh=sharding.make_mesh((world,), ("seq",), [dev] * world),
+      sequence_axis_name="seq")
+  want = _ppc_scan(x, a, h0, gy, gh, spec)
+  before = _ppc_counts()
+  reset_scan_routes()
+  captures = _ppc_a_prod_captures(rank)
+  start = time.perf_counter()
+  try:
+    with sharding.axis_env(seq=None):
+      got = _ppc_scan(x[:, mine], a[:, mine], h0, gy[:, mine], gh,
+                      sharding.ShardingSpec(mesh=None,
+                                            sequence_axis_name="seq"),
+                      take_h=rank == 0)
+  finally:
+    for capture in captures:
+      capture.restore()
+  pmap_ms = (time.perf_counter() - start) * 1e3
+  pmap_launches = _ppc_delta(before)
+  check_scan_routes(pmap_launches["lru_scan_a_prod"]
+                    + pmap_launches["lru_scan_backward_a_prod"])
+  errs = _ppc_hold_a_prod("the pmap-regime scan", captures)
+  # Rank 0's shard is the forward's first: its dh0 is the whole one.
+  dh0_want = want[4] if rank == 0 else torch.zeros_like(want[4])
+  pairs = {"y": (got[0], want[0][:, mine]), "h_last": (got[1], want[1]),
+           "dx": (got[2], want[2][:, mine]), "da": (got[3], want[3][:, mine]),
+           "dh0": (got[4], dh0_want)}
+  bad = [k for k, (g, w) in pairs.items() if not torch.equal(g, w)]
+  log(f"  (a) rank {rank}: pmap-regime scan of [{x.shape[0]}, {t}, "
+      f"{x.shape[2]}] bf16 (axis 'seq' over {world} processes), forward + "
+      f"backward in {pmap_ms:.1f} ms, launches {pmap_launches}; y, h_last, "
+      f"dx, da, dh0 bit for bit vs the single-controller mesh: "
+      f"{'yes' if not bad else bad}")
+  if bad:
+    raise AssertionError(f"The pmap-regime scan differs from the "
+                         f"single-controller scan in {bad}.")
+  mesh = multihost.make_hybrid_mesh((2,), ("model",), dcn_axis_shapes=(world,),
+                                    dcn_axis_names=("seq",),
+                                    devices=[dev] * 2)
+  ref = sharding.ShardingSpec(
+      mesh=sharding.make_mesh((world, 2), ("seq", "model"), [dev] * 2 * world),
+      sequence_axis_name="seq", activations_axis_name="model")
+  want = _ppc_scan(x, a, h0, gy, gh, ref)
+  before = _ppc_counts()
+  reset_scan_routes()
+  captures = _ppc_a_prod_captures(rank)
+  try:
+    got = _ppc_scan(x, a, h0, gy, gh, ref._replace(mesh=mesh))
+  finally:
+    for capture in captures:
+      capture.restore()
+  channel_launches = _ppc_delta(before)
+  check_scan_routes(channel_launches["lru_scan_a_prod"]
+                    + channel_launches["lru_scan_backward_a_prod"])
+  for name, err in _ppc_hold_a_prod("the channel-split scan",
+                                    captures).items():
+    errs[name] = max(errs[name], err)
+  bad = [k for k, g, w in zip(("y", "h_last", "dx", "da", "dh0"), got, want)
+         if not torch.equal(g, w)]
+  log(f"  (a) rank {rank}: channel-split scan over {mesh} (global "
+      f"[{', '.join(map(str, x.shape))}] on every process), launches "
+      f"{channel_launches}; bit for bit vs the single-controller (seq "
+      f"{world}, model 2) mesh: {'yes' if not bad else bad}")
+  if bad:
+    raise AssertionError(f"The channel-split scan differs in {bad}.")
+  launches = {k: pmap_launches[k] + channel_launches[k] for k in pmap_launches}
+  return {"launches": launches, "pmap_ms": pmap_ms, "max_abs_err": errs}
+
+
+def _ppc_config():
+  config = common.GriffinConfig.from_preset(common.Preset.RECURRENT_GEMMA_2B_V1)
+  return config._replace(block_types=config.block_types[:PPC_BLOCKS])
+
+
+def _ppc_model(dev):
+  return griffin.Griffin(_ppc_config(), device=dev, dtype=torch.bfloat16,
+                         generator=torch.Generator(dev).manual_seed(SEED + 291))
+
+
+class _PpcClock:
+  """``log_metrics`` of a DP run: each step's loss, its host-clock ms (the
+  digest taken after the step left out) and the replica's digest."""
+
+  def __init__(self, model):
+    self.model, self.losses, self.ms, self.digests = model, [], [], []
+    self.last = time.perf_counter()
+
+  def __call__(self, metrics, step):
+    del step
+    now = time.perf_counter()
+    self.losses.append(metrics["train_loss"])
+    self.ms.append((now - self.last) * 1e3)
+    self.digests.append(_ppc_digest(self.model))
+    self.last = time.perf_counter()
+
+
+def _ppc_train(model, dev, mesh, steps: int = PPC_STEPS) -> _PpcClock:
+  clock = _PpcClock(model)
+  train_loop_lib.train_loop(
+      model, [training_batch(model.config.vocab_size)] * steps,
+      train_loop_lib.TrainingConfig(learning_rate=TRAIN_LEARNING_RATE,
+                                    eval_every_n=1, max_steps=steps,
+                                    checkpoint_every_n=None),
+      log_metrics=clock, device=dev, mesh=mesh)
+  return clock
+
+
+def _ppc_turn(model, dev, mesh, rank, world, label, grads=None) -> dict:
+  """One DP turn of PPC_STEPS train_loop(mesh=) steps in every rank: the
+  replicas' digests equal after every step, the launches a step the
+  phase-6 counts at PPC_BLOCKS blocks, the all-reduce's time; ``grads``
+  (a dict) receives the first step's reduced gradients."""
+  reduce_ms = []
+  real = data_parallel_lib.ShardedGriffin.all_reduce_gradients
+
+  def timed(self):
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    real(self)
+    torch.cuda.synchronize()
+    reduce_ms.append((time.perf_counter() - start) * 1e3)
+    if grads is not None and not grads:
+      grads.update({k: g.clone() for k, g in self.gradients().items()})
+
+  data_parallel_lib.ShardedGriffin.all_reduce_gradients = timed
+  before = _ppc_counts()
+  reset_scan_routes()
+  try:
+    clock = _ppc_train(model, dev, mesh)
+  finally:
+    data_parallel_lib.ShardedGriffin.all_reduce_gradients = real
+  torch.cuda.synchronize()
+  launches = _ppc_delta(before)
+  config = model.config
+  n_rec = sum(bt is common.TemporalBlockType.RECURRENT
+              for bt in config.block_types)
+  want = {k: PPC_STEPS * v for k, v in _tpt_per_step(
+      1, n_rec, config.num_layers - n_rec).items()}
+  if any(launches[k] != v for k, v in want.items()):
+    raise AssertionError(f"{label}: rank {rank} launched {launches}, want "
+                         f"{want}.")
+  check_scan_routes(launches["lru_scan"] + launches["lru_scan_backward"])
+  every = [None] * world
+  torch.distributed.all_gather_object(every, clock.digests)
+  if any(d != clock.digests for d in every):
+    raise AssertionError(f"{label}: the replicas' bits differ after a step.")
+  every = [None] * world
+  torch.distributed.all_gather_object(every, clock.losses)
+  if any(l != clock.losses for l in every):
+    raise AssertionError(f"{label}: the ranks' losses differ: {every}.")
+  steady = float(np.mean(clock.ms[1:]))
+  share = float(np.mean(reduce_ms[1:])) / steady
+  log(f"  (b) rank {rank} {label}: losses {clock.losses}; ms a step "
+      f"{[round(ms, 1) for ms in clock.ms]} (steady {steady:.1f}); gradient "
+      f"all-reduce ms {[round(ms, 1) for ms in reduce_ms]} ({100 * share:.1f} "
+      f"% of a steady step); launches {launches}; replicas' digests equal "
+      f"after each of the {PPC_STEPS} steps")
+  return {"losses": clock.losses, "ms": clock.ms, "steady_ms": steady,
+          "reduce_ms": reduce_ms, "reduce_share": share, "launches": launches}
+
+
+def _ppc_references(dev, world: int, dp_state, dp_grads) -> dict:
+  """In rank 0, between the DP turns: the single-controller
+  train_loop(mesh=) over a (world,) data mesh that repeats the card and
+  the unsharded loop, from the same weights and batches (timed); with
+  ``dp_grads``, the unsharded first step's gradients against them."""
+  out = {}
+  if dp_grads is not None:
+    batch = training_batch(_ppc_config().vocab_size)
+    tokens = torch.as_tensor(batch.input_tokens, device=dev).long()
+    mask = torch.as_tensor(batch.target_mask, device=dev)
+    model = _ppc_model(dev)
+    _, grads = _unsharded_gradients(model, tokens, mask)
+    stats = _leaf_stats(dp_grads, grads)
+    _log_leaf_stats("(b) DP step 1's gradients vs the unsharded step's",
+                    stats)
+    out["grad_stats"] = [stats[0][0], min(s[1] for s in stats)]
+    del model, grads
+    torch.cuda.empty_cache()
+  order = ("sc", "one") if dp_state is not None else ("one", "sc")
+  for side in order:
+    model = _ppc_model(dev)
+    mesh = (sharding.make_mesh((world, 1), ("data", "model"), [dev] * world)
+            if side == "sc" else None)
+    clock = _ppc_train(model, dev, mesh)
+    out[side] = {"losses": clock.losses, "ms": clock.ms,
+                 "steady_ms": float(np.mean(clock.ms[1:]))}
+    if dp_state is not None and side == "sc":
+      state = model.state_dict()
+      out["sc_max_leaf_diff"] = max(max_err(state[k], v)
+                                    for k, v in dp_state.items())
+    if dp_state is not None and side == "one":
+      out["leaf_stats"] = _ppc_leaf_stats(dev, dp_state, model.state_dict())
+    del model
+    torch.cuda.empty_cache()
+  return out
+
+
+def _ppc_leaf_stats(dev, dp_state, state) -> dict:
+  """The DP run's weights after PPC_STEPS steps against the unsharded
+  loop's. Adam moves a weight by about lr a step whatever its gradient's
+  size, so a gradient at the bf16 paths' noise level may move it either
+  way: every element is held within Adam's bound (2 lr a step, plus one
+  bf16 rounding of the weight a step), and the steps' updates (each
+  leaf's change from the seeded start) are compared over the whole tree
+  (rel RMS, cosine) and leaf by leaf (the leaves that differ)."""
+  start = _ppc_model(dev).state_dict()
+  lr = TRAIN_LEARNING_RATE
+  worst_ratio, beyond_lr, elements, equal = 0.0, 0, 0, 0
+  diff_sq = ref_sq = dot = got_sq = 0.0
+  per_leaf = []
+  for name, got in dp_state.items():
+    want = state[name]
+    elements += want.numel()
+    if torch.equal(got, want):
+      equal += 1
+      continue
+    g, w = got.float(), want.float()
+    gap = (g - w).abs()
+    bound = PPC_STEPS * (2 * lr + 2.0 ** -7 * torch.maximum(g.abs(), w.abs()))
+    worst_ratio = max(worst_ratio, (gap / bound).max().item())
+    beyond_lr += int((gap > lr).sum())
+    u, v = g - start[name].float(), w - start[name].float()
+    diff_sq += (u - v).double().square().sum().item()
+    ref_sq += v.double().square().sum().item()
+    got_sq += u.double().square().sum().item()
+    dot += (u.double() * v.double()).sum().item()
+    per_leaf.append(_leaf_stats({name: u}, {name: v})[0])
+  per_leaf.sort(reverse=True)
+  out = {"adam_bound_ratio": worst_ratio,
+         "beyond_lr_share": beyond_lr / elements,
+         "equal_leaves": equal, "leaves": len(dp_state),
+         "update_rel_rms": (diff_sq / ref_sq) ** 0.5,
+         "update_cosine": dot / (got_sq * ref_sq) ** 0.5,
+         "leaf_worst_rel_rms": per_leaf[0][0] if per_leaf else 0.0,
+         "leaf_median_rel_rms": (per_leaf[len(per_leaf) // 2][0]
+                                 if per_leaf else 0.0),
+         "leaf_lowest_cosine": min((c for _, c, _ in per_leaf), default=1.0)}
+  if per_leaf:
+    _log_leaf_stats(f"(b) DP updates over {PPC_STEPS} steps vs the unsharded "
+                    f"loop's, the {len(per_leaf)} leaves that differ",
+                    per_leaf)
+  return out
+
+
+def _ppc_dp(dev, rank: int, world: int) -> dict:
+  """(b) In a rank: train_loop(mesh=) of the 2B at PPC_BLOCKS blocks over a
+  data axis of ``world`` processes (one row of the 2 x 4096 batch each),
+  in turns with rank 0's single-controller and unsharded loops; the
+  kernels held against their plain versions on rank 0's inputs."""
+  config = _ppc_config()
+  mesh = multihost.make_hybrid_mesh((1,), ("model",), dcn_axis_shapes=(world,),
+                                    dcn_axis_names=("data",), devices=[dev])
+  log(f"  (b) rank {rank}: RecurrentGemma-2B at width {config.width}, "
+      f"{config.num_layers} blocks, bf16, {PPC_STEPS} AdamW steps a turn over "
+      f"{mesh}")
+  model = _ppc_model(dev)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  captures = _TrainingCaptures() if rank == 0 else None
+  dp_grads = {} if rank == 0 else None
+  try:
+    turns = [_ppc_turn(model, dev, mesh, rank, world, "DP turn 1",
+                       dp_grads)]
+  finally:
+    if captures is not None:
+      captures.restore()
+  peak_gb = torch.cuda.max_memory_allocated() / 1e9
+  out = {"turns": turns, "peak_gb": peak_gb}
+  if rank == 0:
+    rows = {name: dict(launches=0, max_abs_err=0.0) for name in PPC_NAMES}
+    _hold_kernels("the DP rank", captures, rows, time_them=False)
+    out["max_abs_err"] = {k: r["max_abs_err"] for k, r in rows.items()}
+    del captures
+    dp_state = {k: v.clone() for k, v in model.state_dict().items()}
+    out["references"] = [_ppc_references(dev, world, dp_state, dp_grads)]
+    del dp_state, dp_grads
+  torch.cuda.empty_cache()
+  torch.distributed.barrier()
+  torch.cuda.reset_peak_memory_stats()
+  turns.append(_ppc_turn(model, dev, mesh, rank, world, "DP turn 2"))
+  out["peak_gb"] = max(peak_gb, torch.cuda.max_memory_allocated() / 1e9)
+  del model
+  torch.cuda.empty_cache()
+  if rank == 0:
+    out["references"].append(_ppc_references(dev, world, None, None))
+  torch.distributed.barrier()
+  return out
+
+
+def _ppc_nccl_one(dev) -> dict:
+  """(c) One process, NCCL in a group of one: one train_loop(mesh=) step
+  over a process mesh of two data rows repeating the card, its gradient
+  all-reduce through the NCCL communicator."""
+  mesh = multihost.make_hybrid_mesh((2, 1), ("data", "model"),
+                                    devices=[dev] * 2)
+  calls = []
+  real = sharding.psum_
+
+  def counted(tensor, domain):
+    calls.append(torch.distributed.get_backend(domain.group))
+    return real(tensor, domain)
+
+  sharding.psum_ = counted
+  before = _ppc_counts()
+  try:
+    clock = _ppc_train(_ppc_model(dev), dev, mesh, steps=1)
+  finally:
+    sharding.psum_ = real
+  torch.cuda.synchronize()
+  log(f"  (c) NCCL in a group of one: {mesh}; loss {clock.losses}; "
+      f"{len(calls)} gradient all-reduces on {sorted(set(calls))}")
+  if not calls or set(calls) != {"nccl"}:
+    raise AssertionError(f"The NCCL step ran {calls} all-reduces.")
+  return {"losses": clock.losses, "all_reduces": len(calls),
+          "launches": _ppc_delta(before)}
+
+
+def process_per_card_rank(argv: list[str]) -> int:
+  """A rank of phase 29, spawned by :func:`phase_process_per_card`:
+  ``RANK WORLD PORT BACKEND DIR PARTS`` (PARTS: ``scans``, ``dp``,
+  ``nccl1``, comma-separated). Writes ``rank{RANK}.json`` into DIR."""
+  rank, world, port = int(argv[0]), int(argv[1]), int(argv[2])
+  backend, root, parts = argv[3], argv[4], argv[5].split(",")
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  multihost.initialize(f"localhost:{port}", world, rank, backend=backend)
+  dev = torch.device("cuda", torch.cuda.current_device())
+  out = {"rank": rank, "device": str(dev), "backend": backend}
+  if "scans" in parts:
+    out["scans"] = _ppc_scans(dev, rank, world)
+  if "dp" in parts:
+    out["dp"] = _ppc_dp(dev, rank, world)
+  if "nccl1" in parts:
+    out["nccl1"] = _ppc_nccl_one(dev)
+  with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+    json.dump(out, f)
+  torch.distributed.barrier()
+  torch.distributed.destroy_process_group()
+  return 0
+
+
+def _ppc_spawn(world: int, backend: str, parts: str, root: str) -> list[dict]:
+  """Starts ``world`` ranks of this script (fresh interpreters that import
+  torch and the port), waits for them (a failed rank ends the others) and
+  relays their output; returns their results."""
+  with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+  here = os.path.dirname(os.path.abspath(__file__))
+  procs = []
+  for rank in range(world):
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "RANK")}
+    env.update(PYTHONPATH=here, LOCAL_RANK=str(rank))
+    procs.append(subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), PPC_RANK_FLAG, str(rank),
+         str(world), str(port), backend, root, parts],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+  outputs = [[] for _ in procs]
+  readers = [threading.Thread(target=lambda p=p, o=o: o.extend(p.stdout),
+                              daemon=True) for p, o in zip(procs, outputs)]
+  for reader in readers:
+    reader.start()
+  deadline = time.monotonic() + PPC_TIMEOUT_S
+  try:
+    while any(p.poll() is None for p in procs):
+      if (time.monotonic() > deadline
+          or any(p.poll() not in (None, 0) for p in procs)):
+        break
+      time.sleep(0.2)
+  finally:
+    for p in procs:
+      if p.poll() is None:
+        p.kill()
+      p.wait()
+    for reader in readers:
+      reader.join(timeout=10)
+  for rank, lines in enumerate(outputs):
+    for line in lines:
+      log(f"  [rank {rank}] {line.rstrip()}")
+  codes = [p.returncode for p in procs]
+  if codes != [0] * world:
+    raise AssertionError(f"Phase 29's {backend} ranks ({parts}) exited with "
+                         f"{codes}.")
+  results = []
+  for rank in range(world):
+    with open(os.path.join(root, f"rank{rank}.json")) as f:
+      results.append(json.load(f))
+  return results
+
+
+def phase_process_per_card(dev) -> dict[str, dict]:
+  """Phase 29: one process a card. (a) two gloo ranks on the card: the
+  pmap-regime scan and the channel-split scan over a process mesh, bit for
+  bit against the single-controller meshes, and their product-scan calls
+  against the plain versions; (b) the same ranks: train_loop(mesh=) of
+  the 2B at PPC_BLOCKS blocks over a data axis of two processes (one row
+  of phase 6's batch each), the replicas bit for bit equal after every
+  step, the losses within PPC_LOSS_REL_ERR of the single-controller loop
+  over a (2,) data mesh, every step's loss within PPC_LOSS_ABS_ERR of the
+  unsharded loop's, step 1's gradients, the last weights and the updates
+  within phase 26's leaf limits of it, in turns; where
+  the machine has two cards, the same over NCCL one card a rank; (c) one
+  process, NCCL in a group of one, one step equal to (b)'s
+  single-controller first step. Returns the kernels line's rows it adds
+  to."""
+  del dev  # the ranks take their own cards
+  phase_start = time.perf_counter()
+  rows = {name: dict(launches=0, max_abs_err=0.0) for name in PPC_NAMES}
+  log(f"== phase 29: one process a card ({PPC_WORLD} gloo ranks share the "
+      f"card: no speed-up is possible, and gloo stages CUDA tensors through "
+      f"the host)")
+  root = tempfile.mkdtemp(prefix="chip-smoke-ppc-")
+  try:
+    ranks = _ppc_spawn(PPC_WORLD, "gloo", "scans,dp", root)
+    if torch.cuda.device_count() >= 2:
+      _ppc_spawn(PPC_WORLD, "nccl", "dp", root)
+    for name in os.listdir(root):
+      os.remove(os.path.join(root, name))
+    (one,) = _ppc_spawn(1, "nccl", "nccl1", root)
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+  for r in ranks:
+    add_launches(rows, r["scans"]["launches"])
+    for turn in r["dp"]["turns"]:
+      add_launches(rows, turn["launches"])
+  add_launches(rows, one["nccl1"]["launches"])
+  for name, err in {**ranks[0]["dp"]["max_abs_err"],
+                    **ranks[0]["scans"]["max_abs_err"]}.items():
+    rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+  dp = [turn for r in ranks[:1] for turn in r["dp"]["turns"]]
+  refs = ranks[0]["dp"]["references"]
+  sc, unsharded = refs[0]["sc"], refs[0]["one"]
+  rel = max(abs(g - w) / abs(w) for g, w in zip(dp[0]["losses"], sc["losses"]))
+  log(f"  (b) DP losses {dp[0]['losses']} vs single-controller "
+      f"{sc['losses']}: largest rel {rel:.3e} (tolerance "
+      f"{PPC_LOSS_REL_ERR}); largest leaf difference after {PPC_STEPS} steps "
+      f"{refs[0]['sc_max_leaf_diff']:.3e} (predicted 0: two-term sums)")
+  if not rel <= PPC_LOSS_REL_ERR:
+    raise AssertionError(f"DP losses {dp[0]['losses']} vs single-controller "
+                         f"{sc['losses']}.")
+  # Against the unsharded loop: every step's loss within PPC_LOSS_ABS_ERR
+  # nats (the repeated batch drives the loss towards 0, where a relative
+  # gap says nothing); step 1's gradients by phase 26's leaf rule; the
+  # weights after the last step within Adam's bound, and the steps'
+  # updates over the whole tree by phase 26's limits.
+  gaps = [abs(g - w) for g, w in zip(dp[0]["losses"], unsharded["losses"])]
+  rms, cosine = refs[0]["grad_stats"]
+  leaves = refs[0]["leaf_stats"]
+  log(f"  (b) vs the unsharded loop {unsharded['losses']}: the losses' gaps "
+      f"{[f'{g:.3e}' for g in gaps]} nats (limit {PPC_LOSS_ABS_ERR}); step "
+      f"1's gradients' worst leaf rel RMS {rms:.3e}, lowest cosine "
+      f"{cosine:.6f} (limits {GRAD_LEAF_REL_RMS}, {GRAD_LEAF_MIN_COSINE}); "
+      f"the weights after {PPC_STEPS} steps: {leaves['equal_leaves']} of "
+      f"{leaves['leaves']} leaves bit for bit, the largest gap "
+      f"{leaves['adam_bound_ratio']:.3f} of Adam's bound (limit 1), "
+      f"{100 * leaves['beyond_lr_share']:.4f} % of the elements apart by "
+      f"more than lr; the updates over the tree: rel RMS "
+      f"{leaves['update_rel_rms']:.3e}, cosine {leaves['update_cosine']:.6f} "
+      f"(limits {GRAD_LEAF_REL_RMS}, {GRAD_LEAF_MIN_COSINE}); by leaf: "
+      f"worst rel RMS {leaves['leaf_worst_rel_rms']:.3e}, median "
+      f"{leaves['leaf_median_rel_rms']:.3e}, lowest cosine "
+      f"{leaves['leaf_lowest_cosine']:.6f}")
+  if not (len(gaps) == PPC_STEPS and max(gaps) <= PPC_LOSS_ABS_ERR
+          and rms <= GRAD_LEAF_REL_RMS and cosine >= GRAD_LEAF_MIN_COSINE
+          and leaves["adam_bound_ratio"] <= 1.0
+          and leaves["update_rel_rms"] <= GRAD_LEAF_REL_RMS
+          and leaves["update_cosine"] >= GRAD_LEAF_MIN_COSINE):
+    raise AssertionError("The DP run and the unsharded loop disagree.")
+  (nccl_loss,), want = one["nccl1"]["losses"], sc["losses"][0]
+  log(f"  (c) NCCL group of one: loss {nccl_loss} vs (b)'s single-controller "
+      f"first step {want} (rel {abs(nccl_loss - want) / abs(want):.3e}); "
+      f"{one['nccl1']['all_reduces']} all-reduces")
+  if not abs(nccl_loss - want) <= PPC_LOSS_REL_ERR * abs(want):
+    raise AssertionError("The NCCL step's loss differs from the "
+                         "single-controller step's.")
+  steady = {
+      "DP (2 ranks)": [t["steady_ms"] for t in dp],
+      "single-controller (2,) mesh": [r["sc"]["steady_ms"] for r in refs],
+      "unsharded": [r["one"]["steady_ms"] for r in refs]}
+  log(f"  (d) steady ms a step in turns (DP, single-controller, unsharded, "
+      f"DP, unsharded, single-controller): "
+      f"{ {k: [round(v, 1) for v in vs] for k, vs in steady.items()} }; "
+      f"the gradient all-reduce "
+      f"{[round(100 * t['reduce_share'], 1) for t in dp]} % of a DP step "
+      f"({[round(float(np.mean(t['reduce_ms'][1:])), 1) for t in dp]} ms); "
+      f"peak GB per rank {[round(r['dp']['peak_gb'], 2) for r in ranks]}")
+  log(f"== phase 29 {time.perf_counter() - phase_start:.1f} s; its launches "
+      f"{ {k: r['launches'] for k, r in rows.items()} }")
+  return rows
+
+
 def add_launches(rows: dict[str, dict], launches: dict[str, int]) -> None:
   for name, n in launches.items():
     rows[name]["launches"] += n
@@ -10295,6 +10922,8 @@ def add_row_launches(kernels: list[dict], launches: dict[str, int]) -> None:
 
 
 def main() -> int:
+  if sys.argv[1:2] == [PPC_RANK_FLAG]:
+    return process_per_card_rank(sys.argv[2:])
   profile = "--profile" in sys.argv[1:]
   if not torch.cuda.is_available():
     print("chip_smoke.py needs a CUDA device; none is available.",
@@ -10366,6 +10995,8 @@ def main() -> int:
     shutil.rmtree(root, ignore_errors=True)
   del handoff
   torch.cuda.empty_cache()
+  ppc_rows = phase_process_per_card(dev)
+  torch.cuda.empty_cache()
   ckpt_dir = tempfile.mkdtemp(prefix="chip-smoke-checkpoints-")
   try:
     handoff = phase_multimodal_sft(dev, kernels, profile, ckpt_dir)
@@ -10378,6 +11009,7 @@ def main() -> int:
   add_phase_rows(kernels, tp_training_rows)
   add_phase_rows(kernels, tp_extras_rows)
   add_phase_rows(kernels, pp_rows)
+  add_phase_rows(kernels, ppc_rows)
   log(f"== total {time.perf_counter() - start:.1f} s")
   print(json.dumps({"kernels": kernels}))
   print(json.dumps({"ok": True, "device": device}), flush=True)

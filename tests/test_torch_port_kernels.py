@@ -180,11 +180,12 @@ def test_linear_scan_decode_step_is_closed_form():
 
 
 def test_linear_scan_rejects_sharding():
-  """Sharding without a mesh (JAX's pmap regime) needs one process per card
-  over torch.distributed, which is not ported."""
+  """Sharding without a mesh (JAX's pmap regime) runs one process a card:
+  its axis name must be bound to a process group (``sharding.axis_env``);
+  an unbound name raises as JAX's unbound axis does."""
   x, a, _ = _lru_inputs(1, 4, 8)
   spec = sharding.ShardingSpec(mesh=None, sequence_axis_name="sequence")
-  with pytest.raises(NotImplementedError, match="pmap"):
+  with pytest.raises(NameError, match="pmap"):
     scan.linear_scan(torch.tensor(x), torch.tensor(a), sharding_spec=spec)
 
 

@@ -169,7 +169,8 @@ def test_port_hygiene(monkeypatch):
   meshes too), complex, kernel-lab, tokenizer,
   int8, checkpoint (I/O, timm import, the serving export), resilience,
   profiling and logging modules, the kernels' operator library and the
-  command-line programs (``examples``) included,
+  command-line programs (``examples``) included, and ``chip_smoke.py``,
+  whose process-per-card ranks import it and the port alone,
   imports no JAX, flax, optax, orbax or absl and nothing of the JAX
   package, and
   its entry points (a grammar's device tables among them) refuse to fall
@@ -213,6 +214,9 @@ def test_port_hygiene(monkeypatch):
       "import cadence_gemma_tpu_torch.examples.serve; "
       "import cadence_gemma_tpu_torch.examples.cadence; "
       "import cadence_gemma_tpu_torch.examples.finetune; "
+      "import cadence_gemma_tpu_torch.ops.scan; "
+      "import cadence_gemma_tpu_torch.parallel.tensor_parallel; "
+      "import chip_smoke; "
       "new = set(sys.modules) - before; "
       "print(sorted(m for m in new if m.split('.')[0] in "
       "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'absl', "

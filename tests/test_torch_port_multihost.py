@@ -6,7 +6,8 @@ and shapes over its 8 virtual devices, and its errors name the same
 quantities ("process count", "devices"). Two processes: a gloo group on the
 CPU, spawned as fresh interpreters on a free local port; each rank's
 ``initialize`` returns 2, a second call is a no-op, and both mesh functions
-refuse naming the process-per-card item (ROADMAP queue 1 item 14g).
+build over the two processes, laid out as JAX's hybrid mesh lays out
+``tests/test_multihost.py``'s fake devices of two processes.
 """
 
 import json
@@ -17,10 +18,12 @@ import subprocess
 import sys
 
 import jax
+import numpy as np
 import pytest
 import torch
 
 from cadence_gemma_tpu.parallel import multihost as jmultihost
+from tests import test_multihost as jmh_tests
 from cadence_gemma_tpu_torch.parallel import multihost
 from cadence_gemma_tpu_torch.parallel import sharding
 
@@ -107,14 +110,18 @@ def test_initialize_is_a_no_op_in_one_process(monkeypatch):
 
 
 def test_several_processes_refused_naming_the_item(monkeypatch):
+  """Over 2 processes the mesh functions build (the gloo test below); a
+  DCN shape that is not the process count raises JAX's error before any
+  collective, and what still runs on one controller only names item 14h."""
   monkeypatch.setattr(multihost, "process_count", lambda: 2)
-  for call in (lambda: multihost.make_hybrid_mesh((4,), ("data",),
-                                                  devices=CPUS[:4]),
-               lambda: multihost.dp_over_dcn_mesh(4, devices=CPUS[:4])):
-    with pytest.raises(NotImplementedError,
-                       match="process count of 2 needs .*item 14g"):
-      call()
-  assert "14g" in sharding.PROCESS_PER_CARD_ITEM
+  fakes = jmh_tests.fake_topology(n_proc=2, per_proc=4)
+  for kwargs in (dict(dcn_axis_shapes=(1,)), dict(dcn_axis_shapes=(4,))):
+    with pytest.raises(ValueError) as got:
+      multihost.make_hybrid_mesh((4,), ("data",), devices=CPUS[:4], **kwargs)
+    with pytest.raises(ValueError) as want:
+      jmultihost.make_hybrid_mesh((4,), ("data",), devices=fakes, **kwargs)
+    assert str(got.value) == str(want.value)
+  assert "item 14h" in sharding.PROCESS_PER_CARD_ITEM
 
 
 _RANK = r"""
@@ -127,14 +134,12 @@ out["second"] = multihost.initialize(f"localhost:{port}", 2, rank,
                                      backend="gloo")
 out["count"] = multihost.process_count()
 for name, call in (("hybrid", lambda: multihost.make_hybrid_mesh(
-                       (1,), ("data",), devices=["cpu"])),
+                       (2,), ("data",), devices=["cpu"] * 2)),
                    ("preset", lambda: multihost.dp_over_dcn_mesh(
-                       devices=["cpu"]))):
-  try:
-    call()
-    out[name] = "built"
-  except NotImplementedError as e:
-    out[name] = str(e)
+                       1, 2, devices=["cpu"] * 2))):
+  mesh = call()
+  out[name] = {"names": list(mesh.axis_names), "ranks": mesh.ranks.tolist(),
+               "spans": mesh.spans_processes}
 import torch.distributed as dist
 dist.barrier()
 dist.destroy_process_group()
@@ -167,7 +172,14 @@ def test_two_process_gloo_group():
     for proc in procs:
       if proc.poll() is None:
         proc.kill()
+  fakes = jmh_tests.fake_topology(n_proc=2, per_proc=2)
+  want = {"hybrid": jmultihost.make_hybrid_mesh((2,), ("data",),
+                                                devices=fakes),
+          "preset": jmultihost.dp_over_dcn_mesh(1, 2, devices=fakes)}
   for out in results:
     assert out["first"] == out["second"] == out["count"] == 2
-    for name in ("hybrid", "preset"):
-      assert "process count of 2" in out[name] and "item 14g" in out[name]
+    for name, mesh in want.items():
+      assert out[name]["spans"]
+      assert tuple(out[name]["names"]) == mesh.axis_names
+      assert out[name]["ranks"] == np.vectorize(
+          lambda d: d.process_index)(np.asarray(mesh.devices)).tolist()

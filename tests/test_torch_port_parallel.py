@@ -590,14 +590,22 @@ def test_attention_block_falls_back_at_short_shards(monkeypatch):
 
 
 def test_sequence_parallel_refusals():
+  """JAX's pmap regime needs its axis bound to a process group (an unbound
+  name raises as JAX's does; the regime itself is held against jax.pmap in
+  tests/test_torch_port_process_per_card.py); a channel-sharded scan runs
+  and equals the unsharded one."""
   x, a, h0 = (torch.tensor(z) for z in _lru_inputs(2, 16, 4))
-  with pytest.raises(NotImplementedError, match="pmap"):
+  with pytest.raises(NameError, match="pmap"):
     scan.linear_scan(x, a, sharding_spec=sharding.ShardingSpec(
         mesh=None, sequence_axis_name="seq"))
   _, tspec = _spec_pair()
-  with pytest.raises(NotImplementedError, match="TP"):
-    scan.linear_scan(x, a, sharding_spec=tspec._replace(
-        activations_axis_name="model"))
+  channels = sharding.ShardingSpec(
+      mesh=sharding.make_mesh((4, 2), ("sequence", "model"), ["cpu"] * 8),
+      sequence_axis_name="sequence", activations_axis_name="model")
+  got = scan.linear_scan(x, a, h0, sharding_spec=channels)
+  want = scan.linear_scan(x, a, h0)
+  for g, w in zip(got, want):
+    torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
   with pytest.raises(ValueError, match="divide"):
     scan.linear_scan(x[:, :15], a[:, :15], sharding_spec=tspec)
   with pytest.raises(RuntimeError, match="devices=\\['cpu'\\]"):

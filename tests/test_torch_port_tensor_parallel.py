@@ -40,7 +40,6 @@ from cadence_gemma_tpu_torch.inference import sampler as sampler_lib
 from cadence_gemma_tpu_torch.inference import server as server_lib
 from cadence_gemma_tpu_torch.inference import serving
 from cadence_gemma_tpu_torch.inference import speculative
-from cadence_gemma_tpu_torch.parallel import multihost
 from cadence_gemma_tpu_torch.parallel import partitioning
 from cadence_gemma_tpu_torch.parallel import sharding
 from cadence_gemma_tpu_torch.parallel import tensor_parallel
@@ -331,9 +330,14 @@ def test_tp_model_forward_and_cache_layout(tiny):
         torch.testing.assert_close(a, b, atol=ATOL, rtol=0)
 
 
-def _two_processes(monkeypatch):
-  monkeypatch.setattr(multihost, "process_count", lambda: 2)
-  return multihost.make_hybrid_mesh((2,), ("model",), devices=["cpu"] * 2)
+def _two_processes(tiny):
+  """Tensor parallelism over a model axis whose positions belong to two
+  processes (the mesh's ranks; no group: the refusal comes first)."""
+  flat = np.empty(2, dtype=object)
+  flat[:] = [torch.device("cpu")] * 2
+  mesh = sharding.Mesh(flat.reshape(1, 2), ("data", "model"),
+                       np.array([[0, 1]]))
+  return tensor_parallel.tensor_parallel(tiny.model, mesh)
 
 
 REFUSALS = {
@@ -341,7 +345,7 @@ REFUSALS = {
         port.Griffin(t.model.config, device="cpu", scan_sharding_spec=(
             sharding.ShardingSpec(mesh=t.mesh(2), sequence_axis_name="model"))),
         t.mesh(2))),
-    "multihost": ("14g", lambda t, mp: _two_processes(mp)),
+    "multihost": ("14g", lambda t, mp: _two_processes(t)),
 }
 
 
